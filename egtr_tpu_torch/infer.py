@@ -100,6 +100,20 @@ def time_requests(model: EgtrModel, x: torch.Tensor, iters: int,
     return times, packed
 
 
+def device_rows(prof, n: int):
+    """From a finished torch.profiler run over ``n`` repetitions: the device
+    rows ``(kernel name, ms per repetition, calls per repetition)``, longest
+    first, and their sum (the device's busy time per repetition)."""
+    # annotation ranges on the device (e.g. the optimizer's step) span the
+    # kernels inside them and would count their time twice
+    rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+            for e in prof.key_averages()
+            if e.self_device_time_total > 0 and e.device_type.name == "CUDA"
+            and not getattr(e, "is_user_annotation", False)]
+    rows.sort(key=lambda r: -r[1])
+    return rows, sum(ms for _, ms, _ in rows)
+
+
 def profile_requests(model: EgtrModel, x: torch.Tensor, n: int, top: int = 25):
     """Device time per request by kernel over ``n`` requests, from
     torch.profiler, and the share of the wall time the device was busy."""
@@ -116,11 +130,7 @@ def profile_requests(model: EgtrModel, x: torch.Tensor, n: int, top: int = 25):
         end.record()
         end.synchronize()
     wall_ms = start.elapsed_time(end) / n
-    rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
-            for e in prof.key_averages()
-            if e.self_device_time_total > 0 and e.device_type.name == "CUDA"]
-    busy_ms = sum(ms for _, ms, _ in rows)
-    rows.sort(key=lambda r: -r[1])
+    rows, busy_ms = device_rows(prof, n)
     return {
         "requests": n, "wall_ms_per_request": wall_ms,
         "device_busy_ms_per_request": busy_ms,

@@ -38,7 +38,7 @@ class FrozenBatchNorm(Initialized):
         super().__init__()
         for name, init in (("weight", ones), ("bias", zeros),
                            ("running_mean", zeros), ("running_var", ones)):
-            self.param(name, (features,), init, buffer=True)
+            self.param(name, (features,), init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         scale = self.weight * (self.running_var + 1e-5) ** -0.5

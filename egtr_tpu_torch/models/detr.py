@@ -6,9 +6,10 @@ Backbone -> input projections with GroupNorm, sine (or learned) position and
 level embeddings -> MSDA encoder -> query decoder that exposes the per-layer
 self-attention Q/K -> per-layer class and box heads.
 
-The port covers exact inference. It refuses at construction what only the
-JAX package implements so far: the banded MSDA approximation
-(``msda_window > 0``), int8 stage 1 (``msda_int8``) and ``two_stage``.
+The port covers the exact path, forward and gradient. It refuses at
+construction what only the JAX package implements so far: the banded MSDA
+approximation (``msda_window > 0``), int8 stage 1 (``msda_int8``),
+``two_stage`` and rematerialization (``use_remat``).
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ from ..ops.boxes import inverse_sigmoid
 from ..ops.posenc import sine_position_embedding, sine_position_embedding_full
 from .backbone import ResNet50
 from .layers import (Conv, DecoderLayer, Dense, EncoderLayer, Initialized,
-                     MLPHead, constant_init, normal_init, ones, uniform_init,
-                     xavier_uniform, zeros)
+                     MLPHead, constant_init, dropout, normal_init, ones,
+                     uniform_init, xavier_uniform, zeros)
 
 
 def check_supported(cfg: EgtrConfig) -> None:
@@ -37,6 +38,9 @@ def check_supported(cfg: EgtrConfig) -> None:
         raise NotImplementedError("msda_int8 (int8 stage 1) is not ported yet")
     if cfg.two_stage:
         raise NotImplementedError("two_stage is not ported yet")
+    if cfg.use_remat:
+        raise NotImplementedError(
+            "use_remat (rematerialized layers) is not ported yet")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -151,7 +155,7 @@ class DeformableDetrBase(Initialized):
             self.add_module(f"encoder_layer_{i}", EncoderLayer(
                 E, cfg.encoder_ffn_dim, cfg.encoder_attention_heads, Lv,
                 cfg.encoder_n_points, cfg.activation_function, dtype,
-                cfg.msda_impl))
+                cfg.msda_impl, cfg.dropout, cfg.activation_dropout))
 
         # detection heads: per-layer clones with box refinement, else one
         # shared pair (deformable_detr.py:2426-2443)
@@ -173,17 +177,20 @@ class DeformableDetrBase(Initialized):
             self.add_module(f"decoder_layer_{i}", DecoderLayer(
                 E, cfg.decoder_ffn_dim, cfg.decoder_attention_heads, Lv,
                 cfg.decoder_n_points, cfg.activation_function, dtype,
-                cfg.msda_impl))
+                cfg.msda_impl, cfg.dropout, cfg.attention_dropout,
+                cfg.activation_dropout))
 
     def _head(self, i: int):
         i = i if self.n_heads > 1 else 0
         return getattr(self, f"class_embed_{i}"), getattr(self, f"bbox_embed_{i}")
 
     def forward(self, pixel_values: torch.Tensor,
-                pixel_mask: Optional[torch.Tensor] = None
+                pixel_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         """pixel_values [B,H,W,3] (NHWC); pixel_mask [B,H,W] (True = valid)
-        or None for an unpadded batch (the mask-free path)."""
+        or None for an unpadded batch (the mask-free path); ``generator``
+        feeds the dropout masks in ``train()`` mode."""
         cfg = self.config
         E = cfg.d_model
         dtype = self.dtype
@@ -248,10 +255,10 @@ class DeformableDetrBase(Initialized):
 
         # ---- encoder ----
         enc_ref = encoder_reference_points(shapes, valid_ratios)
-        hidden = source_flatten
+        hidden = dropout(source_flatten, cfg.dropout, self.training, generator)
         for i in range(cfg.encoder_layers):
             hidden = getattr(self, f"encoder_layer_{i}")(
-                hidden, pos_flatten, enc_ref, shapes, mask_flatten)
+                hidden, pos_flatten, enc_ref, shapes, mask_flatten, generator)
         encoder_hidden = hidden
 
         # ---- query init ----
@@ -274,7 +281,7 @@ class DeformableDetrBase(Initialized):
                 ref_input = reference_points[:, :, None] * valid_ratios[:, None]
             hidden, q, k = getattr(self, f"decoder_layer_{i}")(
                 hidden, query_pos, encoder_hidden, ref_input, shapes,
-                mask_flatten)
+                mask_flatten, generator)
             if cfg.with_box_refine:
                 delta = self._head(i)[1](hidden)
                 if reference_points.shape[-1] == 2:

@@ -128,8 +128,13 @@ class EgtrHead(Initialized):
         # frequency bias (Neural Motifs; egtr.py:405-413)
         if cfg.use_freq_bias and triplet_dist is not None:
             node = logits.argmax(-1)                          # [B,Q]
-            pred_rel = pred_rel + triplet_dist[node[:, :, None],
-                                               node[:, None, :]]
+            # one row lookup per (subject, object) pair; index_select's
+            # gradient is an index_add, where the gradient of advanced
+            # indexing sorts all B*Q*Q pairs
+            n_cls = triplet_dist.shape[0]
+            pair = (node[:, :, None] * n_cls + node[:, None, :]).reshape(-1)
+            bias = triplet_dist.reshape(n_cls * n_cls, -1).index_select(0, pair)
+            pred_rel = pred_rel + bias.reshape(B, Q, Q, -1)
 
         # connectivity head shares the gated source (egtr.py:218-223,416)
         c1 = self._pairwise(gate_c, Qs, Ks, self.connectivity_layers_0_kernel,
@@ -162,16 +167,19 @@ class EgtrModel(Initialized):
         cfg = self.config = config
         self.model = DeformableDetrBase(cfg)
         R, C = cfg.num_rel_labels, cfg.num_labels
-        # frequency-bias buffers, loaded from fg_matrix (egtr.py:169-194)
-        self.param("rel_dist", (R,), zeros, buffer=True)
-        self.param("triplet_dist", (C + 1, C + 1, R), zeros, buffer=True)
+        # frequency-bias tables, loaded from fg_matrix (egtr.py:169-194);
+        # frozen by the optimizer's labels
+        self.param("rel_dist", (R,), zeros)
+        self.param("triplet_dist", (C + 1, C + 1, R), zeros)
         self.relation_head = EgtrHead(cfg)
 
     def forward(self, pixel_values: torch.Tensor,
-                pixel_mask: Optional[torch.Tensor] = None
+                pixel_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
+        """``generator`` feeds the dropout masks in ``train()`` mode."""
         cfg = self.config
-        base_out = self.model(pixel_values, pixel_mask)
+        base_out = self.model(pixel_values, pixel_mask, generator)
         head_out = self.relation_head(
             base_out["attention_queries"], base_out["attention_keys"],
             base_out["last_hidden_state"], base_out["logits"],

@@ -11,6 +11,11 @@
                                 (deformable_detr.py:963-1104)
 - :class:`EncoderLayer` / :class:`DecoderLayer` (deformable_detr.py:1265-1489)
 
+Dropout (:func:`dropout`) is active only in ``train()`` mode (the JAX
+modules' ``deterministic=False``), at the JAX package's sites, and draws its
+masks from the ``torch.Generator`` handed down the forward call, never from
+the global random state.
+
 Submodules and parameters are named after the flax tree
 (``self_attn.value_proj``, ``fc1``, ``layers_0``), so the weight bridge
 (``utils/convert.py``) is a mechanical walk. Parameters are created empty;
@@ -73,9 +78,9 @@ ones = constant_init(1.0)
 
 
 class Initialized(nn.Module):
-    """A module whose own parameters and buffers carry their flax init.
+    """A module whose own parameters carry their flax init.
 
-    ``self.inits`` maps a direct parameter/buffer name to its initializer;
+    ``self.inits`` maps a direct parameter name to its initializer;
     :func:`init_params` walks a model and applies them in module order.
     """
 
@@ -83,24 +88,43 @@ class Initialized(nn.Module):
         super().__init__()
         self.inits: Dict[str, Init] = {}
 
-    def param(self, name: str, shape: Sequence[int], init: Init,
-              buffer: bool = False) -> torch.Tensor:
-        t = torch.empty(tuple(shape), dtype=torch.float32)
-        if buffer:
-            self.register_buffer(name, t)
-        else:
-            setattr(self, name, nn.Parameter(t))
+    def param(self, name: str, shape: Sequence[int], init: Init
+              ) -> torch.Tensor:
+        """Every flax param is an ``nn.Parameter`` here, the frozen ones too
+        (frozen-BN statistics, the frequency-bias tables): the JAX package
+        differentiates all of them and its clip norm covers their gradients,
+        so the train step needs those gradients as well. The optimizer
+        (``train/optim.py``) gives the frozen set no update."""
+        setattr(self, name, nn.Parameter(
+            torch.empty(tuple(shape), dtype=torch.float32)))
         self.inits[name] = init
         return getattr(self, name)
 
 
 def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Fill every parameter and buffer of ``model`` with its flax-style init."""
+    """Fill every parameter of ``model`` with its flax-style init."""
     for module in model.modules():
         if isinstance(module, Initialized):
             for name, init in module.inits.items():
                 init(getattr(module, name), generator)
     return model
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale the
+    kept values by ``1 / (1 - rate)``. Identity unless ``training`` and
+    ``rate > 0``; then ``generator`` (on the tensor's device) is required."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError(
+            "dropout in train() mode needs a torch.Generator: pass "
+            "generator=... to the model's forward (or call model.eval())")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, device=x.device, generator=generator) >= rate
+    return x * keep.to(x.dtype) / (1.0 - rate)
 
 
 def _promote(x: torch.Tensor, dtype: Optional[torch.dtype],
@@ -219,13 +243,15 @@ class MultiheadAttention(nn.Module):
     softmax, so the captured Q/K are literally the attention operands."""
 
     def __init__(self, embed_dim: int, num_heads: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, dropout: float = 0.0):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.dropout = dropout  # on the attention probabilities
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             self.add_module(name, Dense(embed_dim, embed_dim, dtype))
 
-    def forward(self, hidden_states, position_embeddings=None):
+    def forward(self, hidden_states, position_embeddings=None,
+                generator=None):
         B, Q, E = hidden_states.shape
         H = self.num_heads
         Dh = E // H
@@ -240,6 +266,7 @@ class MultiheadAttention(nn.Module):
 
         qh, kh, vh = heads(q), heads(k), heads(v)
         attn = _matmul_f32(qh, kh.transpose(-1, -2)).softmax(-1).to(q.dtype)
+        attn = dropout(attn, self.dropout, self.training, generator)
         out = _matmul_f32(attn, vh).to(q.dtype)
         out = out.transpose(1, 2).reshape(B, Q, E)
         return self.out_proj(out), qh, kh
@@ -322,9 +349,11 @@ class EncoderLayer(nn.Module):
 
     def __init__(self, d_model: int, ffn_dim: int, num_heads: int,
                  n_levels: int, n_points: int, activation: str = "relu",
-                 dtype: Optional[torch.dtype] = None, msda_impl: str = "auto"):
+                 dtype: Optional[torch.dtype] = None, msda_impl: str = "auto",
+                 dropout: float = 0.0, activation_dropout: float = 0.0):
         super().__init__()
         self.activation = ACT_FN[activation]
+        self.dropout, self.activation_dropout = dropout, activation_dropout
         self.self_attn = MSDeformableAttention(d_model, num_heads, n_levels,
                                                n_points, dtype, msda_impl)
         self.self_attn_layer_norm = LayerNorm(d_model, dtype)
@@ -333,14 +362,20 @@ class EncoderLayer(nn.Module):
         self.final_layer_norm = LayerNorm(d_model, dtype)
 
     def forward(self, hidden_states, position_embeddings, reference_points,
-                spatial_shapes, value_mask=None):
+                spatial_shapes, value_mask=None, generator=None):
+        def drop(x, rate):
+            return dropout(x, rate, self.training, generator)
+
         residual = hidden_states
         hidden_states = self.self_attn(
             hidden_states, hidden_states, reference_points, spatial_shapes,
             position_embeddings=position_embeddings, value_mask=value_mask)
+        hidden_states = drop(hidden_states, self.dropout)
         hidden_states = self.self_attn_layer_norm(residual + hidden_states)
         residual = hidden_states
-        hidden_states = self.fc2(self.activation(self.fc1(hidden_states)))
+        hidden_states = drop(self.activation(self.fc1(hidden_states)),
+                             self.activation_dropout)
+        hidden_states = drop(self.fc2(hidden_states), self.dropout)
         return self.final_layer_norm(residual + hidden_states)
 
 
@@ -352,10 +387,14 @@ class DecoderLayer(nn.Module):
 
     def __init__(self, d_model: int, ffn_dim: int, num_heads: int,
                  n_levels: int, n_points: int, activation: str = "relu",
-                 dtype: Optional[torch.dtype] = None, msda_impl: str = "auto"):
+                 dtype: Optional[torch.dtype] = None, msda_impl: str = "auto",
+                 dropout: float = 0.0, attention_dropout: float = 0.0,
+                 activation_dropout: float = 0.0):
         super().__init__()
         self.activation = ACT_FN[activation]
-        self.self_attn = MultiheadAttention(d_model, num_heads, dtype)
+        self.dropout, self.activation_dropout = dropout, activation_dropout
+        self.self_attn = MultiheadAttention(d_model, num_heads, dtype,
+                                            attention_dropout)
         self.self_attn_layer_norm = LayerNorm(d_model, dtype)
         self.encoder_attn = MSDeformableAttention(
             d_model, num_heads, n_levels, n_points, dtype, msda_impl)
@@ -365,18 +404,26 @@ class DecoderLayer(nn.Module):
         self.final_layer_norm = LayerNorm(d_model, dtype)
 
     def forward(self, hidden_states, query_pos, encoder_hidden_states,
-                reference_points, spatial_shapes, value_mask=None):
+                reference_points, spatial_shapes, value_mask=None,
+                generator=None):
+        def drop(x, rate):
+            return dropout(x, rate, self.training, generator)
+
         residual = hidden_states
-        hidden_states, q, k = self.self_attn(hidden_states,
-                                             position_embeddings=query_pos)
+        hidden_states, q, k = self.self_attn(
+            hidden_states, position_embeddings=query_pos, generator=generator)
+        hidden_states = drop(hidden_states, self.dropout)
         hidden_states = self.self_attn_layer_norm(residual + hidden_states)
         residual = hidden_states
         hidden_states = self.encoder_attn(
             hidden_states, encoder_hidden_states, reference_points,
             spatial_shapes, position_embeddings=query_pos,
             value_mask=value_mask)
+        hidden_states = drop(hidden_states, self.dropout)
         hidden_states = self.encoder_attn_layer_norm(residual + hidden_states)
         residual = hidden_states
-        hidden_states = self.fc2(self.activation(self.fc1(hidden_states)))
+        hidden_states = drop(self.activation(self.fc1(hidden_states)),
+                             self.activation_dropout)
+        hidden_states = drop(self.fc2(hidden_states), self.dropout)
         hidden_states = self.final_layer_norm(residual + hidden_states)
         return hidden_states, q, k

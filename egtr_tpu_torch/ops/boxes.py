@@ -1,7 +1,8 @@
-"""Box utilities on the inference path (PyTorch port of ``egtr_tpu/ops/boxes.py``).
+"""Box utilities (PyTorch port of ``egtr_tpu/ops/boxes.py``).
 
-Only what exact inference uses: the cxcywh/xyxy conversions and the
-clamped logit of the box-refinement path.
+The cxcywh/xyxy conversions, the clamped logit of the box-refinement path,
+and the clean IoU / GIoU of the matcher and the losses (model/util.py:90-124).
+The evaluator's "+1 pixel" IoU is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,3 +29,34 @@ def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     x1 = x.clamp(min=eps)
     x2 = (1.0 - x).clamp(min=eps)
     return torch.log(x1 / x2)
+
+
+def box_area(boxes: torch.Tensor) -> torch.Tensor:
+    """Area of xyxy boxes. Reference: model/util.py:75-87."""
+    return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+
+
+def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor):
+    """Pairwise IoU of xyxy boxes [..., N, 4] x [..., M, 4] ->
+    (iou [..., N, M], union [..., N, M]). Reference: model/util.py:90-104."""
+    area1 = box_area(boxes1)
+    area2 = box_area(boxes2)
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1[..., :, None] + area2[..., None, :] - inter
+    return inter / union, union
+
+
+def generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor
+                        ) -> torch.Tensor:
+    """Pairwise GIoU [..., N, M] of xyxy boxes. Reference:
+    model/util.py:107-126. Degenerate boxes are the caller's responsibility,
+    as in the JAX package."""
+    iou, union = box_iou(boxes1, boxes2)
+    lt = torch.minimum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.maximum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0)
+    area = wh[..., 0] * wh[..., 1]
+    return iou - (area - union) / area

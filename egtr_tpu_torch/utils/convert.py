@@ -9,10 +9,16 @@ walk over the ``{'params': ...}`` tree of numpy arrays:
 - a Conv ``kernel`` HWIO becomes ``weight`` OIHW;
 - a LayerNorm/GroupNorm ``scale`` becomes ``weight``;
 - every other leaf keeps its name and layout (biases, frozen-BN statistics,
-  embeddings, the relation head's raw ``*_kernel`` parameters, buffers).
+  embeddings, the relation head's raw ``*_kernel`` parameters, the
+  frequency-bias tables).
 
 Load the result with ``model.load_state_dict(sd, strict=True)``, so a leaf
 that is missing or extra fails.
+
+Every flax param is an ``nn.Parameter`` in the port, and the renames are
+linear relayouts, so the same walk carries a JAX *gradient* tree
+(``jax.grad`` over the params) to ``{parameter name: gradient}``: the tests
+compare gradients name by name through it. Optimizer state is not carried.
 """
 
 from __future__ import annotations
@@ -57,8 +63,9 @@ def _check_depth(tree: Mapping, cfg: EgtrConfig) -> None:
 
 def state_dict_from_jax(params: Mapping, cfg: EgtrConfig
                         ) -> Dict[str, torch.Tensor]:
-    """Turn the JAX ``{'params': ...}`` tree (numpy or array-like leaves)
-    into the port's ``state_dict`` (float32 CPU tensors)."""
+    """Turn the JAX ``{'params': ...}`` tree (numpy or array-like leaves;
+    parameters, or gradients of the same structure) into the port's
+    ``state_dict`` layout (float32 CPU tensors)."""
     tree = params["params"] if "params" in params else params
     _check_depth(tree, cfg)
     sd: Dict[str, torch.Tensor] = {}

@@ -1,10 +1,11 @@
-"""The MSDA CUDA kernel against its plain version, on the card.
+"""The MSDA CUDA kernels against their plain versions, on the card.
 
 These tests need an NVIDIA GPU with nvcc and skip without one. They cover
 what chip_smoke.py's main-path shapes do not reach: head dims other than 32
-(the kernel's channel loop), batches above 1, 1-wide levels, a level where
-the bf16 rounding moves to the y weights, samples on pixel centres, and the
-wrapper's refusals. On a GPU machine without JAX, run them without the
+(the kernels' channel loop), batches above 1, 1-wide levels, a level where
+the forward's bf16 rounding moves to the y weights, samples on pixel centres
+and outside the map, and the wrappers' refusals, for the forward kernel and
+the two backward kernels. On a GPU machine without JAX, run them without the
 suite's conftest (which imports JAX):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -72,6 +73,111 @@ def test_kernel_on_pixel_centres(cuda):
     aw = torch.ones((1, 1, 1, 1, 1), device=cuda)
     out = msda_cuda.msda_fwd(value, ((4, 4),), loc, aw)
     torch.testing.assert_close(out[0, 0], value[0, 9, 0], atol=0, rtol=0)
+
+
+# backward, float32: summation order only (a warp reduction against a torch
+# sum; atomics against scatter_add). bf16: daw and dvalue are rounded once to
+# bf16 from float32 sums that differ in their order, so one bf16 step
+# (2**-8 relative), allow two; dloc stays float32 but sums bf16-rounded
+# products of magnitude up to |V||g|*size, so its absolute tolerance scales
+# with the level size.
+BWD_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-3, 2 * 2.0 ** -8)}
+
+
+def _assert_bwd_close(got, ref, dtype):
+    atol, rtol = BWD_TOL[dtype]
+    for name, a, b in zip(("dvalue", "dloc", "daw"), got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        scale = max(1.0, b.float().abs().max().item())
+        torch.testing.assert_close(a.float(), b.float(), atol=atol * scale,
+                                   rtol=rtol, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bwd_kernels_match_plain(cuda, case, dtype):
+    """K2 and K3 against ms_deform_attn_plain_bwd; locations reach outside
+    the map (the inputs roam over [-0.2, 1.2])."""
+    value, loc, aw = _inputs(cuda, dtype, **CASES[case])
+    shapes = CASES[case]["shapes"]
+    g = torch.randn((value.shape[0], loc.shape[1],
+                     value.shape[2] * value.shape[3]), device=cuda).to(dtype)
+    before = (msda_cuda.bwd_rows_launches, msda_cuda.bwd_value_launches)
+    got = msda_cuda.msda_bwd(value, shapes, loc, aw, g)
+    assert (msda_cuda.bwd_rows_launches, msda_cuda.bwd_value_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = msda.ms_deform_attn_plain_bwd(value, shapes, loc, aw, g)
+    _assert_bwd_close(got, ref, dtype)
+
+
+def test_bwd_rows_is_deterministic_and_value_nearly(cuda):
+    value, loc, aw = _inputs(cuda, torch.float32, **CASES["d32_batch3"])
+    shapes = CASES["d32_batch3"]["shapes"]
+    g = torch.randn((3, 70, 256), device=cuda)
+    a = msda_cuda.msda_bwd(value, shapes, loc, aw, g)
+    b = msda_cuda.msda_bwd(value, shapes, loc, aw, g)
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+    # float32 atomics: the order of the additions may change the last bits
+    torch.testing.assert_close(a[0], b[0], atol=1e-5, rtol=1e-5)
+
+
+def test_bwd_on_pixel_centres(cuda):
+    """On the integer grid both hats' derivatives are 0 (sign(0) = 0 and the
+    far corner lies outside the support): dloc is exactly 0, and dvalue
+    lands on the one pixel."""
+    value = torch.randn((1, 16, 1, 32), device=cuda)
+    loc = torch.tensor([(1 + 0.5) / 4, (2 + 0.5) / 4],
+                       device=cuda).reshape(1, 1, 1, 1, 1, 2)
+    aw = torch.ones((1, 1, 1, 1, 1), device=cuda)
+    g = torch.randn((1, 1, 32), device=cuda)
+    dvalue, dloc, daw = msda_cuda.msda_bwd(value, ((4, 4),), loc, aw, g)
+    assert torch.equal(dloc, torch.zeros_like(dloc))
+    expect = torch.zeros_like(value)
+    expect[0, 9, 0] = g[0, 0]
+    torch.testing.assert_close(dvalue, expect, atol=0, rtol=0)
+    torch.testing.assert_close(daw.reshape(()), (value[0, 9, 0] * g[0, 0]).sum(),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("impl", ["auto", "matmul"])
+def test_autograd_op_on_the_card(cuda, impl):
+    """ms_deform_attn under autograd: "auto" runs K1 forward and K2 + K3
+    backward, "matmul" the plain pair; both give the plain gradients."""
+    value, loc, aw = _inputs(cuda, torch.float32, **CASES["d32_batch3"])
+    shapes = CASES["d32_batch3"]["shapes"]
+    leaves = [t.clone().requires_grad_() for t in (value, loc, aw)]
+    before = (msda_cuda.launches, msda_cuda.bwd_rows_launches,
+              msda_cuda.bwd_value_launches)
+    out = msda.ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2],
+                              impl=impl)
+    g = torch.randn_like(out)
+    grads = torch.autograd.grad(out, leaves, g)
+    after = (msda_cuda.launches, msda_cuda.bwd_rows_launches,
+             msda_cuda.bwd_value_launches)
+    n = 1 if impl == "auto" else 0
+    assert after == tuple(b + n for b in before)
+    ref = msda.ms_deform_attn_plain_bwd(value, shapes, loc, aw, g)
+    _assert_bwd_close(grads, ref, torch.float32)
+
+
+def test_bwd_refusals(cuda):
+    value, loc, aw = _inputs(cuda, torch.float32, 1, 5, 2, 8, ((3, 4),))
+    g = torch.randn((1, 5, 16), device=cuda)
+    with pytest.raises(ValueError, match="grad_output must be"):
+        msda_cuda.msda_bwd_rows(value, ((3, 4),), loc, aw, g[:, :4])
+    with pytest.raises(TypeError, match="value dtype"):
+        msda_cuda.msda_bwd_value(value, ((3, 4),), loc, aw, g.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        msda_cuda.msda_bwd_rows(
+            value, ((3, 4),), loc, aw,
+            torch.randn((1, 16, 5), device=cuda).transpose(1, 2))
+    with pytest.raises(ValueError, match="one device"):
+        msda_cuda.msda_bwd(value, ((3, 4),), loc, aw, g.cpu())
+    empty = msda_cuda.msda_bwd(value, ((3, 4),), loc[:, :0].contiguous(),
+                               aw[:, :0].contiguous(), g[:, :0].contiguous())
+    assert empty[0].shape == value.shape and not empty[0].any()
+    assert empty[1].shape == (1, 0, 2, 1, 4, 2)
 
 
 def test_kernel_refusals(cuda):
