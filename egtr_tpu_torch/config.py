@@ -7,8 +7,9 @@ to both packages. Mirrors the hyperparameter surface of the reference
 EGTR fields the reference attaches at runtime (train_egtr.py:230-252).
 
 Some fields select behaviour that only the JAX package implements so far
-(``msda_window``, ``msda_band``, ``msda_int8``, ``two_stage``); the port's
-model refuses them at construction (``models/detr.py``).
+(``two_stage``, ``use_remat``); the port's model refuses them at construction
+(``models/detr.py``). ``msda_window``, ``msda_band`` and ``msda_int8`` are
+ported forward only: a gradient through a banded level raises.
 """
 
 from __future__ import annotations

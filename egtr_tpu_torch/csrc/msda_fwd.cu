@@ -28,6 +28,12 @@
 // stays float32. The pixel coordinate loc*size - 0.5 is rounded twice, as in
 // JAX, not fused into one multiply-add.
 //
+// A call may sum a subset of the levels (a windowed call sums its exact
+// levels here and its banded ones in msda_fwd_win.cu): the level table names
+// each level's index into the location and weight tensors. With out_f32 the
+// float32 sum is written as it is, for the caller to add to the other parts
+// before the one cast to the value dtype.
+//
 // C interface for ctypes: msda_fwd(...) launches on the given stream and
 // returns cudaGetLastError() as an int (0 = launched).
 
@@ -42,6 +48,7 @@ struct Levels {
   int w[MSDA_MAX_LEVELS];
   int start[MSDA_MAX_LEVELS];
   int round_y[MSDA_MAX_LEVELS];  // 1: round the y weights (JAX orient "y")
+  int lid[MSDA_MAX_LEVELS];      // index into the L axis of loc and aw
 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -68,11 +75,13 @@ __device__ __forceinline__ float hat(float t) {
   return fmaxf(0.0f, 1.0f - fabsf(t));
 }
 
-template <typename T>
+// n: levels in the table; L: levels of loc and aw
+template <typename T, typename OutT>
 __global__ void __launch_bounds__(256)
 msda_fwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
-                const T* __restrict__ aw, T* __restrict__ out, Levels lv,
-                int L, int Q, int S, int H, int D, int P, long n_warps) {
+                const T* __restrict__ aw, OutT* __restrict__ out, Levels lv,
+                int n, int L, int Q, int S, int H, int D, int P,
+                long n_warps) {
   const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= n_warps) return;
@@ -84,19 +93,19 @@ msda_fwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
   const T* awp = aw + warp * (long)(L * P);
   const long row = (long)H * D;  // stride between tokens in value
   const T* vb = value + b * (long)S * row + (long)head * D;
-  T* outp = out + warp * (long)D;
+  OutT* outp = out + warp * (long)D;
 
   for (int d0 = 0; d0 < D; d0 += 32) {
     const int d = d0 + lane;
     const bool active = d < D;
     float acc = 0.0f;
-    for (int l = 0; l < L; ++l) {
+    for (int l = 0; l < n; ++l) {
       const int hl = lv.h[l], wl = lv.w[l];
       const float fh = (float)hl, fw = (float)wl;
       const T* vl = vb + (long)lv.start[l] * row + d;
       const bool flip = lv.round_y[l] != 0;
       for (int p = 0; p < P; ++p) {
-        const int i = l * P + p;
+        const int i = lv.lid[l] * P + p;
         const float ix = __fsub_rn(__fmul_rn(locp[2 * i], fw), 0.5f);
         const float iy = __fsub_rn(__fmul_rn(locp[2 * i + 1], fh), 0.5f);
         const float a = to_float(awp[i]);
@@ -144,36 +153,43 @@ msda_fwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
         acc += t0 * c0 + t1 * c1;
       }
     }
-    if (active) outp[d] = from_float<T>(acc);
+    if (active) outp[d] = from_float<OutT>(acc);
   }
 }
 
 extern "C" int msda_fwd(const void* value, const void* loc, const void* aw,
-                        void* out, const int* levels, int L, int B, int S,
-                        int Q, int H, int D, int P, int is_bf16,
-                        void* stream) {
-  if (L < 1 || L > MSDA_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+                        void* out, const int* levels, int n, int L, int B,
+                        int S, int Q, int H, int D, int P, int is_bf16,
+                        int out_f32, void* stream) {
+  if (n < 1 || n > MSDA_MAX_LEVELS) return (int)cudaErrorInvalidValue;
   Levels lv;
-  for (int l = 0; l < L; ++l) {
-    lv.h[l] = levels[4 * l];
-    lv.w[l] = levels[4 * l + 1];
-    lv.start[l] = levels[4 * l + 2];
-    lv.round_y[l] = levels[4 * l + 3];
+  for (int l = 0; l < n; ++l) {
+    lv.h[l] = levels[5 * l];
+    lv.w[l] = levels[5 * l + 1];
+    lv.start[l] = levels[5 * l + 2];
+    lv.round_y[l] = levels[5 * l + 3];
+    lv.lid[l] = levels[5 * l + 4];
+    if (lv.lid[l] < 0 || lv.lid[l] >= L) return (int)cudaErrorInvalidValue;
   }
   const long n_warps = (long)B * Q * H;
   if (n_warps == 0) return (int)cudaSuccess;
   const int threads = 256;
-  const long blocks = (n_warps * 32 + threads - 1) / threads;
+  const unsigned blocks = (unsigned)((n_warps * 32 + threads - 1) / threads);
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) {
-    msda_fwd_kernel<__nv_bfloat16><<<(unsigned)blocks, threads, 0, s>>>(
+  if (is_bf16 && out_f32) {
+    msda_fwd_kernel<__nv_bfloat16, float><<<blocks, threads, 0, s>>>(
         (const __nv_bfloat16*)value, (const float*)loc,
-        (const __nv_bfloat16*)aw, (__nv_bfloat16*)out, lv, L, Q, S, H, D, P,
+        (const __nv_bfloat16*)aw, (float*)out, lv, n, L, Q, S, H, D, P,
         n_warps);
+  } else if (is_bf16) {
+    msda_fwd_kernel<__nv_bfloat16, __nv_bfloat16><<<blocks, threads, 0, s>>>(
+        (const __nv_bfloat16*)value, (const float*)loc,
+        (const __nv_bfloat16*)aw, (__nv_bfloat16*)out, lv, n, L, Q, S, H, D,
+        P, n_warps);
   } else {
-    msda_fwd_kernel<float><<<(unsigned)blocks, threads, 0, s>>>(
+    msda_fwd_kernel<float, float><<<blocks, threads, 0, s>>>(
         (const float*)value, (const float*)loc, (const float*)aw,
-        (float*)out, lv, L, Q, S, H, D, P, n_warps);
+        (float*)out, lv, n, L, Q, S, H, D, P, n_warps);
   }
   return (int)cudaGetLastError();
 }

@@ -1,15 +1,19 @@
-"""Serving entry point: exact single-image EGTR inference.
+"""Serving entry point: single-image EGTR inference.
 
-PyTorch port of the exact path of ``bench.py:_build``/``infer`` (the
-``msda_window=0`` configuration): random weights made from a seed, the model
-forward plus ``sgg_postprocess`` top-k, with every array a serving consumer
-needs packed into one tensor.
+PyTorch port of ``bench.py:_build``/``infer``: random weights made from a
+seed, the model forward plus ``sgg_postprocess`` top-k, with every array a
+serving consumer needs packed into one tensor.
 
     python -m egtr_tpu_torch.infer --iters 20 [--profile 5]
+    python -m egtr_tpu_torch.infer --msda-window 16 --msda-band point \
+        --msda-int8 --iters 20 [--profile 5]
 
 answers N requests (batch 1, 608x1008, after 3 warm-up requests) on the GPU
-and prints the per-request latency from CUDA events; ``--profile K`` adds a torch.profiler breakdown of K more requests
-(device time per request by kernel, and the device's busy share). It
+and prints the per-request latency from CUDA events; ``--profile K`` adds a
+torch.profiler breakdown of K more requests (device time per request by
+kernel, and the device's busy share). Without flags it runs the exact path
+(``msda_window=0``); the second line is the JAX package's serving default
+(``serving_config``: banded window 16, one band per point, int8 stage 1). It
 defines no benchmark metric.
 
 Entry points run on the GPU: ``device=None`` means "cuda" and raises where
@@ -40,6 +44,15 @@ def bench_config(**kw) -> EgtrConfig:
                 dropout=0.0, compute_dtype="bfloat16")
     base.update(kw)
     return EgtrConfig(**base)
+
+
+def serving_config(**kw) -> EgtrConfig:
+    """The configuration ``bench.py`` serves by default (``bench.py:154-160``):
+    banded MSDA with a window of 16 rows, one band per sampling point, int8
+    stage 1."""
+    base = dict(msda_window=16, msda_band="point", msda_int8=True)
+    base.update(kw)
+    return bench_config(**base)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -146,12 +159,22 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--profile", type=int, default=0, metavar="K",
                     help="also profile K requests with torch.profiler")
+    ap.add_argument("--msda-window", type=int, default=0,
+                    help="banded-MSDA window height (0 = exact)")
+    ap.add_argument("--msda-band", default="tile", choices=["tile", "point"],
+                    help="band selection granularity for windowed MSDA")
+    ap.add_argument("--msda-int8", action="store_true",
+                    help="int8 stage-1 MSDA")
     args = ap.parse_args(argv)
-    model, x = build(bench_config(), 1, *BUCKET_HW)
+    cfg = bench_config(msda_window=args.msda_window,
+                       msda_band=args.msda_band, msda_int8=args.msda_int8)
+    model, x = build(cfg, 1, *BUCKET_HW)
     times, packed = time_requests(model, x, args.iters, warmup=3)
     result = {
         "device": torch.cuda.get_device_name(0),
         "batch": 1, "image_hw": list(BUCKET_HW),
+        "msda_window": cfg.msda_window, "msda_band": cfg.msda_band,
+        "msda_int8": cfg.msda_int8,
         "ms_per_request": times,
         "mean_ms": sum(times) / len(times),
         "outputs_finite": bool(torch.isfinite(packed).all()),

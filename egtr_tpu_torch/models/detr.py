@@ -6,9 +6,11 @@ Backbone -> input projections with GroupNorm, sine (or learned) position and
 level embeddings -> MSDA encoder -> query decoder that exposes the per-layer
 self-attention Q/K -> per-layer class and box heads.
 
-The port covers the exact path, forward and gradient. It refuses at
-construction what only the JAX package implements so far: the banded MSDA
-approximation (``msda_window > 0``), int8 stage 1 (``msda_int8``),
+The port covers the exact path, forward and gradient, and the forward of
+the banded MSDA approximation (``msda_window``, ``msda_band``: encoder
+self-attention only) and of int8 stage 1 (``msda_int8``: encoder and
+decoder); a gradient through a banded level raises in ``ops/msda.py``. It
+refuses at construction what only the JAX package implements so far:
 ``two_stage`` and rematerialization (``use_remat``).
 """
 
@@ -31,11 +33,6 @@ from .layers import (Conv, DecoderLayer, Dense, EncoderLayer, Initialized,
 
 def check_supported(cfg: EgtrConfig) -> None:
     """Raise NotImplementedError for options outside the port so far."""
-    if cfg.msda_window > 0:
-        raise NotImplementedError(
-            "msda_window > 0 (banded MSDA) is not ported yet")
-    if cfg.msda_int8:
-        raise NotImplementedError("msda_int8 (int8 stage 1) is not ported yet")
     if cfg.two_stage:
         raise NotImplementedError("two_stage is not ported yet")
     if cfg.use_remat:
@@ -155,7 +152,8 @@ class DeformableDetrBase(Initialized):
             self.add_module(f"encoder_layer_{i}", EncoderLayer(
                 E, cfg.encoder_ffn_dim, cfg.encoder_attention_heads, Lv,
                 cfg.encoder_n_points, cfg.activation_function, dtype,
-                cfg.msda_impl, cfg.dropout, cfg.activation_dropout))
+                cfg.msda_impl, cfg.dropout, cfg.activation_dropout,
+                cfg.msda_window, cfg.msda_band, cfg.msda_int8))
 
         # detection heads: per-layer clones with box refinement, else one
         # shared pair (deformable_detr.py:2426-2443)
@@ -178,7 +176,7 @@ class DeformableDetrBase(Initialized):
                 E, cfg.decoder_ffn_dim, cfg.decoder_attention_heads, Lv,
                 cfg.decoder_n_points, cfg.activation_function, dtype,
                 cfg.msda_impl, cfg.dropout, cfg.attention_dropout,
-                cfg.activation_dropout))
+                cfg.activation_dropout, cfg.msda_int8))
 
     def _head(self, i: int):
         i = i if self.n_heads > 1 else 0

@@ -288,15 +288,21 @@ class MSDeformableAttention(nn.Module):
     (DeformableDetrMultiscaleDeformableAttention, deformable_detr.py:963-1104).
 
     The sampling offsets and attention weights are computed in float32; the
-    value and output projections in the compute dtype."""
+    value and output projections in the compute dtype. ``window`` and
+    ``band`` turn on the banded approximation (``ops/msda_window.py``) and
+    are set only where the queries are raster-ordered (encoder
+    self-attention, which passes ``query_segments``); ``int8`` the int8
+    stage 1."""
 
     def __init__(self, d_model: int, num_heads: int, n_levels: int,
                  n_points: int, dtype: Optional[torch.dtype] = None,
-                 msda_impl: str = "auto"):
+                 msda_impl: str = "auto", window: int = 0,
+                 band: str = "tile", int8: bool = False):
         super().__init__()
         self.d_model, self.num_heads = d_model, num_heads
         self.n_levels, self.n_points = n_levels, n_points
         self.msda_impl = msda_impl
+        self.window, self.band, self.int8 = window, band, int8
         H, L, P = num_heads, n_levels, n_points
         self.value_proj = Dense(d_model, d_model, dtype,
                                 kernel_init=xavier_uniform)
@@ -309,7 +315,8 @@ class MSDeformableAttention(nn.Module):
                                  kernel_init=xavier_uniform)
 
     def forward(self, hidden_states, encoder_hidden_states, reference_points,
-                spatial_shapes, position_embeddings=None, value_mask=None):
+                spatial_shapes, position_embeddings=None, value_mask=None,
+                query_segments=None):
         H, L, P = self.num_heads, self.n_levels, self.n_points
         E = self.d_model
         B, Q, _ = hidden_states.shape
@@ -340,7 +347,10 @@ class MSDeformableAttention(nn.Module):
             raise ValueError("reference_points last dim must be 2 or 4")
 
         out = ms_deform_attn(value, spatial_shapes, loc.float().contiguous(),
-                             weights.to(value.dtype), impl=self.msda_impl)
+                             weights.to(value.dtype), impl=self.msda_impl,
+                             window=self.window,
+                             query_segments=query_segments, int8=self.int8,
+                             band=self.band)
         return self.output_proj(out)
 
 
@@ -350,12 +360,16 @@ class EncoderLayer(nn.Module):
     def __init__(self, d_model: int, ffn_dim: int, num_heads: int,
                  n_levels: int, n_points: int, activation: str = "relu",
                  dtype: Optional[torch.dtype] = None, msda_impl: str = "auto",
-                 dropout: float = 0.0, activation_dropout: float = 0.0):
+                 dropout: float = 0.0, activation_dropout: float = 0.0,
+                 msda_window: int = 0, msda_band: str = "tile",
+                 msda_int8: bool = False):
         super().__init__()
         self.activation = ACT_FN[activation]
         self.dropout, self.activation_dropout = dropout, activation_dropout
-        self.self_attn = MSDeformableAttention(d_model, num_heads, n_levels,
-                                               n_points, dtype, msda_impl)
+        self.msda_window = msda_window
+        self.self_attn = MSDeformableAttention(
+            d_model, num_heads, n_levels, n_points, dtype, msda_impl,
+            window=msda_window, band=msda_band, int8=msda_int8)
         self.self_attn_layer_norm = LayerNorm(d_model, dtype)
         self.fc1 = Dense(d_model, ffn_dim, dtype)
         self.fc2 = Dense(ffn_dim, d_model, dtype)
@@ -367,9 +381,12 @@ class EncoderLayer(nn.Module):
             return dropout(x, rate, self.training, generator)
 
         residual = hidden_states
+        # encoder queries are the raster-flattened tokens, so they qualify
+        # for the windowed approximation with segments = spatial_shapes
         hidden_states = self.self_attn(
             hidden_states, hidden_states, reference_points, spatial_shapes,
-            position_embeddings=position_embeddings, value_mask=value_mask)
+            position_embeddings=position_embeddings, value_mask=value_mask,
+            query_segments=spatial_shapes if self.msda_window else None)
         hidden_states = drop(hidden_states, self.dropout)
         hidden_states = self.self_attn_layer_norm(residual + hidden_states)
         residual = hidden_states
@@ -389,7 +406,7 @@ class DecoderLayer(nn.Module):
                  n_levels: int, n_points: int, activation: str = "relu",
                  dtype: Optional[torch.dtype] = None, msda_impl: str = "auto",
                  dropout: float = 0.0, attention_dropout: float = 0.0,
-                 activation_dropout: float = 0.0):
+                 activation_dropout: float = 0.0, msda_int8: bool = False):
         super().__init__()
         self.activation = ACT_FN[activation]
         self.dropout, self.activation_dropout = dropout, activation_dropout
@@ -397,7 +414,8 @@ class DecoderLayer(nn.Module):
                                             attention_dropout)
         self.self_attn_layer_norm = LayerNorm(d_model, dtype)
         self.encoder_attn = MSDeformableAttention(
-            d_model, num_heads, n_levels, n_points, dtype, msda_impl)
+            d_model, num_heads, n_levels, n_points, dtype, msda_impl,
+            int8=msda_int8)
         self.encoder_attn_layer_norm = LayerNorm(d_model, dtype)
         self.fc1 = Dense(d_model, ffn_dim, dtype)
         self.fc2 = Dense(ffn_dim, d_model, dtype)

@@ -28,11 +28,14 @@ from egtr_tpu.config import EgtrConfig as JaxConfig
 from egtr_tpu.evaluation import postprocess as jax_post
 from egtr_tpu.models import layers as jax_layers
 from egtr_tpu.models.egtr import EgtrModel as JaxEgtrModel
+from egtr_tpu.ops import msda_pallas as jax_pallas
+from egtr_tpu.ops import msda_window as jax_window
 from egtr_tpu_torch import infer as port_infer
 from egtr_tpu_torch.config import EgtrConfig
 from egtr_tpu_torch.evaluation import postprocess as port_post
 from egtr_tpu_torch.models import layers as port_layers
 from egtr_tpu_torch.models.egtr import EgtrModel
+from egtr_tpu_torch.ops import msda as port_msda
 from egtr_tpu_torch.utils.convert import state_dict_from_jax
 
 torch.set_num_threads(1)
@@ -118,16 +121,54 @@ CASES = {
                             logit_adjustment=True), False),
     # resnet101 block counts with C5 dilated (timm output_stride=16)
     "resnet101_dilation": (dict(backbone="resnet101", dilation=True), False),
+    # the served approximations, on a 128x96 image: levels (16,12), (8,6),
+    # (4,3), (2,2), so a window of 8 bands level 0 of the encoder's
+    # self-attention and leaves the rest, and the decoder, exact. The JAX side
+    # runs the Pallas kernels (interpret mode), so both run the banded
+    # function and not its matmul oracle.
+    "window8_tile": (dict(msda_window=8, msda_band="tile",
+                          msda_impl="pallas"), False),
+    "window8_point": (dict(msda_window=8, msda_band="point",
+                           msda_impl="pallas"), False),
+    "int8": (dict(msda_int8=True), False),
+    "window8_point_int8": (dict(msda_window=8, msda_band="point",
+                                msda_int8=True), False),
 }
+
+# int8: the two sides quantize values that differ in their last float32 bits
+# (summation order), so a value within that distance of a rounding tie lands
+# on the neighbouring int8 step, 1/127 of the level's largest value. The port
+# alone shows it (test_int8_amplifies_round_off); with this test's noise-filled
+# weights the two packages differ by up to 4e-3. A flipped band index would
+# move the outputs further: it clamps a whole tile's samples to other rows.
+INT8_ATOL = 1e-2
+FLIPPED_BAND_ATOL = 5e-2
+
+
+def _jax_band_indices(calls, window, band, D):
+    """What the JAX functions choose on the inputs the port's windowed MSDA
+    calls saw: [(level, bidx)] in the order of ``port_msda.band_index_log``."""
+    out = []
+    for shapes, loc, aw in calls:
+        locT, awT = jax_pallas._rows_t(jnp.asarray(loc), jnp.asarray(aw))
+        segs = jax_window.segment_bounds(loc.shape[1], shapes)
+        for lid, (h, w) in enumerate(shapes):
+            if h > window:
+                out.append((lid, np.asarray(jax_pallas._win_level_rows(
+                    locT[:, :, lid, 0], locT[:, :, lid, 1], awT[:, :, lid],
+                    h, w, window, segs, jax_window.query_tile(window, D, w),
+                    band == "point")[0])))
+    return out
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_model_matches_jax(case):
+def test_model_matches_jax(case, monkeypatch):
     kw, padded = CASES[case]
     jcfg = JaxConfig(**TINY, **kw)
     cfg = EgtrConfig(**TINY, **kw)
     rng = np.random.default_rng(7)
-    x = _image(rng, B=2 if padded else 1)
+    x = _image(rng, B=2 if padded else 1,
+               H=128 if cfg.msda_window else 64)
     mask = None
     if padded:
         mask = np.ones(x.shape[:3], bool)
@@ -140,14 +181,40 @@ def test_model_matches_jax(case):
     ref = jax_apply(jm, params, jnp.asarray(x),
                     None if mask is None else jnp.asarray(mask))
 
+    # the inputs of the port's windowed MSDA calls, to count the band
+    # indices on which the two packages disagree
+    calls = []
+    real = port_layers.ms_deform_attn
+
+    def spy(value, shapes, loc, aw, **kwargs):
+        if kwargs.get("window"):
+            calls.append((shapes, loc.numpy(), aw.float().numpy()))
+        return real(value, shapes, loc, aw, **kwargs)
+
+    monkeypatch.setattr(port_layers, "ms_deform_attn", spy)
+    monkeypatch.setattr(port_msda, "band_index_log", [])
     model = port_from_jax(EgtrModel(cfg), params, cfg)
     with torch.no_grad():
         out = model(torch.from_numpy(x),
                     None if mask is None else torch.from_numpy(mask))
+    atol = INT8_ATOL if cfg.msda_int8 else ATOL
+    if cfg.msda_window:
+        ours = port_msda.band_index_log
+        theirs = _jax_band_indices(calls, cfg.msda_window, cfg.msda_band,
+                                   cfg.d_model // cfg.encoder_attention_heads)
+        assert len(ours) == len(theirs) == cfg.encoder_layers  # level 0 each
+        differing = sum(int((a.numpy() != b).sum())
+                        for (_, a), (_, b) in zip(ours, theirs))
+        total = sum(a.numel() for _, a in ours)
+        print(f"{case}: {differing} of {total} band indices differ")
+        if differing:
+            atol = FLIPPED_BAND_ATOL
+    else:
+        assert not calls
     for key in COMPARED:
         assert out[key].shape == ref[key].shape, key
         np.testing.assert_allclose(to_np(out[key]), np.asarray(ref[key]),
-                                   atol=ATOL, rtol=RTOL, err_msg=key)
+                                   atol=atol, rtol=RTOL, err_msg=key)
     if kw.get("logit_adjustment"):
         # pred_rel is the sigmoid of the adjusted logits, pred_rel_logits
         # the unadjusted ones (egtr_tpu/models/egtr.py:194-203)
@@ -316,12 +383,103 @@ def test_config_mirrors_jax_config():
         EgtrConfig(backbone="resnet18")
 
 
-@pytest.mark.parametrize("option", ["msda_window", "msda_int8", "two_stage"])
+@pytest.mark.parametrize("option", ["msda_window", "msda_int8", "two_stage",
+                                    "use_remat"])
 def test_refused_options(option):
-    value = {"msda_window": 16, "msda_int8": True, "two_stage": True}[option]
-    cfg = EgtrConfig(**TINY, **{option: value})
-    with pytest.raises(NotImplementedError, match=option):
-        EgtrModel(cfg)
+    """``two_stage`` and ``use_remat`` are refused at construction. The
+    banded approximation and int8 stage 1 construct and run forward; what is
+    still refused is a gradient through a banded level (the backward kernels
+    K7-K10), and int8 on the plain "matmul" path, as in the JAX package."""
+    value = {"msda_window": 4, "msda_int8": True, "two_stage": True,
+             "use_remat": True}[option]
+    kw = {option: value}
+    if option == "msda_int8":
+        kw["msda_impl"] = "matmul"
+    cfg = EgtrConfig(**TINY, **kw)
+    if option in ("two_stage", "use_remat"):
+        with pytest.raises(NotImplementedError, match=option):
+            EgtrModel(cfg)
+        return
+    model, x = port_infer.build(cfg, 1, 64, 96, device="cpu", seed=0)
+    if option == "msda_int8":
+        with pytest.raises(ValueError, match="int8 stage-1"):
+            port_infer.infer(model, x)
+        return
+    assert torch.isfinite(port_infer.infer(model, x)).all()
+    with pytest.raises(NotImplementedError, match="K7-K10"):
+        model.train()(x)
+
+
+def test_serving_config_constructs_and_runs():
+    """The JAX package's serving default (bench.py:154-160) in the port."""
+    cfg = port_infer.serving_config()
+    assert (cfg.msda_window, cfg.msda_band, cfg.msda_int8) == (16, "point",
+                                                               True)
+    assert cfg == port_infer.bench_config(msda_window=16, msda_band="point",
+                                          msda_int8=True)
+    assert EgtrConfig(msda_window=16, msda_band="point", msda_int8=True)
+    # at 272x96 level 0 has 34 rows (banded by a window of 16) and level 1
+    # has 17 (banded too); levels 2 and 3 are exact
+    tiny = port_infer.serving_config(**TINY)
+    model, x = port_infer.build(tiny, 1, 272, 96, device="cpu", seed=1)
+    port_msda.band_index_log = log = []
+    try:
+        packed = port_infer.infer(model, x)
+    finally:
+        port_msda.band_index_log = None
+    assert torch.isfinite(packed).all()
+    assert [lid for lid, _ in log] == [0, 1] * tiny.encoder_layers
+    assert all(b.dim() == 4 for _, b in log)
+
+
+def test_int8_amplifies_round_off():
+    """Why whole-model comparisons of int8 configurations get a looser limit:
+    float32 noise of 2e-7 (relative) on the input image moves the exact
+    model's logits by a few 1e-7 and the int8 model's by two orders more,
+    because a value on a quantization tie changes by a whole int8 step."""
+    moved = {}
+    for int8 in (False, True):
+        cfg = EgtrConfig(**TINY, msda_int8=int8)
+        model, x = port_infer.build(cfg, 1, 128, 96, device="cpu", seed=0)
+        g = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith(("sampling_offsets.weight",
+                                  "attention_weights.weight")):
+                    p.normal_(0.0, 0.1, generator=g)
+            base = model(x)["logits"]
+            moved[int8] = max(
+                (model(x * (1 + 2e-7 * torch.randn(x.shape, generator=g)))
+                 ["logits"] - base).abs().max().item() for _ in range(3))
+    print(f"logits moved by {moved[False]:.2e} exact, {moved[True]:.2e} int8")
+    assert moved[False] < 5e-6
+    assert moved[True] > 20 * moved[False]
+
+
+def test_served_flags_add_no_parameters():
+    """The banded approximation and int8 stage 1 have no weights of their
+    own: the flax tree, the bridged state dict and the port's parameters are
+    the same with and without the three flags."""
+    x = jnp.zeros((1, 64, 96, 3), jnp.float32)
+    served = dict(msda_window=16, msda_band="point", msda_int8=True)
+
+    def jax_tree(**kw):
+        return jax.eval_shape(JaxEgtrModel(JaxConfig(**TINY, **kw)).init,
+                              jax.random.PRNGKey(0), x)["params"]
+
+    exact, approx = jax_tree(), jax_tree(**served)
+    assert jax.tree_util.tree_structure(exact) == \
+        jax.tree_util.tree_structure(approx)
+    assert jax.tree_util.tree_leaves(exact) == jax.tree_util.tree_leaves(approx)
+    tree = jax.tree_util.tree_map(
+        lambda s: np.broadcast_to(np.float32(0), s.shape), approx)
+    cfg = EgtrConfig(**TINY, **served)
+    sd = state_dict_from_jax({"params": tree}, cfg)
+    assert set(sd) == set(state_dict_from_jax({"params": tree},
+                                              EgtrConfig(**TINY)))
+    with torch.device("meta"):
+        a, b = EgtrModel(cfg), EgtrModel(EgtrConfig(**TINY))
+    assert set(sd) == set(a.state_dict()) == set(b.state_dict())
 
 
 def test_build_without_device_needs_cuda(monkeypatch):

@@ -353,11 +353,12 @@ def test_bwd_wrappers_refuse_cpu_tensors_and_bad_grad():
 
 
 def test_every_source_has_a_library_and_a_counter():
-    """Two sources, three kernels: each builds for sm_90a into its own
+    """Four sources, six kernels: each builds for sm_90a into its own
     hash-keyed library, and each kernel has its own launch count."""
-    assert sorted(msda_cuda.sources()) == ["msda_bwd", "msda_fwd"]
+    assert sorted(msda_cuda.sources()) == ["msda_bwd", "msda_fwd",
+                                           "msda_fwd_q", "msda_fwd_win"]
     paths = {n: msda_cuda.library_path(n) for n in msda_cuda.sources()}
-    assert len(set(paths.values())) == 2
+    assert len(set(paths.values())) == 4
     for name, src in msda_cuda.sources().items():
         assert src.exists() and src.parent.name == "csrc"
         cmd = msda_cuda.build_command("nvcc", paths[name], name)
@@ -365,9 +366,12 @@ def test_every_source_has_a_library_and_a_counter():
         assert paths[name].name.startswith(f"lib{name}-")
     assert {fn: lib for fn, (lib, _) in msda_cuda._FUNCTIONS.items()} == {
         "msda_fwd": "msda_fwd", "msda_bwd_rows": "msda_bwd",
-        "msda_bwd_value": "msda_bwd"}
+        "msda_bwd_value": "msda_bwd", "msda_fwd_q": "msda_fwd_q",
+        "msda_fwd_win": "msda_fwd_win", "msda_fwd_win_pp": "msda_fwd_win"}
     text = msda_cuda.SOURCE_BWD.read_text()
     for fn in ("msda_bwd_rows", "msda_bwd_value"):
         assert f'extern "C" int {fn}(' in text
-    for counter in ("launches", "bwd_rows_launches", "bwd_value_launches"):
+    for counter in ("launches", "bwd_rows_launches", "bwd_value_launches",
+                    "fwd_q_launches", "fwd_win_launches",
+                    "fwd_win_pp_launches"):
         assert isinstance(getattr(msda_cuda, counter), int)
