@@ -8,8 +8,8 @@ and no result line. In order it:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the hand-written MSDA kernels (exact forward; backward rows and
-   value; int8 forward; banded forward) from egtr_tpu_torch/csrc, the
-   compilers started together;
+   value; int8 forward; banded forward; banded backward rows and value) from
+   egtr_tpu_torch/csrc, the compilers started together;
 3. holds the forward kernel against its plain PyTorch version at the two
    main paths' shapes (serving bucket 608x1008: levels (76,126),(38,63),
    (19,32),(10,16), S = 12738; training bucket 800x1344: levels (100,168),
@@ -52,8 +52,27 @@ and no result line. In order it:
    the three kernels 12 times;
 11. runs one float32 (TF32 off) forward + backward of the same model through
    the kernels and through the plain op and compares the total loss and
-   every parameter's gradient;
-12. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+   every parameter's gradient, beside the plain path's own change when the
+   pixels move by about one float32 step;
+12. holds the banded backward kernels (K7 rows and K9 value, one band per
+   tile; K8 rows and K10 value, one band per point) against their plain
+   version on the three banded levels of the adaptation's encoder call
+   (608x1008, window 16, raster queries with offsets of a few pixels; prints
+   the clamped share and the value kernels' run-to-run difference) in
+   float32 and bfloat16 at the adaptation's microbatch of 4, and checks the
+   batch addressing on a batch of 2;
+13. trains the windowed path: the band-adaptation fine-tune's step
+   (``perf_train_step.adapt_config``: window 16, one band per point, bf16,
+   dropout 0.1, no auxiliary losses) at full width, batch 4 at 608x1008, its
+   learning rates, three steps, and one step each of its siblings
+   ``msda_band="tile"`` and one band per point with int8. Checks the metrics,
+   the parameters, and each microbatch's launches: K6 18, K1 12, K8 18, K10
+   18, K2 12, K3 12 (tile: K5 18, K1 12, K7 18, K9 18, K2 12, K3 12; int8:
+   K6 18, K4 12, K8 18, K10 18, K2 12, K3 12);
+14. runs one float32 (TF32 off, dropout 0) forward + backward of the
+   adaptation model through the kernels and through their plain versions
+   and compares them in the same way, and the band indices;
+15. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 It exits nonzero without a result where CUDA is absent.
 """
@@ -109,6 +128,15 @@ BWD_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-3, 2 * 2.0 ** -8)}
 # gradient relative to that gradient's largest entry (summation order in 12
 # forward and 24 backward MSDA calls, carried through the whole backward)
 GRAD_RTOL = 2e-3
+# the same at the adaptation's configuration (608x1008, no auxiliary
+# losses), whose gradients are more sensitive to round-off: the pixels times
+# (1 + 1.2e-7 noise) move the plain path's own gradients by 3.6e-3 of the
+# largest entry there, kernels vs plain 2.8e-3 (an H100; compare_train_f32
+# prints both)
+ADAPT_GRAD_RTOL = 1e-2
+# and where a band index differs between the two runs: its tile's samples
+# clamp to other rows in the forward and the backward
+FLIPPED_BAND_GRAD_RTOL = 5e-2
 
 H, D, L, P = 8, 32, 4, 4
 WINDOW = 16         # the served window
@@ -117,6 +145,7 @@ N_REQUESTS = 4
 N_TILE_REQUESTS = 2
 SIDE_BY_SIDE_ROUNDS = 10
 TRAIN_STEPS = 3
+ADAPT_STEPS = 3
 DEVICE = "cuda"
 
 
@@ -402,16 +431,121 @@ def check_win_kernels(shapes):
     return rows
 
 
+def _banded_bwd_args(value, loc, aw, g, shapes, lid, per_point):
+    """The banded backward kernels' inputs for one level of an encoder
+    call, as ``msda._windowed_backward`` makes them, and the clamped share
+    of the in-image samples."""
+    args, clamped = _banded_level_args(value, loc, aw, shapes, lid,
+                                       per_point, False)
+    return (*args[:5], g, *args[5:]), clamped
+
+
+def check_bwd_win_kernels(shapes, batch):
+    """K7 + K9 and K8 + K10 against their plain version on the banded
+    levels of the adaptation's encoder call; one row per (band, dtype),
+    times summed over the levels (one launch of each kernel per level)."""
+    banded = [l for l, (h, _) in enumerate(shapes) if h > WINDOW]
+    rows = []
+    for band, (rows_name, value_name) in BANDED_BWD.items():
+        per_point = band == "point"
+        rows_kernel = getattr(msda_cuda, rows_name)
+        value_kernel = getattr(msda_cuda, value_name)
+        for dtype in (torch.float32, torch.bfloat16):
+            value, loc, aw = raster_inputs(shapes, dtype, seed=400 + len(rows),
+                                           batch=batch)
+            g = torch.randn(value.shape[:2] + (H * D,), device=DEVICE,
+                            generator=torch.Generator(device=DEVICE)
+                            .manual_seed(len(rows))).to(dtype)
+            row = {"rows_kernel": rows_name, "value_kernel": value_name,
+                   "band": band, "dtype": str(dtype).split(".")[-1],
+                   "batch": batch, "levels": banded,
+                   "max_abs_err": {}, "max_err_over_limit": {},
+                   "rows_ms": 0.0, "value_ms": 0.0, "plain_ms": 0.0,
+                   "rows_bound_ms": 0.0, "value_bound_ms": 0.0,
+                   "value_run_to_run_max_abs_diff": 0.0,
+                   "clamped_share": []}
+            for lid in banded:
+                args, clamped = _banded_bwd_args(value, loc, aw, g, shapes,
+                                                 lid, per_point)
+                dix, diy, daw = rows_kernel(*args)
+                dvalue = value_kernel(*args)
+                again = value_kernel(*args)
+                plain = msda.msda_bwd_win_plain(*args)
+                torch.cuda.synchronize()
+                for name, k, p in zip(("dvalue", "dix", "diy", "daw"),
+                                      (dvalue, dix, diy, daw), plain):
+                    if not torch.isfinite(k).all():
+                        raise SystemExit(f"{rows_name}/{value_name} {dtype} "
+                                         f"level {lid}: non-finite {name}")
+                    err, over = _scaled_err(k, p, dtype)
+                    row["max_abs_err"][name] = max(
+                        row["max_abs_err"].get(name, 0.0), err)
+                    row["max_err_over_limit"][name] = max(
+                        row["max_err_over_limit"].get(name, 0.0), over)
+                row["value_run_to_run_max_abs_diff"] = max(
+                    row["value_run_to_run_max_abs_diff"],
+                    (dvalue - again).abs().max().item())
+                row["rows_ms"] += cuda_ms(lambda: rows_kernel(*args), 50)
+                row["value_ms"] += cuda_ms(lambda: value_kernel(*args), 50)
+                row["plain_ms"] += cuda_ms(
+                    lambda: msda.msda_bwd_win_plain(*args), 3, warmup=1)
+                row["clamped_share"].append(clamped)
+                inputs = (*args[:5], g)
+                ms, row["rows_bound_by"] = bound(
+                    (*inputs, dix, diy, daw), args[4], FLOPS_ROWS)
+                row["rows_bound_ms"] += ms
+                ms, row["value_bound_by"] = bound(
+                    (*inputs[1:], dvalue), args[4], FLOPS_VALUE)
+                row["value_bound_ms"] += ms
+            atol, rtol = BWD_TOL[dtype]
+            print(f"{rows_name} + {value_name} adaptation encoder window "
+                  f"{WINDOW} levels {banded} batch {batch} {row['dtype']}: "
+                  f"max abs err {row['max_abs_err']} (err/limit "
+                  f"{row['max_err_over_limit']}, atol {atol}*max|ref| rtol "
+                  f"{rtol}); rows {row['rows_ms']:.4f} ms (bound "
+                  f"{row['rows_bound_ms']:.4f} ms, {row['rows_bound_by']}), "
+                  f"value {row['value_ms']:.4f} ms (bound "
+                  f"{row['value_bound_ms']:.4f} ms, {row['value_bound_by']}), "
+                  f"plain {row['plain_ms']:.4f} ms; value run-to-run max abs "
+                  f"diff {row['value_run_to_run_max_abs_diff']:.3e}; clamped "
+                  f"share per level "
+                  f"{[round(c, 4) for c in row['clamped_share']]}", flush=True)
+            if max(row["max_err_over_limit"].values()) > 1.0:
+                raise SystemExit(f"{rows_name}/{value_name} {dtype}: kernels "
+                                 "disagree with the plain version")
+            rows.append(row)
+        # the batch index of the kernels' addressing, on the middle level
+        value, loc, aw = raster_inputs(shapes, torch.float32, seed=450)
+        g = torch.randn(value.shape[:2] + (H * D,), device=DEVICE)
+        value, loc, aw, g = (torch.cat([t, t.flip(1)])
+                             for t in (value, loc, aw, g))
+        args, _ = _banded_bwd_args(value, loc.contiguous(), aw, g, shapes,
+                                   banded[len(banded) // 2], per_point)
+        got = (value_kernel(*args), *rows_kernel(*args))
+        over = max(_scaled_err(k, p, torch.float32)[1]
+                   for k, p in zip(got, msda.msda_bwd_win_plain(*args)))
+        print(f"{rows_name} + {value_name} adaptation encoder batch 2 "
+              f"float32: err/limit {over:.3f}", flush=True)
+        if over > 1.0:
+            raise SystemExit(f"{rows_name}/{value_name} batch 2: kernels "
+                             "disagree with plain")
+    return rows
+
+
 KERNEL_COUNTERS = {"msda_fwd": "launches",
                    "msda_bwd_rows": "bwd_rows_launches",
                    "msda_bwd_value": "bwd_value_launches",
                    "msda_fwd_q": "fwd_q_launches",
                    "msda_fwd_win": "fwd_win_launches",
-                   "msda_fwd_win_pp": "fwd_win_pp_launches"}
+                   "msda_fwd_win_pp": "fwd_win_pp_launches",
+                   "msda_bwd_win_rows": "bwd_win_rows_launches",
+                   "msda_bwd_win_rows_pp": "bwd_win_rows_pp_launches",
+                   "msda_bwd_win_value": "bwd_win_value_launches",
+                   "msda_bwd_win_value_pp": "bwd_win_value_pp_launches"}
 
-
-# the exact training step's kernels
-TRAIN_KERNELS = ("msda_fwd", "msda_bwd_rows", "msda_bwd_value")
+# the banded backward kernels (rows, value) per band
+BANDED_BWD = {"tile": ("msda_bwd_win_rows", "msda_bwd_win_value"),
+              "point": ("msda_bwd_win_rows_pp", "msda_bwd_win_value_pp")}
 
 
 def kernel_counts():
@@ -435,6 +569,24 @@ def forward_counts(cfg, shapes):
     counts[exact] = (cfg.encoder_layers * int(n_banded < len(shapes))
                      + cfg.decoder_layers)
     counts[BANDED[cfg.msda_band][0]] += cfg.encoder_layers * n_banded
+    return counts
+
+
+def step_counts(cfg, shapes):
+    """Launches per microbatch of a train step: the forward's and the
+    backward's, which ``msda._windowed_backward`` splits the same way (per
+    encoder layer one launch each of the banded rows and value kernels per
+    banded level and one each of K2 and K3 for the exact levels together;
+    per decoder layer one each of K2 and K3)."""
+    counts = forward_counts(cfg, shapes)
+    n_banded = sum(h > cfg.msda_window for h, _ in shapes) if (
+        cfg.msda_window) else 0
+    exact_calls = (cfg.encoder_layers * int(n_banded < len(shapes))
+                   + cfg.decoder_layers)
+    counts["msda_bwd_rows"] += exact_calls
+    counts["msda_bwd_value"] += exact_calls
+    for name in BANDED_BWD[cfg.msda_band]:
+        counts[name] += cfg.encoder_layers * n_banded
     return counts
 
 
@@ -673,131 +825,177 @@ def _noise_msda_heads(model, device, seed=1):
                 p.normal_(0.0, 0.1, generator=g)
 
 
-def train(cfg):
-    """The training main path: the train probe's step at full width."""
-    hw = perf_train_step.BUCKET_HW
-    model, optimizer, generator = perf_train_step.build(cfg, DEVICE, seed=0)
+def train(cfg, label, hw, batch_size, steps, lrs=perf_train_step.LRS,
+          accum=False):
+    """A training main path: the train probe's step at full width, ``steps``
+    steps on a batch of ``batch_size`` at ``hw`` and, with ``accum``, one
+    accumulated step (accum 2 over twice the batch). Checks the metrics, the
+    parameters and each microbatch's launches (``step_counts``)."""
+    model, optimizer, generator = perf_train_step.build(cfg, DEVICE, seed=0,
+                                                        lrs=lrs)
     old = {n: p.detach().clone() for n, p in model.named_parameters()}
-    batch2 = perf_train_step.synthetic_batch(cfg, 2, *hw, DEVICE, seed=0)
-    batch4 = perf_train_step.synthetic_batch(cfg, 4, *hw, DEVICE, seed=1)
+    batch = perf_train_step.synthetic_batch(cfg, batch_size, *hw, DEVICE,
+                                            seed=0)
     step = make_train_step(model, cfg, optimizer, task="sgg")
-    step_accum = make_train_step(model, cfg, optimizer, task="sgg",
-                                 accum_steps=2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_kernel_counts()
-    times, metrics = perf_train_step.time_steps(step, batch2, generator,
-                                                TRAIN_STEPS, DEVICE)
-    accum_times, accum_metrics = perf_train_step.time_steps(
-        step_accum, batch4, generator, 1, DEVICE)
+    times, metrics = perf_train_step.time_steps(step, batch, generator,
+                                                steps, DEVICE)
+    results = {"step": metrics}
+    microbatches = steps
+    accum_times = []
+    if accum:
+        step_accum = make_train_step(model, cfg, optimizer, task="sgg",
+                                     accum_steps=2)
+        batch2 = perf_train_step.synthetic_batch(cfg, 2 * batch_size, *hw,
+                                                 DEVICE, seed=1)
+        accum_times, results["accumulated step"] = perf_train_step.time_steps(
+            step_accum, batch2, generator, 1, DEVICE)
+        microbatches += 2
     counts = kernel_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    microbatches = TRAIN_STEPS + 2
-    per_microbatch = cfg.encoder_layers + cfg.decoder_layers
-    print(f"train {cfg.compute_dtype} {hw[0]}x{hw[1]} b2: {TRAIN_STEPS} steps, "
-          f"ms/step {[round(t, 1) for t in times]} (the first builds cuDNN's "
-          f"plans); accumulated step (accum 2, batch 4) "
-          f"{accum_times[0]:.1f} ms; max memory allocated {peak_gb:.2f} GB; "
-          f"launches {counts} over {microbatches} microbatches; total_loss "
-          f"{metrics['total_loss']:.4f} grad_norm {metrics['grad_norm']:.4f}; "
-          f"accumulated total_loss {accum_metrics['total_loss']:.4f} "
-          f"grad_norm {accum_metrics['grad_norm']:.4f}", flush=True)
-    for name, m in (("step", metrics), ("accumulated step", accum_metrics)):
+    per_microbatch = step_counts(cfg, level_shapes(hw, cfg.num_feature_levels))
+    launched = {k: v for k, v in counts.items() if v}
+    print(f"train {label} (window {cfg.msda_window}, band {cfg.msda_band}, "
+          f"int8 {cfg.msda_int8}) {cfg.compute_dtype} {hw[0]}x{hw[1]} "
+          f"b{batch_size}: {steps} steps, ms/step "
+          f"{[round(t, 1) for t in times]} (the first builds cuDNN's plans)"
+          + (f"; accumulated step (accum 2, batch {2 * batch_size}) "
+             f"{accum_times[0]:.1f} ms" if accum else "")
+          + f"; max memory allocated {peak_gb:.2f} GB; launches {launched} "
+          f"over {microbatches} microbatches; "
+          + "; ".join(f"{name} total_loss {m['total_loss']:.4f} grad_norm "
+                      f"{m['grad_norm']:.4f}" for name, m in results.items()),
+          flush=True)
+    for name, m in results.items():
         bad = [k for k, v in m.items() if v != v or v in (float("inf"),
                                                          float("-inf"))]
         if bad:
-            raise SystemExit(f"train {name}: non-finite metrics {bad}")
+            raise SystemExit(f"train {label} {name}: non-finite metrics {bad}")
         if not m["grad_norm"] > 0:
-            raise SystemExit(f"train {name}: grad_norm {m['grad_norm']}")
+            raise SystemExit(f"train {label} {name}: grad_norm "
+                             f"{m['grad_norm']}")
         expect = {"total_loss", "grad_norm", "loss_rel", "loss_connectivity",
-                  f"loss_ce_{cfg.decoder_layers - 2}",
                   f"rel_gate_{cfg.decoder_layers}"}
+        if cfg.auxiliary_loss:
+            expect.add(f"loss_ce_{cfg.decoder_layers - 2}")
         if not expect <= set(m):
-            raise SystemExit(f"train {name}: metrics lack "
+            raise SystemExit(f"train {label} {name}: metrics lack "
                              f"{sorted(expect - set(m))}")
     for kernel, n in counts.items():
-        expect = per_microbatch * microbatches if kernel in TRAIN_KERNELS else 0
-        if n != expect:
+        if n != per_microbatch[kernel] * microbatches:
             raise SystemExit(
-                f"{kernel} launched {n} times in training, expected "
-                f"{expect} ({per_microbatch} per microbatch of each of "
-                f"{TRAIN_KERNELS})")
-    moved = {label: [0, 0] for label in ("main", "backbone", "initialized")}
+                f"train {label}: {kernel} launched {n} times, expected "
+                f"{per_microbatch[kernel] * microbatches} "
+                f"({per_microbatch[kernel]} per microbatch)")
+    moved = {group: [0, 0] for group in ("main", "backbone", "initialized")}
     for name, p in model.named_parameters():
-        label = optimizer.labels[name]
-        if label == "frozen":
+        group = optimizer.labels[name]
+        if group == "frozen":
             if not torch.equal(p, old[name]):
-                raise SystemExit(f"train: frozen parameter {name} changed")
+                raise SystemExit(f"train {label}: frozen parameter {name} "
+                                 "changed")
         else:
-            moved[label][0] += int(not torch.equal(p, old[name]))
-            moved[label][1] += 1
+            moved[group][0] += int(not torch.equal(p, old[name]))
+            moved[group][1] += 1
         if not torch.isfinite(p).all():
-            raise SystemExit(f"train: parameter {name} is not finite")
-    print(f"train: parameters moved per group (moved, all) {moved}; frozen "
-          f"leaves bit-identical", flush=True)
-    for label, (n_moved, n_all) in moved.items():
+            raise SystemExit(f"train {label}: parameter {name} is not finite")
+    print(f"train {label}: parameters moved per group (moved, all) {moved}; "
+          f"frozen leaves bit-identical", flush=True)
+    for group, (n_moved, n_all) in moved.items():
         # a leaf whose gradient is exactly zero gets no Adam step
         if n_moved < 0.9 * n_all:
-            raise SystemExit(f"train: only {n_moved} of {n_all} {label} "
-                             "parameters moved")
-    return counts, times, accum_times, peak_gb
+            raise SystemExit(f"train {label}: only {n_moved} of {n_all} "
+                             f"{group} parameters moved")
+    return {"counts": counts, "per_microbatch": per_microbatch,
+            "ms_per_step": times, "accumulated_step_ms": accum_times,
+            "max_memory_allocated_gb": peak_gb}
 
 
-def compare_train_f32(cfg):
-    """One float32 forward + backward (TF32 off, dropout 0) of the training
-    model through the kernels and through the plain op: total loss and every
-    parameter's gradient."""
+def _largest_grad_err(grads, ref, label):
+    """(largest |grad - ref| over ref's largest entry, over all parameters;
+    that parameter's name)."""
+    worst, worst_name = 0.0, ""
+    for name, gp in ref.items():
+        gk = grads[name]
+        if gk is None or gp is None:
+            if gk is not gp:
+                raise SystemExit(f"f32 train {label}: gradient of {name} "
+                                 "missing on one path")
+            continue
+        if not torch.isfinite(gk).all():
+            raise SystemExit(f"f32 train {label}: non-finite gradient of "
+                             f"{name}")
+        err = (gk - gp).abs().max().item() / max(gp.abs().max().item(), 1e-12)
+        if err > worst:
+            worst, worst_name = err, name
+    return worst, worst_name
+
+
+def compare_train_f32(cfg, label, hw, batch_size, limit):
+    """One float32 forward + backward (TF32 off, dropout 0) of a training
+    model through the kernels and through their plain versions: total loss,
+    every parameter's gradient (relative to its largest entry, within
+    ``limit``), and the band indices of a windowed model. Beside it, the
+    model's own sensitivity: the plain path again with the pixels times
+    (1 + 1.2e-7 noise), about one float32 step."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    hw = perf_train_step.BUCKET_HW
     cfg = cfg.replace(compute_dtype="float32", dropout=0.0)
     model_k, _, _ = perf_train_step.build(cfg, DEVICE, seed=0)
     _noise_msda_heads(model_k, DEVICE)
-    model_p = EgtrModel(cfg.replace(msda_impl="matmul"))
-    model_p.load_state_dict(model_k.state_dict(), strict=True)
-    model_p = model_p.to(DEVICE)
-    batch = perf_train_step.synthetic_batch(cfg, 2, *hw, DEVICE, seed=0)
-    per_pass = cfg.encoder_layers + cfg.decoder_layers
-    results = []
-    for model, expect in ((model_k, per_pass), (model_p, 0)):
+    model_p = plain_copy(model_k, cfg, DEVICE)
+    batch = perf_train_step.synthetic_batch(cfg, batch_size, *hw, DEVICE,
+                                            seed=0)
+    pixels = batch["pixel_values"]
+    nudged = pixels * (1.0 + 1.2e-7 * torch.randn(
+        pixels.shape, device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(2)))
+    per_pass = step_counts(cfg, level_shapes(hw, cfg.num_feature_levels))
+    zero = dict.fromkeys(per_pass, 0)
+    results, bands = [], []
+    for model, x, expect in ((model_k, pixels, per_pass),
+                             (model_p, pixels, zero), (model_p, nudged, zero)):
         model.train()
+        model.zero_grad(set_to_none=True)
         reset_kernel_counts()
-        out = model(batch["pixel_values"], batch["pixel_mask"])
-        total, _ = criterion.sgg_criterion(out, batch["labels"], cfg,
-                                           train=True)
-        total.backward()
-        torch.cuda.synchronize()
-        counts = kernel_counts()
-        if counts != {k: expect if k in TRAIN_KERNELS else 0 for k in counts}:
-            raise SystemExit(f"f32 train launches {counts}, expected "
-                             f"{expect} of each of {TRAIN_KERNELS}")
+        msda.band_index_log = []
+        try:
+            out = model(x, batch["pixel_mask"])
+            total, _ = criterion.sgg_criterion(out, batch["labels"], cfg,
+                                               train=True)
+            total.backward()
+            torch.cuda.synchronize()
+        finally:
+            bands.append(msda.band_index_log)
+            msda.band_index_log = None
+        if kernel_counts() != expect:
+            raise SystemExit(f"f32 train {label} launches {kernel_counts()}, "
+                             f"expected {expect}")
         results.append((total.item(), {n: p.grad for n, p in
                                        model.named_parameters()}))
-    (loss_k, grads_k), (loss_p, grads_p) = results
-    worst, worst_name = 0.0, ""
-    for name, gp in grads_p.items():
-        gk = grads_k[name]
-        if gk is None or gp is None:
-            if gk is not gp:
-                raise SystemExit(f"f32 train: gradient of {name} missing on "
-                                 "one path")
-            continue
-        scale = gp.abs().max().item()
-        err = (gk - gp).abs().max().item() / max(scale, 1e-12)
-        if not torch.isfinite(gk).all():
-            raise SystemExit(f"f32 train: non-finite gradient of {name}")
-        if err > worst:
-            worst, worst_name = err, name
-    print(f"train f32 kernels vs plain op ({cfg.encoder_layers}+"
-          f"{cfg.decoder_layers} layers, {hw[0]}x{hw[1]} b2): total loss "
+    (loss_k, grads_k), (loss_p, grads_p), (_, grads_n) = results
+    differing = sum(int((a != b).sum()) for (_, a), (_, b) in zip(*bands[:2]))
+    n_bands = sum(a.numel() for _, a in bands[0])
+    worst, worst_name = _largest_grad_err(grads_k, grads_p, label)
+    nudge, nudge_name = _largest_grad_err(grads_n, grads_p, label)
+    limit = max(limit, FLIPPED_BAND_GRAD_RTOL) if differing else limit
+    print(f"train f32 {label} kernels vs plain ({cfg.encoder_layers}+"
+          f"{cfg.decoder_layers} layers, window {cfg.msda_window}, band "
+          f"{cfg.msda_band}, {hw[0]}x{hw[1]} b{batch_size}): total loss "
           f"{loss_k:.6f} vs {loss_p:.6f}; largest gradient error relative to "
           f"the gradient's largest entry {worst:.3e} ({worst_name}), over "
-          f"{len(grads_p)} parameters (rtol {GRAD_RTOL})", flush=True)
-    if abs(loss_k - loss_p) > 1e-4 * abs(loss_p) or worst > GRAD_RTOL:
-        raise SystemExit("float32 train step: kernel path disagrees with the "
-                         "plain op")
+          f"{len(grads_p)} parameters (rtol {limit}); {differing} of "
+          f"{n_bands} band indices differ; the plain path with the pixels "
+          f"times (1 + 1.2e-7 noise) moves by {nudge:.3e} ({nudge_name})",
+          flush=True)
+    if abs(loss_k - loss_p) > 1e-4 * abs(loss_p) or worst > limit:
+        raise SystemExit(f"float32 train step {label}: kernel path disagrees "
+                         "with the plain versions")
     return {"loss_kernels": loss_k, "loss_plain": loss_p,
-            "max_grad_rel_err": worst}
+            "max_grad_rel_err": worst, "band_indices_differing": differing,
+            "band_indices": n_bands, "nudged_pixels_max_grad_rel_change": nudge}
 
 
 def main() -> int:
@@ -819,6 +1017,9 @@ def main() -> int:
     shapes = level_shapes(infer.BUCKET_HW, cfg.num_feature_levels)
     train_shapes = level_shapes(perf_train_step.BUCKET_HW,
                                 train_cfg.num_feature_levels)
+    adapt_cfg = perf_train_step.adapt_config()
+    adapt_hw = perf_train_step.ADAPT_HW
+    adapt_shapes = level_shapes(adapt_hw, adapt_cfg.num_feature_levels)
     rows = check_kernel(shapes, "serving")
     train_rows = check_kernel(train_shapes, "training")
     bwd_rows = check_bwd_kernels(train_shapes, "training")
@@ -846,8 +1047,24 @@ def main() -> int:
     model_errs = compare_f32(cfg, "exact", MODEL_ATOL)
     served_errs = compare_f32(served_cfg, "served", SERVED_MODEL_ATOL)
     int8_grad_counts = check_int8_grad(shapes)
-    counts, step_ms, accum_ms, peak_gb = train(train_cfg)
-    train_errs = compare_train_f32(train_cfg)
+    exact_train = train(train_cfg, "exact", perf_train_step.BUCKET_HW, 2,
+                        TRAIN_STEPS, accum=True)
+    counts = exact_train["counts"]
+    train_errs = compare_train_f32(train_cfg, "exact",
+                                   perf_train_step.BUCKET_HW, 2, GRAD_RTOL)
+    # the windowed path: the banded backward kernels, the band-adaptation
+    # fine-tune and its siblings
+    bwd_win_rows = check_bwd_win_kernels(adapt_shapes,
+                                         perf_train_step.ADAPT_BATCH)
+    adapt_args = (adapt_hw, perf_train_step.ADAPT_BATCH)
+    adapt = train(adapt_cfg, "adaptation", *adapt_args, ADAPT_STEPS,
+                  lrs=perf_train_step.ADAPT_LRS)
+    adapt_tile = train(adapt_cfg.replace(msda_band="tile"), "adaptation tile",
+                       *adapt_args, 1, lrs=perf_train_step.ADAPT_LRS)
+    adapt_int8 = train(adapt_cfg.replace(msda_int8=True), "adaptation int8",
+                       *adapt_args, 1, lrs=perf_train_step.ADAPT_LRS)
+    adapt_errs = compare_train_f32(adapt_cfg, "adaptation", adapt_hw, 2,
+                                   ADAPT_GRAD_RTOL)
 
     def pick(table, call, dtype="bfloat16"):
         return next(r for r in table
@@ -870,6 +1087,31 @@ def main() -> int:
             "ms_int8": mine["int8"]["ms"], "calls": list(mine.values()),
         }
 
+    def banded_bwd_entry(kind, name, line, launches):
+        mine = [r for r in bwd_win_rows if r[f"{kind}_kernel"] == name]
+        main = next(r for r in mine if r["dtype"] == "bfloat16")
+        keys = ("dix", "diy", "daw") if kind == "rows" else ("dvalue",)
+        entry = {
+            "name": name, "route": "cuda",
+            "source": "egtr_tpu_torch/csrc/msda_bwd_win.cu",
+            "replaces": f"egtr_tpu/ops/msda_pallas.py:{line}",
+            "launches": launches,
+            "max_abs_err": max(main["max_abs_err"][k] for k in keys),
+            "ms": main[f"{kind}_ms"],
+            # the plain version computes rows and value in one call
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main[f"{kind}_bound_ms"],
+            "bound_by": main[f"{kind}_bound_by"],
+            "library_ms": None, "form": "bfloat16", "batch": main["batch"],
+            "ms_float32": next(r for r in mine
+                               if r["dtype"] == "float32")[f"{kind}_ms"],
+            "calls": mine,
+        }
+        if kind == "value":
+            entry["run_to_run_max_abs_diff"] = max(
+                r["value_run_to_run_max_abs_diff"] for r in mine)
+        return entry
+
     main_row = pick(rows, "encoder")
     bwd_row = pick(bwd_rows, "encoder")
     q_row = pick(q_rows, "encoder_served")
@@ -886,6 +1128,7 @@ def main() -> int:
         "launches_serving_tile": tile_counts["msda_fwd"],
         "launches_serving_served": served_counts["msda_fwd"],
         "launches_training": counts["msda_fwd"],
+        "launches_adaptation": adapt["counts"]["msda_fwd"],
         "max_abs_err": max(r["max_abs_err"] for r in rows + train_rows
                            if r["dtype"] == "bfloat16"),
         "ms": main_row["ms"],
@@ -905,6 +1148,7 @@ def main() -> int:
         "source": "egtr_tpu_torch/csrc/msda_bwd.cu",
         "replaces": "egtr_tpu/ops/msda_pallas.py:487",
         "launches": counts["msda_bwd_rows"],
+        "launches_adaptation": adapt["counts"]["msda_bwd_rows"],
         "max_abs_err": max(max(r["max_abs_err"][k] for k in ("dloc", "daw"))
                            for r in bf16_bwd),
         "ms": bwd_row["rows_ms"],
@@ -915,13 +1159,13 @@ def main() -> int:
         "ms_encoder": bwd_row["rows_ms"],
         "ms_decoder": pick(bwd_rows, "decoder")["rows_ms"],
         "calls": bwd_rows,
-        "train_f32": train_errs,
     }, {
         "name": "msda_bwd_value",
         "route": "cuda",
         "source": "egtr_tpu_torch/csrc/msda_bwd.cu",
         "replaces": "egtr_tpu/ops/msda_pallas.py:608",
         "launches": counts["msda_bwd_value"],
+        "launches_adaptation": adapt["counts"]["msda_bwd_value"],
         "max_abs_err": max(r["max_abs_err"]["dvalue"] for r in bf16_bwd),
         "ms": bwd_row["value_ms"],
         "plain_ms": bwd_row["plain_ms"],
@@ -938,6 +1182,7 @@ def main() -> int:
         "source": "egtr_tpu_torch/csrc/msda_fwd_q.cu",
         "replaces": "egtr_tpu/ops/msda_pallas.py:130",
         "launches": served_counts["msda_fwd_q"],
+        "launches_adaptation_int8": adapt_int8["counts"]["msda_fwd_q"],
         "max_abs_err": max(r["max_abs_err"] for r in q_rows),
         "ms": q_row["ms"],
         "plain_ms": q_row["plain_ms"],
@@ -955,11 +1200,27 @@ def main() -> int:
                      tile_counts["msda_fwd_win"]),
         banded_entry("msda_fwd_win_pp", 249, "int8",
                      served_counts["msda_fwd_win_pp"]),
+        banded_bwd_entry("rows", "msda_bwd_win_rows", 836,
+                         adapt_tile["counts"]["msda_bwd_win_rows"]),
+        banded_bwd_entry("rows", "msda_bwd_win_rows_pp", 722,
+                         adapt["counts"]["msda_bwd_win_rows_pp"]),
+        banded_bwd_entry("value", "msda_bwd_win_value", 877,
+                         adapt_tile["counts"]["msda_bwd_win_value"]),
+        banded_bwd_entry("value", "msda_bwd_win_value_pp", 772,
+                         adapt["counts"]["msda_bwd_win_value_pp"]),
     ], "serve_ms_per_request": {"exact": exact_ms, "served": served_ms,
                                 "tile": tile_ms},
         "serve_ms_per_request_in_turns": side_by_side,
-        "train": {"ms_per_step": step_ms, "accumulated_step_ms": accum_ms[0],
-                  "max_memory_allocated_gb": peak_gb}}
+        "train": {"ms_per_step": exact_train["ms_per_step"],
+                  "accumulated_step_ms":
+                      exact_train["accumulated_step_ms"][0],
+                  "max_memory_allocated_gb":
+                      exact_train["max_memory_allocated_gb"]},
+        "train_adaptation": {
+            label: {k: v for k, v in run.items() if k != "counts"}
+            for label, run in (("point", adapt), ("tile", adapt_tile),
+                               ("point_int8", adapt_int8))},
+        "train_f32": {"exact": train_errs, "adaptation": adapt_errs}}
     print(json.dumps(kernels))
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}",
           flush=True)

@@ -9,7 +9,7 @@ EGTR fields the reference attaches at runtime (train_egtr.py:230-252).
 Some fields select behaviour that only the JAX package implements so far
 (``two_stage``, ``use_remat``); the port's model refuses them at construction
 (``models/detr.py``). ``msda_window``, ``msda_band`` and ``msda_int8`` are
-ported forward only: a gradient through a banded level raises.
+ported, forward and backward.
 """
 
 from __future__ import annotations

@@ -16,6 +16,11 @@
 // bilinear corners directly, one launch covers all levels, and K3's sum over
 // queries is a float32 atomicAdd into a buffer the wrapper zeroes.
 //
+// Both take a table of the levels to differentiate (the exact levels of a
+// windowed call, whose banded levels msda_bwd_win.cu takes; all levels
+// otherwise). The rows kernel writes only those levels' entries of dloc and
+// daw, so the wrapper zeroes the outputs when the table is a subset.
+//
 // Design (both): one warp per (batch, query, head), lanes over the head dim
 // D (one channel per lane for D = 32, chunks of 32 above). Every lane reads
 // the same location and weight (a broadcast load) and its own channel of the
@@ -59,10 +64,13 @@
 
 #define MSDA_MAX_LEVELS 8
 
+// the levels differentiated, and each one's index into the L axis
 struct Levels {
+  int n;
   int h[MSDA_MAX_LEVELS];
   int w[MSDA_MAX_LEVELS];
   int start[MSDA_MAX_LEVELS];
+  int lid[MSDA_MAX_LEVELS];
 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -154,11 +162,11 @@ msda_bwd_rows_kernel(const T* __restrict__ value,
   const long row = (long)H * D;  // stride between tokens in value
   const T* vb = value + b * (long)S * row + (long)head * D;
 
-  for (int l = 0; l < L; ++l) {
-    const int hl = lv.h[l], wl = lv.w[l];
-    const T* vl = vb + (long)lv.start[l] * row;
+  for (int k = 0; k < lv.n; ++k) {
+    const int hl = lv.h[k], wl = lv.w[k];
+    const T* vl = vb + (long)lv.start[k] * row;
     for (int p = 0; p < P; ++p) {
-      const int i = l * P + p;
+      const int i = lv.lid[k] * P + p;
       const Sample s = make_sample(locp[2 * i], locp[2 * i + 1], hl, wl);
       const float a = to_float(awp[i]);
       float s_dix = 0.0f, s_diy = 0.0f, s_daw = 0.0f;
@@ -222,11 +230,11 @@ msda_bwd_value_kernel(const float* __restrict__ loc, const T* __restrict__ aw,
   const long row = (long)H * D;
   float* db = dvalue + b * (long)S * row + (long)head * D;
 
-  for (int l = 0; l < L; ++l) {
-    const int hl = lv.h[l], wl = lv.w[l];
-    float* dl = db + (long)lv.start[l] * row;
+  for (int k = 0; k < lv.n; ++k) {
+    const int hl = lv.h[k], wl = lv.w[k];
+    float* dl = db + (long)lv.start[k] * row;
     for (int p = 0; p < P; ++p) {
-      const int i = l * P + p;
+      const int i = lv.lid[k] * P + p;
       const Sample s = make_sample(locp[2 * i], locp[2 * i + 1], hl, wl);
       if (!s.any) continue;
       const float a = to_float(awp[i]);
@@ -254,24 +262,29 @@ msda_bwd_value_kernel(const float* __restrict__ loc, const T* __restrict__ aw,
   }
 }
 
-static bool read_levels(const int* levels, int L, Levels* lv) {
-  if (L < 1 || L > MSDA_MAX_LEVELS) return false;
-  for (int l = 0; l < L; ++l) {
-    // rows of (h, w, start token, unused), as the forward's table
-    lv->h[l] = levels[4 * l];
-    lv->w[l] = levels[4 * l + 1];
-    lv->start[l] = levels[4 * l + 2];
+static bool read_levels(const int* levels, int n_levels, int L, Levels* lv) {
+  if (L < 1 || L > MSDA_MAX_LEVELS || n_levels < 1 || n_levels > L)
+    return false;
+  lv->n = n_levels;
+  for (int k = 0; k < n_levels; ++k) {
+    // rows of (h, w, start token, unused, level index), as the forward's
+    lv->h[k] = levels[5 * k];
+    lv->w[k] = levels[5 * k + 1];
+    lv->start[k] = levels[5 * k + 2];
+    lv->lid[k] = levels[5 * k + 4];
+    if (lv->lid[k] < 0 || lv->lid[k] >= L) return false;
   }
   return true;
 }
 
 extern "C" int msda_bwd_rows(const void* value, const void* loc,
                              const void* aw, const void* g, void* dloc,
-                             void* daw, const int* levels, int L, int B,
-                             int S, int Q, int H, int D, int P, int is_bf16,
-                             void* stream) {
+                             void* daw, const int* levels, int n_levels,
+                             int L, int B, int S, int Q, int H, int D, int P,
+                             int is_bf16, void* stream) {
   Levels lv;
-  if (!read_levels(levels, L, &lv)) return (int)cudaErrorInvalidValue;
+  if (!read_levels(levels, n_levels, L, &lv))
+    return (int)cudaErrorInvalidValue;
   const long n_warps = (long)B * Q * H;
   if (n_warps == 0) return (int)cudaSuccess;
   const int threads = 256;
@@ -293,11 +306,12 @@ extern "C" int msda_bwd_rows(const void* value, const void* loc,
 
 // dvalue: float32 [B, S, H, D], zeroed by the caller.
 extern "C" int msda_bwd_value(const void* loc, const void* aw, const void* g,
-                              void* dvalue, const int* levels, int L, int B,
-                              int S, int Q, int H, int D, int P, int is_bf16,
-                              void* stream) {
+                              void* dvalue, const int* levels, int n_levels,
+                              int L, int B, int S, int Q, int H, int D, int P,
+                              int is_bf16, void* stream) {
   Levels lv;
-  if (!read_levels(levels, L, &lv)) return (int)cudaErrorInvalidValue;
+  if (!read_levels(levels, n_levels, L, &lv))
+    return (int)cudaErrorInvalidValue;
   const long n_warps = (long)B * Q * H;
   if (n_warps == 0) return (int)cudaSuccess;
   const int threads = 256;

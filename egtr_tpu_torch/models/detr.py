@@ -6,11 +6,10 @@ Backbone -> input projections with GroupNorm, sine (or learned) position and
 level embeddings -> MSDA encoder -> query decoder that exposes the per-layer
 self-attention Q/K -> per-layer class and box heads.
 
-The port covers the exact path, forward and gradient, and the forward of
-the banded MSDA approximation (``msda_window``, ``msda_band``: encoder
-self-attention only) and of int8 stage 1 (``msda_int8``: encoder and
-decoder); a gradient through a banded level raises in ``ops/msda.py``. It
-refuses at construction what only the JAX package implements so far:
+The port covers the exact path, the banded MSDA approximation
+(``msda_window``, ``msda_band``: encoder self-attention only) and int8 stage
+1 (``msda_int8``: encoder and decoder), forward and gradient. It refuses at
+construction what only the JAX package implements so far:
 ``two_stage`` and rematerialization (``use_remat``).
 """
 

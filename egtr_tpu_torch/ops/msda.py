@@ -23,10 +23,10 @@ weights of the contracted axis (x, or y where ``_orient`` flips the level) are
 rounded to that dtype (``msda_pallas.py:136``); the other axis's weight times
 the attention weight stays float32; everything accumulates in float32 and is
 cast to the value dtype once at the end. The gradient is explicit
-(``ms_deform_attn_plain_bwd`` and the CUDA backward kernels), with the
-roundings and the kink rule of the JAX backward kernels. The int8 op
-without a window shares that backward (straight-through); a gradient through
-a banded level is not ported yet and raises.
+(``ms_deform_attn_plain_bwd`` and ``msda_bwd_win_plain``, and the CUDA
+backward kernels), with the roundings and the kink rule of the JAX backward
+kernels. The int8 op shares the backward of the op without int8
+(straight-through), with or without a window.
 
 How a windowed call splits into launches (and so how the launch counts are
 derived): the levels with ``h <= window`` go to the exact kernel in ONE
@@ -35,7 +35,11 @@ launch over that subset of levels (``msda_fwd``, or ``msda_fwd_q`` with
 (``msda_fwd_win`` for ``band="tile"``, ``msda_fwd_win_pp`` for
 ``band="point"``, each in a float or an int8 form). Every launch returns that
 part's float32 sum; the parts are added in float32 and cast to the value dtype
-once, as the JAX op does.
+once, as the JAX op does. Its backward splits the same way: the exact levels
+in one launch each of ``msda_bwd_rows`` and ``msda_bwd_value``, every banded
+level one launch each of the banded rows and value kernels
+(``msda_bwd_win_rows`` / ``msda_bwd_win_value``, or their ``_pp`` forms for
+``band="point"``).
 """
 
 from __future__ import annotations
@@ -45,8 +49,9 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from .msda_window import (Segments, check_window, query_tile,
-                          segment_bounds, segment_rows_t, unsegment_cols,
-                          window_rows, windowed_level_coords)
+                          segment_bounds, segment_cols, segment_rows_t,
+                          unsegment_cols, unsegment_rows, window_rows,
+                          windowed_level_coords)
 
 _LANES = 128
 
@@ -110,12 +115,9 @@ def _gather_corner(level, valid, idx):
 
 
 def _pixel_coords(sampling_locations, lid: int, h: int, w: int, acc):
-    """Pixel-space sample points of one level and their floor corners."""
+    """Pixel-space sample points (ix, iy) [B,Q,H,P] of one level."""
     loc = sampling_locations[:, :, :, lid].to(acc)           # [B,Q,H,P,2]
-    ix = loc[..., 0] * w - 0.5
-    iy = loc[..., 1] * h - 0.5
-    x0, y0 = ix.floor(), iy.floor()
-    return ix, iy, x0, y0, x0 + 1.0, y0 + 1.0
+    return loc[..., 0] * w - 0.5, loc[..., 1] * h - 0.5
 
 
 def _hat_rounding(dtype: torch.dtype, int8: bool):
@@ -198,7 +200,7 @@ def ms_deform_attn_plain(value: torch.Tensor,
     for lid in (range(L) if levels is None else levels):
         h, w = spatial_shapes[lid]
         aw = attention_weights[:, :, :, lid].to(acc)         # [B,Q,H,P]
-        ix, iy = _pixel_coords(sampling_locations, lid, h, w, acc)[:2]
+        ix, iy = _pixel_coords(sampling_locations, lid, h, w, acc)
         flip = low and _orient(h, w, D) == "y"
         level = table[:, :, starts[lid]:starts[lid] + h * w]  # [B,H,hw,D]
         out = out + _sample_level(level, ix, iy, aw, h, w, flip, round_hat)
@@ -251,8 +253,7 @@ def msda_fwd_q_plain(vq: torch.Tensor, scale: torch.Tensor,
         h, w = spatial_shapes[lid]
         aw = (attention_weights[:, :, :, lid].float()
               * scale[:, None, :, lid, None])
-        ix, iy = _pixel_coords(sampling_locations, lid, h, w,
-                               torch.float32)[:2]
+        ix, iy = _pixel_coords(sampling_locations, lid, h, w, torch.float32)
         flip = _orient(h, w, D) == "y"
         level = table[:, :, starts[lid]:starts[lid] + h * w]
         out = out + _sample_level(level, ix, iy, aw, h, w, flip, round_hat)
@@ -288,32 +289,90 @@ def msda_fwd_win_plain(value_l: torch.Tensor, bidx: torch.Tensor,
     whose ``y`` lies outside ``[0, win)`` is dropped even where its absolute
     row exists (the hats are taken on the band-local coordinate)."""
     B, _, H, D = value_l.shape
-    Qp = ix.shape[-1]
-    TQ = Qp // bidx.shape[-1]
+    TQ = ix.shape[-1] // bidx.shape[-1]
     int8 = value_l.dtype == torch.int8
     round_hat = _hat_rounding(value_l.dtype, int8)
+    table = value_l.float().permute(0, 2, 1, 3)               # [B,H,hw,D]
+    out = _sample_level(table, _rows(ix), _rows(iy_band), _rows(aw_eff), h,
+                        w, False, round_hat, row0=_rows(_band_row0(bidx, ix,
+                                                                   win)),
+                        nrows=win)                            # [B,Qp,H,D]
+    out = unsegment_cols(out.permute(0, 2, 3, 1), segs, TQ)   # [B,H,D,Q]
+    return out.permute(0, 3, 1, 2).reshape(B, Q, H * D)
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """Banded rows [B,H,P,Q_pad] -> [B,Q_pad,H,P] float32, the layout of
+    :func:`_sample_level` and :func:`_level_bwd`."""
+    return t.permute(0, 3, 1, 2).float()
+
+
+def _band_row0(bidx: torch.Tensor, ix: torch.Tensor, win: int) -> torch.Tensor:
+    """The band's first row for every banded row [B,H,P,Q_pad], from
+    ``bidx`` [B,H,T] or [B,H,P,T]; ``ix`` gives the row shape."""
+    B, H, P, Qp = ix.shape
+    TQ = Qp // bidx.shape[-1]
     row0 = bidx * (win // 2)
     row0 = row0[..., None].expand(*row0.shape, TQ).reshape(*row0.shape[:-1],
                                                            Qp)
     if bidx.dim() == 3:
-        row0 = row0[:, :, None, :].expand(B, H, ix.shape[2], Qp)
+        row0 = row0[:, :, None, :]
+    return row0.expand(B, H, P, Qp)
 
-    def rows(t):  # [B,H,P,Qp] -> [B,Qp,H,P]
-        return t.permute(0, 3, 1, 2)
 
-    table = value_l.float().permute(0, 2, 1, 3)               # [B,H,hw,D]
-    out = _sample_level(table, rows(ix).float(), rows(iy_band).float(),
-                        rows(aw_eff).float(), h, w, False, round_hat,
-                        row0=rows(row0).float(), nrows=win)   # [B,Qp,H,D]
-    out = unsegment_cols(out.permute(0, 2, 3, 1), segs, TQ)   # [B,H,D,Q]
-    return out.permute(0, 3, 1, 2).reshape(B, Q, H * D)
+def _level_bwd(level, dlevel, ix, iy, aw, g, h: int, w: int, cdt,
+               row0=None, nrows: int = 0):
+    """One level's gradients in the backward kernels' arithmetic (see
+    :func:`ms_deform_attn_plain_bwd`): returns (dix, diy, daw) [B,Q,H,P],
+    the first two with respect to the pixel coordinates, and adds the value
+    gradient into ``dlevel`` [B,H,hw,D]. ``level`` [B,H,hw,D]; ``ix``,
+    ``iy``, ``aw`` [B,Q,H,P] and ``g`` [B,Q,H,1,D], all in the accumulation
+    dtype. With ``row0`` the level is read through a band, as in
+    :func:`_sample_level`."""
+    B, Q, H, P = ix.shape
+    D = level.shape[-1]
+    x0, y0 = ix.floor(), iy.floor()
+    xs, ys = (x0, x0 + 1.0), (y0, y0 + 1.0)
+    hx = [cdt(_hat(ix - x)) for x in xs]
+    ghx = [_hat_grad(ix - x) for x in xs]
+    hy = [_hat(iy - y) for y in ys]
+    ghy = [_hat_grad(iy - y) for y in ys]
+    dix = torch.zeros_like(ix)
+    diy = torch.zeros_like(ix)
+    daw = torch.zeros_like(ix)
+    for j in range(2):
+        dT = cdt((hy[j] * aw)[..., None] * g)                 # [B,Q,H,P,D]
+        T = torch.zeros_like(dT)
+        for i in range(2):
+            valid, idx = _corner_index(ys[j], xs[i], h, w, row0, nrows)
+            v = _gather_corner(level, valid, idx)
+            dix = dix + (v * dT).sum(-1) * ghx[i]
+            T = T + v * hx[i][..., None]
+            dv = torch.where(valid[..., None], dT * hx[i][..., None], 0.0)
+            dlevel.scatter_add_(
+                2, idx[..., None].expand(B, H, Q * P, D),
+                dv.permute(0, 2, 1, 3, 4).reshape(B, H, Q * P, D))
+        Tg = (T * g).sum(-1)                                  # [B,Q,H,P]
+        daw = daw + hy[j] * Tg
+        diy = diy + aw * ghy[j] * Tg
+    return dix, diy, daw
+
+
+def _cast_through(dtype: torch.dtype, acc: torch.dtype):
+    """cdt of the backward: a product rounded to the value dtype where that
+    is a low-precision one, as the JAX kernels feed it to the MXU."""
+    if dtype in (torch.float32, torch.float64):
+        return lambda t: t
+    return lambda t: t.to(dtype).to(acc)
 
 
 def ms_deform_attn_plain_bwd(value: torch.Tensor,
                              spatial_shapes: Sequence[Tuple[int, int]],
                              sampling_locations: torch.Tensor,
                              attention_weights: torch.Tensor,
-                             grad_output: torch.Tensor
+                             grad_output: torch.Tensor,
+                             levels: Optional[Sequence[int]] = None,
+                             dvalue_dtype: Optional[torch.dtype] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """Gradients (dvalue, dloc, daw) of the op, in plain PyTorch.
@@ -334,58 +393,74 @@ def ms_deform_attn_plain_bwd(value: torch.Tensor,
     rounds the y hats (the JAX backward never flips its orientation).
     ``hat'`` is :func:`_hat_grad`; a corner outside the map contributes
     nothing. ``dloc`` is chained through ``ix = x*w - 0.5``. Returned dtypes
-    are those of the three inputs.
+    are those of the three inputs; ``dvalue_dtype`` (float32) keeps the value
+    gradient's float32 sum instead. ``levels`` restricts the gradients to
+    those level indices (a windowed call takes its banded levels elsewhere);
+    the other levels' entries are zero.
     """
     B, S, H, D = value.shape
     _, Q, _, L, P, _ = sampling_locations.shape
     dtype = value.dtype
     acc = _acc_dtype(dtype)
-    low = dtype not in (torch.float32, torch.float64)
-
-    def cdt(t):
-        return t.to(dtype).to(acc) if low else t
-
+    cdt = _cast_through(dtype, acc)
     table = value.to(acc).permute(0, 2, 1, 3)                 # [B,H,S,D]
     g = grad_output.reshape(B, Q, H, 1, D).to(acc)
     dtable = torch.zeros((B, H, S, D), dtype=acc, device=value.device)
-    dloc_parts, daw_parts = [], []
-    start = 0
-    for lid, (h, w) in enumerate(spatial_shapes):
-        aw = attention_weights[:, :, :, lid].to(acc)         # [B,Q,H,P]
-        ix, iy, x0, y0, x1, y1 = _pixel_coords(sampling_locations, lid, h, w,
-                                               acc)
-        xs, ys = (x0, x1), (y0, y1)
-        hx = [cdt(_hat(ix - x)) for x in xs]
-        ghx = [_hat_grad(ix - x) for x in xs]
-        hy = [_hat(iy - y) for y in ys]
-        ghy = [_hat_grad(iy - y) for y in ys]
-        level = table[:, :, start:start + h * w]
-        dlevel = dtable[:, :, start:start + h * w]
-        dix = torch.zeros_like(ix)
-        diy = torch.zeros_like(ix)
-        daw = torch.zeros_like(ix)
-        for j in range(2):
-            dT = cdt((hy[j] * aw)[..., None] * g)             # [B,Q,H,P,D]
-            T = torch.zeros_like(dT)
-            for i in range(2):
-                valid, idx = _corner_index(ys[j], xs[i], h, w)
-                v = _gather_corner(level, valid, idx)
-                dix = dix + (v * dT).sum(-1) * ghx[i]
-                T = T + v * hx[i][..., None]
-                dv = torch.where(valid[..., None], dT * hx[i][..., None], 0.0)
-                dlevel.scatter_add_(
-                    2, idx[..., None].expand(B, H, Q * P, D),
-                    dv.permute(0, 2, 1, 3, 4).reshape(B, H, Q * P, D))
-            Tg = (T * g).sum(-1)                              # [B,Q,H,P]
-            daw = daw + hy[j] * Tg
-            diy = diy + aw * ghy[j] * Tg
-        dloc_parts.append(torch.stack([dix * w, diy * h], dim=-1))
-        daw_parts.append(daw)
-        start += h * w
-    dvalue = dtable.permute(0, 2, 1, 3).to(dtype).contiguous()
-    dloc = torch.stack(dloc_parts, dim=3).to(sampling_locations.dtype)
-    daw = torch.stack(daw_parts, dim=3).to(attention_weights.dtype)
-    return dvalue, dloc, daw
+    dloc = torch.zeros((B, Q, H, L, P, 2), dtype=acc, device=value.device)
+    daw = torch.zeros((B, Q, H, L, P), dtype=acc, device=value.device)
+    starts = level_starts(spatial_shapes)
+    for lid in (range(L) if levels is None else levels):
+        h, w = spatial_shapes[lid]
+        level = slice(starts[lid], starts[lid] + h * w)
+        ix, iy = _pixel_coords(sampling_locations, lid, h, w, acc)
+        dix, diy, daw_l = _level_bwd(
+            table[:, :, level], dtable[:, :, level], ix, iy,
+            attention_weights[:, :, :, lid].to(acc), g, h, w, cdt)
+        dloc[:, :, :, lid] = torch.stack([dix * w, diy * h], dim=-1)
+        daw[:, :, :, lid] = daw_l
+    dvalue = dtable.permute(0, 2, 1, 3).to(
+        dtype if dvalue_dtype is None else dvalue_dtype).contiguous()
+    return (dvalue, dloc.to(sampling_locations.dtype),
+            daw.to(attention_weights.dtype))
+
+
+def msda_bwd_win_plain(value_l: torch.Tensor, bidx: torch.Tensor,
+                       ix: torch.Tensor, iy_band: torch.Tensor,
+                       aw_eff: torch.Tensor, g: torch.Tensor, h: int, w: int,
+                       win: int, segs: Segments, Q: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """The backward of one banded level in plain PyTorch, in the banded
+    backward kernels' own terms (``msda_cuda.msda_bwd_win``): ``(dvalue_l
+    float32 [B, h*w, H, D], dix, diy, daw float32 [B, H, P, Q_pad])``.
+
+    The inputs are :func:`msda_fwd_win_plain`'s (``value_l`` float32 or
+    bfloat16), plus ``g``, the op's output gradient [B, Q, H*D] (float32 or
+    the value dtype), which is laid out as the rows with
+    ``msda_window.segment_cols``. The arithmetic is that of
+    ``_bwd_rows_body_hb`` and ``_bwd_dvtt_body`` (``msda_pallas.py:493-553,
+    581-605``), the same as :func:`ms_deform_attn_plain_bwd`'s on the
+    band-local coordinate, with the banded forward's reach: a corner whose
+    band-local row lies outside ``[0, win)`` or at an absolute row ``>= h``
+    contributes nothing. ``dix``/``diy`` are with respect to ``ix`` and
+    ``iy_band``; the rows of the segment padding are zero. Nothing is masked:
+    the caller masks ``diy`` where the clamp was active and ``daw`` outside
+    the image."""
+    B, _, H, D = value_l.shape
+    TQ = ix.shape[-1] // bidx.shape[-1]
+    cdt = _cast_through(value_l.dtype, torch.float32)
+    g_seg = segment_cols(g.reshape(B, Q, H, D).permute(0, 2, 3, 1).float(),
+                         segs, TQ)                            # [B,H,D,Qp]
+    table = value_l.float().permute(0, 2, 1, 3)               # [B,H,hw,D]
+    dtable = torch.zeros_like(table)
+    grads = _level_bwd(table, dtable, _rows(ix), _rows(iy_band),
+                       _rows(aw_eff), g_seg.permute(0, 3, 1, 2)[:, :, :, None],
+                       h, w, cdt, _rows(_band_row0(bidx, ix, win)), win)
+    # the kernels never visit the padding rows
+    real = segment_rows_t(torch.ones(Q, device=ix.device), segs, TQ) > 0
+    dix, diy, daw = (torch.where(real, t.permute(0, 2, 3, 1), 0.0)
+                     for t in grads)
+    return dtable.permute(0, 2, 1, 3).contiguous(), dix, diy, daw
 
 
 def _exact_forward(value, spatial_shapes, sampling_locations,
@@ -508,6 +583,83 @@ def _windowed_forward(value, spatial_shapes, sampling_locations,
     return out.to(value.dtype)
 
 
+def _windowed_backward(value, sampling_locations, attention_weights,
+                       grad_output, spatial_shapes, window: int,
+                       query_segments, band: str, kernel: bool):
+    """The banded backward (``msda_pallas.py:_msda_win_bwd``). The exact
+    levels go through the exact backward limited to them (K2 + K3, or
+    their plain version), each banded level through the banded rows and
+    value kernels (or their plain version) on its recomputed rows, with the
+    forward's band choice. ``diy`` is masked where the clamp was active and
+    ``daw`` outside the image; ``dvalue`` is summed in float32 and cast to
+    the value dtype once. The int8 forward has this backward too
+    (straight-through, ``msda_pallas.py:1348``)."""
+    if kernel:
+        from . import msda_cuda
+    B, S, H, D = value.shape
+    Q = sampling_locations.shape[1]
+    exact = tuple(lid for lid, (h, _) in enumerate(spatial_shapes)
+                  if h <= window)
+    args = (value, spatial_shapes, sampling_locations, attention_weights,
+            grad_output)
+    if not exact:
+        dvalue = torch.zeros((B, S, H, D), dtype=torch.float32,
+                             device=value.device)
+        dloc = torch.zeros_like(sampling_locations)
+        daw = torch.zeros_like(attention_weights)
+    elif kernel:
+        dloc, daw = msda_cuda.msda_bwd_rows(*args, levels=exact)
+        dvalue = msda_cuda.msda_bwd_value(*args, levels=exact,
+                                          out_dtype=torch.float32)
+    else:
+        dvalue, dloc, daw = ms_deform_attn_plain_bwd(
+            *args, levels=exact, dvalue_dtype=torch.float32)
+    fn = msda_cuda.msda_bwd_win if kernel else msda_bwd_win_plain
+    locT, awT = rows_t(sampling_locations, attention_weights)
+    segs = segment_bounds(Q, query_segments)
+    starts = level_starts(spatial_shapes)
+    for lid, (h, w) in enumerate(spatial_shapes):
+        if h <= window:
+            continue
+        bidx, ix, iy_band, _, aw_eff, inband, in_img = win_level_rows(
+            locT, awT, lid, h, w, window, segs, D, band == "point")
+        level = slice(starts[lid], starts[lid] + h * w)
+        dv, dix, diy, daw_l = fn(value[:, level], bidx, ix, iy_band, aw_eff,
+                                 grad_output, h, w, window, segs, Q)
+        dvalue[:, level] = dv
+        TQ = query_tile(window, D, w)
+        dloc[:, :, :, lid, :, 0] = unsegment_rows(dix, segs, TQ) * w
+        dloc[:, :, :, lid, :, 1] = unsegment_rows(diy * inband, segs, TQ) * h
+        daw[:, :, :, lid] = unsegment_rows(daw_l * in_img, segs, TQ)
+    return dvalue.to(value.dtype), dloc, daw
+
+
+class _MSDeformAttnWin(torch.autograd.Function):
+    """The windowed op with its explicit backward
+    (``msda_pallas.py:msda_pallas_win`` / ``msda_pallas_win_q``). Like the
+    JAX op it saves only (value, loc, aw); the backward recomputes the band
+    choice and the rows (:func:`_windowed_backward`). With ``kernel`` it
+    launches the hand-written kernels both ways, otherwise their plain
+    versions."""
+
+    @staticmethod
+    def forward(ctx, value, sampling_locations, attention_weights,
+                spatial_shapes, window, query_segments, band, int8, kernel):
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        ctx.args = (spatial_shapes, window, query_segments, band, kernel)
+        return _windowed_forward(value, spatial_shapes, sampling_locations,
+                                 attention_weights, window, query_segments,
+                                 band, int8, kernel)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_output):
+        value, loc, aw = ctx.saved_tensors
+        grads = _windowed_backward(value, loc, aw, grad_output.contiguous(),
+                                   *ctx.args)
+        return (*grads, None, None, None, None, None, None)
+
+
 def _matmul_windowed(value, spatial_shapes, sampling_locations,
                      attention_weights, window: int, query_segments,
                      band: str):
@@ -515,7 +667,10 @@ def _matmul_windowed(value, spatial_shapes, sampling_locations,
     coordinates (``egtr_tpu/ops/msda.py:_msda_matmul_windowed``): a second
     oracle for the banded kernels, which never sees a band. Compare in
     float32: in a low-precision dtype the exact plain op rounds the y hats on
-    a level where it contracts y, the banded path always the x hats."""
+    a level where it contracts y, the banded path always the x hats. Its
+    gradient is autograd's through the clamp (``windowed_level_coords``)
+    chained into the exact op's explicit backward, as JAX differentiates
+    ``_msda_matmul_windowed``."""
     D = value.shape[3]
     Q = sampling_locations.shape[1]
     locs, aws = [], []
@@ -532,7 +687,22 @@ def _matmul_windowed(value, spatial_shapes, sampling_locations,
         aws.append(aw_l.float())
     loc = torch.stack(locs, dim=3).to(sampling_locations.dtype)
     aw = torch.stack(aws, dim=3).to(attention_weights.dtype)
-    return ms_deform_attn_plain(value, spatial_shapes, loc, aw)
+    return _exact_op(value, spatial_shapes, loc, aw, False, False)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _exact_op(value, spatial_shapes, sampling_locations, attention_weights,
+              kernel: bool, int8: bool):
+    """The op without a window: through :class:`_MSDeformAttn` where
+    autograd needs a gradient, else the bare forward."""
+    tensors = (value, sampling_locations, attention_weights)
+    if _needs_grad(*tensors):
+        return _MSDeformAttn.apply(*tensors, spatial_shapes, kernel, int8)
+    return _exact_forward(value, spatial_shapes, sampling_locations,
+                          attention_weights, kernel, int8)
 
 
 def _takes_kernels(impl: str, value: torch.Tensor) -> bool:
@@ -566,9 +736,11 @@ def ms_deform_attn(value: torch.Tensor,
     the kernels and is refused with "matmul" and "gather".
 
     Where autograd needs a gradient the call goes through
-    :class:`_MSDeformAttn`; the int8 op has the exact op's gradient. The
-    gradient of a call with a banded level is not ported yet (the JAX
-    package's kernels K7-K10) and raises NotImplementedError.
+    :class:`_MSDeformAttn` (no banded level) or :class:`_MSDeformAttnWin`
+    (the banded backward kernels K7-K10 on CUDA tensors with "auto" and
+    "pallas", their plain version otherwise); the int8 op has the gradient
+    of the op without int8 (straight-through). "matmul" with a window is
+    differentiated through its clamp, as in the JAX package.
     """
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     if len(spatial_shapes) != sampling_locations.shape[3]:
@@ -587,23 +759,19 @@ def ms_deform_attn(value: torch.Tensor,
             "it (drop int8 or use impl='pallas'/'auto')")
     kernel = _takes_kernels(impl, value)
     tensors = (value, sampling_locations, attention_weights)
-    needs_grad = torch.is_grad_enabled() and any(
-        t.requires_grad for t in tensors)
     if window > 0 and impl == "gather":
         raise ValueError("windowed MSDA is not supported on the gather path")
     if window > 0 and any(h > window for h, _ in spatial_shapes):
-        if needs_grad:
-            raise NotImplementedError(
-                "the gradient of windowed MSDA (the banded backward kernels "
-                "K7-K10 of egtr_tpu/ops/msda_pallas.py) is not ported yet; "
-                "run it under torch.no_grad() or with msda_window=0")
         if impl == "matmul":
-            return _matmul_windowed(*tensors[:1], spatial_shapes,
-                                    *tensors[1:], window, query_segments, band)
-        return _windowed_forward(*tensors[:1], spatial_shapes, *tensors[1:],
-                                 window, query_segments, band, int8, kernel)
+            return _matmul_windowed(value, spatial_shapes, sampling_locations,
+                                    attention_weights, window, query_segments,
+                                    band)
+        if _needs_grad(*tensors):
+            return _MSDeformAttnWin.apply(*tensors, spatial_shapes, window,
+                                          query_segments, band, int8, kernel)
+        return _windowed_forward(value, spatial_shapes, sampling_locations,
+                                 attention_weights, window, query_segments,
+                                 band, int8, kernel)
     # no level is banded: the op without a window
-    if needs_grad:
-        return _MSDeformAttn.apply(*tensors, spatial_shapes, kernel, int8)
-    return _exact_forward(*tensors[:1], spatial_shapes, *tensors[1:], kernel,
-                          int8)
+    return _exact_op(value, spatial_shapes, sampling_locations,
+                     attention_weights, kernel, int8)

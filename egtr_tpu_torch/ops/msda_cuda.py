@@ -1,6 +1,6 @@
 """Wrappers, build step and launch counters of the hand-written MSDA kernels.
 
-Six kernels, in four sources under ``egtr_tpu_torch/csrc``, replace the JAX
+Ten kernels, in five sources under ``egtr_tpu_torch/csrc``, replace the JAX
 package's Pallas kernels:
 
 - ``msda_fwd`` (``msda_fwd.cu``) replaces ``msda_pallas.py:_fwd_kernel``;
@@ -13,7 +13,13 @@ package's Pallas kernels:
 - ``msda_fwd_win`` and ``msda_fwd_win_pp`` (``msda_fwd_win.cu``) replace
   ``_fwd_kernel_win`` and ``_fwd_kernel_win_pp``: one banded level with one
   band per query tile, or one per (sampling point, tile), each with float32,
-  bfloat16 or int8 values.
+  bfloat16 or int8 values;
+- ``msda_bwd_win_rows`` and ``msda_bwd_win_rows_pp`` (``msda_bwd_win.cu``)
+  replace ``_bwd_rows_kernel_win`` and ``_bwd_rows_kernel_win_pp``: the row
+  gradients of one banded level;
+- ``msda_bwd_win_value`` and ``msda_bwd_win_value_pp`` (``msda_bwd_win.cu``)
+  replace ``_bwd_dvtt_kernel_win`` and ``_bwd_dvtt_kernel_win_pp``: the value
+  gradient of one banded level, with float32 atomics.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes``. The libraries are built
@@ -24,8 +30,9 @@ a hash of its source and the compiler flags, so an edited source is rebuilt.
 There is no fallback: if ``nvcc`` is missing or a build fails, a call on
 CUDA tensors raises. The plain versions (``msda.ms_deform_attn_plain``,
 ``msda.ms_deform_attn_plain_bwd``, ``msda.msda_fwd_q_plain``,
-``msda.msda_fwd_win_plain``) run for CPU tensors, or where the caller asks
-for them by name, through the dispatch in ``msda.ms_deform_attn``.
+``msda.msda_fwd_win_plain``, ``msda.msda_bwd_win_plain``) run for CPU
+tensors, or where the caller asks for them by name, through the dispatch in
+``msda.ms_deform_attn``.
 """
 
 from __future__ import annotations
@@ -50,11 +57,12 @@ SOURCE = _CSRC / "msda_fwd.cu"
 SOURCE_BWD = _CSRC / "msda_bwd.cu"
 SOURCE_Q = _CSRC / "msda_fwd_q.cu"
 SOURCE_WIN = _CSRC / "msda_fwd_win.cu"
+SOURCE_BWD_WIN = _CSRC / "msda_bwd_win.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 MAX_LEVELS = 8  # MSDA_MAX_LEVELS in the sources
-MAX_SEGMENTS = 8  # MSDA_MAX_SEGMENTS in msda_fwd_win.cu
+MAX_SEGMENTS = 8  # MSDA_MAX_SEGMENTS in msda_fwd_win.cu, msda_bwd_win.cu
 
 # Kernel launches since each count was last set to 0; a wrapper raises its
 # kernel's count by one per launch and nowhere else. chip_smoke.py reads them
@@ -65,6 +73,10 @@ bwd_value_launches = 0  # msda_bwd_value
 fwd_q_launches = 0      # msda_fwd_q
 fwd_win_launches = 0    # msda_fwd_win (float and int8 forms)
 fwd_win_pp_launches = 0  # msda_fwd_win_pp (float and int8 forms)
+bwd_win_rows_launches = 0      # msda_bwd_win_rows
+bwd_win_rows_pp_launches = 0   # msda_bwd_win_rows_pp
+bwd_win_value_launches = 0     # msda_bwd_win_value
+bwd_win_value_pp_launches = 0  # msda_bwd_win_value_pp
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -73,7 +85,8 @@ _lib_lock = threading.Lock()
 def sources() -> Dict[str, Path]:
     """Library name -> its source."""
     return {"msda_fwd": SOURCE, "msda_bwd": SOURCE_BWD,
-            "msda_fwd_q": SOURCE_Q, "msda_fwd_win": SOURCE_WIN}
+            "msda_fwd_q": SOURCE_Q, "msda_fwd_win": SOURCE_WIN,
+            "msda_bwd_win": SOURCE_BWD_WIN}
 
 
 def _nvcc() -> str:
@@ -140,6 +153,10 @@ def build() -> Dict[str, Path]:
 _VOID_P, _INT = ctypes.c_void_p, ctypes.c_int
 _WIN_ARGS = ([_VOID_P] * 6 + [ctypes.POINTER(_INT)] + [_INT] * 11
              + [ctypes.c_long, _INT, _VOID_P])
+_BWD_WIN_ROWS_ARGS = ([_VOID_P] * 9 + [ctypes.POINTER(_INT)] + [_INT] * 11
+                      + [ctypes.c_long, _INT, _VOID_P])
+_BWD_WIN_VALUE_ARGS = ([_VOID_P] * 6 + [ctypes.POINTER(_INT)] + [_INT] * 12
+                       + [_VOID_P])
 # per exported function: its library and its C argument types
 _FUNCTIONS = {
     "msda_fwd": ("msda_fwd", [_VOID_P] * 4 + [ctypes.POINTER(_INT)]
@@ -149,9 +166,13 @@ _FUNCTIONS = {
     "msda_fwd_win": ("msda_fwd_win", _WIN_ARGS),
     "msda_fwd_win_pp": ("msda_fwd_win", _WIN_ARGS),
     "msda_bwd_rows": ("msda_bwd", [_VOID_P] * 6 + [ctypes.POINTER(_INT)]
-                      + [_INT] * 8 + [_VOID_P]),
+                      + [_INT] * 9 + [_VOID_P]),
     "msda_bwd_value": ("msda_bwd", [_VOID_P] * 4 + [ctypes.POINTER(_INT)]
-                       + [_INT] * 8 + [_VOID_P]),
+                       + [_INT] * 9 + [_VOID_P]),
+    "msda_bwd_win_rows": ("msda_bwd_win", _BWD_WIN_ROWS_ARGS),
+    "msda_bwd_win_rows_pp": ("msda_bwd_win", _BWD_WIN_ROWS_ARGS),
+    "msda_bwd_win_value": ("msda_bwd_win", _BWD_WIN_VALUE_ARGS),
+    "msda_bwd_win_value_pp": ("msda_bwd_win", _BWD_WIN_VALUE_ARGS),
 }
 
 
@@ -216,13 +237,18 @@ def _check_shapes(value, spatial_shapes, sampling_locations,
 
 
 def level_table(spatial_shapes: Sequence[Tuple[int, int]], D: int,
-                dtype: torch.dtype) -> List[int]:
-    """Per level (h, w, start token, round the y weights) for the kernel."""
-    table, start = [], 0
-    for h, w in spatial_shapes:
-        round_y = dtype != torch.float32 and _orient(h, w, D) == "y"
-        table += [h, w, start, int(round_y)]
-        start += h * w
+                levels: Tuple[int, ...], rounds: bool) -> List[int]:
+    """Per summed (or differentiated) level: h, w, start token, round the y
+    weights, index into the L axis of the locations. ``rounds``: stage 1
+    rounds its hats at all (a low-precision dtype, or int8), and then those
+    of y on a level that contracts y; the backward kernels read no rounding
+    flag (they always round the x hats)."""
+    starts = level_starts(spatial_shapes)
+    table = []
+    for lid in levels:
+        h, w = spatial_shapes[lid]
+        round_y = rounds and _orient(h, w, D) == "y"
+        table += [h, w, starts[lid], int(round_y), lid]
     return table
 
 
@@ -233,8 +259,9 @@ def _one_cuda_device(name: str, tensors) -> None:
                          f"{[str(t.device) for t in tensors]}")
 
 
-def _levels_arg(spatial_shapes, D: int, dtype: torch.dtype):
-    table = level_table(spatial_shapes, D, dtype)
+def _levels_arg(spatial_shapes, D: int, levels: Tuple[int, ...],
+                rounds: bool):
+    table = level_table(spatial_shapes, D, levels, rounds)
     return (ctypes.c_int * len(table))(*table)
 
 
@@ -246,21 +273,6 @@ def _check_levels(levels, L: int) -> Tuple[int, ...]:
         raise ValueError(f"levels must be distinct indices into the {L} "
                          f"levels, got {levels}")
     return levels
-
-
-def _fwd_levels_arg(spatial_shapes, D: int, levels: Tuple[int, ...],
-                    rounds: bool):
-    """Per summed level (h, w, start token, round the y weights, index into
-    the L axis of the locations) for the forward kernels. ``rounds``: stage 1
-    rounds its hats at all (a low-precision dtype, or int8), and then those
-    of y on a level that contracts y."""
-    starts = level_starts(spatial_shapes)
-    table = []
-    for lid in levels:
-        h, w = spatial_shapes[lid]
-        round_y = rounds and _orient(h, w, D) == "y"
-        table += [h, w, starts[lid], int(round_y), lid]
-    return (ctypes.c_int * len(table))(*table)
 
 
 def _refuse_grad(name: str, tensors) -> None:
@@ -300,8 +312,8 @@ def msda_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
     out = torch.empty((B, Q, H * D), dtype=out_dtype, device=value.device)
     if out.numel() == 0:
         return out
-    table = _fwd_levels_arg(spatial_shapes, D, levels,
-                            value.dtype != torch.float32)
+    table = _levels_arg(spatial_shapes, D, levels,
+                        value.dtype != torch.float32)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(value.data_ptr(), sampling_locations.data_ptr(),
@@ -360,7 +372,7 @@ def msda_fwd_q(vq: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((B, Q, H * D), dtype=torch.float32, device=vq.device)
     if out.numel() == 0:
         return out
-    table = _fwd_levels_arg(spatial_shapes, D, levels, True)
+    table = _levels_arg(spatial_shapes, D, levels, True)
     with torch.cuda.device(vq.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(vq.data_ptr(), scale.data_ptr(),
@@ -518,29 +530,34 @@ def _bwd_args(name, value, spatial_shapes, sampling_locations,
 def msda_bwd_rows(value: torch.Tensor,
                   spatial_shapes: Sequence[Tuple[int, int]],
                   sampling_locations: torch.Tensor,
-                  attention_weights: torch.Tensor, grad_output: torch.Tensor
+                  attention_weights: torch.Tensor, grad_output: torch.Tensor,
+                  levels: Optional[Sequence[int]] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the row-gradient kernel: ``(dloc [B,Q,H,L,P,2] float32,
     daw [B,Q,H,L,P] in the weights' dtype)``, as the last two results of
-    ``msda.ms_deform_attn_plain_bwd``. Deterministic."""
+    ``msda.ms_deform_attn_plain_bwd``, ``levels`` included (the other
+    levels' entries are zero). Deterministic."""
     global bwd_rows_launches
     spatial_shapes = _bwd_args("msda_bwd_rows", value, spatial_shapes,
                                sampling_locations, attention_weights,
                                grad_output)
     B, S, H, D = value.shape
     _, Q, _, L, P, _ = sampling_locations.shape
+    levels = _check_levels(levels, L)
     fn = _function("msda_bwd_rows")
-    dloc = torch.empty_like(sampling_locations)
-    daw = torch.empty_like(attention_weights)
+    # the kernel writes the entries of its levels only
+    alloc = torch.empty_like if len(levels) == L else torch.zeros_like
+    dloc = alloc(sampling_locations)
+    daw = alloc(attention_weights)
     if daw.numel() == 0:
         return dloc, daw
-    levels = _levels_arg(spatial_shapes, D, value.dtype)
+    table = _levels_arg(spatial_shapes, D, levels, False)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(value.data_ptr(), sampling_locations.data_ptr(),
                 attention_weights.data_ptr(), grad_output.data_ptr(),
-                dloc.data_ptr(), daw.data_ptr(), levels, L, B, S, Q, H, D, P,
-                int(value.dtype == torch.bfloat16), stream)
+                dloc.data_ptr(), daw.data_ptr(), table, len(levels), L, B, S,
+                Q, H, D, P, int(value.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(
             f"msda_bwd_rows kernel launch failed: CUDA error {rc}")
@@ -551,10 +568,13 @@ def msda_bwd_rows(value: torch.Tensor,
 def msda_bwd_value(value: torch.Tensor,
                    spatial_shapes: Sequence[Tuple[int, int]],
                    sampling_locations: torch.Tensor,
-                   attention_weights: torch.Tensor, grad_output: torch.Tensor
-                   ) -> torch.Tensor:
+                   attention_weights: torch.Tensor, grad_output: torch.Tensor,
+                   levels: Optional[Sequence[int]] = None,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Launch the value-gradient kernel: ``dvalue [B,S,H,D]`` in the value
-    dtype, as the first result of ``msda.ms_deform_attn_plain_bwd``.
+    dtype, as the first result of ``msda.ms_deform_attn_plain_bwd``;
+    ``levels`` restricts it to those levels (zero elsewhere), ``out_dtype``
+    float32 returns the float32 sum as it is (``dvalue_dtype`` there).
 
     The kernel adds into a zeroed float32 buffer with atomics, which is cast
     to the value dtype once at the end; the order of the additions, and with
@@ -567,21 +587,26 @@ def msda_bwd_value(value: torch.Tensor,
                                grad_output)
     B, S, H, D = value.shape
     _, Q, _, L, P, _ = sampling_locations.shape
+    levels = _check_levels(levels, L)
+    out_dtype = value.dtype if out_dtype is None else out_dtype
+    if out_dtype not in (value.dtype, torch.float32):
+        raise TypeError(f"out_dtype must be {value.dtype} or float32, got "
+                        f"{out_dtype}")
     fn = _function("msda_bwd_value")
     acc = torch.zeros((B, S, H, D), dtype=torch.float32, device=value.device)
     if acc.numel() == 0 or Q == 0:
-        return acc.to(value.dtype)
-    levels = _levels_arg(spatial_shapes, D, value.dtype)
+        return acc.to(out_dtype)
+    table = _levels_arg(spatial_shapes, D, levels, False)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(sampling_locations.data_ptr(), attention_weights.data_ptr(),
-                grad_output.data_ptr(), acc.data_ptr(), levels, L, B, S, Q, H,
-                D, P, int(value.dtype == torch.bfloat16), stream)
+                grad_output.data_ptr(), acc.data_ptr(), table, len(levels), L,
+                B, S, Q, H, D, P, int(value.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(
             f"msda_bwd_value kernel launch failed: CUDA error {rc}")
     bwd_value_launches += 1
-    return acc.to(value.dtype)
+    return acc.to(out_dtype)
 
 
 def msda_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
@@ -595,3 +620,150 @@ def msda_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
     dvalue = msda_bwd_value(value, spatial_shapes, sampling_locations,
                             attention_weights, grad_output)
     return dvalue, dloc, daw
+
+
+def check_inputs_bwd_win(value_l: torch.Tensor, bidx: torch.Tensor,
+                         ix: torch.Tensor, iy_band: torch.Tensor,
+                         aw_eff: torch.Tensor, g: torch.Tensor, h: int,
+                         w: int, win: int, segs: Segments, Q: int,
+                         per_point: bool) -> int:
+    """Raise on anything the banded backward kernels do not take (device
+    aside): the banded forward's inputs with float32 or bfloat16 values, and
+    ``g`` contiguous [B, Q, H*D] in the value dtype. Returns the tile TQ."""
+    if value_l.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("the banded backward takes float32 or bfloat16 "
+                        f"values, got {value_l.dtype}")
+    TQ = check_inputs_win(value_l, bidx, ix, iy_band, aw_eff, h, w, win, segs,
+                          Q, per_point)
+    B, _, H, D = value_l.shape
+    if tuple(g.shape) != (B, Q, H * D):
+        raise ValueError(f"g must be [B,Q,H*D] = [{B},{Q},{H * D}], got "
+                         f"{tuple(g.shape)}")
+    if g.dtype != value_l.dtype:
+        raise TypeError(f"g must have the value dtype {value_l.dtype}, got "
+                        f"{g.dtype}")
+    if not g.is_contiguous():
+        raise ValueError("g must be contiguous")
+    if max(B * h * w * H * D, g.numel()) >= 2 ** 31:
+        raise ValueError("tensors of 2**31 or more elements are not supported")
+    return TQ
+
+
+def _bwd_win_launch(name: str, per_point: bool, rows: bool, value_l, bidx, ix,
+                    iy_band, aw_eff, g, h: int, w: int, win: int,
+                    segs: Segments, Q: int):
+    """Check, allocate and launch for the four banded backward kernels.
+    Returns (outputs, launched): (dix, diy, daw) rows for a rows kernel,
+    (dvalue_l,) for a value kernel."""
+    tensors = (value_l, bidx, ix, iy_band, aw_eff, g)
+    _one_cuda_device(name, tensors)
+    h, w, win, Q = int(h), int(w), int(win), int(Q)
+    segs = tuple((int(q0), int(qs)) for q0, qs in segs)
+    TQ = check_inputs_bwd_win(value_l, bidx, ix, iy_band, aw_eff, g, h, w,
+                              win, segs, Q, per_point)
+    B, _, H, D = value_l.shape
+    P, Qp = ix.shape[2:]
+    fn = _function(name)
+    # the kernels never visit the padding rows, which stay zero
+    outs = ((torch.zeros_like(ix), torch.zeros_like(ix), torch.zeros_like(ix))
+            if rows else (torch.zeros((B, h * w, H, D), dtype=torch.float32,
+                                      device=ix.device),))
+    if B * H * Q == 0:
+        return outs, False
+    table = [v for (q0, _), qp0 in zip(segs, padded_starts(segs, TQ))
+             for v in (q0, qp0)]
+    geometry = ((ctypes.c_int * len(table))(*table), len(segs), B, Q, Qp, H,
+                D, P, h, w, win, TQ)
+    is_bf16 = int(value_l.dtype == torch.bfloat16)
+    with torch.cuda.device(ix.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if rows:
+            rc = fn(value_l.data_ptr(), bidx.data_ptr(), ix.data_ptr(),
+                    iy_band.data_ptr(), aw_eff.data_ptr(), g.data_ptr(),
+                    *(t.data_ptr() for t in outs), *geometry,
+                    value_l.stride(0), is_bf16, stream)
+        else:
+            rc = fn(bidx.data_ptr(), ix.data_ptr(), iy_band.data_ptr(),
+                    aw_eff.data_ptr(), g.data_ptr(), outs[0].data_ptr(),
+                    *geometry, is_bf16, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return outs, True
+
+
+def msda_bwd_win_rows(value_l: torch.Tensor, bidx: torch.Tensor,
+                      ix: torch.Tensor, iy_band: torch.Tensor,
+                      aw_eff: torch.Tensor, g: torch.Tensor, h: int, w: int,
+                      win: int, segs: Segments, Q: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the banded row-gradient kernel with one band per query tile
+    (``bidx`` [B, H, T]): ``(dix, diy, daw)`` float32 [B, H, P, Q_pad], as
+    the last three results of ``msda.msda_bwd_win_plain``. Deterministic."""
+    global bwd_win_rows_launches
+    outs, launched = _bwd_win_launch("msda_bwd_win_rows", False, True,
+                                     value_l, bidx, ix, iy_band, aw_eff, g, h,
+                                     w, win, segs, Q)
+    bwd_win_rows_launches += int(launched)
+    return outs
+
+
+def msda_bwd_win_rows_pp(value_l: torch.Tensor, bidx: torch.Tensor,
+                         ix: torch.Tensor, iy_band: torch.Tensor,
+                         aw_eff: torch.Tensor, g: torch.Tensor, h: int,
+                         w: int, win: int, segs: Segments, Q: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """:func:`msda_bwd_win_rows` with one band per (sampling point, query
+    tile) (``bidx`` [B, H, P, T])."""
+    global bwd_win_rows_pp_launches
+    outs, launched = _bwd_win_launch("msda_bwd_win_rows_pp", True, True,
+                                     value_l, bidx, ix, iy_band, aw_eff, g, h,
+                                     w, win, segs, Q)
+    bwd_win_rows_pp_launches += int(launched)
+    return outs
+
+
+def msda_bwd_win_value(value_l: torch.Tensor, bidx: torch.Tensor,
+                       ix: torch.Tensor, iy_band: torch.Tensor,
+                       aw_eff: torch.Tensor, g: torch.Tensor, h: int, w: int,
+                       win: int, segs: Segments, Q: int) -> torch.Tensor:
+    """Launch the banded value-gradient kernel with one band per query tile
+    (``bidx`` [B, H, T]): ``dvalue_l`` float32 [B, h*w, H, D], the first
+    result of ``msda.msda_bwd_win_plain``. float32 atomics: the last bits
+    vary from run to run. ``value_l`` gives the shape and dtype only."""
+    global bwd_win_value_launches
+    outs, launched = _bwd_win_launch("msda_bwd_win_value", False, False,
+                                     value_l, bidx, ix, iy_band, aw_eff, g, h,
+                                     w, win, segs, Q)
+    bwd_win_value_launches += int(launched)
+    return outs[0]
+
+
+def msda_bwd_win_value_pp(value_l: torch.Tensor, bidx: torch.Tensor,
+                          ix: torch.Tensor, iy_band: torch.Tensor,
+                          aw_eff: torch.Tensor, g: torch.Tensor, h: int,
+                          w: int, win: int, segs: Segments, Q: int
+                          ) -> torch.Tensor:
+    """:func:`msda_bwd_win_value` with one band per (sampling point, query
+    tile) (``bidx`` [B, H, P, T])."""
+    global bwd_win_value_pp_launches
+    outs, launched = _bwd_win_launch("msda_bwd_win_value_pp", True, False,
+                                     value_l, bidx, ix, iy_band, aw_eff, g, h,
+                                     w, win, segs, Q)
+    bwd_win_value_pp_launches += int(launched)
+    return outs[0]
+
+
+def msda_bwd_win(value_l: torch.Tensor, bidx: torch.Tensor, ix: torch.Tensor,
+                 iy_band: torch.Tensor, aw_eff: torch.Tensor, g: torch.Tensor,
+                 h: int, w: int, win: int, segs: Segments, Q: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """Both banded backward kernels of one level, per tile or per point as
+    ``bidx`` says: ``(dvalue_l, dix, diy, daw)``, the contract of
+    ``msda.msda_bwd_win_plain``."""
+    per_point = bidx.dim() == 4
+    args = (value_l, bidx, ix, iy_band, aw_eff, g, h, w, win, segs, Q)
+    rows = msda_bwd_win_rows_pp if per_point else msda_bwd_win_rows
+    value = msda_bwd_win_value_pp if per_point else msda_bwd_win_value
+    return (value(*args), *rows(*args))

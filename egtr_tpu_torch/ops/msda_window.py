@@ -2,8 +2,11 @@
 
 PyTorch port of ``egtr_tpu/ops/msda_window.py``: band geometry, query
 segmentation, runtime band selection and the coordinate transform shared by
-the banded CUDA kernels (``msda_cuda.msda_fwd_win`` / ``msda_fwd_win_pp``),
-their plain versions and the matmul oracle (``msda.py``).
+the banded CUDA kernels (forward ``msda_cuda.msda_fwd_win`` /
+``msda_fwd_win_pp``, backward ``msda_cuda.msda_bwd_win_rows`` /
+``msda_bwd_win_value`` and their per-point forms), their plain versions and
+the matmul oracle (``msda.py``). The backward recomputes the band choice from
+the same inputs with the same tile, so it clamps as the forward did.
 
 A level taller than the window is viewed as overlapping y-bands of height
 ``win`` (stride ``win/2``). Encoder queries are raster-ordered, so a tile of
@@ -117,6 +120,13 @@ def unsegment_cols(out: torch.Tensor, segs: Segments, TQ: int) -> torch.Tensor:
     parts = [out[..., qp0:qp0 + qs]
              for qp0, (_, qs) in zip(starts, segs)]
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def segment_cols(g: torch.Tensor, segs: Segments, TQ: int) -> torch.Tensor:
+    """[B, H, D, Q] -> [B, H, D, Q_pad_total]: the inverse of
+    :func:`unsegment_cols` (the output gradient of a banded level, laid out
+    as its rows; the padding is zero)."""
+    return segment_rows_t(g, segs, TQ)
 
 
 def unsegment_rows(rows: torch.Tensor, segs: Segments, TQ: int) -> torch.Tensor:

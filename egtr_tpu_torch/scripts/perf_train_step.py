@@ -9,6 +9,15 @@ random weights, and prints the time per step as one JSON line.
 
     python -m egtr_tpu_torch.scripts.perf_train_step [--batch 2] [--iters 5]
         [--accum 1] [--msda-impl auto] [--profile K] [--device cpu]
+        [--config PATH] [--window N] [--band tile|point] [--int8]
+
+``--config PATH`` takes the configuration of a ``config.json`` instead of
+the recipe's, e.g. the band-adaptation fine-tune's
+(``experiments/trained_offsets/adapt_w16p/artifact/config.json``, which
+``adapt_config`` presets: window 16, one band per point, no auxiliary
+losses; its run took batch 4 at 608x1008). ``--window``, ``--band`` and
+``--int8`` override the banded-MSDA settings (``--window 0``: the exact
+op).
 
 It runs on the GPU unless ``--device cpu`` is given (and raises where CUDA
 is absent). ``--profile K`` adds a torch.profiler breakdown of K more steps:
@@ -39,6 +48,17 @@ from ..train.train_step import make_train_step
 BUCKET_HW = (800, 1344)
 BOXES_PER_IMAGE = 12
 LRS = dict(lr=2e-6, lr_backbone=2e-7, lr_initialized=2e-4)
+# the band-adaptation fine-tune (egtr_tpu's scripts/exp_trained_offsets.py
+# train --window 16 --band point) that made the weights behind the JAX
+# package's serving default: experiments/trained_offsets/adapt_w16p, its
+# artifact/config.json (the fields that differ from the defaults) and the
+# batch, size 600/1000 and learning rates of its train_log.jsonl header
+ADAPT_CONFIG = dict(num_queries=200, num_labels=6, num_rel_labels=4,
+                    compute_dtype="bfloat16", max_gt_boxes=16, max_gt_rels=64,
+                    msda_window=16, msda_band="point")
+ADAPT_BATCH = 4
+ADAPT_HW = (608, 1008)
+ADAPT_LRS = dict(lr=3e-5, lr_backbone=2e-5, lr_initialized=None)
 TINY = dict(d_model=64, encoder_layers=2, decoder_layers=2,
             encoder_ffn_dim=128, decoder_ffn_dim=128, num_queries=20,
             num_labels=7, num_rel_labels=8, max_gt_boxes=16, max_gt_rels=8)
@@ -52,15 +72,22 @@ def train_config(**kw) -> EgtrConfig:
     return EgtrConfig(**base)
 
 
+def adapt_config(**kw) -> EgtrConfig:
+    """The adaptation fine-tune's configuration (``ADAPT_CONFIG``; dropout
+    0.1 and no auxiliary losses are the defaults)."""
+    return EgtrConfig(**{**ADAPT_CONFIG, **kw})
+
+
 def synthetic_batch(cfg: EgtrConfig, B: int, H: int, W: int, device,
                     seed: int = 0) -> dict:
     """The JAX probe's batch from numpy's generator: normal pixels, a full
-    mask, ``BOXES_PER_IMAGE`` boxes and two relations per image."""
+    mask, ``BOXES_PER_IMAGE`` boxes and two relations per image, of the
+    predicates 1 and 7 (modulo the number of predicates)."""
     rng = np.random.default_rng(seed)
-    G = cfg.max_gt_boxes
-    rel = np.zeros((B, G, G, cfg.num_rel_labels), np.float32)
-    rel[:, 0, 1, 1] = 1.0
-    rel[:, 2, 3, 7] = 1.0
+    G, R = cfg.max_gt_boxes, cfg.num_rel_labels
+    rel = np.zeros((B, G, G, R), np.float32)
+    rel[:, 0, 1, 1 % R] = 1.0
+    rel[:, 2, 3, 7 % R] = 1.0
     batch = {
         "pixel_values": rng.standard_normal((B, H, W, 3)).astype(np.float32),
         "pixel_mask": np.ones((B, H, W), bool),
@@ -80,14 +107,15 @@ def synthetic_batch(cfg: EgtrConfig, B: int, H: int, W: int, device,
     return put(batch)
 
 
-def build(cfg: EgtrConfig, device=None, seed: int = 0
+def build(cfg: EgtrConfig, device=None, seed: int = 0, lrs: dict = LRS
           ) -> Tuple[EgtrModel, Optimizer, torch.Generator]:
-    """A seeded random-weight model, its optimizer at the recipe's learning
-    rates, and the step's generator, all on ``device``."""
+    """A seeded random-weight model, its optimizer at the learning rates
+    ``lrs`` (the recipe's by default), and the step's generator, all on
+    ``device``."""
     device = resolve_device(device)
     model = init_params(EgtrModel(cfg), torch.Generator().manual_seed(seed))
     model = model.to(device)
-    optimizer = make_optimizer(model, **LRS)
+    optimizer = make_optimizer(model, **lrs)
     generator = torch.Generator(device=device).manual_seed(seed + 1)
     return model, optimizer, generator
 
@@ -201,7 +229,15 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--width", type=int, default=BUCKET_HW[1])
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--accum", type=int, default=1)
-    ap.add_argument("--msda-impl", default="auto")
+    ap.add_argument("--msda-impl", default=None,
+                    help="default: the configuration's (auto)")
+    ap.add_argument("--config", default=None, metavar="PATH",
+                    help="the configuration of a config.json")
+    ap.add_argument("--window", type=int, default=None,
+                    help="banded-MSDA window height (0 = exact)")
+    ap.add_argument("--band", default=None, choices=["tile", "point"],
+                    help="band selection granularity for windowed MSDA")
+    ap.add_argument("--int8", action="store_true", help="int8 stage-1 MSDA")
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises where CUDA is absent)")
     ap.add_argument("--profile", type=int, default=0, metavar="K",
@@ -212,7 +248,16 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     device = resolve_device(args.device)
     kw = dict(TINY, compute_dtype="float32") if args.tiny else {}
-    cfg = train_config(msda_impl=args.msda_impl, **kw)
+    for key, value in (("msda_impl", args.msda_impl),
+                       ("msda_window", args.window),
+                       ("msda_band", args.band),
+                       ("msda_int8", args.int8 or None)):
+        if value is not None:
+            kw[key] = value
+    if args.config:
+        cfg = EgtrConfig.load(args.config).replace(**kw)
+    else:
+        cfg = train_config(**kw)
     model, optimizer, generator = build(cfg, device)
     batch = synthetic_batch(cfg, args.batch, args.height, args.width, device)
     step = make_train_step(model, cfg, optimizer, task="sgg",
@@ -226,7 +271,10 @@ def main(argv: Optional[List[str]] = None) -> None:
                    else "cpu"),
         "batch": args.batch, "accum": args.accum,
         "image_hw": [args.height, args.width],
-        "msda_impl": args.msda_impl, "compute_dtype": cfg.compute_dtype,
+        "config": args.config or "recipe",
+        "msda_impl": cfg.msda_impl, "msda_window": cfg.msda_window,
+        "msda_band": cfg.msda_band, "msda_int8": cfg.msda_int8,
+        "compute_dtype": cfg.compute_dtype,
         "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
         "first_step_ms": first[0], "ms_per_step": times,
         "mean_ms": sum(times) / len(times),

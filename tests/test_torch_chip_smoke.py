@@ -4,8 +4,10 @@ The script needs a CUDA card, so here the card is faked: each CUDA kernel is
 replaced by a counting call of its plain version, CUDA events by host
 clocks, the 608x1008 and 800x1344 buckets and the bench and train models by
 a 272x96 image (levels of 34, 17, 9 and 5 rows, so that a window of 16 bands
-two levels and leaves two exact, as at 608x1008) and 2+2-layer models. What
-this checks is the script itself:
+two levels and leaves two exact, as at 608x1008), the adaptation's bucket by
+a 144x96 image (levels of 18, 9, 5 and 3 rows: one banded; no level one
+pixel wide, where PyTorch's bfloat16 convolution on the CPU reads memory it
+did not write) and 2+2-layer models. What this checks is the script itself:
 its phases run in order, the launch counts it demands match what the model
 and the train step make, and it ends with the result line. The kernels' own
 checks run only on the card.
@@ -69,16 +71,26 @@ def fake_card(monkeypatch, tmp_path):
         msda_cuda.fwd_win_pp_launches += 1
         return msda.msda_fwd_win_plain(*args)
 
-    def bwd_rows(value, shapes, loc, aw, g):
+    def bwd_rows(value, shapes, loc, aw, g, levels=None):
         msda_cuda.check_inputs(value, tuple(shapes), loc, aw)
         msda_cuda.check_grad_output(value, loc, g)
         msda_cuda.bwd_rows_launches += 1
-        return msda.ms_deform_attn_plain_bwd(value, shapes, loc, aw, g)[1:]
+        return msda.ms_deform_attn_plain_bwd(value, shapes, loc, aw, g,
+                                             levels)[1:]
 
-    def bwd_value(value, shapes, loc, aw, g):
+    def bwd_value(value, shapes, loc, aw, g, levels=None, out_dtype=None):
         msda_cuda.check_grad_output(value, loc, g)
         msda_cuda.bwd_value_launches += 1
-        return msda.ms_deform_attn_plain_bwd(value, shapes, loc, aw, g)[0]
+        return msda.ms_deform_attn_plain_bwd(value, shapes, loc, aw, g,
+                                             levels, out_dtype)[0]
+
+    def bwd_win(counter, per_point, part):
+        def kernel(*args):
+            msda_cuda.check_inputs_bwd_win(*args, per_point=per_point)
+            setattr(msda_cuda, counter, getattr(msda_cuda, counter) + 1)
+            out = msda.msda_bwd_win_plain(*args)
+            return out[0] if part == "value" else out[1:]
+        return kernel
 
     bench_config = infer.bench_config
     train_config = perf_train_step.train_config
@@ -95,6 +107,13 @@ def fake_card(monkeypatch, tmp_path):
     monkeypatch.setattr(msda_cuda, "msda_fwd_q", fwd_q)
     monkeypatch.setattr(msda_cuda, "msda_fwd_win", fwd_win)
     monkeypatch.setattr(msda_cuda, "msda_fwd_win_pp", fwd_win_pp)
+    for name, per_point in (("msda_bwd_win_rows", False),
+                            ("msda_bwd_win_rows_pp", True),
+                            ("msda_bwd_win_value", False),
+                            ("msda_bwd_win_value_pp", True)):
+        part = "value" if "value" in name else "rows"
+        monkeypatch.setattr(msda_cuda, name, bwd_win(
+            chip_smoke.KERNEL_COUNTERS[name], per_point, part))
     # the dispatch takes the (faked) kernels for these CPU tensors, as it
     # does for CUDA tensors on the card
     monkeypatch.setattr(msda, "_takes_kernels",
@@ -117,6 +136,13 @@ def fake_card(monkeypatch, tmp_path):
     monkeypatch.setattr(
         perf_train_step, "train_config",
         lambda **kw: train_config(**{**perf_train_step.TINY, **kw}))
+    adapt_config = perf_train_step.adapt_config
+    monkeypatch.setattr(
+        perf_train_step, "adapt_config",
+        lambda **kw: adapt_config(**{**perf_train_step.TINY, **kw}))
+    monkeypatch.setattr(perf_train_step, "ADAPT_HW", (144, 96))
+    monkeypatch.setattr(perf_train_step, "ADAPT_BATCH", 1)
+    monkeypatch.setattr(chip_smoke, "ADAPT_STEPS", 1)
     # the float32 phase turns TF32 off; restore both flags afterwards
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32",
                         torch.backends.cudnn.allow_tf32)
@@ -131,10 +157,12 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
     assert json.loads(lines[-1]) == {
         "ok": True, "device": {"platform": "gpu", "kind": "host",
                                "count": 1}}
-    kernels = json.loads(lines[-3])["kernels"]
+    result = json.loads(lines[-3])
+    kernels = result["kernels"]
     assert [k["name"] for k in kernels] == [
         "msda_fwd", "msda_bwd_rows", "msda_bwd_value", "msda_fwd_q",
-        "msda_fwd_win", "msda_fwd_win_pp"]
+        "msda_fwd_win", "msda_fwd_win_pp", "msda_bwd_win_rows",
+        "msda_bwd_win_rows_pp", "msda_bwd_win_value", "msda_bwd_win_value_pp"]
     required = {"name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms"}
@@ -147,7 +175,7 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
         assert path == "egtr_tpu/ops/msda_pallas.py" and int(line) > 0
         assert (REPO / k["source"]).exists()
         assert k["launches"] > 0
-    fwd, rows, value, fwd_q, win, win_pp = kernels
+    fwd, rows, value, fwd_q, win, win_pp, *bwd_win = kernels
     # exact serving: 4 timed + 2 warm-up requests + 1 checked forward, 2+2
     # MSDA layers each; training: 3 steps + 2 microbatches of the
     # accumulated one
@@ -176,6 +204,25 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
     # forward: both buckets x (encoder, decoder) x (float32, bfloat16)
     assert len(fwd["calls"]) == 8
     assert len(rows["calls"]) == 4
+    # the adaptation (144x96: level 0 of 4 banded), one step of a batch of
+    # 1, 2+2 layers: per microbatch K6 2, K1 2 + 2, K8 2, K10 2, K2 and K3
+    # 2 + 2; its tile sibling K7, K9 2 each; its int8 sibling K4 4
+    k7, k8, k9, k10 = bwd_win
+    assert k8["launches"] == k10["launches"] == 2
+    assert k7["launches"] == k9["launches"] == 2
+    assert fwd["launches_adaptation"] == rows["launches_adaptation"] == 4
+    assert fwd_q["launches_adaptation_int8"] == 4
+    assert [k["replaces"].split(":")[1] for k in bwd_win] == [
+        "836", "722", "877", "772"]
+    assert all(k["source"] == "egtr_tpu_torch/csrc/msda_bwd_win.cu"
+               for k in bwd_win)
+    # K7-K10: float32 and bfloat16 per band, the adaptation's batch
+    assert [c["dtype"] for c in k8["calls"]] == ["float32", "bfloat16"]
+    assert k8["calls"][0]["levels"] == [0]
+    assert "run_to_run_max_abs_diff" in k10
+    assert set(result["train_adaptation"]) == {"point", "tile", "point_int8"}
+    assert result["train_f32"]["adaptation"]["band_indices"] > 0
+    assert "nudged_pixels_max_grad_rel_change" in result["train_f32"]["exact"]
     out = "\n".join(lines)
     for phase in ("kernel build:", "msda_fwd serving encoder",
                   "msda_fwd training decoder", "msda_bwd training encoder",
@@ -188,8 +235,15 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
                   "model f32 exact kernels vs plain MSDA",
                   "model f32 served kernels vs plain MSDA",
                   "int8 op without a window, forward + backward",
-                  "train bfloat16", "frozen leaves bit-identical",
-                  "train f32 kernels vs plain op"):
+                  "train exact", "frozen leaves bit-identical",
+                  "train f32 exact kernels vs plain",
+                  "msda_bwd_win_rows + msda_bwd_win_value adaptation encoder",
+                  "msda_bwd_win_rows_pp + msda_bwd_win_value_pp adaptation "
+                  "encoder batch 2",
+                  "train adaptation (window 16, band point, int8 False)",
+                  "train adaptation tile (window 16, band tile",
+                  "train adaptation int8 (window 16, band point, int8 True)",
+                  "train f32 adaptation kernels vs plain"):
         assert phase in out, phase
 
 
@@ -248,6 +302,29 @@ def test_forward_counts_at_the_serving_bucket():
     assert chip_smoke.forward_counts(
         infer.bench_config(msda_window=128), shapes) == {
             **zero, "msda_fwd": 12}
+
+
+def test_step_counts_at_the_adaptation_bucket():
+    """The launches chip_smoke demands per training microbatch at full
+    depth: 608x1008 has three levels taller than the window of 16."""
+    from egtr_tpu_torch.models.detr import level_shapes
+
+    shapes = level_shapes((608, 1008), 4)
+    zero = dict.fromkeys(chip_smoke.KERNEL_COUNTERS, 0)
+    exact = {"msda_bwd_rows": 12, "msda_bwd_value": 12}
+    adapt = perf_train_step.adapt_config()
+    assert chip_smoke.step_counts(adapt, shapes) == {
+        **zero, **exact, "msda_fwd_win_pp": 18, "msda_fwd": 12,
+        "msda_bwd_win_rows_pp": 18, "msda_bwd_win_value_pp": 18}
+    assert chip_smoke.step_counts(adapt.replace(msda_band="tile"),
+                                  shapes) == {
+        **zero, **exact, "msda_fwd_win": 18, "msda_fwd": 12,
+        "msda_bwd_win_rows": 18, "msda_bwd_win_value": 18}
+    assert chip_smoke.step_counts(adapt.replace(msda_int8=True), shapes) == {
+        **zero, **exact, "msda_fwd_win_pp": 18, "msda_fwd_q": 12,
+        "msda_bwd_win_rows_pp": 18, "msda_bwd_win_value_pp": 18}
+    assert chip_smoke.step_counts(adapt.replace(msda_window=0), shapes) == {
+        **zero, **exact, "msda_fwd": 12}
 
 
 def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):

@@ -8,9 +8,12 @@ and outside the map, and the wrappers' refusals, for the forward kernel and
 the two backward kernels; and for the int8 forward (K4) and the banded
 forwards (K5, K6): windows of 8, 16 and 32, bands at the top and bottom edge
 of a level, an overhanging last band, a level no taller than the window,
-every value type, level subsets and float32 output of the exact kernel. On a
-GPU machine without JAX, run them without the
-suite's conftest (which imports JAX):
+every value type, level subsets and float32 output of the exact kernel; and
+for the banded backward (K7-K10): head dims 8 to 64, windows 8, 16 and 32,
+batches of 1 to 3, an overhanging last band, the band's reach, a level within
+the window, the whole windowed op's gradient, the exact backward kernels on a
+level subset, and refusals. On a GPU machine without JAX, run them without
+the suite's conftest (which imports JAX):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -22,6 +25,7 @@ from egtr_tpu_torch.config import EgtrConfig
 from egtr_tpu_torch.models.egtr import EgtrModel
 from egtr_tpu_torch.models.layers import init_params
 from egtr_tpu_torch.ops import msda, msda_cuda
+from egtr_tpu_torch.ops.msda_window import segment_bounds
 
 # float32: summation order only; bf16: two roundings of the output
 TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-3, 2 * 2.0 ** -8)}
@@ -237,7 +241,9 @@ def test_tiny_model_kernel_path_matches_plain(cuda):
 # --------------------------------------------------------------------------
 
 COUNTERS = ("launches", "fwd_q_launches", "fwd_win_launches",
-            "fwd_win_pp_launches", "bwd_rows_launches", "bwd_value_launches")
+            "fwd_win_pp_launches", "bwd_rows_launches", "bwd_value_launches",
+            "bwd_win_rows_launches", "bwd_win_rows_pp_launches",
+            "bwd_win_value_launches", "bwd_win_value_pp_launches")
 
 
 def _counts():
@@ -419,9 +425,6 @@ def test_int8_op_on_the_card_has_the_exact_gradients(cuda):
 def test_new_kernel_refusals(cuda):
     shapes = ((24, 16), (12, 8))
     value, loc, aw = _raster(cuda, torch.float32, shapes, 1, 2, 8)
-    with pytest.raises(NotImplementedError, match="K7-K10"):
-        msda.ms_deform_attn(value.clone().requires_grad_(), shapes, loc, aw,
-                            window=8, query_segments=shapes)
     vq, scale = msda.quantize_levels(value, shapes)
     with pytest.raises(NotImplementedError, match="no backward"):
         msda_cuda.msda_fwd_q(vq, scale, shapes, loc,
@@ -486,3 +489,197 @@ def test_tiny_served_model_kernel_path_matches_plain(cuda, flags):
                                        rtol=1e-4)
     finally:
         torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+
+# --------------------------------------------------------------------------
+# K7-K10 (banded backward), and K2 + K3 on a level subset
+# --------------------------------------------------------------------------
+
+def _banded_bwd_args(value, loc, aw, g, shapes, lid, window, per_point):
+    """One banded level's backward inputs, as msda._windowed_backward makes
+    them."""
+    Q, D = loc.shape[1], value.shape[3]
+    h, w = shapes[lid]
+    segs = segment_bounds(Q, shapes)
+    locT, awT = msda.rows_t(loc, aw)
+    bidx, ix, iy_band, _, aw_eff, _, _ = msda.win_level_rows(
+        locT, awT, lid, h, w, window, segs, D, per_point)
+    start = msda.level_starts(shapes)[lid]
+    return (value[:, start:start + h * w], bidx, ix, iy_band, aw_eff, g, h,
+            w, window, segs, Q)
+
+
+def _assert_win_bwd_close(got, ref, dtype):
+    """dvalue_l and the three rows; all float32 sums of the same rounded
+    products (summation order), the rows relative to their largest entry."""
+    atol, rtol = BWD_TOL[torch.float32 if dtype == torch.float32
+                         else torch.bfloat16]
+    for name, a, b in zip(("dvalue", "dix", "diy", "daw"), got, ref):
+        assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape, name
+        scale = max(1.0, b.abs().max().item())
+        torch.testing.assert_close(a, b, atol=atol * scale, rtol=rtol,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("band", ["tile", "point"])
+@pytest.mark.parametrize("case", sorted(c for c in WIN_CASES
+                                        if c != "w32_all_exact"))
+def test_bwd_win_kernels_match_plain(cuda, case, band, dtype):
+    """K7 + K9 (tile) or K8 + K10 (point) on every banded level against
+    msda_bwd_win_plain, one launch each per level."""
+    kw = dict(WIN_CASES[case])
+    window, shapes = kw.pop("window"), kw["shapes"]
+    value, loc, aw = _raster(cuda, dtype, **kw)
+    B, S, H, D = value.shape
+    g = torch.randn((B, S, H * D), device=cuda).to(dtype)
+    per_point = band == "point"
+    for lid, (h, _) in enumerate(shapes):
+        if h <= window:
+            continue
+        args = _banded_bwd_args(value, loc, aw, g, shapes, lid, window,
+                                per_point)
+        before = _counts()
+        got = msda_cuda.msda_bwd_win(*args)
+        names = (("bwd_win_value_pp_launches", "bwd_win_rows_pp_launches")
+                 if per_point else ("bwd_win_value_launches",
+                                    "bwd_win_rows_launches"))
+        assert _counts() == [b + (c in names)
+                             for b, c in zip(before, COUNTERS)]
+        _assert_win_bwd_close(got, msda.msda_bwd_win_plain(*args), dtype)
+
+
+def test_bwd_win_rows_deterministic_and_value_nearly(cuda):
+    kw = dict(WIN_CASES["w16_d32_batch3"])
+    window, shapes = kw.pop("window"), kw["shapes"]
+    value, loc, aw = _raster(cuda, torch.float32, **kw)
+    g = torch.randn((3, value.shape[1], 64), device=cuda)
+    args = _banded_bwd_args(value, loc, aw, g, shapes, 0, window, True)
+    a, b = msda_cuda.msda_bwd_win(*args), msda_cuda.msda_bwd_win(*args)
+    assert all(torch.equal(x, y) for x, y in zip(a[1:], b[1:]))
+    # float32 atomics: the order of the additions may change the last bits
+    torch.testing.assert_close(a[0], b[0], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("per_point", [False, True], ids=["tile", "point"])
+def test_banded_bwd_kernel_reach(cuda, per_point):
+    """One sample read through band 1 (rows 4..11) of a 21-row level, or
+    through the last band (rows 16..23): its value gradient lands on the
+    absolute rows, nothing beyond the band or below row 20."""
+    h, w, win, D = 21, 4, 8, 32
+    value = torch.ones((1, h * w, 1, D), device=cuda)
+    g = torch.ones((1, 1, D), device=cuda)
+    segs = ((0, 1),)
+    ix = torch.ones((1, 1, 1, 128), device=cuda)
+    shape = (1, 1, 1, 1) if per_point else (1, 1, 1)
+    for band, y_local, rows in ((1, 0.25, {4: 0.75, 5: 0.25}),
+                                (1, -0.5, {4: 0.5}), (1, 7.5, {11: 0.5}),
+                                (1, 8.0, {}), (4, 4.5, {20: 0.5})):
+        bidx = torch.full(shape, band, dtype=torch.int32, device=cuda)
+        iy = torch.full_like(ix, y_local)
+        args = (value, bidx, ix, iy, ix, g, h, w, win, segs, 1)
+        got = msda_cuda.msda_bwd_win(*args)
+        expect = torch.zeros((h, w), device=cuda)
+        for r, weight in rows.items():
+            expect[r, 1] = weight
+        torch.testing.assert_close(got[0][0, :, 0, 0].reshape(h, w), expect)
+        _assert_win_bwd_close(got, msda.msda_bwd_win_plain(*args),
+                              torch.float32)
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("band", ["tile", "point"])
+@pytest.mark.parametrize("case", sorted(WIN_CASES))
+def test_windowed_op_grad_kernels_match_plain(cuda, case, band, form):
+    """The windowed op's forward + backward through the kernels against the
+    same through their plain versions, and the launches of the backward's
+    split: K2 and K3 once for the exact levels, K7 + K9 or K8 + K10 once per
+    banded level. int8 has the same backward (straight-through)."""
+    kw = dict(WIN_CASES[case])
+    window, shapes = kw.pop("window"), kw["shapes"]
+    dtype = torch.float32 if form == "f32" else torch.bfloat16
+    value, loc, aw = _raster(cuda, dtype, **kw)
+    B, S, H, D = value.shape
+    g = torch.randn((B, S, H * D), device=cuda).to(dtype)
+    args = dict(window=window, query_segments=shapes, band=band,
+                int8=form == "int8")
+    grads = []
+    for impl in ("auto", "plain"):
+        leaves = [t.clone().requires_grad_() for t in (value, loc, aw)]
+        out = msda.ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2],
+                                  impl=impl, **args)
+        before = _counts()
+        grads.append(torch.autograd.grad(out, leaves, g))
+        got = dict(zip(COUNTERS, (a - b for a, b in zip(_counts(), before))))
+        n_banded = sum(h > window for h, _ in shapes)
+        expect = dict.fromkeys(COUNTERS, 0)
+        if impl == "auto":
+            suffix = "_pp_launches" if band == "point" else "_launches"
+            expect[f"bwd_win_rows{suffix}"] = n_banded
+            expect[f"bwd_win_value{suffix}"] = n_banded
+            if n_banded < len(shapes):
+                expect["bwd_rows_launches"] = expect[
+                    "bwd_value_launches"] = 1
+        assert got == expect
+    for name, a, b in zip(("dvalue", "dloc", "daw"), *grads):
+        assert a.dtype == b.dtype and torch.isfinite(a.float()).all(), name
+        atol, rtol = BWD_TOL[dtype]
+        torch.testing.assert_close(
+            a.float(), b.float(), rtol=rtol,
+            atol=atol * max(1.0, b.float().abs().max().item()),
+            msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_bwd_kernels_level_subset(cuda, dtype):
+    """K2 and K3 as a windowed call uses them: a subset of the levels (the
+    others' entries zero), the value gradient's float32 sum as it is."""
+    value, loc, aw = _inputs(cuda, dtype, **CASES["d8_thin_levels"])
+    shapes = CASES["d8_thin_levels"]["shapes"]
+    g = torch.randn((2, 33, 24), device=cuda).to(dtype)
+    args = (value, shapes, loc, aw, g)
+    for levels in ((2,), (0, 2), (1,)):
+        dloc, daw = msda_cuda.msda_bwd_rows(*args, levels=levels)
+        dvalue = msda_cuda.msda_bwd_value(*args, levels=levels,
+                                          out_dtype=torch.float32)
+        ref = msda.ms_deform_attn_plain_bwd(*args, levels=levels,
+                                            dvalue_dtype=torch.float32)
+        _assert_bwd_close((dvalue, dloc, daw), ref, dtype)
+        others = [l for l in range(3) if l not in levels]
+        assert not dloc[:, :, :, others].any()
+        assert not daw[:, :, :, others].any()
+    with pytest.raises(ValueError, match="levels must be"):
+        msda_cuda.msda_bwd_rows(*args, levels=(3,))
+    with pytest.raises(TypeError, match="out_dtype"):
+        msda_cuda.msda_bwd_value(*args, out_dtype=torch.float16)
+
+
+def test_bwd_win_refusals(cuda):
+    shapes = ((24, 16), (12, 8))
+    value, loc, aw = _raster(cuda, torch.float32, shapes, 1, 2, 8)
+    g = torch.randn((1, value.shape[1], 16), device=cuda)
+    args = _banded_bwd_args(value, loc, aw, g, shapes, 0, 8, False)
+    vq, _ = msda.quantize_levels(value, shapes)
+    bad = {
+        "float32 or bfloat16 values": dict(value_l=vq[:, :384]),
+        "g must have the value dtype": dict(g=g.bfloat16()),
+        "g must be": dict(g=g[:, :100]),
+        "bidx must be": dict(bidx=args[1][..., None]),
+        "window below its height": dict(win=24),
+        "one device": dict(g=g.cpu()),
+    }
+    names = ("value_l", "bidx", "ix", "iy_band", "aw_eff", "g", "h", "w",
+             "win", "segs", "Q")
+    for match, change in bad.items():
+        kw = dict(zip(names, args))
+        kw.update(change)
+        with pytest.raises((TypeError, ValueError), match=match):
+            msda_cuda.msda_bwd_win_rows(**kw)
+        with pytest.raises((TypeError, ValueError), match=match):
+            msda_cuda.msda_bwd_win_value(**kw)
+    with pytest.raises(ValueError, match="g must be contiguous"):
+        msda_cuda.msda_bwd_win_value(
+            *args[:5], g.transpose(1, 2).contiguous().transpose(1, 2),
+            *args[6:])

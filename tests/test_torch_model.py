@@ -387,9 +387,9 @@ def test_config_mirrors_jax_config():
                                     "use_remat"])
 def test_refused_options(option):
     """``two_stage`` and ``use_remat`` are refused at construction. The
-    banded approximation and int8 stage 1 construct and run forward; what is
-    still refused is a gradient through a banded level (the backward kernels
-    K7-K10), and int8 on the plain "matmul" path, as in the JAX package."""
+    banded approximation and int8 stage 1 construct and run; the banded one
+    also trains (forward and backward through a banded level). int8 is
+    refused on the plain "matmul" path, as in the JAX package."""
     value = {"msda_window": 4, "msda_int8": True, "two_stage": True,
              "use_remat": True}[option]
     kw = {option: value}
@@ -406,8 +406,14 @@ def test_refused_options(option):
             port_infer.infer(model, x)
         return
     assert torch.isfinite(port_infer.infer(model, x)).all()
-    with pytest.raises(NotImplementedError, match="K7-K10"):
-        model.train()(x)
+    out = model.train()(x)
+    loss = out["logits"].float().square().mean() + out[
+        "pred_boxes"].float().sum()
+    loss.backward()
+    grads = [p.grad for n, p in model.named_parameters()
+             if "encoder_layer_0.self_attn.sampling_offsets" in n]
+    assert grads and all(g is not None and torch.isfinite(g).all()
+                         and g.abs().max() > 0 for g in grads)
 
 
 def test_serving_config_constructs_and_runs():

@@ -189,12 +189,16 @@ def test_kernel_input_checks(match, args):
 
 
 def test_level_table():
-    """(h, w, start token, round y) per level; y is rounded only in a
-    low-precision dtype on a level the JAX kernel flips."""
+    """(h, w, start token, round y, level index) per summed level; y is
+    rounded only where stage 1 rounds (a low-precision dtype, or int8) on a
+    level the JAX kernel flips; a subset keeps each level's own index."""
     shapes = ((76, 126), (100, 168), (10, 16))
-    assert msda_cuda.level_table(shapes, 32, torch.float32) == [
-        76, 126, 0, 0, 100, 168, 76 * 126, 0, 10, 16, 76 * 126 + 16800, 0]
-    assert msda_cuda.level_table(shapes, 32, torch.bfloat16)[7] == 1
+    assert msda_cuda.level_table(shapes, 32, (0, 1, 2), False) == [
+        76, 126, 0, 0, 0, 100, 168, 76 * 126, 0, 1,
+        10, 16, 76 * 126 + 16800, 0, 2]
+    assert msda_cuda.level_table(shapes, 32, (0, 1, 2), True)[8] == 1
+    assert msda_cuda.level_table(shapes, 32, (2,), True) == [
+        10, 16, 76 * 126 + 16800, 0, 2]
 
 
 def test_build_command_and_cache_key(tmp_path, monkeypatch):
@@ -353,12 +357,13 @@ def test_bwd_wrappers_refuse_cpu_tensors_and_bad_grad():
 
 
 def test_every_source_has_a_library_and_a_counter():
-    """Four sources, six kernels: each builds for sm_90a into its own
+    """Five sources, ten kernels: each builds for sm_90a into its own
     hash-keyed library, and each kernel has its own launch count."""
-    assert sorted(msda_cuda.sources()) == ["msda_bwd", "msda_fwd",
-                                           "msda_fwd_q", "msda_fwd_win"]
+    assert sorted(msda_cuda.sources()) == ["msda_bwd", "msda_bwd_win",
+                                           "msda_fwd", "msda_fwd_q",
+                                           "msda_fwd_win"]
     paths = {n: msda_cuda.library_path(n) for n in msda_cuda.sources()}
-    assert len(set(paths.values())) == 4
+    assert len(set(paths.values())) == 5
     for name, src in msda_cuda.sources().items():
         assert src.exists() and src.parent.name == "csrc"
         cmd = msda_cuda.build_command("nvcc", paths[name], name)
@@ -367,11 +372,17 @@ def test_every_source_has_a_library_and_a_counter():
     assert {fn: lib for fn, (lib, _) in msda_cuda._FUNCTIONS.items()} == {
         "msda_fwd": "msda_fwd", "msda_bwd_rows": "msda_bwd",
         "msda_bwd_value": "msda_bwd", "msda_fwd_q": "msda_fwd_q",
-        "msda_fwd_win": "msda_fwd_win", "msda_fwd_win_pp": "msda_fwd_win"}
+        "msda_fwd_win": "msda_fwd_win", "msda_fwd_win_pp": "msda_fwd_win",
+        "msda_bwd_win_rows": "msda_bwd_win",
+        "msda_bwd_win_rows_pp": "msda_bwd_win",
+        "msda_bwd_win_value": "msda_bwd_win",
+        "msda_bwd_win_value_pp": "msda_bwd_win"}
     text = msda_cuda.SOURCE_BWD.read_text()
     for fn in ("msda_bwd_rows", "msda_bwd_value"):
         assert f'extern "C" int {fn}(' in text
     for counter in ("launches", "bwd_rows_launches", "bwd_value_launches",
                     "fwd_q_launches", "fwd_win_launches",
-                    "fwd_win_pp_launches"):
+                    "fwd_win_pp_launches", "bwd_win_rows_launches",
+                    "bwd_win_rows_pp_launches", "bwd_win_value_launches",
+                    "bwd_win_value_pp_launches"):
         assert isinstance(getattr(msda_cuda, counter), int)

@@ -408,3 +408,38 @@ def test_perf_train_step_on_cpu(capsys):
     assert len(result["ms_per_step"]) == 2
     assert np.isfinite(result["total_loss"]) and result["grad_norm"] > 0
     assert result["device"] == "cpu"
+
+
+def test_perf_train_step_windowed_on_cpu(capsys):
+    """The probe's windowed step at a tiny size (window 4 bands the 8-row
+    level 0 of a 64x96 image): finite metrics and the settings in the JSON
+    line."""
+    import json
+    perf_train_step.main([
+        "--device", "cpu", "--batch", "1", "--height", "64", "--width", "96",
+        "--iters", "1", "--tiny", "--window", "4", "--band", "point",
+        "--int8"])
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (result["msda_window"], result["msda_band"],
+            result["msda_int8"]) == (4, "point", True)
+    assert np.isfinite(result["total_loss"]) and result["grad_norm"] > 0
+
+
+def test_adapt_config_is_the_adaptation_run():
+    """The probe's adaptation preset is the configuration the JAX package's
+    adaptation run saved (experiments/trained_offsets/adapt_w16p)."""
+    from pathlib import Path
+    run = (Path(__file__).resolve().parents[1] / "experiments"
+           / "trained_offsets" / "adapt_w16p")
+    assert perf_train_step.adapt_config() == EgtrConfig.load(
+        str(run / "artifact" / "config.json"))
+    import json
+    header = json.loads((run / "train_log.jsonl").read_text().splitlines()[0])
+    args = header["args"]
+    assert (args["batch"], args["lr"], args["lr_backbone"]) == (
+        perf_train_step.ADAPT_BATCH, perf_train_step.ADAPT_LRS["lr"],
+        perf_train_step.ADAPT_LRS["lr_backbone"])
+    assert (args["window"], args["band"], args["int8"]) == (16, "point",
+                                                            False)
+    # size 600 / max 1000, padded to a multiple of 16
+    assert perf_train_step.ADAPT_HW == (608, 1008)

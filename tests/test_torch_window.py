@@ -534,20 +534,37 @@ def test_refusals():
                             query_segments=SHAPES)
 
 
-# int8 with "matmul" is refused before the gradient is
+# int8 with "matmul" is refused. The reference: the explicit banded backward
+# (what the autograd op runs), bit for bit; int8 has the gradient without
+# int8 (straight-through). "matmul" differentiates through its clamp into
+# the exact op's backward: in float32 the same function, so equal to
+# round-off (ATOL relative to each gradient's largest entry, RTOL).
 @pytest.mark.parametrize("impl,int8", [
     ("auto", False), ("auto", True), ("plain", False), ("plain", True),
     ("matmul", False)])
-def test_gradient_of_a_windowed_call_is_refused(impl, int8):
+def test_gradient_of_a_windowed_call(impl, int8):
     value, loc, aw = random_inputs(51)
     tv, tl, ta = t(value, loc, aw)
-    with pytest.raises(NotImplementedError, match="K7-K10"):
-        msda.ms_deform_attn(tv.requires_grad_(), SHAPES, tl, ta, impl=impl,
-                            window=8, query_segments=SHAPES, int8=int8)
+    g = torch.from_numpy(np.random.default_rng(52).standard_normal(
+        (2, 504, 16)).astype(np.float32))
+    leaves = [x.clone().requires_grad_() for x in (tv, tl, ta)]
+    out = msda.ms_deform_attn(leaves[0], SHAPES, leaves[1], leaves[2],
+                              impl=impl, window=8, query_segments=SHAPES,
+                              int8=int8)
+    grads = torch.autograd.grad(out, leaves, g)
+    ref = msda._windowed_backward(tv, tl, ta, g, SHAPES, 8, SHAPES, "tile",
+                                  False)
+    for a, b in zip(grads, ref):
+        assert torch.isfinite(a).all() and a.abs().max() > 0
+        if impl == "matmul":
+            torch.testing.assert_close(
+                a, b, rtol=RTOL, atol=ATOL * max(1.0, b.abs().max().item()))
+        else:
+            assert torch.equal(a, b)
     with torch.no_grad():
-        out = msda.ms_deform_attn(tv, SHAPES, tl, ta, impl=impl, window=8,
-                                  query_segments=SHAPES, int8=int8)
-    assert out.grad_fn is None and torch.isfinite(out).all()
+        again = msda.ms_deform_attn(tv, SHAPES, tl, ta, impl=impl, window=8,
+                                    query_segments=SHAPES, int8=int8)
+    assert again.grad_fn is None and torch.equal(again, out.detach())
 
 
 def test_cpu_dispatch_launches_no_kernel():
@@ -614,13 +631,16 @@ def test_new_wrappers_refuse_cpu_tensors_and_bad_inputs():
 
 
 def test_new_sources_and_counters():
-    """Four sources, six kernels: each exported function belongs to one
+    """Five sources, ten kernels: each exported function belongs to one
     library and has a launch count of its own."""
-    assert sorted(msda_cuda.sources()) == ["msda_bwd", "msda_fwd",
-                                           "msda_fwd_q", "msda_fwd_win"]
+    assert sorted(msda_cuda.sources()) == ["msda_bwd", "msda_bwd_win",
+                                           "msda_fwd", "msda_fwd_q",
+                                           "msda_fwd_win"]
     owners = {fn: lib for fn, (lib, _) in msda_cuda._FUNCTIONS.items()}
     assert owners["msda_fwd_q"] == "msda_fwd_q"
     assert owners["msda_fwd_win"] == owners["msda_fwd_win_pp"] == "msda_fwd_win"
+    assert {owners[f"msda_bwd_win_{k}"] for k in (
+        "rows", "rows_pp", "value", "value_pp")} == {"msda_bwd_win"}
     for fn, lib in owners.items():
         text = msda_cuda.sources()[lib].read_text()
         assert f'extern "C" int {fn}(' in text, fn
@@ -629,5 +649,7 @@ def test_new_sources_and_counters():
         decl = decl[:decl.index(")")]
         assert decl.count(",") + 1 == len(msda_cuda._FUNCTIONS[fn][1]), fn
     for counter in ("fwd_q_launches", "fwd_win_launches",
-                    "fwd_win_pp_launches"):
+                    "fwd_win_pp_launches", "bwd_win_rows_launches",
+                    "bwd_win_rows_pp_launches", "bwd_win_value_launches",
+                    "bwd_win_value_pp_launches"):
         assert isinstance(getattr(msda_cuda, counter), int)
