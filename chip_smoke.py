@@ -8,8 +8,9 @@ and no result line. In order it:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the hand-written MSDA kernels (exact forward; backward rows and
-   value; int8 forward; banded forward; banded backward rows and value) from
-   egtr_tpu_torch/csrc, the compilers started together;
+   value; int8 forward; banded forward; banded backward rows and value;
+   batched-P forward) from egtr_tpu_torch/csrc, the compilers started
+   together;
 3. holds the forward kernel against its plain PyTorch version at the two
    main paths' shapes (serving bucket 608x1008: levels (76,126),(38,63),
    (19,32),(10,16), S = 12738; training bucket 800x1344: levels (100,168),
@@ -72,7 +73,30 @@ and no result line. In order it:
 14. runs one float32 (TF32 off, dropout 0) forward + backward of the
    adaptation model through the kernels and through their plain versions
    and compares them in the same way, and the band indices;
-15. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+15. holds the batched-P forward K11 (``EGTR_MSDA_BATCH_P=1``) against its
+   plain version and beside K1 on the same inputs, at the serving and
+   training buckets' encoder and decoder calls in float32 and bfloat16 at a
+   batch of 2, its int8 form beside K4 on the served encoder call's exact
+   level and the decoder call, and a windowed call's exact level (float32
+   out), timing both kernels at each call (this runs before phase 7);
+16. serves one request of each of phase 7's configurations with the flag on
+   (``msda.FWD_BATCH_P``, what the environment variable sets at import):
+   K11 takes every K1 / K4 launch (exact: K11 12; served: K6 18, K11 12;
+   tile: K5 18, K11 12); the outputs against the flag-off forward of the
+   same model; phase 8 adds a float32 run with the flag on against the
+   plain path;
+17. runs the training driver ``scripts.train_egtr.main`` in-process with
+   the flag on, at full width on its defaults: a synthetic VG set (8/2/2
+   images at 600x1000, seed 0), batch 2 x accum 2, one epoch per phase.
+   Checks the launches (K11 12 per forward: 2 x (2 steps x 2 microbatches
+   + 1 validation batch) + 2 test images = 144; K2, K3 12 per microbatch =
+   96; nothing else), the metrics.jsonl records of both phases, finite
+   losses, the artifact, metrics_test.json's R@K, mR@K and COCO entries,
+   the reloaded artifact's forward bit-equal to the trained model's, and a
+   relaunch on the same output path that resumes and takes no step (only
+   the test evaluation's 24 K11 launches); prints seconds per phase and
+   ms per optimizer step from metrics.jsonl;
+18. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 It exits nonzero without a result where CUDA is absent.
 """
@@ -80,8 +104,11 @@ It exits nonzero without a result where CUDA is absent.
 from __future__ import annotations
 
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -137,6 +164,12 @@ ADAPT_GRAD_RTOL = 1e-2
 # and where a band index differs between the two runs: its tile's samples
 # clamp to other rows in the forward and the backward
 FLIPPED_BAND_GRAD_RTOL = 5e-2
+# the bf16 served model with and without batch_p: K11 and K1 / K4 differ
+# in the order of a float32 sum, so an MSDA output may round to the
+# neighbouring bf16 value (2**-8 relative) and 12 layers carry it on (an
+# H100: logits 7.7e-3 to 9.9e-3 in the three configurations); the strict
+# check is the float32 one (compare_f32, MODEL_ATOL)
+BATCH_P_BF16_ATOL = 5e-2
 
 H, D, L, P = 8, 32, 4, 4
 WINDOW = 16         # the served window
@@ -147,6 +180,13 @@ SIDE_BY_SIDE_ROUNDS = 10
 TRAIN_STEPS = 3
 ADAPT_STEPS = 3
 DEVICE = "cuda"
+# the training driver's run: a synthetic VG set (scripts/make_synth_vg) and
+# the driver's own defaults at full width (ResNet-50, d_model 256, 6+6
+# layers, 200 queries, bf16), one epoch per phase
+SYNTH_VG = dict(n_train=8, n_val=2, n_test=2, height=600, width=1000)
+DRIVER_ARGS = ["--from_scratch", "true", "--batch_size", "2", "--accumulate",
+               "2", "--max_epochs", "1", "--max_epochs_finetune", "1",
+               "--num_workers", "2", "--seed", "0", "--log_every", "1"]
 
 
 def card_line() -> str:
@@ -171,13 +211,15 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def msda_inputs(Q, S, dtype, seed):
+def msda_inputs(Q, S, dtype, seed, batch=1):
     g = torch.Generator(device=DEVICE).manual_seed(seed)
-    value = torch.randn((1, S, H, D), generator=g, device=DEVICE).to(dtype)
+    value = torch.randn((batch, S, H, D), generator=g, device=DEVICE).to(dtype)
     # locations roam slightly outside [0, 1] so the zero padding is hit
-    loc = torch.rand((1, Q, H, L, P, 2), generator=g, device=DEVICE) * 1.2 - 0.1
-    aw = torch.randn((1, Q, H, L * P), generator=g, device=DEVICE).softmax(-1)
-    return value, loc, aw.reshape(1, Q, H, L, P).to(dtype)
+    loc = torch.rand((batch, Q, H, L, P, 2), generator=g,
+                     device=DEVICE) * 1.2 - 0.1
+    aw = torch.randn((batch, Q, H, L * P), generator=g,
+                     device=DEVICE).softmax(-1)
+    return value, loc, aw.reshape(batch, Q, H, L, P).to(dtype)
 
 
 def raster_inputs(shapes, dtype, seed, batch=1):
@@ -532,16 +574,117 @@ def check_bwd_win_kernels(shapes, batch):
     return rows
 
 
-KERNEL_COUNTERS = {"msda_fwd": "launches",
-                   "msda_bwd_rows": "bwd_rows_launches",
-                   "msda_bwd_value": "bwd_value_launches",
-                   "msda_fwd_q": "fwd_q_launches",
-                   "msda_fwd_win": "fwd_win_launches",
-                   "msda_fwd_win_pp": "fwd_win_pp_launches",
-                   "msda_bwd_win_rows": "bwd_win_rows_launches",
-                   "msda_bwd_win_rows_pp": "bwd_win_rows_pp_launches",
-                   "msda_bwd_win_value": "bwd_win_value_launches",
-                   "msda_bwd_win_value_pp": "bwd_win_value_pp_launches"}
+def _bp_row(label, kern, plain, same, same_name, timed, same_timed, bound_of):
+    """One K11 call held to its plain version (float32 sums on both sides
+    for the float32 and int8 forms; one bf16 rounding of the output for the
+    bf16 form) and beside K1 / K4 on the same inputs (the same products,
+    folded over the points in another order)."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(kern.float()).all():
+        raise SystemExit(f"msda_fwd_bp {label}: non-finite output")
+    dtype = kern.dtype if kern.dtype == torch.bfloat16 else torch.float32
+    atol, rtol = TOL[dtype]
+    err = (kern.float() - plain.float()).abs()
+    over = (err / (atol + rtol * plain.float().abs())).max().item()
+    diff = (kern.float() - same.float()).abs()
+    same_over = (diff / (atol + rtol * same.float().abs())).max().item()
+    row = {"call": label, "max_abs_err": err.max().item(),
+           "max_err_over_limit": over,
+           f"{same_name}_max_abs_diff": diff.max().item(),
+           f"{same_name}_diff_over_limit": same_over,
+           "ms": cuda_ms(timed, 100), f"ms_{same_name}_same_call":
+               cuda_ms(same_timed, 100)}
+    row["bound_ms"], row["bound_by"] = bound_of(kern)
+    print(f"msda_fwd_bp {label}: max abs err {row['max_abs_err']:.3e} "
+          f"(err/limit {over:.3f}, atol {atol} rtol {rtol}); against "
+          f"{same_name} on the same inputs max abs diff "
+          f"{row[f'{same_name}_max_abs_diff']:.3e} (over the same limit "
+          f"{same_over:.3f}: the sum order); kernel {row['ms']:.4f} ms, "
+          f"{same_name} {row[f'ms_{same_name}_same_call']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    if over > 1.0 or same_over > 1.0:
+        raise SystemExit(f"msda_fwd_bp {label}: kernel disagrees with the "
+                         f"plain version or with {same_name}")
+    return row
+
+
+def check_bp_kernel(shapes, train_shapes, batch=2):
+    """K11 against its plain version and beside K1 (K4 for the int8 form)
+    at the serving and training calls (encoder Q = S, decoder Q = 200) in
+    float32 and bfloat16, at a batch of 2; the int8 form on the served
+    encoder call's exact level 3 and on the decoder call; the float form on
+    a windowed call's exact level (float32 out)."""
+    rows = []
+    for bucket, shp in (("serving", shapes), ("training", train_shapes)):
+        S = sum(h * w for h, w in shp)
+        for call, Q in (("encoder", S), ("decoder", 200)):
+            for dtype in (torch.float32, torch.bfloat16):
+                value, loc, aw = msda_inputs(Q, S, dtype, seed=500 + len(rows),
+                                             batch=batch)
+                args = (value, shp, loc, aw)
+                row = _bp_row(
+                    f"{bucket} {call} Q={Q} {str(dtype)[6:]} batch {batch}",
+                    msda_cuda.msda_fwd_bp(*args),
+                    msda.msda_fwd_bp_plain(*args), msda_cuda.msda_fwd(*args),
+                    "msda_fwd", lambda: msda_cuda.msda_fwd_bp(*args),
+                    lambda: msda_cuda.msda_fwd(*args),
+                    lambda out: bound((value, loc, aw, out), aw))
+                row.update(bucket=bucket, Q=Q, form=str(dtype)[6:],
+                           plain_ms=cuda_ms(
+                               lambda: msda.msda_fwd_bp_plain(*args), 5))
+                rows.append(row)
+    S = sum(h * w for h, w in shapes)
+    exact = tuple(l for l, (h, _) in enumerate(shapes) if h <= WINDOW)
+    starts = msda.level_starts(shapes)
+    for call, Q, levels in (("encoder_served", S, exact),
+                            ("decoder", 200, tuple(range(len(shapes))))):
+        if Q == S:
+            value, loc, aw = raster_inputs(shapes, torch.bfloat16,
+                                           seed=600 + len(rows), batch=batch)
+        else:
+            value, loc, aw = msda_inputs(Q, S, torch.bfloat16,
+                                         seed=600 + len(rows), batch=batch)
+        vq, scale = msda.quantize_levels(value, shapes)
+        kw = dict(levels=levels)
+        moved = [t for l in levels for t in (
+            vq[:, starts[l]:starts[l] + shapes[l][0] * shapes[l][1]],
+            scale[..., l], loc[:, :, :, l], aw[:, :, :, l])]
+        row = _bp_row(
+            f"serving {call} Q={Q} levels {list(levels)} int8 batch {batch}",
+            msda_cuda.msda_fwd_bp(vq, shapes, loc, aw, scale=scale, **kw),
+            msda.msda_fwd_bp_plain(vq, shapes, loc, aw, scale=scale, **kw),
+            msda_cuda.msda_fwd_q(vq, scale, shapes, loc, aw, **kw),
+            "msda_fwd_q",
+            lambda: msda_cuda.msda_fwd_bp(vq, shapes, loc, aw, scale=scale,
+                                          **kw),
+            lambda: msda_cuda.msda_fwd_q(vq, scale, shapes, loc, aw, **kw),
+            lambda out: bound((*moved, out), aw[:, :, :, :len(levels)]))
+        row.update(bucket="serving", Q=Q, form="int8", levels=list(levels),
+                   plain_ms=cuda_ms(lambda: msda.msda_fwd_bp_plain(
+                       vq, shapes, loc, aw, scale=scale, **kw), 5))
+        rows.append(row)
+    # a windowed call's exact level (band="tile"), float32 out
+    value, loc, aw = raster_inputs(shapes, torch.bfloat16, seed=700,
+                                   batch=batch)
+    kw = dict(levels=exact, out_dtype=torch.float32)
+    args = (value, shapes, loc, aw)
+    moved = [t for l in exact for t in (
+        value[:, starts[l]:starts[l] + shapes[l][0] * shapes[l][1]],
+        loc[:, :, :, l], aw[:, :, :, l])]
+    row = _bp_row(
+        f"serving encoder_windowed Q={S} levels {list(exact)} bfloat16, "
+        f"float32 out, batch {batch}",
+        msda_cuda.msda_fwd_bp(*args, **kw),
+        msda.msda_fwd_bp_plain(*args, **kw), msda_cuda.msda_fwd(*args, **kw),
+        "msda_fwd", lambda: msda_cuda.msda_fwd_bp(*args, **kw),
+        lambda: msda_cuda.msda_fwd(*args, **kw),
+        lambda out: bound((*moved, out), aw[:, :, :, :len(exact)]))
+    row.update(bucket="serving", Q=S, form="bfloat16_f32_out",
+               levels=list(exact), plain_ms=cuda_ms(
+                   lambda: msda.msda_fwd_bp_plain(*args, **kw), 5))
+    rows.append(row)
+    return rows
+
 
 # the banded backward kernels (rows, value) per band
 BANDED_BWD = {"tile": ("msda_bwd_win_rows", "msda_bwd_win_value"),
@@ -549,36 +692,37 @@ BANDED_BWD = {"tile": ("msda_bwd_win_rows", "msda_bwd_win_value"),
 
 
 def kernel_counts():
-    return {name: getattr(msda_cuda, counter)
-            for name, counter in KERNEL_COUNTERS.items()}
+    return dict(msda_cuda.launches)
 
 
 def reset_kernel_counts():
-    for counter in KERNEL_COUNTERS.values():
-        setattr(msda_cuda, counter, 0)
+    msda_cuda.reset_launches()
 
 
-def forward_counts(cfg, shapes):
+def forward_counts(cfg, shapes, batch_p=False):
     """Launches per model forward, from how ``msda.ms_deform_attn`` splits a
     call: per encoder layer one launch per banded level and one for the
-    exact levels together; per decoder layer one launch over all levels."""
+    exact levels together; per decoder layer one launch over all levels.
+    With ``batch_p`` K11 takes every launch of K1 or K4."""
     n_banded = sum(h > cfg.msda_window for h, _ in shapes) if (
         cfg.msda_window) else 0
-    counts = dict.fromkeys(KERNEL_COUNTERS, 0)
-    exact = "msda_fwd_q" if cfg.msda_int8 else "msda_fwd"
+    counts = dict.fromkeys(msda_cuda.KERNELS, 0)
+    exact = ("msda_fwd_bp" if batch_p else
+             "msda_fwd_q" if cfg.msda_int8 else "msda_fwd")
     counts[exact] = (cfg.encoder_layers * int(n_banded < len(shapes))
                      + cfg.decoder_layers)
     counts[BANDED[cfg.msda_band][0]] += cfg.encoder_layers * n_banded
     return counts
 
 
-def step_counts(cfg, shapes):
+def step_counts(cfg, shapes, batch_p=False):
     """Launches per microbatch of a train step: the forward's and the
     backward's, which ``msda._windowed_backward`` splits the same way (per
     encoder layer one launch each of the banded rows and value kernels per
     banded level and one each of K2 and K3 for the exact levels together;
-    per decoder layer one each of K2 and K3)."""
-    counts = forward_counts(cfg, shapes)
+    per decoder layer one each of K2 and K3). The backward does not read
+    ``batch_p``."""
+    counts = forward_counts(cfg, shapes, batch_p)
     n_banded = sum(h > cfg.msda_window for h, _ in shapes) if (
         cfg.msda_window) else 0
     exact_calls = (cfg.encoder_layers * int(n_banded < len(shapes))
@@ -660,45 +804,94 @@ def plain_copy(model, cfg, device):
 
 
 def compare_f32(cfg, label, limit):
-    """Same float32 weights, kernel path against the plain-MSDA path."""
+    """Same float32 weights, kernel path against the plain-MSDA path, and
+    the kernel path again with ``batch_p`` (K11 for K1 / K4)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = cfg.replace(compute_dtype="float32")
     model_k, x = infer.build(cfg, 1, *infer.BUCKET_HW, seed=0)
     _noise_msda_heads(model_k, x.device)
     model_p = plain_copy(model_k, cfg, x.device).eval()
-    per_forward = forward_counts(
-        cfg, level_shapes(infer.BUCKET_HW, cfg.num_feature_levels))
+    shapes = level_shapes(infer.BUCKET_HW, cfg.num_feature_levels)
+    per_forward = forward_counts(cfg, shapes)
     outs, bands = [], []
-    for model, expect in ((model_k, per_forward),
-                          (model_p, dict.fromkeys(per_forward, 0))):
+    for model, expect, batch_p in (
+            (model_k, per_forward, False),
+            (model_p, dict.fromkeys(per_forward, 0), False),
+            (model_k, forward_counts(cfg, shapes, batch_p=True), True)):
         reset_kernel_counts()
         msda.band_index_log = []
+        old_flag, msda.FWD_BATCH_P = msda.FWD_BATCH_P, batch_p
         try:
             with torch.inference_mode():
                 outs.append(model(x))
         finally:
+            msda.FWD_BATCH_P = old_flag
             bands.append(msda.band_index_log)
             msda.band_index_log = None
         if kernel_counts() != expect:
-            raise SystemExit(f"f32 {label} launches {kernel_counts()}, "
-                             f"expected {expect}")
-    out_k, out_p = outs
-    differing = sum(int((a != b).sum()) for (_, a), (_, b) in zip(*bands))
+            raise SystemExit(f"f32 {label} (batch_p {batch_p}) launches "
+                             f"{kernel_counts()}, expected {expect}")
+    out_k, out_p, out_bp = outs
+    differing = sum(int((a != b).sum()) for (_, a), (_, b) in zip(*bands[:2]))
     total = sum(a.numel() for _, a in bands[0])
-    errs = {}
+    errs, errs_bp = {}, {}
     for key in ("logits", "pred_boxes", "pred_rel"):
         errs[key] = (out_k[key] - out_p[key]).abs().max().item()
+        errs_bp[key] = (out_bp[key] - out_p[key]).abs().max().item()
     print(f"model f32 {label} kernels vs plain MSDA: max abs err {errs} "
-          f"(atol {limit}); {differing} of {total} band indices differ",
-          flush=True)
-    if max(errs.values()) > limit or not all(
-            torch.isfinite(out_k[k]).all() for k in errs):
+          f"(atol {limit}); {differing} of {total} band indices differ; "
+          f"with batch_p (K11) vs plain: {errs_bp}", flush=True)
+    if max(errs.values()) > limit or max(errs_bp.values()) > limit or not all(
+            torch.isfinite(o[k]).all() for o in (out_k, out_bp)
+            for k in errs):
         raise SystemExit(f"float32 {label} model: kernel path disagrees with "
                          "plain")
     errs["band_indices_differing"] = differing
     errs["band_indices"] = total
+    errs["batch_p"] = errs_bp
     return errs
+
+
+def serve_batch_p(models, x):
+    """The served forward with the flag on (what EGTR_MSDA_BATCH_P=1 sets
+    at import): one request of each configuration through ``infer.infer``
+    and one forward, K11 in place of every K1 / K4 launch; the outputs
+    against the same model's flag-off forward on the same input."""
+    results = {}
+    shapes = level_shapes(infer.BUCKET_HW, 4)
+    for label, model in models.items():
+        cfg = model.config
+        with torch.inference_mode():
+            off = model(x)
+        reset_kernel_counts()
+        old_flag, msda.FWD_BATCH_P = msda.FWD_BATCH_P, True
+        try:
+            packed = infer.infer(model, x)
+            with torch.inference_mode():
+                on = model(x)
+            torch.cuda.synchronize()
+        finally:
+            msda.FWD_BATCH_P = old_flag
+        counts = kernel_counts()
+        per_forward = forward_counts(cfg, shapes, batch_p=True)
+        errs = {k: (on[k].float() - off[k].float()).abs().max().item()
+                for k in ("logits", "pred_boxes", "pred_rel")}
+        print(f"serve {label} with batch_p: launches per forward "
+              f"{ {k: v // 2 for k, v in counts.items() if v} }; outputs "
+              f"against the flag-off forward, max abs diff {errs} (atol "
+              f"{BATCH_P_BF16_ATOL})", flush=True)
+        for name, n in counts.items():
+            if n != 2 * per_forward[name]:
+                raise SystemExit(f"serve {label} with batch_p: {name} "
+                                 f"launched {n} times in 2 forwards, "
+                                 f"expected {2 * per_forward[name]}")
+        if not torch.isfinite(packed).all() or max(errs.values()) > \
+                BATCH_P_BF16_ATOL:
+            raise SystemExit(f"serve {label} with batch_p: outputs differ "
+                             "from the flag-off forward")
+        results[label] = {"counts": counts, "max_abs_diff": errs}
+    return results
 
 
 def _scaled_err(got, ref, dtype):
@@ -998,6 +1191,131 @@ def compare_train_f32(cfg, label, hw, batch_size, limit):
             "band_indices": n_bands, "nudged_pixels_max_grad_rel_change": nudge}
 
 
+def _records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _driver_forwards(args):
+    """Forwards of one driver run: per phase, every microbatch of every
+    optimizer step and every validation batch; then the test images, one
+    per batch."""
+    batch, accum = (int(args[args.index(k) + 1])
+                    for k in ("--batch_size", "--accumulate"))
+    steps = SYNTH_VG["n_train"] // (batch * accum)
+    val_batches = -(-SYNTH_VG["n_val"] // batch)
+    microbatches = 2 * steps * accum
+    return microbatches + 2 * val_batches + SYNTH_VG["n_test"], microbatches
+
+
+def drive_trainer(workdir):
+    """The training driver's main path, in-process, with the flag on: a
+    synthetic VG set, ``train_egtr.main`` (two phases, checkpoints, the
+    artifact, the SGG + COCO test evaluation), the artifact reloaded, and
+    a relaunch on the same output path that resumes and takes no step."""
+    from egtr_tpu_torch.scripts import train_egtr
+    from egtr_tpu_torch.scripts.make_synth_vg import make_synth_vg
+    from egtr_tpu_torch.train.checkpoint import load_pretrained
+
+    data, out = f"{workdir}/vg", f"{workdir}/run"
+    t0 = time.perf_counter()
+    make_synth_vg(data, seed=0, **SYNTH_VG)
+    t_data = time.perf_counter() - t0
+    argv = ["--data_path", data, "--output_path", out, "--device", DEVICE,
+            *DRIVER_ARGS]
+    old_flag, msda.FWD_BATCH_P = msda.FWD_BATCH_P, True
+    try:
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        model = train_egtr.main(argv)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        counts = kernel_counts()
+        # the artifact reloads into the same forward, bit for bit
+        cfg, sd = load_pretrained(f"{out}/artifact", map_location=DEVICE)
+        reloaded = EgtrModel(cfg)
+        reloaded.load_state_dict(sd, strict=True)
+        reloaded = reloaded.to(DEVICE).eval()
+        x = torch.randn((1, 800, 1344, 3), device=DEVICE,
+                        generator=torch.Generator(device=DEVICE).manual_seed(3))
+        with torch.inference_mode():
+            a, b = model.eval()(x), reloaded(x)
+        bit_equal = all(torch.equal(a[k], b[k]) for k in (
+            "logits", "pred_boxes", "pred_rel", "pred_connectivity"))
+        del reloaded, a, b
+        before = kernel_counts()
+        t0 = time.perf_counter()
+        train_egtr.main(argv)
+        torch.cuda.synchronize()
+        t_relaunch = time.perf_counter() - t0
+        after = kernel_counts()
+    finally:
+        msda.FWD_BATCH_P = old_flag
+    per_forward = forward_counts(
+        model.config, level_shapes(perf_train_step.BUCKET_HW,
+                                   model.config.num_feature_levels),
+        batch_p=True)["msda_fwd_bp"]
+    forwards, microbatches = _driver_forwards(DRIVER_ARGS)
+    expect = dict.fromkeys(msda_cuda.KERNELS, 0)
+    expect.update(msda_fwd_bp=per_forward * forwards,
+                  msda_bwd_rows=per_forward * microbatches,
+                  msda_bwd_value=per_forward * microbatches)
+    phases, bad = {}, []
+    for phase in ("main", "finetune"):
+        records = _records(f"{out}/{phase}/metrics.jsonl")
+        train = [r for r in records if r["phase"] == "train"]
+        val = [r for r in records if r["phase"] == "val"]
+        losses = [v for r in train + val for k, v in r.items()
+                  if "loss" in k]
+        if not train or not val or not all(math.isfinite(v) for v in losses):
+            bad.append(f"{phase}: {len(train)} train and {len(val)} val "
+                       "records, or a non-finite loss")
+        phases[phase] = {
+            "epoch_seconds": [r["epoch_seconds"] for r in val],
+            "step_ms": [1e3 * r["step_seconds"] for r in train],
+            "train_total_loss": [r["total_loss"] for r in train],
+            "validation_total_loss": [r["validation_total_loss"]
+                                      for r in val]}
+    with open(f"{out}/metrics_test.json") as f:
+        test = json.load(f)
+    keys = [f"single/{m}@{k}" for m in ("R", "mR") for k in (20, 50, 100)]
+    keys += [k for k in test if k.startswith("coco/")]
+    if not all(k in test and math.isfinite(test[k]) for k in keys) or len(
+            keys) < 7:
+        bad.append(f"metrics_test.json lacks finite {keys}: {test}")
+    artifact = sorted(os.listdir(f"{out}/artifact"))
+    if artifact != ["config.json", "weights.pt"]:
+        bad.append(f"artifact holds {artifact}")
+    step_ms = [t for p in phases.values() for t in p["step_ms"]]
+    print(f"driver (train_egtr.main, batch_p on; {SYNTH_VG}, "
+          f"{' '.join(DRIVER_ARGS)}): data written in {t_data:.1f} s; run "
+          f"{t_run:.1f} s, epochs "
+          f"{ {p: [round(t, 1) for t in v['epoch_seconds']] for p, v in phases.items()} } s"
+          f", ms per optimizer step {[round(t, 1) for t in step_ms]} (mean "
+          f"{sum(step_ms) / len(step_ms):.1f}); launches "
+          f"{ {k: v for k, v in counts.items() if v} } (expected "
+          f"{ {k: v for k, v in expect.items() if v} }); losses "
+          f"{ {p: v['validation_total_loss'] for p, v in phases.items()} }; "
+          f"test metrics {test}; artifact reloaded bit-equal: {bit_equal}; "
+          f"relaunch {t_relaunch:.1f} s, launches "
+          f"{ {k: after[k] - before[k] for k in after if after[k] != before[k]} }",
+          flush=True)
+    if counts != expect:
+        raise SystemExit(f"driver: launches {counts}, expected {expect}")
+    if bad:
+        raise SystemExit(f"driver: {bad}")
+    if not bit_equal:
+        raise SystemExit("driver: the reloaded artifact's forward differs")
+    relaunch = {k: after[k] - before[k] for k in after}
+    if relaunch != {**dict.fromkeys(after, 0),
+                    "msda_fwd_bp": per_forward * SYNTH_VG["n_test"]}:
+        raise SystemExit(f"driver relaunch: launches {relaunch}: it must "
+                         "resume and take no step, only the test evaluation")
+    return {"counts": counts, "phases": phases, "seconds": t_run,
+            "relaunch_seconds": t_relaunch, "data_seconds": t_data,
+            "mean_step_ms": sum(step_ms) / len(step_ms), "test": test}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; it needs one GPU",
@@ -1025,6 +1343,7 @@ def main() -> int:
     bwd_rows = check_bwd_kernels(train_shapes, "training")
     q_rows = check_q_kernel(shapes)
     win_rows = check_win_kernels(shapes)
+    bp_rows = check_bp_kernel(shapes, train_shapes)
 
     served_cfg = infer.serving_config()
     tile_cfg = infer.bench_config(msda_window=WINDOW, msda_band="tile")
@@ -1043,6 +1362,8 @@ def main() -> int:
           + "; min " + " | ".join(f"{min(v):.3f}"
                                   for v in side_by_side.values()),
           flush=True)
+    batch_p_serve = serve_batch_p(
+        {"exact": exact_model, "served": served_model, "tile": tile_model}, x)
     del exact_model, served_model, tile_model
     model_errs = compare_f32(cfg, "exact", MODEL_ATOL)
     served_errs = compare_f32(served_cfg, "served", SERVED_MODEL_ATOL)
@@ -1065,6 +1386,9 @@ def main() -> int:
                        *adapt_args, 1, lrs=perf_train_step.ADAPT_LRS)
     adapt_errs = compare_train_f32(adapt_cfg, "adaptation", adapt_hw, 2,
                                    ADAPT_GRAD_RTOL)
+    # the training driver with every exact forward through K11
+    with tempfile.TemporaryDirectory() as workdir:
+        driver = drive_trainer(workdir)
 
     def pick(table, call, dtype="bfloat16"):
         return next(r for r in table
@@ -1113,6 +1437,29 @@ def main() -> int:
         return entry
 
     main_row = pick(rows, "encoder")
+    bp_main = next(r for r in bp_rows if r["bucket"] == "serving"
+                   and r["Q"] != 200 and r["form"] == "bfloat16")
+    bp_launches = {label: r["counts"]["msda_fwd_bp"]
+                   for label, r in batch_p_serve.items()}
+    bp_launches["driver"] = driver["counts"]["msda_fwd_bp"]
+    bp_entry = {
+        "name": "msda_fwd_bp", "route": "cuda",
+        "source": "egtr_tpu_torch/csrc/msda_fwd_bp.cu",
+        "replaces": "egtr_tpu/ops/msda_pallas.py:180",
+        "launches": sum(bp_launches.values()),
+        **{f"launches_{k}": v for k, v in bp_launches.items()},
+        "max_abs_err": max(r["max_abs_err"] for r in bp_rows
+                           if r["form"] == "bfloat16"),
+        "ms": bp_main["ms"], "plain_ms": bp_main["plain_ms"],
+        "bound_ms": bp_main["bound_ms"], "bound_by": bp_main["bound_by"],
+        "library_ms": None, "form": "bfloat16",
+        "ms_msda_fwd_same_call": bp_main["ms_msda_fwd_same_call"],
+        "calls": bp_rows,
+        "served_f32_max_abs_err": {"exact": model_errs["batch_p"],
+                                   "served": served_errs["batch_p"]},
+        "served_bf16_max_abs_diff_flag_off": {
+            label: r["max_abs_diff"] for label, r in batch_p_serve.items()},
+    }
     bwd_row = pick(bwd_rows, "encoder")
     q_row = pick(q_rows, "encoder_served")
     bf16_bwd = [r for r in bwd_rows if r["dtype"] == "bfloat16"]
@@ -1208,6 +1555,7 @@ def main() -> int:
                          adapt_tile["counts"]["msda_bwd_win_value"]),
         banded_bwd_entry("value", "msda_bwd_win_value_pp", 772,
                          adapt["counts"]["msda_bwd_win_value_pp"]),
+        bp_entry,
     ], "serve_ms_per_request": {"exact": exact_ms, "served": served_ms,
                                 "tile": tile_ms},
         "serve_ms_per_request_in_turns": side_by_side,
@@ -1220,7 +1568,8 @@ def main() -> int:
             label: {k: v for k, v in run.items() if k != "counts"}
             for label, run in (("point", adapt), ("tile", adapt_tile),
                                ("point_int8", adapt_int8))},
-        "train_f32": {"exact": train_errs, "adaptation": adapt_errs}}
+        "train_f32": {"exact": train_errs, "adaptation": adapt_errs},
+        "driver": {k: v for k, v in driver.items() if k != "counts"}}
     print(json.dumps(kernels))
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}",
           flush=True)

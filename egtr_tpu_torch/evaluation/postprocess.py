@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from ..ops.boxes import box_cxcywh_to_xyxy
@@ -93,3 +94,14 @@ def detection_postprocess(logits, pred_boxes, target_sizes, top_k: int = 100
     img_w = target_sizes[:, 1].to(boxes.dtype)
     scale = torch.stack([img_w, img_h, img_w, img_h], dim=1)[:, None, :]
     return {"scores": scores, "labels": labels, "boxes": boxes * scale}
+
+
+def rescale_boxes_np(boxes_cxcywh, orig_hw) -> np.ndarray:
+    """Normalized cxcywh -> absolute xyxy at the original image size, on the
+    host (util/box_ops.py:87-93 with torch.flip(orig_size))."""
+    h, w = float(orig_hw[0]), float(orig_hw[1])
+    b = np.asarray(boxes_cxcywh, np.float64)
+    xyxy = np.stack([
+        b[:, 0] - b[:, 2] / 2, b[:, 1] - b[:, 3] / 2,
+        b[:, 0] + b[:, 2] / 2, b[:, 1] + b[:, 3] / 2], 1)
+    return xyxy * np.array([w, h, w, h])

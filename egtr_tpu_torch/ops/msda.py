@@ -40,10 +40,19 @@ in one launch each of ``msda_bwd_rows`` and ``msda_bwd_value``, every banded
 level one launch each of the banded rows and value kernels
 (``msda_bwd_win_rows`` / ``msda_bwd_win_value``, or their ``_pp`` forms for
 ``band="point"``).
+
+With ``batch_p`` (by default :data:`FWD_BATCH_P`, set by the environment
+variable ``EGTR_MSDA_BATCH_P=1`` as in ``msda_pallas.py:85``) every launch of
+the exact forward, float or int8, whole or on a windowed call's exact levels,
+goes to the batched-P kernel ``msda_fwd_bp`` (K11) in place of ``msda_fwd``
+or ``msda_fwd_q``, and a CPU tensor takes its plain version
+:func:`msda_fwd_bp_plain`. It computes the same function; the backward does
+not read the flag.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -54,6 +63,11 @@ from .msda_window import (Segments, check_window, query_tile,
                           windowed_level_coords)
 
 _LANES = 128
+
+# The default of ``batch_p``: every exact forward through the batched-P
+# kernel K11, read once at import as the JAX package reads its flag
+# (``msda_pallas.py:85``). Set it in-process to change the default.
+FWD_BATCH_P = os.environ.get("EGTR_MSDA_BATCH_P", "0") == "1"
 
 # When a list, every banded level of every windowed call appends
 # ``(level index, bidx)``: whole-model comparisons count how many band
@@ -134,7 +148,14 @@ def _hat_rounding(dtype: torch.dtype, int8: bool):
 
 def _sample_level(level, ix, iy, aw, h: int, w: int, flip: bool, round_hat,
                   row0=None, nrows: int = 0):
-    """One level's weighted bilinear samples [B,Q,H,D] from ``level``
+    """:func:`_sample_points` summed over the points: [B,Q,H,D]."""
+    return _sample_points(level, ix, iy, aw, h, w, flip, round_hat, row0,
+                          nrows).sum(3)
+
+
+def _sample_points(level, ix, iy, aw, h: int, w: int, flip: bool, round_hat,
+                   row0=None, nrows: int = 0):
+    """One level's weighted bilinear samples [B,Q,H,P,D] from ``level``
     [B,H,hw,D]; ``ix``, ``iy``, ``aw`` are [B,Q,H,P], all in the accumulation
     dtype. Stage 1 contracts x (y with ``flip``) with hats that went through
     ``round_hat``; stage 2 weights by the other axis's hat times ``aw``. With
@@ -163,7 +184,7 @@ def _sample_level(level, ix, iy, aw, h: int, w: int, flip: bool, round_hat,
         t0 = wx0[..., None] * v00 + wx1[..., None] * v01
         t1 = wx0[..., None] * v10 + wx1[..., None] * v11
         c0, c1 = wy0 * aw, wy1 * aw
-    return (t0 * c0[..., None] + t1 * c1[..., None]).sum(3)
+    return t0 * c0[..., None] + t1 * c1[..., None]
 
 
 def level_starts(spatial_shapes: Sequence[Tuple[int, int]]) -> List[int]:
@@ -269,6 +290,49 @@ def ms_deform_attn_plain_q(value: torch.Tensor,
     vq, scale = quantize_levels(value, spatial_shapes)
     return msda_fwd_q_plain(vq, scale, spatial_shapes, sampling_locations,
                             attention_weights).to(value.dtype)
+
+
+def msda_fwd_bp_plain(value: torch.Tensor,
+                      spatial_shapes: Sequence[Tuple[int, int]],
+                      sampling_locations: torch.Tensor,
+                      attention_weights: torch.Tensor,
+                      levels: Optional[Sequence[int]] = None,
+                      out_dtype: Optional[torch.dtype] = None,
+                      scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The batched-P forward (``msda_pallas.py:_fwd_body_bp``) in plain
+    PyTorch, with the contract of the kernel ``msda_cuda.msda_fwd_bp``.
+
+    Float form (``scale`` None): the contract of :func:`ms_deform_attn_plain`.
+    int8 form (``value`` int8 and its ``scale`` from :func:`quantize_levels`):
+    that of :func:`msda_fwd_q_plain`, float32 out. Each (level, point) term
+    is computed with the roundings of those two, the L*P terms are stacked
+    and summed in float32 at once, as the TPU kernel folds its points."""
+    B, S, H, D = value.shape
+    _, Q, _, L, P, _ = sampling_locations.shape
+    int8 = value.dtype == torch.int8
+    if int8 != (scale is not None):
+        raise ValueError("msda_fwd_bp_plain takes a scale with int8 values "
+                         "and only with them")
+    acc = torch.float32 if int8 else _acc_dtype(value.dtype)
+    round_hat = _hat_rounding(value.dtype, int8)
+    rounds = int8 or value.dtype not in (torch.float32, torch.float64)
+    table = value.to(acc).permute(0, 2, 1, 3)                 # [B,H,S,D]
+    starts = level_starts(spatial_shapes)
+    terms = []
+    for lid in (range(L) if levels is None else levels):
+        h, w = spatial_shapes[lid]
+        aw = attention_weights[:, :, :, lid].to(acc)          # [B,Q,H,P]
+        if int8:
+            aw = aw * scale[:, None, :, lid, None]
+        ix, iy = _pixel_coords(sampling_locations, lid, h, w, acc)
+        flip = rounds and _orient(h, w, D) == "y"
+        level = table[:, :, starts[lid]:starts[lid] + h * w]
+        terms.append(_sample_points(level, ix, iy, aw, h, w, flip, round_hat))
+    out = torch.cat(terms, dim=3).sum(3)                      # [B,Q,H,D]
+    if int8:
+        out_dtype = torch.float32
+    return out.reshape(B, Q, H * D).to(value.dtype if out_dtype is None
+                                       else out_dtype)
 
 
 def msda_fwd_win_plain(value_l: torch.Tensor, bidx: torch.Tensor,
@@ -464,11 +528,20 @@ def msda_bwd_win_plain(value_l: torch.Tensor, bidx: torch.Tensor,
 
 
 def _exact_forward(value, spatial_shapes, sampling_locations,
-                   attention_weights, kernel: bool, int8: bool):
-    """The op without a window: kernel or plain version, exact or int8."""
+                   attention_weights, kernel: bool, int8: bool,
+                   batch_p: bool):
+    """The op without a window: kernel or plain version, exact or int8, the
+    batched-P kernel with ``batch_p``."""
     args = (spatial_shapes, sampling_locations, attention_weights)
     if kernel:
         from . import msda_cuda
+    if batch_p:
+        fn = msda_cuda.msda_fwd_bp if kernel else msda_fwd_bp_plain
+        if int8:
+            vq, scale = quantize_levels(value, spatial_shapes)
+            return fn(vq, *args, scale=scale).to(value.dtype)
+        return fn(value, *args)
+    if kernel:
         if int8:
             vq, scale = quantize_levels(value, spatial_shapes)
             return msda_cuda.msda_fwd_q(vq, scale, *args).to(value.dtype)
@@ -482,8 +555,9 @@ class _MSDeformAttn(torch.autograd.Function):
     """The op with its explicit backward. It saves only (value, loc, aw), as
     the JAX op does: the backward recomputes the hats. With ``kernel`` and
     CUDA tensors it launches the hand-written kernels (forward
-    ``msda_cuda.msda_fwd`` or, with ``int8``, ``msda_cuda.msda_fwd_q``;
-    backward ``msda_cuda.msda_bwd``); otherwise it runs the plain forward and
+    ``msda_cuda.msda_fwd`` or, with ``int8``, ``msda_cuda.msda_fwd_q``, and
+    with ``batch_p`` ``msda_cuda.msda_fwd_bp`` in place of either; backward
+    ``msda_cuda.msda_bwd``); otherwise it runs the plain forward and
     the plain backward. The int8 forward has the exact op's backward
     (straight-through, ``msda_pallas.py:1156``). Autograd never
     differentiates through ``ms_deform_attn_plain``: its gradient would round
@@ -491,12 +565,12 @@ class _MSDeformAttn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, value, sampling_locations, attention_weights,
-                spatial_shapes, kernel, int8=False):
+                spatial_shapes, kernel, int8=False, batch_p=False):
         ctx.save_for_backward(value, sampling_locations, attention_weights)
         ctx.spatial_shapes = spatial_shapes
         ctx.kernel = kernel
         return _exact_forward(value, spatial_shapes, sampling_locations,
-                              attention_weights, kernel, int8)
+                              attention_weights, kernel, int8, batch_p)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -509,7 +583,7 @@ class _MSDeformAttn(torch.autograd.Function):
         else:
             grads = ms_deform_attn_plain_bwd(value, ctx.spatial_shapes, loc,
                                              aw, grad_output)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def rows_t(sampling_locations, attention_weights):
@@ -539,9 +613,10 @@ def win_level_rows(locT, awT, lid: int, h: int, w: int, window: int,
 
 def _windowed_forward(value, spatial_shapes, sampling_locations,
                       attention_weights, window: int, query_segments,
-                      band: str, int8: bool, kernel: bool):
+                      band: str, int8: bool, kernel: bool, batch_p: bool):
     """The banded forward (``msda_pallas.py:_msda_win_fwd``): exact levels in
-    one launch, one launch per banded level, float32 parts summed."""
+    one launch (of K11 with ``batch_p``), one launch per banded level,
+    float32 parts summed."""
     if kernel:
         from . import msda_cuda
     B, S, H, D = value.shape
@@ -555,7 +630,13 @@ def _windowed_forward(value, spatial_shapes, sampling_locations,
     else:
         source = value
     out = None
-    if exact and int8:
+    if exact and batch_p:
+        fn = msda_cuda.msda_fwd_bp if kernel else msda_fwd_bp_plain
+        if int8:
+            out = fn(source, *args, levels=exact, scale=scale)
+        else:
+            out = fn(value, *args, levels=exact, out_dtype=torch.float32)
+    elif exact and int8:
         fn = msda_cuda.msda_fwd_q if kernel else msda_fwd_q_plain
         out = fn(source, scale, *args, levels=exact)
     elif exact:
@@ -644,12 +725,13 @@ class _MSDeformAttnWin(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, value, sampling_locations, attention_weights,
-                spatial_shapes, window, query_segments, band, int8, kernel):
+                spatial_shapes, window, query_segments, band, int8, kernel,
+                batch_p):
         ctx.save_for_backward(value, sampling_locations, attention_weights)
         ctx.args = (spatial_shapes, window, query_segments, band, kernel)
         return _windowed_forward(value, spatial_shapes, sampling_locations,
                                  attention_weights, window, query_segments,
-                                 band, int8, kernel)
+                                 band, int8, kernel, batch_p)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -657,7 +739,7 @@ class _MSDeformAttnWin(torch.autograd.Function):
         value, loc, aw = ctx.saved_tensors
         grads = _windowed_backward(value, loc, aw, grad_output.contiguous(),
                                    *ctx.args)
-        return (*grads, None, None, None, None, None, None)
+        return (*grads, None, None, None, None, None, None, None)
 
 
 def _matmul_windowed(value, spatial_shapes, sampling_locations,
@@ -687,7 +769,7 @@ def _matmul_windowed(value, spatial_shapes, sampling_locations,
         aws.append(aw_l.float())
     loc = torch.stack(locs, dim=3).to(sampling_locations.dtype)
     aw = torch.stack(aws, dim=3).to(attention_weights.dtype)
-    return _exact_op(value, spatial_shapes, loc, aw, False, False)
+    return _exact_op(value, spatial_shapes, loc, aw, False, False, False)
 
 
 def _needs_grad(*tensors) -> bool:
@@ -695,14 +777,15 @@ def _needs_grad(*tensors) -> bool:
 
 
 def _exact_op(value, spatial_shapes, sampling_locations, attention_weights,
-              kernel: bool, int8: bool):
+              kernel: bool, int8: bool, batch_p: bool):
     """The op without a window: through :class:`_MSDeformAttn` where
     autograd needs a gradient, else the bare forward."""
     tensors = (value, sampling_locations, attention_weights)
     if _needs_grad(*tensors):
-        return _MSDeformAttn.apply(*tensors, spatial_shapes, kernel, int8)
+        return _MSDeformAttn.apply(*tensors, spatial_shapes, kernel, int8,
+                                   batch_p)
     return _exact_forward(value, spatial_shapes, sampling_locations,
-                          attention_weights, kernel, int8)
+                          attention_weights, kernel, int8, batch_p)
 
 
 def _takes_kernels(impl: str, value: torch.Tensor) -> bool:
@@ -717,7 +800,8 @@ def ms_deform_attn(value: torch.Tensor,
                    attention_weights: torch.Tensor,
                    impl: str = "auto", window: int = 0,
                    query_segments=None, int8: bool = False,
-                   band: str = "tile") -> torch.Tensor:
+                   band: str = "tile", batch_p: Optional[bool] = None
+                   ) -> torch.Tensor:
     """Multi-scale deformable attention: exact, with int8 stage 1, banded.
 
     impl "auto" and "pallas" launch the hand-written CUDA kernels on CUDA
@@ -733,7 +817,10 @@ def ms_deform_attn(value: torch.Tensor,
     shapes). ``band`` is "tile" (one band per query tile) or "point" (one per
     sampling point and tile). ``int8`` quantizes stage 1 (values to int8 per
     batch, head and level, the contracted hats to 7 bits); it is a feature of
-    the kernels and is refused with "matmul" and "gather".
+    the kernels and is refused with "matmul" and "gather". ``batch_p`` (None:
+    :data:`FWD_BATCH_P`) sends every exact forward to the batched-P kernel
+    K11 or its plain version; "matmul" and "gather" ignore it, as the JAX
+    package's XLA paths do.
 
     Where autograd needs a gradient the call goes through
     :class:`_MSDeformAttn` (no banded level) or :class:`_MSDeformAttnWin`
@@ -758,6 +845,8 @@ def ms_deform_attn(value: torch.Tensor,
             f"int8 stage-1 is a kernel feature; impl={impl!r} cannot honor "
             "it (drop int8 or use impl='pallas'/'auto')")
     kernel = _takes_kernels(impl, value)
+    batch_p = bool(FWD_BATCH_P if batch_p is None else batch_p) and impl in (
+        "auto", "pallas", "plain")
     tensors = (value, sampling_locations, attention_weights)
     if window > 0 and impl == "gather":
         raise ValueError("windowed MSDA is not supported on the gather path")
@@ -768,10 +857,11 @@ def ms_deform_attn(value: torch.Tensor,
                                     band)
         if _needs_grad(*tensors):
             return _MSDeformAttnWin.apply(*tensors, spatial_shapes, window,
-                                          query_segments, band, int8, kernel)
+                                          query_segments, band, int8, kernel,
+                                          batch_p)
         return _windowed_forward(value, spatial_shapes, sampling_locations,
                                  attention_weights, window, query_segments,
-                                 band, int8, kernel)
+                                 band, int8, kernel, batch_p)
     # no level is banded: the op without a window
     return _exact_op(value, spatial_shapes, sampling_locations,
-                     attention_weights, kernel, int8)
+                     attention_weights, kernel, int8, batch_p)

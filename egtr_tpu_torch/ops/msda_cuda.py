@@ -1,6 +1,6 @@
 """Wrappers, build step and launch counters of the hand-written MSDA kernels.
 
-Ten kernels, in five sources under ``egtr_tpu_torch/csrc``, replace the JAX
+Eleven kernels, in six sources under ``egtr_tpu_torch/csrc``, replace the JAX
 package's Pallas kernels:
 
 - ``msda_fwd`` (``msda_fwd.cu``) replaces ``msda_pallas.py:_fwd_kernel``;
@@ -19,7 +19,10 @@ package's Pallas kernels:
   gradients of one banded level;
 - ``msda_bwd_win_value`` and ``msda_bwd_win_value_pp`` (``msda_bwd_win.cu``)
   replace ``_bwd_dvtt_kernel_win`` and ``_bwd_dvtt_kernel_win_pp``: the value
-  gradient of one banded level, with float32 atomics.
+  gradient of one banded level, with float32 atomics;
+- ``msda_fwd_bp`` (``msda_fwd_bp.cu``) replaces ``_fwd_kernel_bp`` (the
+  forward with all sampling points in one stage, ``EGTR_MSDA_BATCH_P=1``) in
+  a float form (K1's function) and an int8 form (K4's).
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes``. The libraries are built
@@ -30,7 +33,8 @@ a hash of its source and the compiler flags, so an edited source is rebuilt.
 There is no fallback: if ``nvcc`` is missing or a build fails, a call on
 CUDA tensors raises. The plain versions (``msda.ms_deform_attn_plain``,
 ``msda.ms_deform_attn_plain_bwd``, ``msda.msda_fwd_q_plain``,
-``msda.msda_fwd_win_plain``, ``msda.msda_bwd_win_plain``) run for CPU
+``msda.msda_fwd_win_plain``, ``msda.msda_bwd_win_plain``,
+``msda.msda_fwd_bp_plain``) run for CPU
 tensors, or where the caller asks for them by name, through the dispatch in
 ``msda.ms_deform_attn``.
 """
@@ -58,25 +62,31 @@ SOURCE_BWD = _CSRC / "msda_bwd.cu"
 SOURCE_Q = _CSRC / "msda_fwd_q.cu"
 SOURCE_WIN = _CSRC / "msda_fwd_win.cu"
 SOURCE_BWD_WIN = _CSRC / "msda_bwd_win.cu"
+SOURCE_BP = _CSRC / "msda_fwd_bp.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 MAX_LEVELS = 8  # MSDA_MAX_LEVELS in the sources
 MAX_SEGMENTS = 8  # MSDA_MAX_SEGMENTS in msda_fwd_win.cu, msda_bwd_win.cu
 
-# Kernel launches since each count was last set to 0; a wrapper raises its
-# kernel's count by one per launch and nowhere else. chip_smoke.py reads them
-# to show that the main path went through the kernels.
-launches = 0            # msda_fwd
-bwd_rows_launches = 0   # msda_bwd_rows
-bwd_value_launches = 0  # msda_bwd_value
-fwd_q_launches = 0      # msda_fwd_q
-fwd_win_launches = 0    # msda_fwd_win (float and int8 forms)
-fwd_win_pp_launches = 0  # msda_fwd_win_pp (float and int8 forms)
-bwd_win_rows_launches = 0      # msda_bwd_win_rows
-bwd_win_rows_pp_launches = 0   # msda_bwd_win_rows_pp
-bwd_win_value_launches = 0     # msda_bwd_win_value
-bwd_win_value_pp_launches = 0  # msda_bwd_win_value_pp
+# The kernels, by the name of their wrapper (the forms of a kernel, float or
+# int8, share its name).
+KERNELS = ("msda_fwd", "msda_bwd_rows", "msda_bwd_value", "msda_fwd_q",
+           "msda_fwd_win", "msda_fwd_win_pp", "msda_bwd_win_rows",
+           "msda_bwd_win_rows_pp", "msda_bwd_win_value",
+           "msda_bwd_win_value_pp", "msda_fwd_bp")
+
+# Kernel launches since the counts were last set to 0 (reset_launches), by
+# kernel; a wrapper raises its kernel's count by one per launch and nowhere
+# else. chip_smoke.py reads them to show that the main path went through the
+# kernels.
+launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        launches[name] = 0
+
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -86,7 +96,7 @@ def sources() -> Dict[str, Path]:
     """Library name -> its source."""
     return {"msda_fwd": SOURCE, "msda_bwd": SOURCE_BWD,
             "msda_fwd_q": SOURCE_Q, "msda_fwd_win": SOURCE_WIN,
-            "msda_bwd_win": SOURCE_BWD_WIN}
+            "msda_bwd_win": SOURCE_BWD_WIN, "msda_fwd_bp": SOURCE_BP}
 
 
 def _nvcc() -> str:
@@ -173,6 +183,10 @@ _FUNCTIONS = {
     "msda_bwd_win_rows_pp": ("msda_bwd_win", _BWD_WIN_ROWS_ARGS),
     "msda_bwd_win_value": ("msda_bwd_win", _BWD_WIN_VALUE_ARGS),
     "msda_bwd_win_value_pp": ("msda_bwd_win", _BWD_WIN_VALUE_ARGS),
+    "msda_fwd_bp": ("msda_fwd_bp", [_VOID_P] * 4 + [ctypes.POINTER(_INT)]
+                    + [_INT] * 10 + [_VOID_P]),
+    "msda_fwd_bp_q": ("msda_fwd_bp", [_VOID_P] * 5 + [ctypes.POINTER(_INT)]
+                      + [_INT] * 9 + [_VOID_P]),
 }
 
 
@@ -295,7 +309,6 @@ def msda_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
     would be needed: ``msda.ms_deform_attn`` wraps it in the op that carries
     the backward kernels.
     """
-    global launches
     tensors = (value, sampling_locations, attention_weights)
     _one_cuda_device("msda_fwd", tensors)
     _refuse_grad("msda_fwd", tensors)
@@ -323,7 +336,7 @@ def msda_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                 int(out_dtype == torch.float32), stream)
     if rc != 0:
         raise RuntimeError(f"msda_fwd kernel launch failed: CUDA error {rc}")
-    launches += 1
+    launches["msda_fwd"] += 1
     return out
 
 
@@ -358,7 +371,6 @@ def msda_fwd_q(vq: torch.Tensor, scale: torch.Tensor,
     """Launch the int8-stage-1 forward kernel: the contract of
     ``msda.msda_fwd_q_plain`` (``(vq, scale)`` from
     ``msda.quantize_levels``; float32 [B, Q, H*D] out)."""
-    global fwd_q_launches
     tensors = (vq, scale, sampling_locations, attention_weights)
     _one_cuda_device("msda_fwd_q", tensors)
     _refuse_grad("msda_fwd_q", tensors)
@@ -381,7 +393,97 @@ def msda_fwd_q(vq: torch.Tensor, scale: torch.Tensor,
                 int(attention_weights.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"msda_fwd_q kernel launch failed: CUDA error {rc}")
-    fwd_q_launches += 1
+    launches["msda_fwd_q"] += 1
+    return out
+
+
+def check_inputs_bp(value: torch.Tensor,
+                    spatial_shapes: Sequence[Tuple[int, int]],
+                    sampling_locations: torch.Tensor,
+                    attention_weights: torch.Tensor,
+                    scale: Optional[torch.Tensor]) -> None:
+    """Raise on anything ``msda_fwd_bp`` does not take (device aside): K1's
+    inputs (float form) or K4's (int8 values with their ``scale``), P
+    dividing 32 (the warp's lanes split over the points), D a multiple of 4
+    and a value pointer aligned for a four-channel load."""
+    if value.dtype == torch.int8:
+        if scale is None:
+            raise ValueError("int8 values need their scale (int8 form)")
+        check_inputs_q(value, scale, spatial_shapes, sampling_locations,
+                       attention_weights)
+    else:
+        if scale is not None:
+            raise ValueError("scale is for int8 values only")
+        check_inputs(value, spatial_shapes, sampling_locations,
+                     attention_weights)
+    D, P = value.shape[3], sampling_locations.shape[4]
+    if P < 1 or 32 % P:
+        raise ValueError(f"msda_fwd_bp splits a warp's 32 lanes over the "
+                         f"sampling points: P must divide 32, got P = {P}")
+    if D % 4:
+        raise ValueError(f"msda_fwd_bp reads four channels per lane: D must "
+                         f"be a multiple of 4, got D = {D}")
+    if value.data_ptr() % (4 * value.element_size()):
+        raise ValueError("value must be aligned to four channels (a tensor "
+                         "whose storage starts at an element offset that is "
+                         "not a multiple of 4 is not)")
+
+
+def msda_fwd_bp(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                sampling_locations: torch.Tensor,
+                attention_weights: torch.Tensor,
+                levels: Optional[Sequence[int]] = None,
+                out_dtype: Optional[torch.dtype] = None,
+                scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the batched-P forward kernel (K11): the contract of
+    ``msda.msda_fwd_bp_plain``. Float form: K1's (``msda_fwd``), ``levels``
+    and ``out_dtype`` included. int8 form (``value`` int8 from
+    ``msda.quantize_levels`` with its ``scale``): K4's (``msda_fwd_q``),
+    float32 out. Both forms count as launches of ``msda_fwd_bp``."""
+    tensors = (value, sampling_locations, attention_weights) + (
+        () if scale is None else (scale,))
+    _one_cuda_device("msda_fwd_bp", tensors)
+    _refuse_grad("msda_fwd_bp", tensors)
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    check_inputs_bp(value, spatial_shapes, sampling_locations,
+                    attention_weights, scale)
+    B, S, H, D = value.shape
+    _, Q, _, L, P, _ = sampling_locations.shape
+    levels = _check_levels(levels, L)
+    int8 = value.dtype == torch.int8
+    if int8:
+        if out_dtype not in (None, torch.float32):
+            raise TypeError(f"the int8 form returns float32, got out_dtype "
+                            f"{out_dtype}")
+        out_dtype = torch.float32
+    else:
+        out_dtype = value.dtype if out_dtype is None else out_dtype
+        if out_dtype not in (value.dtype, torch.float32):
+            raise TypeError(f"out_dtype must be {value.dtype} or float32, got "
+                            f"{out_dtype}")
+    fn = _function("msda_fwd_bp_q" if int8 else "msda_fwd_bp")
+    out = torch.empty((B, Q, H * D), dtype=out_dtype, device=value.device)
+    if out.numel() == 0:
+        return out
+    table = _levels_arg(spatial_shapes, D, levels,
+                        value.dtype != torch.float32)
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if int8:
+            rc = fn(value.data_ptr(), scale.data_ptr(),
+                    sampling_locations.data_ptr(),
+                    attention_weights.data_ptr(), out.data_ptr(), table,
+                    len(levels), L, B, S, Q, H, D, P,
+                    int(attention_weights.dtype == torch.bfloat16), stream)
+        else:
+            rc = fn(value.data_ptr(), sampling_locations.data_ptr(),
+                    attention_weights.data_ptr(), out.data_ptr(), table,
+                    len(levels), L, B, S, Q, H, D, P,
+                    int(value.dtype == torch.bfloat16),
+                    int(out_dtype == torch.float32), stream)
+    if rc != 0:
+        raise RuntimeError(f"msda_fwd_bp kernel launch failed: CUDA error {rc}")
+    launches["msda_fwd_bp"] += 1
     return out
 
 
@@ -477,11 +579,9 @@ def msda_fwd_win(value_l: torch.Tensor, bidx: torch.Tensor, ix: torch.Tensor,
     """Launch the banded kernel with one band per query tile (``bidx``
     [B, H, T]): the contract of ``msda.msda_fwd_win_plain``, float32
     [B, Q, H*D] out. int8 values select the kernel's int8 form."""
-    global fwd_win_launches
     out, launched = _fwd_win("msda_fwd_win", False, value_l, bidx, ix,
                              iy_band, aw_eff, h, w, win, segs, Q)
-    if launched:
-        fwd_win_launches += 1
+    launches["msda_fwd_win"] += int(launched)
     return out
 
 
@@ -493,11 +593,9 @@ def msda_fwd_win_pp(value_l: torch.Tensor, bidx: torch.Tensor,
     tile) (``bidx`` [B, H, P, T]): the contract of
     ``msda.msda_fwd_win_plain``, float32 [B, Q, H*D] out. int8 values select
     the kernel's int8 form."""
-    global fwd_win_pp_launches
     out, launched = _fwd_win("msda_fwd_win_pp", True, value_l, bidx, ix,
                              iy_band, aw_eff, h, w, win, segs, Q)
-    if launched:
-        fwd_win_pp_launches += 1
+    launches["msda_fwd_win_pp"] += int(launched)
     return out
 
 
@@ -537,7 +635,6 @@ def msda_bwd_rows(value: torch.Tensor,
     daw [B,Q,H,L,P] in the weights' dtype)``, as the last two results of
     ``msda.ms_deform_attn_plain_bwd``, ``levels`` included (the other
     levels' entries are zero). Deterministic."""
-    global bwd_rows_launches
     spatial_shapes = _bwd_args("msda_bwd_rows", value, spatial_shapes,
                                sampling_locations, attention_weights,
                                grad_output)
@@ -561,7 +658,7 @@ def msda_bwd_rows(value: torch.Tensor,
     if rc != 0:
         raise RuntimeError(
             f"msda_bwd_rows kernel launch failed: CUDA error {rc}")
-    bwd_rows_launches += 1
+    launches["msda_bwd_rows"] += 1
     return dloc, daw
 
 
@@ -581,7 +678,6 @@ def msda_bwd_value(value: torch.Tensor,
     it the last bits of the float32 sums, varies from run to run. ``value``
     gives the shape and dtype only: the kernel does not read it.
     """
-    global bwd_value_launches
     spatial_shapes = _bwd_args("msda_bwd_value", value, spatial_shapes,
                                sampling_locations, attention_weights,
                                grad_output)
@@ -605,7 +701,7 @@ def msda_bwd_value(value: torch.Tensor,
     if rc != 0:
         raise RuntimeError(
             f"msda_bwd_value kernel launch failed: CUDA error {rc}")
-    bwd_value_launches += 1
+    launches["msda_bwd_value"] += 1
     return acc.to(out_dtype)
 
 
@@ -699,11 +795,10 @@ def msda_bwd_win_rows(value_l: torch.Tensor, bidx: torch.Tensor,
     """Launch the banded row-gradient kernel with one band per query tile
     (``bidx`` [B, H, T]): ``(dix, diy, daw)`` float32 [B, H, P, Q_pad], as
     the last three results of ``msda.msda_bwd_win_plain``. Deterministic."""
-    global bwd_win_rows_launches
     outs, launched = _bwd_win_launch("msda_bwd_win_rows", False, True,
                                      value_l, bidx, ix, iy_band, aw_eff, g, h,
                                      w, win, segs, Q)
-    bwd_win_rows_launches += int(launched)
+    launches["msda_bwd_win_rows"] += int(launched)
     return outs
 
 
@@ -715,11 +810,10 @@ def msda_bwd_win_rows_pp(value_l: torch.Tensor, bidx: torch.Tensor,
                                     torch.Tensor]:
     """:func:`msda_bwd_win_rows` with one band per (sampling point, query
     tile) (``bidx`` [B, H, P, T])."""
-    global bwd_win_rows_pp_launches
     outs, launched = _bwd_win_launch("msda_bwd_win_rows_pp", True, True,
                                      value_l, bidx, ix, iy_band, aw_eff, g, h,
                                      w, win, segs, Q)
-    bwd_win_rows_pp_launches += int(launched)
+    launches["msda_bwd_win_rows_pp"] += int(launched)
     return outs
 
 
@@ -731,11 +825,10 @@ def msda_bwd_win_value(value_l: torch.Tensor, bidx: torch.Tensor,
     (``bidx`` [B, H, T]): ``dvalue_l`` float32 [B, h*w, H, D], the first
     result of ``msda.msda_bwd_win_plain``. float32 atomics: the last bits
     vary from run to run. ``value_l`` gives the shape and dtype only."""
-    global bwd_win_value_launches
     outs, launched = _bwd_win_launch("msda_bwd_win_value", False, False,
                                      value_l, bidx, ix, iy_band, aw_eff, g, h,
                                      w, win, segs, Q)
-    bwd_win_value_launches += int(launched)
+    launches["msda_bwd_win_value"] += int(launched)
     return outs[0]
 
 
@@ -746,11 +839,10 @@ def msda_bwd_win_value_pp(value_l: torch.Tensor, bidx: torch.Tensor,
                           ) -> torch.Tensor:
     """:func:`msda_bwd_win_value` with one band per (sampling point, query
     tile) (``bidx`` [B, H, P, T])."""
-    global bwd_win_value_pp_launches
     outs, launched = _bwd_win_launch("msda_bwd_win_value_pp", True, False,
                                      value_l, bidx, ix, iy_band, aw_eff, g, h,
                                      w, win, segs, Q)
-    bwd_win_value_pp_launches += int(launched)
+    launches["msda_bwd_win_value_pp"] += int(launched)
     return outs[0]
 
 

@@ -81,3 +81,43 @@ def state_dict_from_jax(params: Mapping, cfg: EgtrConfig
 
     walk(tree, ())
     return sd
+
+
+_TIMM_BLOCK_RE = re.compile(
+    r"layer(\d)\.(\d+)\.(conv[123]\.weight|bn[123]\.\w+|downsample\.[01]\.\w+)$")
+_BN_LEAVES = ("weight", "bias", "running_mean", "running_var")
+
+
+def backbone_state_dict_from_timm(sd: Mapping[str, object],
+                                  root: str = "model.backbone"
+                                  ) -> Dict[str, torch.Tensor]:
+    """A RAW timm/torchvision ResNet state dict (keys like ``conv1.weight``,
+    ``layer1.0.bn1.running_mean``, ``layer1.0.downsample.0.weight``) as
+    entries of the port's ``state_dict`` under ``root``: the counterpart of
+    ``egtr_tpu.utils.convert.convert_backbone_state_dict``, the reference's
+    backbone bootstrap (train_egtr.py:255-260). Conv weights keep their OIHW
+    layout; the classifier (``fc.*``) is dropped. Merge with a fresh init via
+    ``checkpoint.merge_pretrained``."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(name, value):
+        out[f"{root}.{name}"] = torch.as_tensor(np.asarray(value, np.float32))
+
+    for key, value in sd.items():
+        if key == "conv1.weight":
+            put("conv1.weight", value)
+        elif key.startswith("bn1.") and key[4:] in _BN_LEAVES:
+            put(key, value)
+        else:
+            m = _TIMM_BLOCK_RE.match(key)
+            if not m:
+                continue
+            stage, block, rest = m.groups()
+            rest = (rest.replace("downsample.0.", "downsample_conv.")
+                    .replace("downsample.1.", "downsample_bn."))
+            put(f"layer{stage}_{block}.{rest}", value)
+    if not out:
+        raise ValueError(
+            "state dict contains no recognizable ResNet keys (expected raw "
+            "timm/torchvision names like 'conv1.weight')")
+    return out

@@ -21,7 +21,11 @@ import pytest
 import torch
 
 import chip_smoke
+from egtr_tpu_torch import config as config_mod
 from egtr_tpu_torch import infer
+from egtr_tpu_torch.data import loader as loader_mod
+from egtr_tpu_torch.data import transforms as transforms_mod
+from egtr_tpu_torch.data import visual_genome as vg_mod
 from egtr_tpu_torch.ops import msda, msda_cuda
 from egtr_tpu_torch.scripts import perf_train_step
 
@@ -32,6 +36,8 @@ REPO = Path(__file__).resolve().parents[1]
 TINY = dict(d_model=64, encoder_layers=2, decoder_layers=2,
             encoder_ffn_dim=128, decoder_ffn_dim=128, num_queries=12,
             num_labels=7, num_rel_labels=5)
+DRIVER_TINY = dict(d_model=64, encoder_layers=2, decoder_layers=2,
+                   encoder_ffn_dim=128, decoder_ffn_dim=128)
 
 
 class HostEvent:
@@ -52,42 +58,49 @@ class HostEvent:
 def fake_card(monkeypatch, tmp_path):
     def kernel(value, shapes, loc, aw, levels=None, out_dtype=None):
         msda_cuda.check_inputs(value, tuple(shapes), loc, aw)
-        msda_cuda.launches += 1
+        msda_cuda.launches["msda_fwd"] += 1
         return msda.ms_deform_attn_plain(value, shapes, loc, aw, levels,
                                          out_dtype)
 
+    def fwd_bp(value, shapes, loc, aw, levels=None, out_dtype=None,
+               scale=None):
+        msda_cuda.check_inputs_bp(value, tuple(shapes), loc, aw, scale)
+        msda_cuda.launches["msda_fwd_bp"] += 1
+        return msda.msda_fwd_bp_plain(value, shapes, loc, aw, levels,
+                                      out_dtype, scale)
+
     def fwd_q(vq, scale, shapes, loc, aw, levels=None):
         msda_cuda.check_inputs_q(vq, scale, tuple(shapes), loc, aw)
-        msda_cuda.fwd_q_launches += 1
+        msda_cuda.launches["msda_fwd_q"] += 1
         return msda.msda_fwd_q_plain(vq, scale, shapes, loc, aw, levels)
 
     def fwd_win(*args):
         msda_cuda.check_inputs_win(*args, per_point=False)
-        msda_cuda.fwd_win_launches += 1
+        msda_cuda.launches["msda_fwd_win"] += 1
         return msda.msda_fwd_win_plain(*args)
 
     def fwd_win_pp(*args):
         msda_cuda.check_inputs_win(*args, per_point=True)
-        msda_cuda.fwd_win_pp_launches += 1
+        msda_cuda.launches["msda_fwd_win_pp"] += 1
         return msda.msda_fwd_win_plain(*args)
 
     def bwd_rows(value, shapes, loc, aw, g, levels=None):
         msda_cuda.check_inputs(value, tuple(shapes), loc, aw)
         msda_cuda.check_grad_output(value, loc, g)
-        msda_cuda.bwd_rows_launches += 1
+        msda_cuda.launches["msda_bwd_rows"] += 1
         return msda.ms_deform_attn_plain_bwd(value, shapes, loc, aw, g,
                                              levels)[1:]
 
     def bwd_value(value, shapes, loc, aw, g, levels=None, out_dtype=None):
         msda_cuda.check_grad_output(value, loc, g)
-        msda_cuda.bwd_value_launches += 1
+        msda_cuda.launches["msda_bwd_value"] += 1
         return msda.ms_deform_attn_plain_bwd(value, shapes, loc, aw, g,
                                              levels, out_dtype)[0]
 
-    def bwd_win(counter, per_point, part):
+    def bwd_win(name, per_point, part):
         def kernel(*args):
             msda_cuda.check_inputs_bwd_win(*args, per_point=per_point)
-            setattr(msda_cuda, counter, getattr(msda_cuda, counter) + 1)
+            msda_cuda.launches[name] += 1
             out = msda.msda_bwd_win_plain(*args)
             return out[0] if part == "value" else out[1:]
         return kernel
@@ -107,13 +120,13 @@ def fake_card(monkeypatch, tmp_path):
     monkeypatch.setattr(msda_cuda, "msda_fwd_q", fwd_q)
     monkeypatch.setattr(msda_cuda, "msda_fwd_win", fwd_win)
     monkeypatch.setattr(msda_cuda, "msda_fwd_win_pp", fwd_win_pp)
+    monkeypatch.setattr(msda_cuda, "msda_fwd_bp", fwd_bp)
     for name, per_point in (("msda_bwd_win_rows", False),
                             ("msda_bwd_win_rows_pp", True),
                             ("msda_bwd_win_value", False),
                             ("msda_bwd_win_value_pp", True)):
         part = "value" if "value" in name else "rows"
-        monkeypatch.setattr(msda_cuda, name, bwd_win(
-            chip_smoke.KERNEL_COUNTERS[name], per_point, part))
+        monkeypatch.setattr(msda_cuda, name, bwd_win(name, per_point, part))
     # the dispatch takes the (faked) kernels for these CPU tensors, as it
     # does for CUDA tensors on the card
     monkeypatch.setattr(msda, "_takes_kernels",
@@ -143,6 +156,32 @@ def fake_card(monkeypatch, tmp_path):
     monkeypatch.setattr(perf_train_step, "ADAPT_HW", (144, 96))
     monkeypatch.setattr(perf_train_step, "ADAPT_BATCH", 1)
     monkeypatch.setattr(chip_smoke, "ADAPT_STEPS", 1)
+    # the driver: 2+1+1 synthetic images of 144x96 that no resize changes
+    # (the DETR scales and the test size set to their short side), one
+    # bucket, a 2+2-layer model of the driver's bf16, 12 queries; batch 1
+    # x accum 2: one optimizer step per phase
+    real_cfg, real_ds = config_mod.EgtrConfig, vg_mod.VGDataset
+
+    class SmallVG(real_ds):
+        def __init__(self, *a, size=800, max_size=1333, **kw):
+            super().__init__(*a, size=96, max_size=144, **kw)
+
+    class TinyConfig(real_cfg):
+        def __init__(self, **kw):
+            super().__init__(**{**kw, **DRIVER_TINY})
+
+    monkeypatch.setattr(config_mod, "EgtrConfig", TinyConfig)
+    monkeypatch.setattr(vg_mod, "VGDataset", SmallVG)
+    monkeypatch.setattr(transforms_mod, "DETR_TRAIN_SCALES", (96,))
+    monkeypatch.setattr(loader_mod, "default_buckets",
+                        lambda max_size=1333: ((144, 96),))
+    monkeypatch.setattr(chip_smoke, "SYNTH_VG", dict(
+        n_train=2, n_val=1, n_test=1, height=144, width=96))
+    args = list(chip_smoke.DRIVER_ARGS)
+    for flag, value in (("--batch_size", "1"), ("--num_workers", "1")):
+        args[args.index(flag) + 1] = value
+    monkeypatch.setattr(chip_smoke, "DRIVER_ARGS", args + [
+        "--num_queries", "12", "--max_gt_boxes", "8", "--max_gt_rels", "16"])
     # the float32 phase turns TF32 off; restore both flags afterwards
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32",
                         torch.backends.cudnn.allow_tf32)
@@ -162,7 +201,8 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
     assert [k["name"] for k in kernels] == [
         "msda_fwd", "msda_bwd_rows", "msda_bwd_value", "msda_fwd_q",
         "msda_fwd_win", "msda_fwd_win_pp", "msda_bwd_win_rows",
-        "msda_bwd_win_rows_pp", "msda_bwd_win_value", "msda_bwd_win_value_pp"]
+        "msda_bwd_win_rows_pp", "msda_bwd_win_value", "msda_bwd_win_value_pp",
+        "msda_fwd_bp"]
     required = {"name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms"}
@@ -175,7 +215,7 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
         assert path == "egtr_tpu/ops/msda_pallas.py" and int(line) > 0
         assert (REPO / k["source"]).exists()
         assert k["launches"] > 0
-    fwd, rows, value, fwd_q, win, win_pp, *bwd_win = kernels
+    fwd, rows, value, fwd_q, win, win_pp, *bwd_win, bp = kernels
     # exact serving: 4 timed + 2 warm-up requests + 1 checked forward, 2+2
     # MSDA layers each; training: 3 steps + 2 microbatches of the
     # accumulated one
@@ -223,6 +263,24 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
     assert set(result["train_adaptation"]) == {"point", "tile", "point_int8"}
     assert result["train_f32"]["adaptation"]["band_indices"] > 0
     assert "nudged_pixels_max_grad_rel_change" in result["train_f32"]["exact"]
+    # K11: two forwards of each serving configuration with the flag on,
+    # 2+2 layers each; the driver's 7 forwards (per phase 2 microbatches and
+    # 1 validation batch, then 1 test image)
+    assert bp["replaces"] == "egtr_tpu/ops/msda_pallas.py:180"
+    assert bp["source"] == "egtr_tpu_torch/csrc/msda_fwd_bp.cu"
+    assert (bp["launches_exact"], bp["launches_served"],
+            bp["launches_tile"], bp["launches_driver"]) == (8, 8, 8, 28)
+    assert bp["launches"] == 8 * 3 + 28
+    assert "ms_msda_fwd_same_call" in bp
+    # both buckets x (encoder, decoder) x (f32, bf16), int8 x 2, windowed
+    assert len(bp["calls"]) == 8 + 2 + 1
+    assert [c["form"] for c in bp["calls"][-3:]] == [
+        "int8", "int8", "bfloat16_f32_out"]
+    assert set(bp["served_f32_max_abs_err"]) == {"exact", "served"}
+    driver = result["driver"]
+    assert set(driver["phases"]) == {"main", "finetune"}
+    assert all(len(p["step_ms"]) == 1 for p in driver["phases"].values())
+    assert "single/R@20" in driver["test"] and "coco/AP" in driver["test"]
     out = "\n".join(lines)
     for phase in ("kernel build:", "msda_fwd serving encoder",
                   "msda_fwd training decoder", "msda_bwd training encoder",
@@ -243,7 +301,15 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
                   "train adaptation (window 16, band point, int8 False)",
                   "train adaptation tile (window 16, band tile",
                   "train adaptation int8 (window 16, band point, int8 True)",
-                  "train f32 adaptation kernels vs plain"):
+                  "train f32 adaptation kernels vs plain",
+                  "msda_fwd_bp serving encoder Q=",
+                  "msda_fwd_bp training decoder Q=200 bfloat16 batch 2",
+                  "msda_fwd_bp serving encoder_served",
+                  "msda_fwd_bp serving encoder_windowed",
+                  "serve exact with batch_p", "serve served with batch_p",
+                  "serve tile with batch_p", "with batch_p (K11) vs plain",
+                  "driver (train_egtr.main, batch_p on",
+                  "artifact reloaded bit-equal: True"):
         assert phase in out, phase
 
 
@@ -254,7 +320,7 @@ def test_chip_smoke_fails_when_a_kernel_is_bypassed(fake_card, monkeypatch):
 
     def uncounted(*args):
         out = real(*args)
-        msda_cuda.bwd_value_launches -= 1
+        msda_cuda.launches["msda_bwd_value"] -= 1
         return out
 
     monkeypatch.setattr(msda_cuda, "msda_bwd_value", uncounted)
@@ -271,11 +337,26 @@ def test_chip_smoke_fails_when_the_served_path_bypasses_a_kernel(
 
     def uncounted(*args):
         out = real(*args)
-        msda_cuda.fwd_win_pp_launches -= 1
+        msda_cuda.launches["msda_fwd_win_pp"] -= 1
         return out
 
     monkeypatch.setattr(msda_cuda, "msda_fwd_win_pp", uncounted)
     with pytest.raises(SystemExit, match="msda_fwd_win_pp launched 0"):
+        chip_smoke.main()
+
+
+def test_chip_smoke_fails_when_batch_p_bypasses_k11(fake_card, monkeypatch):
+    """With the flag on every exact forward must launch K11: a K11 that
+    does not count fails the flag-on serving phase."""
+    real = msda_cuda.msda_fwd_bp
+
+    def uncounted(*args, **kw):
+        out = real(*args, **kw)
+        msda_cuda.launches["msda_fwd_bp"] -= 1
+        return out
+
+    monkeypatch.setattr(msda_cuda, "msda_fwd_bp", uncounted)
+    with pytest.raises(SystemExit, match="with batch_p: msda_fwd_bp launched"):
         chip_smoke.main()
 
 
@@ -287,9 +368,16 @@ def test_forward_counts_at_the_serving_bucket():
 
     shapes = level_shapes((608, 1008), 4)
     assert shapes == ((76, 126), (38, 63), (19, 32), (10, 16))
-    zero = dict.fromkeys(chip_smoke.KERNEL_COUNTERS, 0)
+    zero = dict.fromkeys(msda_cuda.KERNELS, 0)
     assert chip_smoke.forward_counts(infer.bench_config(), shapes) == {
         **zero, "msda_fwd": 12}
+    # with batch_p K11 takes every exact launch, float and int8
+    for cfg, banded in ((infer.bench_config(), {}),
+                        (infer.serving_config(), {"msda_fwd_win_pp": 18}),
+                        (infer.bench_config(msda_window=16, msda_band="tile"),
+                         {"msda_fwd_win": 18})):
+        assert chip_smoke.forward_counts(cfg, shapes, batch_p=True) == {
+            **zero, "msda_fwd_bp": 12, **banded}
     assert chip_smoke.forward_counts(infer.serving_config(), shapes) == {
         **zero, "msda_fwd_q": 12, "msda_fwd_win_pp": 18}
     assert chip_smoke.forward_counts(
@@ -310,9 +398,12 @@ def test_step_counts_at_the_adaptation_bucket():
     from egtr_tpu_torch.models.detr import level_shapes
 
     shapes = level_shapes((608, 1008), 4)
-    zero = dict.fromkeys(chip_smoke.KERNEL_COUNTERS, 0)
+    zero = dict.fromkeys(msda_cuda.KERNELS, 0)
     exact = {"msda_bwd_rows": 12, "msda_bwd_value": 12}
     adapt = perf_train_step.adapt_config()
+    assert chip_smoke.step_counts(adapt.replace(msda_window=0), shapes,
+                                  batch_p=True) == {
+        **zero, **exact, "msda_fwd_bp": 12}
     assert chip_smoke.step_counts(adapt, shapes) == {
         **zero, **exact, "msda_fwd_win_pp": 18, "msda_fwd": 12,
         "msda_bwd_win_rows_pp": 18, "msda_bwd_win_value_pp": 18}

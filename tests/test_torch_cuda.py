@@ -64,9 +64,9 @@ CASES = {
 def test_kernel_matches_plain(cuda, case, dtype):
     value, loc, aw = _inputs(cuda, dtype, **CASES[case])
     shapes = CASES[case]["shapes"]
-    before = msda_cuda.launches
+    before = msda_cuda.launches["msda_fwd"]
     out = msda_cuda.msda_fwd(value, shapes, loc, aw)
-    assert msda_cuda.launches == before + 1
+    assert msda_cuda.launches["msda_fwd"] == before + 1
     ref = msda.ms_deform_attn_plain(value, shapes, loc, aw)
     assert out.dtype == dtype and out.shape == ref.shape
     atol, rtol = TOL[dtype]
@@ -111,10 +111,10 @@ def test_bwd_kernels_match_plain(cuda, case, dtype):
     shapes = CASES[case]["shapes"]
     g = torch.randn((value.shape[0], loc.shape[1],
                      value.shape[2] * value.shape[3]), device=cuda).to(dtype)
-    before = (msda_cuda.bwd_rows_launches, msda_cuda.bwd_value_launches)
+    names = ("msda_bwd_rows", "msda_bwd_value")
+    before = [msda_cuda.launches[n] for n in names]
     got = msda_cuda.msda_bwd(value, shapes, loc, aw, g)
-    assert (msda_cuda.bwd_rows_launches, msda_cuda.bwd_value_launches) == (
-        before[0] + 1, before[1] + 1)
+    assert [msda_cuda.launches[n] for n in names] == [b + 1 for b in before]
     ref = msda.ms_deform_attn_plain_bwd(value, shapes, loc, aw, g)
     _assert_bwd_close(got, ref, dtype)
 
@@ -155,14 +155,13 @@ def test_autograd_op_on_the_card(cuda, impl):
     value, loc, aw = _inputs(cuda, torch.float32, **CASES["d32_batch3"])
     shapes = CASES["d32_batch3"]["shapes"]
     leaves = [t.clone().requires_grad_() for t in (value, loc, aw)]
-    before = (msda_cuda.launches, msda_cuda.bwd_rows_launches,
-              msda_cuda.bwd_value_launches)
+    names = ("msda_fwd", "msda_bwd_rows", "msda_bwd_value")
+    before = tuple(msda_cuda.launches[n] for n in names)
     out = msda.ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2],
                               impl=impl)
     g = torch.randn_like(out)
     grads = torch.autograd.grad(out, leaves, g)
-    after = (msda_cuda.launches, msda_cuda.bwd_rows_launches,
-             msda_cuda.bwd_value_launches)
+    after = tuple(msda_cuda.launches[n] for n in names)
     n = 1 if impl == "auto" else 0
     assert after == tuple(b + n for b in before)
     ref = msda.ms_deform_attn_plain_bwd(value, shapes, loc, aw, g)
@@ -224,11 +223,11 @@ def test_tiny_model_kernel_path_matches_plain(cuda):
         x = torch.randn((2, 64, 96, 3), device=cuda)
         mask = torch.ones((2, 64, 96), dtype=torch.bool, device=cuda)
         mask[1, 40:] = False
-        before = msda_cuda.launches
+        before = msda_cuda.launches["msda_fwd"]
         with torch.inference_mode():
             out_k = model_k(x, mask)
             out_p = model_p(x, mask)
-        assert msda_cuda.launches == before + 4
+        assert msda_cuda.launches["msda_fwd"] == before + 4
         for key in ("logits", "pred_boxes", "pred_rel", "pred_connectivity"):
             torch.testing.assert_close(out_k[key], out_p[key], atol=1e-4,
                                        rtol=1e-4)
@@ -240,14 +239,11 @@ def test_tiny_model_kernel_path_matches_plain(cuda):
 # K4 (int8 stage 1), K5 and K6 (banded forward)
 # --------------------------------------------------------------------------
 
-COUNTERS = ("launches", "fwd_q_launches", "fwd_win_launches",
-            "fwd_win_pp_launches", "bwd_rows_launches", "bwd_value_launches",
-            "bwd_win_rows_launches", "bwd_win_rows_pp_launches",
-            "bwd_win_value_launches", "bwd_win_value_pp_launches")
+COUNTERS = msda_cuda.KERNELS
 
 
 def _counts():
-    return [getattr(msda_cuda, c) for c in COUNTERS]
+    return [msda_cuda.launches[c] for c in COUNTERS]
 
 
 def _assert_f32_close(out, ref):
@@ -269,7 +265,7 @@ def test_fwd_q_matches_plain(cuda, case, dtype):
     assert torch.equal(vq.cpu(), vq_cpu) and torch.equal(scale.cpu(), scale_cpu)
     before = _counts()
     out = msda_cuda.msda_fwd_q(vq, scale, shapes, loc, aw)
-    assert _counts() == [b + (c == "fwd_q_launches")
+    assert _counts() == [b + (c == "msda_fwd_q")
                          for b, c in zip(before, COUNTERS)]
     _assert_f32_close(out, msda.msda_fwd_q_plain(vq, scale, shapes, loc, aw))
     last = (len(shapes) - 1,)
@@ -358,10 +354,10 @@ def test_windowed_op_kernels_match_plain(cuda, case, band, form):
     n_banded = sum(h > window for h, _ in shapes)
     expect = dict.fromkeys(COUNTERS, 0)
     if n_banded:
-        expect["fwd_win_pp_launches" if band == "point"
-               else "fwd_win_launches"] = n_banded
+        expect["msda_fwd_win_pp" if band == "point"
+               else "msda_fwd_win"] = n_banded
     if n_banded < len(shapes):
-        expect["fwd_q_launches" if int8 else "launches"] = 1
+        expect["msda_fwd_q" if int8 else "msda_fwd"] = 1
     assert got == expect
     ref = msda.ms_deform_attn(value, shapes, loc, aw, impl="plain", **args)
     assert _counts()[:4] == [b + g for b, g in zip(before, got.values())][:4]
@@ -414,8 +410,8 @@ def test_int8_op_on_the_card_has_the_exact_gradients(cuda):
         grads[int8] = torch.autograd.grad(out, leaves, g)
         got = dict(zip(COUNTERS, (a - b for a, b in zip(_counts(), before))))
         assert got == {**dict.fromkeys(COUNTERS, 0),
-                       "fwd_q_launches" if int8 else "launches": 1,
-                       "bwd_rows_launches": 1, "bwd_value_launches": 1}
+                       "msda_fwd_q" if int8 else "msda_fwd": 1,
+                       "msda_bwd_rows": 1, "msda_bwd_value": 1}
     assert torch.equal(grads[True][1], grads[False][1])
     assert torch.equal(grads[True][2], grads[False][2])
     torch.testing.assert_close(grads[True][0], grads[False][0], atol=1e-5,
@@ -542,9 +538,9 @@ def test_bwd_win_kernels_match_plain(cuda, case, band, dtype):
                                 per_point)
         before = _counts()
         got = msda_cuda.msda_bwd_win(*args)
-        names = (("bwd_win_value_pp_launches", "bwd_win_rows_pp_launches")
-                 if per_point else ("bwd_win_value_launches",
-                                    "bwd_win_rows_launches"))
+        names = (("msda_bwd_win_value_pp", "msda_bwd_win_rows_pp")
+                 if per_point else ("msda_bwd_win_value",
+                                    "msda_bwd_win_rows"))
         assert _counts() == [b + (c in names)
                              for b, c in zip(before, COUNTERS)]
         _assert_win_bwd_close(got, msda.msda_bwd_win_plain(*args), dtype)
@@ -615,12 +611,12 @@ def test_windowed_op_grad_kernels_match_plain(cuda, case, band, form):
         n_banded = sum(h > window for h, _ in shapes)
         expect = dict.fromkeys(COUNTERS, 0)
         if impl == "auto":
-            suffix = "_pp_launches" if band == "point" else "_launches"
-            expect[f"bwd_win_rows{suffix}"] = n_banded
-            expect[f"bwd_win_value{suffix}"] = n_banded
+            suffix = "_pp" if band == "point" else ""
+            expect[f"msda_bwd_win_rows{suffix}"] = n_banded
+            expect[f"msda_bwd_win_value{suffix}"] = n_banded
             if n_banded < len(shapes):
-                expect["bwd_rows_launches"] = expect[
-                    "bwd_value_launches"] = 1
+                expect["msda_bwd_rows"] = expect[
+                    "msda_bwd_value"] = 1
         assert got == expect
     for name, a, b in zip(("dvalue", "dloc", "daw"), *grads):
         assert a.dtype == b.dtype and torch.isfinite(a.float()).all(), name
@@ -683,3 +679,126 @@ def test_bwd_win_refusals(cuda):
         msda_cuda.msda_bwd_win_value(
             *args[:5], g.transpose(1, 2).contiguous().transpose(1, 2),
             *args[6:])
+
+
+# --------------------------------------------------------------------------
+# K11 (batched-P forward)
+# --------------------------------------------------------------------------
+
+# K11 against K1 on the same inputs: the same products, folded over the
+# points in another order; float32 sums, so float32 round-off only, and in
+# bf16 one rounding of the output either way
+BP_CASES = {**CASES,
+            "p2_d8": dict(B=2, Q=21, H=2, D=8, P=2, shapes=((6, 9), (3, 5))),
+            "p8_d64": dict(B=1, Q=30, H=2, D=64, P=8, shapes=((6, 9), (1, 4))),
+            "p1_d32": dict(B=3, Q=17, H=1, D=32, P=1, shapes=((5, 7),))}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(BP_CASES))
+def test_fwd_bp_matches_plain(cuda, case, dtype):
+    """Both forms of K11 against their plain version and against K1 / K4;
+    D 8/48/64, P 1/2/4/8, batches 1-3, thin and flipped levels, samples
+    outside the map."""
+    shapes = BP_CASES[case]["shapes"]
+    value, loc, aw = _inputs(cuda, dtype, **BP_CASES[case])
+    atol, rtol = TOL[dtype]
+    before = _counts()
+    out = msda_cuda.msda_fwd_bp(value, shapes, loc, aw)
+    assert _counts() == [b + (c == "msda_fwd_bp")
+                         for b, c in zip(before, COUNTERS)]
+    ref = msda.msda_fwd_bp_plain(value, shapes, loc, aw)
+    assert out.dtype == dtype and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(
+        out.float(), msda_cuda.msda_fwd(value, shapes, loc, aw).float(),
+        atol=atol, rtol=rtol)
+    vq, scale = msda.quantize_levels(value, shapes)
+    q = msda_cuda.msda_fwd_bp(vq, shapes, loc, aw, scale=scale)
+    _assert_f32_close(q, msda.msda_fwd_bp_plain(vq, shapes, loc, aw,
+                                                 scale=scale))
+    _assert_f32_close(q, msda_cuda.msda_fwd_q(vq, scale, shapes, loc, aw))
+    last = (len(shapes) - 1,)
+    _assert_f32_close(
+        msda_cuda.msda_fwd_bp(value, shapes, loc, aw, levels=last,
+                              out_dtype=torch.float32),
+        msda.msda_fwd_bp_plain(value, shapes, loc, aw, levels=last,
+                               out_dtype=torch.float32))
+
+
+def test_fwd_bp_on_pixel_centres_and_deterministic(cuda):
+    """A sample on a pixel centre returns that pixel exactly; the fold over
+    the points has a fixed order, so two runs are bit-equal."""
+    value = torch.randn((1, 16, 1, 32), device=cuda)
+    loc = torch.tensor([(1 + 0.5) / 4, (2 + 0.5) / 4],
+                       device=cuda).reshape(1, 1, 1, 1, 1, 2)
+    aw = torch.ones((1, 1, 1, 1, 1), device=cuda)
+    out = msda_cuda.msda_fwd_bp(value, ((4, 4),), loc, aw)
+    torch.testing.assert_close(out[0, 0], value[0, 9, 0], atol=0, rtol=0)
+    value, loc, aw = _inputs(cuda, torch.float32, **CASES["d32_batch3"])
+    shapes = CASES["d32_batch3"]["shapes"]
+    assert torch.equal(msda_cuda.msda_fwd_bp(value, shapes, loc, aw),
+                       msda_cuda.msda_fwd_bp(value, shapes, loc, aw))
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16", "int8"])
+def test_batched_p_dispatch_on_the_card(cuda, form):
+    """With batch_p every exact forward launch goes to K11: the exact op,
+    the int8 op, and the exact levels of a windowed call; the backward is
+    K2 + K3 as without it."""
+    dtype = torch.float32 if form == "f32" else torch.bfloat16
+    int8 = form == "int8"
+    shapes = ((24, 16), (12, 8), (6, 4))
+    # a windowed call's queries are the raster tokens: Q = S
+    value, loc, aw = _inputs(cuda, dtype, 1, 504, 2, 32, shapes)
+    for window in (0, 8):
+        kw = dict(window=window, query_segments=shapes if window else None,
+                  band="point", int8=int8)
+        before = _counts()
+        out = msda.ms_deform_attn(value, shapes, loc, aw, batch_p=True, **kw)
+        got = dict(zip(COUNTERS, (a - b for a, b in zip(_counts(), before))))
+        expect = dict.fromkeys(COUNTERS, 0)
+        expect["msda_fwd_bp"] = 1
+        if window:
+            expect["msda_fwd_win_pp"] = 2
+        assert got == expect
+        # the plain versions on the card: the same band choices
+        ref = msda.ms_deform_attn(value, shapes, loc, aw, impl="plain",
+                                  batch_p=True, **kw)
+        atol, rtol = TOL[dtype]
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+    leaves = [t.clone().requires_grad_() for t in (value, loc, aw)]
+    before = _counts()
+    out = msda.ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2],
+                              int8=int8, batch_p=True)
+    torch.autograd.grad(out, leaves, torch.ones_like(out))
+    got = dict(zip(COUNTERS, (a - b for a, b in zip(_counts(), before))))
+    assert got == {**dict.fromkeys(COUNTERS, 0), "msda_fwd_bp": 1,
+                   "msda_bwd_rows": 1, "msda_bwd_value": 1}
+
+
+def test_fwd_bp_refusals(cuda):
+    value, loc, aw = _inputs(cuda, torch.float32, 1, 5, 2, 8, ((3, 4),))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        msda_cuda.msda_fwd_bp(value.requires_grad_(), ((3, 4),), loc, aw)
+    value = value.detach()
+    with pytest.raises(ValueError, match="one device"):
+        msda_cuda.msda_fwd_bp(value, ((3, 4),), loc.cpu(), aw)
+    v3, l3, a3 = _inputs(cuda, torch.float32, 1, 5, 2, 8, ((3, 4),), P=3)
+    with pytest.raises(ValueError, match="P must divide 32"):
+        msda_cuda.msda_fwd_bp(v3, ((3, 4),), l3, a3)
+    v6, l6, a6 = _inputs(cuda, torch.float32, 1, 5, 2, 6, ((3, 4),))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        msda_cuda.msda_fwd_bp(v6, ((3, 4),), l6, a6)
+    with pytest.raises(ValueError, match="aligned"):
+        msda_cuda.msda_fwd_bp(torch.randn(1 + 24 * 8, device=cuda)[1:]
+                              .view(1, 12, 2, 8), ((3, 4),), loc, aw)
+    vq, scale = msda.quantize_levels(value, ((3, 4),))
+    with pytest.raises(TypeError, match="float32"):
+        msda_cuda.msda_fwd_bp(vq, ((3, 4),), loc, aw, scale=scale,
+                              out_dtype=torch.bfloat16)
+    empty = msda_cuda.msda_fwd_bp(value, ((3, 4),), loc[:, :0].contiguous(),
+                                  aw[:, :0].contiguous())
+    assert empty.shape == (1, 0, 16)

@@ -146,7 +146,7 @@ def test_exact_interior_point():
 @pytest.mark.parametrize("impl", ["auto", "pallas", "matmul", "gather"])
 def test_dispatch_on_cpu_takes_plain(impl):
     value, shapes, loc, aw = torch_inputs(3)
-    before = msda_cuda.launches
+    before = dict(msda_cuda.launches)
     out = msda.ms_deform_attn(value, shapes, loc, aw, impl=impl)
     assert msda_cuda.launches == before
     torch.testing.assert_close(
@@ -357,13 +357,14 @@ def test_bwd_wrappers_refuse_cpu_tensors_and_bad_grad():
 
 
 def test_every_source_has_a_library_and_a_counter():
-    """Five sources, ten kernels: each builds for sm_90a into its own
-    hash-keyed library, and each kernel has its own launch count."""
+    """Six sources, eleven kernels: each builds for sm_90a into its own
+    hash-keyed library, and each kernel has its own launch count in one
+    dict, which one function sets to 0."""
     assert sorted(msda_cuda.sources()) == ["msda_bwd", "msda_bwd_win",
-                                           "msda_fwd", "msda_fwd_q",
-                                           "msda_fwd_win"]
+                                           "msda_fwd", "msda_fwd_bp",
+                                           "msda_fwd_q", "msda_fwd_win"]
     paths = {n: msda_cuda.library_path(n) for n in msda_cuda.sources()}
-    assert len(set(paths.values())) == 5
+    assert len(set(paths.values())) == 6
     for name, src in msda_cuda.sources().items():
         assert src.exists() and src.parent.name == "csrc"
         cmd = msda_cuda.build_command("nvcc", paths[name], name)
@@ -376,13 +377,208 @@ def test_every_source_has_a_library_and_a_counter():
         "msda_bwd_win_rows": "msda_bwd_win",
         "msda_bwd_win_rows_pp": "msda_bwd_win",
         "msda_bwd_win_value": "msda_bwd_win",
-        "msda_bwd_win_value_pp": "msda_bwd_win"}
+        "msda_bwd_win_value_pp": "msda_bwd_win",
+        "msda_fwd_bp": "msda_fwd_bp", "msda_fwd_bp_q": "msda_fwd_bp"}
     text = msda_cuda.SOURCE_BWD.read_text()
     for fn in ("msda_bwd_rows", "msda_bwd_value"):
         assert f'extern "C" int {fn}(' in text
-    for counter in ("launches", "bwd_rows_launches", "bwd_value_launches",
-                    "fwd_q_launches", "fwd_win_launches",
-                    "fwd_win_pp_launches", "bwd_win_rows_launches",
-                    "bwd_win_rows_pp_launches", "bwd_win_value_launches",
-                    "bwd_win_value_pp_launches"):
-        assert isinstance(getattr(msda_cuda, counter), int)
+    assert set(msda_cuda.launches) == set(msda_cuda.KERNELS)
+    assert len(msda_cuda.KERNELS) == 11
+    saved = dict(msda_cuda.launches)
+    try:
+        msda_cuda.launches["msda_fwd_bp"] += 3
+        msda_cuda.reset_launches()
+        assert msda_cuda.launches == dict.fromkeys(msda_cuda.KERNELS, 0)
+    finally:
+        msda_cuda.launches.update(saved)
+
+
+# --------------------------------------------------------------------------
+# the batched-P forward (K11, EGTR_MSDA_BATCH_P=1)
+# --------------------------------------------------------------------------
+
+# f32: the JAX package holds its batched-P kernel to its p-loop at 1e-6
+# (tests/test_msda.py:596-619); the same bound holds here: both sides sum the
+# same float32 products, in another order
+BP_TOL = dict(atol=1e-6, rtol=1e-6)
+
+
+def jax_batched_p(value, shapes, loc, aw, dtype=jnp.float32, **kw):
+    """The JAX op with ``msda_pallas.FWD_BATCH_P`` on (the Pallas kernel
+    _fwd_kernel_bp in interpret mode), traced afresh so that the flag is
+    read, and restored after."""
+    from egtr_tpu.ops import msda_pallas as mp
+
+    old = mp.FWD_BATCH_P
+    try:
+        mp.FWD_BATCH_P = True
+        out = jax.jit(lambda v, l, a: jax_msda(v, shapes, l, a, impl="pallas",
+                                               **kw))(
+            jnp.asarray(value, dtype), jnp.asarray(loc),
+            jnp.asarray(aw, dtype))
+        return np.asarray(out.astype(jnp.float32))
+    finally:
+        mp.FWD_BATCH_P = old
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_batched_p_plain_matches_jax_f32(case):
+    value, shapes, loc, aw = make_inputs(31, **CASES[case])
+    ref = jax_batched_p(value, shapes, loc, aw)
+    tv, _, tl, ta = torch_inputs(31, **CASES[case])
+    plain = msda.msda_fwd_bp_plain(tv, shapes, tl, ta)
+    np.testing.assert_allclose(plain.numpy(), ref, **BP_TOL)
+    before = dict(msda_cuda.launches)
+    out = msda.ms_deform_attn(tv, shapes, tl, ta, batch_p=True)
+    assert msda_cuda.launches == before
+    torch.testing.assert_close(out, plain, rtol=0, atol=0)
+    # the same function as K1's plain version, summed in another order
+    np.testing.assert_allclose(
+        plain.numpy(), msda.ms_deform_attn_plain(tv, shapes, tl, ta).numpy(),
+        **BP_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_batched_p_plain_matches_jax_bf16(case):
+    value, shapes, loc, aw = make_inputs(32, **BF16_CASES[case])
+    v = torch.from_numpy(value).bfloat16()
+    a = torch.from_numpy(aw).bfloat16()
+    tl = torch.from_numpy(loc)
+    ref = jax_batched_p(v.float().numpy(), shapes, loc, a.float().numpy(),
+                        jnp.bfloat16)
+    out = msda.ms_deform_attn(v, shapes, tl, a, batch_p=True)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out, msda.msda_fwd_bp_plain(v, shapes, tl, a),
+                               rtol=0, atol=0)
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=BF16_RTOL,
+                               atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batched_p_int8_matches_jax(dtype):
+    """The int8 form against msda_pallas_q with the batched-P body (the
+    quantized branch of _fwd_body_bp): the integer stage is the same, the
+    float32 fold differs in summation order."""
+    value, shapes, loc, aw = make_inputs(33, **CASES["d32"])
+    td, jd = getattr(torch, dtype), getattr(jnp, dtype)
+    v = torch.from_numpy(value).to(td)
+    a = torch.from_numpy(aw).to(td)
+    tl = torch.from_numpy(loc)
+    ref = jax_batched_p(v.float().numpy(), shapes, loc, a.float().numpy(), jd,
+                        int8=True)
+    out = msda.ms_deform_attn(v, shapes, tl, a, int8=True, batch_p=True)
+    assert out.dtype == td
+    tol = (dict(atol=ATOL, rtol=RTOL) if dtype == "float32"
+           else dict(atol=BF16_ATOL, rtol=BF16_RTOL))
+    np.testing.assert_allclose(out.float().numpy(), ref, **tol)
+    vq, scale = msda.quantize_levels(v, shapes)
+    plain = msda.msda_fwd_bp_plain(vq, shapes, tl, a, scale=scale)
+    assert plain.dtype == torch.float32
+    torch.testing.assert_close(out, plain.to(td), rtol=0, atol=0)
+    np.testing.assert_allclose(
+        plain.numpy(), msda.msda_fwd_q_plain(vq, scale, shapes, tl, a).numpy(),
+        **BP_TOL)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_batched_p_windowed_call_matches_jax(int8):
+    """A windowed call sends its exact level (6, 4) to the batched-P forward,
+    and its banded levels (24, 16), (12, 8) to the banded kernels."""
+    shapes = ((24, 16), (12, 8), (6, 4))
+    rng = np.random.default_rng(34)
+    S = sum(h * w for h, w in shapes)
+    value = rng.standard_normal((1, S, 2, 8)).astype(np.float32)
+    refs = [np.stack([(xx.ravel() + 0.5) / w, (yy.ravel() + 0.5) / h], -1)
+            for h, w in shapes
+            for yy, xx in [np.meshgrid(np.arange(h), np.arange(w),
+                                       indexing="ij")]]
+    wh = np.array([[w, h] for h, w in shapes], np.float32)
+    off = rng.uniform(-3, 3, (1, S, 2, 3, 4, 2)).astype(np.float32)
+    loc = (np.concatenate(refs)[None, :, None, None, None, :]
+           + off / wh[None, None, None, :, None, :]).astype(np.float32)
+    aw = rng.uniform(0, 1, (1, S, 2, 12)).astype(np.float32)
+    aw = (aw / aw.sum(-1, keepdims=True)).reshape(1, S, 2, 3, 4)
+    kw = dict(window=8, query_segments=shapes, band="point", int8=int8)
+    ref = jax_batched_p(value, shapes, loc, aw, **kw)
+    tv, tl, ta = (torch.from_numpy(a) for a in (value, loc, aw))
+    out = msda.ms_deform_attn(tv, shapes, tl, ta, batch_p=True, **kw)
+    np.testing.assert_allclose(out.numpy(), ref, atol=ATOL, rtol=RTOL)
+    off_flag = msda.ms_deform_attn(tv, shapes, tl, ta, batch_p=False, **kw)
+    np.testing.assert_allclose(out.numpy(), off_flag.numpy(), **BP_TOL)
+
+
+def test_batched_p_default_is_the_module_flag(monkeypatch):
+    """batch_p=None reads msda.FWD_BATCH_P at the call; the matmul and
+    gather paths ignore it, as the JAX package's XLA paths do."""
+    value, shapes, loc, aw = torch_inputs(35)
+    bp = msda.msda_fwd_bp_plain(value, shapes, loc, aw)
+    k1 = msda.ms_deform_attn_plain(value, shapes, loc, aw)
+    assert not torch.equal(bp, k1)  # another order of summation
+    monkeypatch.setattr(msda, "FWD_BATCH_P", True)
+    assert torch.equal(msda.ms_deform_attn(value, shapes, loc, aw), bp)
+    assert torch.equal(msda.ms_deform_attn(value, shapes, loc, aw,
+                                           batch_p=False), k1)
+    matmul = msda.ms_deform_attn(value, shapes, loc, aw, impl="matmul")
+    assert torch.equal(matmul, msda.ms_deform_attn(
+        value, shapes, loc, aw, impl="matmul", batch_p=False))
+    monkeypatch.setattr(msda, "FWD_BATCH_P", False)
+    assert torch.equal(msda.ms_deform_attn(value, shapes, loc, aw), k1)
+
+
+def test_batched_p_gradient_is_the_exact_ops():
+    """The backward never reads the flag (K2 + K3, or their plain
+    version): the gradients with and without batch_p are the same."""
+    value, shapes, loc, aw = torch_inputs(36)
+    g = torch.randn((value.shape[0], loc.shape[1],
+                     value.shape[2] * value.shape[3]),
+                    generator=torch.Generator().manual_seed(0))
+    grads = []
+    for batch_p in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (value, loc, aw)]
+        out = msda.ms_deform_attn(*leaves[:1], shapes, *leaves[1:],
+                                  batch_p=batch_p)
+        grads.append(torch.autograd.grad(out, leaves, g))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_environment_variable_sets_the_flag():
+    """EGTR_MSDA_BATCH_P=1 at import turns the flag on, as in
+    msda_pallas.py:85; it is off by default."""
+    import os
+    import subprocess
+    import sys
+
+    code = "from egtr_tpu_torch.ops import msda; print(msda.FWD_BATCH_P)"
+    env = {k: v for k, v in os.environ.items() if k != "EGTR_MSDA_BATCH_P"}
+    root = str(__import__("pathlib").Path(__file__).resolve().parents[1])
+    outs = []
+    for extra in ({}, {"EGTR_MSDA_BATCH_P": "1"}, {"EGTR_MSDA_BATCH_P": "0"}):
+        run = subprocess.run([sys.executable, "-c", code], cwd=root,
+                             env={**env, **extra}, capture_output=True,
+                             text=True, timeout=120, check=True)
+        outs.append(run.stdout.strip())
+    assert outs == ["False", "True", "False"]
+
+
+def test_batched_p_wrapper_refuses():
+    """No fallback for a CPU tensor, and K11's own limits: P divides the
+    warp's 32 lanes, D is a multiple of 4; the int8 form needs its scale."""
+    value, shapes, loc, aw = torch_inputs(3)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        msda_cuda.msda_fwd_bp(value, shapes, loc, aw)
+    with pytest.raises(ValueError, match="P must divide 32"):
+        msda_cuda.check_inputs_bp(value, shapes, torch.cat([loc, loc[..., :1, :]],
+                                                           dim=4).contiguous(),
+                                  torch.cat([aw, aw[..., :1]], 4).contiguous(),
+                                  None)
+    v6, _, l6, a6 = torch_inputs(3, D=6)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        msda_cuda.check_inputs_bp(v6, shapes, l6, a6, None)
+    vq, scale = msda.quantize_levels(value, shapes)
+    with pytest.raises(ValueError, match="need their scale"):
+        msda_cuda.check_inputs_bp(vq, shapes, loc, aw, None)
+    with pytest.raises(ValueError, match="int8 values only"):
+        msda_cuda.check_inputs_bp(value, shapes, loc, aw, scale)
+    msda_cuda.check_inputs_bp(value, shapes, loc, aw, None)
+    msda_cuda.check_inputs_bp(vq, shapes, loc, aw, scale)

@@ -570,15 +570,14 @@ def test_gradient_of_a_windowed_call(impl, int8):
 def test_cpu_dispatch_launches_no_kernel():
     value, loc, aw = random_inputs(52)
     tv, tl, ta = t(value, loc, aw)
-    names = ("launches", "fwd_q_launches", "fwd_win_launches",
-             "fwd_win_pp_launches")
-    before = [getattr(msda_cuda, n) for n in names]
+    names = ("msda_fwd", "msda_fwd_q", "msda_fwd_win", "msda_fwd_win_pp")
+    before = [msda_cuda.launches[n] for n in names]
     for band in ("tile", "point"):
         for int8 in (False, True):
             msda.ms_deform_attn(tv, SHAPES, tl, ta, window=8,
                                 query_segments=SHAPES, band=band, int8=int8)
     msda.ms_deform_attn(tv, SHAPES, tl, ta, int8=True)
-    assert [getattr(msda_cuda, n) for n in names] == before
+    assert [msda_cuda.launches[n] for n in names] == before
 
 
 def test_new_wrappers_refuse_cpu_tensors_and_bad_inputs():
@@ -631,16 +630,17 @@ def test_new_wrappers_refuse_cpu_tensors_and_bad_inputs():
 
 
 def test_new_sources_and_counters():
-    """Five sources, ten kernels: each exported function belongs to one
+    """Six sources, eleven kernels: each exported function belongs to one
     library and has a launch count of its own."""
     assert sorted(msda_cuda.sources()) == ["msda_bwd", "msda_bwd_win",
-                                           "msda_fwd", "msda_fwd_q",
-                                           "msda_fwd_win"]
+                                           "msda_fwd", "msda_fwd_bp",
+                                           "msda_fwd_q", "msda_fwd_win"]
     owners = {fn: lib for fn, (lib, _) in msda_cuda._FUNCTIONS.items()}
     assert owners["msda_fwd_q"] == "msda_fwd_q"
     assert owners["msda_fwd_win"] == owners["msda_fwd_win_pp"] == "msda_fwd_win"
     assert {owners[f"msda_bwd_win_{k}"] for k in (
         "rows", "rows_pp", "value", "value_pp")} == {"msda_bwd_win"}
+    assert owners["msda_fwd_bp"] == owners["msda_fwd_bp_q"] == "msda_fwd_bp"
     for fn, lib in owners.items():
         text = msda_cuda.sources()[lib].read_text()
         assert f'extern "C" int {fn}(' in text, fn
@@ -648,8 +648,8 @@ def test_new_sources_and_counters():
         decl = text[text.index(f'extern "C" int {fn}('):]
         decl = decl[:decl.index(")")]
         assert decl.count(",") + 1 == len(msda_cuda._FUNCTIONS[fn][1]), fn
-    for counter in ("fwd_q_launches", "fwd_win_launches",
-                    "fwd_win_pp_launches", "bwd_win_rows_launches",
-                    "bwd_win_rows_pp_launches", "bwd_win_value_launches",
-                    "bwd_win_value_pp_launches"):
-        assert isinstance(getattr(msda_cuda, counter), int)
+    for name in ("msda_fwd_q", "msda_fwd_win", "msda_fwd_win_pp",
+                 "msda_bwd_win_rows", "msda_bwd_win_rows_pp",
+                 "msda_bwd_win_value", "msda_bwd_win_value_pp",
+                 "msda_fwd_bp"):
+        assert isinstance(msda_cuda.launches[name], int)
