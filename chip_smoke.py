@@ -16,12 +16,20 @@ and no result line. In order it:
    (19,32),(10,16), S = 12738; training bucket 800x1344: levels (100,168),
    (50,84),(25,42),(13,21), S = 22323, where level 0 rounds the y weights in
    bfloat16; encoder call Q = S, decoder call Q = 200; 8 heads of 32) in
-   float32 and bfloat16, times both with CUDA events, and checks the
-   kernel's batch addressing on a batch of 2;
+   float32 and bfloat16, at the encoder call with raster (encoder-like)
+   locations beside the uniform ones, and at the decoder call at batch 2
+   (the training step's) beside batch 1 (the serving request's); the list
+   is ``EXACT_CALLS``; checks that two runs are bit-equal, times the
+   kernel (CUDA events around the wrapper, and its own device time in a
+   CUDA graph), the plain version and the ``F.grid_sample`` composite (a
+   yardstick of several PyTorch calls that the port never calls), prints
+   the corner-gather bytes and their rate as L2 gather traffic, and checks
+   the kernel's batch addressing on a batch of 2;
 4. holds the two backward kernels against the plain backward at the
-   training bucket's shapes the same way, and prints the largest difference
-   between two runs of the value kernel (its float32 atomics add in an
-   order that changes);
+   training bucket's shapes the same way (the row kernel bit-equal over two
+   runs, the composite's autograd backward as the yardstick of both), and
+   prints the largest difference between two runs of the value kernel (its
+   float32 atomics add in an order that changes);
 5. holds the int8 forward kernel (K4) against its plain version at the
    serving bucket's calls: the served encoder call (the one exact level,
    Q = S, raster queries), the int8 encoder call without a window (all
@@ -171,6 +179,11 @@ FLIPPED_BAND_GRAD_RTOL = 5e-2
 # check is the float32 one (compare_f32, MODEL_ATOL)
 BATCH_P_BF16_ATOL = 5e-2
 
+# what library_composite_ms times: no one PyTorch call computes MSDA, so
+# library_ms stays null
+COMPOSITE_NOTE = ("a composite of several PyTorch calls, not one: "
+                  "F.grid_sample per level plus the weighted sum")
+
 H, D, L, P = 8, 32, 4, 4
 WINDOW = 16         # the served window
 MAX_OFFSET_PX = 4.0  # raster inputs: offsets of a few pixels, some clamp
@@ -248,6 +261,38 @@ def raster_inputs(shapes, dtype, seed, batch=1):
                                                P).to(dtype)
 
 
+# The calls at which K1 and K2 are held to their plain versions and timed,
+# in each bucket and in float32 and bfloat16 (scripts/time_msda_kernels.py
+# times the same list): (call, batch). The encoder call has Q = S, uniform
+# or raster locations; the decoder call Q = 200: at batch 1 the serving
+# request's (B*Q*H = 1,600 rows), at batch 2 the training step's (3,200).
+EXACT_CALLS = (("encoder", 1), ("decoder", 1), ("encoder_raster", 1),
+               ("decoder", 2))
+DECODER_Q = 200
+
+
+def exact_calls():
+    """(call, batch, dtype) of every call of EXACT_CALLS, in its order."""
+    return [(call, batch, dtype) for call, batch in EXACT_CALLS
+            for dtype in (torch.float32, torch.bfloat16)]
+
+
+def exact_call_inputs(shapes, call, batch, dtype, seed):
+    """(Q, value, loc, aw) at one call of EXACT_CALLS."""
+    S = sum(h * w for h, w in shapes)
+    if call == "encoder_raster":
+        return (S, *raster_inputs(shapes, dtype, seed, batch))
+    Q = S if call == "encoder" else DECODER_Q
+    return (Q, *msda_inputs(Q, S, dtype, seed, batch))
+
+
+def grad_output(batch, Q, dtype, seed):
+    """A seeded output gradient for the backward kernels."""
+    return torch.randn((batch, Q, H * D), device=DEVICE,
+                       generator=torch.Generator(device=DEVICE)
+                       .manual_seed(seed)).to(dtype)
+
+
 def bound(tensors, aw, flops_per_sample_channel=FLOPS_PER_SAMPLE_CHANNEL):
     """Least time for a call on the card: ``tensors`` (each input read once,
     each output written once) over the HBM rate, against the flops over the
@@ -260,45 +305,122 @@ def bound(tensors, aw, flops_per_sample_channel=FLOPS_PER_SAMPLE_CHANNEL):
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
+def graph_ms(fn, per_graph: int = 20, replays: int = 10) -> float:
+    """The kernel's own device time per call: ``per_graph`` calls captured
+    in one CUDA graph, replayed ``replays`` times after a warm replay (at
+    the decoder calls ``cuda_ms`` times the host's wrapper instead)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (per_graph * replays)
+
+
+def composite_msda(value, shapes, loc, aw):
+    """A yardstick the port never calls: MSDA as PyTorch's own calls write
+    it, ``F.grid_sample`` (bilinear, zero padding, align_corners=False) per
+    level and the weighted sum over points and levels. A composite of
+    several calls, not one PyTorch call; it rounds nothing as the kernels
+    do, and takes the grid in the value dtype."""
+    B, _, Hh, Dh = value.shape
+    Q, Pp = loc.shape[1], loc.shape[4]
+    starts = msda.level_starts(shapes)
+    out = 0
+    for lid, (h, w) in enumerate(shapes):
+        v = value[:, starts[lid]:starts[lid] + h * w].permute(0, 2, 3, 1)
+        grid = (2 * loc[:, :, :, lid] - 1).transpose(1, 2)
+        sampled = torch.nn.functional.grid_sample(
+            v.reshape(B * Hh, Dh, h, w),
+            grid.reshape(B * Hh, Q, Pp, 2).to(value.dtype), mode="bilinear",
+            padding_mode="zeros", align_corners=False)      # [B*H, D, Q, P]
+        a = aw[:, :, :, lid].transpose(1, 2).reshape(B * Hh, 1, Q, Pp)
+        out = out + (sampled * a).sum(-1)
+    return out.view(B, Hh, Dh, Q).permute(0, 3, 1, 2).reshape(B, Q, Hh * Dh)
+
+
+def gather_bytes(aw, value):
+    """Corner-gather bytes of a call, from the shapes: every sample reads
+    four corner rows of D values (L2 gather traffic where the value tensor
+    stays in L2, as at these calls; not device-memory bytes)."""
+    return aw.numel() * 4 * value.shape[3] * value.element_size()
+
+
+def _fwd_row(bucket, call, Q, value, shapes, loc, aw):
+    """K1 at one call: held to the plain version, bit-equal over two runs,
+    timed beside the plain version and the grid_sample composite."""
+    kern = msda_cuda.msda_fwd(value, shapes, loc, aw)
+    again = msda_cuda.msda_fwd(value, shapes, loc, aw)
+    plain = msda.ms_deform_attn_plain(value, shapes, loc, aw)
+    composite = composite_msda(value, shapes, loc, aw)
+    torch.cuda.synchronize()
+    dtype = value.dtype
+    err = (kern.float() - plain.float()).abs()
+    atol, rtol = TOL[dtype]
+    limit = atol + rtol * plain.float().abs()
+    row = {
+        "bucket": bucket, "call": call, "Q": Q, "batch": value.shape[0],
+        "dtype": str(dtype).split(".")[-1],
+        "max_abs_err": err.max().item(),
+        "max_err_over_limit": (err / limit).max().item(),
+        "bit_equal_run_to_run": torch.equal(kern, again),
+        "ms": cuda_ms(lambda: msda_cuda.msda_fwd(value, shapes, loc, aw),
+                      100),
+        "graph_ms": graph_ms(lambda: msda_cuda.msda_fwd(value, shapes, loc,
+                                                        aw)),
+        "plain_ms": cuda_ms(lambda: msda.ms_deform_attn_plain(
+            value, shapes, loc, aw), 5),
+        "library_composite_ms": cuda_ms(lambda: composite_msda(
+            value, shapes, loc, aw), 10),
+        "composite_max_abs_diff": (composite.float()
+                                   - plain.float()).abs().max().item(),
+    }
+    row["bound_ms"], row["bound_by"] = bound((value, loc, aw, kern), aw)
+    row["gather_bytes"] = gather_bytes(aw, value)
+    row["gather_GBps_L2"] = row["gather_bytes"] / row["ms"] / 1e6
+    print(f"msda_fwd {bucket} {call} Q={Q} B={row['batch']} {row['dtype']}: "
+          f"max abs err "
+          f"{row['max_abs_err']:.3e} (err/limit "
+          f"{row['max_err_over_limit']:.3f}, atol {atol} rtol {rtol}), "
+          f"bit-equal run to run {row['bit_equal_run_to_run']}; kernel "
+          f"{row['ms']:.4f} ms (device {row['graph_ms']:.4f} ms in a CUDA "
+          f"graph), plain {row['plain_ms']:.4f} ms, grid_sample composite "
+          f"{row['library_composite_ms']:.4f} ms (max abs diff to plain "
+          f"{row['composite_max_abs_diff']:.2e}), bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); corner gathers "
+          f"{row['gather_bytes'] / 1e6:.1f} MB, {row['gather_GBps_L2']:.0f} "
+          "GB/s of L2 gather traffic (not a roofline share)", flush=True)
+    if not torch.isfinite(kern.float()).all():
+        raise SystemExit(f"msda_fwd {call} {dtype}: non-finite output")
+    if row["max_err_over_limit"] > 1.0:
+        raise SystemExit(f"msda_fwd {call} {dtype}: kernel disagrees "
+                         "with the plain version")
+    if not row["bit_equal_run_to_run"]:
+        raise SystemExit(f"msda_fwd {call} {dtype}: two runs differ")
+    return row
+
+
 def check_kernel(shapes, bucket):
-    """K1 against the plain version at the encoder and decoder shapes."""
+    """K1 against the plain version at every call of EXACT_CALLS."""
     S = sum(h * w for h, w in shapes)
     rows = []
-    for call, Q in (("encoder", S), ("decoder", 200)):
-        for dtype in (torch.float32, torch.bfloat16):
-            value, loc, aw = msda_inputs(Q, S, dtype, seed=len(rows))
-            kern = msda_cuda.msda_fwd(value, shapes, loc, aw)
-            plain = msda.ms_deform_attn_plain(value, shapes, loc, aw)
-            torch.cuda.synchronize()
-            err = (kern.float() - plain.float()).abs()
-            atol, rtol = TOL[dtype]
-            limit = atol + rtol * plain.float().abs()
-            row = {
-                "bucket": bucket, "call": call, "Q": Q,
-                "dtype": str(dtype).split(".")[-1],
-                "max_abs_err": err.max().item(),
-                "max_err_over_limit": (err / limit).max().item(),
-                "ms": cuda_ms(lambda: msda_cuda.msda_fwd(value, shapes, loc,
-                                                         aw), 100),
-                "plain_ms": cuda_ms(lambda: msda.ms_deform_attn_plain(
-                    value, shapes, loc, aw), 5),
-            }
-            row["bound_ms"], row["bound_by"] = bound((value, loc, aw, kern),
-                                                     aw)
-            print(f"msda_fwd {bucket} {call} Q={Q} {row['dtype']}: max abs err "
-                  f"{row['max_abs_err']:.3e} (err/limit "
-                  f"{row['max_err_over_limit']:.3f}, atol {atol} rtol "
-                  f"{rtol}); kernel {row['ms']:.4f} ms, plain "
-                  f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                  f"({row['bound_by']})", flush=True)
-            if not torch.isfinite(kern.float()).all():
-                raise SystemExit(f"msda_fwd {call} {dtype}: non-finite output")
-            if row["max_err_over_limit"] > 1.0:
-                raise SystemExit(f"msda_fwd {call} {dtype}: kernel disagrees "
-                                 "with the plain version")
-            rows.append(row)
-    # the batch index of the kernel's addressing (the main path is batch 1)
-    value, loc, aw = msda_inputs(200, S, torch.float32, seed=len(rows))
+    for n, (call, batch, dtype) in enumerate(exact_calls()):
+        seed = (50 if call == "encoder_raster" else 0) + n
+        Q, value, loc, aw = exact_call_inputs(shapes, call, batch, dtype,
+                                              seed)
+        rows.append(_fwd_row(bucket, call, Q, value, shapes, loc, aw))
+    # the batch index of the kernel's addressing, on two mirrored images
+    value, loc, aw = msda_inputs(200, S, torch.float32, seed=4)
     value, loc, aw = (torch.cat([t, t.flip(1)]) for t in (value, loc, aw))
     plain = msda.ms_deform_attn_plain(value, shapes, loc, aw)
     err = (msda_cuda.msda_fwd(value, shapes, loc, aw) - plain).abs()
@@ -903,62 +1025,88 @@ def _scaled_err(got, ref, dtype):
     return err.max().item(), (err / limit).max().item()
 
 
+def _bwd_row(bucket, call, Q, value, shapes, loc, aw, g):
+    """K2 and K3 at one call: held to the plain backward, K2 bit-equal over
+    two runs, both timed beside the plain backward and the autograd
+    backward of the grid_sample composite."""
+    args = (value, shapes, loc, aw, g)
+    dtype = value.dtype
+    dloc, daw = msda_cuda.msda_bwd_rows(*args)
+    dloc2, daw2 = msda_cuda.msda_bwd_rows(*args)
+    dvalue = msda_cuda.msda_bwd_value(*args)
+    again = msda_cuda.msda_bwd_value(*args)
+    pv, pl, pa = msda.ms_deform_attn_plain_bwd(*args)
+    leaves = [t.detach().clone().requires_grad_() for t in (value, loc, aw)]
+    composite = composite_msda(leaves[0], shapes, leaves[1], leaves[2])
+    torch.cuda.synchronize()
+    errs = {n: _scaled_err(k, p, dtype) for n, k, p in (
+        ("dvalue", dvalue, pv), ("dloc", dloc, pl), ("daw", daw, pa))}
+    row = {
+        "bucket": bucket, "call": call, "Q": Q, "batch": value.shape[0],
+        "dtype": str(dtype).split(".")[-1],
+        "max_abs_err": {n: e[0] for n, e in errs.items()},
+        "max_err_over_limit": {n: e[1] for n, e in errs.items()},
+        "rows_bit_equal_run_to_run": torch.equal(dloc, dloc2)
+        and torch.equal(daw, daw2),
+        "value_run_to_run_max_abs_diff":
+            (dvalue.float() - again.float()).abs().max().item(),
+        "rows_ms": cuda_ms(lambda: msda_cuda.msda_bwd_rows(*args), 50),
+        "rows_graph_ms": graph_ms(lambda: msda_cuda.msda_bwd_rows(*args)),
+        "value_ms": cuda_ms(lambda: msda_cuda.msda_bwd_value(*args), 50),
+        # the plain backward computes all three gradients in one call
+        "plain_ms": cuda_ms(lambda: msda.ms_deform_attn_plain_bwd(*args), 3,
+                            warmup=1),
+        # the composite's autograd backward computes all three too (K2 + K3)
+        "library_composite_ms": cuda_ms(lambda: torch.autograd.grad(
+            composite, leaves, g, retain_graph=True), 5, warmup=1),
+    }
+    row["rows_bound_ms"], row["rows_bound_by"] = bound(
+        (value, loc, aw, g, dloc, daw), aw, FLOPS_ROWS)
+    row["value_bound_ms"], row["value_bound_by"] = bound(
+        (loc, aw, g, dvalue), aw, FLOPS_VALUE)
+    row["rows_gather_bytes"] = gather_bytes(aw, value)
+    row["rows_gather_GBps_L2"] = row["rows_gather_bytes"] / row["rows_ms"] / 1e6
+    atol, rtol = BWD_TOL[dtype]
+    print(f"msda_bwd {bucket} {call} Q={Q} B={row['batch']} {row['dtype']}: "
+          f"max abs "
+          f"err {row['max_abs_err']} (err/limit "
+          f"{row['max_err_over_limit']}, atol {atol}*max|ref| rtol "
+          f"{rtol}); rows {row['rows_ms']:.4f} ms (device "
+          f"{row['rows_graph_ms']:.4f} ms in a CUDA graph; bound "
+          f"{row['rows_bound_ms']:.4f} ms, {row['rows_bound_by']}; corner "
+          f"gathers {row['rows_gather_bytes'] / 1e6:.1f} MB, "
+          f"{row['rows_gather_GBps_L2']:.0f} GB/s of L2 gather traffic, not a "
+          f"roofline share; bit-equal run to run "
+          f"{row['rows_bit_equal_run_to_run']}), value "
+          f"{row['value_ms']:.4f} ms (bound {row['value_bound_ms']:.4f} ms, "
+          f"{row['value_bound_by']}), plain backward {row['plain_ms']:.4f} "
+          f"ms, grid_sample composite's backward "
+          f"{row['library_composite_ms']:.4f} ms; value kernel run-to-run "
+          f"max abs diff {row['value_run_to_run_max_abs_diff']:.3e}",
+          flush=True)
+    for t in (dvalue, dloc, daw):
+        if not torch.isfinite(t.float()).all():
+            raise SystemExit(f"msda_bwd {call} {dtype}: non-finite")
+    if max(row["max_err_over_limit"].values()) > 1.0:
+        raise SystemExit(f"msda_bwd {call} {dtype}: kernels disagree "
+                         "with the plain backward")
+    if not row["rows_bit_equal_run_to_run"]:
+        raise SystemExit(f"msda_bwd_rows {call} {dtype}: two runs differ")
+    return row
+
+
 def check_bwd_kernels(shapes, bucket):
-    """K2 and K3 against the plain backward at the encoder and decoder
-    shapes of the training bucket."""
+    """K2 and K3 against the plain backward at every call of EXACT_CALLS in
+    the training bucket."""
     S = sum(h * w for h, w in shapes)
     rows = []
-    for call, Q in (("encoder", S), ("decoder", 200)):
-        for dtype in (torch.float32, torch.bfloat16):
-            value, loc, aw = msda_inputs(Q, S, dtype, seed=100 + len(rows))
-            g = torch.randn((1, Q, H * D), device=DEVICE,
-                            generator=torch.Generator(device=DEVICE)
-                            .manual_seed(len(rows))).to(dtype)
-            args = (value, shapes, loc, aw, g)
-            dloc, daw = msda_cuda.msda_bwd_rows(*args)
-            dvalue = msda_cuda.msda_bwd_value(*args)
-            again = msda_cuda.msda_bwd_value(*args)
-            pv, pl, pa = msda.ms_deform_attn_plain_bwd(*args)
-            torch.cuda.synchronize()
-            errs = {n: _scaled_err(k, p, dtype) for n, k, p in (
-                ("dvalue", dvalue, pv), ("dloc", dloc, pl), ("daw", daw, pa))}
-            row = {
-                "bucket": bucket, "call": call, "Q": Q,
-                "dtype": str(dtype).split(".")[-1],
-                "max_abs_err": {n: e[0] for n, e in errs.items()},
-                "max_err_over_limit": {n: e[1] for n, e in errs.items()},
-                "value_run_to_run_max_abs_diff":
-                    (dvalue.float() - again.float()).abs().max().item(),
-                "rows_ms": cuda_ms(lambda: msda_cuda.msda_bwd_rows(*args), 50),
-                "value_ms": cuda_ms(lambda: msda_cuda.msda_bwd_value(*args),
-                                    50),
-                # the plain backward computes all three gradients in one call
-                "plain_ms": cuda_ms(lambda: msda.ms_deform_attn_plain_bwd(
-                    *args), 3, warmup=1),
-            }
-            row["rows_bound_ms"], row["rows_bound_by"] = bound(
-                (value, loc, aw, g, dloc, daw), aw, FLOPS_ROWS)
-            row["value_bound_ms"], row["value_bound_by"] = bound(
-                (loc, aw, g, dvalue), aw, FLOPS_VALUE)
-            atol, rtol = BWD_TOL[dtype]
-            print(f"msda_bwd {bucket} {call} Q={Q} {row['dtype']}: max abs "
-                  f"err {row['max_abs_err']} (err/limit "
-                  f"{row['max_err_over_limit']}, atol {atol}*max|ref| rtol "
-                  f"{rtol}); rows {row['rows_ms']:.4f} ms (bound "
-                  f"{row['rows_bound_ms']:.4f} ms, {row['rows_bound_by']}), "
-                  f"value {row['value_ms']:.4f} ms (bound "
-                  f"{row['value_bound_ms']:.4f} ms, {row['value_bound_by']}), "
-                  f"plain backward {row['plain_ms']:.4f} ms; value kernel "
-                  f"run-to-run max abs diff "
-                  f"{row['value_run_to_run_max_abs_diff']:.3e}", flush=True)
-            for t in (dvalue, dloc, daw):
-                if not torch.isfinite(t.float()).all():
-                    raise SystemExit(f"msda_bwd {call} {dtype}: non-finite")
-            if max(row["max_err_over_limit"].values()) > 1.0:
-                raise SystemExit(f"msda_bwd {call} {dtype}: kernels disagree "
-                                 "with the plain backward")
-            rows.append(row)
-    # the batch index of the kernels' addressing
+    for n, (call, batch, dtype) in enumerate(exact_calls()):
+        seed = (150 if call == "encoder_raster" else 100) + n
+        Q, value, loc, aw = exact_call_inputs(shapes, call, batch, dtype,
+                                              seed)
+        g = grad_output(batch, Q, dtype, n)
+        rows.append(_bwd_row(bucket, call, Q, value, shapes, loc, aw, g))
+    # the batch index of the kernels' addressing, on two mirrored images
     value, loc, aw = msda_inputs(200, S, torch.float32, seed=200)
     g = torch.randn((1, 200, H * D), device=DEVICE)
     value, loc, aw, g = (torch.cat([t, t.flip(1)]) for t in (value, loc, aw, g))
@@ -1390,9 +1538,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         driver = drive_trainer(workdir)
 
-    def pick(table, call, dtype="bfloat16"):
-        return next(r for r in table
-                    if r["call"] == call and r["dtype"] == dtype)
+    def pick(table, call, dtype="bfloat16", batch=1):
+        return next(r for r in table if r["call"] == call
+                    and r["dtype"] == dtype and r.get("batch", 1) == batch)
 
     def banded_entry(name, line, main_form, launches):
         mine = {r["dtype"]: r for r in win_rows if r["kernel"] == name}
@@ -1483,9 +1631,20 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": None,
+        "library_composite_ms": main_row["library_composite_ms"],
+        "library_composite": COMPOSITE_NOTE,
+        "graph_ms": main_row["graph_ms"],
+        "gather_bytes": main_row["gather_bytes"],
+        "gather_GBps_L2": main_row["gather_GBps_L2"],
         "ms_encoder": main_row["ms"],
+        "ms_encoder_raster": pick(rows, "encoder_raster")["ms"],
         "ms_decoder": pick(rows, "decoder")["ms"],
+        "graph_ms_decoder": pick(rows, "decoder")["graph_ms"],
+        "graph_ms_decoder_batch2_training": pick(
+            train_rows, "decoder", batch=2)["graph_ms"],
         "ms_encoder_training": pick(train_rows, "encoder")["ms"],
+        "ms_encoder_raster_training": pick(train_rows,
+                                           "encoder_raster")["ms"],
         "ms_decoder_training": pick(train_rows, "decoder")["ms"],
         "calls": rows + train_rows,
         "model_f32_max_abs_err": model_errs,
@@ -1503,8 +1662,18 @@ def main() -> int:
         "bound_ms": bwd_row["rows_bound_ms"],
         "bound_by": bwd_row["rows_bound_by"],
         "library_ms": None,
+        "library_composite_ms": bwd_row["library_composite_ms"],
+        "library_composite": COMPOSITE_NOTE + " (its autograd backward: the "
+                             "work of K2 and K3 together)",
+        "graph_ms": bwd_row["rows_graph_ms"],
+        "gather_bytes": bwd_row["rows_gather_bytes"],
+        "gather_GBps_L2": bwd_row["rows_gather_GBps_L2"],
         "ms_encoder": bwd_row["rows_ms"],
+        "ms_encoder_raster": pick(bwd_rows, "encoder_raster")["rows_ms"],
         "ms_decoder": pick(bwd_rows, "decoder")["rows_ms"],
+        "graph_ms_decoder": pick(bwd_rows, "decoder")["rows_graph_ms"],
+        "graph_ms_decoder_batch2": pick(bwd_rows, "decoder",
+                                        batch=2)["rows_graph_ms"],
         "calls": bwd_rows,
     }, {
         "name": "msda_bwd_value",
@@ -1519,6 +1688,9 @@ def main() -> int:
         "bound_ms": bwd_row["value_bound_ms"],
         "bound_by": bwd_row["value_bound_by"],
         "library_ms": None,
+        "library_composite_ms": bwd_row["library_composite_ms"],
+        "library_composite": COMPOSITE_NOTE + " (its autograd backward: the "
+                             "work of K2 and K3 together)",
         "ms_encoder": bwd_row["value_ms"],
         "ms_decoder": pick(bwd_rows, "decoder")["value_ms"],
         "run_to_run_max_abs_diff": max(

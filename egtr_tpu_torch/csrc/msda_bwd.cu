@@ -21,26 +21,38 @@
 // otherwise). The rows kernel writes only those levels' entries of dloc and
 // daw, so the wrapper zeroes the outputs when the table is a subset.
 //
-// Design (both): one warp per (batch, query, head), lanes over the head dim
-// D (one channel per lane for D = 32, chunks of 32 above). Every lane reads
-// the same location and weight (a broadcast load) and its own channel of the
-// output gradient g and of each corner row: at bf16 one coalesced 64-byte
-// access per corner.
-//
-//   rows:  per (level, point) the three sums over the corners and channels
-//          are reduced across the warp with shuffles; lane 0 writes them. No
-//          atomics: deterministic.
-//   value: per (level, point) each lane adds its channel of the four corner
-//          contributions with atomicAdd (red.global.add.f32, 32 neighbouring
-//          floats per corner). The order of the additions changes from run to
-//          run, so the last bits of the result do too.
-//
-// Bound: memory. rows reads 4 corner rows per sample and does ~25 flops per
+// What bounds them on this card: the corner gathers (rows) and the corner
+// atomics (value). rows reads 4 corner rows per sample and does ~28 flops per
 // value read; value makes 4 atomic row updates per sample. The value tensor
 // and its float32 gradient (11.4 MB and 22.9 MB per image at the 800x1344
 // bucket in bf16) fit the 50 MB L2 one image at a time, so most of the
-// traffic is L2 gathers and L2 atomics; device memory sees the inputs once
-// and the gradient buffer twice (zeroing, final cast).
+// traffic is L2 gathers (731 MB at the training encoder call) and L2 atomics;
+// device memory sees the inputs once and the gradient buffer twice (zeroing,
+// final cast).
+//
+// rows, layout: msda_fwd.cu's lanes. A warp's 32 lanes split over (sample,
+// channel group): a lane reads VEC consecutive channels of a corner with one
+// vector load (16 bytes where D and the alignment of the value and
+// output-gradient pointers allow it; narrower otherwise, chosen by the
+// wrapper), LPS lanes cover a sample and two passes of 32 / LPS samples are
+// unrolled, so at bf16 with D = 32 all 16 samples' corner loads are in
+// flight together. One warp takes one row, and each lane reads its own
+// sample's location and weight: msda_fwd.cu's walk over rows with the next
+// row's entries handed out by shuffles raised this kernel's registers (128
+// to 148-184 a thread) and measured slower. The lane's channels of the
+// output gradient g are loaded once per row and kept in registers. A
+// sample's three sums (dix, diy, daw) are folded over only that sample's
+// LPS lanes with __shfl_xor_sync (2 rounds at bf16, D = 32, in a fixed
+// order), and the sample's lanes then write its two dloc floats and its daw
+// value, one each: the warp's stores of a pass are contiguous. No atomics:
+// deterministic.
+//
+//   value: one warp per (batch, query, head), lanes over the head dim D (one
+//          channel per lane for D = 32, chunks of 32 above). Per (level,
+//          point) each lane adds its channel of the four corner contributions
+//          with atomicAdd (red.global.add.f32, 32 neighbouring floats per
+//          corner). The order of the additions changes from run to run, so
+//          the last bits of the result do too.
 //
 // What matches the JAX kernels (cdt = the value dtype, all sums float32):
 //   dT_j   = cdt(hat_y_j * aw * g)      rounded per (corner row, channel)
@@ -58,11 +70,7 @@
 // C interface for ctypes: each function launches on the given stream and
 // returns cudaGetLastError() as an int (0 = launched).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define MSDA_MAX_LEVELS 8
+#include "msda_geom.cuh"
 
 // the levels differentiated, and each one's index into the L axis
 struct Levels {
@@ -73,43 +81,13 @@ struct Levels {
   int lid[MSDA_MAX_LEVELS];
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// A float32 product as the JAX kernels feed it to the MXU: rounded to T.
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_float(from_float<T>(v));
-}
-
-__device__ __forceinline__ float hat(float t) {
-  return fmaxf(0.0f, 1.0f - fabsf(t));
-}
-
 // d hat / dt: -sign(t) inside the support, 0 outside and at the kink t = 0
 __device__ __forceinline__ float hat_grad(float t) {
   if (!(fabsf(t) < 1.0f) || t == 0.0f) return 0.0f;
   return t > 0.0f ? -1.0f : 1.0f;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// One sample's geometry, the same for every lane of the warp.
+// One sample's geometry.
 struct Sample {
   float zx0, zx1, zy0, zy1;  // ix - x0, ix - x1, iy - y0, iy - y1
   int x0, y0;
@@ -141,56 +119,131 @@ __device__ __forceinline__ Sample make_sample(float lx, float ly, int hl,
   return s;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(256)
+// One sample of a pass: its geometry, weights, and four corners' values.
+template <typename T, int VEC>
+struct RowSample {
+  Sample s;
+  int i;  // index into the row's L*P entries
+  int hl, wl, start;
+  float a;
+  bool valid;  // the lane's sample exists
+  Raw<T, VEC> v00, v01, v10, v11;
+};
+
+// Two blocks an SM: without the bound ptxas gives the bf16 form with 8
+// channels a lane 180 registers a thread, one block an SM, and it runs 1.5x
+// slower than at 128.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(256, 2)
 msda_bwd_rows_kernel(const T* __restrict__ value,
                      const float* __restrict__ loc, const T* __restrict__ aw,
                      const T* __restrict__ g, float* __restrict__ dloc,
                      T* __restrict__ daw, Levels lv, int L, int Q, int S,
-                     int H, int D, int P, long n_warps) {
-  const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= n_warps) return;  // whole warps leave together
-  // warp = (b * Q + q) * H + head
-  const int head = (int)(warp % H);
-  const long b = warp / H / Q;
-  const float* locp = loc + warp * (long)(L * P * 2);
-  const T* awp = aw + warp * (long)(L * P);
-  const T* gp = g + warp * (long)D;
-  float* dlocp = dloc + warp * (long)(L * P * 2);
-  T* dawp = daw + warp * (long)(L * P);
-  const long row = (long)H * D;  // stride between tokens in value
-  const T* vb = value + b * (long)S * row + (long)head * D;
+                     int H, int D, int P, Geom gm, long n_rows) {
+  __shared__ int tab[4 * MSDA_MAX_LEVELS];  // h, w, start, lid
+  if (threadIdx.x < lv.n) {
+    const int l = threadIdx.x;
+    tab[4 * l] = lv.h[l];
+    tab[4 * l + 1] = lv.w[l];
+    tab[4 * l + 2] = lv.start[l];
+    tab[4 * l + 3] = lv.lid[l];
+  }
+  __syncthreads();
 
-  for (int k = 0; k < lv.n; ++k) {
-    const int hl = lv.h[k], wl = lv.w[k];
-    const T* vl = vb + (long)lv.start[k] * row;
-    for (int p = 0; p < P; ++p) {
-      const int i = lv.lid[k] * P + p;
-      const Sample s = make_sample(locp[2 * i], locp[2 * i + 1], hl, wl);
-      const float a = to_float(awp[i]);
-      float s_dix = 0.0f, s_diy = 0.0f, s_daw = 0.0f;
-      if (s.any) {  // the same for the whole warp
-        const float hx0 = round_to<T>(hat(s.zx0));
-        const float hx1 = round_to<T>(hat(s.zx1));
-        const float hy0 = hat(s.zy0), hy1 = hat(s.zy1);
-        const float ghx0 = hat_grad(s.zx0), ghx1 = hat_grad(s.zx1);
-        const float ghy0 = hat_grad(s.zy0), ghy1 = hat_grad(s.zy1);
-        const float c0 = __fmul_rn(hy0, a), c1 = __fmul_rn(hy1, a);
-        const float e0 = __fmul_rn(a, ghy0), e1 = __fmul_rn(a, ghy1);
-        for (int d = lane; d < D; d += 32) {
-          const float gd = to_float(gp[d]);
-          float v00 = 0.0f, v01 = 0.0f, v10 = 0.0f, v11 = 0.0f;
-          if (s.oky0) {
-            const T* r = vl + (long)s.y0 * wl * row + d;
-            if (s.okx0) v00 = to_float(r[(long)s.x0 * row]);
-            if (s.okx1) v01 = to_float(r[(long)(s.x0 + 1) * row]);
-          }
-          if (s.oky1) {
-            const T* r = vl + (long)(s.y0 + 1) * wl * row + d;
-            if (s.okx0) v10 = to_float(r[(long)s.x0 * row]);
-            if (s.okx1) v11 = to_float(r[(long)(s.x0 + 1) * row]);
-          }
+  // one warp per row (the geometry's rows_per_warp is 1)
+  const long row = (long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= n_rows) return;  // whole warps leave together
+  // row = (b * Q + q) * H + head
+  const int head = (int)(row % H);
+  const long b = row / H / Q;
+  const int lps = 1 << gm.lps_log2;
+  const int spp = 32 >> gm.lps_log2;
+  const int slot = lane >> gm.lps_log2;  // sample slot in a pass
+  const int sub = lane & (lps - 1);      // channel group within a chunk
+  const int ns = lv.n * P;
+  const float* locp = loc + row * (long)(L * P * 2);
+  const T* awp = aw + row * (long)(L * P);
+  const T* gp = g + row * (long)D;
+  float* dlocp = dloc + row * (long)(L * P * 2);
+  T* dawp = daw + row * (long)(L * P);
+  const long rs = (long)H * D;  // stride between tokens in value
+  const T* vb = value + b * (long)S * rs + (long)head * D;
+
+  // the lane's channels of g, for all samples (one chunk; more reload them)
+  Raw<T, VEC> gr;
+  gr.zero();
+  if (gm.chunks == 1 && sub < gm.groups) gr.load(gp + sub * VEC);
+
+  for (int ps = 0; ps < gm.passes; ps += MSDA_UNROLL) {
+    RowSample<T, VEC> sm[MSDA_UNROLL];
+#pragma unroll
+    for (int u = 0; u < MSDA_UNROLL; ++u) {
+      RowSample<T, VEC>& q = sm[u];
+      const int s = (ps + u) * spp + slot;
+      q.valid = s < ns;
+      q.s.any = false;
+      q.i = 0;
+      q.hl = q.wl = q.start = 0;
+      q.a = 0.0f;
+      if (!q.valid) continue;
+      const int k = s / P, p = s - k * P;
+      const int* t = tab + 4 * k;
+      q.hl = t[0];
+      q.wl = t[1];
+      q.start = t[2];
+      q.i = t[3] * P + p;
+      q.s = make_sample(locp[2 * q.i], locp[2 * q.i + 1], q.hl, q.wl);
+      q.a = to_float(awp[q.i]);
+    }
+    float sums[MSDA_UNROLL][3];
+#pragma unroll
+    for (int u = 0; u < MSDA_UNROLL; ++u)
+      sums[u][0] = sums[u][1] = sums[u][2] = 0.0f;
+
+    for (int c = 0; c < gm.chunks; ++c) {
+      const int grp = c * lps + sub;
+      const bool on = grp < gm.groups;
+      const int d = grp * VEC;
+      if (gm.chunks > 1) {
+        gr.zero();
+        if (on) gr.load(gp + d);
+      }
+      // every corner load of the passes first
+#pragma unroll
+      for (int u = 0; u < MSDA_UNROLL; ++u) {
+        RowSample<T, VEC>& q = sm[u];
+        q.v00.zero(); q.v01.zero(); q.v10.zero(); q.v11.zero();
+        if (!(on && q.valid && q.s.any)) continue;
+        const T* vl = vb + (long)q.start * rs + d;
+        if (q.s.oky0) {
+          const T* r = vl + (long)q.s.y0 * q.wl * rs;
+          if (q.s.okx0) q.v00.load(r + (long)q.s.x0 * rs);
+          if (q.s.okx1) q.v01.load(r + (long)(q.s.x0 + 1) * rs);
+        }
+        if (q.s.oky1) {
+          const T* r = vl + (long)(q.s.y0 + 1) * q.wl * rs;
+          if (q.s.okx0) q.v10.load(r + (long)q.s.x0 * rs);
+          if (q.s.okx1) q.v11.load(r + (long)(q.s.x0 + 1) * rs);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < MSDA_UNROLL; ++u) {
+        const RowSample<T, VEC>& q = sm[u];
+        if (!(on && q.valid && q.s.any)) continue;
+        const float hx0 = round_to<T>(hat(q.s.zx0));
+        const float hx1 = round_to<T>(hat(q.s.zx1));
+        const float hy0 = hat(q.s.zy0), hy1 = hat(q.s.zy1);
+        const float ghx0 = hat_grad(q.s.zx0), ghx1 = hat_grad(q.s.zx1);
+        const float ghy0 = hat_grad(q.s.zy0), ghy1 = hat_grad(q.s.zy1);
+        const float c0 = __fmul_rn(hy0, q.a), c1 = __fmul_rn(hy1, q.a);
+        const float e0 = __fmul_rn(q.a, ghy0), e1 = __fmul_rn(q.a, ghy1);
+        float s_dix = sums[u][0], s_diy = sums[u][1], s_daw = sums[u][2];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float gd = gr.get(j);
+          const float v00 = q.v00.get(j), v01 = q.v01.get(j);
+          const float v10 = q.v10.get(j), v11 = q.v11.get(j);
           const float dT0 = round_to<T>(__fmul_rn(c0, gd));
           const float dT1 = round_to<T>(__fmul_rn(c1, gd));
           s_dix += (v00 * dT0 + v10 * dT1) * ghx0
@@ -200,15 +253,31 @@ msda_bwd_rows_kernel(const T* __restrict__ value,
           s_daw += hy0 * Tg0 + hy1 * Tg1;
           s_diy += e0 * Tg0 + e1 * Tg1;
         }
-        s_dix = warp_sum(s_dix);
-        s_diy = warp_sum(s_diy);
-        s_daw = warp_sum(s_daw);
+        sums[u][0] = s_dix;
+        sums[u][1] = s_diy;
+        sums[u][2] = s_daw;
       }
-      if (lane == 0) {
-        dlocp[2 * i] = __fmul_rn(s_dix, (float)wl);
-        dlocp[2 * i + 1] = __fmul_rn(s_diy, (float)hl);
-        dawp[i] = from_float<T>(s_daw);
+    }
+    // fold each sample's sums over its own lanes, in a fixed order; every
+    // lane of the sample ends with the same sums
+    for (int off = 1; off < lps; off <<= 1) {
+#pragma unroll
+      for (int u = 0; u < MSDA_UNROLL; ++u) {
+#pragma unroll
+        for (int m = 0; m < 3; ++m)
+          sums[u][m] += __shfl_xor_sync(MSDA_FULL_MASK, sums[u][m], off);
       }
+    }
+    // the sample's lanes share its three stores: sub 0 dix, 1 diy, 2 daw
+    const int lane_y = lps > 1 ? 1 : 0, lane_a = lps > 2 ? 2 : lps - 1;
+#pragma unroll
+    for (int u = 0; u < MSDA_UNROLL; ++u) {
+      const RowSample<T, VEC>& q = sm[u];
+      if (!q.valid) continue;
+      if (sub == 0) dlocp[2 * q.i] = __fmul_rn(sums[u][0], (float)q.wl);
+      if (sub == lane_y)
+        dlocp[2 * q.i + 1] = __fmul_rn(sums[u][1], (float)q.hl);
+      if (sub == lane_a) dawp[q.i] = from_float<T>(sums[u][2]);
     }
   }
 }
@@ -277,30 +346,68 @@ static bool read_levels(const int* levels, int n_levels, int L, Levels* lv) {
   return true;
 }
 
+template <typename T, int VEC>
+static void launch_rows(const Geom& g, cudaStream_t s, const void* value,
+                        const void* loc, const void* aw, const void* gr,
+                        void* dloc, void* daw, const Levels& lv, int L, int Q,
+                        int S, int H, int D, int P, long rows) {
+  msda_bwd_rows_kernel<T, VEC><<<g.blocks, g.threads, 0, s>>>(
+      (const T*)value, (const float*)loc, (const T*)aw, (const T*)gr,
+      (float*)dloc, (T*)daw, lv, L, Q, S, H, D, P, g, rows);
+}
+
+template <typename T>
+static int launch_rows_vec(const Geom& g, cudaStream_t s, const void* value,
+                           const void* loc, const void* aw, const void* gr,
+                           void* dloc, void* daw, const Levels& lv, int L,
+                           int Q, int S, int H, int D, int P, long rows) {
+  switch (g.vec) {
+    case 8:
+      if constexpr (sizeof(T) == 2) {
+        launch_rows<T, 8>(g, s, value, loc, aw, gr, dloc, daw, lv, L, Q, S, H,
+                          D, P, rows);
+        return 0;
+      }
+      return 1;
+    case 4:
+      launch_rows<T, 4>(g, s, value, loc, aw, gr, dloc, daw, lv, L, Q, S, H,
+                        D, P, rows);
+      return 0;
+    case 2:
+      launch_rows<T, 2>(g, s, value, loc, aw, gr, dloc, daw, lv, L, Q, S, H,
+                        D, P, rows);
+      return 0;
+    case 1:
+      launch_rows<T, 1>(g, s, value, loc, aw, gr, dloc, daw, lv, L, Q, S, H,
+                        D, P, rows);
+      return 0;
+  }
+  return 1;
+}
+
+// geometry: the nine ints of struct Geom, in its order
 extern "C" int msda_bwd_rows(const void* value, const void* loc,
                              const void* aw, const void* g, void* dloc,
                              void* daw, const int* levels, int n_levels,
                              int L, int B, int S, int Q, int H, int D, int P,
-                             int is_bf16, void* stream) {
+                             int is_bf16, const int* geometry, void* stream) {
   Levels lv;
   if (!read_levels(levels, n_levels, L, &lv))
     return (int)cudaErrorInvalidValue;
-  const long n_warps = (long)B * Q * H;
-  if (n_warps == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const long blocks = (n_warps * 32 + threads - 1) / threads;
+  const long rows = (long)B * Q * H;
+  if (rows == 0) return (int)cudaSuccess;
+  const Geom gm = read_geometry(geometry);
+  // one row a warp, each lane reading its own sample's location and weight
+  if (!geometry_ok(gm, rows, D, n_levels * P, L * P, is_bf16) ||
+      gm.rows_per_warp != 1 || gm.handout != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) {
-    msda_bwd_rows_kernel<__nv_bfloat16><<<(unsigned)blocks, threads, 0, s>>>(
-        (const __nv_bfloat16*)value, (const float*)loc,
-        (const __nv_bfloat16*)aw, (const __nv_bfloat16*)g, (float*)dloc,
-        (__nv_bfloat16*)daw, lv, L, Q, S, H, D, P, n_warps);
-  } else {
-    msda_bwd_rows_kernel<float><<<(unsigned)blocks, threads, 0, s>>>(
-        (const float*)value, (const float*)loc, (const float*)aw,
-        (const float*)g, (float*)dloc, (float*)daw, lv, L, Q, S, H, D, P,
-        n_warps);
-  }
+  const int bad =
+      is_bf16 ? launch_rows_vec<__nv_bfloat16>(gm, s, value, loc, aw, g, dloc,
+                                               daw, lv, L, Q, S, H, D, P, rows)
+              : launch_rows_vec<float>(gm, s, value, loc, aw, g, dloc, daw, lv,
+                                       L, Q, S, H, D, P, rows);
+  if (bad) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

@@ -6,6 +6,8 @@ package's Pallas kernels:
 - ``msda_fwd`` (``msda_fwd.cu``) replaces ``msda_pallas.py:_fwd_kernel``;
 - ``msda_bwd_rows`` (``msda_bwd.cu``) replaces ``_bwd_rows_kernel``: the
   gradients of the sampling locations and the attention weights;
+  both lay a warp's lanes over (sample, channel group) as
+  :func:`launch_geometry` says;
 - ``msda_bwd_value`` (``msda_bwd.cu``) replaces ``_bwd_dvtt_kernel``: the
   gradient of the values, summed over the queries with float32 atomics;
 - ``msda_fwd_q`` (``msda_fwd_q.cu``) replaces the int8 branch of
@@ -28,7 +30,8 @@ Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes``. The libraries are built
 at first use from the sources in the checkout, all ``nvcc`` processes started
 together, into ``build/`` at the repository root, each under a name keyed by
-a hash of its source and the compiler flags, so an edited source is rebuilt.
+a hash of its source, the headers beside it (``msda_geom.cuh``) and the
+compiler flags, so an edited source or header is rebuilt.
 
 There is no fallback: if ``nvcc`` is missing or a build fails, a call on
 CUDA tensors raises. The plain versions (``msda.ms_deform_attn_plain``,
@@ -48,6 +51,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from dataclasses import astuple, dataclass
+from functools import cached_property, lru_cache
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -110,8 +115,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str = "msda_fwd") -> Path:
-    """Where a built library lives: keyed by its source and the flags."""
-    key = hashlib.sha256(sources()[name].read_bytes()
+    """Where a built library lives: keyed by its source, the headers beside
+    it and the flags."""
+    headers = b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
+    key = hashlib.sha256(sources()[name].read_bytes() + headers
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
@@ -160,6 +167,106 @@ def build() -> Dict[str, Path]:
     return paths
 
 
+# Launch geometry of msda_fwd and msda_bwd_rows. A row is one (batch, query,
+# head); its samples are its n*P (level, point) pairs.
+WARPS_PER_BLOCK = 8
+UNROLL = 2  # MSDA_UNROLL in the sources: passes whose loads go together
+# msda_fwd: a warp walks ROWS_PER_WARP rows where the call has at least
+# MIN_ROWS_TO_WALK rows (16 blocks an SM of the card's 132 at one row a
+# warp), else one. Measured on the H100: two rows a warp beat one, four and
+# eight at the encoder calls (101,904 and 178,584 rows); one beat two at the
+# decoder calls (1,600 and 3,200 rows).
+ROWS_PER_WARP = 2
+MIN_ROWS_TO_WALK = 132 * 16 * WARPS_PER_BLOCK
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """How msda_fwd and msda_bwd_rows lay a row's work on a warp's lanes.
+
+    Lane ``l`` of a warp takes sample slot ``l >> lps_log2`` and channel
+    group ``l & (lanes_per_sample - 1)`` (plus ``chunk * lanes_per_sample``
+    over the chunks); in pass ``t`` its sample is ``t * samples_per_pass +
+    slot``. Warp ``w`` of block ``k`` walks rows ``k * warps * rows_per_warp
+    + j * warps + w`` for ``j < rows_per_warp`` (``warps = threads // 32``).
+    A group is ``vec`` consecutive channels, read with one vector load. With
+    ``handout`` a row's locations and weights are read one per lane and
+    handed out with shuffles. msda_bwd_rows takes one row a warp and no
+    hand-out."""
+
+    vec: int            # channels per lane load
+    lps_log2: int       # log2 of the lanes per sample
+    groups: int         # D / vec channel groups
+    chunks: int         # ceil(groups / lanes_per_sample)
+    passes: int         # ceil(n * P / samples_per_pass)
+    handout: int        # 1: a row's L*P*2 locations fit one per lane
+    rows_per_warp: int
+    threads: int
+    blocks: int
+
+    @property
+    def lanes_per_sample(self) -> int:
+        return 1 << self.lps_log2
+
+    @property
+    def samples_per_pass(self) -> int:
+        return 32 >> self.lps_log2
+
+    @cached_property
+    def c_array(self):
+        """The nine ints of the sources' ``struct Geom``, in its order (a
+        launch only reads them)."""
+        return (ctypes.c_int * 9)(*astuple(self))
+
+
+def rows_per_warp_for(rows: int) -> int:
+    """Rows a warp of msda_fwd walks: a function of the row count B*Q*H
+    alone. Each row is summed by one warp in one order, so this moves no
+    bit of the result."""
+    return ROWS_PER_WARP if rows >= MIN_ROWS_TO_WALK else 1
+
+
+def vector_width(D: int, element_size: int, alignment: int) -> int:
+    """Channels per lane load: the widest load of at most 16 bytes that D
+    and the pointers' alignment (bytes) allow."""
+    vec = 16 // element_size
+    while vec > 1 and (D % vec or alignment % (vec * element_size)):
+        vec //= 2
+    return vec
+
+
+def pointer_alignment(*tensors: torch.Tensor) -> int:
+    """The largest power of two up to 16 that divides every data pointer."""
+    align = 16
+    for t in tensors:
+        while t.data_ptr() % align:
+            align //= 2
+    return align
+
+
+@lru_cache(maxsize=256)
+def launch_geometry(rows: int, D: int, n_samples: int, row_samples: int,
+                    element_size: int, alignment: int = 16,
+                    walk: bool = True) -> Geometry:
+    """The launch for ``rows`` = B*Q*H rows of ``n_samples`` summed samples
+    (the levels taken times P), each row holding ``row_samples`` = L*P
+    entries in the location and weight tensors: msda_fwd's, whose warps
+    walk rows and take a row's entries by hand-out, or with ``walk=False``
+    msda_bwd_rows', one row a warp that reads its own."""
+    vec = vector_width(D, element_size, alignment)
+    groups = D // vec
+    lps_log2 = min(5, (groups - 1).bit_length())
+    lps = 1 << lps_log2
+    rows_per_warp = rows_per_warp_for(rows) if walk else 1
+    return Geometry(
+        vec=vec, lps_log2=lps_log2, groups=groups, chunks=-(-groups // lps),
+        passes=-(-n_samples // (32 // lps)),
+        handout=int(walk and 2 * row_samples <= 32),
+        rows_per_warp=rows_per_warp,
+        threads=32 * WARPS_PER_BLOCK,
+        blocks=-(-rows // (WARPS_PER_BLOCK * rows_per_warp)))
+
+
 _VOID_P, _INT = ctypes.c_void_p, ctypes.c_int
 _WIN_ARGS = ([_VOID_P] * 6 + [ctypes.POINTER(_INT)] + [_INT] * 11
              + [ctypes.c_long, _INT, _VOID_P])
@@ -170,13 +277,13 @@ _BWD_WIN_VALUE_ARGS = ([_VOID_P] * 6 + [ctypes.POINTER(_INT)] + [_INT] * 12
 # per exported function: its library and its C argument types
 _FUNCTIONS = {
     "msda_fwd": ("msda_fwd", [_VOID_P] * 4 + [ctypes.POINTER(_INT)]
-                 + [_INT] * 10 + [_VOID_P]),
+                 + [_INT] * 10 + [ctypes.POINTER(_INT), _VOID_P]),
     "msda_fwd_q": ("msda_fwd_q", [_VOID_P] * 5 + [ctypes.POINTER(_INT)]
                    + [_INT] * 9 + [_VOID_P]),
     "msda_fwd_win": ("msda_fwd_win", _WIN_ARGS),
     "msda_fwd_win_pp": ("msda_fwd_win", _WIN_ARGS),
     "msda_bwd_rows": ("msda_bwd", [_VOID_P] * 6 + [ctypes.POINTER(_INT)]
-                      + [_INT] * 9 + [_VOID_P]),
+                      + [_INT] * 9 + [ctypes.POINTER(_INT), _VOID_P]),
     "msda_bwd_value": ("msda_bwd", [_VOID_P] * 4 + [ctypes.POINTER(_INT)]
                        + [_INT] * 9 + [_VOID_P]),
     "msda_bwd_win_rows": ("msda_bwd_win", _BWD_WIN_ROWS_ARGS),
@@ -327,13 +434,15 @@ def msda_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
         return out
     table = _levels_arg(spatial_shapes, D, levels,
                         value.dtype != torch.float32)
+    geometry = launch_geometry(B * Q * H, D, len(levels) * P, L * P,
+                               value.element_size(), pointer_alignment(value))
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(value.data_ptr(), sampling_locations.data_ptr(),
                 attention_weights.data_ptr(), out.data_ptr(),
                 table, len(levels), L, B, S, Q, H, D, P,
                 int(value.dtype == torch.bfloat16),
-                int(out_dtype == torch.float32), stream)
+                int(out_dtype == torch.float32), geometry.c_array, stream)
     if rc != 0:
         raise RuntimeError(f"msda_fwd kernel launch failed: CUDA error {rc}")
     launches["msda_fwd"] += 1
@@ -649,12 +758,17 @@ def msda_bwd_rows(value: torch.Tensor,
     if daw.numel() == 0:
         return dloc, daw
     table = _levels_arg(spatial_shapes, D, levels, False)
+    geometry = launch_geometry(B * Q * H, D, len(levels) * P, L * P,
+                               value.element_size(),
+                               pointer_alignment(value, grad_output),
+                               walk=False)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(value.data_ptr(), sampling_locations.data_ptr(),
                 attention_weights.data_ptr(), grad_output.data_ptr(),
                 dloc.data_ptr(), daw.data_ptr(), table, len(levels), L, B, S,
-                Q, H, D, P, int(value.dtype == torch.bfloat16), stream)
+                Q, H, D, P, int(value.dtype == torch.bfloat16),
+                geometry.c_array, stream)
     if rc != 0:
         raise RuntimeError(
             f"msda_bwd_rows kernel launch failed: CUDA error {rc}")

@@ -136,8 +136,10 @@ def fake_card(monkeypatch, tmp_path):
     monkeypatch.setattr(chip_smoke, "card_line", lambda: "Host, 0.00 W")
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "SIDE_BY_SIDE_ROUNDS", 2)
+    # one call each; a positive time, as a card's, for the rates
     monkeypatch.setattr(chip_smoke, "cuda_ms",
-                        lambda fn, iters, warmup=0: (fn(), 0.0)[1])
+                        lambda fn, iters, warmup=0: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "graph_ms", lambda fn, *a: (fn(), 1.0)[1])
     monkeypatch.setattr(infer, "BUCKET_HW", (272, 96))
     monkeypatch.setattr(infer, "bench_config",
                         lambda **kw: bench_config(**{**TINY, **kw}))
@@ -241,9 +243,27 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
                                                   "int8"]
     assert win_pp["calls"][0]["levels"] == [0, 1]
     assert fwd_q["served_model_f32_max_abs_err"]["band_indices"] > 0
-    # forward: both buckets x (encoder, decoder) x (float32, bfloat16)
-    assert len(fwd["calls"]) == 8
-    assert len(rows["calls"]) == 4
+    # forward: both buckets x (encoder, decoder, encoder with raster
+    # locations, decoder at batch 2) x (float32, bfloat16); backward: the
+    # training bucket's
+    assert len(fwd["calls"]) == 16
+    assert len(rows["calls"]) == 8
+    assert [(c["call"], c["batch"]) for c in rows["calls"]] == [
+        ("encoder", 1), ("encoder", 1), ("decoder", 1), ("decoder", 1),
+        ("encoder_raster", 1), ("encoder_raster", 1), ("decoder", 2),
+        ("decoder", 2)]
+    assert "graph_ms_decoder_batch2" in rows
+    # K1, K2 and K3: the grid_sample composite as a yardstick of several
+    # calls beside library_ms (null); K1 and K2: the corner gathers, their
+    # rate, the device time in a CUDA graph, bit-equal runs
+    for k in (fwd, rows, value):
+        assert "composite of several PyTorch calls" in k["library_composite"]
+        assert k["library_composite_ms"] >= 0
+    for k in (fwd, rows):
+        assert k["gather_bytes"] > 0 and "gather_GBps_L2" in k
+        assert "graph_ms" in k and "ms_encoder_raster" in k
+    assert all(c["bit_equal_run_to_run"] for c in fwd["calls"])
+    assert all(c["rows_bit_equal_run_to_run"] for c in rows["calls"])
     # the adaptation (144x96: level 0 of 4 banded), one step of a batch of
     # 1, 2+2 layers: per microbatch K6 2, K1 2 + 2, K8 2, K10 2, K2 and K3
     # 2 + 2; its tile sibling K7, K9 2 each; its int8 sibling K4 4
@@ -284,6 +304,10 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
     out = "\n".join(lines)
     for phase in ("kernel build:", "msda_fwd serving encoder",
                   "msda_fwd training decoder", "msda_bwd training encoder",
+                  "msda_fwd serving encoder_raster",
+                  "msda_bwd training decoder Q=200 B=2",
+                  "msda_bwd training encoder_raster",
+                  "GB/s of L2 gather traffic (not a roofline share)",
                   "msda_fwd_q serving encoder_served",
                   "msda_fwd_q serving decoder batch 2",
                   "msda_fwd_win serving encoder window 16",

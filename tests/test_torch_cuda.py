@@ -12,11 +12,19 @@ every value type, level subsets and float32 output of the exact kernel; and
 for the banded backward (K7-K10): head dims 8 to 64, windows 8, 16 and 32,
 batches of 1 to 3, an overhanging last band, the band's reach, a level within
 the window, the whole windowed op's gradient, the exact backward kernels on a
-level subset, and refusals. On a GPU machine without JAX, run them without
-the suite's conftest (which imports JAX):
+level subset, and refusals; and for the exact forward (K1) and the backward
+row kernel (K2) in their Hopper layout: one row a warp and rows walked by a
+warp, rows handed out by shuffles and rows too long for that, bit-equal
+reruns and bits that do not move with the rows a warp walks, loads narrowed
+by D or by a pointer off the 16-byte alignment, a head dim of two chunks of
+lanes, and the C side's refusal of a geometry that misses work. On a GPU
+machine without JAX, run them without the suite's conftest (which imports
+JAX):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+
+from dataclasses import replace
 
 import pytest
 import torch
@@ -802,3 +810,166 @@ def test_fwd_bp_refusals(cuda):
     empty = msda_cuda.msda_fwd_bp(value, ((3, 4),), loc[:, :0].contiguous(),
                                   aw[:, :0].contiguous())
     assert empty.shape == (1, 0, 16)
+
+
+# --------------------------------------------------------------------------
+# K1 and K2 in their Hopper layout: lanes over (sample, channel group), a
+# warp walking several rows on large calls, a row's locations and weights
+# handed out by shuffles where they fit one per lane, the vector width
+# narrowed by D and the pointers' alignment
+# --------------------------------------------------------------------------
+
+LAYOUT_SHAPES = ((20, 30), (10, 15), (5, 8), (3, 4))
+# (B, Q, H, P): rows of one warp each, rows walked four to a warp, and rows
+# of 8 points (64 location floats) that each lane reads for itself
+LAYOUT_CASES = {"one_row": (1, 200, 8, 4), "walked": (2, 1100, 8, 4),
+                "no_handout": (1, 200, 8, 8)}
+
+
+def _offset(t, elements):
+    """``t``'s values in a contiguous tensor whose storage starts
+    ``elements`` past an allocation: a pointer the wide load cannot take."""
+    buf = torch.empty(t.numel() + elements, dtype=t.dtype, device=t.device)
+    out = buf[elements:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(LAYOUT_CASES))
+def test_k1_k2_layouts_match_plain_bit_equal(cuda, case, dtype):
+    """K1 and K2 against their plain versions with one row per warp
+    (decoder-like row counts), rows walked by a warp (encoder-like), and
+    rows too long for the hand-out, and bit-equal over two runs on each."""
+    B, Q, H, P = LAYOUT_CASES[case]
+    value, loc, aw = _inputs(cuda, dtype, B, Q, H, 32, LAYOUT_SHAPES, P=P)
+    L = len(LAYOUT_SHAPES)
+    geom = msda_cuda.launch_geometry(B * Q * H, 32, L * P, L * P,
+                                     value.element_size())
+    assert geom.handout == (case != "no_handout")
+    assert (geom.rows_per_warp > 1) == (case == "walked")
+    out = msda_cuda.msda_fwd(value, LAYOUT_SHAPES, loc, aw)
+    assert torch.equal(out, msda_cuda.msda_fwd(value, LAYOUT_SHAPES, loc, aw))
+    ref = msda.ms_deform_attn_plain(value, LAYOUT_SHAPES, loc, aw)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    g = torch.randn((B, Q, H * 32), device=cuda).to(dtype)
+    args = (value, LAYOUT_SHAPES, loc, aw, g)
+    dloc, daw = msda_cuda.msda_bwd_rows(*args)
+    again = msda_cuda.msda_bwd_rows(*args)
+    assert torch.equal(dloc, again[0]) and torch.equal(daw, again[1])
+    pv, pl, pa = msda.ms_deform_attn_plain_bwd(*args)
+    _assert_bwd_close((pv, dloc, daw), (pv, pl, pa), dtype)
+    # a level subset too (the windowed call's use): the hand-out still
+    # holds the whole row
+    out = msda_cuda.msda_fwd(value, LAYOUT_SHAPES, loc, aw, levels=(3, 1),
+                             out_dtype=torch.float32)
+    _assert_f32_close(out, msda.ms_deform_attn_plain(
+        value, LAYOUT_SHAPES, loc, aw, levels=(3, 1),
+        out_dtype=torch.float32))
+
+
+def test_k1_k2_rows_per_warp_moves_no_bit(cuda, monkeypatch):
+    """One warp sums each row whatever rows it walks: K1 gives the same bits
+    with one, two, four or eight rows a warp, with and without the
+    hand-out."""
+    value, loc, aw = _inputs(cuda, torch.bfloat16, 1, 700, 8, 32,
+                             LAYOUT_SHAPES)
+    outs = []
+    for walk in (1, 2, 4, 8):
+        msda_cuda.launch_geometry.cache_clear()
+        monkeypatch.setattr(msda_cuda, "rows_per_warp_for",
+                            lambda rows, walk=walk: walk)
+        outs.append(msda_cuda.msda_fwd(value, LAYOUT_SHAPES, loc, aw))
+    msda_cuda.launch_geometry.cache_clear()
+    real = msda_cuda.launch_geometry
+    monkeypatch.setattr(msda_cuda, "launch_geometry",
+                        lambda *a: replace(real(*a), handout=0))
+    outs.append(msda_cuda.msda_fwd(value, LAYOUT_SHAPES, loc, aw))
+    for got in outs[1:]:
+        assert torch.equal(outs[0], got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D,offset", [(10, 0), (32, 1), (32, 2), (6, 0)])
+def test_k1_k2_narrow_loads_match_plain(cuda, D, offset, dtype):
+    """A head dim or a value (and output-gradient) pointer that the 16-byte
+    load cannot take goes to a narrower load in the same kernels."""
+    B, Q, H = 1, 90, 4
+    value, loc, aw = _inputs(cuda, dtype, B, Q, H, D, LAYOUT_SHAPES)
+    value = _offset(value, offset)
+    g = _offset(torch.randn((B, Q, H * D), device=cuda).to(dtype), offset)
+    geom = msda_cuda.launch_geometry(
+        B * Q * H, D, 16, 16, value.element_size(),
+        msda_cuda.pointer_alignment(value, g))
+    assert geom.vec * value.element_size() < 16
+    out = msda_cuda.msda_fwd(value, LAYOUT_SHAPES, loc, aw)
+    ref = msda.ms_deform_attn_plain(value, LAYOUT_SHAPES, loc, aw)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    args = (value, LAYOUT_SHAPES, loc, aw, g)
+    dloc, daw = msda_cuda.msda_bwd_rows(*args)
+    pv, pl, pa = msda.ms_deform_attn_plain_bwd(*args)
+    _assert_bwd_close((pv, dloc, daw), (pv, pl, pa), dtype)
+
+
+def test_k1_k2_wide_head_dim_takes_chunks(cuda):
+    """D = 256 in float32: 64 groups of four channels, two chunks of 32
+    lanes, with rows walked four to a warp and one to a warp."""
+    for Q in (2200, 50):
+        value, loc, aw = _inputs(cuda, torch.float32, 1, Q, 8, 256,
+                                 ((6, 9), (3, 5)))
+        shapes = ((6, 9), (3, 5))
+        _assert_f32_close(msda_cuda.msda_fwd(value, shapes, loc, aw),
+                          msda.ms_deform_attn_plain(value, shapes, loc, aw))
+        g = torch.randn((1, Q, 8 * 256), device=cuda)
+        got = msda_cuda.msda_bwd_rows(value, shapes, loc, aw, g)
+        ref = msda.ms_deform_attn_plain_bwd(value, shapes, loc, aw, g)
+        _assert_bwd_close((ref[0], *got), ref, torch.float32)
+
+
+def test_k1_k2_refuse_a_geometry_that_misses_work(cuda, monkeypatch):
+    """The C side's checks (msda_geom.cuh:geometry_ok, and K2's one row a
+    warp without the hand-out) refuse what the CPU tests' model of them
+    refuses: a launch that would miss or repeat work, or hand out a row
+    longer than the warp."""
+    from test_torch_msda_geometry import _accepted
+
+    B, Q, H = 1, 200, 8
+    value, loc, aw = _inputs(cuda, torch.bfloat16, B, Q, H, 32, LAYOUT_SHAPES)
+    g = torch.randn((B, Q, H * 32), device=cuda).to(torch.bfloat16)
+    value8, loc8, aw8 = _inputs(cuda, torch.bfloat16, B, Q, H, 32,
+                                LAYOUT_SHAPES, P=8)
+    real = msda_cuda.launch_geometry
+    calls = {
+        16: (lambda: msda_cuda.msda_fwd(value, LAYOUT_SHAPES, loc, aw),
+             lambda: msda_cuda.msda_bwd_rows(value, LAYOUT_SHAPES, loc, aw,
+                                             g)),
+        32: (lambda: msda_cuda.msda_fwd(value8, LAYOUT_SHAPES, loc8, aw8),
+             lambda: msda_cuda.msda_bwd_rows(value8, LAYOUT_SHAPES, loc8,
+                                             aw8, g))}
+    for lp, kernels in calls.items():
+        for call, walk in zip(kernels, (True, False)):
+            geom = real(B * Q * H, 32, lp, lp, 2, 16, walk)
+            bad = [replace(geom, blocks=geom.blocks - 1),
+                   replace(geom, blocks=geom.blocks + 1),
+                   replace(geom, passes=geom.passes - 1),
+                   replace(geom, groups=geom.groups + 1),
+                   replace(geom, rows_per_warp=0)]
+            if lp == 32 or not walk:
+                bad.append(replace(geom, handout=1))
+            if not walk:
+                bad.append(replace(geom, rows_per_warp=2,
+                                   blocks=-(-geom.blocks // 2)))
+            for geometry in bad:
+                assert not _accepted(geometry, B * Q * H, 32, lp, lp, 2,
+                                     walk)
+                monkeypatch.setattr(msda_cuda, "launch_geometry",
+                                    lambda *a, geometry=geometry, **k:
+                                    geometry)
+                with pytest.raises(RuntimeError, match="launch failed"):
+                    call()
+            monkeypatch.setattr(msda_cuda, "launch_geometry", real)
+            call()
