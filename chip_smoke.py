@@ -27,9 +27,10 @@ and no result line. In order it:
    the kernel's batch addressing on a batch of 2;
 4. holds the two backward kernels against the plain backward at the
    training bucket's shapes the same way (the row kernel bit-equal over two
-   runs, the composite's autograd backward as the yardstick of both), and
-   prints the largest difference between two runs of the value kernel (its
-   float32 atomics add in an order that changes);
+   runs, the composite's autograd backward as the yardstick of both), times
+   the value kernel (K3) at every call by CUDA events and in a CUDA graph
+   beside its bound, and prints the largest difference between two runs of
+   it (its float32 atomics add in an order that changes);
 5. holds the int8 forward kernel (K4) against its plain version at the
    serving bucket's calls: the served encoder call (the one exact level,
    Q = S, raster queries), the int8 encoder call without a window (all
@@ -67,9 +68,10 @@ and no result line. In order it:
    tile; K8 rows and K10 value, one band per point) against their plain
    version on the three banded levels of the adaptation's encoder call
    (608x1008, window 16, raster queries with offsets of a few pixels; prints
-   the clamped share and the value kernels' run-to-run difference) in
-   float32 and bfloat16 at the adaptation's microbatch of 4, and checks the
-   batch addressing on a batch of 2;
+   the clamped share and the value kernels' run-to-run difference; the row
+   kernels bit-equal over two runs, timed by CUDA events and in a CUDA
+   graph) in float32 and bfloat16 at the adaptation's microbatch of 4, and
+   checks the batch addressing on a batch of 2;
 13. trains the windowed path: the band-adaptation fine-tune's step
    (``perf_train_step.adapt_config``: window 16, one band per point, bf16,
    dropout 0.1, no auxiliary losses) at full width, batch 4 at 608x1008, its
@@ -624,7 +626,8 @@ def check_bwd_win_kernels(shapes, batch):
                    "band": band, "dtype": str(dtype).split(".")[-1],
                    "batch": batch, "levels": banded,
                    "max_abs_err": {}, "max_err_over_limit": {},
-                   "rows_ms": 0.0, "value_ms": 0.0, "plain_ms": 0.0,
+                   "rows_ms": 0.0, "rows_graph_ms": 0.0, "value_ms": 0.0,
+                   "plain_ms": 0.0, "rows_bit_equal_run_to_run": True,
                    "rows_bound_ms": 0.0, "value_bound_ms": 0.0,
                    "value_run_to_run_max_abs_diff": 0.0,
                    "clamped_share": []}
@@ -632,6 +635,7 @@ def check_bwd_win_kernels(shapes, batch):
                 args, clamped = _banded_bwd_args(value, loc, aw, g, shapes,
                                                  lid, per_point)
                 dix, diy, daw = rows_kernel(*args)
+                rows_again = rows_kernel(*args)
                 dvalue = value_kernel(*args)
                 again = value_kernel(*args)
                 plain = msda.msda_bwd_win_plain(*args)
@@ -649,7 +653,11 @@ def check_bwd_win_kernels(shapes, batch):
                 row["value_run_to_run_max_abs_diff"] = max(
                     row["value_run_to_run_max_abs_diff"],
                     (dvalue - again).abs().max().item())
+                row["rows_bit_equal_run_to_run"] &= all(
+                    torch.equal(a, b) for a, b in zip((dix, diy, daw),
+                                                      rows_again))
                 row["rows_ms"] += cuda_ms(lambda: rows_kernel(*args), 50)
+                row["rows_graph_ms"] += graph_ms(lambda: rows_kernel(*args))
                 row["value_ms"] += cuda_ms(lambda: value_kernel(*args), 50)
                 row["plain_ms"] += cuda_ms(
                     lambda: msda.msda_bwd_win_plain(*args), 3, warmup=1)
@@ -666,8 +674,11 @@ def check_bwd_win_kernels(shapes, batch):
                   f"{WINDOW} levels {banded} batch {batch} {row['dtype']}: "
                   f"max abs err {row['max_abs_err']} (err/limit "
                   f"{row['max_err_over_limit']}, atol {atol}*max|ref| rtol "
-                  f"{rtol}); rows {row['rows_ms']:.4f} ms (bound "
-                  f"{row['rows_bound_ms']:.4f} ms, {row['rows_bound_by']}), "
+                  f"{rtol}); rows {row['rows_ms']:.4f} ms (device "
+                  f"{row['rows_graph_ms']:.4f} ms in a CUDA graph, zeroed "
+                  f"outputs included; bound {row['rows_bound_ms']:.4f} ms, "
+                  f"{row['rows_bound_by']}; bit-equal run to run "
+                  f"{row['rows_bit_equal_run_to_run']}), "
                   f"value {row['value_ms']:.4f} ms (bound "
                   f"{row['value_bound_ms']:.4f} ms, {row['value_bound_by']}), "
                   f"plain {row['plain_ms']:.4f} ms; value run-to-run max abs "
@@ -677,6 +688,8 @@ def check_bwd_win_kernels(shapes, batch):
             if max(row["max_err_over_limit"].values()) > 1.0:
                 raise SystemExit(f"{rows_name}/{value_name} {dtype}: kernels "
                                  "disagree with the plain version")
+            if not row["rows_bit_equal_run_to_run"]:
+                raise SystemExit(f"{rows_name} {dtype}: two runs differ")
             rows.append(row)
         # the batch index of the kernels' addressing, on the middle level
         value, loc, aw = raster_inputs(shapes, torch.float32, seed=450)
@@ -1053,6 +1066,7 @@ def _bwd_row(bucket, call, Q, value, shapes, loc, aw, g):
         "rows_ms": cuda_ms(lambda: msda_cuda.msda_bwd_rows(*args), 50),
         "rows_graph_ms": graph_ms(lambda: msda_cuda.msda_bwd_rows(*args)),
         "value_ms": cuda_ms(lambda: msda_cuda.msda_bwd_value(*args), 50),
+        "value_graph_ms": graph_ms(lambda: msda_cuda.msda_bwd_value(*args)),
         # the plain backward computes all three gradients in one call
         "plain_ms": cuda_ms(lambda: msda.ms_deform_attn_plain_bwd(*args), 3,
                             warmup=1),
@@ -1078,8 +1092,10 @@ def _bwd_row(bucket, call, Q, value, shapes, loc, aw, g):
           f"{row['rows_gather_GBps_L2']:.0f} GB/s of L2 gather traffic, not a "
           f"roofline share; bit-equal run to run "
           f"{row['rows_bit_equal_run_to_run']}), value "
-          f"{row['value_ms']:.4f} ms (bound {row['value_bound_ms']:.4f} ms, "
-          f"{row['value_bound_by']}), plain backward {row['plain_ms']:.4f} "
+          f"{row['value_ms']:.4f} ms (device {row['value_graph_ms']:.4f} ms "
+          f"in a CUDA graph, zeroing and cast included; bound "
+          f"{row['value_bound_ms']:.4f} ms, {row['value_bound_by']}), plain "
+          f"backward {row['plain_ms']:.4f} "
           f"ms, grid_sample composite's backward "
           f"{row['library_composite_ms']:.4f} ms; value kernel run-to-run "
           f"max abs diff {row['value_run_to_run_max_abs_diff']:.3e}",
@@ -1582,6 +1598,10 @@ def main() -> int:
         if kind == "value":
             entry["run_to_run_max_abs_diff"] = max(
                 r["value_run_to_run_max_abs_diff"] for r in mine)
+        else:
+            entry["graph_ms"] = main["rows_graph_ms"]
+            entry["bit_equal_run_to_run"] = all(
+                r["rows_bit_equal_run_to_run"] for r in mine)
         return entry
 
     main_row = pick(rows, "encoder")
@@ -1691,8 +1711,14 @@ def main() -> int:
         "library_composite_ms": bwd_row["library_composite_ms"],
         "library_composite": COMPOSITE_NOTE + " (its autograd backward: the "
                              "work of K2 and K3 together)",
+        "graph_ms": bwd_row["value_graph_ms"],
         "ms_encoder": bwd_row["value_ms"],
+        "ms_encoder_raster": pick(bwd_rows, "encoder_raster")["value_ms"],
         "ms_decoder": pick(bwd_rows, "decoder")["value_ms"],
+        "graph_ms_decoder": pick(bwd_rows, "decoder")["value_graph_ms"],
+        "graph_ms_decoder_batch2": pick(bwd_rows, "decoder",
+                                        batch=2)["value_graph_ms"],
+        "calls": bwd_rows,
         "run_to_run_max_abs_diff": max(
             r["value_run_to_run_max_abs_diff"] for r in bwd_rows),
     }, {

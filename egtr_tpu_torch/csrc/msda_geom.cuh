@@ -1,9 +1,10 @@
-// What the exact MSDA kernels msda_fwd (msda_fwd.cu) and msda_bwd_rows
-// (msda_bwd.cu) share: the launch geometry that msda_cuda.launch_geometry
-// computes and its check, the vector load of a channel group, the hand-out
+// What the MSDA kernels msda_fwd (msda_fwd.cu), msda_bwd_rows and
+// msda_bwd_value (msda_bwd.cu) and msda_bwd_win_rows_pp (msda_bwd_win.cu)
+// share: the launch geometry that msda_cuda.launch_geometry computes for the
+// first two and its check, the vector load of a channel group, the hand-out
 // of a row's locations and weights, and the scalar helpers of the JAX
 // kernels' rounding. The build keys each library by this header's contents
-// too, so an edit here rebuilds both.
+// too, so an edit here rebuilds them all.
 
 #pragma once
 

@@ -9,7 +9,9 @@ package's Pallas kernels:
   both lay a warp's lanes over (sample, channel group) as
   :func:`launch_geometry` says;
 - ``msda_bwd_value`` (``msda_bwd.cu``) replaces ``_bwd_dvtt_kernel``: the
-  gradient of the values, summed over the queries with float32 atomics;
+  gradient of the values, summed over the queries with float32 atomics,
+  the levels a block hits densely in its own shared-memory copy first, as
+  :func:`value_geometry` says;
 - ``msda_fwd_q`` (``msda_fwd_q.cu``) replaces the int8 branch of
   ``_fwd_body``: the forward with an integer stage 1;
 - ``msda_fwd_win`` and ``msda_fwd_win_pp`` (``msda_fwd_win.cu``) replace
@@ -18,7 +20,8 @@ package's Pallas kernels:
   bfloat16 or int8 values;
 - ``msda_bwd_win_rows`` and ``msda_bwd_win_rows_pp`` (``msda_bwd_win.cu``)
   replace ``_bwd_rows_kernel_win`` and ``_bwd_rows_kernel_win_pp``: the row
-  gradients of one banded level;
+  gradients of one banded level (the second with its lanes over (query,
+  point, channel group) as :func:`win_rows_geometry` says);
 - ``msda_bwd_win_value`` and ``msda_bwd_win_value_pp`` (``msda_bwd_win.cu``)
   replace ``_bwd_dvtt_kernel_win`` and ``_bwd_dvtt_kernel_win_pp``: the value
   gradient of one banded level, with float32 atomics;
@@ -180,8 +183,37 @@ ROWS_PER_WARP = 2
 MIN_ROWS_TO_WALK = 132 * 16 * WARPS_PER_BLOCK
 
 
+class _Lanes:
+    """What the launch geometries share: lane ``l`` of a warp takes sample
+    slot ``l >> lps_log2`` and channel group ``l & (lanes_per_sample -
+    1)``, and the fields go to the kernel as an int array in their order."""
+
+    @property
+    def lanes_per_sample(self) -> int:
+        return 1 << self.lps_log2
+
+    @property
+    def samples_per_pass(self) -> int:
+        return 32 >> self.lps_log2
+
+    @cached_property
+    def c_array(self):
+        """The fields as the kernel's geometry struct takes them, in their
+        order (a launch only reads them)."""
+        values = astuple(self)
+        return (ctypes.c_int * len(values))(*values)
+
+
+def lane_split(D: int, vec: int) -> Tuple[int, int, int]:
+    """(groups, lps_log2, chunks): D's groups of ``vec`` channels, spread
+    over up to 32 lanes a sample, in chunks where there are more."""
+    groups = D // vec
+    lps_log2 = min(5, (groups - 1).bit_length())
+    return groups, lps_log2, -(-groups // (1 << lps_log2))
+
+
 @dataclass(frozen=True)
-class Geometry:
+class Geometry(_Lanes):
     """How msda_fwd and msda_bwd_rows lay a row's work on a warp's lanes.
 
     Lane ``l`` of a warp takes sample slot ``l >> lps_log2`` and channel
@@ -204,19 +236,6 @@ class Geometry:
     threads: int
     blocks: int
 
-    @property
-    def lanes_per_sample(self) -> int:
-        return 1 << self.lps_log2
-
-    @property
-    def samples_per_pass(self) -> int:
-        return 32 >> self.lps_log2
-
-    @cached_property
-    def c_array(self):
-        """The nine ints of the sources' ``struct Geom``, in its order (a
-        launch only reads them)."""
-        return (ctypes.c_int * 9)(*astuple(self))
 
 
 def rows_per_warp_for(rows: int) -> int:
@@ -254,17 +273,174 @@ def launch_geometry(rows: int, D: int, n_samples: int, row_samples: int,
     walk rows and take a row's entries by hand-out, or with ``walk=False``
     msda_bwd_rows', one row a warp that reads its own."""
     vec = vector_width(D, element_size, alignment)
-    groups = D // vec
-    lps_log2 = min(5, (groups - 1).bit_length())
-    lps = 1 << lps_log2
+    groups, lps_log2, chunks = lane_split(D, vec)
     rows_per_warp = rows_per_warp_for(rows) if walk else 1
     return Geometry(
-        vec=vec, lps_log2=lps_log2, groups=groups, chunks=-(-groups // lps),
-        passes=-(-n_samples // (32 // lps)),
+        vec=vec, lps_log2=lps_log2, groups=groups, chunks=chunks,
+        passes=-(-n_samples // (32 >> lps_log2)),
         handout=int(walk and 2 * row_samples <= 32),
         rows_per_warp=rows_per_warp,
         threads=32 * WARPS_PER_BLOCK,
         blocks=-(-rows // (WARPS_PER_BLOCK * rows_per_warp)))
+
+
+# Launch geometry of msda_bwd_value (K3). A block takes one (batch, head)
+# and every query_chunks-th query from its chunk on, one warp a query in
+# turn; a warp's lanes split over (sample, channel group) as launch_geometry
+# says. The levels the block's queries hit densely enough are summed in a
+# float32 copy in shared memory (D + 1 floats a pixel, so that a pass's
+# samples spread over the banks) and added into the gradient once at the
+# end; the others go to global memory as vector reductions.
+N_SMS = 132               # the H100 SXM's streaming multiprocessors
+SMEM_PER_SM = 233472      # 228 KB an SM
+SMEM_PER_BLOCK = 232448   # 227 KB a block (MSDA_MAX_DYNAMIC_SMEM)
+SMEM_RESERVED = 1024      # what the runtime keeps of an SM per block
+# the most a block keeps in shared memory: the coarsest level at both
+# buckets (36 KB at 800x1344, 21 KB at 608x1008). Shared-memory float
+# atomics are compare-and-swap loops on sm_90 (ATOMS.CAST.SPIN), so a copy
+# pays only where many adds meet: at the bf16 training encoder call on the
+# H100, keeping no level measured 1.30x and keeping the two coarsest
+# (175 KB) 1.17x the time of keeping the coarsest alone
+PRIVATE_BYTES = 48 * 1024
+PRIVATE_THREADS = 1024    # a block with private levels
+VALUE_THREADS = 256       # a block without
+REGISTERS_PER_SM = 65536
+# msda_bwd_value's __launch_bounds__(1024, 1) holds it to 64 registers a
+# thread, so an SM holds one block of 1024 threads, two of 512
+VALUE_REGISTERS = 64
+# a level is kept in shared memory where the block's queries add at least
+# this many corner rows per pixel: zeroing and flushing the copy costs about
+# one global add a pixel
+PRIVATE_MIN_ADDS = 8
+
+
+@dataclass(frozen=True)
+class ValueGeometry(_Lanes):
+    """How msda_bwd_value (K3) lays its work out.
+
+    Block ``k`` takes (batch, head) ``k // query_chunks`` and queries
+    ``k % query_chunks + m * query_chunks``; warp ``w`` of ``warps =
+    threads // 32`` takes those with ``m = w, w + warps, ...``, one after
+    another. A lane's sample slot, channel group and passes are
+    :class:`Geometry`'s. Bit ``k`` of ``private`` keeps the ``k``-th level
+    of the level table in the block's shared memory."""
+
+    vec: int            # channels a lane, at most 4 (16 bytes of float32)
+    lps_log2: int
+    groups: int
+    chunks: int
+    passes: int
+    private: int
+    query_chunks: int
+    threads: int
+    blocks: int
+    smem_bytes: int
+
+
+
+def private_bytes(h: int, w: int, D: int) -> int:
+    """Shared memory of one level's private copy: D + 1 floats a pixel."""
+    return h * w * (D + 1) * 4
+
+
+def private_blocks_per_sm(smem_bytes: int) -> int:
+    """K3's blocks of PRIVATE_THREADS an SM holds at once: by threads, by
+    registers and by shared memory."""
+    return max(1, min(2048 // PRIVATE_THREADS,
+                      REGISTERS_PER_SM // (VALUE_REGISTERS * PRIVATE_THREADS),
+                      SMEM_PER_SM // (smem_bytes + SMEM_RESERVED)))
+
+
+@lru_cache(maxsize=256)
+def value_geometry(B: int, Q: int, H: int, D: int,
+                   level_hw: Tuple[Tuple[int, int], ...], P: int,
+                   element_size: int, alignment: int = 16) -> ValueGeometry:
+    """K3's launch for ``level_hw``, the (h, w) of the levels taken, in the
+    level table's order.
+
+    The smallest levels are kept in shared memory, up to PRIVATE_BYTES
+    and never all of them; the blocks per (batch, head) fill the card's SMs
+    once, at the blocks an SM holds (:func:`private_blocks_per_sm`); a
+    level whose block-share of corner adds falls below PRIVATE_MIN_ADDS a
+    pixel goes back to global memory (the decoder calls' 200 queries keep
+    none). Without private levels a block of VALUE_THREADS takes one query
+    a warp."""
+    # at most four channels a lane, so that a lane's reduction covers one
+    # 16-byte float32 vector and a sample's lanes cover its row's sectors
+    # whole (eight bf16 channels a lane added two half sectors each and
+    # measured 1.4x slower on the H100)
+    vec = min(4, vector_width(D, element_size, alignment))
+    groups, lps_log2, chunks = lane_split(D, vec)
+    sizes = [private_bytes(h, w, D) for h, w in level_hw]
+    private, total = [], 0
+    # at least one level stays in global memory: with every add in shared
+    # memory the compare-and-swap loops carry all the work while L2's
+    # reduction units idle (at the adaptation step's one-level call, on the
+    # H100, keeping its level measured 1.13x the time of keeping none)
+    for k in sorted(range(len(level_hw)), key=sizes.__getitem__)[:-1]:
+        if total + sizes[k] <= PRIVATE_BYTES:
+            private.append(k)
+            total += sizes[k]
+    query_chunks = 1
+    while private:
+        per_sm = private_blocks_per_sm(total)
+        query_chunks = max(1, min(Q, N_SMS * per_sm // (B * H)))
+        per_block = -(-Q // query_chunks)
+        dense = [k for k in private if per_block * P * 4
+                 >= PRIVATE_MIN_ADDS * level_hw[k][0] * level_hw[k][1]]
+        if dense == private:
+            break
+        private, total = dense, sum(sizes[k] for k in dense)
+    threads = PRIVATE_THREADS if private else VALUE_THREADS
+    if not private:
+        query_chunks = max(1, -(-Q // (threads // 32)))
+    return ValueGeometry(
+        vec=vec, lps_log2=lps_log2, groups=groups, chunks=chunks,
+        passes=-(-len(level_hw) * P // (32 >> lps_log2)),
+        private=sum(1 << k for k in private), query_chunks=query_chunks,
+        threads=threads, blocks=B * H * query_chunks, smem_bytes=total)
+
+
+@dataclass(frozen=True)
+class WinRowsGeometry(_Lanes):
+    """How msda_bwd_win_rows_pp (K8) lays a banded level's rows on a warp.
+
+    Warp ``n`` (``blocks * threads // 32`` of them, the last block's spare
+    warps idle) takes (batch, head) ``n // groups`` with ``groups =
+    ceil(Q / queries)``, and the ``queries`` neighbouring queries from
+    ``(n % groups) * queries`` on; its samples are those queries' P points,
+    query-major. Lane ``l`` takes sample slot ``l >> lps_log2`` and channel
+    group ``l & (lanes_per_sample - 1)`` (plus ``chunk *
+    lanes_per_sample``); in pass ``t`` its sample is ``t * samples_per_pass
+    + slot``. A query maps to its padded row through the segment table."""
+
+    vec: int
+    lps_log2: int
+    groups: int
+    chunks: int
+    queries: int
+    passes: int
+    threads: int
+    blocks: int
+
+
+
+@lru_cache(maxsize=256)
+def win_rows_geometry(BH: int, Q: int, D: int, P: int, element_size: int,
+                      alignment: int = 16) -> WinRowsGeometry:
+    """K8's launch for B*H = ``BH`` (batch, head) pairs of ``Q`` queries of
+    ``P`` points: a warp takes as many neighbouring queries as UNROLL passes
+    hold (at least one), so that their corner loads go together."""
+    vec = vector_width(D, element_size, alignment)
+    groups, lps_log2, chunks = lane_split(D, vec)
+    spp = 32 >> lps_log2
+    queries = max(1, UNROLL * spp // P)
+    n_warps = BH * -(-Q // queries)
+    return WinRowsGeometry(
+        vec=vec, lps_log2=lps_log2, groups=groups, chunks=chunks,
+        queries=queries,
+        passes=-(-queries * P // spp), threads=32 * WARPS_PER_BLOCK,
+        blocks=max(1, -(-n_warps // WARPS_PER_BLOCK)))
 
 
 _VOID_P, _INT = ctypes.c_void_p, ctypes.c_int
@@ -285,9 +461,10 @@ _FUNCTIONS = {
     "msda_bwd_rows": ("msda_bwd", [_VOID_P] * 6 + [ctypes.POINTER(_INT)]
                       + [_INT] * 9 + [ctypes.POINTER(_INT), _VOID_P]),
     "msda_bwd_value": ("msda_bwd", [_VOID_P] * 4 + [ctypes.POINTER(_INT)]
-                       + [_INT] * 9 + [_VOID_P]),
+                       + [_INT] * 9 + [ctypes.POINTER(_INT), _VOID_P]),
     "msda_bwd_win_rows": ("msda_bwd_win", _BWD_WIN_ROWS_ARGS),
-    "msda_bwd_win_rows_pp": ("msda_bwd_win", _BWD_WIN_ROWS_ARGS),
+    "msda_bwd_win_rows_pp": ("msda_bwd_win", _BWD_WIN_ROWS_ARGS[:-1]
+                             + [ctypes.POINTER(_INT), _VOID_P]),
     "msda_bwd_win_value": ("msda_bwd_win", _BWD_WIN_VALUE_ARGS),
     "msda_bwd_win_value_pp": ("msda_bwd_win", _BWD_WIN_VALUE_ARGS),
     "msda_fwd_bp": ("msda_fwd_bp", [_VOID_P] * 4 + [ctypes.POINTER(_INT)]
@@ -807,11 +984,16 @@ def msda_bwd_value(value: torch.Tensor,
     if acc.numel() == 0 or Q == 0:
         return acc.to(out_dtype)
     table = _levels_arg(spatial_shapes, D, levels, False)
+    geometry = value_geometry(B, Q, H, D,
+                              tuple(spatial_shapes[l] for l in levels), P,
+                              value.element_size(),
+                              pointer_alignment(grad_output))
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(sampling_locations.data_ptr(), attention_weights.data_ptr(),
                 grad_output.data_ptr(), acc.data_ptr(), table, len(levels), L,
-                B, S, Q, H, D, P, int(value.dtype == torch.bfloat16), stream)
+                B, S, Q, H, D, P, int(value.dtype == torch.bfloat16),
+                geometry.c_array, stream)
     if rc != 0:
         raise RuntimeError(
             f"msda_bwd_value kernel launch failed: CUDA error {rc}")
@@ -888,10 +1070,14 @@ def _bwd_win_launch(name: str, per_point: bool, rows: bool, value_l, bidx, ix,
     with torch.cuda.device(ix.device):
         stream = torch.cuda.current_stream().cuda_stream
         if rows:
+            # K8 takes its lanes' layout as an int array
+            layout = (win_rows_geometry(
+                B * H, Q, D, P, value_l.element_size(),
+                pointer_alignment(value_l, g)).c_array,) if per_point else ()
             rc = fn(value_l.data_ptr(), bidx.data_ptr(), ix.data_ptr(),
                     iy_band.data_ptr(), aw_eff.data_ptr(), g.data_ptr(),
                     *(t.data_ptr() for t in outs), *geometry,
-                    value_l.stride(0), is_bf16, stream)
+                    value_l.stride(0), is_bf16, *layout, stream)
         else:
             rc = fn(bidx.data_ptr(), ix.data_ptr(), iy_band.data_ptr(),
                     aw_eff.data_ptr(), g.data_ptr(), outs[0].data_ptr(),

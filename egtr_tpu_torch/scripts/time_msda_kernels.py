@@ -1,22 +1,42 @@
-"""Time the exact MSDA kernels K1 (msda_fwd) and K2 (msda_bwd_rows) on the
-card, at the calls that chip_smoke.py holds them to their plain versions.
+"""Time the exact MSDA kernels K1 (msda_fwd), K2 (msda_bwd_rows) and K3
+(msda_bwd_value), and the banded row kernel K8 (msda_bwd_win_rows_pp), on
+the card, at the calls that chip_smoke.py holds them to their plain
+versions.
 
     python egtr_tpu_torch/scripts/time_msda_kernels.py [--root DIR]
-        [--label NAME] [--out FILE] [--ptxas]
+        [--label NAME] [--out FILE] [--ptxas] [--kernels K1,K2,K3,K8]
 
 Calls: chip_smoke.py's ``exact_calls()`` (encoder and decoder calls,
 uniform and raster locations, the decoder call at batch 1 and 2, float32
 and bfloat16) in the serving bucket 608x1008 (K1) and the training bucket
-800x1344 (K1 and K2). Per call and kernel it prints one JSON line:
+800x1344 (K1, K2 and K3); K3 also at the adaptation step's two calls
+(608x1008, batch 4: the encoder call on its one exact level, the decoder
+call); for K8 the three banded levels of the adaptation's encoder call
+(608x1008, window 16, raster locations, batch 4, float32 and bfloat16), as
+chip_smoke.py's phase 12 makes them. Per call and kernel it prints one JSON
+line:
 
 - ``ms``: CUDA events around ITERS calls of the wrapper (what
   chip_smoke.py reports: at the decoder calls the host's wrapper time
   hides the kernel's);
 - ``graph_ms``: the same calls captured in a CUDA graph and replayed, the
-  kernel's own device time per call;
+  wrapper's device time per call (with K3's zeroing and cast, K8's zeroed
+  outputs);
 - ``host_us``: the wrapper's host time per call (the time to queue ITERS
   calls, the card not waited for);
-- ``bit_equal``: two runs on the same inputs give the same bits;
+- ``bit_equal``: two runs on the same inputs give the same bits; for K3,
+  whose float32 atomics add in no fixed order, ``run_to_run_max_abs_diff``
+  beside it;
+- K3: ``zero_graph_ms`` and ``cast_graph_ms``, the device time of zeroing
+  its float32 buffer and of the cast to the value dtype alone (the kernel's
+  share is the rest of ``graph_ms``); where the checkout has
+  ``msda_cuda.value_geometry``, ``private`` (the levels kept in shared
+  memory) and ``graph_ms_by_private_bytes`` (the device time with at most
+  0 or 200 KiB of them: every level through global memory, or the two
+  coarsest) and ``graph_ms_by_private_threads`` (with blocks of 512 or
+  1024 threads where a level is kept);
+- K8: one line per banded level and one that sums them (``level``
+  "sum");
 - where the checkout has ``msda_cuda.launch_geometry``: ``geometry_us``
   (the host time per call of what the wrapper does for the launch
   geometry: the pointers' alignment, the cached geometry, its int array);
@@ -30,7 +50,8 @@ checkout, so that another version of the kernels (a ``git archive`` of a
 parent commit, unpacked under the git-ignored ``build/``) is timed by the
 same code. Run the two in turns in one call on one card (parent, change,
 change, parent) and compare only there. ``--ptxas`` first prints what
-``nvcc -Xptxas -v`` says of the two sources (registers, spills).
+``nvcc -Xptxas -v`` says of the sources (registers, spills).
+``--kernels`` times a subset (default all four).
 """
 
 from __future__ import annotations
@@ -49,6 +70,10 @@ from unittest import mock
 REPO = Path(__file__).resolve().parents[2]
 ITERS = 100  # wrapper calls per CUDA-event timing, as chip_smoke.py's K1
 WALKS = (1, 2, 4, 8)
+KERNELS = ("K1", "K2", "K3", "K8")
+# K3's shared-memory caps timed beside the default (msda_cuda.PRIVATE_BYTES,
+# the coarsest level): none, and the two coarsest (200 KiB)
+PRIVATE_CAPS = (0, 200 * 1024)
 
 
 def _args(argv=None):
@@ -58,6 +83,8 @@ def _args(argv=None):
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--out", default=None, help="append the JSON lines here")
     ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated subset of " + ",".join(KERNELS))
     return ap.parse_args(argv)
 
 
@@ -72,7 +99,7 @@ def _chip_smoke():
 
 
 def ptxas_report(root: Path, nvcc: str) -> None:
-    for name in ("msda_fwd.cu", "msda_bwd.cu"):
+    for name in ("msda_fwd.cu", "msda_bwd.cu", "msda_bwd_win.cu"):
         src = root / "egtr_tpu_torch" / "csrc" / name
         with tempfile.TemporaryDirectory() as tmp:
             out = subprocess.run(
@@ -130,6 +157,120 @@ def direct_ms(msda_cuda, smoke, fn) -> float:
         return smoke.graph_ms(fn)
 
 
+def patched_graph_ms(msda_cuda, smoke, fn, name, values) -> dict:
+    """K3's device time with msda_cuda.<name> set to each of ``values``
+    (its launch worked out anew each time)."""
+    out = {}
+    for v in values:
+        msda_cuda.value_geometry.cache_clear()
+        with mock.patch.object(msda_cuda, name, v):
+            out[v] = smoke.graph_ms(fn)
+    msda_cuda.value_geometry.cache_clear()
+    return out
+
+
+def value_split(msda_cuda, smoke, fn, first, second, value, shapes, Q,
+                g) -> dict:
+    """K3's run-to-run spread, its zeroing and cast alone in a CUDA graph,
+    and with value_geometry (this design) the levels it keeps in shared
+    memory and the device time at other caps and block sizes."""
+    import torch
+    B, S, H, D = value.shape
+    buf = torch.zeros((B, S, H, D), dtype=torch.float32, device=value.device)
+    out = {"run_to_run_max_abs_diff":
+           (first.float() - second.float()).abs().max().item(),
+           "zero_graph_ms": smoke.graph_ms(lambda: torch.zeros(
+               (B, S, H, D), dtype=torch.float32, device=value.device)),
+           "cast_graph_ms": smoke.graph_ms(lambda: buf.to(value.dtype))}
+    if hasattr(msda_cuda, "value_geometry"):
+        geom = msda_cuda.value_geometry(
+            B, Q, H, D, tuple(shapes), smoke.P, value.element_size(),
+            msda_cuda.pointer_alignment(g))
+        out["private"] = [k for k in range(len(shapes))
+                          if geom.private >> k & 1]
+        out["query_chunks"] = geom.query_chunks
+        out["graph_ms_by_private_bytes"] = patched_graph_ms(
+            msda_cuda, smoke, fn, "PRIVATE_BYTES", PRIVATE_CAPS)
+        out["graph_ms_by_private_threads"] = patched_graph_ms(
+            msda_cuda, smoke, fn, "PRIVATE_THREADS", (512, 1024))
+    return out
+
+
+def adaptation_value_rows(msda_cuda, smoke, torch) -> list:
+    """K3 at the adaptation step's two calls (608x1008, batch 4): the
+    encoder call on its one exact level (raster locations, float32 out, as
+    ``msda._windowed_backward`` calls it) and the decoder call (Q = 200,
+    every level), in float32 and bfloat16."""
+    from egtr_tpu_torch.models.detr import level_shapes
+    from egtr_tpu_torch.scripts import perf_train_step
+    shapes = level_shapes(perf_train_step.ADAPT_HW, smoke.L)
+    batch = perf_train_step.ADAPT_BATCH
+    exact = tuple(l for l, (h, _) in enumerate(shapes) if h <= smoke.WINDOW)
+    out = []
+    for n, dtype in enumerate((torch.float32, torch.bfloat16)):
+        for call in ("encoder_raster", "decoder"):
+            Q, value, loc, aw = smoke.exact_call_inputs(shapes, call, batch,
+                                                        dtype, 720 + n)
+            g = smoke.grad_output(batch, Q, dtype, 730 + n)
+            kw = (dict(levels=exact, out_dtype=torch.float32)
+                  if call == "encoder_raster" else {})
+            fn = lambda: (msda_cuda.msda_bwd_value(value, shapes, loc, aw, g,
+                                                   **kw),)
+            first, second = fn(), fn()
+            row = {"kernel": "msda_bwd_value", "bucket": "adaptation",
+                   "call": call, "Q": Q, "batch": batch,
+                   "levels": list(kw.get("levels", range(len(shapes)))),
+                   "dtype": str(dtype)[6:], "ms": smoke.cuda_ms(fn, ITERS),
+                   "graph_ms": smoke.graph_ms(fn),
+                   "host_us": host_us(fn, torch),
+                   "run_to_run_max_abs_diff": (first[0].float()
+                                               - second[0].float()).abs()
+                   .max().item()}
+            if hasattr(msda_cuda, "value_geometry"):
+                row["graph_ms_by_private_bytes"] = patched_graph_ms(
+                    msda_cuda, smoke, fn, "PRIVATE_BYTES", PRIVATE_CAPS)
+            out.append(row)
+    return out
+
+
+def banded_rows(msda_cuda, smoke, torch) -> list:
+    """K8 on the three banded levels of the adaptation's encoder call, per
+    level and summed, in float32 and bfloat16."""
+    from egtr_tpu_torch.models.detr import level_shapes
+    from egtr_tpu_torch.scripts import perf_train_step
+    shapes = level_shapes(perf_train_step.ADAPT_HW, smoke.L)
+    batch = perf_train_step.ADAPT_BATCH
+    out = []
+    for n, dtype in enumerate((torch.float32, torch.bfloat16)):
+        value, loc, aw = smoke.raster_inputs(shapes, dtype, seed=700 + n,
+                                             batch=batch)
+        g = smoke.grad_output(batch, value.shape[1], dtype, 710 + n)
+        total = {"kernel": "msda_bwd_win_rows_pp", "call": "adaptation",
+                 "level": "sum", "batch": batch, "dtype": str(dtype)[6:],
+                 "ms": 0.0, "graph_ms": 0.0, "host_us": 0.0,
+                 "bit_equal": True}
+        for lid, (h, _) in enumerate(shapes):
+            if h <= smoke.WINDOW:
+                continue
+            args, _ = smoke._banded_bwd_args(value, loc, aw, g, shapes, lid,
+                                             True)
+            fn = lambda: msda_cuda.msda_bwd_win_rows_pp(*args)
+            first, second = fn(), fn()
+            row = {"kernel": "msda_bwd_win_rows_pp", "call": "adaptation",
+                   "level": lid, "batch": batch, "dtype": str(dtype)[6:],
+                   "ms": smoke.cuda_ms(fn, ITERS),
+                   "graph_ms": smoke.graph_ms(fn),
+                   "host_us": host_us(fn, torch),
+                   "bit_equal": all(torch.equal(x, y)
+                                    for x, y in zip(first, second))}
+            out.append(row)
+            for key in ("ms", "graph_ms", "host_us"):
+                total[key] += row[key]
+            total["bit_equal"] &= row["bit_equal"]
+        out.append(total)
+    return out
+
+
 def main(argv=None) -> int:
     args = _args(argv)
     root = Path(args.root).resolve()
@@ -151,9 +292,16 @@ def main(argv=None) -> int:
         ptxas_report(root, msda_cuda._nvcc())
     msda_cuda.build()
     has_geometry = hasattr(msda_cuda, "launch_geometry")
+    wanted = set(args.kernels.split(","))
     buckets = {"serving": level_shapes(infer.BUCKET_HW, smoke.L),
                "training": level_shapes(perf_train_step.BUCKET_HW, smoke.L)}
     lines = []
+
+    def emit(row):
+        row["label"], row["card"] = args.label, card
+        print(json.dumps(row), flush=True)
+        lines.append(row)
+
     for bucket, shapes in buckets.items():
         for n, (call, batch, dtype) in enumerate(smoke.exact_calls()):
             Q, value, loc, aw = smoke.exact_call_inputs(shapes, call, batch,
@@ -161,24 +309,31 @@ def main(argv=None) -> int:
             g = smoke.grad_output(batch, Q, dtype, 1000 + n)
             # per kernel: the call, the tensors whose alignment counts, and
             # whether its warps walk rows with the hand-out (K1) or not (K2)
-            kernels = {"msda_fwd": (lambda: (msda_cuda.msda_fwd(
-                value, shapes, loc, aw),), (value,), True)}
-            if bucket == "training":
+            kernels = {}
+            if "K1" in wanted:
+                kernels["msda_fwd"] = (lambda: (msda_cuda.msda_fwd(
+                    value, shapes, loc, aw),), (value,), True)
+            if bucket == "training" and "K2" in wanted:
                 kernels["msda_bwd_rows"] = (lambda: msda_cuda.msda_bwd_rows(
                     value, shapes, loc, aw, g), (value, g), False)
+            if bucket == "training" and "K3" in wanted:
+                kernels["msda_bwd_value"] = (lambda: (msda_cuda.msda_bwd_value(
+                    value, shapes, loc, aw, g),), (g,), False)
             rows = batch * Q * smoke.H
             for name, (fn, aligned, walk) in kernels.items():
                 first, second = fn(), fn()
-                row = {"label": args.label, "kernel": name, "bucket": bucket,
+                row = {"kernel": name, "bucket": bucket,
                        "call": call, "Q": Q, "batch": batch,
                        "dtype": str(dtype)[6:],
                        "ms": smoke.cuda_ms(fn, ITERS),
                        "graph_ms": smoke.graph_ms(fn),
                        "host_us": host_us(fn, torch),
                        "bit_equal": all(torch.equal(x, y)
-                                        for x, y in zip(first, second)),
-                       "card": card}
-                if has_geometry:
+                                        for x, y in zip(first, second))}
+                if name == "msda_bwd_value":
+                    row.update(value_split(msda_cuda, smoke, fn, first[0],
+                                           second[0], value, shapes, Q, g))
+                elif has_geometry:
                     row["geometry_us"] = geometry_us(
                         msda_cuda, rows, smoke.D, smoke.L * smoke.P, aligned,
                         walk)
@@ -187,8 +342,13 @@ def main(argv=None) -> int:
                     row["graph_ms_by_rows_per_warp"] = by_rows_per_warp(
                         msda_cuda, smoke, fn)
                     row["graph_ms_direct"] = direct_ms(msda_cuda, smoke, fn)
-                print(json.dumps(row), flush=True)
-                lines.append(row)
+                emit(row)
+    if "K3" in wanted:
+        for row in adaptation_value_rows(msda_cuda, smoke, torch):
+            emit(row)
+    if "K8" in wanted:
+        for row in banded_rows(msda_cuda, smoke, torch):
+            emit(row)
     if args.out:
         with open(args.out, "a") as f:
             for row in lines:

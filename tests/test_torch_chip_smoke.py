@@ -93,6 +93,12 @@ def fake_card(monkeypatch, tmp_path):
 
     def bwd_value(value, shapes, loc, aw, g, levels=None, out_dtype=None):
         msda_cuda.check_grad_output(value, loc, g)
+        # the launch the kernel would take at these shapes
+        B, _, H, D = value.shape
+        taken = range(len(shapes)) if levels is None else levels
+        msda_cuda.value_geometry(B, loc.shape[1], H, D,
+                                 tuple(tuple(shapes[l]) for l in taken),
+                                 loc.shape[4], value.element_size())
         msda_cuda.launches["msda_bwd_value"] += 1
         return msda.ms_deform_attn_plain_bwd(value, shapes, loc, aw, g,
                                              levels, out_dtype)[0]
@@ -100,6 +106,11 @@ def fake_card(monkeypatch, tmp_path):
     def bwd_win(name, per_point, part):
         def kernel(*args):
             msda_cuda.check_inputs_bwd_win(*args, per_point=per_point)
+            if name == "msda_bwd_win_rows_pp":
+                value_l, ix = args[0], args[2]
+                msda_cuda.win_rows_geometry(
+                    ix.shape[0] * ix.shape[1], args[-1], value_l.shape[3],
+                    ix.shape[2], value_l.element_size())
             msda_cuda.launches[name] += 1
             out = msda.msda_bwd_win_plain(*args)
             return out[0] if part == "value" else out[1:]
@@ -264,6 +275,10 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
         assert "graph_ms" in k and "ms_encoder_raster" in k
     assert all(c["bit_equal_run_to_run"] for c in fwd["calls"])
     assert all(c["rows_bit_equal_run_to_run"] for c in rows["calls"])
+    # K3 at every call of phase 4: CUDA events and a CUDA graph
+    assert {"graph_ms", "ms_encoder_raster", "graph_ms_decoder",
+            "graph_ms_decoder_batch2"} <= set(value)
+    assert all("value_graph_ms" in c for c in value["calls"])
     # the adaptation (144x96: level 0 of 4 banded), one step of a batch of
     # 1, 2+2 layers: per microbatch K6 2, K1 2 + 2, K8 2, K10 2, K2 and K3
     # 2 + 2; its tile sibling K7, K9 2 each; its int8 sibling K4 4
@@ -280,6 +295,9 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
     assert [c["dtype"] for c in k8["calls"]] == ["float32", "bfloat16"]
     assert k8["calls"][0]["levels"] == [0]
     assert "run_to_run_max_abs_diff" in k10
+    # K7 and K8 bit-equal over two runs, timed in a CUDA graph too
+    assert k8["bit_equal_run_to_run"] and k7["bit_equal_run_to_run"]
+    assert k8["graph_ms"] > 0
     assert set(result["train_adaptation"]) == {"point", "tile", "point_int8"}
     assert result["train_f32"]["adaptation"]["band_indices"] > 0
     assert "nudged_pixels_max_grad_rel_change" in result["train_f32"]["exact"]

@@ -17,7 +17,12 @@ row kernel (K2) in their Hopper layout: one row a warp and rows walked by a
 warp, rows handed out by shuffles and rows too long for that, bit-equal
 reruns and bits that do not move with the rows a warp walks, loads narrowed
 by D or by a pointer off the 16-byte alignment, a head dim of two chunks of
-lanes, and the C side's refusal of a geometry that misses work. On a GPU
+lanes, and the C side's refusal of a geometry that misses work; and for the value
+gradient (K3) with its adds through global memory and through a block's
+shared copies (head dims 8 to 256, a batch of 2, pixel centres and the
+map's edges, a level subset with float32 out, narrow loads, refusals) and
+the per-point banded row kernel (K8) on segments that split a warp's
+queries, bit-equal over two runs, and refusals. On a GPU
 machine without JAX, run them without the suite's conftest (which imports
 JAX):
 
@@ -973,3 +978,221 @@ def test_k1_k2_refuse_a_geometry_that_misses_work(cuda, monkeypatch):
                     call()
             monkeypatch.setattr(msda_cuda, "launch_geometry", real)
             call()
+
+
+# --------------------------------------------------------------------------
+# K3 (msda_bwd_value) with levels kept in shared memory, and K8
+# (msda_bwd_win_rows_pp) with lanes over (query, point, channel group)
+# --------------------------------------------------------------------------
+
+@pytest.fixture(params=["global", "private"])
+def k3_layout(request, monkeypatch):
+    """K3 with every level through global memory, or with every level that
+    fits but the largest kept in the block's shared memory (one block a
+    (batch, head))."""
+    msda_cuda.value_geometry.cache_clear()
+    request.addfinalizer(msda_cuda.value_geometry.cache_clear)
+    if request.param == "private":
+        monkeypatch.setattr(msda_cuda, "N_SMS", 1)
+        monkeypatch.setattr(msda_cuda, "PRIVATE_MIN_ADDS", 0)
+        monkeypatch.setattr(msda_cuda, "PRIVATE_BYTES", 200 * 1024)
+    else:
+        monkeypatch.setattr(msda_cuda, "PRIVATE_BYTES", 0)
+    return request.param
+
+
+def _k3_private(value, shapes, loc, g, levels=None):
+    taken = range(len(shapes)) if levels is None else levels
+    geom = msda_cuda.value_geometry(
+        value.shape[0], loc.shape[1], value.shape[2], value.shape[3],
+        tuple(tuple(shapes[l]) for l in taken), loc.shape[4],
+        value.element_size(), msda_cuda.pointer_alignment(g))
+    return geom.private
+
+
+K3_CASES = {
+    "d32_batch2": dict(B=2, Q=70, H=8, D=32, shapes=((9, 13), (5, 7))),
+    "d64": dict(B=1, Q=40, H=2, D=64, shapes=((6, 9), (3, 5))),
+    # float32: 64 groups of 4 channels, two chunks of 32 lanes
+    "d256_chunks": dict(B=1, Q=30, H=2, D=256, shapes=((6, 9), (3, 5))),
+    "d8_thin_levels": CASES["d8_thin_levels"],
+    "flipped_level": CASES["flipped_level"],
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_k3_layouts_match_plain(cuda, k3_layout, case, dtype):
+    """K3 against the plain backward's dvalue with its adds through global
+    memory and through the block's shared copies; two runs as close as the
+    plain version."""
+    kw = K3_CASES[case]
+    value, loc, aw = _inputs(cuda, dtype, **kw)
+    shapes = kw["shapes"]
+    g = torch.randn((kw["B"], kw["Q"], kw["H"] * kw["D"]),
+                    device=cuda).to(dtype)
+    args = (value, shapes, loc, aw, g)
+    # every level but the largest (one stays in global memory)
+    expect = 0 if k3_layout == "global" else (
+        3 if case == "d8_thin_levels" else 2)
+    assert _k3_private(value, shapes, loc, g) == expect
+    got = msda_cuda.msda_bwd_value(*args)
+    again = msda_cuda.msda_bwd_value(*args)
+    ref = msda.ms_deform_attn_plain_bwd(*args)[0]
+    _assert_bwd_close((got,), (ref,), dtype)
+    # two runs differ in the order of their float32 sums, so in bf16 by
+    # the rounding of the output at most
+    _assert_bwd_close((again,), (got,), dtype)
+
+
+def test_k3_on_pixel_centres_and_map_edges(cuda, k3_layout):
+    """A sample on a pixel centre lands on that pixel exactly; samples on
+    the map's edges and corners (0 and 1) and just outside it put their
+    in-map corners' share in and nothing elsewhere."""
+    h, w, D = 4, 4, 32
+    value = torch.randn((1, h * w, 1, D), device=cuda)
+    g = torch.randn((1, 1, D), device=cuda)
+    aw = torch.ones((1, 1, 1, 1, 1), device=cuda)
+    centre = torch.tensor([(1 + 0.5) / 4, (2 + 0.5) / 4], device=cuda)
+    dvalue = msda_cuda.msda_bwd_value(value, ((h, w),),
+                                      centre.reshape(1, 1, 1, 1, 1, 2), aw, g)
+    expect = torch.zeros_like(value)
+    expect[0, 9, 0] = g[0, 0]
+    torch.testing.assert_close(dvalue, expect, atol=0, rtol=0)
+    edges = torch.tensor([[0.0, 0.0], [1.0, 1.0], [0.0, 0.6], [1.0, 0.3],
+                          [0.45, 0.0], [-0.1, 0.5], [1.1, 0.5], [0.5, -0.2]],
+                         device=cuda)
+    n = edges.shape[0]
+    loc = edges.reshape(1, n, 1, 1, 1, 2).contiguous()
+    aw = torch.rand((1, n, 1, 1, 1), device=cuda)
+    g = torch.randn((1, n, D), device=cuda)
+    args = (value, ((h, w),), loc, aw, g)
+    got = msda_cuda.msda_bwd_value(*args)
+    ref = msda.ms_deform_attn_plain_bwd(*args)[0]
+    torch.testing.assert_close(got, ref, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_k3_level_subset_f32_out_and_narrow_loads(cuda, k3_layout, dtype):
+    """A windowed call's use (a subset of the levels, the float32 sum as it
+    is, the others zero) and g pointers or head dims the 16-byte load
+    cannot take (D 10 and 6, g one or two elements off an allocation)."""
+    value, loc, aw = _inputs(cuda, dtype, **CASES["d32_batch3"])
+    shapes = CASES["d32_batch3"]["shapes"]
+    g = torch.randn((3, 70, 256), device=cuda).to(dtype)
+    for levels in ((1,), (0,), (1, 0)):
+        got = msda_cuda.msda_bwd_value(value, shapes, loc, aw, g,
+                                       levels=levels, out_dtype=torch.float32)
+        ref = msda.ms_deform_attn_plain_bwd(value, shapes, loc, aw, g,
+                                            levels=levels,
+                                            dvalue_dtype=torch.float32)[0]
+        assert got.dtype == torch.float32
+        _assert_bwd_close((got,), (ref,), dtype)
+        # level 0 holds tokens 0..116, level 1 the rest
+        others = {(0,): slice(9 * 13, None), (1,): slice(0, 9 * 13)}
+        if levels in others:
+            assert not got[:, others[levels]].any()
+    for D, offset in ((10, 0), (32, 1), (32, 2), (6, 0)):
+        value, loc, aw = _inputs(cuda, dtype, 1, 90, 4, D, LAYOUT_SHAPES)
+        g = _offset(torch.randn((1, 90, 4 * D), device=cuda).to(dtype),
+                    offset)
+        assert msda_cuda.vector_width(
+            D, value.element_size(),
+            msda_cuda.pointer_alignment(g)) * value.element_size() < 16
+        args = (value, LAYOUT_SHAPES, loc, aw, g)
+        _assert_bwd_close((msda_cuda.msda_bwd_value(*args),),
+                          (msda.ms_deform_attn_plain_bwd(*args)[0],), dtype)
+
+
+def test_k3_refuses_a_geometry_that_misses_work(cuda, monkeypatch):
+    """msda_bwd.cu's value_geometry_ok refuses what the CPU tests' model of
+    it refuses: blocks that miss a (batch, head), passes that miss samples,
+    shared memory that does not hold the private levels, a mask bit beyond
+    the levels, more threads than a block takes; and a geometry that keeps
+    every level in more than 48 KB of shared memory works."""
+    from test_torch_msda_geometry import _accepted_value
+
+    B, Q, H, D = 1, 300, 2, 32
+    shapes = ((20, 20), (3, 5))
+    value, loc, aw = _inputs(cuda, torch.float32, B, Q, H, D, shapes)
+    g = torch.randn((B, Q, H * D), device=cuda)
+    real = msda_cuda.value_geometry
+    geom = real(B, Q, H, D, shapes, 4, 4)
+    # both levels kept: 54,780 bytes, above the 48 KB a launch may take
+    # without the kernel's consent (cudaFuncSetAttribute)
+    kept = replace(geom, private=3, smem_bytes=4 * (400 + 15) * (D + 1))
+    assert _accepted_value(kept, B, Q, H, D, shapes, 4, 4)
+    bad = [replace(geom, blocks=geom.blocks - 1),
+           replace(geom, query_chunks=geom.query_chunks + 1),
+           replace(geom, passes=geom.passes - 1),
+           replace(geom, threads=2048),
+           replace(geom, private=4),
+           replace(kept, smem_bytes=kept.smem_bytes - 4),
+           replace(geom, smem_bytes=64)]
+    for geometry in (kept, *bad):
+        monkeypatch.setattr(msda_cuda, "value_geometry",
+                            lambda *a, geometry=geometry: geometry)
+        args = (value, shapes, loc, aw, g)
+        if geometry is kept:
+            _assert_bwd_close((msda_cuda.msda_bwd_value(*args),),
+                              (msda.ms_deform_attn_plain_bwd(*args)[0],),
+                              torch.float32)
+            continue
+        assert not _accepted_value(geometry, B, Q, H, D, shapes, 4, 4)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            msda_cuda.msda_bwd_value(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [8, 32, 48, 64])
+def test_k8_bit_equal_and_matches_plain(cuda, D, dtype):
+    """K8 on every banded level of a raster call whose query segments do not
+    fall on a warp's query boundary (a warp's queries straddle two
+    segments, the last warp has a Q tail): against the plain version,
+    bit-equal over two runs, the padding rows zero."""
+    shapes = ((21, 11), (11, 7), (6, 3))  # 231, 77, 18 queries a segment
+    value, loc, aw = _raster(cuda, dtype, shapes, 2, 3, D)
+    B, S, H, _ = value.shape
+    g = torch.randn((B, S, H * D), device=cuda).to(dtype)
+    for lid, (h, _) in enumerate(shapes):
+        if h <= 8:
+            continue
+        args = _banded_bwd_args(value, loc, aw, g, shapes, lid, 8, True)
+        geom = msda_cuda.win_rows_geometry(
+            B * H, S, D, 4, value.element_size(),
+            msda_cuda.pointer_alignment(args[0], g))
+        assert any(q0 % geom.queries for q0, _ in args[9][1:]) or (
+            geom.queries == 1)
+        got = msda_cuda.msda_bwd_win_rows_pp(*args)
+        again = msda_cuda.msda_bwd_win_rows_pp(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        ref = msda.msda_bwd_win_plain(*args)
+        _assert_win_bwd_close((ref[0], *got), ref, dtype)
+
+
+def test_k8_refuses_a_geometry_that_misses_work(cuda, monkeypatch):
+    """msda_bwd_win.cu's win_geometry_ok refuses what the CPU tests' model
+    of it refuses."""
+    from test_torch_msda_geometry import _accepted_win
+
+    shapes = ((24, 16), (12, 8))
+    value, loc, aw = _raster(cuda, torch.float32, shapes, 1, 2, 32)
+    g = torch.randn((1, value.shape[1], 64), device=cuda)
+    args = _banded_bwd_args(value, loc, aw, g, shapes, 0, 8, True)
+    Q = args[-1]
+    geom = msda_cuda.win_rows_geometry(2, Q, 32, 4, 4)
+    bad = [replace(geom, blocks=geom.blocks - 1),
+           replace(geom, blocks=geom.blocks + 1),
+           replace(geom, passes=geom.passes - 1),
+           replace(geom, queries=geom.queries * 2),
+           replace(geom, groups=geom.groups + 1),
+           replace(geom, threads=512)]
+    for geometry in bad:
+        assert not _accepted_win(geometry, 2, Q, 32, 4, 4)
+        monkeypatch.setattr(msda_cuda, "win_rows_geometry",
+                            lambda *a, geometry=geometry: geometry)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            msda_cuda.msda_bwd_win_rows_pp(*args)

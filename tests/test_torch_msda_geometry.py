@@ -1,5 +1,7 @@
-"""The launch geometry of the exact forward (K1, msda_fwd) and the backward
-row kernel (K2, msda_bwd_rows), on the CPU.
+"""The launch geometry of the exact forward (K1, msda_fwd), the backward
+row kernel (K2, msda_bwd_rows), the value-gradient kernel (K3,
+msda_bwd_value) and the banded row kernel (K8, msda_bwd_win_rows_pp), on
+the CPU.
 
 ``msda_cuda.launch_geometry`` decides how a warp's lanes split over
 (sample, channel group), the vector width of a corner load, the passes,
@@ -9,14 +11,21 @@ tests emulate their index mapping in numpy, as the sources write it
 (block, warp, row step, lane, pass, chunk -> batch, query, head, sample,
 channel), and check that every (row, sample, channel) is covered exactly
 once, that the sources' own geometry check would accept the launch, and
-that the geometry depends on the row count B*Q*H only.
+that the geometry depends on the row count B*Q*H only. K3's blocks over
+(batch, head, query chunk) and its split of the adds between the block's
+shared copies and global memory are emulated too, and its float64 split
+sum is held to the plain backward; K8's lanes over (query, point, channel
+group) are mapped through the segment table onto the padded rows.
 """
+
+from dataclasses import replace
 
 import numpy as np
 import pytest
 import torch
 
-from egtr_tpu_torch.ops import msda_cuda
+from egtr_tpu_torch.ops import msda, msda_cuda
+from egtr_tpu_torch.ops.msda_window import padded_starts, segment_bounds
 
 H, L, P = 8, 4, 4
 # the main paths' calls: serving 608x1008 (S = 12738) and training 800x1344
@@ -199,19 +208,471 @@ def test_vector_width_follows_D_and_the_alignment():
 
 
 def test_the_shared_header_keys_both_libraries(tmp_path, monkeypatch):
-    """msda_fwd.cu and msda_bwd.cu include msda_geom.cuh: an edited header
-    builds both libraries anew, under new names."""
+    """msda_fwd.cu, msda_bwd.cu and msda_bwd_win.cu include msda_geom.cuh:
+    an edited header builds all three libraries anew, under new names."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
-    for name in ("msda_fwd.cu", "msda_bwd.cu", "msda_geom.cuh"):
+    sources = {"msda_fwd": "SOURCE", "msda_bwd": "SOURCE_BWD",
+               "msda_bwd_win": "SOURCE_BWD_WIN"}
+    for name in (*(f"{n}.cu" for n in sources), "msda_geom.cuh"):
         (csrc / name).write_text((msda_cuda._CSRC / name).read_text())
-    for src in ("msda_fwd.cu", "msda_bwd.cu"):
-        assert '#include "msda_geom.cuh"' in (csrc / src).read_text()
     monkeypatch.setattr(msda_cuda, "_CSRC", csrc)
-    monkeypatch.setattr(msda_cuda, "SOURCE", csrc / "msda_fwd.cu")
-    monkeypatch.setattr(msda_cuda, "SOURCE_BWD", csrc / "msda_bwd.cu")
-    before = {n: msda_cuda.library_path(n) for n in ("msda_fwd", "msda_bwd")}
+    for lib, attr in sources.items():
+        assert '#include "msda_geom.cuh"' in (csrc / f"{lib}.cu").read_text()
+        monkeypatch.setattr(msda_cuda, attr, csrc / f"{lib}.cu")
+    before = {n: msda_cuda.library_path(n) for n in sources}
     with open(csrc / "msda_geom.cuh", "a") as f:
         f.write("// edited\n")
-    after = {n: msda_cuda.library_path(n) for n in ("msda_fwd", "msda_bwd")}
+    after = {n: msda_cuda.library_path(n) for n in sources}
     assert all(before[n] != after[n] for n in before)
+
+
+# --------------------------------------------------------------------------
+# K3 (msda_bwd_value): blocks over (batch, head, query chunk), levels kept
+# in shared memory where the block's queries hit them densely
+# --------------------------------------------------------------------------
+
+# the level tables of the two buckets (serving 608x1008, training 800x1344)
+BUCKET_LEVELS = {"serving": ((76, 126), (38, 63), (19, 32), (10, 16)),
+                 "training": ((100, 168), (50, 84), (25, 42), (13, 21))}
+
+
+def _accepted_value(geom, B, Q, H, D, level_hw, P, element_size):
+    """msda_bwd.cu's ``value_geometry_ok`` in Python (at most four channels
+    a lane, whatever the element size)."""
+    lps = geom.lanes_per_sample
+    floats = sum(h * w * (D + 1) for k, (h, w) in enumerate(level_hw)
+                 if geom.private >> k & 1)
+    return (0 <= geom.lps_log2 <= 5
+            and 1 <= geom.vec <= 4 and geom.vec & (geom.vec - 1) == 0
+            and geom.groups * geom.vec == D
+            and geom.chunks * lps >= geom.groups
+            and (geom.chunks - 1) * lps < geom.groups
+            and geom.passes >= 0
+            and geom.passes * geom.samples_per_pass >= len(level_hw) * P
+            and 32 <= geom.threads <= 1024 and geom.threads % 32 == 0
+            and 1 <= geom.query_chunks <= max(Q, 1)
+            and geom.blocks == B * H * geom.query_chunks
+            and 0 <= geom.private < 1 << len(level_hw)
+            and geom.smem_bytes == 4 * floats
+            and geom.smem_bytes <= msda_cuda.SMEM_PER_BLOCK)
+
+
+def _value_rows(geom, B, Q, H):
+    """(block, b, q, head) of every query a warp of K3 takes, as the kernel
+    walks them: block -> (b * H + head, chunk), warp w -> chunk + (w + j *
+    warps) * query_chunks."""
+    warps = geom.threads // 32
+    block = np.arange(geom.blocks)
+    bh, chunk = block // geom.query_chunks, block % geom.query_chunks
+    per_warp = -(-Q // (geom.query_chunks * warps))
+    m = (np.arange(warps)[:, None]
+         + np.arange(per_warp)[None, :] * warps).reshape(-1)
+    q = chunk[:, None] + m[None, :] * geom.query_chunks
+    blk = np.broadcast_to(block[:, None], q.shape)
+    keep = q < Q
+    blk, q = blk[keep], q[keep]
+    return blk, bh[blk] // H, q, bh[blk] % H
+
+
+@pytest.mark.parametrize("dtype", sorted(ELEMENT_SIZE))
+@pytest.mark.parametrize("B", [1, 2, 4])
+@pytest.mark.parametrize("call", CALLS)
+@pytest.mark.parametrize("bucket", sorted(BUCKET_LEVELS))
+def test_value_geometry_covers_every_add_once(bucket, call, B, dtype):
+    """At the main paths' shapes every (batch, query, head) is taken by one
+    warp once, a warp's lanes cover every (sample, channel) once, and each
+    level's adds go either to the block's shared copy or to global memory;
+    the encoder calls keep the coarsest level in shared memory, the decoder
+    calls and a call on one level none."""
+    level_hw = BUCKET_LEVELS[bucket]
+    S = sum(h * w for h, w in level_hw)
+    Q = S if call == "encoder" else 200
+    es = ELEMENT_SIZE[dtype]
+    for levels in (level_hw, level_hw[3:]):  # all, a windowed call's exact
+        geom = msda_cuda.value_geometry(B, Q, H, 32, levels, P, es)
+        assert _accepted_value(geom, B, Q, H, 32, levels, P, es)
+        blk, b, q, head = _value_rows(geom, B, Q, H)
+        count = np.bincount((b * Q + q) * H + head, minlength=B * Q * H)
+        assert count.shape == (B * Q * H,) and (count == 1).all()
+        ns = len(levels) * P
+        sample, first = _samples_and_channels(geom, ns)
+        channel = (first[:, None] + np.arange(geom.vec)).reshape(-1)
+        count = np.bincount(np.repeat(sample, geom.vec) * 32 + channel,
+                            minlength=ns * 32)
+        assert (count == 1).all()
+        # the global reductions are vectors of vec floats on vec-aligned
+        # channels of a row of D = 32 floats
+        assert (first % geom.vec == 0).all() and 32 % geom.vec == 0
+    # a call on one level (the adaptation's encoder call) keeps none
+    assert msda_cuda.value_geometry(B, Q, H, 32, level_hw[3:], P,
+                                    es).private == 0
+    full = msda_cuda.value_geometry(B, Q, H, 32, level_hw, P, es)
+    private = [k for k in range(L) if full.private >> k & 1]
+    if call == "encoder":
+        assert private == [3] and full.threads == msda_cuda.PRIVATE_THREADS
+        # one wave: the blocks fit the SMs at the blocks an SM holds by
+        # threads, registers and shared memory
+        per_sm = msda_cuda.private_blocks_per_sm(full.smem_bytes)
+        assert per_sm * full.threads * msda_cuda.VALUE_REGISTERS <= (
+            msda_cuda.REGISTERS_PER_SM)
+        assert full.blocks <= msda_cuda.N_SMS * per_sm or full.query_chunks == 1
+    else:
+        assert private == [] and full.smem_bytes == 0
+
+
+@pytest.mark.parametrize("D,B,Q,H,n_levels", [
+    (1, 1, 5, 1, 1), (6, 2, 300, 3, 3), (48, 1, 4000, 2, 4),
+    (64, 3, 9000, 8, 2), (256, 1, 50, 8, 4), (512, 2, 7000, 1, 1)])
+def test_value_geometry_at_odd_shapes(D, B, Q, H, n_levels):
+    """Head dims, batches, query counts and level subsets the model does
+    not use, in both element sizes and every alignment."""
+    levels = ((40, 60), (20, 30), (10, 15), (5, 8))[4 - n_levels:]
+    for es in (4, 2):
+        for align in (16, 8, 4, 2):
+            if align < es:
+                continue
+            geom = msda_cuda.value_geometry(B, Q, H, D, levels, P, es, align)
+            assert _accepted_value(geom, B, Q, H, D, levels, P, es)
+            blk, b, q, head = _value_rows(geom, B, Q, H)
+            count = np.bincount((b * Q + q) * H + head, minlength=B * Q * H)
+            assert (count == 1).all()
+            sample, first = _samples_and_channels(geom, len(levels) * P)
+            channel = (first[:, None] + np.arange(geom.vec)).reshape(-1)
+            count = np.bincount(np.repeat(sample, geom.vec) * D + channel,
+                                minlength=len(levels) * P * D)
+            assert (count == 1).all()
+
+
+def _hat(t):
+    return np.maximum(0.0, 1.0 - np.abs(t))
+
+
+def _k3_split_sum(geom, shapes, levels, loc, aw, g):
+    """K3's value gradient in float64, as the kernel adds it: per block, the
+    private levels' adds into its shared copy (D + 1 floats a pixel) and
+    flushed into the gradient at the end, the other levels' adds straight
+    into the gradient. Also counts each (sample, corner, channel) add."""
+    B, Q, H, L_, P_, _ = loc.shape
+    D = g.shape[-1] // H
+    S = sum(h * w for h, w in shapes)
+    starts = msda_cuda.level_starts(shapes)
+    dv = np.zeros(B * S * H * D)
+    adds = np.zeros((B, Q, H, len(levels), P_, 4, D), dtype=int)
+    table = [(shapes[l][0], shapes[l][1], starts[l], l) for l in levels]
+    offs, off = {}, 0
+    for k, (h, w, _, _) in enumerate(table):
+        if geom.private >> k & 1:
+            offs[k] = off
+            off += h * w * (D + 1)
+    assert off * 4 == geom.smem_bytes
+    blk, bs, qs, heads = _value_rows(geom, B, Q, H)
+    sample, first = _samples_and_channels(geom, len(levels) * P_)
+    for block in range(geom.blocks):
+        priv = np.zeros(off)
+        sel = blk == block
+        for b, q, head in zip(bs[sel], qs[sel], heads[sel]):
+            gq = g[b, q, head * D:(head + 1) * D]
+            for s, d0 in zip(sample, first):
+                k, p = divmod(int(s), P_)
+                h, w, start, lid = table[k]
+                a = aw[b, q, head, lid, p]
+                ix = loc[b, q, head, lid, p, 0] * w - 0.5
+                iy = loc[b, q, head, lid, p, 1] * h - 0.5
+                x0, y0 = int(np.floor(ix)), int(np.floor(iy))
+                corners = ((y0, x0), (y0, x0 + 1), (y0 + 1, x0),
+                           (y0 + 1, x0 + 1))
+                for c, (y, x) in enumerate(corners):
+                    if not (0 <= x < w and 0 <= y < h):
+                        continue
+                    wgt = _hat(iy - y) * a * _hat(ix - x)
+                    for d in range(d0, d0 + geom.vec):
+                        adds[b, q, head, k, p, c, d] += 1
+                        if k in offs:
+                            priv[offs[k] + (y * w + x) * (D + 1) + d] += (
+                                wgt * gq[d])
+                        else:
+                            dv[((b * S + start + y * w + x) * H + head) * D
+                               + d] += wgt * gq[d]
+        b, head = divmod(block // geom.query_chunks, H)
+        for k, o in offs.items():
+            h, w, start, _ = table[k]
+            for px in range(h * w):
+                row = ((b * S + start + px) * H + head) * D
+                dv[row:row + D] += priv[o + px * (D + 1):
+                                        o + px * (D + 1) + D]
+    return dv.reshape(B, S, H, D), adds
+
+
+@pytest.mark.parametrize("levels", [(0, 1, 2, 3), (3,), (0, 2)])
+@pytest.mark.parametrize("raster", [False, True], ids=["uniform", "raster"])
+@pytest.mark.parametrize("private", ["natural", "coarse", "all"])
+def test_value_split_sum_matches_plain(private, raster, levels):
+    """K3's split sum (shared copies flushed, plus global adds) against
+    ``ms_deform_attn_plain_bwd``'s dvalue in float64, every in-map (sample,
+    corner, channel) added exactly once; uniform locations reach outside
+    the map, raster ones sit near each query's pixel."""
+    shapes = ((6, 9), (3, 5), (2, 3), (1, 2))
+    B, H, D = 2, 2, 8
+    S = sum(h * w for h, w in shapes)
+    Q = S if raster else 13
+    rng = np.random.default_rng(7)
+    if raster:
+        ref = np.concatenate([np.stack(np.meshgrid(
+            (np.arange(w) + 0.5) / w, (np.arange(h) + 0.5) / h),
+            -1).reshape(-1, 2) for h, w in shapes])
+        loc = ref[None, :, None, None, None] + rng.uniform(
+            -0.3, 0.3, (B, Q, H, L, P, 2))
+    else:
+        loc = rng.uniform(-0.2, 1.2, (B, Q, H, L, P, 2))
+    aw = rng.random((B, Q, H, L, P))
+    g = rng.standard_normal((B, Q, H * D))
+    value = rng.standard_normal((B, S, H, D))
+    level_hw = tuple(shapes[l] for l in levels)
+    geom = msda_cuda.value_geometry(B, Q, H, D, level_hw, P, 4)
+    if private != "natural":
+        # the kernel takes any mask: here the coarse half, or every level
+        mask = ((1 << len(levels)) - 1 if private == "all"
+                else sum(1 << k for k, l in enumerate(levels) if l >= 2))
+        floats = sum(h * w * (D + 1) for k, (h, w) in enumerate(level_hw)
+                     if mask >> k & 1)
+        geom = replace(geom, private=mask, smem_bytes=4 * floats,
+                       threads=128, query_chunks=3, blocks=B * H * 3)
+    assert _accepted_value(geom, B, Q, H, D, level_hw, P, 4)
+    got, adds = _k3_split_sum(geom, shapes, levels, loc, aw, g)
+    ref, _, _ = msda.ms_deform_attn_plain_bwd(
+        *(torch.from_numpy(t) for t in (value,)), shapes,
+        torch.from_numpy(loc), torch.from_numpy(aw), torch.from_numpy(g),
+        levels=levels)
+    np.testing.assert_allclose(got, ref.numpy(), rtol=1e-12, atol=1e-12)
+    # each in-map corner once per channel, an out-of-map corner never
+    assert adds.max() == 1 and adds.sum() > 0
+    assert ((adds == 1).all(-1) | (adds == 0).all(-1)).all()
+
+
+# --------------------------------------------------------------------------
+# K8 (msda_bwd_win_rows_pp): lanes over (query, point, channel group)
+# --------------------------------------------------------------------------
+
+def _accepted_win(geom, BH, Q, D, P_, element_size):
+    """msda_bwd_win.cu's ``win_geometry_ok`` in Python."""
+    lps = geom.lanes_per_sample
+    n_warps = BH * -(-Q // geom.queries)
+    per_block = geom.threads // 32
+    return (0 <= geom.lps_log2 <= 5
+            and geom.vec >= 1 and geom.vec * element_size <= 16
+            and geom.vec & (geom.vec - 1) == 0
+            and geom.groups * geom.vec == D
+            and geom.chunks * lps >= geom.groups
+            and (geom.chunks - 1) * lps < geom.groups
+            and geom.queries >= 1 and geom.passes >= 0
+            and geom.passes * geom.samples_per_pass >= geom.queries * P_
+            and 32 <= geom.threads <= 256 and geom.threads % 32 == 0
+            and geom.blocks >= 1 and geom.blocks * per_block >= n_warps
+            and (geom.blocks - 1) * per_block < n_warps)
+
+
+def _k8_entries(geom, BH, Q, D, P_, segs, TQ):
+    """(row entry, channel) of every lane, pass and chunk of K8 that has
+    work, as the kernel maps them: warp -> (b * H + head, first query),
+    sample k of the warp -> (query first + k // P, point k % P), the query
+    to its padded row through the segment table."""
+    starts = padded_starts(segs, TQ)
+    Qp = starts[-1]
+    per_bh = -(-Q // geom.queries)
+    n_warps = geom.blocks * geom.threads // 32
+    warp = np.arange(n_warps)
+    warp = warp[warp < BH * per_bh]
+    bh, q0 = warp // per_bh, (warp % per_bh) * geom.queries
+    sample, first = _samples_and_channels(geom, geom.queries * P_)
+    q = q0[:, None] + sample[None, :] // P_
+    p = np.broadcast_to(sample % P_, q.shape)
+    first = np.broadcast_to(first, q.shape)
+    bh = np.broadcast_to(bh[:, None], q.shape)
+    keep = q < Q
+    q, p, first, bh = q[keep], p[keep], first[keep], bh[keep]
+    q_starts = np.array([q0 for q0, _ in segs])
+    seg = np.searchsorted(q_starts, q, side="right") - 1
+    qp = np.array(starts[:-1])[seg] + (q - q_starts[seg])
+    entry = (bh * P_ + p) * Qp + qp
+    return entry, first, Qp
+
+
+@pytest.mark.parametrize("D,dtype", [(32, "bf16"), (32, "f32"), (8, "bf16"),
+                                     (64, "f32"), (48, "bf16"),
+                                     (256, "f32")])
+@pytest.mark.parametrize("TQ", [8, 128])
+def test_k8_lane_map_covers_rows_once(D, dtype, TQ):
+    """Every real (batch, head, point, query) row of a banded level, and
+    every channel of it, is taken by exactly one lane once, across segment
+    boundaries (a warp's queries may straddle two) and the Q tail; no
+    padding row is ever visited (the wrapper zeroes them)."""
+    shapes = BUCKET_LEVELS["serving"]
+    Q = sum(h * w for h, w in shapes)
+    segs = segment_bounds(Q, shapes)
+    es = ELEMENT_SIZE[dtype]
+    BH = 2
+    geom = msda_cuda.win_rows_geometry(BH, Q, D, P, es)
+    assert _accepted_win(geom, BH, Q, D, P, es)
+    entry, first, Qp = _k8_entries(geom, BH, Q, D, P, segs, TQ)
+    channel = (first[:, None] + np.arange(geom.vec)).reshape(-1)
+    count = np.bincount(np.repeat(entry, geom.vec) * D + channel,
+                        minlength=BH * P * Qp * D).reshape(BH, P, Qp, D)
+    real = np.zeros(Qp, dtype=bool)
+    for (_, qs), qp0 in zip(segs, padded_starts(segs, TQ)):
+        real[qp0:qp0 + qs] = True
+    assert (count[:, :, real] == 1).all()
+    assert (count[:, :, ~real] == 0).all()
+
+
+@pytest.mark.parametrize("Q,P_", [(1, 4), (7, 4), (129, 4), (33, 8), (5, 1),
+                                  (40, 3)])
+def test_k8_geometry_at_odd_shapes(Q, P_):
+    """Few queries, a Q tail inside a warp, 8, 3 or 1 points, two segments
+    with padding (at Q = 129 a warp's queries straddle their boundary),
+    every alignment."""
+    segs = ((0, Q - Q // 2), (Q - Q // 2, Q // 2)) if Q > 1 else ((0, 1),)
+    for D in (6, 32, 96):
+        for es in (4, 2):
+            for align in (16, 8, 4, 2):
+                if align < es:
+                    continue
+                geom = msda_cuda.win_rows_geometry(3, Q, D, P_, es, align)
+                assert _accepted_win(geom, 3, Q, D, P_, es)
+                entry, first, Qp = _k8_entries(geom, 3, Q, D, P_, segs, 4)
+                channel = (first[:, None] + np.arange(geom.vec)).reshape(-1)
+                count = np.bincount(np.repeat(entry, geom.vec) * D + channel,
+                                    minlength=3 * P_ * Qp * D)
+                assert count.sum() == 3 * P_ * Q * D and count.max() == 1
+
+
+@pytest.mark.parametrize("ns", [1, 7, 16, 31, 32, 33, 64, 100])
+def test_value_hand_out_covers_every_pass_once(ns):
+    """msda_bwd_value works out the geometry of a row's samples in groups of
+    32, lane l sample base + l, and hands sample base + pp * spp + slot to
+    the lanes of slot in the group's pass pp < min(lanes a sample, passes -
+    base / spp): every pass of the geometry is walked once, from a lane of
+    the warp that holds its sample."""
+    for lps_log2 in range(6):
+        spp = 32 >> lps_log2
+        passes = -(-ns // spp)
+        walked = []
+        for base in range(0, ns, 32):
+            for pp in range(min(1 << lps_log2, passes - base // spp)):
+                walked.append(base // spp + pp)
+                for slot in range(spp):
+                    src = pp * spp + slot
+                    assert src < 32 and base + src == walked[-1] * spp + slot
+        assert walked == list(range(passes))
+
+
+# --------------------------------------------------------------------------
+# K8 (msda_bwd_win_rows_pp): lanes over (query, point, channel group)
+# --------------------------------------------------------------------------
+
+def _accepted_win(geom, BH, Q, D, P_, element_size):
+    """msda_bwd_win.cu's ``win_geometry_ok`` in Python."""
+    lps = geom.lanes_per_sample
+    n_warps = BH * -(-Q // geom.queries)
+    per_block = geom.threads // 32
+    return (0 <= geom.lps_log2 <= 5
+            and geom.vec >= 1 and geom.vec * element_size <= 16
+            and geom.vec & (geom.vec - 1) == 0
+            and geom.groups * geom.vec == D
+            and geom.chunks * lps >= geom.groups
+            and (geom.chunks - 1) * lps < geom.groups
+            and geom.queries >= 1 and geom.passes >= 0
+            and geom.passes * geom.samples_per_pass >= geom.queries * P_
+            and 32 <= geom.threads <= 256 and geom.threads % 32 == 0
+            and geom.blocks >= 1 and geom.blocks * per_block >= n_warps
+            and (geom.blocks - 1) * per_block < n_warps)
+
+
+def _k8_entries(geom, BH, Q, D, P_, segs, TQ):
+    """(row entry, channel) of every lane, pass and chunk of K8 that has
+    work, as the kernel maps them: warp -> (b * H + head, first query),
+    sample k of the warp -> (query first + k // P, point k % P), the query
+    to its padded row through the segment table."""
+    starts = padded_starts(segs, TQ)
+    Qp = starts[-1]
+    per_bh = -(-Q // geom.queries)
+    n_warps = geom.blocks * geom.threads // 32
+    warp = np.arange(n_warps)
+    warp = warp[warp < BH * per_bh]
+    bh, q0 = warp // per_bh, (warp % per_bh) * geom.queries
+    sample, first = _samples_and_channels(geom, geom.queries * P_)
+    q = q0[:, None] + sample[None, :] // P_
+    p = np.broadcast_to(sample % P_, q.shape)
+    first = np.broadcast_to(first, q.shape)
+    bh = np.broadcast_to(bh[:, None], q.shape)
+    keep = q < Q
+    q, p, first, bh = q[keep], p[keep], first[keep], bh[keep]
+    q_starts = np.array([q0 for q0, _ in segs])
+    seg = np.searchsorted(q_starts, q, side="right") - 1
+    qp = np.array(starts[:-1])[seg] + (q - q_starts[seg])
+    entry = (bh * P_ + p) * Qp + qp
+    return entry, first, Qp
+
+
+@pytest.mark.parametrize("D,dtype", [(32, "bf16"), (32, "f32"), (8, "bf16"),
+                                     (64, "f32"), (48, "bf16"),
+                                     (256, "f32")])
+@pytest.mark.parametrize("TQ", [8, 128])
+def test_k8_lane_map_covers_rows_once(D, dtype, TQ):
+    """Every real (batch, head, point, query) row of a banded level, and
+    every channel of it, is taken by exactly one lane once, across segment
+    boundaries (a warp's queries may straddle two) and the Q tail; no
+    padding row is ever visited (the wrapper zeroes them)."""
+    shapes = BUCKET_LEVELS["serving"]
+    Q = sum(h * w for h, w in shapes)
+    segs = segment_bounds(Q, shapes)
+    es = ELEMENT_SIZE[dtype]
+    BH = 2
+    geom = msda_cuda.win_rows_geometry(BH, Q, D, P, es)
+    assert _accepted_win(geom, BH, Q, D, P, es)
+    entry, first, Qp = _k8_entries(geom, BH, Q, D, P, segs, TQ)
+    channel = (first[:, None] + np.arange(geom.vec)).reshape(-1)
+    count = np.bincount(np.repeat(entry, geom.vec) * D + channel,
+                        minlength=BH * P * Qp * D).reshape(BH, P, Qp, D)
+    real = np.zeros(Qp, dtype=bool)
+    for (_, qs), qp0 in zip(segs, padded_starts(segs, TQ)):
+        real[qp0:qp0 + qs] = True
+    assert (count[:, :, real] == 1).all()
+    assert (count[:, :, ~real] == 0).all()
+
+
+@pytest.mark.parametrize("Q,P_", [(1, 4), (7, 4), (129, 4), (33, 8), (5, 1),
+                                  (40, 3)])
+def test_k8_geometry_at_odd_shapes(Q, P_):
+    """Few queries, a Q tail inside a warp, 8, 3 or 1 points, two segments
+    with padding (at Q = 129 a warp's queries straddle their boundary),
+    every alignment."""
+    segs = ((0, Q - Q // 2), (Q - Q // 2, Q // 2)) if Q > 1 else ((0, 1),)
+    for D in (6, 32, 96):
+        for es in (4, 2):
+            for align in (16, 8, 4, 2):
+                if align < es:
+                    continue
+                geom = msda_cuda.win_rows_geometry(3, Q, D, P_, es, align)
+                assert _accepted_win(geom, 3, Q, D, P_, es)
+                entry, first, Qp = _k8_entries(geom, 3, Q, D, P_, segs, 4)
+                channel = (first[:, None] + np.arange(geom.vec)).reshape(-1)
+                count = np.bincount(np.repeat(entry, geom.vec) * D + channel,
+                                    minlength=3 * P_ * Qp * D)
+                assert count.sum() == 3 * P_ * Q * D and count.max() == 1
+
+
+@pytest.mark.parametrize("P_", [1, 2, 3, 4, 8])
+def test_value_level_and_point_without_division(P_):
+    """msda_bwd_value finds a lane's (level, point) without a division where
+    P divides the samples a pass takes: sample pass * spp + slot is point
+    slot % P of level pass * (spp / P) + slot // P."""
+    for lps_log2 in range(6):
+        spp = 32 >> lps_log2
+        if spp % P_:
+            continue
+        for slot in range(spp):
+            for pass_ in range(6):
+                s = pass_ * spp + slot
+                assert divmod(s, P_) == (pass_ * (spp // P_) + slot // P_,
+                                         slot % P_)
