@@ -41,7 +41,8 @@ and no result line. In order it:
    point) against their plain version on the three banded levels of the
    served encoder call (window 16, raster queries with offsets of a few
    pixels; prints the share of samples that clamp), with float32, bfloat16
-   and int8 values, and a batch of 2;
+   and int8 values, and a batch of 2; checks that two runs are bit-equal
+   and times both kernels by CUDA events and in a CUDA graph;
 7. serves a few requests through ``infer.infer`` at full width (ResNet-50,
    d_model 256, 6+6 layers, 200 queries, 150/50 labels, bfloat16, seeded
    random weights) in three configurations and checks the outputs and each
@@ -69,9 +70,10 @@ and no result line. In order it:
    version on the three banded levels of the adaptation's encoder call
    (608x1008, window 16, raster queries with offsets of a few pixels; prints
    the clamped share and the value kernels' run-to-run difference; the row
-   kernels bit-equal over two runs, timed by CUDA events and in a CUDA
-   graph) in float32 and bfloat16 at the adaptation's microbatch of 4, and
-   checks the batch addressing on a batch of 2;
+   kernels bit-equal over two runs; all four timed by CUDA events and in a
+   CUDA graph, K10 adding into the level's slice of a layer's gradient as
+   the path calls it) in float32 and bfloat16 at the adaptation's
+   microbatch of 4, and checks the batch addressing on a batch of 2;
 13. trains the windowed path: the band-adaptation fine-tune's step
    (``perf_train_step.adapt_config``: window 16, one band per point, bf16,
    dropout 0.1, no auxiliary losses) at full width, batch 4 at 608x1008, its
@@ -546,12 +548,16 @@ def check_win_kernels(shapes):
             value, loc, aw = raster_inputs(shapes, dtype, seed=len(rows))
             row = {"kernel": name, "band": band, "dtype": form,
                    "levels": banded, "max_abs_err": 0.0,
-                   "max_err_over_limit": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                   "bound_ms": 0.0, "ms_per_level": [], "clamped_share": []}
+                   "max_err_over_limit": 0.0, "ms": 0.0, "graph_ms": 0.0,
+                   "plain_ms": 0.0, "bound_ms": 0.0, "ms_per_level": [],
+                   "graph_ms_per_level": [], "clamped_share": [],
+                   "bit_equal_run_to_run": True}
             for lid in banded:
                 args, clamped = _banded_level_args(value, loc, aw, shapes,
                                                    lid, per_point, int8)
                 kern = kernel(*args)
+                row["bit_equal_run_to_run"] &= torch.equal(kern,
+                                                           kernel(*args))
                 plain = msda.msda_fwd_win_plain(*args)
                 torch.cuda.synchronize()
                 if not torch.isfinite(kern).all():
@@ -563,6 +569,9 @@ def check_win_kernels(shapes):
                 ms = cuda_ms(lambda: kernel(*args), 100)
                 row["ms"] += ms
                 row["ms_per_level"].append(ms)
+                ms = graph_ms(lambda: kernel(*args))
+                row["graph_ms"] += ms
+                row["graph_ms_per_level"].append(ms)
                 row["plain_ms"] += cuda_ms(
                     lambda: msda.msda_fwd_win_plain(*args), 5)
                 row["clamped_share"].append(clamped)
@@ -574,14 +583,19 @@ def check_win_kernels(shapes):
                   f"{form}: max abs err {row['max_abs_err']:.3e} (err/limit "
                   f"{row['max_err_over_limit']:.3f}, atol {atol} rtol {rtol}); "
                   f"kernel {row['ms']:.4f} ms "
-                  f"({[round(m, 4) for m in row['ms_per_level']]} per level), "
+                  f"({[round(m, 4) for m in row['ms_per_level']]} per level; "
+                  f"device {row['graph_ms']:.4f} ms in a CUDA graph, "
+                  f"{[round(m, 4) for m in row['graph_ms_per_level']]}), "
                   f"plain {row['plain_ms']:.4f} ms, bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}); clamped "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}); bit-equal "
+                  f"run to run {row['bit_equal_run_to_run']}; clamped "
                   f"share of the in-image samples per level "
                   f"{[round(c, 4) for c in row['clamped_share']]}", flush=True)
             if row["max_err_over_limit"] > 1.0:
                 raise SystemExit(f"{name} {form}: kernel disagrees with the "
                                  "plain version")
+            if not row["bit_equal_run_to_run"]:
+                raise SystemExit(f"{name} {form}: two runs differ")
             rows.append(row)
         # the batch index of the kernel's addressing, on the middle level
         value, loc, aw = raster_inputs(shapes, torch.float32, seed=50)
@@ -622,11 +636,17 @@ def check_bwd_win_kernels(shapes, batch):
             g = torch.randn(value.shape[:2] + (H * D,), device=DEVICE,
                             generator=torch.Generator(device=DEVICE)
                             .manual_seed(len(rows))).to(dtype)
+            # the layer's float32 value gradient, whose level slices K10
+            # adds into (msda._windowed_backward); K9 returns its own
+            dvalue_layer = torch.zeros(value.shape, dtype=torch.float32,
+                                       device=DEVICE)
+            starts = msda.level_starts(shapes)
             row = {"rows_kernel": rows_name, "value_kernel": value_name,
                    "band": band, "dtype": str(dtype).split(".")[-1],
                    "batch": batch, "levels": banded,
                    "max_abs_err": {}, "max_err_over_limit": {},
                    "rows_ms": 0.0, "rows_graph_ms": 0.0, "value_ms": 0.0,
+                   "value_graph_ms": 0.0,
                    "plain_ms": 0.0, "rows_bit_equal_run_to_run": True,
                    "rows_bound_ms": 0.0, "value_bound_ms": 0.0,
                    "value_run_to_run_max_abs_diff": 0.0,
@@ -658,7 +678,13 @@ def check_bwd_win_kernels(shapes, batch):
                                                       rows_again))
                 row["rows_ms"] += cuda_ms(lambda: rows_kernel(*args), 50)
                 row["rows_graph_ms"] += graph_ms(lambda: rows_kernel(*args))
-                row["value_ms"] += cuda_ms(lambda: value_kernel(*args), 50)
+                h, w = shapes[lid]
+                into = ({"out": dvalue_layer[:, starts[lid]:starts[lid]
+                                             + h * w]} if per_point else {})
+                row["value_ms"] += cuda_ms(
+                    lambda: value_kernel(*args, **into), 50)
+                row["value_graph_ms"] += graph_ms(
+                    lambda: value_kernel(*args, **into))
                 row["plain_ms"] += cuda_ms(
                     lambda: msda.msda_bwd_win_plain(*args), 3, warmup=1)
                 row["clamped_share"].append(clamped)
@@ -679,8 +705,12 @@ def check_bwd_win_kernels(shapes, batch):
                   f"outputs included; bound {row['rows_bound_ms']:.4f} ms, "
                   f"{row['rows_bound_by']}; bit-equal run to run "
                   f"{row['rows_bit_equal_run_to_run']}), "
-                  f"value {row['value_ms']:.4f} ms (bound "
-                  f"{row['value_bound_ms']:.4f} ms, {row['value_bound_by']}), "
+                  f"value {row['value_ms']:.4f} ms (device "
+                  f"{row['value_graph_ms']:.4f} ms in a CUDA graph"
+                  + (", into the layer gradient's slice" if per_point else
+                     ", its zeroed buffer included")
+                  + f"; bound {row['value_bound_ms']:.4f} ms, "
+                  f"{row['value_bound_by']}), "
                   f"plain {row['plain_ms']:.4f} ms; value run-to-run max abs "
                   f"diff {row['value_run_to_run_max_abs_diff']:.3e}; clamped "
                   f"share per level "
@@ -1570,9 +1600,14 @@ def main() -> int:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "form": main_form,
+            "graph_ms": main["graph_ms"],
             "ms_float32": mine["float32"]["ms"],
             "ms_bfloat16": mine["bfloat16"]["ms"],
-            "ms_int8": mine["int8"]["ms"], "calls": list(mine.values()),
+            "ms_int8": mine["int8"]["ms"],
+            **{f"graph_ms_{form}": r["graph_ms"] for form, r in mine.items()},
+            "bit_equal_run_to_run": all(r["bit_equal_run_to_run"]
+                                        for r in mine.values()),
+            "calls": list(mine.values()),
         }
 
     def banded_bwd_entry(kind, name, line, launches):
@@ -1596,6 +1631,9 @@ def main() -> int:
             "calls": mine,
         }
         if kind == "value":
+            entry["graph_ms"] = main["value_graph_ms"]
+            entry["graph_ms_float32"] = next(
+                r for r in mine if r["dtype"] == "float32")["value_graph_ms"]
             entry["run_to_run_max_abs_diff"] = max(
                 r["value_run_to_run_max_abs_diff"] for r in mine)
         else:

@@ -358,22 +358,6 @@ static bool value_geometry_ok(const VGeom& g, const Levels& lv, long B,
   return g.smem_bytes == floats * 4 && g.smem_bytes <= MSDA_MAX_DYNAMIC_SMEM;
 }
 
-// N floats added to global memory: 16-byte vector reductions (sm_90) where N
-// allows, else 8-byte or scalar ones. p is aligned to the vector.
-template <int N>
-__device__ __forceinline__ void red_add(float* p, const float* v) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int k = 0; k < N; k += 4)
-      atomicAdd(reinterpret_cast<float4*>(p + k),
-                make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]));
-  } else if constexpr (N == 2) {
-    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
-  } else {
-    atomicAdd(p, v[0]);
-  }
-}
-
 // 1024 threads, one block an SM where the private levels need more than half
 // of its shared memory; 64 registers a thread.
 template <typename T, int VEC>

@@ -22,7 +22,8 @@
 // (or add to) the two-by-two corners directly at the absolute row
 // bidx * win/2 + y_local, which replaces the band-sorted order, the
 // first/used masks and the overlap-add. They keep the forward's reach
-// (msda_fwd_win.cu), so they compute the TPU kernels' function: the hats are
+// (band_sample in msda_band.cuh), so they compute the TPU kernels' function:
+// the hats are
 // taken on the band-local coordinate, a corner whose y_local lies outside
 // [0, win) contributes nothing even where its absolute row exists, nor does
 // one at or beyond row h (the last band's overhang).
@@ -45,12 +46,12 @@
 //   dV_ji += dT_j * cdt(hat_x_i)
 // hat'(t) = -sign(t) for |t| < 1, else 0, and 0 at t = 0.
 //
-// Design of K7, K9 and K10: one warp per (batch, head, query), the query
+// Design of K7 and K9: one warp per (batch, head, query), the query
 // fastest so that neighbouring warps read neighbouring rows; lanes over the
 // head dim D.
 //   rows (K7): per point the three sums are reduced across the warp with
 //          shuffles and lane 0 writes them. No atomics: deterministic.
-//   value (K9, K10): per point each lane adds its channel of the four corner
+//   value (K9): per point each lane adds its channel of the four corner
 //          contributions with a float32 atomicAdd into the level's zeroed
 //          float32 gradient [B, h*w, H, D]. The order of the additions
 //          changes from run to run, so the last bits of the sums do too.
@@ -62,7 +63,7 @@
 // for four samples), plus the segment search and band lookup per warp; it
 // ran 29x off its bound. Here a warp takes (batch, head) and `queries`
 // neighbouring queries (4 at bf16, 2 at float32 with D = 32), and its lanes
-// split over (query, point, channel group) as msda_cuda.win_rows_geometry
+// split over (query, point, channel group) as msda_cuda.win_geometry
 // says: a lane reads VEC channels of a corner with one vector load (16
 // bytes where D and the value and g pointers allow it), two passes' loads
 // (every sample of the warp at bf16, D = 32) go out together, each lane
@@ -74,30 +75,48 @@
 // reach rules above are kept as they are: band_sample decides them on the
 // band-local row before the row is made absolute.
 //
+// Design of K10 (msda_bwd_win_value_pp), redesigned for this card. What
+// bounded the layout it replaces (K9's, with one band lookup a point),
+// measured on the H100 at the adaptation's three banded levels (608x1008,
+// window 16, batch 4, raster locations; bf16 / f32): 1.665 / 2.03 ms; with
+// each sample's adds sent to distinct rows 1.863 / 1.822; with no adds
+// 0.940 / 0.911. Same-address contention on the clamped edge rows did not
+// bound it (neighbouring samples share L2 sectors), but the serial per-lane
+// walk (0.94 ms: the geometry and segment search worked out by all 32
+// lanes, the points in turn) and 32 scalar reductions a sample's corner.
+// Here K8's lane map (msda_cuda.win_geometry, form "value") with at most
+// four float32 channels a lane and 32 / P queries a warp: lane l works out
+// the band-local geometry of the warp's sample l once (its query's padded
+// row through the segment table, its band row, the corners' add flags, the
+// rounded x hats, the y hats times the weight, the pixel of its (absolute
+// row y0, x0) corner) and the lanes that add the sample's channels take it
+// with six __shfl_sync a pass (msda_bwd.cu's K3 hand-out); a lane adds a
+// corner's four channels with one 16-byte vector reduction
+// (red.global.add.v4.f32). The kernel adds into the caller's float32 slice
+// of the layer's gradient, whose batch stride it takes, so the level's own
+// zeroed buffer and its copy into the layer's gradient are gone. No
+// warp-combined add: the measurement above shows no contention to save.
+// It now takes 0.44x (bf16) and 0.37x (f32) of the old time; without its
+// reductions it takes 0.23 of its 0.73 ms, so the L2's vector reductions
+// bound it (at most 156 M 16-byte reductions over the three levels, some
+// 310 G a second).
+// Not kept (measured slower or within noise): two passes' shuffles and g
+// loads together; a warp's samples point-major.
+// The order of the additions changes from run to run, so the last bits of
+// the float32 sums do too.
+//
 // Bound: memory. The rows (16 bytes per sample with g's share) and the
 // corner rows (4 per sample, mostly L2 hits) dominate; the value kernels
 // make 4 atomic row updates per sample into a gradient that fits the 50 MB
-// L2 one image at a time. The band itself gains a gather nothing; staging a
-// band in shared memory is left for a later change.
+// L2 one image at a time. The band itself gains a gather nothing. A
+// shared-memory copy of a band does not fit (a band of level 0 at D = 32 is
+// 258 KB a head) or would take under one add a pixel from a block's
+// queries, and shared float atomics are compare-and-swap loops on sm_90.
 //
 // C interface for ctypes: each function launches on the given stream and
 // returns cudaGetLastError() as an int (0 = launched).
 
-#include "msda_geom.cuh"
-
-#define MSDA_MAX_SEGMENTS 8
-
-struct Segments {
-  int n;
-  int q0[MSDA_MAX_SEGMENTS];   // first query of the segment
-  int qp0[MSDA_MAX_SEGMENTS];  // its first row in the padded layout
-};
-
-struct Geometry {
-  int Q, Qp, H, D, P;
-  int h, w, win, TQ, T;
-  long batch_stride;  // elements between two batches of the level's values
-};
+#include "msda_band.cuh"
 
 // A float32 product as the JAX kernels feed it to the MXU: rounded to T.
 __device__ __forceinline__ float round_to(float v, const float*) { return v; }
@@ -123,10 +142,9 @@ struct Query {
   long b, bh;
   int q, head, qp;
   long rows;     // index of (b, head, p = 0, qp) in the rows
-  const int* bp;  // bidx of (b, head[, p = 0], tile)
+  const int* bp;  // bidx of (b, head, tile)
 };
 
-template <bool PER_POINT>
 __device__ __forceinline__ Query locate(long warp, const int* bidx,
                                         const Segments& sg,
                                         const Geometry& g) {
@@ -136,44 +154,10 @@ __device__ __forceinline__ Query locate(long warp, const int* bidx,
   qu.bh = warp / g.Q;
   qu.head = (int)(qu.bh % g.H);
   qu.b = qu.bh / g.H;
-  int s = 0;
-  while (s + 1 < sg.n && qu.q >= sg.q0[s + 1]) ++s;
-  qu.qp = sg.qp0[s] + (qu.q - sg.q0[s]);
+  qu.qp = padded_row(qu.q, sg);
   qu.rows = qu.bh * g.P * (long)g.Qp + qu.qp;
-  qu.bp = bidx + (PER_POINT ? qu.bh * g.P * (long)g.T : qu.bh * (long)g.T)
-          + qu.qp / g.TQ;
+  qu.bp = bidx + qu.bh * (long)g.T + qu.qp / g.TQ;
   return qu;
-}
-
-// One sample's band-local geometry, the same for every lane of the warp.
-struct Sample {
-  float zx0, zx1, zy0, zy1;  // ix - x0, ix - x1, iy - y0, iy - y1
-  int x0, y0;                // y0 band-local
-  bool okx0, okx1, oky0, oky1;
-  bool any;                  // some corner is within reach
-};
-
-__device__ __forceinline__ Sample band_sample(float x, float y, int row0,
-                                              const Geometry& g) {
-  Sample s;
-  const float fx0 = floorf(x), fy0 = floorf(y);
-  const float fx1 = fx0 + 1.0f, fy1 = fy0 + 1.0f;
-  s.zx0 = x - fx0;
-  s.zx1 = x - fx1;
-  s.zy0 = y - fy0;
-  s.zy1 = y - fy1;
-  const float fw = (float)g.w;
-  s.okx0 = fx0 >= 0.0f && fx0 <= fw - 1.0f;
-  s.okx1 = fx1 >= 0.0f && fx1 <= fw - 1.0f;
-  // inside the band, and not past the level's last row
-  const float ylim = fminf((float)(g.win - 1), (float)(g.h - 1 - row0));
-  s.oky0 = fy0 >= 0.0f && fy0 <= ylim;
-  s.oky1 = fy1 >= 0.0f && fy1 <= ylim;
-  s.any = (s.okx0 || s.okx1) && (s.oky0 || s.oky1);
-  // only used where a corner is within reach, so the cast cannot overflow
-  s.x0 = s.any ? (int)fx0 : 0;
-  s.y0 = s.any ? (int)fy0 : 0;
-  return s;
 }
 
 template <typename T>
@@ -191,7 +175,7 @@ msda_bwd_win_rows_kernel(const T* __restrict__ value,
   const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= n_warps) return;  // whole warps leave together
-  const Query qu = locate<false>(warp, bidx, sg, g);
+  const Query qu = locate(warp, bidx, sg, g);
   const long row = (long)g.H * g.D;  // stride between tokens in value
   const T* vb = value + qu.b * g.batch_stride + (long)qu.head * g.D;
   const T* gp = grad + ((qu.b * g.Q + qu.q) * (long)g.H + qu.head) * g.D;
@@ -243,43 +227,6 @@ msda_bwd_win_rows_kernel(const T* __restrict__ value,
       daw[r] = s_daw;
     }
   }
-}
-
-// K8's launch, the eight ints of msda_cuda.WinRowsGeometry in its order.
-struct WGeom {
-  int vec;       // channels per lane load
-  int lps_log2;  // log2 of the lanes per sample
-  int groups;    // D / vec channel groups
-  int chunks;    // ceil(groups / lanes per sample)
-  int queries;   // neighbouring queries a warp takes
-  int passes;    // ceil(queries * P / samples per pass)
-  int threads;
-  int blocks;
-};
-
-static inline WGeom read_win_geometry(const int* g) {
-  return WGeom{g[0], g[1], g[2], g[3], g[4], g[5], g[6], g[7]};
-}
-
-// The geometry against the shapes (n_warps = B*H*ceil(Q / queries)):
-// anything the kernel's index math does not cover exactly once is refused.
-static bool win_geometry_ok(const WGeom& g, long BH, int Q, int D, int P,
-                            int is_bf16) {
-  if (g.lps_log2 < 0 || g.lps_log2 > 5) return false;
-  const int lps = 1 << g.lps_log2;
-  if (g.vec < 1 || g.vec * (is_bf16 ? 2 : 4) > 16 || (g.vec & (g.vec - 1)))
-    return false;
-  if (g.groups * g.vec != D || g.chunks * lps < g.groups ||
-      (g.chunks - 1) * lps >= g.groups)
-    return false;
-  if (g.queries < 1 || g.passes < 0 ||
-      (long)g.passes * (32 / lps) < (long)g.queries * P)
-    return false;
-  if (g.threads < 32 || g.threads > 256 || g.threads % 32) return false;
-  const long n_warps = BH * ((Q + g.queries - 1) / g.queries);
-  const long per_block = g.threads / 32;
-  return g.blocks >= 1 && (long)g.blocks * per_block >= n_warps &&
-         (long)(g.blocks - 1) * per_block < n_warps;
 }
 
 // One sample of a pass: where its row lives, its band-local geometry, its
@@ -342,10 +289,7 @@ msda_bwd_win_rows_pp_kernel(const T* __restrict__ value,
       t.r = 0;
       t.gp = grad;
       if (!t.valid) continue;
-      // the query's padded row: its segment, each padded to tiles of TQ
-      int seg = 0;
-      while (seg + 1 < sg.n && q >= sg.q0[seg + 1]) ++seg;
-      const int qp = sg.qp0[seg] + (q - sg.q0[seg]);
+      const int qp = padded_row(q, sg);
       t.r = (bh * g.P + p) * (long)g.Qp + qp;
       t.a = aw_eff[t.r];
       const int row0 = bidx[(bh * g.P + p) * (long)g.T + qp / g.TQ] * half;
@@ -435,7 +379,7 @@ msda_bwd_win_rows_pp_kernel(const T* __restrict__ value,
   }
 }
 
-template <typename T, bool PER_POINT>
+template <typename T>
 __global__ void __launch_bounds__(256)
 msda_bwd_win_value_kernel(const int* __restrict__ bidx,
                           const float* __restrict__ ix,
@@ -448,7 +392,7 @@ msda_bwd_win_value_kernel(const int* __restrict__ bidx,
   const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= n_warps) return;
-  const Query qu = locate<PER_POINT>(warp, bidx, sg, g);
+  const Query qu = locate(warp, bidx, sg, g);
   const long row = (long)g.H * g.D;
   float* db = dvalue + qu.b * (long)g.h * g.w * row + (long)qu.head * g.D;
   const T* gp = grad + ((qu.b * g.Q + qu.q) * (long)g.H + qu.head) * g.D;
@@ -458,7 +402,7 @@ msda_bwd_win_value_kernel(const int* __restrict__ bidx,
     const long r = qu.rows + p * (long)g.Qp;
     const float a = aw_eff[r];
     if (a == 0.0f) continue;  // dT = 0: outside the image, or no weight
-    const int row0 = (PER_POINT ? qu.bp[p * (long)g.T] : qu.bp[0]) * half;
+    const int row0 = qu.bp[0] * half;
     const Sample s = band_sample(ix[r], iy_band[r], row0, g);
     if (!s.any) continue;
     const float hx0 = round_to(hat(s.zx0), gp);
@@ -484,19 +428,124 @@ msda_bwd_win_value_kernel(const int* __restrict__ bidx,
   }
 }
 
-static int read_geometry(const int* segments, int n_segments, int Q, int Qp,
-                         int H, int D, int P, int h, int w, int win, int TQ,
-                         long batch_stride, Segments* sg, Geometry* g) {
-  if (n_segments < 1 || n_segments > MSDA_MAX_SEGMENTS || TQ < 1 ||
-      Qp % TQ != 0 || win < 2 || win % 2 != 0 || h <= win)
-    return (int)cudaErrorInvalidValue;
-  sg->n = n_segments;
-  for (int s = 0; s < n_segments; ++s) {
-    sg->q0[s] = segments[2 * s];
-    sg->qp0[s] = segments[2 * s + 1];
+// K10: a warp takes (batch, head) and `queries` neighbouring queries (32 / P
+// of them), one sample a lane for the hand-out. Lane l works out the
+// band-local geometry of the warp's sample base + l once: the corners' add
+// flags, the rounded x hats, the y hats times the weight, and the pixel of
+// its (absolute row y0, x0) corner; the lanes that add the sample's
+// channels take these from it with six __shfl_sync a pass. A lane adds VEC
+// float32 channels a corner with one vector reduction.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(256)
+msda_bwd_win_value_pp_kernel(const int* __restrict__ bidx,
+                             const float* __restrict__ ix,
+                             const float* __restrict__ iy_band,
+                             const float* __restrict__ aw_eff,
+                             const T* __restrict__ grad,
+                             float* __restrict__ dvalue,
+                             const __grid_constant__ Segments sg,
+                             const __grid_constant__ Geometry g, WGeom gm,
+                             long n_warps) {
+  const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= n_warps) return;  // whole warps leave together
+  // warp = (b * H + head) * ceil(Q / queries) + query group
+  const long per_bh = (g.Q + gm.queries - 1) / gm.queries;
+  const long bh = warp / per_bh;
+  const int q0 = (int)(warp - bh * per_bh) * gm.queries;
+  const int head = (int)(bh % g.H);
+  const long b = bh / g.H;
+  const int lps = 1 << gm.lps_log2;
+  const int spp = 32 >> gm.lps_log2;
+  const int slot = lane >> gm.lps_log2;  // sample slot in a pass
+  const int sub = lane & (lps - 1);      // channel group within a chunk
+  const int ns = gm.queries * g.P;       // the warp's samples, query-major
+  const long rs = (long)g.H * g.D;       // stride between tokens
+  float* db = dvalue + b * g.batch_stride + (long)head * g.D;
+  const T* gb = grad + (b * g.Q * (long)g.H + head) * g.D;
+  const int half = g.win / 2;
+
+  for (int base = 0; base < ns; base += 32) {
+    // lane l's sample base + l: its geometry, worked out once
+    int px = 0, info = 0;  // info: the corners' add flags
+    float hx0 = 0.0f, hx1 = 0.0f, c0 = 0.0f, c1 = 0.0f;
+    {
+      const int k = base + lane;
+      const int qi = k / g.P, p = k - qi * g.P;
+      const int q = q0 + qi;
+      if (k < ns && q < g.Q) {
+        const int qp = padded_row(q, sg);
+        const long r = (bh * g.P + p) * (long)g.Qp + qp;
+        const float a = aw_eff[r];
+        if (a != 0.0f) {  // dT = 0: outside the image, or no weight
+          const int row0 = bidx[(bh * g.P + p) * (long)g.T + qp / g.TQ] *
+                           half;
+          const Sample s = band_sample(ix[r], iy_band[r], row0, g);
+          if (s.any) {
+            hx0 = round_to<T>(hat(s.zx0));
+            hx1 = round_to<T>(hat(s.zx1));
+            c0 = __fmul_rn(hat(s.zy0), a);
+            c1 = __fmul_rn(hat(s.zy1), a);
+            // a zero weight adds nothing: skip that corner's adds
+            info = (s.oky0 && s.okx0 && c0 != 0.0f && hx0 != 0.0f)
+                 | (s.oky0 && s.okx1 && c0 != 0.0f && hx1 != 0.0f) << 1
+                 | (s.oky1 && s.okx0 && c1 != 0.0f && hx0 != 0.0f) << 2
+                 | (s.oky1 && s.okx1 && c1 != 0.0f && hx1 != 0.0f) << 3;
+            px = (row0 + s.y0) * g.w + s.x0;
+          }
+        }
+      }
+    }
+    const int np = min(lps, gm.passes - base / spp);
+    for (int pp = 0; pp < np; ++pp) {
+      const int src = pp * spp + slot;
+      const int o = __shfl_sync(MSDA_FULL_MASK, px, src);
+      const int f = __shfl_sync(MSDA_FULL_MASK, info, src);
+      const float h0 = __shfl_sync(MSDA_FULL_MASK, hx0, src);
+      const float h1 = __shfl_sync(MSDA_FULL_MASK, hx1, src);
+      const float a0 = __shfl_sync(MSDA_FULL_MASK, c0, src);
+      const float a1 = __shfl_sync(MSDA_FULL_MASK, c1, src);
+      if (!f) continue;
+      // the sample's query: flags are set only where it is real
+      const T* gp = gb + (long)(q0 + (base + src) / g.P) * rs;
+      float* r0 = db + (long)o * rs;
+      float* r1 = r0 + (long)g.w * rs;
+      for (int c = 0; c < gm.chunks; ++c) {
+        const int grp = c * lps + sub;
+        if (grp >= gm.groups) break;
+        const int d = grp * VEC;
+        Raw<T, VEC> gr;
+        gr.load(gp + d);
+        float dT0[VEC], dT1[VEC], add[VEC];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float gd = gr.get(j);
+          dT0[j] = round_to<T>(__fmul_rn(a0, gd));
+          dT1[j] = round_to<T>(__fmul_rn(a1, gd));
+        }
+        if (f & 1) {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) add[j] = dT0[j] * h0;
+          red_add<VEC>(r0 + d, add);
+        }
+        if (f & 2) {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) add[j] = dT0[j] * h1;
+          red_add<VEC>(r0 + rs + d, add);
+        }
+        if (f & 4) {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) add[j] = dT1[j] * h0;
+          red_add<VEC>(r1 + d, add);
+        }
+        if (f & 8) {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) add[j] = dT1[j] * h1;
+          red_add<VEC>(r1 + rs + d, add);
+        }
+      }
+    }
   }
-  *g = Geometry{Q, Qp, H, D, P, h, w, win, TQ, Qp / TQ, batch_stride};
-  return (int)cudaSuccess;
 }
 
 static unsigned blocks_for(long n_warps, int threads) {
@@ -511,8 +560,8 @@ static int launch_rows(const void* value, const void* bidx, const void* ix,
                        int TQ, long batch_stride, int is_bf16, void* stream) {
   Segments sg;
   Geometry g;
-  const int rc = read_geometry(segments, n_segments, Q, Qp, H, D, P, h, w,
-                               win, TQ, batch_stride, &sg, &g);
+  const int rc = read_band_geometry(segments, n_segments, Q, Qp, H, D, P, h,
+                                    w, win, TQ, batch_stride, &sg, &g);
   if (rc != (int)cudaSuccess) return rc;
   const long n_warps = (long)B * H * Q;
   if (n_warps == 0) return (int)cudaSuccess;
@@ -536,7 +585,6 @@ static int launch_rows(const void* value, const void* bidx, const void* ix,
   return (int)cudaGetLastError();
 }
 
-template <bool PER_POINT>
 static int launch_value(const void* bidx, const void* ix, const void* iy_band,
                         const void* aw_eff, const void* grad, void* dvalue,
                         const int* segments, int n_segments, int B, int Q,
@@ -544,8 +592,8 @@ static int launch_value(const void* bidx, const void* ix, const void* iy_band,
                         int TQ, int is_bf16, void* stream) {
   Segments sg;
   Geometry g;
-  const int rc = read_geometry(segments, n_segments, Q, Qp, H, D, P, h, w,
-                               win, TQ, 0, &sg, &g);
+  const int rc = read_band_geometry(segments, n_segments, Q, Qp, H, D, P, h,
+                                    w, win, TQ, 0, &sg, &g);
   if (rc != (int)cudaSuccess) return rc;
   const long n_warps = (long)B * H * Q;
   if (n_warps == 0) return (int)cudaSuccess;
@@ -555,12 +603,12 @@ static int launch_value(const void* bidx, const void* ix, const void* iy_band,
   const float *fx = (const float*)ix, *fy = (const float*)iy_band;
   const float* fa = (const float*)aw_eff;
   if (is_bf16) {
-    msda_bwd_win_value_kernel<__nv_bfloat16, PER_POINT>
+    msda_bwd_win_value_kernel<__nv_bfloat16>
         <<<blocks_for(n_warps, threads), threads, 0, s>>>(
             bi, fx, fy, fa, (const __nv_bfloat16*)grad, (float*)dvalue, sg,
             g, n_warps);
   } else {
-    msda_bwd_win_value_kernel<float, PER_POINT>
+    msda_bwd_win_value_kernel<float>
         <<<blocks_for(n_warps, threads), threads, 0, s>>>(
             bi, fx, fy, fa, (const float*)grad, (float*)dvalue, sg, g,
             n_warps);
@@ -582,7 +630,7 @@ extern "C" int msda_bwd_win_rows(const void* value, const void* bidx,
                             w, win, TQ, batch_stride, is_bf16, stream);
 }
 
-// geometry: the eight ints of struct WGeom, in its order.
+// geometry: the nine ints of struct WGeom (msda_band.cuh), in its order.
 extern "C" int msda_bwd_win_rows_pp(const void* value, const void* bidx,
                                     const void* ix, const void* iy_band,
                                     const void* aw_eff, const void* grad,
@@ -594,12 +642,12 @@ extern "C" int msda_bwd_win_rows_pp(const void* value, const void* bidx,
                                     const int* geometry, void* stream) {
   Segments sg;
   Geometry g;
-  const int rc = read_geometry(segments, n_segments, Q, Qp, H, D, P, h, w,
-                               win, TQ, batch_stride, &sg, &g);
+  const int rc = read_band_geometry(segments, n_segments, Q, Qp, H, D, P, h,
+                                    w, win, TQ, batch_stride, &sg, &g);
   if (rc != (int)cudaSuccess) return rc;
   if ((long)B * H * Q == 0) return (int)cudaSuccess;
   const WGeom gm = read_win_geometry(geometry);
-  if (!win_geometry_ok(gm, (long)B * H, Q, D, P, is_bf16))
+  if (!win_geometry_ok(gm, (long)B * H, Q, D, P, is_bf16 ? 2 : 4, WIN_ROWS))
     return (int)cudaErrorInvalidValue;
   const long n_warps = (long)B * H * ((Q + gm.queries - 1) / gm.queries);
   cudaStream_t s = (cudaStream_t)stream;
@@ -639,19 +687,60 @@ extern "C" int msda_bwd_win_value(const void* bidx, const void* ix,
                                   int Q, int Qp, int H, int D, int P, int h,
                                   int w, int win, int TQ, int is_bf16,
                                   void* stream) {
-  return launch_value<false>(bidx, ix, iy_band, aw_eff, grad, dvalue,
-                             segments, n_segments, B, Q, Qp, H, D, P, h, w,
-                             win, TQ, is_bf16, stream);
+  return launch_value(bidx, ix, iy_band, aw_eff, grad, dvalue,
+                      segments, n_segments, B, Q, Qp, H, D, P, h, w, win, TQ,
+                      is_bf16, stream);
 }
 
+// dvalue: float32 [B, h*w, H, D] with `out_batch_stride` elements between
+// two batches (the level's slice of a layer's [B, S, H, D] gradient, or a
+// buffer of its own); the kernel adds into it. geometry: the nine ints of
+// struct WGeom (msda_band.cuh), in its order.
 extern "C" int msda_bwd_win_value_pp(const void* bidx, const void* ix,
                                      const void* iy_band, const void* aw_eff,
                                      const void* grad, void* dvalue,
                                      const int* segments, int n_segments,
                                      int B, int Q, int Qp, int H, int D,
                                      int P, int h, int w, int win, int TQ,
-                                     int is_bf16, void* stream) {
-  return launch_value<true>(bidx, ix, iy_band, aw_eff, grad, dvalue,
-                            segments, n_segments, B, Q, Qp, H, D, P, h, w,
-                            win, TQ, is_bf16, stream);
+                                     long out_batch_stride, int is_bf16,
+                                     const int* geometry, void* stream) {
+  Segments sg;
+  Geometry g;
+  const int rc = read_band_geometry(segments, n_segments, Q, Qp, H, D, P, h,
+                                    w, win, TQ, out_batch_stride, &sg, &g);
+  if (rc != (int)cudaSuccess) return rc;
+  if ((long)B * H * Q == 0) return (int)cudaSuccess;
+  const WGeom gm = read_win_geometry(geometry);
+  // float32 adds of at most four channels a lane; the batches' slices
+  // aligned to them and apart
+  if (!win_geometry_ok(gm, (long)B * H, Q, D, P, 4, WIN_VALUE) ||
+      out_batch_stride % gm.vec != 0 ||
+      (B > 1 && out_batch_stride < (long)h * w * H * D))
+    return (int)cudaErrorInvalidValue;
+  const long n_warps = (long)B * H * ((Q + gm.queries - 1) / gm.queries);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int* bi = (const int*)bidx;
+  const float *fx = (const float*)ix, *fy = (const float*)iy_band;
+  const float* fa = (const float*)aw_eff;
+  float* dv = (float*)dvalue;
+#define MSDA_K10(T, VEC)                                                     \
+  msda_bwd_win_value_pp_kernel<T, VEC><<<gm.blocks, gm.threads, 0, s>>>(     \
+      bi, fx, fy, fa, (const T*)grad, dv, sg, g, gm, n_warps)
+  if (is_bf16) {
+    switch (gm.vec) {
+      case 4: MSDA_K10(__nv_bfloat16, 4); break;
+      case 2: MSDA_K10(__nv_bfloat16, 2); break;
+      case 1: MSDA_K10(__nv_bfloat16, 1); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    switch (gm.vec) {
+      case 4: MSDA_K10(float, 4); break;
+      case 2: MSDA_K10(float, 2); break;
+      case 1: MSDA_K10(float, 1); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+#undef MSDA_K10
+  return (int)cudaGetLastError();
 }

@@ -1,10 +1,11 @@
 // What the MSDA kernels msda_fwd (msda_fwd.cu), msda_bwd_rows and
-// msda_bwd_value (msda_bwd.cu) and msda_bwd_win_rows_pp (msda_bwd_win.cu)
-// share: the launch geometry that msda_cuda.launch_geometry computes for the
-// first two and its check, the vector load of a channel group, the hand-out
-// of a row's locations and weights, and the scalar helpers of the JAX
-// kernels' rounding. The build keys each library by this header's contents
-// too, so an edit here rebuilds them all.
+// msda_bwd_value (msda_bwd.cu) and the banded kernels (msda_fwd_win.cu,
+// msda_bwd_win.cu, through msda_band.cuh) share: the launch geometry that
+// msda_cuda.launch_geometry computes for the first two and its check, the
+// vector load of a channel group (float32, bfloat16 or int8), the float32
+// vector reduction, the hand-out of a row's locations and weights, and the
+// scalar helpers of the JAX kernels' rounding. The build keys each library
+// by the headers' contents too, so an edit here rebuilds them all.
 
 #pragma once
 
@@ -101,14 +102,19 @@ struct Raw {
       w[0] = q.x; w[1] = q.y;
     } else if constexpr (BYTES == 4) {
       w[0] = *reinterpret_cast<const uint32_t*>(p);
-    } else {
+    } else if constexpr (BYTES == 2) {
       w[0] = *reinterpret_cast<const unsigned short*>(p);
+    } else {
+      w[0] = *reinterpret_cast<const unsigned char*>(p);
     }
   }
-  // channel j as float32 (a bf16 is the high half of a float32)
+  // channel j as float32 (a bf16 is the high half of a float32; an int8
+  // exactly)
   __device__ __forceinline__ float get(int j) const {
     if constexpr (sizeof(T) == 4) {
       return __uint_as_float(w[j]);
+    } else if constexpr (sizeof(T) == 1) {
+      return (float)(int8_t)((w[j >> 2] >> (8 * (j & 3))) & 0xffu);
     } else {
       return __uint_as_float(((w[j >> 1] >> (16 * (j & 1))) & 0xffffu) << 16);
     }
@@ -116,6 +122,23 @@ struct Raw {
 };
 
 #define MSDA_FULL_MASK 0xffffffffu
+
+// N floats added to global memory: 16-byte vector reductions (sm_90,
+// red.global.add.v4.f32) where N allows, else 8-byte or scalar ones. p is
+// aligned to the vector.
+template <int N>
+__device__ __forceinline__ void red_add(float* p, const float* v) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < N; k += 4)
+      atomicAdd(reinterpret_cast<float4*>(p + k),
+                make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]));
+  } else if constexpr (N == 2) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  } else {
+    atomicAdd(p, v[0]);
+  }
+}
 
 // A row's sampling locations and attention weights as the lanes take them.
 // With HANDOUT (a row of at most 16 entries), lane k holds location float k

@@ -671,7 +671,8 @@ def _windowed_backward(value, sampling_locations, attention_weights,
     levels go through the exact backward limited to them (K2 + K3, or
     their plain version), each banded level through the banded rows and
     value kernels (or their plain version) on its recomputed rows, with the
-    forward's band choice. ``diy`` is masked where the clamp was active and
+    forward's band choice (the value kernels add into the level's slice of
+    the float32 ``dvalue``). ``diy`` is masked where the clamp was active and
     ``daw`` outside the image; ``dvalue`` is summed in float32 and cast to
     the value dtype once. The int8 forward has this backward too
     (straight-through, ``msda_pallas.py:1348``)."""
@@ -705,9 +706,14 @@ def _windowed_backward(value, sampling_locations, attention_weights,
         bidx, ix, iy_band, _, aw_eff, inband, in_img = win_level_rows(
             locT, awT, lid, h, w, window, segs, D, band == "point")
         level = slice(starts[lid], starts[lid] + h * w)
-        dv, dix, diy, daw_l = fn(value[:, level], bidx, ix, iy_band, aw_eff,
-                                 grad_output, h, w, window, segs, Q)
-        dvalue[:, level] = dv
+        args = (value[:, level], bidx, ix, iy_band, aw_eff, grad_output, h,
+                w, window, segs, Q)
+        if kernel:
+            # the level's slice of dvalue is zero: the kernels add into it
+            _, dix, diy, daw_l = fn(*args, out=dvalue[:, level])
+        else:
+            dv, dix, diy, daw_l = fn(*args)
+            dvalue[:, level] = dv
         TQ = query_tile(window, D, w)
         dloc[:, :, :, lid, :, 0] = unsegment_rows(dix, segs, TQ) * w
         dloc[:, :, :, lid, :, 1] = unsegment_rows(diy * inband, segs, TQ) * h

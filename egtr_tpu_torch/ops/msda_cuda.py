@@ -20,11 +20,14 @@ package's Pallas kernels:
   bfloat16 or int8 values;
 - ``msda_bwd_win_rows`` and ``msda_bwd_win_rows_pp`` (``msda_bwd_win.cu``)
   replace ``_bwd_rows_kernel_win`` and ``_bwd_rows_kernel_win_pp``: the row
-  gradients of one banded level (the second with its lanes over (query,
-  point, channel group) as :func:`win_rows_geometry` says);
+  gradients of one banded level;
 - ``msda_bwd_win_value`` and ``msda_bwd_win_value_pp`` (``msda_bwd_win.cu``)
   replace ``_bwd_dvtt_kernel_win`` and ``_bwd_dvtt_kernel_win_pp``: the value
-  gradient of one banded level, with float32 atomics;
+  gradient of one banded level, with float32 atomics (the second adds into
+  the caller's slice of the layer's gradient where it is given one);
+- the per-point kernels ``msda_fwd_win_pp``, ``msda_bwd_win_rows_pp`` and
+  ``msda_bwd_win_value_pp`` lay a warp's lanes over (query, point, channel
+  group) as :func:`win_geometry` says;
 - ``msda_fwd_bp`` (``msda_fwd_bp.cu``) replaces ``_fwd_kernel_bp`` (the
   forward with all sampling points in one stage, ``EGTR_MSDA_BATCH_P=1``) in
   a float form (K1's function) and an int8 form (K4's).
@@ -33,8 +36,9 @@ Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes``. The libraries are built
 at first use from the sources in the checkout, all ``nvcc`` processes started
 together, into ``build/`` at the repository root, each under a name keyed by
-a hash of its source, the headers beside it (``msda_geom.cuh``) and the
-compiler flags, so an edited source or header is rebuilt.
+a hash of its source, the headers beside it (``msda_geom.cuh``,
+``msda_band.cuh``) and the compiler flags, so an edited source or header is
+rebuilt.
 
 There is no fallback: if ``nvcc`` is missing or a build fails, a call on
 CUDA tensors raises. The plain versions (``msda.ms_deform_attn_plain``,
@@ -75,7 +79,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 MAX_LEVELS = 8  # MSDA_MAX_LEVELS in the sources
-MAX_SEGMENTS = 8  # MSDA_MAX_SEGMENTS in msda_fwd_win.cu, msda_bwd_win.cu
+MAX_SEGMENTS = 8  # MSDA_MAX_SEGMENTS in msda_band.cuh
 
 # The kernels, by the name of their wrapper (the forms of a kernel, float or
 # int8, share its name).
@@ -401,9 +405,21 @@ def value_geometry(B: int, Q: int, H: int, D: int,
         threads=threads, blocks=B * H * query_chunks, smem_bytes=total)
 
 
+# The banded kernels with lanes over (query, point, channel group), by the
+# form of win_geometry: K8 (msda_bwd_win_rows_pp), K6 (msda_fwd_win_pp), K10
+# (msda_bwd_win_value_pp); WinForm in msda_band.cuh.
+WIN_FORMS = ("rows", "fwd", "value")
+# K6 (with its fold) takes twice the queries that UNROLL passes hold, at
+# most this many: measured on the H100 at the served encoder call (B=1) and
+# at B=4, at three blocks an SM, twice the queries took 0.90x (f32) and
+# 0.96x (bf16) the time of once, 0.86x at bf16 B=4; at int8, whose UNROLL
+# passes hold 8 queries, 16 took 1.05x
+WIN_FWD_QUERIES = 8
+
+
 @dataclass(frozen=True)
-class WinRowsGeometry(_Lanes):
-    """How msda_bwd_win_rows_pp (K8) lays a banded level's rows on a warp.
+class WinGeometry(_Lanes):
+    """How K6, K8 and K10 lay a banded level's work on a warp.
 
     Warp ``n`` (``blocks * threads // 32`` of them, the last block's spare
     warps idle) takes (batch, head) ``n // groups`` with ``groups =
@@ -412,7 +428,12 @@ class WinRowsGeometry(_Lanes):
     query-major. Lane ``l`` takes sample slot ``l >> lps_log2`` and channel
     group ``l & (lanes_per_sample - 1)`` (plus ``chunk *
     lanes_per_sample``); in pass ``t`` its sample is ``t * samples_per_pass
-    + slot``. A query maps to its padded row through the segment table."""
+    + slot``. A query maps to its padded row through the segment table.
+    K6 with ``fold`` folds a query's P points, which lie in neighbouring
+    slots of one pass, over those slots; without it (P does not divide the
+    samples a pass holds) a slot takes a whole query and the lane walks its
+    points. K10 works out sample ``base + l`` on lane ``l`` and hands it out
+    to the slot's lanes with shuffles."""
 
     vec: int
     lps_log2: int
@@ -420,26 +441,48 @@ class WinRowsGeometry(_Lanes):
     chunks: int
     queries: int
     passes: int
+    fold: int
     threads: int
     blocks: int
 
 
-
 @lru_cache(maxsize=256)
-def win_rows_geometry(BH: int, Q: int, D: int, P: int, element_size: int,
-                      alignment: int = 16) -> WinRowsGeometry:
-    """K8's launch for B*H = ``BH`` (batch, head) pairs of ``Q`` queries of
-    ``P`` points: a warp takes as many neighbouring queries as UNROLL passes
-    hold (at least one), so that their corner loads go together."""
-    vec = vector_width(D, element_size, alignment)
+def win_geometry(BH: int, Q: int, D: int, P: int, element_size: int,
+                 alignment: int = 16, form: str = "rows") -> WinGeometry:
+    """The launch of a per-point banded kernel for B*H = ``BH`` (batch,
+    head) pairs of ``Q`` queries of ``P`` points, ``element_size`` the bytes
+    of a value (K10: ignored, its adds are float32) and ``alignment`` that
+    of the pointers its lanes load from or add to.
+
+    ``"rows"`` (K8): a warp takes as many neighbouring queries as UNROLL
+    passes hold (at least one), so that their corner loads go together.
+    ``"fwd"`` (K6): it folds a query's points where P divides the samples a
+    pass holds, and then takes twice the queries UNROLL passes hold, at most
+    WIN_FWD_QUERIES; otherwise a slot walks a whole query's points and a
+    warp takes the queries UNROLL passes hold. ``"value"`` (K10): at most
+    four float32 channels a lane (one 16-byte reduction a corner), and
+    32 / P queries a warp, one sample a lane for the hand-out of its
+    geometry."""
+    if form not in WIN_FORMS:
+        raise ValueError(f"form must be one of {WIN_FORMS}, got {form!r}")
+    vec = vector_width(D, 4 if form == "value" else element_size, alignment)
     groups, lps_log2, chunks = lane_split(D, vec)
     spp = 32 >> lps_log2
-    queries = max(1, UNROLL * spp // P)
+    fold = int(form == "fwd" and spp % P == 0)
+    if form == "value":
+        queries = max(1, 32 // P)
+    elif form == "fwd" and fold:
+        queries = max(1, min(WIN_FWD_QUERIES, 2 * UNROLL * spp // P))
+    elif form == "fwd":
+        queries = UNROLL * spp
+    else:
+        queries = max(1, UNROLL * spp // P)
+    samples = queries if form == "fwd" and not fold else queries * P
     n_warps = BH * -(-Q // queries)
-    return WinRowsGeometry(
+    return WinGeometry(
         vec=vec, lps_log2=lps_log2, groups=groups, chunks=chunks,
-        queries=queries,
-        passes=-(-queries * P // spp), threads=32 * WARPS_PER_BLOCK,
+        queries=queries, passes=-(-samples // spp), fold=fold,
+        threads=32 * WARPS_PER_BLOCK,
         blocks=max(1, -(-n_warps // WARPS_PER_BLOCK)))
 
 
@@ -450,6 +493,7 @@ _BWD_WIN_ROWS_ARGS = ([_VOID_P] * 9 + [ctypes.POINTER(_INT)] + [_INT] * 11
                       + [ctypes.c_long, _INT, _VOID_P])
 _BWD_WIN_VALUE_ARGS = ([_VOID_P] * 6 + [ctypes.POINTER(_INT)] + [_INT] * 12
                        + [_VOID_P])
+_GEOM_ARG = [ctypes.POINTER(_INT), _VOID_P]  # a launch geometry, the stream
 # per exported function: its library and its C argument types
 _FUNCTIONS = {
     "msda_fwd": ("msda_fwd", [_VOID_P] * 4 + [ctypes.POINTER(_INT)]
@@ -457,16 +501,17 @@ _FUNCTIONS = {
     "msda_fwd_q": ("msda_fwd_q", [_VOID_P] * 5 + [ctypes.POINTER(_INT)]
                    + [_INT] * 9 + [_VOID_P]),
     "msda_fwd_win": ("msda_fwd_win", _WIN_ARGS),
-    "msda_fwd_win_pp": ("msda_fwd_win", _WIN_ARGS),
+    "msda_fwd_win_pp": ("msda_fwd_win", _WIN_ARGS[:-1] + _GEOM_ARG),
     "msda_bwd_rows": ("msda_bwd", [_VOID_P] * 6 + [ctypes.POINTER(_INT)]
                       + [_INT] * 9 + [ctypes.POINTER(_INT), _VOID_P]),
     "msda_bwd_value": ("msda_bwd", [_VOID_P] * 4 + [ctypes.POINTER(_INT)]
                        + [_INT] * 9 + [ctypes.POINTER(_INT), _VOID_P]),
     "msda_bwd_win_rows": ("msda_bwd_win", _BWD_WIN_ROWS_ARGS),
-    "msda_bwd_win_rows_pp": ("msda_bwd_win", _BWD_WIN_ROWS_ARGS[:-1]
-                             + [ctypes.POINTER(_INT), _VOID_P]),
+    "msda_bwd_win_rows_pp": ("msda_bwd_win",
+                             _BWD_WIN_ROWS_ARGS[:-1] + _GEOM_ARG),
     "msda_bwd_win_value": ("msda_bwd_win", _BWD_WIN_VALUE_ARGS),
-    "msda_bwd_win_value_pp": ("msda_bwd_win", _BWD_WIN_VALUE_ARGS),
+    "msda_bwd_win_value_pp": ("msda_bwd_win", _BWD_WIN_VALUE_ARGS[:-2]
+                              + [ctypes.c_long, _INT] + _GEOM_ARG),
     "msda_fwd_bp": ("msda_fwd_bp", [_VOID_P] * 4 + [ctypes.POINTER(_INT)]
                     + [_INT] * 10 + [_VOID_P]),
     "msda_fwd_bp_q": ("msda_fwd_bp", [_VOID_P] * 5 + [ctypes.POINTER(_INT)]
@@ -847,13 +892,17 @@ def _fwd_win(name: str, per_point: bool, value_l, bidx, ix, iy_band, aw_eff,
         return out, False
     table = [v for (q0, _), qp0 in zip(segs, padded_starts(segs, TQ))
              for v in (q0, qp0)]
+    # K6 takes its lanes' layout as an int array
+    layout = (win_geometry(B * H, Q, D, P, value_l.element_size(),
+                           pointer_alignment(value_l, out), "fwd").c_array,
+              ) if per_point else ()
     with torch.cuda.device(value_l.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(value_l.data_ptr(), bidx.data_ptr(), ix.data_ptr(),
                 iy_band.data_ptr(), aw_eff.data_ptr(), out.data_ptr(),
                 (ctypes.c_int * len(table))(*table), len(segs), B, Q, Qp, H,
                 D, P, h, w, win, TQ, value_l.stride(0),
-                _WIN_VTYPES[value_l.dtype], stream)
+                _WIN_VTYPES[value_l.dtype], *layout, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     return out, True
@@ -1041,12 +1090,31 @@ def check_inputs_bwd_win(value_l: torch.Tensor, bidx: torch.Tensor,
     return TQ
 
 
+def check_value_out(out: torch.Tensor, value_l: torch.Tensor, h: int,
+                    w: int) -> None:
+    """Raise unless ``out`` is a float32 [B, h*w, H, D] view on the values'
+    device that is contiguous within a batch (the level's slice of a
+    layer's [B, S, H, D] gradient, or a buffer of its own)."""
+    B, _, H, D = value_l.shape
+    if (out.dtype != torch.float32 or tuple(out.shape) != (B, h * w, H, D)
+            or out.stride()[1:] != (H * D, D, 1)
+            or (B > 1 and out.stride(0) < h * w * H * D)
+            or out.device != value_l.device):
+        raise ValueError(f"out must be float32 [B,h*w,H,D] = "
+                         f"[{B},{h * w},{H},{D}] on {value_l.device}, "
+                         f"contiguous within a batch, got {out.dtype} "
+                         f"{tuple(out.shape)} strides {out.stride()} on "
+                         f"{out.device}")
+    if B * out.stride(0) >= 2 ** 31:
+        raise ValueError("tensors of 2**31 or more elements are not supported")
+
+
 def _bwd_win_launch(name: str, per_point: bool, rows: bool, value_l, bidx, ix,
                     iy_band, aw_eff, g, h: int, w: int, win: int,
-                    segs: Segments, Q: int):
+                    segs: Segments, Q: int, out=None):
     """Check, allocate and launch for the four banded backward kernels.
     Returns (outputs, launched): (dix, diy, daw) rows for a rows kernel,
-    (dvalue_l,) for a value kernel."""
+    (dvalue_l,) for a value kernel (``out`` where K10 is given it)."""
     tensors = (value_l, bidx, ix, iy_band, aw_eff, g)
     _one_cuda_device(name, tensors)
     h, w, win, Q = int(h), int(w), int(win), int(Q)
@@ -1057,9 +1125,15 @@ def _bwd_win_launch(name: str, per_point: bool, rows: bool, value_l, bidx, ix,
     P, Qp = ix.shape[2:]
     fn = _function(name)
     # the kernels never visit the padding rows, which stay zero
-    outs = ((torch.zeros_like(ix), torch.zeros_like(ix), torch.zeros_like(ix))
-            if rows else (torch.zeros((B, h * w, H, D), dtype=torch.float32,
-                                      device=ix.device),))
+    if rows:
+        outs = (torch.zeros_like(ix), torch.zeros_like(ix),
+                torch.zeros_like(ix))
+    elif out is not None:
+        check_value_out(out, value_l, h, w)
+        outs = (out,)
+    else:
+        outs = (torch.zeros((B, h * w, H, D), dtype=torch.float32,
+                            device=ix.device),)
     if B * H * Q == 0:
         return outs, False
     table = [v for (q0, _), qp0 in zip(segs, padded_starts(segs, TQ))
@@ -1071,13 +1145,24 @@ def _bwd_win_launch(name: str, per_point: bool, rows: bool, value_l, bidx, ix,
         stream = torch.cuda.current_stream().cuda_stream
         if rows:
             # K8 takes its lanes' layout as an int array
-            layout = (win_rows_geometry(
+            layout = (win_geometry(
                 B * H, Q, D, P, value_l.element_size(),
                 pointer_alignment(value_l, g)).c_array,) if per_point else ()
             rc = fn(value_l.data_ptr(), bidx.data_ptr(), ix.data_ptr(),
                     iy_band.data_ptr(), aw_eff.data_ptr(), g.data_ptr(),
                     *(t.data_ptr() for t in outs), *geometry,
                     value_l.stride(0), is_bf16, *layout, stream)
+        elif per_point:
+            # K10: its lanes' layout, and the batch stride of its output,
+            # to whose alignment the vector adds keep
+            dv = outs[0]
+            align = pointer_alignment(g, dv)
+            while (dv.stride(0) * 4) % align:
+                align //= 2
+            layout = win_geometry(B * H, Q, D, P, 4, align, "value")
+            rc = fn(bidx.data_ptr(), ix.data_ptr(), iy_band.data_ptr(),
+                    aw_eff.data_ptr(), g.data_ptr(), dv.data_ptr(),
+                    *geometry, dv.stride(0), is_bf16, layout.c_array, stream)
         else:
             rc = fn(bidx.data_ptr(), ix.data_ptr(), iy_band.data_ptr(),
                     aw_eff.data_ptr(), g.data_ptr(), outs[0].data_ptr(),
@@ -1135,27 +1220,39 @@ def msda_bwd_win_value(value_l: torch.Tensor, bidx: torch.Tensor,
 def msda_bwd_win_value_pp(value_l: torch.Tensor, bidx: torch.Tensor,
                           ix: torch.Tensor, iy_band: torch.Tensor,
                           aw_eff: torch.Tensor, g: torch.Tensor, h: int,
-                          w: int, win: int, segs: Segments, Q: int
-                          ) -> torch.Tensor:
+                          w: int, win: int, segs: Segments, Q: int,
+                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`msda_bwd_win_value` with one band per (sampling point, query
-    tile) (``bidx`` [B, H, P, T])."""
+    tile) (``bidx`` [B, H, P, T]). With ``out``, a float32 [B, h*w, H, D]
+    view contiguous within a batch (the level's slice of the layer's
+    gradient), the kernel adds into it and returns it instead of a zeroed
+    buffer of its own."""
     outs, launched = _bwd_win_launch("msda_bwd_win_value_pp", True, False,
                                      value_l, bidx, ix, iy_band, aw_eff, g, h,
-                                     w, win, segs, Q)
+                                     w, win, segs, Q, out)
     launches["msda_bwd_win_value_pp"] += int(launched)
     return outs[0]
 
 
 def msda_bwd_win(value_l: torch.Tensor, bidx: torch.Tensor, ix: torch.Tensor,
                  iy_band: torch.Tensor, aw_eff: torch.Tensor, g: torch.Tensor,
-                 h: int, w: int, win: int, segs: Segments, Q: int
+                 h: int, w: int, win: int, segs: Segments, Q: int,
+                 out: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
     """Both banded backward kernels of one level, per tile or per point as
     ``bidx`` says: ``(dvalue_l, dix, diy, daw)``, the contract of
-    ``msda.msda_bwd_win_plain``."""
+    ``msda.msda_bwd_win_plain``. With ``out`` (see
+    :func:`msda_bwd_win_value_pp`) the value gradient is added into it,
+    which is returned as ``dvalue_l``: by K10 itself, or after K9."""
     per_point = bidx.dim() == 4
     args = (value_l, bidx, ix, iy_band, aw_eff, g, h, w, win, segs, Q)
     rows = msda_bwd_win_rows_pp if per_point else msda_bwd_win_rows
-    value = msda_bwd_win_value_pp if per_point else msda_bwd_win_value
-    return (value(*args), *rows(*args))
+    if per_point:
+        dvalue = msda_bwd_win_value_pp(*args, out=out)
+    else:
+        dvalue = msda_bwd_win_value(*args)
+        if out is not None:
+            check_value_out(out, value_l, int(h), int(w))
+            dvalue = out.add_(dvalue)
+    return (dvalue, *rows(*args))

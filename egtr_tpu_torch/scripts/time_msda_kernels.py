@@ -1,20 +1,23 @@
 """Time the exact MSDA kernels K1 (msda_fwd), K2 (msda_bwd_rows) and K3
-(msda_bwd_value), and the banded row kernel K8 (msda_bwd_win_rows_pp), on
-the card, at the calls that chip_smoke.py holds them to their plain
-versions.
+(msda_bwd_value), and the banded kernels K6 (msda_fwd_win_pp), K8
+(msda_bwd_win_rows_pp) and K10 (msda_bwd_win_value_pp), on the card, at the
+calls that chip_smoke.py holds them to their plain versions.
 
     python egtr_tpu_torch/scripts/time_msda_kernels.py [--root DIR]
-        [--label NAME] [--out FILE] [--ptxas] [--kernels K1,K2,K3,K8]
+        [--label NAME] [--out FILE] [--ptxas]
+        [--kernels K1,K2,K3,K6,K8,K10]
 
 Calls: chip_smoke.py's ``exact_calls()`` (encoder and decoder calls,
 uniform and raster locations, the decoder call at batch 1 and 2, float32
 and bfloat16) in the serving bucket 608x1008 (K1) and the training bucket
 800x1344 (K1, K2 and K3); K3 also at the adaptation step's two calls
 (608x1008, batch 4: the encoder call on its one exact level, the decoder
-call); for K8 the three banded levels of the adaptation's encoder call
-(608x1008, window 16, raster locations, batch 4, float32 and bfloat16), as
-chip_smoke.py's phase 12 makes them. Per call and kernel it prints one JSON
-line:
+call); for K8 and K10 the three banded levels of the adaptation's encoder
+call (608x1008, window 16, raster locations, batch 4, float32 and bfloat16),
+as chip_smoke.py's phase 12 makes them; for K6 the three banded levels of
+the served encoder call (608x1008, window 16, raster locations, batch 1, in
+float32, bfloat16 and int8; bfloat16 also at batch 4), as phase 6 makes
+them. Per call and kernel it prints one JSON line:
 
 - ``ms``: CUDA events around ITERS calls of the wrapper (what
   chip_smoke.py reports: at the decoder calls the host's wrapper time
@@ -35,8 +38,16 @@ line:
   0 or 200 KiB of them: every level through global memory, or the two
   coarsest) and ``graph_ms_by_private_threads`` (with blocks of 512 or
   1024 threads where a level is kept);
-- K8: one line per banded level and one that sums them (``level``
-  "sum");
+- K6, K8, K10: one line per banded level and one that sums them
+  (``level`` "sum"), with the level's clamped share of the in-image samples;
+- K10: ``run_to_run_max_abs_diff``; ``zero_graph_ms`` and
+  ``copy_graph_ms``, the device time of zeroing a float32 [B, h*w, H, D]
+  buffer and of copying it into the level's slice of the layer's value
+  gradient, which a wrapper that returns a fresh buffer costs the path
+  (``msda._windowed_backward``) on top of its own ``graph_ms``;
+  ``path_graph_ms``, the device time the path pays a level (the wrapper and,
+  where it returns a fresh buffer, the copy; where the wrapper takes
+  ``out``, it adds into that slice and ``graph_ms`` is all);
 - where the checkout has ``msda_cuda.launch_geometry``: ``geometry_us``
   (the host time per call of what the wrapper does for the launch
   geometry: the pointers' alignment, the cached geometry, its int array);
@@ -51,7 +62,7 @@ parent commit, unpacked under the git-ignored ``build/``) is timed by the
 same code. Run the two in turns in one call on one card (parent, change,
 change, parent) and compare only there. ``--ptxas`` first prints what
 ``nvcc -Xptxas -v`` says of the sources (registers, spills).
-``--kernels`` times a subset (default all four).
+``--kernels`` times a subset (default all six).
 """
 
 from __future__ import annotations
@@ -70,7 +81,7 @@ from unittest import mock
 REPO = Path(__file__).resolve().parents[2]
 ITERS = 100  # wrapper calls per CUDA-event timing, as chip_smoke.py's K1
 WALKS = (1, 2, 4, 8)
-KERNELS = ("K1", "K2", "K3", "K8")
+KERNELS = ("K1", "K2", "K3", "K6", "K8", "K10")
 # K3's shared-memory caps timed beside the default (msda_cuda.PRIVATE_BYTES,
 # the coarsest level): none, and the two coarsest (200 KiB)
 PRIVATE_CAPS = (0, 200 * 1024)
@@ -99,7 +110,8 @@ def _chip_smoke():
 
 
 def ptxas_report(root: Path, nvcc: str) -> None:
-    for name in ("msda_fwd.cu", "msda_bwd.cu", "msda_bwd_win.cu"):
+    for name in ("msda_fwd.cu", "msda_bwd.cu", "msda_fwd_win.cu",
+                 "msda_bwd_win.cu"):
         src = root / "egtr_tpu_torch" / "csrc" / name
         with tempfile.TemporaryDirectory() as tmp:
             out = subprocess.run(
@@ -233,6 +245,34 @@ def adaptation_value_rows(msda_cuda, smoke, torch) -> list:
     return out
 
 
+def _level_rows(smoke, kernel, call, batch, dtype, shapes, make,
+                time_level):
+    """One line per banded level of ``shapes`` and one summing them:
+    ``make(lid)`` gives the level's (args, clamped share), ``time_level``
+    the line's timings."""
+    total = {"kernel": kernel, "call": call, "level": "sum", "batch": batch,
+             "dtype": dtype}
+    out = []
+    for lid, (h, _) in enumerate(shapes):
+        if h <= smoke.WINDOW:
+            continue
+        args, clamped = make(lid)
+        row = {"kernel": kernel, "call": call, "level": lid, "batch": batch,
+               "dtype": dtype, "clamped_share": clamped, **time_level(args)}
+        out.append(row)
+        for key, v in row.items():
+            if key in ("level", "batch", "clamped_share"):
+                continue
+            if isinstance(v, bool):
+                total[key] = total.get(key, True) and v
+            elif isinstance(v, float):
+                if key == "run_to_run_max_abs_diff":
+                    total[key] = max(total.get(key, 0.0), v)
+                else:
+                    total[key] = total.get(key, 0.0) + v
+    return out + [total]
+
+
 def banded_rows(msda_cuda, smoke, torch) -> list:
     """K8 on the three banded levels of the adaptation's encoder call, per
     level and summed, in float32 and bfloat16."""
@@ -245,29 +285,107 @@ def banded_rows(msda_cuda, smoke, torch) -> list:
         value, loc, aw = smoke.raster_inputs(shapes, dtype, seed=700 + n,
                                              batch=batch)
         g = smoke.grad_output(batch, value.shape[1], dtype, 710 + n)
-        total = {"kernel": "msda_bwd_win_rows_pp", "call": "adaptation",
-                 "level": "sum", "batch": batch, "dtype": str(dtype)[6:],
-                 "ms": 0.0, "graph_ms": 0.0, "host_us": 0.0,
-                 "bit_equal": True}
-        for lid, (h, _) in enumerate(shapes):
-            if h <= smoke.WINDOW:
-                continue
-            args, _ = smoke._banded_bwd_args(value, loc, aw, g, shapes, lid,
-                                             True)
+
+        def time_level(args):
             fn = lambda: msda_cuda.msda_bwd_win_rows_pp(*args)
             first, second = fn(), fn()
-            row = {"kernel": "msda_bwd_win_rows_pp", "call": "adaptation",
-                   "level": lid, "batch": batch, "dtype": str(dtype)[6:],
-                   "ms": smoke.cuda_ms(fn, ITERS),
-                   "graph_ms": smoke.graph_ms(fn),
-                   "host_us": host_us(fn, torch),
-                   "bit_equal": all(torch.equal(x, y)
-                                    for x, y in zip(first, second))}
-            out.append(row)
-            for key in ("ms", "graph_ms", "host_us"):
-                total[key] += row[key]
-            total["bit_equal"] &= row["bit_equal"]
-        out.append(total)
+            return {"ms": smoke.cuda_ms(fn, ITERS),
+                    "graph_ms": smoke.graph_ms(fn),
+                    "host_us": host_us(fn, torch),
+                    "bit_equal": all(torch.equal(x, y)
+                                     for x, y in zip(first, second))}
+
+        out += _level_rows(
+            smoke, "msda_bwd_win_rows_pp", "adaptation", batch, str(dtype)[6:],
+            shapes, lambda lid: smoke._banded_bwd_args(
+                value, loc, aw, g, shapes, lid, True), time_level)
+    return out
+
+
+def banded_value_rows(msda_cuda, smoke, torch) -> list:
+    """K10 on the three banded levels of the adaptation's encoder call, per
+    level and summed, in float32 and bfloat16: into the level's slice of a
+    zeroed [B, S, H, D] gradient where the wrapper takes ``out``, else into
+    the fresh buffer it returns."""
+    import inspect
+    from egtr_tpu_torch.models.detr import level_shapes
+    from egtr_tpu_torch.scripts import perf_train_step
+    shapes = level_shapes(perf_train_step.ADAPT_HW, smoke.L)
+    starts = [0]
+    for h, w in shapes:
+        starts.append(starts[-1] + h * w)
+    batch = perf_train_step.ADAPT_BATCH
+    kernel = msda_cuda.msda_bwd_win_value_pp
+    takes_out = "out" in inspect.signature(kernel).parameters
+    out = []
+    for n, dtype in enumerate((torch.float32, torch.bfloat16)):
+        value, loc, aw = smoke.raster_inputs(shapes, dtype, seed=740 + n,
+                                             batch=batch)
+        g = smoke.grad_output(batch, value.shape[1], dtype, 750 + n)
+        dvalue = torch.zeros(value.shape, dtype=torch.float32,
+                             device=value.device)
+
+        def time_level(args):
+            h, w = args[6], args[7]
+            lid = next(l for l, hw in enumerate(shapes) if hw == (h, w))
+            sl = dvalue[:, starts[lid]:starts[lid + 1]]
+            if takes_out:
+                fn = lambda: kernel(*args, out=sl)
+                path = fn
+            else:
+                fn = lambda: kernel(*args)
+                path = lambda: sl.copy_(kernel(*args))
+            runs = []
+            for _ in range(2):
+                sl.zero_()
+                runs.append(fn().clone())
+            buf = torch.zeros_like(runs[0])
+            return {"ms": smoke.cuda_ms(fn, ITERS),
+                    "graph_ms": smoke.graph_ms(fn),
+                    "path_graph_ms": smoke.graph_ms(path),
+                    "zero_graph_ms": smoke.graph_ms(
+                        lambda: torch.zeros_like(buf)),
+                    "copy_graph_ms": smoke.graph_ms(lambda: sl.copy_(buf)),
+                    "host_us": host_us(fn, torch),
+                    "takes_out": takes_out,
+                    "run_to_run_max_abs_diff":
+                        (runs[0] - runs[1]).abs().max().item()}
+
+        out += _level_rows(
+            smoke, "msda_bwd_win_value_pp", "adaptation", batch, str(dtype)[6:],
+            shapes, lambda lid: smoke._banded_bwd_args(
+                value, loc, aw, g, shapes, lid, True), time_level)
+    return out
+
+
+def banded_fwd_rows(msda_cuda, smoke, torch) -> list:
+    """K6 on the three banded levels of the served encoder call (batch 1,
+    raster locations, float32, bfloat16 and int8 values; bfloat16 also at
+    batch 4), per level and summed."""
+    from egtr_tpu_torch import infer
+    from egtr_tpu_torch.models.detr import level_shapes
+    shapes = level_shapes(infer.BUCKET_HW, smoke.L)
+    out = []
+    for n, (form, dtype, int8, batch) in enumerate((
+            ("float32", torch.float32, False, 1),
+            ("bfloat16", torch.bfloat16, False, 1),
+            ("int8", torch.bfloat16, True, 1),
+            ("bfloat16", torch.bfloat16, False, 4))):
+        value, loc, aw = smoke.raster_inputs(shapes, dtype, seed=760 + n,
+                                             batch=batch)
+
+        def time_level(args):
+            fn = lambda: msda_cuda.msda_fwd_win_pp(*args)
+            first, second = fn(), fn()
+            return {"ms": smoke.cuda_ms(fn, ITERS),
+                    "graph_ms": smoke.graph_ms(fn),
+                    "host_us": host_us(fn, torch),
+                    "bit_equal": torch.equal(first, second)}
+
+        out += _level_rows(
+            smoke, "msda_fwd_win_pp", "serving", batch, form, shapes,
+            lambda lid: smoke._banded_level_args(value, loc, aw, shapes, lid,
+                                                 True, int8), time_level)
     return out
 
 
@@ -303,6 +421,8 @@ def main(argv=None) -> int:
         lines.append(row)
 
     for bucket, shapes in buckets.items():
+        if not wanted & {"K1", "K2", "K3"}:
+            break
         for n, (call, batch, dtype) in enumerate(smoke.exact_calls()):
             Q, value, loc, aw = smoke.exact_call_inputs(shapes, call, batch,
                                                         dtype, n)
@@ -346,9 +466,11 @@ def main(argv=None) -> int:
     if "K3" in wanted:
         for row in adaptation_value_rows(msda_cuda, smoke, torch):
             emit(row)
-    if "K8" in wanted:
-        for row in banded_rows(msda_cuda, smoke, torch):
-            emit(row)
+    for name, table in (("K6", banded_fwd_rows), ("K8", banded_rows),
+                        ("K10", banded_value_rows)):
+        if name in wanted:
+            for row in table(msda_cuda, smoke, torch):
+                emit(row)
     if args.out:
         with open(args.out, "a") as f:
             for row in lines:

@@ -81,6 +81,11 @@ def fake_card(monkeypatch, tmp_path):
 
     def fwd_win_pp(*args):
         msda_cuda.check_inputs_win(*args, per_point=True)
+        # the launch the kernel would take at these shapes
+        value_l, ix = args[0], args[2]
+        msda_cuda.win_geometry(ix.shape[0] * ix.shape[1], args[-1],
+                               value_l.shape[3], ix.shape[2],
+                               value_l.element_size(), form="fwd")
         msda_cuda.launches["msda_fwd_win_pp"] += 1
         return msda.msda_fwd_win_plain(*args)
 
@@ -104,16 +109,22 @@ def fake_card(monkeypatch, tmp_path):
                                              levels, out_dtype)[0]
 
     def bwd_win(name, per_point, part):
-        def kernel(*args):
+        def kernel(*args, out=None):
             msda_cuda.check_inputs_bwd_win(*args, per_point=per_point)
-            if name == "msda_bwd_win_rows_pp":
-                value_l, ix = args[0], args[2]
-                msda_cuda.win_rows_geometry(
+            value_l, ix = args[0], args[2]
+            if per_point:
+                msda_cuda.win_geometry(
                     ix.shape[0] * ix.shape[1], args[-1], value_l.shape[3],
-                    ix.shape[2], value_l.element_size())
+                    ix.shape[2], value_l.element_size(), form=part)
             msda_cuda.launches[name] += 1
-            out = msda.msda_bwd_win_plain(*args)
-            return out[0] if part == "value" else out[1:]
+            grads = msda.msda_bwd_win_plain(*args)
+            if part == "rows":
+                return grads[1:]
+            if out is None:
+                return grads[0]
+            # K10 adds into the caller's slice of the layer's gradient
+            msda_cuda.check_value_out(out, value_l, args[6], args[7])
+            return out.add_(grads[0])
         return kernel
 
     bench_config = infer.bench_config
@@ -298,6 +309,14 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
     # K7 and K8 bit-equal over two runs, timed in a CUDA graph too
     assert k8["bit_equal_run_to_run"] and k7["bit_equal_run_to_run"]
     assert k8["graph_ms"] > 0
+    # K9 and K10 in a CUDA graph too, K10 adding into a layer's gradient
+    assert k10["graph_ms"] > 0 and k10["graph_ms_float32"] > 0
+    assert all(c["value_graph_ms"] > 0 for c in k9["calls"] + k10["calls"])
+    # K5 and K6: bit-equal over two runs, in a CUDA graph per value type
+    for k in (win, win_pp):
+        assert k["bit_equal_run_to_run"] and k["graph_ms"] > 0
+        assert {"graph_ms_float32", "graph_ms_bfloat16",
+                "graph_ms_int8"} <= set(k)
     assert set(result["train_adaptation"]) == {"point", "tile", "point_int8"}
     assert result["train_f32"]["adaptation"]["band_indices"] > 0
     assert "nudged_pixels_max_grad_rel_change" in result["train_f32"]["exact"]

@@ -21,8 +21,12 @@ lanes, and the C side's refusal of a geometry that misses work; and for the valu
 gradient (K3) with its adds through global memory and through a block's
 shared copies (head dims 8 to 256, a batch of 2, pixel centres and the
 map's edges, a level subset with float32 out, narrow loads, refusals) and
-the per-point banded row kernel (K8) on segments that split a warp's
-queries, bit-equal over two runs, and refusals. On a GPU
+the per-point banded kernels in their Hopper layout (K6 forward, K8 rows,
+K10 value) on segments that split a warp's queries, windows 8 and 32, bands
+at the top and bottom edge, an overhanging last band, batch 2, loads and
+adds narrowed by an unaligned pointer in every form, K10 adding into a
+slice of a layer's gradient, K6 and K8 bit-equal over two runs, and
+refusals. On a GPU
 machine without JAX, run them without the suite's conftest (which imports
 JAX):
 
@@ -1161,7 +1165,7 @@ def test_k8_bit_equal_and_matches_plain(cuda, D, dtype):
         if h <= 8:
             continue
         args = _banded_bwd_args(value, loc, aw, g, shapes, lid, 8, True)
-        geom = msda_cuda.win_rows_geometry(
+        geom = msda_cuda.win_geometry(
             B * H, S, D, 4, value.element_size(),
             msda_cuda.pointer_alignment(args[0], g))
         assert any(q0 % geom.queries for q0, _ in args[9][1:]) or (
@@ -1174,8 +1178,8 @@ def test_k8_bit_equal_and_matches_plain(cuda, D, dtype):
 
 
 def test_k8_refuses_a_geometry_that_misses_work(cuda, monkeypatch):
-    """msda_bwd_win.cu's win_geometry_ok refuses what the CPU tests' model
-    of it refuses."""
+    """msda_band.cuh's win_geometry_ok refuses what the CPU tests' model of
+    it refuses."""
     from test_torch_msda_geometry import _accepted_win
 
     shapes = ((24, 16), (12, 8))
@@ -1183,7 +1187,7 @@ def test_k8_refuses_a_geometry_that_misses_work(cuda, monkeypatch):
     g = torch.randn((1, value.shape[1], 64), device=cuda)
     args = _banded_bwd_args(value, loc, aw, g, shapes, 0, 8, True)
     Q = args[-1]
-    geom = msda_cuda.win_rows_geometry(2, Q, 32, 4, 4)
+    geom = msda_cuda.win_geometry(2, Q, 32, 4, 4)
     bad = [replace(geom, blocks=geom.blocks - 1),
            replace(geom, blocks=geom.blocks + 1),
            replace(geom, passes=geom.passes - 1),
@@ -1192,7 +1196,195 @@ def test_k8_refuses_a_geometry_that_misses_work(cuda, monkeypatch):
            replace(geom, threads=512)]
     for geometry in bad:
         assert not _accepted_win(geometry, 2, Q, 32, 4, 4)
-        monkeypatch.setattr(msda_cuda, "win_rows_geometry",
+        monkeypatch.setattr(msda_cuda, "win_geometry",
                             lambda *a, geometry=geometry: geometry)
         with pytest.raises(RuntimeError, match="launch failed"):
             msda_cuda.msda_bwd_win_rows_pp(*args)
+
+
+# --------------------------------------------------------------------------
+# K6 (msda_fwd_win_pp) and K10 (msda_bwd_win_value_pp) in their Hopper
+# layout
+# --------------------------------------------------------------------------
+
+# segments that do not fall on a warp's query boundary (231, 77, 18
+# queries), a last band that overhangs at window 8 (h = 21) and a level at
+# window 32 of two bands
+K6_K10_CASES = {"w8": (8, ((21, 11), (11, 7), (6, 3))),
+                "w32": (32, ((70, 9), (35, 5)))}
+
+
+def _unaligned(t, offset):
+    """``t``'s values in a tensor whose storage starts ``offset`` elements
+    into an allocation (its data pointer off the 16-byte alignment)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _k6_level_args(value, loc, aw, shapes, lid, window, int8):
+    value_l, bidx, ix, iy_band, aw_eff, _, h, w, win, segs, Q = (
+        _banded_bwd_args(value, loc, aw, None, shapes, lid, window, True))
+    if int8:
+        vq, scale = msda.quantize_levels(value, shapes)
+        start = msda.level_starts(shapes)[lid]
+        value_l = vq[:, start:start + h * w]
+        aw_eff = aw_eff * scale[:, :, lid, None, None]
+    return value_l, bidx, ix, iy_band, aw_eff, h, w, win, segs, Q
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("D", [8, 32, 48, 64])
+@pytest.mark.parametrize("case", sorted(K6_K10_CASES))
+def test_k6_bit_equal_and_matches_plain(cuda, case, D, form):
+    """K6 on every banded level of a raster call at batch 2 (the first and
+    last tiles' bands at the top and bottom edge): against the plain
+    version, bit-equal over two runs, one launch a call."""
+    window, shapes = K6_K10_CASES[case]
+    dtype = torch.float32 if form == "f32" else torch.bfloat16
+    value, loc, aw = _raster(cuda, dtype, shapes, 2, 2, D)
+    for lid, (h, _) in enumerate(shapes):
+        if h <= window:
+            continue
+        args = _k6_level_args(value, loc, aw, shapes, lid, window,
+                              form == "int8")
+        before = _counts()
+        got = msda_cuda.msda_fwd_win_pp(*args)
+        assert _counts() == [b + (c == "msda_fwd_win_pp")
+                             for b, c in zip(before, COUNTERS)]
+        assert torch.equal(got, msda_cuda.msda_fwd_win_pp(*args))
+        _assert_f32_close(got, msda.msda_fwd_win_plain(*args))
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def test_k6_unaligned_values_match_plain(cuda, offset, form):
+    """K6 with its values' pointer off the 16-byte alignment: narrower
+    loads (down to one channel a lane), the same function."""
+    window, shapes = K6_K10_CASES["w8"]
+    dtype = torch.float32 if form == "f32" else torch.bfloat16
+    value, loc, aw = _raster(cuda, dtype, shapes, 2, 2, 32)
+    args = list(_k6_level_args(value, loc, aw, shapes, 0, window,
+                               form == "int8"))
+    args[0] = _unaligned(args[0], offset)
+    geom = msda_cuda.win_geometry(
+        4, args[-1], 32, 4, args[0].element_size(),
+        msda_cuda.pointer_alignment(args[0]), "fwd")
+    assert geom.vec * args[0].element_size() <= offset * args[0].element_size()
+    _assert_f32_close(msda_cuda.msda_fwd_win_pp(*args),
+                      msda.msda_fwd_win_plain(*args))
+
+
+@pytest.mark.parametrize("P", [1, 3, 8])
+def test_k6_points_without_a_fold(cuda, P):
+    """K6 where P does not divide the samples a pass holds (3; 8 at D = 64
+    in float32) and where a query has one point: the lane walks its
+    query's points, or folds them, with the same function."""
+    window, shapes = K6_K10_CASES["w8"]
+    value, loc, aw = _raster(cuda, torch.float32, shapes, 2, 2, 64, P=P)
+    args = _k6_level_args(value, loc, aw, shapes, 0, window, False)
+    geom = msda_cuda.win_geometry(4, args[-1], 64, P, 4, form="fwd")
+    assert geom.fold == int(P == 1)
+    got = msda_cuda.msda_fwd_win_pp(*args)
+    assert torch.equal(got, msda_cuda.msda_fwd_win_pp(*args))
+    _assert_f32_close(got, msda.msda_fwd_win_plain(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [8, 32, 48, 64])
+@pytest.mark.parametrize("case", sorted(K6_K10_CASES))
+def test_k10_adds_into_a_slice_and_matches_plain(cuda, case, D, dtype):
+    """K10 on every banded level of a raster call at batch 2: into a fresh
+    buffer and into the level's slice of a [B, S, H, D] float32 gradient
+    that already holds values (it adds; the rest of the gradient is not
+    touched), against the plain version; two runs differ in the last bits
+    at most."""
+    window, shapes = K6_K10_CASES[case]
+    value, loc, aw = _raster(cuda, dtype, shapes, 2, 2, D)
+    B, S, H, _ = value.shape
+    g = torch.randn((B, S, H * D), device=cuda).to(dtype)
+    starts = msda.level_starts(shapes)
+    for lid, (h, w) in enumerate(shapes):
+        if h <= window:
+            continue
+        args = _banded_bwd_args(value, loc, aw, g, shapes, lid, window, True)
+        ref = msda.msda_bwd_win_plain(*args)[0]
+        fresh = msda_cuda.msda_bwd_win_value_pp(*args)
+        _assert_win_bwd_close((fresh,), (ref,), dtype)
+        torch.testing.assert_close(fresh, msda_cuda.msda_bwd_win_value_pp(
+            *args), atol=1e-5, rtol=1e-5)
+        held = torch.randn((B, S, H, D), device=cuda)
+        dvalue = held.clone()
+        level = slice(starts[lid], starts[lid] + h * w)
+        before = _counts()
+        got = msda_cuda.msda_bwd_win_value_pp(*args, out=dvalue[:, level])
+        assert _counts() == [b + (c == "msda_bwd_win_value_pp")
+                             for b, c in zip(before, COUNTERS)]
+        assert got.data_ptr() == dvalue[:, level].data_ptr()
+        _assert_win_bwd_close((dvalue[:, level] - held[:, level],), (ref,),
+                              dtype)
+        rest = torch.ones(S, dtype=torch.bool, device=cuda)
+        rest[level] = False
+        assert torch.equal(dvalue[:, rest], held[:, rest])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("offset", [1, 2])
+def test_k10_unaligned_pointers_match_plain(cuda, offset, dtype):
+    """K10 with g, or the gradient it adds into, off the 16-byte alignment:
+    narrower adds, the same function."""
+    window, shapes = K6_K10_CASES["w8"]
+    value, loc, aw = _raster(cuda, dtype, shapes, 2, 2, 32)
+    B, S, H, D = value.shape
+    g = torch.randn((B, S, H * D), device=cuda).to(dtype)
+    args = list(_banded_bwd_args(value, loc, aw, g, shapes, 0, window, True))
+    h, w = shapes[0]
+    ref = msda.msda_bwd_win_plain(*args)[0]
+    args[5] = _unaligned(g, offset)
+    _assert_win_bwd_close((msda_cuda.msda_bwd_win_value_pp(*args),), (ref,),
+                          dtype)
+    dvalue = _unaligned(torch.zeros((B, S, H, D), device=cuda), offset)
+    msda_cuda.msda_bwd_win_value_pp(*args, out=dvalue[:, :h * w])
+    _assert_win_bwd_close((dvalue[:, :h * w],), (ref,), dtype)
+
+
+def test_k6_k10_refuse_a_geometry_that_misses_work(cuda, monkeypatch):
+    """msda_band.cuh's win_geometry_ok refuses for K6 and K10 what the CPU
+    tests' model of it refuses; K10 refuses an output that is not a float32
+    [B, h*w, H, D] view contiguous within a batch."""
+    from test_torch_msda_geometry import _accepted_win
+
+    shapes = ((24, 16), (12, 8))
+    value, loc, aw = _raster(cuda, torch.bfloat16, shapes, 1, 2, 32)
+    g = torch.randn((1, value.shape[1], 64), device=cuda).bfloat16()
+    args = _banded_bwd_args(value, loc, aw, g, shapes, 0, 8, True)
+    fwd_args = (*args[:5], *args[6:])
+    Q = args[-1]
+    real = msda_cuda.win_geometry
+    for form, call, es in (
+            ("fwd", lambda: msda_cuda.msda_fwd_win_pp(*fwd_args), 2),
+            ("value", lambda: msda_cuda.msda_bwd_win_value_pp(*args), 4)):
+        geom = real(2, Q, 32, 4, 2, form=form)
+        bad = [replace(geom, blocks=geom.blocks - 1),
+               replace(geom, passes=geom.passes - 1),
+               replace(geom, queries=geom.queries * 2),
+               replace(geom, groups=geom.groups + 1),
+               replace(geom, fold=2 if form == "fwd" else 1),
+               replace(geom, vec=8, groups=4, lps_log2=2) if form == "value"
+               else replace(geom, threads=512)]
+        for geometry in bad:
+            assert not _accepted_win(geometry, 2, Q, 32, 4, es, form)
+            monkeypatch.setattr(msda_cuda, "win_geometry",
+                                lambda *a, geometry=geometry: geometry)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                call()
+        monkeypatch.setattr(msda_cuda, "win_geometry", real)
+    h, w = shapes[0]
+    good = torch.zeros((1, h * w, 2, 32), device=cuda)
+    for out in (good.bfloat16(), good[:, :-1], good.cpu(),
+                good.transpose(2, 3).contiguous().transpose(2, 3)):
+        with pytest.raises(ValueError, match="out must be"):
+            msda_cuda.msda_bwd_win_value_pp(*args, out=out)

@@ -1,7 +1,7 @@
 """The launch geometry of the exact forward (K1, msda_fwd), the backward
 row kernel (K2, msda_bwd_rows), the value-gradient kernel (K3,
-msda_bwd_value) and the banded row kernel (K8, msda_bwd_win_rows_pp), on
-the CPU.
+msda_bwd_value) and the per-point banded kernels (K6, msda_fwd_win_pp; K8,
+msda_bwd_win_rows_pp; K10, msda_bwd_win_value_pp), on the CPU.
 
 ``msda_cuda.launch_geometry`` decides how a warp's lanes split over
 (sample, channel group), the vector width of a corner load, the passes,
@@ -14,8 +14,11 @@ once, that the sources' own geometry check would accept the launch, and
 that the geometry depends on the row count B*Q*H only. K3's blocks over
 (batch, head, query chunk) and its split of the adds between the block's
 shared copies and global memory are emulated too, and its float64 split
-sum is held to the plain backward; K8's lanes over (query, point, channel
-group) are mapped through the segment table onto the padded rows.
+sum is held to the plain backward; the lanes of K6, K8 and K10 over (query,
+point, channel group) are mapped through the segment table onto the padded
+rows, K6's fold of a query's points over its lanes is held to the plain
+forward, and K10's hand-out of a sample's geometry is walked as the kernel
+walks it.
 """
 
 from dataclasses import replace
@@ -208,23 +211,29 @@ def test_vector_width_follows_D_and_the_alignment():
 
 
 def test_the_shared_header_keys_both_libraries(tmp_path, monkeypatch):
-    """msda_fwd.cu, msda_bwd.cu and msda_bwd_win.cu include msda_geom.cuh:
-    an edited header builds all three libraries anew, under new names."""
+    """msda_fwd.cu and msda_bwd.cu include msda_geom.cuh, msda_fwd_win.cu
+    and msda_bwd_win.cu include it through msda_band.cuh: an edited header
+    builds all four libraries anew, under new names."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
-    sources = {"msda_fwd": "SOURCE", "msda_bwd": "SOURCE_BWD",
-               "msda_bwd_win": "SOURCE_BWD_WIN"}
-    for name in (*(f"{n}.cu" for n in sources), "msda_geom.cuh"):
+    sources = {"msda_fwd": ("SOURCE", "msda_geom.cuh"),
+               "msda_bwd": ("SOURCE_BWD", "msda_geom.cuh"),
+               "msda_fwd_win": ("SOURCE_WIN", "msda_band.cuh"),
+               "msda_bwd_win": ("SOURCE_BWD_WIN", "msda_band.cuh")}
+    for name in (*(f"{n}.cu" for n in sources), "msda_geom.cuh",
+                 "msda_band.cuh"):
         (csrc / name).write_text((msda_cuda._CSRC / name).read_text())
+    assert '#include "msda_geom.cuh"' in (csrc / "msda_band.cuh").read_text()
     monkeypatch.setattr(msda_cuda, "_CSRC", csrc)
-    for lib, attr in sources.items():
-        assert '#include "msda_geom.cuh"' in (csrc / f"{lib}.cu").read_text()
+    for lib, (attr, header) in sources.items():
+        assert f'#include "{header}"' in (csrc / f"{lib}.cu").read_text()
         monkeypatch.setattr(msda_cuda, attr, csrc / f"{lib}.cu")
-    before = {n: msda_cuda.library_path(n) for n in sources}
-    with open(csrc / "msda_geom.cuh", "a") as f:
-        f.write("// edited\n")
-    after = {n: msda_cuda.library_path(n) for n in sources}
-    assert all(before[n] != after[n] for n in before)
+    for header in ("msda_geom.cuh", "msda_band.cuh"):
+        before = {n: msda_cuda.library_path(n) for n in sources}
+        with open(csrc / header, "a") as f:
+            f.write("// edited\n")
+        after = {n: msda_cuda.library_path(n) for n in sources}
+        assert all(before[n] != after[n] for n in before)
 
 
 # --------------------------------------------------------------------------
@@ -451,39 +460,59 @@ def test_value_split_sum_matches_plain(private, raster, levels):
 
 
 # --------------------------------------------------------------------------
-# K8 (msda_bwd_win_rows_pp): lanes over (query, point, channel group)
+# K6 (msda_fwd_win_pp), K8 (msda_bwd_win_rows_pp) and K10
+# (msda_bwd_win_value_pp): lanes over (query, point, channel group)
 # --------------------------------------------------------------------------
 
-def _accepted_win(geom, BH, Q, D, P_, element_size):
-    """msda_bwd_win.cu's ``win_geometry_ok`` in Python."""
-    lps = geom.lanes_per_sample
+# a channel as a lane loads it, by the banded kernels' value types
+WIN_ELEMENT_SIZE = {"f32": 4, "bf16": 2, "int8": 1}
+
+
+def _accepted_win(geom, BH, Q, D, P_, element_size, form="rows"):
+    """msda_band.cuh's ``win_geometry_ok`` in Python (``element_size`` 4
+    for K10, whose adds are float32)."""
+    lps, spp = geom.lanes_per_sample, geom.samples_per_pass
     n_warps = BH * -(-Q // geom.queries)
     per_block = geom.threads // 32
-    return (0 <= geom.lps_log2 <= 5
+    samples = geom.queries * (1 if form == "fwd" and not geom.fold else P_)
+    return (0 <= geom.lps_log2 <= 5 and P_ >= 1
             and geom.vec >= 1 and geom.vec * element_size <= 16
             and geom.vec & (geom.vec - 1) == 0
             and geom.groups * geom.vec == D
             and geom.chunks * lps >= geom.groups
             and (geom.chunks - 1) * lps < geom.groups
+            and (geom.fold == 0 or (form == "fwd" and geom.fold == 1
+                                    and spp % P_ == 0))
             and geom.queries >= 1 and geom.passes >= 0
-            and geom.passes * geom.samples_per_pass >= geom.queries * P_
+            and geom.passes * spp >= samples
             and 32 <= geom.threads <= 256 and geom.threads % 32 == 0
             and geom.blocks >= 1 and geom.blocks * per_block >= n_warps
             and (geom.blocks - 1) * per_block < n_warps)
 
 
-def _k8_entries(geom, BH, Q, D, P_, segs, TQ):
-    """(row entry, channel) of every lane, pass and chunk of K8 that has
-    work, as the kernel maps them: warp -> (b * H + head, first query),
-    sample k of the warp -> (query first + k // P, point k % P), the query
-    to its padded row through the segment table."""
+def _padded(q, segs, TQ):
+    """A query's padded row through the segment table."""
     starts = padded_starts(segs, TQ)
-    Qp = starts[-1]
+    q_starts = np.array([q0 for q0, _ in segs])
+    seg = np.searchsorted(q_starts, q, side="right") - 1
+    return np.array(starts[:-1])[seg] + (q - q_starts[seg])
+
+
+def _warps(geom, BH, Q):
+    """(b * H + head, first query) of every warp that has work."""
     per_bh = -(-Q // geom.queries)
-    n_warps = geom.blocks * geom.threads // 32
-    warp = np.arange(n_warps)
+    warp = np.arange(geom.blocks * geom.threads // 32)
     warp = warp[warp < BH * per_bh]
-    bh, q0 = warp // per_bh, (warp % per_bh) * geom.queries
+    return warp // per_bh, (warp % per_bh) * geom.queries
+
+
+def _k8_entries(geom, BH, Q, D, P_, segs, TQ):
+    """(row entry, channel) of every lane, pass and chunk of K8 (and of
+    K6 with ``fold``) that has work, as the kernel maps them: warp -> (b *
+    H + head, first query), sample k of the warp -> (query first + k // P,
+    point k % P), the query to its padded row through the segment table."""
+    Qp = padded_starts(segs, TQ)[-1]
+    bh, q0 = _warps(geom, BH, Q)
     sample, first = _samples_and_channels(geom, geom.queries * P_)
     q = q0[:, None] + sample[None, :] // P_
     p = np.broadcast_to(sample % P_, q.shape)
@@ -491,11 +520,20 @@ def _k8_entries(geom, BH, Q, D, P_, segs, TQ):
     bh = np.broadcast_to(bh[:, None], q.shape)
     keep = q < Q
     q, p, first, bh = q[keep], p[keep], first[keep], bh[keep]
-    q_starts = np.array([q0 for q0, _ in segs])
-    seg = np.searchsorted(q_starts, q, side="right") - 1
-    qp = np.array(starts[:-1])[seg] + (q - q_starts[seg])
-    entry = (bh * P_ + p) * Qp + qp
+    entry = (bh * P_ + p) * Qp + _padded(q, segs, TQ)
     return entry, first, Qp
+
+
+def _assert_rows_once(entry, first, geom, BH, D, P_, segs, TQ, Qp):
+    """Every real row and channel taken once, no padding row."""
+    channel = (first[:, None] + np.arange(geom.vec)).reshape(-1)
+    count = np.bincount(np.repeat(entry, geom.vec) * D + channel,
+                        minlength=BH * P_ * Qp * D).reshape(BH, P_, Qp, D)
+    real = np.zeros(Qp, dtype=bool)
+    for (_, qs), qp0 in zip(segs, padded_starts(segs, TQ)):
+        real[qp0:qp0 + qs] = True
+    assert (count[:, :, real] == 1).all()
+    assert (count[:, :, ~real] == 0).all()
 
 
 @pytest.mark.parametrize("D,dtype", [(32, "bf16"), (32, "f32"), (8, "bf16"),
@@ -512,17 +550,10 @@ def test_k8_lane_map_covers_rows_once(D, dtype, TQ):
     segs = segment_bounds(Q, shapes)
     es = ELEMENT_SIZE[dtype]
     BH = 2
-    geom = msda_cuda.win_rows_geometry(BH, Q, D, P, es)
+    geom = msda_cuda.win_geometry(BH, Q, D, P, es)
     assert _accepted_win(geom, BH, Q, D, P, es)
     entry, first, Qp = _k8_entries(geom, BH, Q, D, P, segs, TQ)
-    channel = (first[:, None] + np.arange(geom.vec)).reshape(-1)
-    count = np.bincount(np.repeat(entry, geom.vec) * D + channel,
-                        minlength=BH * P * Qp * D).reshape(BH, P, Qp, D)
-    real = np.zeros(Qp, dtype=bool)
-    for (_, qs), qp0 in zip(segs, padded_starts(segs, TQ)):
-        real[qp0:qp0 + qs] = True
-    assert (count[:, :, real] == 1).all()
-    assert (count[:, :, ~real] == 0).all()
+    _assert_rows_once(entry, first, geom, BH, D, P, segs, TQ, Qp)
 
 
 @pytest.mark.parametrize("Q,P_", [(1, 4), (7, 4), (129, 4), (33, 8), (5, 1),
@@ -537,7 +568,7 @@ def test_k8_geometry_at_odd_shapes(Q, P_):
             for align in (16, 8, 4, 2):
                 if align < es:
                     continue
-                geom = msda_cuda.win_rows_geometry(3, Q, D, P_, es, align)
+                geom = msda_cuda.win_geometry(3, Q, D, P_, es, align)
                 assert _accepted_win(geom, 3, Q, D, P_, es)
                 entry, first, Qp = _k8_entries(geom, 3, Q, D, P_, segs, 4)
                 channel = (first[:, None] + np.arange(geom.vec)).reshape(-1)
@@ -566,102 +597,6 @@ def test_value_hand_out_covers_every_pass_once(ns):
         assert walked == list(range(passes))
 
 
-# --------------------------------------------------------------------------
-# K8 (msda_bwd_win_rows_pp): lanes over (query, point, channel group)
-# --------------------------------------------------------------------------
-
-def _accepted_win(geom, BH, Q, D, P_, element_size):
-    """msda_bwd_win.cu's ``win_geometry_ok`` in Python."""
-    lps = geom.lanes_per_sample
-    n_warps = BH * -(-Q // geom.queries)
-    per_block = geom.threads // 32
-    return (0 <= geom.lps_log2 <= 5
-            and geom.vec >= 1 and geom.vec * element_size <= 16
-            and geom.vec & (geom.vec - 1) == 0
-            and geom.groups * geom.vec == D
-            and geom.chunks * lps >= geom.groups
-            and (geom.chunks - 1) * lps < geom.groups
-            and geom.queries >= 1 and geom.passes >= 0
-            and geom.passes * geom.samples_per_pass >= geom.queries * P_
-            and 32 <= geom.threads <= 256 and geom.threads % 32 == 0
-            and geom.blocks >= 1 and geom.blocks * per_block >= n_warps
-            and (geom.blocks - 1) * per_block < n_warps)
-
-
-def _k8_entries(geom, BH, Q, D, P_, segs, TQ):
-    """(row entry, channel) of every lane, pass and chunk of K8 that has
-    work, as the kernel maps them: warp -> (b * H + head, first query),
-    sample k of the warp -> (query first + k // P, point k % P), the query
-    to its padded row through the segment table."""
-    starts = padded_starts(segs, TQ)
-    Qp = starts[-1]
-    per_bh = -(-Q // geom.queries)
-    n_warps = geom.blocks * geom.threads // 32
-    warp = np.arange(n_warps)
-    warp = warp[warp < BH * per_bh]
-    bh, q0 = warp // per_bh, (warp % per_bh) * geom.queries
-    sample, first = _samples_and_channels(geom, geom.queries * P_)
-    q = q0[:, None] + sample[None, :] // P_
-    p = np.broadcast_to(sample % P_, q.shape)
-    first = np.broadcast_to(first, q.shape)
-    bh = np.broadcast_to(bh[:, None], q.shape)
-    keep = q < Q
-    q, p, first, bh = q[keep], p[keep], first[keep], bh[keep]
-    q_starts = np.array([q0 for q0, _ in segs])
-    seg = np.searchsorted(q_starts, q, side="right") - 1
-    qp = np.array(starts[:-1])[seg] + (q - q_starts[seg])
-    entry = (bh * P_ + p) * Qp + qp
-    return entry, first, Qp
-
-
-@pytest.mark.parametrize("D,dtype", [(32, "bf16"), (32, "f32"), (8, "bf16"),
-                                     (64, "f32"), (48, "bf16"),
-                                     (256, "f32")])
-@pytest.mark.parametrize("TQ", [8, 128])
-def test_k8_lane_map_covers_rows_once(D, dtype, TQ):
-    """Every real (batch, head, point, query) row of a banded level, and
-    every channel of it, is taken by exactly one lane once, across segment
-    boundaries (a warp's queries may straddle two) and the Q tail; no
-    padding row is ever visited (the wrapper zeroes them)."""
-    shapes = BUCKET_LEVELS["serving"]
-    Q = sum(h * w for h, w in shapes)
-    segs = segment_bounds(Q, shapes)
-    es = ELEMENT_SIZE[dtype]
-    BH = 2
-    geom = msda_cuda.win_rows_geometry(BH, Q, D, P, es)
-    assert _accepted_win(geom, BH, Q, D, P, es)
-    entry, first, Qp = _k8_entries(geom, BH, Q, D, P, segs, TQ)
-    channel = (first[:, None] + np.arange(geom.vec)).reshape(-1)
-    count = np.bincount(np.repeat(entry, geom.vec) * D + channel,
-                        minlength=BH * P * Qp * D).reshape(BH, P, Qp, D)
-    real = np.zeros(Qp, dtype=bool)
-    for (_, qs), qp0 in zip(segs, padded_starts(segs, TQ)):
-        real[qp0:qp0 + qs] = True
-    assert (count[:, :, real] == 1).all()
-    assert (count[:, :, ~real] == 0).all()
-
-
-@pytest.mark.parametrize("Q,P_", [(1, 4), (7, 4), (129, 4), (33, 8), (5, 1),
-                                  (40, 3)])
-def test_k8_geometry_at_odd_shapes(Q, P_):
-    """Few queries, a Q tail inside a warp, 8, 3 or 1 points, two segments
-    with padding (at Q = 129 a warp's queries straddle their boundary),
-    every alignment."""
-    segs = ((0, Q - Q // 2), (Q - Q // 2, Q // 2)) if Q > 1 else ((0, 1),)
-    for D in (6, 32, 96):
-        for es in (4, 2):
-            for align in (16, 8, 4, 2):
-                if align < es:
-                    continue
-                geom = msda_cuda.win_rows_geometry(3, Q, D, P_, es, align)
-                assert _accepted_win(geom, 3, Q, D, P_, es)
-                entry, first, Qp = _k8_entries(geom, 3, Q, D, P_, segs, 4)
-                channel = (first[:, None] + np.arange(geom.vec)).reshape(-1)
-                count = np.bincount(np.repeat(entry, geom.vec) * D + channel,
-                                    minlength=3 * P_ * Qp * D)
-                assert count.sum() == 3 * P_ * Q * D and count.max() == 1
-
-
 @pytest.mark.parametrize("P_", [1, 2, 3, 4, 8])
 def test_value_level_and_point_without_division(P_):
     """msda_bwd_value finds a lane's (level, point) without a division where
@@ -676,3 +611,257 @@ def test_value_level_and_point_without_division(P_):
                 s = pass_ * spp + slot
                 assert divmod(s, P_) == (pass_ * (spp // P_) + slot // P_,
                                          slot % P_)
+
+
+def _k6_lanes(geom, BH, Q, P_):
+    """K6's lanes as the kernel walks them, over (warp, pass, chunk, lane):
+    the (b * H + head) pair, the query, the point (with ``fold``; without,
+    the lane walks all P of its query), the first channel, whether the lane
+    has work and whether it stores its query's channels."""
+    bh, q0 = _warps(geom, BH, Q)
+    passes = -(-geom.passes // msda_cuda.UNROLL) * msda_cuda.UNROLL
+    t = np.arange(passes)[:, None, None]
+    chunk = np.arange(geom.chunks)[None, :, None]
+    lane = np.arange(32)[None, None, :]
+    lps, spp = geom.lanes_per_sample, geom.samples_per_pass
+    slot, sub = lane >> geom.lps_log2, lane & (lps - 1)
+    k = t * spp + slot
+    qi = k // P_ if geom.fold else k
+    p = k % P_ if geom.fold else np.zeros_like(k)
+    group = chunk * lps + sub
+    shape = (len(bh), passes, geom.chunks, 32)
+    q = np.broadcast_to(q0[:, None, None, None] + qi[None], shape)
+    live = np.broadcast_to((t < geom.passes) & (qi < geom.queries)
+                           & (group < geom.groups), shape) & (q < Q)
+    return dict(bh=np.broadcast_to(bh[:, None, None, None], shape), q=q,
+                p=np.broadcast_to(p, shape), live=live,
+                first=np.broadcast_to(group * geom.vec, shape),
+                store=live & (np.broadcast_to(p, shape) == 0))
+
+
+def _assert_k6_covers_once(geom, BH, Q, D, P_, segs, TQ):
+    """Every real row and channel read once (each point of a query by its
+    own lane with ``fold``, by the query's lane in turn without), no padding
+    row; every (batch, head, query, channel) stored once, by the lane whose
+    fold group holds exactly that query's P points."""
+    m = _k6_lanes(geom, BH, Q, P_)
+    live = m["live"]
+    Qp = padded_starts(segs, TQ)[-1]
+    qp = _padded(m["q"][live], segs, TQ)
+    points = [m["p"][live]] if geom.fold else [
+        np.full(qp.shape, pt) for pt in range(P_)]
+    entry = np.concatenate([(m["bh"][live] * P_ + p) * Qp + qp
+                            for p in points])
+    first = np.concatenate([m["first"][live]] * len(points))
+    _assert_rows_once(entry, first, geom, BH, D, P_, segs, TQ, Qp)
+    store = m["store"]
+    channel = (m["first"][store][:, None] + np.arange(geom.vec)).reshape(-1)
+    out = (m["bh"][store] * Q + m["q"][store])
+    count = np.bincount(np.repeat(out, geom.vec) * D + channel,
+                        minlength=BH * Q * D)
+    assert (count == 1).all()
+    if geom.fold:
+        # the fold's partners lane ^ (lps * j) hold the query's P points
+        lps = geom.lanes_per_sample
+        w, t, c, lane = np.nonzero(store)
+        for j in range(P_):
+            partner = lane ^ (lps * j)
+            assert (m["q"][w, t, c, partner] == m["q"][w, t, c, lane]).all()
+            assert (m["p"][w, t, c, partner] == j).all()
+            assert m["live"][w, t, c, partner].all()
+
+
+@pytest.mark.parametrize("D", [8, 32, 48, 64])
+@pytest.mark.parametrize("dtype", sorted(WIN_ELEMENT_SIZE))
+@pytest.mark.parametrize("TQ", [8, 128])
+def test_k6_lane_map_covers_rows_once(D, dtype, TQ):
+    """K6 at the served encoder call's queries (every segment of the
+    serving bucket, a warp's queries straddling segment boundaries, the Q
+    tail): every real row and channel read once, no padding row, every
+    output channel stored once from a fold of exactly its query's points
+    (or, where a pass holds fewer than P samples, by the lane that walks
+    them); bfloat16 at D = 32 takes 8 channels a lane, 4 lanes a sample, 2
+    queries x 4 points a pass, int8 16 channels and 2 lanes."""
+    shapes = BUCKET_LEVELS["serving"]
+    Q = sum(h * w for h, w in shapes)
+    segs = segment_bounds(Q, shapes)
+    es = WIN_ELEMENT_SIZE[dtype]
+    geom = msda_cuda.win_geometry(2, Q, D, P, es, form="fwd")
+    assert _accepted_win(geom, 2, Q, D, P, es, "fwd")
+    assert geom.fold == int(geom.samples_per_pass % P == 0)
+    if D == 32:
+        assert (geom.vec, geom.lanes_per_sample) == {
+            "f32": (4, 8), "bf16": (8, 4), "int8": (16, 2)}[dtype]
+        assert geom.samples_per_pass == 32 // geom.lanes_per_sample
+    _assert_k6_covers_once(geom, 2, Q, D, P, segs, TQ)
+
+
+@pytest.mark.parametrize("Q,P_", [(1, 4), (7, 4), (129, 4), (33, 8), (5, 1),
+                                  (40, 3)])
+def test_k6_geometry_at_odd_shapes(Q, P_):
+    """K6 with few queries, a Q tail, 8, 3 or 1 points (3: no fold, the
+    lane walks its query's points; 8 at 4 lanes a sample and more), D of 6,
+    32, 96 and 256 (a sample over the whole warp in two chunks: no fold),
+    every value type and alignment."""
+    segs = ((0, Q - Q // 2), (Q - Q // 2, Q // 2)) if Q > 1 else ((0, 1),)
+    for D in (6, 32, 96, 256):
+        for es in (4, 2, 1):
+            for align in (16, 8, 4, 2, 1):
+                if align < es:
+                    continue
+                geom = msda_cuda.win_geometry(3, Q, D, P_, es, align, "fwd")
+                assert _accepted_win(geom, 3, Q, D, P_, es, "fwd")
+                spp = geom.samples_per_pass
+                assert geom.fold == int(spp % P_ == 0)
+                _assert_k6_covers_once(geom, 3, Q, D, P_, segs, 4)
+
+
+@pytest.mark.parametrize("P_,D", [(4, 8), (3, 8), (4, 256)])
+def test_k6_fold_sums_match_plain(P_, D):
+    """K6's sums as its lanes make them: each point's float32 contribution
+    (the plain version with the other points' weights zeroed), summed over
+    the stored lane's fold group (or, without a fold, the lane's walk) in
+    float64, against the plain version's float32 sum."""
+    shapes = ((21, 11), (11, 7))
+    h, w = shapes[0]
+    Q, B, H_ = sum(a * b for a, b in shapes), 2, 3
+    rng = np.random.default_rng(0)
+    value = torch.from_numpy(rng.standard_normal((B, Q, H_, D),
+                                                 dtype=np.float32))
+    loc_ref = []
+    for hh, ww in shapes:
+        yy, xx = np.meshgrid(np.arange(hh), np.arange(ww), indexing="ij")
+        loc_ref.append(np.stack([(xx.ravel() + 0.5) / ww,
+                                 (yy.ravel() + 0.5) / hh], -1))
+    loc = np.concatenate(loc_ref)[None, :, None, None, None, :] + (
+        rng.uniform(-3, 3, (B, Q, H_, 2, P_, 2)) / np.array([w, h]))
+    aw = rng.random((B, Q, H_, 2, P_)).astype(np.float32)
+    locT, awT = msda.rows_t(torch.from_numpy(loc.astype(np.float32)),
+                            torch.from_numpy(aw))
+    segs = segment_bounds(Q, shapes)
+    bidx, ix, iy_band, _, aw_eff, _, _ = msda.win_level_rows(
+        locT, awT, 0, h, w, 8, segs, D, True)
+    args = (value[:, :h * w], bidx, ix, iy_band)
+    ref = msda.msda_fwd_win_plain(*args, aw_eff, h, w, 8, segs, Q)
+    parts = []
+    for p in range(P_):
+        one = torch.zeros_like(aw_eff)
+        one[:, :, p] = aw_eff[:, :, p]
+        parts.append(msda.msda_fwd_win_plain(*args, one, h, w, 8, segs, Q)
+                     .reshape(B, Q, H_, D).double().numpy())
+    geom = msda_cuda.win_geometry(B * H_, Q, D, P_, 4, form="fwd")
+    assert geom.fold == int(P_ == 4 and D == 8)
+    m = _k6_lanes(geom, B * H_, Q, P_)
+    got = np.zeros((B, Q, H_, D))
+    w_, t, c, lane = np.nonzero(m["store"])
+    lps = geom.lanes_per_sample
+    for j in range(P_):
+        partner = lane ^ (lps * j) if geom.fold else lane
+        pt = m["p"][w_, t, c, partner] if geom.fold else np.full(lane.shape, j)
+        bh, q = m["bh"][w_, t, c, partner], m["q"][w_, t, c, partner]
+        first = m["first"][w_, t, c, lane]
+        for v in range(geom.vec):
+            got[bh // H_, q, bh % H_, first + v] += np.stack(parts)[
+                pt, bh // H_, q, bh % H_, first + v]
+    np.testing.assert_allclose(got.reshape(B, Q, H_ * D), ref.numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def _k10_lanes(geom, BH, Q, P_):
+    """K10's adds as the kernel walks them: lane ``l`` works out sample
+    ``base + l`` of its warp, and in pass ``pp < min(lanes a sample, passes
+    - base / spp)`` of that group the lanes of slot ``s`` take sample ``base
+    + pp * spp + s`` from lane ``pp * spp + s``. Returns (b * H + head,
+    query, point, first channel) of every (lane, pass, chunk) with work,
+    each taken from the lane that works its sample out."""
+    bh, q0 = _warps(geom, BH, Q)
+    lps, spp = geom.lanes_per_sample, geom.samples_per_pass
+    ns = geom.queries * P_
+    out = []
+    for base in range(0, ns, 32):
+        for pp in range(min(lps, geom.passes - base // spp)):
+            for lane in range(32):
+                slot, sub = lane >> geom.lps_log2, lane & (lps - 1)
+                src = pp * spp + slot
+                assert src < 32
+                k = base + src  # worked out on lane src
+                if k >= ns:
+                    continue
+                qi, p = divmod(k, P_)
+                for chunk in range(geom.chunks):
+                    group = chunk * lps + sub
+                    if group >= geom.groups:
+                        break
+                    q = q0 + qi
+                    keep = q < Q
+                    out.append((bh[keep], q[keep], np.full(keep.sum(), p),
+                                np.full(keep.sum(), group * geom.vec)))
+    return [np.concatenate(a) for a in zip(*out)]
+
+
+@pytest.mark.parametrize("D", [8, 32, 48, 64])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("TQ", [8, 128])
+def test_k10_lane_map_covers_rows_once(D, dtype, TQ):
+    """K10 at the adaptation's encoder call (batch 4, 8 heads: every
+    segment of the 608x1008 bucket, a warp's queries straddling segment
+    boundaries, the Q tail): every real row's every channel added once,
+    no padding row; at most four float32 channels a lane, 32 / P queries a
+    warp, one sample a lane for the hand-out."""
+    shapes = BUCKET_LEVELS["serving"]
+    Q = sum(h * w for h, w in shapes)
+    segs = segment_bounds(Q, shapes)
+    BH = 4 * H
+    geom = msda_cuda.win_geometry(BH, Q, D, P, ELEMENT_SIZE[dtype],
+                                  form="value")
+    assert _accepted_win(geom, BH, Q, D, P, 4, "value")
+    assert geom.vec <= 4 and geom.queries * P == 32 and not geom.fold
+    bh, q, p, first = _k10_lanes(geom, BH, Q, P)
+    Qp = padded_starts(segs, TQ)[-1]
+    _assert_rows_once((bh * P + p) * Qp + _padded(q, segs, TQ), first, geom,
+                      BH, D, P, segs, TQ, Qp)
+
+
+@pytest.mark.parametrize("Q,P_", [(1, 4), (7, 4), (129, 4), (33, 8), (5, 1),
+                                  (40, 3), (9, 40)])
+def test_k10_geometry_at_odd_shapes(Q, P_):
+    """K10 with few queries, a Q tail, 8, 3, 1 or 40 points (more samples a
+    query than lanes: the hand-out in groups of 32), D of 6, 32 and 96,
+    every alignment of g and of the gradient slice."""
+    segs = ((0, Q - Q // 2), (Q - Q // 2, Q // 2)) if Q > 1 else ((0, 1),)
+    for D in (6, 32, 96):
+        for align in (16, 8, 4):
+            geom = msda_cuda.win_geometry(3, Q, D, P_, 2, align, "value")
+            assert _accepted_win(geom, 3, Q, D, P_, 4, "value")
+            assert geom.vec * 4 <= align
+            bh, q, p, first = _k10_lanes(geom, 3, Q, P_)
+            Qp = padded_starts(segs, 4)[-1]
+            entry = (bh * P_ + p) * Qp + _padded(q, segs, 4)
+            channel = (first[:, None] + np.arange(geom.vec)).reshape(-1)
+            count = np.bincount(np.repeat(entry, geom.vec) * D + channel,
+                                minlength=3 * P_ * Qp * D)
+            assert count.sum() == 3 * P_ * Q * D and count.max() == 1
+
+
+def test_win_geometry_refuses_what_misses_work():
+    """The Python model of win_geometry_ok refuses a geometry whose index
+    math would miss or repeat work, or a form it does not fit (a fold
+    outside K6, a fold where P does not divide a pass, K10 above four
+    float32 channels)."""
+    Q = 100
+    fwd = msda_cuda.win_geometry(2, Q, 32, 4, 2, form="fwd")
+    value = msda_cuda.win_geometry(2, Q, 32, 4, 2, form="value")
+    rows = msda_cuda.win_geometry(2, Q, 32, 4, 2)
+    assert _accepted_win(fwd, 2, Q, 32, 4, 2, "fwd")
+    bad = [(replace(fwd, passes=fwd.passes - 1), "fwd", 4),
+           (replace(fwd, blocks=fwd.blocks + 1), "fwd", 4),
+           (replace(fwd, fold=0, passes=0), "fwd", 4),
+           (fwd, "fwd", 3),
+           (replace(rows, fold=1), "rows", 4),
+           (replace(value, fold=1), "value", 4),
+           (replace(value, vec=8, groups=4, lps_log2=2), "value", 4)]
+    for geom, form, P_ in bad:
+        es = 4 if form == "value" else 2
+        assert not _accepted_win(geom, 2, Q, 32, P_, es, form)
+    with pytest.raises(ValueError, match="form must be"):
+        msda_cuda.win_geometry(2, Q, 32, 4, 2, form="tile")
