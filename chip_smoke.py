@@ -32,11 +32,13 @@ and no result line. In order it:
    beside its bound, and prints the largest difference between two runs of
    it (its float32 atomics add in an order that changes);
 5. holds the int8 forward kernel (K4) against its plain version at the
-   serving bucket's calls: the served encoder call (the one exact level,
-   Q = S, raster queries), the int8 encoder call without a window (all
-   levels) and the decoder call (Q = 200), with float32 and bfloat16
-   weights, a batch of 2, and the quantized values made on the card against
-   those made on the CPU, bit for bit;
+   serving bucket's calls (``Q_CALLS``): the served encoder call (the one
+   exact level, Q = S, raster queries), the int8 encoder call without a
+   window (all levels) and the decoder call (Q = 200) at batch 1 and 2, with
+   float32 and bfloat16 weights, and a batch of 2 of mirrored images; checks
+   that two runs are bit-equal and the quantized values made on the card
+   equal those made on the CPU, bit for bit, and times the kernel by CUDA
+   events and in a CUDA graph beside its bound;
 6. holds the banded forward kernels (K5 one band per tile, K6 one band per
    point) against their plain version on the three banded levels of the
    served encoder call (window 16, raster queries with offsets of a few
@@ -70,7 +72,8 @@ and no result line. In order it:
    version on the three banded levels of the adaptation's encoder call
    (608x1008, window 16, raster queries with offsets of a few pixels; prints
    the clamped share and the value kernels' run-to-run difference; the row
-   kernels bit-equal over two runs; all four timed by CUDA events and in a
+   kernels bit-equal over two runs, and K7 bit-equal to K8 given K7's tile
+   bands broadcast over the points; all four timed by CUDA events and in a
    CUDA graph, K10 adding into the level's slice of a layer's gradient as
    the path calls it) in float32 and bfloat16 at the adaptation's
    microbatch of 4, and checks the batch addressing on a batch of 2;
@@ -445,61 +448,94 @@ def _f32_err(kern, plain):
     return err.max().item(), (err / (atol + rtol * plain.abs())).max().item()
 
 
-def check_q_kernel(shapes):
-    """K4 against its plain version at the serving bucket's calls."""
+# The calls at which K4 is held to its plain version and timed, in the
+# serving bucket (scripts/time_msda_kernels.py times the same list): (call,
+# batch). The served encoder call sums the one exact level of a window of
+# 16 (Q = S, raster queries), the int8 encoder call without a window every
+# level (Q = S, raster), the decoder call every level (Q = 200) at batch 1
+# (a served request's) and 2.
+Q_CALLS = (("encoder_served", 1), ("encoder", 1), ("decoder", 1),
+           ("decoder", 2))
+
+
+def q_calls():
+    """(call, batch, weights dtype) of every call of Q_CALLS, in order."""
+    return [(call, batch, dtype) for call, batch in Q_CALLS
+            for dtype in (torch.float32, torch.bfloat16)]
+
+
+def q_call_inputs(shapes, call, batch, dtype, seed):
+    """(Q, levels, value, loc, aw) at one call of Q_CALLS: the values for
+    ``msda.quantize_levels``, the weights in ``dtype``."""
     S = sum(h * w for h, w in shapes)
-    exact = tuple(l for l, (h, _) in enumerate(shapes) if h <= WINDOW)
-    every = tuple(range(len(shapes)))
+    levels = tuple(range(len(shapes)))
+    if call == "encoder_served":
+        levels = tuple(l for l, (h, _) in enumerate(shapes) if h <= WINDOW)
+    if call.startswith("encoder"):
+        Q = S
+        value, loc, aw = raster_inputs(shapes, dtype, seed, batch)
+    else:
+        Q = DECODER_Q
+        value, loc, aw = msda_inputs(Q, S, dtype, seed, batch)
+    return Q, levels, value, loc, aw
+
+
+def check_q_kernel(shapes):
+    """K4 against its plain version at every call of Q_CALLS: within the
+    float32 tolerance, bit-equal over two runs, timed by CUDA events and in
+    a CUDA graph beside its bound."""
+    S = sum(h * w for h, w in shapes)
     starts = msda.level_starts(shapes)
     rows = []
-    for call, Q, levels in (("encoder_served", S, exact),
-                            ("encoder", S, every), ("decoder", 200, every)):
-        for dtype in (torch.float32, torch.bfloat16):
-            if Q == S:
-                value, loc, aw = raster_inputs(shapes, dtype, seed=len(rows))
-            else:
-                value, loc, aw = msda_inputs(Q, S, dtype, seed=len(rows))
-            vq, scale = msda.quantize_levels(value, shapes)
-            vq_cpu, scale_cpu = msda.quantize_levels(value.cpu(), shapes)
-            if not (torch.equal(vq.cpu(), vq_cpu)
-                    and torch.equal(scale.cpu(), scale_cpu)):
-                raise SystemExit(f"msda_fwd_q {call} {dtype}: the values "
-                                 "quantized on the card differ from those "
-                                 "quantized on the CPU")
-            args = (vq, scale, shapes, loc, aw)
-            kern = msda_cuda.msda_fwd_q(*args, levels=levels)
-            plain = msda.msda_fwd_q_plain(*args, levels=levels)
-            torch.cuda.synchronize()
-            row = {"call": call, "Q": Q, "levels": list(levels),
-                   "dtype": str(dtype).split(".")[-1]}
-            row["max_abs_err"], row["max_err_over_limit"] = _f32_err(kern,
-                                                                     plain)
-            row["ms"] = cuda_ms(lambda: msda_cuda.msda_fwd_q(
-                *args, levels=levels), 100)
-            row["plain_ms"] = cuda_ms(lambda: msda.msda_fwd_q_plain(
-                *args, levels=levels), 5)
-            # what the call must move: the summed levels' values, scales,
-            # locations and weights, and the float32 output
-            moved = [t for l in levels for t in (
-                vq[:, starts[l]:starts[l] + shapes[l][0] * shapes[l][1]],
-                scale[..., l], loc[:, :, :, l], aw[:, :, :, l])]
-            row["bound_ms"], row["bound_by"] = bound(
-                (*moved, kern), aw[:, :, :, :len(levels)])
-            atol, rtol = TOL[torch.float32]
-            print(f"msda_fwd_q serving {call} Q={Q} levels {list(levels)} "
-                  f"{row['dtype']} weights: max abs err "
-                  f"{row['max_abs_err']:.3e} (err/limit "
-                  f"{row['max_err_over_limit']:.3f}, atol {atol} rtol {rtol}); "
-                  f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms,"
-                  f" bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
-                  "quantized values equal to the CPU's", flush=True)
-            if not torch.isfinite(kern).all():
-                raise SystemExit(f"msda_fwd_q {call} {dtype}: non-finite")
-            if row["max_err_over_limit"] > 1.0:
-                raise SystemExit(f"msda_fwd_q {call} {dtype}: kernel "
-                                 "disagrees with the plain version")
-            rows.append(row)
-    # the batch index of the kernel's addressing
+    for n, (call, batch, dtype) in enumerate(q_calls()):
+        Q, levels, value, loc, aw = q_call_inputs(shapes, call, batch,
+                                                  dtype, n)
+        vq, scale = msda.quantize_levels(value, shapes)
+        vq_cpu, scale_cpu = msda.quantize_levels(value.cpu(), shapes)
+        if not (torch.equal(vq.cpu(), vq_cpu)
+                and torch.equal(scale.cpu(), scale_cpu)):
+            raise SystemExit(f"msda_fwd_q {call} {dtype}: the values "
+                             "quantized on the card differ from those "
+                             "quantized on the CPU")
+        args = (vq, scale, shapes, loc, aw)
+        fn = lambda: msda_cuda.msda_fwd_q(*args, levels=levels)
+        kern, again = fn(), fn()
+        plain = msda.msda_fwd_q_plain(*args, levels=levels)
+        torch.cuda.synchronize()
+        row = {"call": call, "Q": Q, "batch": batch, "levels": list(levels),
+               "dtype": str(dtype).split(".")[-1]}
+        row["max_abs_err"], row["max_err_over_limit"] = _f32_err(kern, plain)
+        row["bit_equal_run_to_run"] = torch.equal(kern, again)
+        row["ms"] = cuda_ms(fn, 100)
+        row["graph_ms"] = graph_ms(fn)
+        row["plain_ms"] = cuda_ms(lambda: msda.msda_fwd_q_plain(
+            *args, levels=levels), 5)
+        # what the call must move: the summed levels' values, scales,
+        # locations and weights, and the float32 output
+        moved = [t for l in levels for t in (
+            vq[:, starts[l]:starts[l] + shapes[l][0] * shapes[l][1]],
+            scale[..., l], loc[:, :, :, l], aw[:, :, :, l])]
+        row["bound_ms"], row["bound_by"] = bound(
+            (*moved, kern), aw[:, :, :, :len(levels)])
+        atol, rtol = TOL[torch.float32]
+        print(f"msda_fwd_q serving {call} Q={Q} B={batch} levels "
+              f"{list(levels)} {row['dtype']} weights: max abs err "
+              f"{row['max_abs_err']:.3e} (err/limit "
+              f"{row['max_err_over_limit']:.3f}, atol {atol} rtol {rtol}), "
+              f"bit-equal run to run {row['bit_equal_run_to_run']}; kernel "
+              f"{row['ms']:.4f} ms (device {row['graph_ms']:.4f} ms in a CUDA "
+              f"graph), plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); quantized "
+              "values equal to the CPU's", flush=True)
+        if not torch.isfinite(kern).all():
+            raise SystemExit(f"msda_fwd_q {call} {dtype}: non-finite")
+        if row["max_err_over_limit"] > 1.0:
+            raise SystemExit(f"msda_fwd_q {call} {dtype}: kernel "
+                             "disagrees with the plain version")
+        if not row["bit_equal_run_to_run"]:
+            raise SystemExit(f"msda_fwd_q {call} {dtype}: two runs differ")
+        rows.append(row)
+    # the batch index of the kernel's addressing, on two mirrored images
     value, loc, aw = msda_inputs(200, S, torch.float32, seed=len(rows))
     value, loc, aw = (torch.cat([t, t.flip(1)]) for t in (value, loc, aw))
     vq, scale = msda.quantize_levels(value, shapes)
@@ -676,6 +712,19 @@ def check_bwd_win_kernels(shapes, batch):
                 row["rows_bit_equal_run_to_run"] &= all(
                     torch.equal(a, b) for a, b in zip((dix, diy, daw),
                                                       rows_again))
+                if not per_point:
+                    # K7 is K8 with a band table whose point stride is 0:
+                    # bit-equal to K8 given the tile bands for every point
+                    bidx = args[1]
+                    B_, H_, T = bidx.shape
+                    P_ = args[2].shape[2]
+                    wide = bidx[:, :, None, :].expand(B_, H_, P_, T)
+                    as_k8 = msda_cuda.msda_bwd_win_rows_pp(
+                        args[0], wide.contiguous(), *args[2:])
+                    row["rows_bit_equal_to_k8_broadcast"] = row.get(
+                        "rows_bit_equal_to_k8_broadcast", True) and all(
+                        torch.equal(a, b)
+                        for a, b in zip((dix, diy, daw), as_k8))
                 row["rows_ms"] += cuda_ms(lambda: rows_kernel(*args), 50)
                 row["rows_graph_ms"] += graph_ms(lambda: rows_kernel(*args))
                 h, w = shapes[lid]
@@ -704,7 +753,11 @@ def check_bwd_win_kernels(shapes, batch):
                   f"{row['rows_graph_ms']:.4f} ms in a CUDA graph, zeroed "
                   f"outputs included; bound {row['rows_bound_ms']:.4f} ms, "
                   f"{row['rows_bound_by']}; bit-equal run to run "
-                  f"{row['rows_bit_equal_run_to_run']}), "
+                  f"{row['rows_bit_equal_run_to_run']}"
+                  + ("" if per_point else
+                     "; bit-equal to msda_bwd_win_rows_pp on the bands "
+                     "broadcast over the points "
+                     f"{row['rows_bit_equal_to_k8_broadcast']}") + "), "
                   f"value {row['value_ms']:.4f} ms (device "
                   f"{row['value_graph_ms']:.4f} ms in a CUDA graph"
                   + (", into the layer gradient's slice" if per_point else
@@ -720,6 +773,10 @@ def check_bwd_win_kernels(shapes, batch):
                                  "disagree with the plain version")
             if not row["rows_bit_equal_run_to_run"]:
                 raise SystemExit(f"{rows_name} {dtype}: two runs differ")
+            if not row.get("rows_bit_equal_to_k8_broadcast", True):
+                raise SystemExit(f"{rows_name} {dtype}: differs from "
+                                 "msda_bwd_win_rows_pp on the tile bands "
+                                 "broadcast over the points")
             rows.append(row)
         # the batch index of the kernels' addressing, on the middle level
         value, loc, aw = raster_inputs(shapes, torch.float32, seed=450)
@@ -1638,8 +1695,13 @@ def main() -> int:
                 r["value_run_to_run_max_abs_diff"] for r in mine)
         else:
             entry["graph_ms"] = main["rows_graph_ms"]
+            entry["graph_ms_float32"] = next(
+                r for r in mine if r["dtype"] == "float32")["rows_graph_ms"]
             entry["bit_equal_run_to_run"] = all(
                 r["rows_bit_equal_run_to_run"] for r in mine)
+            if name == "msda_bwd_win_rows":
+                entry["bit_equal_to_k8_broadcast"] = all(
+                    r["rows_bit_equal_to_k8_broadcast"] for r in mine)
         return entry
 
     main_row = pick(rows, "encoder")
@@ -1772,9 +1834,16 @@ def main() -> int:
         "bound_ms": q_row["bound_ms"],
         "bound_by": q_row["bound_by"],
         "library_ms": None,
+        "graph_ms": q_row["graph_ms"],
         "ms_encoder_served": q_row["ms"],
         "ms_encoder": pick(q_rows, "encoder")["ms"],
         "ms_decoder": pick(q_rows, "decoder")["ms"],
+        "graph_ms_encoder": pick(q_rows, "encoder")["graph_ms"],
+        "graph_ms_decoder": pick(q_rows, "decoder")["graph_ms"],
+        "graph_ms_decoder_batch2": pick(q_rows, "decoder",
+                                        batch=2)["graph_ms"],
+        "bit_equal_run_to_run": all(r["bit_equal_run_to_run"]
+                                    for r in q_rows),
         "calls": q_rows,
         "int8_grad_launches": int8_grad_counts,
         "served_model_f32_max_abs_err": served_errs,

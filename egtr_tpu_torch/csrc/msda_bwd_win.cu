@@ -46,18 +46,30 @@
 //   dV_ji += dT_j * cdt(hat_x_i)
 // hat'(t) = -sign(t) for |t| < 1, else 0, and 0 at t = 0.
 //
-// Design of K7 and K9: one warp per (batch, head, query), the query
-// fastest so that neighbouring warps read neighbouring rows; lanes over the
-// head dim D.
-//   rows (K7): per point the three sums are reduced across the warp with
-//          shuffles and lane 0 writes them. No atomics: deterministic.
-//   value (K9): per point each lane adds its channel of the four corner
-//          contributions with a float32 atomicAdd into the level's zeroed
-//          float32 gradient [B, h*w, H, D]. The order of the additions
-//          changes from run to run, so the last bits of the sums do too.
+// Design of K9: one warp per (batch, head, query), the query fastest so
+// that neighbouring warps read neighbouring rows; lanes over the head dim
+// D; per point each lane adds its channel of the four corner contributions
+// with a float32 atomicAdd into the level's zeroed float32 gradient
+// [B, h*w, H, D]. The order of the additions changes from run to run, so
+// the last bits of the sums do too.
+//
+// K7 runs K8's kernel (msda_bwd_win_rows_kernel). The JAX package computes
+// the two with one body (_bwd_rows_body_hb), and under one band per tile
+// every point of a tile takes the same band, so K7 is K8 with a band table
+// whose point stride is zero: the kernel reads the band of (b * H + head,
+// point, tile) at bidx[bh * bh_stride + p * p_stride + tile], with strides
+// P * T and T for K8's [B, H, P, T] table, T and 0 for K7's [B, H, T]. K7
+// takes K8's launch (msda_cuda.win_geometry, form "rows") and is bit-equal
+// to K8 given its tile bands broadcast over the points. The layout it
+// replaces (one warp per (batch, head, query), lanes over D, the points
+// walked in turn, three full-warp shuffle reductions a sample) ran 28x off
+// its bound. Measured on the H100 at the adaptation's three banded levels
+// (608x1008, window 16, batch 4, raster locations), device time in turns
+// with that layout: bf16 0.647 against 1.934 ms (0.33x), f32 0.990 against
+// 1.876 (0.53x).
 //
 // Design of K8 (msda_bwd_win_rows_pp), msda_bwd.cu's K2 layout carried
-// over: in K7's layout a warp walked its P = 4 samples in turn with lanes
+// over: in the old layout a warp walked its P = 4 samples in turn with lanes
 // over D, so a sample's four corner loads were 64-byte (bf16) rows one at a
 // time and each sample cost three full-warp reductions (60 shuffles a warp
 // for four samples), plus the segment search and band lookup per warp; it
@@ -130,12 +142,6 @@ __device__ __forceinline__ float hat_grad(float t) {
   return t > 0.0f ? -1.0f : 1.0f;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // Where a warp's query lives: its batch, head, padded row and the first
 // entry of its band indices.
 struct Query {
@@ -160,75 +166,6 @@ __device__ __forceinline__ Query locate(long warp, const int* bidx,
   return qu;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-msda_bwd_win_rows_kernel(const T* __restrict__ value,
-                         const int* __restrict__ bidx,
-                         const float* __restrict__ ix,
-                         const float* __restrict__ iy_band,
-                         const float* __restrict__ aw_eff,
-                         const T* __restrict__ grad,
-                         float* __restrict__ dix, float* __restrict__ diy,
-                         float* __restrict__ daw,
-                         const __grid_constant__ Segments sg,
-                         const __grid_constant__ Geometry g, long n_warps) {
-  const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= n_warps) return;  // whole warps leave together
-  const Query qu = locate(warp, bidx, sg, g);
-  const long row = (long)g.H * g.D;  // stride between tokens in value
-  const T* vb = value + qu.b * g.batch_stride + (long)qu.head * g.D;
-  const T* gp = grad + ((qu.b * g.Q + qu.q) * (long)g.H + qu.head) * g.D;
-  const int half = g.win / 2;
-
-  for (int p = 0; p < g.P; ++p) {
-    const long r = qu.rows + p * (long)g.Qp;
-    const float a = aw_eff[r];
-    const int row0 = qu.bp[0] * half;
-    const Sample s = band_sample(ix[r], iy_band[r], row0, g);
-    float s_dix = 0.0f, s_diy = 0.0f, s_daw = 0.0f;
-    if (s.any) {  // the same for the whole warp
-      const float hx0 = round_to(hat(s.zx0), vb);
-      const float hx1 = round_to(hat(s.zx1), vb);
-      const float hy0 = hat(s.zy0), hy1 = hat(s.zy1);
-      const float ghx0 = hat_grad(s.zx0), ghx1 = hat_grad(s.zx1);
-      const float ghy0 = hat_grad(s.zy0), ghy1 = hat_grad(s.zy1);
-      const float c0 = __fmul_rn(hy0, a), c1 = __fmul_rn(hy1, a);
-      const float e0 = __fmul_rn(a, ghy0), e1 = __fmul_rn(a, ghy1);
-      const T* r0 = vb + (long)(row0 + s.y0) * g.w * row;
-      const T* r1 = r0 + (long)g.w * row;
-      for (int d = lane; d < g.D; d += 32) {
-        const float gd = to_float(gp[d]);
-        float v00 = 0.0f, v01 = 0.0f, v10 = 0.0f, v11 = 0.0f;
-        if (s.oky0) {
-          if (s.okx0) v00 = to_float(r0[(long)s.x0 * row + d]);
-          if (s.okx1) v01 = to_float(r0[(long)(s.x0 + 1) * row + d]);
-        }
-        if (s.oky1) {
-          if (s.okx0) v10 = to_float(r1[(long)s.x0 * row + d]);
-          if (s.okx1) v11 = to_float(r1[(long)(s.x0 + 1) * row + d]);
-        }
-        const float dT0 = round_to(__fmul_rn(c0, gd), vb);
-        const float dT1 = round_to(__fmul_rn(c1, gd), vb);
-        s_dix += (v00 * dT0 + v10 * dT1) * ghx0
-               + (v01 * dT0 + v11 * dT1) * ghx1;
-        const float Tg0 = (v00 * hx0 + v01 * hx1) * gd;
-        const float Tg1 = (v10 * hx0 + v11 * hx1) * gd;
-        s_daw += hy0 * Tg0 + hy1 * Tg1;
-        s_diy += e0 * Tg0 + e1 * Tg1;
-      }
-      s_dix = warp_sum(s_dix);
-      s_diy = warp_sum(s_diy);
-      s_daw = warp_sum(s_daw);
-    }
-    if (lane == 0) {
-      dix[r] = s_dix;
-      diy[r] = s_diy;
-      daw[r] = s_daw;
-    }
-  }
-}
-
 // One sample of a pass: where its row lives, its band-local geometry, its
 // query's output gradient and its four corners' values.
 template <typename T, int VEC>
@@ -241,22 +178,25 @@ struct BandSample {
   Raw<T, VEC> g, v00, v01, v10, v11;
 };
 
-// Three blocks an SM (80 registers a thread, some spilled): on the H100
-// that measured 0.93x the time of two blocks an SM in float32, the same in
-// bf16.
+// K7 and K8. The band of (b * H + head, point p, tile) is bidx[bh *
+// bh_stride + p * p_stride + tile]: P * T and T for K8's [B, H, P, T]
+// table, T and 0 for K7's [B, H, T], whose every point takes its tile's
+// band. Three blocks an SM (80 registers a thread, some spilled): on the
+// H100 that measured 0.93x the time of two blocks an SM in float32, the
+// same in bf16.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(256, 3)
-msda_bwd_win_rows_pp_kernel(const T* __restrict__ value,
-                            const int* __restrict__ bidx,
-                            const float* __restrict__ ix,
-                            const float* __restrict__ iy_band,
-                            const float* __restrict__ aw_eff,
-                            const T* __restrict__ grad,
-                            float* __restrict__ dix, float* __restrict__ diy,
-                            float* __restrict__ daw,
-                            const __grid_constant__ Segments sg,
-                            const __grid_constant__ Geometry g, WGeom gm,
-                            long n_warps) {
+msda_bwd_win_rows_kernel(const T* __restrict__ value,
+                         const int* __restrict__ bidx,
+                         const float* __restrict__ ix,
+                         const float* __restrict__ iy_band,
+                         const float* __restrict__ aw_eff,
+                         const T* __restrict__ grad,
+                         float* __restrict__ dix, float* __restrict__ diy,
+                         float* __restrict__ daw,
+                         const __grid_constant__ Segments sg,
+                         const __grid_constant__ Geometry g, WGeom gm,
+                         long bh_stride, long p_stride, long n_warps) {
   const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= n_warps) return;  // whole warps leave together
@@ -292,7 +232,7 @@ msda_bwd_win_rows_pp_kernel(const T* __restrict__ value,
       const int qp = padded_row(q, sg);
       t.r = (bh * g.P + p) * (long)g.Qp + qp;
       t.a = aw_eff[t.r];
-      const int row0 = bidx[(bh * g.P + p) * (long)g.T + qp / g.TQ] * half;
+      const int row0 = bidx[bh * bh_stride + p * p_stride + qp / g.TQ] * half;
       t.s = band_sample(ix[t.r], iy_band[t.r], row0, g);
       t.s.y0 += row0;  // absolute from here on; the reach is decided
       t.gp = grad + ((b * g.Q + q) * (long)g.H + head) * g.D;
@@ -552,39 +492,6 @@ static unsigned blocks_for(long n_warps, int threads) {
   return (unsigned)((n_warps * 32 + threads - 1) / threads);
 }
 
-static int launch_rows(const void* value, const void* bidx, const void* ix,
-                       const void* iy_band, const void* aw_eff,
-                       const void* grad, void* dix, void* diy, void* daw,
-                       const int* segments, int n_segments, int B, int Q,
-                       int Qp, int H, int D, int P, int h, int w, int win,
-                       int TQ, long batch_stride, int is_bf16, void* stream) {
-  Segments sg;
-  Geometry g;
-  const int rc = read_band_geometry(segments, n_segments, Q, Qp, H, D, P, h,
-                                    w, win, TQ, batch_stride, &sg, &g);
-  if (rc != (int)cudaSuccess) return rc;
-  const long n_warps = (long)B * H * Q;
-  if (n_warps == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int* bi = (const int*)bidx;
-  const float *fx = (const float*)ix, *fy = (const float*)iy_band;
-  const float* fa = (const float*)aw_eff;
-  float *ox = (float*)dix, *oy = (float*)diy, *oa = (float*)daw;
-  if (is_bf16) {
-    msda_bwd_win_rows_kernel<__nv_bfloat16>
-        <<<blocks_for(n_warps, threads), threads, 0, s>>>(
-            (const __nv_bfloat16*)value, bi, fx, fy, fa,
-            (const __nv_bfloat16*)grad, ox, oy, oa, sg, g, n_warps);
-  } else {
-    msda_bwd_win_rows_kernel<float>
-        <<<blocks_for(n_warps, threads), threads, 0, s>>>(
-            (const float*)value, bi, fx, fy, fa, (const float*)grad, ox, oy,
-            oa, sg, g, n_warps);
-  }
-  return (int)cudaGetLastError();
-}
-
 static int launch_value(const void* bidx, const void* ix, const void* iy_band,
                         const void* aw_eff, const void* grad, void* dvalue,
                         const int* segments, int n_segments, int B, int Q,
@@ -616,30 +523,15 @@ static int launch_value(const void* bidx, const void* ix, const void* iy_band,
   return (int)cudaGetLastError();
 }
 
-// dix, diy, daw: float32 [B, H, P, Q_pad]; the padding rows are not written.
-extern "C" int msda_bwd_win_rows(const void* value, const void* bidx,
-                                 const void* ix, const void* iy_band,
-                                 const void* aw_eff, const void* grad,
-                                 void* dix, void* diy, void* daw,
-                                 const int* segments, int n_segments, int B,
-                                 int Q, int Qp, int H, int D, int P, int h,
-                                 int w, int win, int TQ, long batch_stride,
-                                 int is_bf16, void* stream) {
-  return launch_rows(value, bidx, ix, iy_band, aw_eff, grad, dix, diy,
-                            daw, segments, n_segments, B, Q, Qp, H, D, P, h,
-                            w, win, TQ, batch_stride, is_bf16, stream);
-}
-
+// K7 and K8: msda_bwd_win_rows_kernel with the band table's strides.
 // geometry: the nine ints of struct WGeom (msda_band.cuh), in its order.
-extern "C" int msda_bwd_win_rows_pp(const void* value, const void* bidx,
-                                    const void* ix, const void* iy_band,
-                                    const void* aw_eff, const void* grad,
-                                    void* dix, void* diy, void* daw,
-                                    const int* segments, int n_segments,
-                                    int B, int Q, int Qp, int H, int D, int P,
-                                    int h, int w, int win, int TQ,
-                                    long batch_stride, int is_bf16,
-                                    const int* geometry, void* stream) {
+static int launch_rows(const void* value, const void* bidx, const void* ix,
+                       const void* iy_band, const void* aw_eff,
+                       const void* grad, void* dix, void* diy, void* daw,
+                       const int* segments, int n_segments, int B, int Q,
+                       int Qp, int H, int D, int P, int h, int w, int win,
+                       int TQ, long batch_stride, int is_bf16,
+                       const int* geometry, int per_point, void* stream) {
   Segments sg;
   Geometry g;
   const int rc = read_band_geometry(segments, n_segments, Q, Qp, H, D, P, h,
@@ -650,33 +542,66 @@ extern "C" int msda_bwd_win_rows_pp(const void* value, const void* bidx,
   if (!win_geometry_ok(gm, (long)B * H, Q, D, P, is_bf16 ? 2 : 4, WIN_ROWS))
     return (int)cudaErrorInvalidValue;
   const long n_warps = (long)B * H * ((Q + gm.queries - 1) / gm.queries);
+  const long p_stride = per_point ? g.T : 0;
+  const long bh_stride = per_point ? (long)P * g.T : g.T;
   cudaStream_t s = (cudaStream_t)stream;
   const int* bi = (const int*)bidx;
   const float *fx = (const float*)ix, *fy = (const float*)iy_band;
   const float* fa = (const float*)aw_eff;
   float *ox = (float*)dix, *oy = (float*)diy, *oa = (float*)daw;
-#define MSDA_K8(T, VEC)                                                     \
-  msda_bwd_win_rows_pp_kernel<T, VEC><<<gm.blocks, gm.threads, 0, s>>>(     \
+#define MSDA_ROWS(T, VEC)                                                   \
+  msda_bwd_win_rows_kernel<T, VEC><<<gm.blocks, gm.threads, 0, s>>>(        \
       (const T*)value, bi, fx, fy, fa, (const T*)grad, ox, oy, oa, sg, g, gm, \
-      n_warps)
+      bh_stride, p_stride, n_warps)
   if (is_bf16) {
     switch (gm.vec) {
-      case 8: MSDA_K8(__nv_bfloat16, 8); break;
-      case 4: MSDA_K8(__nv_bfloat16, 4); break;
-      case 2: MSDA_K8(__nv_bfloat16, 2); break;
-      case 1: MSDA_K8(__nv_bfloat16, 1); break;
+      case 8: MSDA_ROWS(__nv_bfloat16, 8); break;
+      case 4: MSDA_ROWS(__nv_bfloat16, 4); break;
+      case 2: MSDA_ROWS(__nv_bfloat16, 2); break;
+      case 1: MSDA_ROWS(__nv_bfloat16, 1); break;
       default: return (int)cudaErrorInvalidValue;
     }
   } else {
     switch (gm.vec) {
-      case 4: MSDA_K8(float, 4); break;
-      case 2: MSDA_K8(float, 2); break;
-      case 1: MSDA_K8(float, 1); break;
+      case 4: MSDA_ROWS(float, 4); break;
+      case 2: MSDA_ROWS(float, 2); break;
+      case 1: MSDA_ROWS(float, 1); break;
       default: return (int)cudaErrorInvalidValue;
     }
   }
-#undef MSDA_K8
+#undef MSDA_ROWS
   return (int)cudaGetLastError();
+}
+
+// dix, diy, daw: float32 [B, H, P, Q_pad]; the padding rows are not written.
+// K7: bidx [B, H, T]. geometry: the nine ints of struct WGeom.
+extern "C" int msda_bwd_win_rows(const void* value, const void* bidx,
+                                 const void* ix, const void* iy_band,
+                                 const void* aw_eff, const void* grad,
+                                 void* dix, void* diy, void* daw,
+                                 const int* segments, int n_segments, int B,
+                                 int Q, int Qp, int H, int D, int P, int h,
+                                 int w, int win, int TQ, long batch_stride,
+                                 int is_bf16, const int* geometry,
+                                 void* stream) {
+  return launch_rows(value, bidx, ix, iy_band, aw_eff, grad, dix, diy, daw,
+                     segments, n_segments, B, Q, Qp, H, D, P, h, w, win, TQ,
+                     batch_stride, is_bf16, geometry, 0, stream);
+}
+
+// K8: bidx [B, H, P, T]; the rest as msda_bwd_win_rows.
+extern "C" int msda_bwd_win_rows_pp(const void* value, const void* bidx,
+                                    const void* ix, const void* iy_band,
+                                    const void* aw_eff, const void* grad,
+                                    void* dix, void* diy, void* daw,
+                                    const int* segments, int n_segments,
+                                    int B, int Q, int Qp, int H, int D, int P,
+                                    int h, int w, int win, int TQ,
+                                    long batch_stride, int is_bf16,
+                                    const int* geometry, void* stream) {
+  return launch_rows(value, bidx, ix, iy_band, aw_eff, grad, dix, diy, daw,
+                     segments, n_segments, B, Q, Qp, H, D, P, h, w, win, TQ,
+                     batch_stride, is_bf16, geometry, 1, stream);
 }
 
 // dvalue: float32 [B, h*w, H, D], zeroed by the caller.

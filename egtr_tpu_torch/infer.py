@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 from typing import Optional, Tuple
 
 import numpy as np
@@ -127,6 +128,20 @@ def device_rows(prof, n: int):
     return rows, sum(ms for _, ms, _ in rows)
 
 
+def msda_rows(rows) -> dict:
+    """The hand-written MSDA kernels among ``device_rows``' rows, whatever
+    their rank: kernel -> ms and calls per repetition, its template forms
+    summed."""
+    out = {}
+    for key, ms, calls in rows:
+        found = re.search(r"\bmsda_\w+_kernel\b", key)
+        if found:
+            entry = out.setdefault(found.group(0), {"ms": 0.0, "calls": 0.0})
+            entry["ms"] += ms
+            entry["calls"] += calls
+    return out
+
+
 def profile_requests(model: EgtrModel, x: torch.Tensor, n: int, top: int = 25):
     """Device time per request by kernel over ``n`` requests, from
     torch.profiler, and the share of the wall time the device was busy."""
@@ -151,6 +166,7 @@ def profile_requests(model: EgtrModel, x: torch.Tensor, n: int, top: int = 25):
         "kernels": [{"name": k[:120], "ms_per_request": ms,
                      "calls_per_request": c, "share_of_busy": ms / busy_ms}
                     for k, ms, c in rows[:top]],
+        "msda_kernels": msda_rows(rows),
     }
 
 

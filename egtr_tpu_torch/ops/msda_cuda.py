@@ -13,19 +13,21 @@ package's Pallas kernels:
   the levels a block hits densely in its own shared-memory copy first, as
   :func:`value_geometry` says;
 - ``msda_fwd_q`` (``msda_fwd_q.cu``) replaces the int8 branch of
-  ``_fwd_body``: the forward with an integer stage 1;
+  ``_fwd_body``: the forward with an integer stage 1, several short rows a
+  warp as :func:`q_geometry` says;
 - ``msda_fwd_win`` and ``msda_fwd_win_pp`` (``msda_fwd_win.cu``) replace
   ``_fwd_kernel_win`` and ``_fwd_kernel_win_pp``: one banded level with one
   band per query tile, or one per (sampling point, tile), each with float32,
   bfloat16 or int8 values;
 - ``msda_bwd_win_rows`` and ``msda_bwd_win_rows_pp`` (``msda_bwd_win.cu``)
   replace ``_bwd_rows_kernel_win`` and ``_bwd_rows_kernel_win_pp``: the row
-  gradients of one banded level;
+  gradients of one banded level, both from one kernel whose band table has
+  a point stride (0 for the first);
 - ``msda_bwd_win_value`` and ``msda_bwd_win_value_pp`` (``msda_bwd_win.cu``)
   replace ``_bwd_dvtt_kernel_win`` and ``_bwd_dvtt_kernel_win_pp``: the value
   gradient of one banded level, with float32 atomics (the second adds into
   the caller's slice of the layer's gradient where it is given one);
-- the per-point kernels ``msda_fwd_win_pp``, ``msda_bwd_win_rows_pp`` and
+- ``msda_fwd_win_pp``, ``msda_bwd_win_rows``, ``msda_bwd_win_rows_pp`` and
   ``msda_bwd_win_value_pp`` lay a warp's lanes over (query, point, channel
   group) as :func:`win_geometry` says;
 - ``msda_fwd_bp`` (``msda_fwd_bp.cu``) replaces ``_fwd_kernel_bp`` (the
@@ -288,6 +290,69 @@ def launch_geometry(rows: int, D: int, n_samples: int, row_samples: int,
         blocks=-(-rows // (WARPS_PER_BLOCK * rows_per_warp)))
 
 
+# Launch geometry of msda_fwd_q (K4). A row is one (batch, query, head) of
+# n*P int8 samples; a warp's lanes split over (sample slot, channel group)
+# as in Geometry, and a row takes a power of two of a pass's slots, so that
+# a warp sums several short rows at once.
+# The widest corner load of a lane, in bytes (int8 channels): measured on
+# the H100 at chip_smoke's K4 calls (scripts/time_msda_kernels.py
+# graph_ms_by_vec_bytes)
+Q_VEC_BYTES = 16
+
+
+@dataclass(frozen=True)
+class QGeometry(_Lanes):
+    """How msda_fwd_q (K4) lays rows on a warp's lanes.
+
+    Lane ``l`` takes sample slot ``l >> lps_log2`` and channel group ``l &
+    (lanes_per_sample - 1)`` (plus ``chunk * lanes_per_sample``). Slot ``s``
+    sums row ``first + (s >> slots_log2)`` of the warp's
+    ``rows_per_warp`` consecutive rows from ``first = warp *
+    rows_per_warp``, and in pass ``t`` that row's sample ``t * row_slots +
+    (s & (row_slots - 1))``. The passes go in groups of ``lanes_per_sample``
+    (32 samples): lane ``l`` works out slot ``l % samples_per_pass`` of
+    pass ``l // samples_per_pass`` of the group and hands it to the
+    slot's lanes. A group is ``vec`` consecutive int8 channels, read with
+    one vector load."""
+
+    vec: int
+    lps_log2: int
+    groups: int
+    chunks: int
+    slots_log2: int     # log2 of the slots a row takes in a pass
+    passes: int         # ceil(n * P / row_slots)
+    threads: int
+    blocks: int
+
+    @property
+    def row_slots(self) -> int:
+        return 1 << self.slots_log2
+
+    @property
+    def rows_per_warp(self) -> int:
+        return self.samples_per_pass >> self.slots_log2
+
+
+@lru_cache(maxsize=256)
+def q_geometry(rows: int, D: int, n_samples: int,
+               alignment: int = 16) -> QGeometry:
+    """K4's launch for ``rows`` = B*Q*H rows of ``n_samples`` = n*P summed
+    samples, ``alignment`` that of the int8 values' pointer: a row's
+    samples spread over UNROLL passes (their corner loads go together) on
+    the fewest slots that hold them, a power of two, at most a pass."""
+    vec = vector_width(D, 1, min(alignment, Q_VEC_BYTES))
+    groups, lps_log2, chunks = lane_split(D, vec)
+    spp = 32 >> lps_log2
+    per_pass = -(-max(1, n_samples) // UNROLL)
+    slots_log2 = min((per_pass - 1).bit_length(), 5 - lps_log2)
+    n_warps = -(-rows // (spp >> slots_log2))
+    return QGeometry(
+        vec=vec, lps_log2=lps_log2, groups=groups, chunks=chunks,
+        slots_log2=slots_log2, passes=-(-n_samples // (1 << slots_log2)),
+        threads=32 * WARPS_PER_BLOCK,
+        blocks=max(1, -(-n_warps // WARPS_PER_BLOCK)))
+
+
 # Launch geometry of msda_bwd_value (K3). A block takes one (batch, head)
 # and every query_chunks-th query from its chunk on, one warp a query in
 # turn; a warp's lanes split over (sample, channel group) as launch_geometry
@@ -489,17 +554,18 @@ def win_geometry(BH: int, Q: int, D: int, P: int, element_size: int,
 _VOID_P, _INT = ctypes.c_void_p, ctypes.c_int
 _WIN_ARGS = ([_VOID_P] * 6 + [ctypes.POINTER(_INT)] + [_INT] * 11
              + [ctypes.c_long, _INT, _VOID_P])
+_GEOM_ARG = [ctypes.POINTER(_INT), _VOID_P]  # a launch geometry, the stream
+# K7 and K8: one kernel, with its lanes' layout
 _BWD_WIN_ROWS_ARGS = ([_VOID_P] * 9 + [ctypes.POINTER(_INT)] + [_INT] * 11
-                      + [ctypes.c_long, _INT, _VOID_P])
+                      + [ctypes.c_long, _INT] + _GEOM_ARG)
 _BWD_WIN_VALUE_ARGS = ([_VOID_P] * 6 + [ctypes.POINTER(_INT)] + [_INT] * 12
                        + [_VOID_P])
-_GEOM_ARG = [ctypes.POINTER(_INT), _VOID_P]  # a launch geometry, the stream
 # per exported function: its library and its C argument types
 _FUNCTIONS = {
     "msda_fwd": ("msda_fwd", [_VOID_P] * 4 + [ctypes.POINTER(_INT)]
                  + [_INT] * 10 + [ctypes.POINTER(_INT), _VOID_P]),
     "msda_fwd_q": ("msda_fwd_q", [_VOID_P] * 5 + [ctypes.POINTER(_INT)]
-                   + [_INT] * 9 + [_VOID_P]),
+                   + [_INT] * 9 + _GEOM_ARG),
     "msda_fwd_win": ("msda_fwd_win", _WIN_ARGS),
     "msda_fwd_win_pp": ("msda_fwd_win", _WIN_ARGS[:-1] + _GEOM_ARG),
     "msda_bwd_rows": ("msda_bwd", [_VOID_P] * 6 + [ctypes.POINTER(_INT)]
@@ -507,8 +573,7 @@ _FUNCTIONS = {
     "msda_bwd_value": ("msda_bwd", [_VOID_P] * 4 + [ctypes.POINTER(_INT)]
                        + [_INT] * 9 + [ctypes.POINTER(_INT), _VOID_P]),
     "msda_bwd_win_rows": ("msda_bwd_win", _BWD_WIN_ROWS_ARGS),
-    "msda_bwd_win_rows_pp": ("msda_bwd_win",
-                             _BWD_WIN_ROWS_ARGS[:-1] + _GEOM_ARG),
+    "msda_bwd_win_rows_pp": ("msda_bwd_win", _BWD_WIN_ROWS_ARGS),
     "msda_bwd_win_value": ("msda_bwd_win", _BWD_WIN_VALUE_ARGS),
     "msda_bwd_win_value_pp": ("msda_bwd_win", _BWD_WIN_VALUE_ARGS[:-2]
                               + [ctypes.c_long, _INT] + _GEOM_ARG),
@@ -716,12 +781,15 @@ def msda_fwd_q(vq: torch.Tensor, scale: torch.Tensor,
     if out.numel() == 0:
         return out
     table = _levels_arg(spatial_shapes, D, levels, True)
+    geometry = q_geometry(B * Q * H, D, len(levels) * P,
+                          pointer_alignment(vq))
     with torch.cuda.device(vq.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(vq.data_ptr(), scale.data_ptr(),
                 sampling_locations.data_ptr(), attention_weights.data_ptr(),
                 out.data_ptr(), table, len(levels), L, B, S, Q, H, D, P,
-                int(attention_weights.dtype == torch.bfloat16), stream)
+                int(attention_weights.dtype == torch.bfloat16),
+                geometry.c_array, stream)
     if rc != 0:
         raise RuntimeError(f"msda_fwd_q kernel launch failed: CUDA error {rc}")
     launches["msda_fwd_q"] += 1
@@ -1144,14 +1212,14 @@ def _bwd_win_launch(name: str, per_point: bool, rows: bool, value_l, bidx, ix,
     with torch.cuda.device(ix.device):
         stream = torch.cuda.current_stream().cuda_stream
         if rows:
-            # K8 takes its lanes' layout as an int array
-            layout = (win_geometry(
-                B * H, Q, D, P, value_l.element_size(),
-                pointer_alignment(value_l, g)).c_array,) if per_point else ()
+            # K7 and K8 (one kernel, K7's band table with a point stride of
+            # 0) take their lanes' layout as an int array
+            layout = win_geometry(B * H, Q, D, P, value_l.element_size(),
+                                  pointer_alignment(value_l, g))
             rc = fn(value_l.data_ptr(), bidx.data_ptr(), ix.data_ptr(),
                     iy_band.data_ptr(), aw_eff.data_ptr(), g.data_ptr(),
                     *(t.data_ptr() for t in outs), *geometry,
-                    value_l.stride(0), is_bf16, *layout, stream)
+                    value_l.stride(0), is_bf16, layout.c_array, stream)
         elif per_point:
             # K10: its lanes' layout, and the batch stride of its output,
             # to whose alignment the vector adds keep
@@ -1179,7 +1247,10 @@ def msda_bwd_win_rows(value_l: torch.Tensor, bidx: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the banded row-gradient kernel with one band per query tile
     (``bidx`` [B, H, T]): ``(dix, diy, daw)`` float32 [B, H, P, Q_pad], as
-    the last three results of ``msda.msda_bwd_win_plain``. Deterministic."""
+    the last three results of ``msda.msda_bwd_win_plain``. Deterministic:
+    K8's kernel and launch, whose every point reads its tile's band, so
+    bit-equal to :func:`msda_bwd_win_rows_pp` given ``bidx`` broadcast over
+    the points."""
     outs, launched = _bwd_win_launch("msda_bwd_win_rows", False, True,
                                      value_l, bidx, ix, iy_band, aw_eff, g, h,
                                      w, win, segs, Q)

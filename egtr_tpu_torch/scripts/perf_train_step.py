@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from ..config import EgtrConfig
-from ..infer import device_rows, resolve_device
+from ..infer import device_rows, msda_rows, resolve_device
 from ..models.egtr import EgtrModel
 from ..models.layers import init_params
 from ..ops import criterion, matcher
@@ -218,6 +218,7 @@ def profile_steps(step, batch, generator, n: int, top: int = 30) -> dict:
         "kernels": [{"name": k[:120], "ms_per_step": ms,
                      "calls_per_step": c, "share_of_busy": ms / busy_ms}
                     for k, ms, c in rows[:top]],
+        "msda_kernels": msda_rows(rows),
     }
 
 

@@ -1,23 +1,28 @@
-"""Time the exact MSDA kernels K1 (msda_fwd), K2 (msda_bwd_rows) and K3
-(msda_bwd_value), and the banded kernels K6 (msda_fwd_win_pp), K8
-(msda_bwd_win_rows_pp) and K10 (msda_bwd_win_value_pp), on the card, at the
-calls that chip_smoke.py holds them to their plain versions.
+"""Time the exact MSDA kernels K1 (msda_fwd), K2 (msda_bwd_rows), K3
+(msda_bwd_value) and K4 (msda_fwd_q, int8 stage 1), and the banded kernels
+K6 (msda_fwd_win_pp), K7 (msda_bwd_win_rows), K8 (msda_bwd_win_rows_pp) and
+K10 (msda_bwd_win_value_pp), on the card, at the calls that chip_smoke.py
+holds them to their plain versions.
 
     python egtr_tpu_torch/scripts/time_msda_kernels.py [--root DIR]
-        [--label NAME] [--out FILE] [--ptxas]
-        [--kernels K1,K2,K3,K6,K8,K10]
+        [--label NAME] [--out FILE] [--ptxas] [--k4-variant NAME]
+        [--kernels K1,K2,K3,K4,K6,K7,K8,K10]
 
 Calls: chip_smoke.py's ``exact_calls()`` (encoder and decoder calls,
 uniform and raster locations, the decoder call at batch 1 and 2, float32
 and bfloat16) in the serving bucket 608x1008 (K1) and the training bucket
 800x1344 (K1, K2 and K3); K3 also at the adaptation step's two calls
 (608x1008, batch 4: the encoder call on its one exact level, the decoder
-call); for K8 and K10 the three banded levels of the adaptation's encoder
-call (608x1008, window 16, raster locations, batch 4, float32 and bfloat16),
-as chip_smoke.py's phase 12 makes them; for K6 the three banded levels of
-the served encoder call (608x1008, window 16, raster locations, batch 1, in
-float32, bfloat16 and int8; bfloat16 also at batch 4), as phase 6 makes
-them. Per call and kernel it prints one JSON line:
+call); K4 at chip_smoke.py's ``Q_CALLS`` in the serving bucket (the served
+encoder call on the one exact level, the int8 encoder call on every level,
+both Q = S with raster locations, and the decoder call at batch 1 and 2),
+with float32 and bfloat16 weights, as phase 5 makes them; for K7, K8 and
+K10 the three banded levels of the adaptation's encoder call (608x1008,
+window 16, raster locations, batch 4, float32 and bfloat16), as
+chip_smoke.py's phase 12 makes them (K7 with one band per tile); for K6 the
+three banded levels of the served encoder call (608x1008, window 16, raster
+locations, batch 1, in float32, bfloat16 and int8; bfloat16 also at batch
+4), as phase 6 makes them. Per call and kernel it prints one JSON line:
 
 - ``ms``: CUDA events around ITERS calls of the wrapper (what
   chip_smoke.py reports: at the decoder calls the host's wrapper time
@@ -38,8 +43,14 @@ them. Per call and kernel it prints one JSON line:
   0 or 200 KiB of them: every level through global memory, or the two
   coarsest) and ``graph_ms_by_private_threads`` (with blocks of 512 or
   1024 threads where a level is kept);
-- K6, K8, K10: one line per banded level and one that sums them
+- K6, K7, K8, K10: one line per banded level and one that sums them
   (``level`` "sum"), with the level's clamped share of the in-image samples;
+- K7: where the checkout runs K7 through K8's kernel,
+  ``bit_equal_to_k8_broadcast`` (K7 against K8 given K7's tile bands
+  broadcast over the points);
+- K4: its bound; where the checkout has ``msda_cuda.q_geometry``, its
+  ``geometry`` and ``graph_ms_by_vec_bytes`` (the device time with corner
+  loads of at most 8 and 16 bytes a lane);
 - K10: ``run_to_run_max_abs_diff``; ``zero_graph_ms`` and
   ``copy_graph_ms``, the device time of zeroing a float32 [B, h*w, H, D]
   buffer and of copying it into the level's slice of the layer's value
@@ -62,7 +73,16 @@ parent commit, unpacked under the git-ignored ``build/``) is timed by the
 same code. Run the two in turns in one call on one card (parent, change,
 change, parent) and compare only there. ``--ptxas`` first prints what
 ``nvcc -Xptxas -v`` says of the sources (registers, spills).
-``--kernels`` times a subset (default all six).
+``--kernels`` times a subset (default all eight). ``--k4-variant NAME``
+times the kernels of a copy of DIR's ``egtr_tpu_torch`` (under DIR's
+``build/``) whose ``msda_fwd_q.cu`` is edited as ``K4_VARIANTS[NAME]``
+says: ``no_gather_old`` and ``no_gather`` replace each corner load (of
+the layout before the redesign, one warp a row with lanes over D, or of
+this one) by a small integer from the corner's column or token, so that
+the time left is the walk, the geometry and the arithmetic; ``index64`` does the row index math (batch, head, a sample's
+entries) in 64 bits; ``bounds_free`` leaves the registers a thread to
+the compiler, ``bounds_4`` asks for four blocks of 256 threads an SM (at
+most 64 registers a thread) where the kernel asks for three.
 """
 
 from __future__ import annotations
@@ -74,14 +94,43 @@ import subprocess
 import sys
 import tempfile
 import time
-from dataclasses import replace
+from dataclasses import asdict, replace
 from pathlib import Path
 from unittest import mock
 
 REPO = Path(__file__).resolve().parents[2]
 ITERS = 100  # wrapper calls per CUDA-event timing, as chip_smoke.py's K1
 WALKS = (1, 2, 4, 8)
-KERNELS = ("K1", "K2", "K3", "K6", "K8", "K10")
+KERNELS = ("K1", "K2", "K3", "K4", "K6", "K7", "K8", "K10")
+# --k4-variant: edits of msda_fwd_q.cu, (text, replacement) pairs that
+# must each match. The no-gather variants replace each corner load by an
+# integer the compiler cannot fold away.
+K4_VARIANTS = {
+    "no_gather_old": (("r[(long)x0 * row]", "(x0 & 7)"),
+                      ("r[(long)(x0 + 1) * row]", "((x0 + 1) & 7)")),
+    "no_gather": (("q.a0.load(p0)", "q.a0.w[0] = (uint32_t)token"),
+                  ("q.a1.load(p0 + sa)", "q.a1.w[0] = (uint32_t)(token + 1)"),
+                  ("q.b0.load(p0 + sb)", "q.b0.w[0] = (uint32_t)(token + w)"),
+                  ("q.b1.load(p0 + sa + sb)",
+                   "q.b1.w[0] = (uint32_t)(token + w + 1)")),
+    "index64": (("const int first = (int)first_l, rows = (int)n_rows;",
+                 "const long first = first_l, rows = n_rows;"),
+                ("const int row = first + (slot",
+                 "const long row = first + (slot"),
+                ("const int mine_row = first", "const long mine_row = first"),
+                ("const int mine_bh = mine_row",
+                 "const long mine_bh = mine_row"),
+                ("int row, int bh, int j, int L, int P)",
+                 "long row, long bh, int j, int L, int P)"),
+                ("const int i = (row * L + lid) * P + p;",
+                 "const long i = (row * L + lid) * P + p;")),
+    "bounds_free": (("__launch_bounds__(256, 3)\nmsda_fwd_q_kernel",
+                     "__launch_bounds__(256)\nmsda_fwd_q_kernel"),),
+    "bounds_4": (("__launch_bounds__(256, 3)\nmsda_fwd_q_kernel",
+                  "__launch_bounds__(256, 4)\nmsda_fwd_q_kernel"),),
+}
+# K4's widest corner loads timed by graph_ms_by_vec_bytes
+K4_VEC_BYTES = (8, 16)
 # K3's shared-memory caps timed beside the default (msda_cuda.PRIVATE_BYTES,
 # the coarsest level): none, and the two coarsest (200 KiB)
 PRIVATE_CAPS = (0, 200 * 1024)
@@ -96,7 +145,30 @@ def _args(argv=None):
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--kernels", default=",".join(KERNELS),
                     help="comma-separated subset of " + ",".join(KERNELS))
+    ap.add_argument("--k4-variant", choices=sorted(K4_VARIANTS),
+                    help="time a copy whose msda_fwd_q.cu is edited so")
     return ap.parse_args(argv)
+
+
+def variant_copy(root: Path, name: str) -> Path:
+    """A copy of ``root``'s egtr_tpu_torch under ``root/build`` whose
+    msda_fwd_q.cu is edited as K4_VARIANTS[name] says; returns the copy's
+    root."""
+    import shutil
+    out = root / "build" / f"k4_{name}"
+    if out.exists():
+        shutil.rmtree(out)
+    shutil.copytree(root / "egtr_tpu_torch", out / "egtr_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    src = out / "egtr_tpu_torch" / "csrc" / "msda_fwd_q.cu"
+    text = src.read_text()
+    for old, new in K4_VARIANTS[name]:
+        if old not in text:
+            raise SystemExit(f"--k4-variant {name}: {src} does not hold "
+                             f"{old!r}")
+        text = text.replace(old, new)
+    src.write_text(text)
+    return out
 
 
 def _chip_smoke():
@@ -110,8 +182,8 @@ def _chip_smoke():
 
 
 def ptxas_report(root: Path, nvcc: str) -> None:
-    for name in ("msda_fwd.cu", "msda_bwd.cu", "msda_fwd_win.cu",
-                 "msda_bwd_win.cu"):
+    for name in ("msda_fwd.cu", "msda_bwd.cu", "msda_fwd_q.cu",
+                 "msda_fwd_win.cu", "msda_bwd_win.cu"):
         src = root / "egtr_tpu_torch" / "csrc" / name
         with tempfile.TemporaryDirectory() as tmp:
             out = subprocess.run(
@@ -273,13 +345,20 @@ def _level_rows(smoke, kernel, call, batch, dtype, shapes, make,
     return out + [total]
 
 
-def banded_rows(msda_cuda, smoke, torch) -> list:
-    """K8 on the three banded levels of the adaptation's encoder call, per
-    level and summed, in float32 and bfloat16."""
+def banded_rows(msda_cuda, smoke, torch, per_point=True) -> list:
+    """K8 (``per_point``) or K7 on the three banded levels of the
+    adaptation's encoder call, per level and summed, in float32 and
+    bfloat16. K7 also against K8 given its tile bands broadcast over the
+    points, where the checkout runs K7 through K8's kernel (its wrapper
+    passes a band-table stride)."""
     from egtr_tpu_torch.models.detr import level_shapes
     from egtr_tpu_torch.scripts import perf_train_step
     shapes = level_shapes(perf_train_step.ADAPT_HW, smoke.L)
     batch = perf_train_step.ADAPT_BATCH
+    name = "msda_bwd_win_rows_pp" if per_point else "msda_bwd_win_rows"
+    kernel = getattr(msda_cuda, name)
+    through_k8 = (msda_cuda._FUNCTIONS["msda_bwd_win_rows"]
+                  == msda_cuda._FUNCTIONS["msda_bwd_win_rows_pp"])
     out = []
     for n, dtype in enumerate((torch.float32, torch.bfloat16)):
         value, loc, aw = smoke.raster_inputs(shapes, dtype, seed=700 + n,
@@ -287,18 +366,77 @@ def banded_rows(msda_cuda, smoke, torch) -> list:
         g = smoke.grad_output(batch, value.shape[1], dtype, 710 + n)
 
         def time_level(args):
-            fn = lambda: msda_cuda.msda_bwd_win_rows_pp(*args)
+            fn = lambda: kernel(*args)
             first, second = fn(), fn()
-            return {"ms": smoke.cuda_ms(fn, ITERS),
-                    "graph_ms": smoke.graph_ms(fn),
-                    "host_us": host_us(fn, torch),
-                    "bit_equal": all(torch.equal(x, y)
-                                     for x, y in zip(first, second))}
+            row = {"ms": smoke.cuda_ms(fn, ITERS),
+                   "graph_ms": smoke.graph_ms(fn),
+                   "host_us": host_us(fn, torch),
+                   "bit_equal": all(torch.equal(x, y)
+                                    for x, y in zip(first, second))}
+            if not per_point and through_k8:
+                bidx = args[1]
+                wide = bidx[:, :, None, :].expand(
+                    *bidx.shape[:2], args[2].shape[2], bidx.shape[2])
+                row["bit_equal_to_k8_broadcast"] = all(
+                    torch.equal(x, y) for x, y in zip(
+                        first, msda_cuda.msda_bwd_win_rows_pp(
+                            args[0], wide.contiguous(), *args[2:])))
+            return row
 
         out += _level_rows(
-            smoke, "msda_bwd_win_rows_pp", "adaptation", batch, str(dtype)[6:],
+            smoke, name, "adaptation", batch, str(dtype)[6:],
             shapes, lambda lid: smoke._banded_bwd_args(
-                value, loc, aw, g, shapes, lid, True), time_level)
+                value, loc, aw, g, shapes, lid, per_point), time_level)
+    return out
+
+
+def q_rows(msda_cuda, smoke, torch) -> list:
+    """K4 at every call of chip_smoke's Q_CALLS in the serving bucket, with
+    float32 and bfloat16 weights: one line per call, with the call's bound;
+    where the checkout has ``q_geometry``, the device time at each of
+    K4_VEC_BYTES."""
+    from egtr_tpu_torch import infer
+    from egtr_tpu_torch.models.detr import level_shapes
+    from egtr_tpu_torch.ops import msda
+    shapes = level_shapes(infer.BUCKET_HW, smoke.L)
+    starts = [0]
+    for h, w in shapes:
+        starts.append(starts[-1] + h * w)
+    out = []
+    for n, (call, batch, dtype) in enumerate(smoke.q_calls()):
+        Q, levels, value, loc, aw = smoke.q_call_inputs(shapes, call, batch,
+                                                        dtype, n)
+        vq, scale = msda.quantize_levels(value, shapes)
+        args = (vq, scale, shapes, loc, aw)
+        fn = lambda: msda_cuda.msda_fwd_q(*args, levels=levels)
+        first, second = fn(), fn()
+        moved = [t for l in levels for t in (
+            vq[:, starts[l]:starts[l + 1]], scale[..., l], loc[:, :, :, l],
+            aw[:, :, :, l])]
+        bound_ms, bound_by = smoke.bound((*moved, first),
+                                         aw[:, :, :, :len(levels)])
+        row = {"kernel": "msda_fwd_q", "bucket": "serving", "call": call,
+               "Q": Q, "batch": batch, "levels": list(levels),
+               "dtype": str(dtype)[6:], "ms": smoke.cuda_ms(fn, ITERS),
+               "graph_ms": smoke.graph_ms(fn),
+               "host_us": host_us(fn, torch),
+               "bit_equal": torch.equal(first, second),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        if hasattr(msda_cuda, "q_geometry"):
+            geom = msda_cuda.q_geometry(
+                batch * Q * smoke.H, smoke.D, len(levels) * smoke.P,
+                msda_cuda.pointer_alignment(vq))
+            row["geometry"] = asdict(geom)
+            by = {}
+            for cap in K4_VEC_BYTES:
+                msda_cuda.q_geometry.cache_clear()
+                with mock.patch.object(msda_cuda, "Q_VEC_BYTES", cap):
+                    by[cap] = smoke.graph_ms(fn)
+                    # bit-equal at every width: one warp, one order
+                    row["bit_equal"] &= torch.equal(first, fn())
+            msda_cuda.q_geometry.cache_clear()
+            row["graph_ms_by_vec_bytes"] = by
+        out.append(row)
     return out
 
 
@@ -392,6 +530,8 @@ def banded_fwd_rows(msda_cuda, smoke, torch) -> list:
 def main(argv=None) -> int:
     args = _args(argv)
     root = Path(args.root).resolve()
+    if args.k4_variant:
+        root = variant_copy(root, args.k4_variant)
     sys.path.insert(0, str(root))
     import torch
     from egtr_tpu_torch import infer
@@ -466,8 +606,10 @@ def main(argv=None) -> int:
     if "K3" in wanted:
         for row in adaptation_value_rows(msda_cuda, smoke, torch):
             emit(row)
-    for name, table in (("K6", banded_fwd_rows), ("K8", banded_rows),
-                        ("K10", banded_value_rows)):
+    for name, table in (
+            ("K4", q_rows), ("K6", banded_fwd_rows),
+            ("K7", lambda *a: banded_rows(*a, per_point=False)),
+            ("K8", banded_rows), ("K10", banded_value_rows)):
         if name in wanted:
             for row in table(msda_cuda, smoke, torch):
                 emit(row)

@@ -259,8 +259,17 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
     assert fwd["launches"] == (7 + 5 + 5) * 4
     assert fwd_q["int8_grad_launches"] == {
         "msda_fwd_q": 1, "msda_bwd_rows": 1, "msda_bwd_value": 1}
-    # K4: three calls x two weight dtypes; K5, K6: three value types each
-    assert len(fwd_q["calls"]) == 6
+    # K4: four calls (the served encoder call, the int8 encoder call, the
+    # decoder call at batch 1 and 2) x two weight dtypes, bit-equal over two
+    # runs and timed in a CUDA graph; K5, K6: three value types each
+    assert [(c["call"], c["batch"]) for c in fwd_q["calls"][::2]] == [
+        ("encoder_served", 1), ("encoder", 1), ("decoder", 1), ("decoder", 2)]
+    assert len(fwd_q["calls"]) == 8
+    assert fwd_q["bit_equal_run_to_run"] and fwd_q["graph_ms"] > 0
+    assert all(c["graph_ms"] > 0 and c["bit_equal_run_to_run"]
+               for c in fwd_q["calls"])
+    assert {"graph_ms_encoder", "graph_ms_decoder",
+            "graph_ms_decoder_batch2"} <= set(fwd_q)
     assert [c["dtype"] for c in win["calls"]] == ["float32", "bfloat16",
                                                   "int8"]
     assert win_pp["calls"][0]["levels"] == [0, 1]
@@ -306,9 +315,13 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
     assert [c["dtype"] for c in k8["calls"]] == ["float32", "bfloat16"]
     assert k8["calls"][0]["levels"] == [0]
     assert "run_to_run_max_abs_diff" in k10
-    # K7 and K8 bit-equal over two runs, timed in a CUDA graph too
+    # K7 and K8 bit-equal over two runs, timed in a CUDA graph too; K7
+    # bit-equal to K8 given its tile bands broadcast over the points
     assert k8["bit_equal_run_to_run"] and k7["bit_equal_run_to_run"]
-    assert k8["graph_ms"] > 0
+    assert k8["graph_ms"] > 0 and k7["graph_ms"] > 0
+    assert k7["graph_ms_float32"] > 0
+    assert k7["bit_equal_to_k8_broadcast"]
+    assert all(c["rows_bit_equal_to_k8_broadcast"] for c in k7["calls"])
     # K9 and K10 in a CUDA graph too, K10 adding into a layer's gradient
     assert k10["graph_ms"] > 0 and k10["graph_ms_float32"] > 0
     assert all(c["value_graph_ms"] > 0 for c in k9["calls"] + k10["calls"])
@@ -357,6 +370,9 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
                   "train exact", "frozen leaves bit-identical",
                   "train f32 exact kernels vs plain",
                   "msda_bwd_win_rows + msda_bwd_win_value adaptation encoder",
+                  "bit-equal to msda_bwd_win_rows_pp on the bands broadcast "
+                  "over the points True",
+                  "msda_fwd_q serving decoder Q=200 B=2",
                   "msda_bwd_win_rows_pp + msda_bwd_win_value_pp adaptation "
                   "encoder batch 2",
                   "train adaptation (window 16, band point, int8 False)",
@@ -483,3 +499,18 @@ def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.main() != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+def test_profiles_list_every_msda_kernel():
+    """The probes' profiles name every hand-written MSDA kernel whatever its
+    rank among the device rows, each kernel's template forms summed."""
+    rows = [("void msda_fwd_q_kernel<__nv_bfloat16, 16>(signed char const*)",
+             0.1, 6.0),
+            ("ampere_bf16_s16816gemm", 2.0, 40.0),
+            ("void msda_fwd_q_kernel<float, 16>(signed char const*)", 0.05,
+             6.0),
+            ("void msda_bwd_win_rows_kernel<float, 4>(float const*)", 0.2,
+             18.0)]
+    assert infer.msda_rows(rows) == {
+        "msda_fwd_q_kernel": {"ms": 0.1 + 0.05, "calls": 12.0},
+        "msda_bwd_win_rows_kernel": {"ms": 0.2, "calls": 18.0}}

@@ -26,7 +26,10 @@ K10 value) on segments that split a warp's queries, windows 8 and 32, bands
 at the top and bottom edge, an overhanging last band, batch 2, loads and
 adds narrowed by an unaligned pointer in every form, K10 adding into a
 slice of a layer's gradient, K6 and K8 bit-equal over two runs, and
-refusals. On a GPU
+refusals; and the int8 forward (K4) in its Hopper layout (D 8-64, P 3 and
+8, level subsets, flipped levels, loads of at most 16 and 8 bytes,
+unaligned values, bit-equal reruns, the C side's refusals) and K7 bit-equal
+to K8 on its tile bands broadcast over the points. On a GPU
 machine without JAX, run them without the suite's conftest (which imports
 JAX):
 
@@ -1388,3 +1391,118 @@ def test_k6_k10_refuse_a_geometry_that_misses_work(cuda, monkeypatch):
                 good.transpose(2, 3).contiguous().transpose(2, 3)):
         with pytest.raises(ValueError, match="out must be"):
             msda_cuda.msda_bwd_win_value_pp(*args, out=out)
+
+
+# --------------------------------------------------------------------------
+# K4 (msda_fwd_q) and K7 (msda_bwd_win_rows, through K8's kernel) in their
+# Hopper layout
+# --------------------------------------------------------------------------
+
+K4_CASES = {**CASES,
+            # P that does not divide a pass, rows that do not fill a warp
+            "p3_d16": dict(B=2, Q=31, H=3, D=16, P=3,
+                           shapes=((6, 9), (3, 5))),
+            # more samples a row than a pass holds
+            "p8_d32": dict(B=1, Q=17, H=2, D=32, P=8,
+                           shapes=((6, 9), (3, 5), (2, 3), (1, 4)))}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(K4_CASES))
+def test_k4_bit_equal_and_matches_plain(cuda, case, dtype, monkeypatch):
+    """K4 at D 8-64, batches of 1-3, thin and flipped (round_y) levels,
+    samples outside the map, P 3 and 8, on every level and on level
+    subsets, with corner loads of at most 16 and 8 bytes: against the plain
+    version, bit-equal over two runs."""
+    kw = dict(K4_CASES[case])
+    shapes = kw["shapes"]
+    value, loc, aw = _inputs(cuda, dtype, **kw)
+    vq, scale = msda.quantize_levels(value, shapes)
+    subsets = [None, (len(shapes) - 1,), tuple(range(0, len(shapes), 2))]
+    for cap in (16, 8):
+        msda_cuda.q_geometry.cache_clear()
+        monkeypatch.setattr(msda_cuda, "Q_VEC_BYTES", cap)
+        for levels in subsets:
+            args = (vq, scale, shapes, loc, aw)
+            got = msda_cuda.msda_fwd_q(*args, levels=levels)
+            assert torch.equal(got, msda_cuda.msda_fwd_q(*args,
+                                                         levels=levels))
+            _assert_f32_close(got, msda.msda_fwd_q_plain(*args,
+                                                         levels=levels))
+    msda_cuda.q_geometry.cache_clear()
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4, 8])
+def test_k4_unaligned_values_match_plain(cuda, offset):
+    """int8 values whose storage starts off the 16-byte alignment: the
+    corner loads narrow to what the pointer allows."""
+    kw = dict(CASES["d32_batch3"])
+    shapes = kw["shapes"]
+    value, loc, aw = _inputs(cuda, torch.bfloat16, **kw)
+    vq, scale = msda.quantize_levels(value, shapes)
+    moved = _unaligned(vq, offset)
+    assert msda_cuda.pointer_alignment(moved) == offset
+    got = msda_cuda.msda_fwd_q(moved, scale, shapes, loc, aw)
+    _assert_f32_close(got, msda.msda_fwd_q_plain(vq, scale, shapes, loc, aw))
+    assert torch.equal(got, msda_cuda.msda_fwd_q(moved, scale, shapes, loc,
+                                                 aw))
+
+
+def test_k4_refuses_a_geometry_that_misses_work(cuda, monkeypatch):
+    """msda_fwd_q.cu's q_geometry_ok refuses what the CPU tests' model of it
+    refuses."""
+    from test_torch_msda_geometry import _accepted_q
+
+    kw = dict(CASES["d32_batch3"])
+    shapes = kw["shapes"]
+    value, loc, aw = _inputs(cuda, torch.float32, **kw)
+    vq, scale = msda.quantize_levels(value, shapes)
+    B, Q, H, D = 3, 70, 8, 32
+    ns = len(shapes) * 4
+    geom = msda_cuda.q_geometry(B * Q * H, D, ns)
+    assert _accepted_q(geom, B * Q * H, D, ns)
+    bad = [replace(geom, blocks=geom.blocks - 1),
+           replace(geom, blocks=geom.blocks + 1),
+           replace(geom, passes=geom.passes - 1),
+           replace(geom, slots_log2=5),
+           replace(geom, groups=geom.groups + 1),
+           replace(geom, threads=512)]
+    for geometry in bad:
+        assert not _accepted_q(geometry, B * Q * H, D, ns)
+        monkeypatch.setattr(msda_cuda, "q_geometry",
+                            lambda *a, geometry=geometry: geometry)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            msda_cuda.msda_fwd_q(vq, scale, shapes, loc, aw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(c for c in WIN_CASES
+                                        if c != "w32_all_exact"))
+def test_k7_bit_equal_to_k8_on_broadcast_bands(cuda, case, dtype):
+    """K7 runs K8's kernel with a band table whose point stride is 0: on
+    every banded level (windows 8, 16 and 32, an overhanging last band,
+    batches of 1-3, D 8-64) it is bit-equal to K8 given K7's tile bands
+    broadcast over the points, bit-equal over two runs, and held to the
+    plain version."""
+    kw = dict(WIN_CASES[case])
+    window, shapes = kw.pop("window"), kw["shapes"]
+    value, loc, aw = _raster(cuda, dtype, **kw)
+    B, S, H, D = value.shape
+    g = torch.randn((B, S, H * D), device=cuda).to(dtype)
+    for lid, (h, _) in enumerate(shapes):
+        if h <= window:
+            continue
+        args = _banded_bwd_args(value, loc, aw, g, shapes, lid, window, False)
+        bidx = args[1]
+        P = args[2].shape[2]
+        wide = bidx[:, :, None, :].expand(B, H, P, bidx.shape[-1])
+        got = msda_cuda.msda_bwd_win_rows(*args)
+        assert all(torch.equal(a, b) for a, b in zip(
+            got, msda_cuda.msda_bwd_win_rows(*args)))
+        assert all(torch.equal(a, b) for a, b in zip(
+            got, msda_cuda.msda_bwd_win_rows_pp(args[0], wide.contiguous(),
+                                                *args[2:])))
+        ref = msda.msda_bwd_win_plain(*args)
+        _assert_win_bwd_close((ref[0], *got), ref, dtype)

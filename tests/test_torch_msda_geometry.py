@@ -1,7 +1,9 @@
 """The launch geometry of the exact forward (K1, msda_fwd), the backward
 row kernel (K2, msda_bwd_rows), the value-gradient kernel (K3,
-msda_bwd_value) and the per-point banded kernels (K6, msda_fwd_win_pp; K8,
-msda_bwd_win_rows_pp; K10, msda_bwd_win_value_pp), on the CPU.
+msda_bwd_value), the int8 forward (K4, msda_fwd_q) and the banded kernels
+with lanes over (query, point, channel group) (K6, msda_fwd_win_pp; K7 and
+K8, msda_bwd_win_rows and msda_bwd_win_rows_pp; K10,
+msda_bwd_win_value_pp), on the CPU.
 
 ``msda_cuda.launch_geometry`` decides how a warp's lanes split over
 (sample, channel group), the vector width of a corner load, the passes,
@@ -18,7 +20,10 @@ sum is held to the plain backward; the lanes of K6, K8 and K10 over (query,
 point, channel group) are mapped through the segment table onto the padded
 rows, K6's fold of a query's points over its lanes is held to the plain
 forward, and K10's hand-out of a sample's geometry is walked as the kernel
-walks it.
+walks it. K4's short rows, several a warp, each sample worked out on one
+lane and handed to the lanes that read it, are walked the same way and
+its fold is held to the plain int8 forward; K7's band table, read through
+K8's kernel with a point stride of 0, is checked entry by entry.
 """
 
 from dataclasses import replace
@@ -211,13 +216,14 @@ def test_vector_width_follows_D_and_the_alignment():
 
 
 def test_the_shared_header_keys_both_libraries(tmp_path, monkeypatch):
-    """msda_fwd.cu and msda_bwd.cu include msda_geom.cuh, msda_fwd_win.cu
-    and msda_bwd_win.cu include it through msda_band.cuh: an edited header
-    builds all four libraries anew, under new names."""
+    """msda_fwd.cu, msda_bwd.cu and msda_fwd_q.cu include msda_geom.cuh,
+    msda_fwd_win.cu and msda_bwd_win.cu include it through msda_band.cuh:
+    an edited header builds all five libraries anew, under new names."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     sources = {"msda_fwd": ("SOURCE", "msda_geom.cuh"),
                "msda_bwd": ("SOURCE_BWD", "msda_geom.cuh"),
+               "msda_fwd_q": ("SOURCE_Q", "msda_geom.cuh"),
                "msda_fwd_win": ("SOURCE_WIN", "msda_band.cuh"),
                "msda_bwd_win": ("SOURCE_BWD_WIN", "msda_band.cuh")}
     for name in (*(f"{n}.cu" for n in sources), "msda_geom.cuh",
@@ -865,3 +871,248 @@ def test_win_geometry_refuses_what_misses_work():
         assert not _accepted_win(geom, 2, Q, 32, P_, es, form)
     with pytest.raises(ValueError, match="form must be"):
         msda_cuda.win_geometry(2, Q, 32, 4, 2, form="tile")
+
+
+# --------------------------------------------------------------------------
+# K4 (msda_fwd_q): several short int8 rows a warp, each sample's geometry
+# worked out on one lane and handed out
+# --------------------------------------------------------------------------
+
+
+def _accepted_q(geom, rows, D, ns):
+    """msda_fwd_q.cu's ``q_geometry_ok`` in Python (a card test in
+    tests/test_torch_cuda.py holds the C check to this one)."""
+    lps = geom.lanes_per_sample
+    if not (0 <= geom.lps_log2 <= 5 and 0 <= geom.slots_log2
+            <= 5 - geom.lps_log2):
+        return False
+    per_block = geom.threads // 32 * geom.rows_per_warp
+    return (1 <= geom.vec <= 16 and geom.vec & (geom.vec - 1) == 0
+            and geom.groups * geom.vec == D
+            and geom.chunks * lps >= geom.groups
+            and (geom.chunks - 1) * lps < geom.groups
+            and geom.passes >= 0 and geom.passes << geom.slots_log2 >= ns
+            and 32 <= geom.threads <= 256 and geom.threads % 32 == 0
+            and geom.blocks >= 1 and geom.blocks * per_block >= rows
+            and (geom.blocks - 1) * per_block < rows)
+
+
+def _k4_lanes(geom, rows, ns):
+    """K4's reads as the kernel walks them, over (warp, chunk, pass, lane):
+    the row and sample each lane reads, from the lane that works the
+    sample out (``src``, which must hold the same row), the first channel,
+    and whether the lane has work. Returns a dict of flat arrays over the
+    lanes with work, and the stores (row, first channel) of the lanes of
+    each row's first slot."""
+    lps, spp = geom.lanes_per_sample, geom.samples_per_pass
+    slots, rpw = geom.row_slots, geom.rows_per_warp
+    first = np.arange(geom.blocks * geom.threads // 32) * rpw
+    first = first[first < rows][:, None]
+    lane = np.arange(32)[None, :]
+    slot, sub = lane >> geom.lps_log2, lane & (lps - 1)
+    row = first + (slot >> geom.slots_log2)
+    reads = {k: [] for k in ("row", "j", "first")}
+    for c in range(geom.chunks):
+        group = c * lps + sub
+        on = (row < rows) & (group < geom.groups)
+        for t0 in range(0, geom.passes, lps):
+            for u in range(min(lps, geom.passes - t0)):
+                src = u * spp + slot
+                assert (src < 32).all()
+                # what lane src works out: slot src % spp of pass src / spp
+                mine_slot = src & (spp - 1)
+                mine_row = first + (mine_slot >> geom.slots_log2)
+                j = ((t0 << geom.slots_log2)
+                     + ((src >> (5 - geom.lps_log2)) << geom.slots_log2)
+                     + (mine_slot & (slots - 1)))
+                valid = (mine_row < rows) & (j < ns)
+                assert (mine_row == row).all()  # the hand-out's right row
+                work = np.broadcast_to(on & valid, row.shape)
+                reads["row"].append(np.broadcast_to(row, work.shape)[work])
+                reads["j"].append(np.broadcast_to(j, work.shape)[work])
+                reads["first"].append(
+                    np.broadcast_to(group * geom.vec, work.shape)[work])
+    reads = {k: np.concatenate(v) for k, v in reads.items()}
+    stores = []
+    for c in range(geom.chunks):
+        group = c * lps + sub
+        store = ((row < rows) & (group < geom.groups)
+                 & ((slot & (slots - 1)) == 0))
+        store = np.broadcast_to(store, row.shape)
+        stores.append((np.broadcast_to(row, store.shape)[store],
+                       np.broadcast_to(group * geom.vec, store.shape)[store]))
+    return reads, tuple(np.concatenate(a) for a in zip(*stores))
+
+
+def _assert_k4_covers_once(geom, rows, D, ns):
+    """Every (row, sample, channel) read once, every (row, channel) stored
+    once, and a row's fold partners hold the same row."""
+    reads, (srow, sfirst) = _k4_lanes(geom, rows, ns)
+    groups = geom.groups
+    count = np.bincount((reads["row"] * ns + reads["j"]) * groups
+                        + reads["first"] // geom.vec,
+                        minlength=rows * ns * groups)
+    assert count.shape == (rows * ns * groups,) and (count == 1).all()
+    count = np.bincount(srow * groups + sfirst // geom.vec,
+                        minlength=rows * groups)
+    assert count.shape == (rows * groups,) and (count == 1).all()
+    assert (reads["first"] % geom.vec == 0).all() and D % geom.vec == 0
+    # the fold's partners lane ^ off (off = lps, 2 lps, ... below
+    # lps * row_slots) lie in the same row and channel group
+    lps = geom.lanes_per_sample
+    lane = np.arange(32)
+    off = lps
+    while off < lps * geom.row_slots:
+        partner = lane ^ off
+        assert ((lane >> geom.lps_log2 >> geom.slots_log2)
+                == (partner >> geom.lps_log2 >> geom.slots_log2)).all()
+        assert ((lane & (lps - 1)) == (partner & (lps - 1))).all()
+        off <<= 1
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("call", ["encoder_served", "encoder", "decoder"])
+def test_k4_lane_map_covers_the_served_calls_once(call, B):
+    """K4 at the served calls of the 608x1008 bucket (the served encoder
+    call on its one exact level, 4 samples a row; the int8 encoder call on
+    every level and the decoder call, 16): every (row, sample, channel
+    group) read once, from the lane that works the sample out, every
+    output channel stored once; at D = 32 a lane loads 16 channels, a
+    4-sample row takes 2 slots (8 rows a warp, all 4 samples of each in
+    flight over two passes) and a 16-sample row 8 (2 rows a warp)."""
+    S = BUCKET_S["serving"]
+    Q = 200 if call == "decoder" else S
+    ns = P if call == "encoder_served" else L * P
+    geom = msda_cuda.q_geometry(B * Q * H, 32, ns)
+    assert _accepted_q(geom, B * Q * H, 32, ns)
+    assert geom.vec == msda_cuda.Q_VEC_BYTES == 16
+    assert geom.passes == msda_cuda.UNROLL
+    assert geom.rows_per_warp == {4: 8, 16: 2}[ns]
+    _assert_k4_covers_once(geom, B * Q * H, 32, ns)
+
+
+@pytest.mark.parametrize("D", [8, 16, 32, 64, 48])
+@pytest.mark.parametrize("ns,rows", [(4, 1), (4, 203), (16, 203), (3, 77),
+                                     (12, 50), (1, 9), (40, 31)])
+def test_k4_geometry_at_odd_shapes(D, ns, rows):
+    """Head dims 8-64, rows of 4 and 16 samples, 3 and 12 (P or a level
+    subset that does not divide a pass), 1 and 40 (more samples than a
+    pass: the row's slots are the whole pass), row counts that are not a
+    multiple of a warp's rows, every alignment of the values, and corner
+    loads of at most 8 bytes."""
+    for align in (16, 8, 4, 2, 1):
+        for cap in (16, 8):
+            msda_cuda.q_geometry.cache_clear()
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(msda_cuda, "Q_VEC_BYTES", cap)
+                geom = msda_cuda.q_geometry(rows, D, ns, align)
+            assert geom.vec <= min(align, cap)
+            assert _accepted_q(geom, rows, D, ns)
+            _assert_k4_covers_once(geom, rows, D, ns)
+    msda_cuda.q_geometry.cache_clear()
+
+
+@pytest.mark.parametrize("levels,D,P_", [((0, 1, 2), 8, 4), ((2,), 16, 4),
+                                         ((1,), 8, 3), ((0, 2), 64, 2)])
+def test_k4_fold_sums_match_plain(levels, D, P_):
+    """K4's sums as its lanes make them: each sample's float32 contribution
+    (``msda_fwd_q_plain`` with the other samples' weights zeroed), summed
+    in float64 over the lane's passes and its row's fold partners, against
+    ``msda_fwd_q_plain``'s float32 sum; a level subset, P that does not
+    divide a pass, a batch of 2, a level whose stage 1 contracts y."""
+    shapes = ((9, 13), (3, 140), (4, 6))  # level 1: w > 128 >= h, flipped
+    B, Q, H_ = 2, 11, 3
+    S = sum(h * w for h, w in shapes)
+    rng = np.random.default_rng(3)
+    value = torch.from_numpy(rng.standard_normal((B, S, H_, D),
+                                                 dtype=np.float32))
+    loc = torch.from_numpy(rng.uniform(-0.2, 1.2, (B, Q, H_, 3, P_, 2))
+                           .astype(np.float32))
+    aw = torch.from_numpy(rng.random((B, Q, H_, 3, P_)).astype(np.float32))
+    vq, scale = msda.quantize_levels(value, shapes)
+    ref = msda.msda_fwd_q_plain(vq, scale, shapes, loc, aw, levels)
+    ns = len(levels) * P_
+    parts = np.zeros((ns, B, Q, H_, D))
+    for j in range(ns):
+        one = torch.zeros_like(aw)
+        k, p = divmod(j, P_)
+        one[:, :, :, levels[k], p] = aw[:, :, :, levels[k], p]
+        parts[j] = msda.msda_fwd_q_plain(vq, scale, shapes, loc, one,
+                                         levels).reshape(B, Q, H_, D).numpy()
+    rows = B * Q * H_
+    parts = parts.reshape(ns, rows, D)
+    geom = msda_cuda.q_geometry(rows, D, ns)
+    reads, _ = _k4_lanes(geom, rows, ns)
+    got = np.zeros((rows, D))
+    for v in range(geom.vec):
+        np.add.at(got, (reads["row"], reads["first"] + v),
+                  parts[reads["j"], reads["row"], reads["first"] + v])
+    np.testing.assert_allclose(got.reshape(B, Q, H_ * D), ref.numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_k4_geometry_refuses_what_misses_work():
+    """The Python model of q_geometry_ok refuses a geometry whose index math
+    would miss or repeat work."""
+    rows, D, ns = 1000, 32, 4
+    geom = msda_cuda.q_geometry(rows, D, ns)
+    assert _accepted_q(geom, rows, D, ns)
+    bad = [replace(geom, passes=geom.passes - 1),
+           replace(geom, blocks=geom.blocks + 1),
+           replace(geom, blocks=geom.blocks - 1),
+           replace(geom, slots_log2=5),
+           replace(geom, slots_log2=geom.slots_log2 - 1),
+           replace(geom, vec=32, groups=1),
+           replace(geom, groups=geom.groups + 1),
+           replace(geom, lps_log2=geom.lps_log2 + 1),
+           replace(geom, threads=512)]
+    for g in bad:
+        assert not _accepted_q(g, rows, D, ns), g
+
+
+# --------------------------------------------------------------------------
+# K7 (msda_bwd_win_rows) through K8's kernel: the band table's strides
+# --------------------------------------------------------------------------
+
+
+def _band_entry(bh, p, qp, P_, T, TQ, per_point):
+    """The band table entry the rows kernel reads for (b * H + head, point,
+    padded row), as msda_bwd_win.cu writes it: bidx[bh * bh_stride + p *
+    p_stride + qp / TQ] with strides P * T and T for K8's [B, H, P, T]
+    table, T and 0 for K7's [B, H, T]."""
+    p_stride = T if per_point else 0
+    bh_stride = P_ * T if per_point else T
+    return bh * bh_stride + p * p_stride + qp // TQ
+
+
+@pytest.mark.parametrize("per_point", [False, True], ids=["K7", "K8"])
+@pytest.mark.parametrize("D,dtype", [(32, "bf16"), (32, "f32"), (8, "bf16"),
+                                     (64, "f32")])
+@pytest.mark.parametrize("TQ", [8, 128])
+def test_rows_kernel_band_lookup(per_point, D, dtype, TQ):
+    """Under K8's lane map (K7 takes the same launch) every (query, point)
+    of the served encoder call's segments reads its tile's band: bidx[b, h,
+    tile] for K7, whatever the point, and bidx[b, h, p, tile] for K8; the
+    lookup stays inside the table."""
+    shapes = BUCKET_LEVELS["serving"]
+    Q = sum(h * w for h, w in shapes)
+    segs = segment_bounds(Q, shapes)
+    B, H_ = 2, 3
+    geom = msda_cuda.win_geometry(B * H_, Q, D, P, ELEMENT_SIZE[dtype])
+    entry, _, Qp = _k8_entries(geom, B * H_, Q, D, P, segs, TQ)
+    T = Qp // TQ
+    bh, rest = divmod(entry, P * Qp)
+    p, qp = divmod(rest, Qp)
+    rng = np.random.default_rng(int(per_point))
+    shape = (B, H_, P, T) if per_point else (B, H_, T)
+    bidx = rng.integers(0, 100, shape)
+    got = bidx.reshape(-1)[_band_entry(bh, p, qp, P, T, TQ, per_point)]
+    b, h = divmod(bh, H_)
+    want = (bidx[b, h, p, qp // TQ] if per_point
+            else bidx[b, h, qp // TQ])
+    assert (got == want).all()
+    # K7's table broadcast over the points is K8's table for the same bands
+    if not per_point:
+        wide = np.broadcast_to(bidx[:, :, None, :], (B, H_, P, T))
+        assert (wide.reshape(-1)[_band_entry(bh, p, qp, P, T, TQ, True)]
+                == got).all()
