@@ -44,7 +44,8 @@ and no result line. In order it:
    served encoder call (window 16, raster queries with offsets of a few
    pixels; prints the share of samples that clamp), with float32, bfloat16
    and int8 values, and a batch of 2; checks that two runs are bit-equal
-   and times both kernels by CUDA events and in a CUDA graph;
+   and that K5 is bit-equal to K6 given K5's tile bands broadcast over the
+   points, and times both kernels by CUDA events and in a CUDA graph;
 7. serves a few requests through ``infer.infer`` at full width (ResNet-50,
    d_model 256, 6+6 layers, 200 queries, 150/50 labels, bfloat16, seeded
    random weights) in three configurations and checks the outputs and each
@@ -73,10 +74,11 @@ and no result line. In order it:
    (608x1008, window 16, raster queries with offsets of a few pixels; prints
    the clamped share and the value kernels' run-to-run difference; the row
    kernels bit-equal over two runs, and K7 bit-equal to K8 given K7's tile
-   bands broadcast over the points; all four timed by CUDA events and in a
-   CUDA graph, K10 adding into the level's slice of a layer's gradient as
-   the path calls it) in float32 and bfloat16 at the adaptation's
-   microbatch of 4, and checks the batch addressing on a batch of 2;
+   bands broadcast over the points; K9's largest difference to K10 on those
+   broadcast bands; all four timed by CUDA events and in a CUDA graph, K9
+   and K10 adding into the level's slice of a layer's gradient as the path
+   calls them) in float32 and bfloat16 at the adaptation's microbatch of 4,
+   and checks the batch addressing on a batch of 2;
 13. trains the windowed path: the band-adaptation fine-tune's step
    (``perf_train_step.adapt_config``: window 16, one band per point, bf16,
    dropout 0.1, no auxiliary losses) at full width, batch 4 at 608x1008, its
@@ -570,10 +572,18 @@ def _banded_level_args(value, loc, aw, shapes, lid, per_point, int8):
             WINDOW, segs, S), clamped
 
 
+def broadcast_bands(bidx, P):
+    """A tile band table [B, H, T] broadcast over P points, [B, H, P, T]:
+    the per-point kernels' table for the same bands."""
+    B, H_, T = bidx.shape
+    return bidx[:, :, None, :].expand(B, H_, P, T).contiguous()
+
+
 def check_win_kernels(shapes):
     """K5 and K6 against their plain version on the banded levels of the
-    served encoder call; one row per (band, value type), times summed over
-    the levels (one launch each)."""
+    served encoder call, K5 also against K6 on its tile bands broadcast over
+    the points; one row per (band, value type), times summed over the
+    levels (one launch each)."""
     banded = [l for l, (h, _) in enumerate(shapes) if h > WINDOW]
     rows = []
     for band, (name, per_point) in BANDED.items():
@@ -588,12 +598,20 @@ def check_win_kernels(shapes):
                    "plain_ms": 0.0, "bound_ms": 0.0, "ms_per_level": [],
                    "graph_ms_per_level": [], "clamped_share": [],
                    "bit_equal_run_to_run": True}
+            if not per_point:
+                row["bit_equal_to_k6_broadcast"] = True
             for lid in banded:
                 args, clamped = _banded_level_args(value, loc, aw, shapes,
                                                    lid, per_point, int8)
                 kern = kernel(*args)
                 row["bit_equal_run_to_run"] &= torch.equal(kern,
                                                            kernel(*args))
+                if not per_point:
+                    # K5 is K6 with a band table whose point stride is 0
+                    wide = broadcast_bands(args[1], args[2].shape[2])
+                    row["bit_equal_to_k6_broadcast"] &= torch.equal(
+                        kern, msda_cuda.msda_fwd_win_pp(args[0], wide,
+                                                        *args[2:]))
                 plain = msda.msda_fwd_win_plain(*args)
                 torch.cuda.synchronize()
                 if not torch.isfinite(kern).all():
@@ -624,14 +642,21 @@ def check_win_kernels(shapes):
                   f"{[round(m, 4) for m in row['graph_ms_per_level']]}), "
                   f"plain {row['plain_ms']:.4f} ms, bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}); bit-equal "
-                  f"run to run {row['bit_equal_run_to_run']}; clamped "
-                  f"share of the in-image samples per level "
+                  f"run to run {row['bit_equal_run_to_run']}"
+                  + ("" if per_point else
+                     "; bit-equal to msda_fwd_win_pp on the bands broadcast "
+                     f"over the points {row['bit_equal_to_k6_broadcast']}")
+                  + "; clamped share of the in-image samples per level "
                   f"{[round(c, 4) for c in row['clamped_share']]}", flush=True)
             if row["max_err_over_limit"] > 1.0:
                 raise SystemExit(f"{name} {form}: kernel disagrees with the "
                                  "plain version")
             if not row["bit_equal_run_to_run"]:
                 raise SystemExit(f"{name} {form}: two runs differ")
+            if not row.get("bit_equal_to_k6_broadcast", True):
+                raise SystemExit(f"{name} {form}: differs from "
+                                 "msda_fwd_win_pp on the tile bands "
+                                 "broadcast over the points")
             rows.append(row)
         # the batch index of the kernel's addressing, on the middle level
         value, loc, aw = raster_inputs(shapes, torch.float32, seed=50)
@@ -658,8 +683,10 @@ def _banded_bwd_args(value, loc, aw, g, shapes, lid, per_point):
 
 def check_bwd_win_kernels(shapes, batch):
     """K7 + K9 and K8 + K10 against their plain version on the banded
-    levels of the adaptation's encoder call; one row per (band, dtype),
-    times summed over the levels (one launch of each kernel per level)."""
+    levels of the adaptation's encoder call, K7 and K9 also against K8 and
+    K10 on their tile bands broadcast over the points; one row per (band,
+    dtype), times summed over the levels (one launch of each kernel per
+    level)."""
     banded = [l for l, (h, _) in enumerate(shapes) if h > WINDOW]
     rows = []
     for band, (rows_name, value_name) in BANDED_BWD.items():
@@ -672,8 +699,8 @@ def check_bwd_win_kernels(shapes, batch):
             g = torch.randn(value.shape[:2] + (H * D,), device=DEVICE,
                             generator=torch.Generator(device=DEVICE)
                             .manual_seed(len(rows))).to(dtype)
-            # the layer's float32 value gradient, whose level slices K10
-            # adds into (msda._windowed_backward); K9 returns its own
+            # the layer's float32 value gradient, whose level slices the
+            # value kernels add into (msda._windowed_backward)
             dvalue_layer = torch.zeros(value.shape, dtype=torch.float32,
                                        device=DEVICE)
             starts = msda.level_starts(shapes)
@@ -713,27 +740,28 @@ def check_bwd_win_kernels(shapes, batch):
                     torch.equal(a, b) for a, b in zip((dix, diy, daw),
                                                       rows_again))
                 if not per_point:
-                    # K7 is K8 with a band table whose point stride is 0:
-                    # bit-equal to K8 given the tile bands for every point
-                    bidx = args[1]
-                    B_, H_, T = bidx.shape
-                    P_ = args[2].shape[2]
-                    wide = bidx[:, :, None, :].expand(B_, H_, P_, T)
-                    as_k8 = msda_cuda.msda_bwd_win_rows_pp(
-                        args[0], wide.contiguous(), *args[2:])
+                    # K7 and K9 are K8 and K10 with a band table whose point
+                    # stride is 0: K7 bit-equal to K8 given the tile bands
+                    # for every point, K9 up to the order of its adds
+                    wide = broadcast_bands(args[1], args[2].shape[2])
+                    wide_args = (args[0], wide, *args[2:])
+                    as_k8 = msda_cuda.msda_bwd_win_rows_pp(*wide_args)
                     row["rows_bit_equal_to_k8_broadcast"] = row.get(
                         "rows_bit_equal_to_k8_broadcast", True) and all(
                         torch.equal(a, b)
                         for a, b in zip((dix, diy, daw), as_k8))
+                    row["value_max_abs_diff_to_k10_broadcast"] = max(
+                        row.get("value_max_abs_diff_to_k10_broadcast", 0.0),
+                        (dvalue - msda_cuda.msda_bwd_win_value_pp(
+                            *wide_args)).abs().max().item())
                 row["rows_ms"] += cuda_ms(lambda: rows_kernel(*args), 50)
                 row["rows_graph_ms"] += graph_ms(lambda: rows_kernel(*args))
                 h, w = shapes[lid]
-                into = ({"out": dvalue_layer[:, starts[lid]:starts[lid]
-                                             + h * w]} if per_point else {})
+                into = dvalue_layer[:, starts[lid]:starts[lid] + h * w]
                 row["value_ms"] += cuda_ms(
-                    lambda: value_kernel(*args, **into), 50)
+                    lambda: value_kernel(*args, out=into), 50)
                 row["value_graph_ms"] += graph_ms(
-                    lambda: value_kernel(*args, **into))
+                    lambda: value_kernel(*args, out=into))
                 row["plain_ms"] += cuda_ms(
                     lambda: msda.msda_bwd_win_plain(*args), 3, warmup=1)
                 row["clamped_share"].append(clamped)
@@ -759,13 +787,16 @@ def check_bwd_win_kernels(shapes, batch):
                      "broadcast over the points "
                      f"{row['rows_bit_equal_to_k8_broadcast']}") + "), "
                   f"value {row['value_ms']:.4f} ms (device "
-                  f"{row['value_graph_ms']:.4f} ms in a CUDA graph"
-                  + (", into the layer gradient's slice" if per_point else
-                     ", its zeroed buffer included")
-                  + f"; bound {row['value_bound_ms']:.4f} ms, "
-                  f"{row['value_bound_by']}), "
+                  f"{row['value_graph_ms']:.4f} ms in a CUDA graph, into the "
+                  f"layer gradient's slice; bound {row['value_bound_ms']:.4f} "
+                  f"ms, {row['value_bound_by']}), "
                   f"plain {row['plain_ms']:.4f} ms; value run-to-run max abs "
-                  f"diff {row['value_run_to_run_max_abs_diff']:.3e}; clamped "
+                  f"diff {row['value_run_to_run_max_abs_diff']:.3e}"
+                  + ("" if per_point else
+                     "; value max abs diff to msda_bwd_win_value_pp on the "
+                     "bands broadcast over the points "
+                     f"{row['value_max_abs_diff_to_k10_broadcast']:.3e}")
+                  + "; clamped "
                   f"share per level "
                   f"{[round(c, 4) for c in row['clamped_share']]}", flush=True)
             if max(row["max_err_over_limit"].values()) > 1.0:
@@ -1665,6 +1696,9 @@ def main() -> int:
             "bit_equal_run_to_run": all(r["bit_equal_run_to_run"]
                                         for r in mine.values()),
             "calls": list(mine.values()),
+            **({"bit_equal_to_k6_broadcast": all(
+                r["bit_equal_to_k6_broadcast"] for r in mine.values())}
+               if name == "msda_fwd_win" else {}),
         }
 
     def banded_bwd_entry(kind, name, line, launches):
@@ -1693,6 +1727,9 @@ def main() -> int:
                 r for r in mine if r["dtype"] == "float32")["value_graph_ms"]
             entry["run_to_run_max_abs_diff"] = max(
                 r["value_run_to_run_max_abs_diff"] for r in mine)
+            if name == "msda_bwd_win_value":
+                entry["max_abs_diff_to_k10_broadcast"] = max(
+                    r["value_max_abs_diff_to_k10_broadcast"] for r in mine)
         else:
             entry["graph_ms"] = main["rows_graph_ms"]
             entry["graph_ms_float32"] = next(

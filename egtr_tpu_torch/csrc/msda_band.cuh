@@ -1,8 +1,8 @@
 // What the banded kernels of msda_fwd_win.cu (K5, K6) and msda_bwd_win.cu
-// (K7-K10) share: the query segment table, the level's geometry, a
-// sample's band-local corners and reach, and the launch of the kernels
-// whose lanes split over (query, point, channel group) as
-// msda_cuda.win_geometry says (K6, K8, K10) with its check.
+// (K7-K10) share: the query segment table, the level's geometry, the band
+// table's strides, a sample's band-local corners and reach, and the launch
+// of their lanes over (query, point, channel group) as
+// msda_cuda.win_geometry says, with its check.
 
 #pragma once
 
@@ -39,6 +39,18 @@ static inline int read_band_geometry(const int* segments, int n_segments,
   }
   *g = Geometry{Q, Qp, H, D, P, h, w, win, TQ, Qp / TQ, batch_stride};
   return (int)cudaSuccess;
+}
+
+// Where a banded kernel finds the band of (b * H + head, point p, query
+// tile): bidx[bh * bh_stride + p * p_stride + tile], with strides P * T and
+// T for the point forms' [B, H, P, T] table (K6, K8, K10), T and 0 for the
+// tile forms' [B, H, T] (K5, K7, K9), whose every point takes its tile's
+// band. The form is a template flag of each kernel: strides read at run
+// time cost K6 registers (more spills) and 4-9% of its time on the H100.
+template <bool PER_POINT>
+__device__ __forceinline__ long band_entry(const Geometry& g, long bh, int p,
+                                           int tile) {
+  return (PER_POINT ? bh * g.P + p : bh) * (long)g.T + tile;
 }
 
 // A query's row in the padded layout: its segment, each padded to tiles of
@@ -84,22 +96,24 @@ __device__ __forceinline__ Sample band_sample(float x, float y, int row0,
   return s;
 }
 
-// The launch of K6, K8 and K10, the nine ints of msda_cuda.WinGeometry in
-// its order. Warp n takes (batch, head) n / ceil(Q / queries) and the
-// `queries` neighbouring queries from (n % ceil(Q / queries)) * queries on;
-// lane l takes sample slot l >> lps_log2 and channel group l & (lps - 1)
-// (plus chunk * lps); in pass t its sample is t * (32 >> lps_log2) + slot,
-// the warp's samples query-major (query k / P, point k % P). K6 with
-// fold = 0 takes one query a slot instead, whose P points the lane walks.
+// The launch of every banded kernel (K5-K10), the nine ints of
+// msda_cuda.WinGeometry in its order. Warp n takes (batch, head) n /
+// ceil(Q / queries) and the `queries` neighbouring queries from (n %
+// ceil(Q / queries)) * queries on; lane l takes sample slot l >> lps_log2
+// and channel group l & (lps - 1) (plus chunk * lps); in pass t its sample
+// is t * (32 >> lps_log2) + slot, the warp's samples query-major (query
+// k / P, point k % P). The forward with fold = 0 takes one query a slot
+// instead, whose P points the lane walks.
 struct WGeom {
-  int vec;       // channels per lane load (K10: float32 channels per add)
+  int vec;       // channels per lane load (K9, K10: float32 channels per
+                 // add)
   int lps_log2;  // log2 of the lanes per sample
   int groups;    // D / vec channel groups
   int chunks;    // ceil(groups / lanes per sample)
   int queries;   // neighbouring queries a warp takes
   int passes;    // passes over the warp's samples
-  int fold;      // K6: 1 a query's P points lie in neighbouring slots of a
-                 // pass and are folded with shuffles; 0 for K8 and K10
+  int fold;      // K5, K6: 1 a query's P points lie in neighbouring slots
+                 // of a pass and are folded with shuffles; 0 for K7-K10
   int threads;
   int blocks;
 };
@@ -111,9 +125,9 @@ static inline WGeom read_win_geometry(const int* g) {
 }
 
 // The geometry against the shapes (n_warps = B*H*ceil(Q / queries)), with
-// `elem_bytes` the bytes of a channel as a lane loads it (K10: 4, its float32
-// adds): anything the kernel's index math does not cover exactly once is
-// refused.
+// `elem_bytes` the bytes of a channel as a lane loads it (K9, K10: 4, their
+// float32 adds): anything the kernel's index math does not cover exactly
+// once is refused.
 static inline bool win_geometry_ok(const WGeom& g, long BH, int Q, int D,
                                    int P, int elem_bytes, WinForm form) {
   if (g.lps_log2 < 0 || g.lps_log2 > 5 || P < 1) return false;

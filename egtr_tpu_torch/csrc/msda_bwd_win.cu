@@ -46,27 +46,20 @@
 //   dV_ji += dT_j * cdt(hat_x_i)
 // hat'(t) = -sign(t) for |t| < 1, else 0, and 0 at t = 0.
 //
-// Design of K9: one warp per (batch, head, query), the query fastest so
-// that neighbouring warps read neighbouring rows; lanes over the head dim
-// D; per point each lane adds its channel of the four corner contributions
-// with a float32 atomicAdd into the level's zeroed float32 gradient
-// [B, h*w, H, D]. The order of the additions changes from run to run, so
-// the last bits of the sums do too.
-//
-// K7 runs K8's kernel (msda_bwd_win_rows_kernel). The JAX package computes
-// the two with one body (_bwd_rows_body_hb), and under one band per tile
-// every point of a tile takes the same band, so K7 is K8 with a band table
-// whose point stride is zero: the kernel reads the band of (b * H + head,
-// point, tile) at bidx[bh * bh_stride + p * p_stride + tile], with strides
-// P * T and T for K8's [B, H, P, T] table, T and 0 for K7's [B, H, T]. K7
-// takes K8's launch (msda_cuda.win_geometry, form "rows") and is bit-equal
-// to K8 given its tile bands broadcast over the points. The layout it
-// replaces (one warp per (batch, head, query), lanes over D, the points
-// walked in turn, three full-warp shuffle reductions a sample) ran 28x off
-// its bound. Measured on the H100 at the adaptation's three banded levels
-// (608x1008, window 16, batch 4, raster locations), device time in turns
-// with that layout: bf16 0.647 against 1.934 ms (0.33x), f32 0.990 against
-// 1.876 (0.53x).
+// K7 runs K8's kernel (msda_bwd_win_rows_kernel). The JAX package computes the
+// two with one body (_bwd_rows_body_hb), and under one band per tile every
+// point of a tile takes the same band, so K7 is K8 with a band table whose
+// point stride is zero: the kernel reads the band of (b * H + head, point,
+// tile) at bidx[bh * bh_stride + p * p_stride + tile], with strides P * T and
+// T for K8's [B, H, P, T] table, T and 0 for K7's [B, H, T] (band_entry in
+// msda_band.cuh, the form a template flag). K7 takes K8's launch
+// (msda_cuda.win_geometry, form "rows") and is bit-equal to K8 given its tile
+// bands broadcast over the points. The layout it replaces (one warp per
+// (batch, head, query), lanes over D, the points walked in turn, three
+// full-warp shuffle reductions a sample) ran 28x off its bound. Measured on
+// the H100 at the adaptation's three banded levels (608x1008, window 16, batch
+// 4, raster locations), device time in turns with that layout: bf16 0.647
+// against 1.934 ms (0.33x), f32 0.990 against 1.876 (0.53x).
 //
 // Design of K8 (msda_bwd_win_rows_pp), msda_bwd.cu's K2 layout carried
 // over: in the old layout a warp walked its P = 4 samples in turn with lanes
@@ -88,34 +81,47 @@
 // band-local row before the row is made absolute.
 //
 // Design of K10 (msda_bwd_win_value_pp), redesigned for this card. What
-// bounded the layout it replaces (K9's, with one band lookup a point),
-// measured on the H100 at the adaptation's three banded levels (608x1008,
-// window 16, batch 4, raster locations; bf16 / f32): 1.665 / 2.03 ms; with
-// each sample's adds sent to distinct rows 1.863 / 1.822; with no adds
-// 0.940 / 0.911. Same-address contention on the clamped edge rows did not
+// bounded the layout it replaces (one warp per (batch, head, query), the query
+// fastest, lanes over D, per point each lane adding its channel of the four
+// corner contributions with a scalar float32 atomicAdd, one band lookup a
+// point), measured on the H100 at the adaptation's three banded levels
+// (608x1008, window 16, batch 4, raster locations; bf16 / f32): 1.665 / 2.03
+// ms; with each sample's adds sent to distinct rows 1.863 / 1.822; with no
+// adds 0.940 / 0.911. Same-address contention on the clamped edge rows did not
 // bound it (neighbouring samples share L2 sectors), but the serial per-lane
-// walk (0.94 ms: the geometry and segment search worked out by all 32
-// lanes, the points in turn) and 32 scalar reductions a sample's corner.
-// Here K8's lane map (msda_cuda.win_geometry, form "value") with at most
-// four float32 channels a lane and 32 / P queries a warp: lane l works out
-// the band-local geometry of the warp's sample l once (its query's padded
-// row through the segment table, its band row, the corners' add flags, the
-// rounded x hats, the y hats times the weight, the pixel of its (absolute
-// row y0, x0) corner) and the lanes that add the sample's channels take it
-// with six __shfl_sync a pass (msda_bwd.cu's K3 hand-out); a lane adds a
-// corner's four channels with one 16-byte vector reduction
-// (red.global.add.v4.f32). The kernel adds into the caller's float32 slice
-// of the layer's gradient, whose batch stride it takes, so the level's own
-// zeroed buffer and its copy into the layer's gradient are gone. No
-// warp-combined add: the measurement above shows no contention to save.
-// It now takes 0.44x (bf16) and 0.37x (f32) of the old time; without its
-// reductions it takes 0.23 of its 0.73 ms, so the L2's vector reductions
-// bound it (at most 156 M 16-byte reductions over the three levels, some
-// 310 G a second).
-// Not kept (measured slower or within noise): two passes' shuffles and g
-// loads together; a warp's samples point-major.
-// The order of the additions changes from run to run, so the last bits of
-// the float32 sums do too.
+// walk (0.94 ms: the geometry and segment search worked out by all 32 lanes,
+// the points in turn) and 32 scalar reductions a sample's corner. Here K8's
+// lane map (msda_cuda.win_geometry, form "value") with at most four float32
+// channels a lane and 32 / P queries a warp: lane l works out the band-local
+// geometry of the warp's sample l once (its query's padded row through the
+// segment table, its band row, the corners' add flags, the rounded x hats, the
+// y hats times the weight, the pixel of its (absolute row y0, x0) corner) and
+// the lanes that add the sample's channels take it with six __shfl_sync a pass
+// (msda_bwd.cu's K3 hand-out); a lane adds a corner's four channels with one
+// 16-byte vector reduction (red.global.add.v4.f32). The kernel adds into the
+// caller's float32 slice of the layer's gradient, whose batch stride it takes,
+// so the level's own zeroed buffer and its copy into the layer's gradient are
+// gone. No warp-combined add: the measurement above shows no contention to
+// save. It now takes 0.44x (bf16) and 0.37x (f32) of the old time; without its
+// reductions it takes 0.23 of its 0.73 ms, so the L2's vector reductions bound
+// it (at most 156 M 16-byte reductions over the three levels, some 310 G a
+// second). Not kept (measured slower or within noise): two passes' shuffles
+// and g loads together; a warp's samples point-major. The order of the
+// additions changes from run to run, so the last bits of the float32 sums do
+// too.
+//
+// K9 (msda_bwd_win_value) runs K10's kernel (msda_bwd_win_value_kernel), as
+// K7 runs K8's: the JAX package's two value kernels (_bwd_dvtt_kernel_win,
+// _bwd_dvtt_kernel_win_pp) add the same dT * hat_x products into the band,
+// and under one band per tile every point takes its tile's band, so K9 is
+// K10 with the band table's point stride zero. It takes K10's launch, adds
+// into the caller's float32 slice of the layer's gradient as K10 does (the
+// level's own zeroed buffer and its add into the layer's gradient are
+// gone), and gives K10's sums given its tile bands broadcast over the
+// points, up to the order of the float32 additions. The layout it replaces
+// (the one K10's redesign replaced, with one band lookup a query) ran 29x
+// off its bound: 1.611 ms at the adaptation's three banded levels (bf16,
+// batch 4, with its zeroed buffer).
 //
 // Bound: memory. The rows (16 bytes per sample with g's share) and the
 // corner rows (4 per sample, mostly L2 hits) dominate; the value kernels
@@ -130,40 +136,10 @@
 
 #include "msda_band.cuh"
 
-// A float32 product as the JAX kernels feed it to the MXU: rounded to T.
-__device__ __forceinline__ float round_to(float v, const float*) { return v; }
-__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // d hat / dt: -sign(t) inside the support, 0 outside and at the kink t = 0
 __device__ __forceinline__ float hat_grad(float t) {
   if (!(fabsf(t) < 1.0f) || t == 0.0f) return 0.0f;
   return t > 0.0f ? -1.0f : 1.0f;
-}
-
-// Where a warp's query lives: its batch, head, padded row and the first
-// entry of its band indices.
-struct Query {
-  long b, bh;
-  int q, head, qp;
-  long rows;     // index of (b, head, p = 0, qp) in the rows
-  const int* bp;  // bidx of (b, head, tile)
-};
-
-__device__ __forceinline__ Query locate(long warp, const int* bidx,
-                                        const Segments& sg,
-                                        const Geometry& g) {
-  Query qu;
-  // warp = (b * H + head) * Q + q
-  qu.q = (int)(warp % g.Q);
-  qu.bh = warp / g.Q;
-  qu.head = (int)(qu.bh % g.H);
-  qu.b = qu.bh / g.H;
-  qu.qp = padded_row(qu.q, sg);
-  qu.rows = qu.bh * g.P * (long)g.Qp + qu.qp;
-  qu.bp = bidx + qu.bh * (long)g.T + qu.qp / g.TQ;
-  return qu;
 }
 
 // One sample of a pass: where its row lives, its band-local geometry, its
@@ -178,13 +154,12 @@ struct BandSample {
   Raw<T, VEC> g, v00, v01, v10, v11;
 };
 
-// K7 and K8. The band of (b * H + head, point p, tile) is bidx[bh *
-// bh_stride + p * p_stride + tile]: P * T and T for K8's [B, H, P, T]
-// table, T and 0 for K7's [B, H, T], whose every point takes its tile's
-// band. Three blocks an SM (80 registers a thread, some spilled): on the
-// H100 that measured 0.93x the time of two blocks an SM in float32, the
-// same in bf16.
-template <typename T, int VEC>
+// K7 (PER_POINT false) and K8. The band of (b * H + head, point p, tile)
+// is band_entry's: K8's [B, H, P, T] table, or K7's [B, H, T], whose every
+// point takes its tile's band. Three blocks an SM (80 registers a thread,
+// some spilled): on the H100 that measured 0.93x the time of two blocks an
+// SM in float32, the same in bf16.
+template <typename T, int VEC, bool PER_POINT>
 __global__ void __launch_bounds__(256, 3)
 msda_bwd_win_rows_kernel(const T* __restrict__ value,
                          const int* __restrict__ bidx,
@@ -196,7 +171,7 @@ msda_bwd_win_rows_kernel(const T* __restrict__ value,
                          float* __restrict__ daw,
                          const __grid_constant__ Segments sg,
                          const __grid_constant__ Geometry g, WGeom gm,
-                         long bh_stride, long p_stride, long n_warps) {
+                         long n_warps) {
   const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= n_warps) return;  // whole warps leave together
@@ -232,7 +207,8 @@ msda_bwd_win_rows_kernel(const T* __restrict__ value,
       const int qp = padded_row(q, sg);
       t.r = (bh * g.P + p) * (long)g.Qp + qp;
       t.a = aw_eff[t.r];
-      const int row0 = bidx[bh * bh_stride + p * p_stride + qp / g.TQ] * half;
+      const int row0 =
+          bidx[band_entry<PER_POINT>(g, bh, p, qp / g.TQ)] * half;
       t.s = band_sample(ix[t.r], iy_band[t.r], row0, g);
       t.s.y0 += row0;  // absolute from here on; the reach is decided
       t.gp = grad + ((b * g.Q + q) * (long)g.H + head) * g.D;
@@ -319,7 +295,15 @@ msda_bwd_win_rows_kernel(const T* __restrict__ value,
   }
 }
 
-template <typename T>
+// K9 (PER_POINT false) and K10, the band of (b * H + head, point, tile) found
+// as in K7 and K8: a warp takes (batch, head) and `queries` neighbouring
+// queries (32 / P of them), one sample a lane for the hand-out. Lane l works
+// out the band-local geometry of the warp's sample base + l once: the corners'
+// add flags, the rounded x hats, the y hats times the weight, and the pixel of
+// its (absolute row y0, x0) corner; the lanes that add the sample's channels
+// take these from it with six __shfl_sync a pass. A lane adds VEC float32
+// channels a corner with one vector reduction.
+template <typename T, int VEC, bool PER_POINT>
 __global__ void __launch_bounds__(256)
 msda_bwd_win_value_kernel(const int* __restrict__ bidx,
                           const float* __restrict__ ix,
@@ -328,64 +312,8 @@ msda_bwd_win_value_kernel(const int* __restrict__ bidx,
                           const T* __restrict__ grad,
                           float* __restrict__ dvalue,
                           const __grid_constant__ Segments sg,
-                          const __grid_constant__ Geometry g, long n_warps) {
-  const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= n_warps) return;
-  const Query qu = locate(warp, bidx, sg, g);
-  const long row = (long)g.H * g.D;
-  float* db = dvalue + qu.b * (long)g.h * g.w * row + (long)qu.head * g.D;
-  const T* gp = grad + ((qu.b * g.Q + qu.q) * (long)g.H + qu.head) * g.D;
-  const int half = g.win / 2;
-
-  for (int p = 0; p < g.P; ++p) {
-    const long r = qu.rows + p * (long)g.Qp;
-    const float a = aw_eff[r];
-    if (a == 0.0f) continue;  // dT = 0: outside the image, or no weight
-    const int row0 = qu.bp[0] * half;
-    const Sample s = band_sample(ix[r], iy_band[r], row0, g);
-    if (!s.any) continue;
-    const float hx0 = round_to(hat(s.zx0), gp);
-    const float hx1 = round_to(hat(s.zx1), gp);
-    const float c0 = __fmul_rn(hat(s.zy0), a);
-    const float c1 = __fmul_rn(hat(s.zy1), a);
-    // a zero weight adds nothing: skip the atomics of that corner
-    const bool do00 = s.oky0 && s.okx0 && c0 != 0.0f && hx0 != 0.0f;
-    const bool do01 = s.oky0 && s.okx1 && c0 != 0.0f && hx1 != 0.0f;
-    const bool do10 = s.oky1 && s.okx0 && c1 != 0.0f && hx0 != 0.0f;
-    const bool do11 = s.oky1 && s.okx1 && c1 != 0.0f && hx1 != 0.0f;
-    float* r0 = db + (long)(row0 + s.y0) * g.w * row;
-    float* r1 = r0 + (long)g.w * row;
-    for (int d = lane; d < g.D; d += 32) {
-      const float gd = to_float(gp[d]);
-      const float dT0 = round_to(__fmul_rn(c0, gd), gp);
-      const float dT1 = round_to(__fmul_rn(c1, gd), gp);
-      if (do00) atomicAdd(r0 + (long)s.x0 * row + d, dT0 * hx0);
-      if (do01) atomicAdd(r0 + (long)(s.x0 + 1) * row + d, dT0 * hx1);
-      if (do10) atomicAdd(r1 + (long)s.x0 * row + d, dT1 * hx0);
-      if (do11) atomicAdd(r1 + (long)(s.x0 + 1) * row + d, dT1 * hx1);
-    }
-  }
-}
-
-// K10: a warp takes (batch, head) and `queries` neighbouring queries (32 / P
-// of them), one sample a lane for the hand-out. Lane l works out the
-// band-local geometry of the warp's sample base + l once: the corners' add
-// flags, the rounded x hats, the y hats times the weight, and the pixel of
-// its (absolute row y0, x0) corner; the lanes that add the sample's
-// channels take these from it with six __shfl_sync a pass. A lane adds VEC
-// float32 channels a corner with one vector reduction.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(256)
-msda_bwd_win_value_pp_kernel(const int* __restrict__ bidx,
-                             const float* __restrict__ ix,
-                             const float* __restrict__ iy_band,
-                             const float* __restrict__ aw_eff,
-                             const T* __restrict__ grad,
-                             float* __restrict__ dvalue,
-                             const __grid_constant__ Segments sg,
-                             const __grid_constant__ Geometry g, WGeom gm,
-                             long n_warps) {
+                          const __grid_constant__ Geometry g, WGeom gm,
+                          long n_warps) {
   const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= n_warps) return;  // whole warps leave together
@@ -418,8 +346,8 @@ msda_bwd_win_value_pp_kernel(const int* __restrict__ bidx,
         const long r = (bh * g.P + p) * (long)g.Qp + qp;
         const float a = aw_eff[r];
         if (a != 0.0f) {  // dT = 0: outside the image, or no weight
-          const int row0 = bidx[(bh * g.P + p) * (long)g.T + qp / g.TQ] *
-                           half;
+          const int row0 =
+              bidx[band_entry<PER_POINT>(g, bh, p, qp / g.TQ)] * half;
           const Sample s = band_sample(ix[r], iy_band[r], row0, g);
           if (s.any) {
             hx0 = round_to<T>(hat(s.zx0));
@@ -488,42 +416,7 @@ msda_bwd_win_value_pp_kernel(const int* __restrict__ bidx,
   }
 }
 
-static unsigned blocks_for(long n_warps, int threads) {
-  return (unsigned)((n_warps * 32 + threads - 1) / threads);
-}
-
-static int launch_value(const void* bidx, const void* ix, const void* iy_band,
-                        const void* aw_eff, const void* grad, void* dvalue,
-                        const int* segments, int n_segments, int B, int Q,
-                        int Qp, int H, int D, int P, int h, int w, int win,
-                        int TQ, int is_bf16, void* stream) {
-  Segments sg;
-  Geometry g;
-  const int rc = read_band_geometry(segments, n_segments, Q, Qp, H, D, P, h,
-                                    w, win, TQ, 0, &sg, &g);
-  if (rc != (int)cudaSuccess) return rc;
-  const long n_warps = (long)B * H * Q;
-  if (n_warps == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int* bi = (const int*)bidx;
-  const float *fx = (const float*)ix, *fy = (const float*)iy_band;
-  const float* fa = (const float*)aw_eff;
-  if (is_bf16) {
-    msda_bwd_win_value_kernel<__nv_bfloat16>
-        <<<blocks_for(n_warps, threads), threads, 0, s>>>(
-            bi, fx, fy, fa, (const __nv_bfloat16*)grad, (float*)dvalue, sg,
-            g, n_warps);
-  } else {
-    msda_bwd_win_value_kernel<float>
-        <<<blocks_for(n_warps, threads), threads, 0, s>>>(
-            bi, fx, fy, fa, (const float*)grad, (float*)dvalue, sg, g,
-            n_warps);
-  }
-  return (int)cudaGetLastError();
-}
-
-// K7 and K8: msda_bwd_win_rows_kernel with the band table's strides.
+// K7 and K8: msda_bwd_win_rows_kernel in the tile or the point form.
 // geometry: the nine ints of struct WGeom (msda_band.cuh), in its order.
 static int launch_rows(const void* value, const void* bidx, const void* ix,
                        const void* iy_band, const void* aw_eff,
@@ -542,17 +435,21 @@ static int launch_rows(const void* value, const void* bidx, const void* ix,
   if (!win_geometry_ok(gm, (long)B * H, Q, D, P, is_bf16 ? 2 : 4, WIN_ROWS))
     return (int)cudaErrorInvalidValue;
   const long n_warps = (long)B * H * ((Q + gm.queries - 1) / gm.queries);
-  const long p_stride = per_point ? g.T : 0;
-  const long bh_stride = per_point ? (long)P * g.T : g.T;
   cudaStream_t s = (cudaStream_t)stream;
   const int* bi = (const int*)bidx;
   const float *fx = (const float*)ix, *fy = (const float*)iy_band;
   const float* fa = (const float*)aw_eff;
   float *ox = (float*)dix, *oy = (float*)diy, *oa = (float*)daw;
+#define MSDA_ROWS_FORM(T, VEC, PER_POINT)                                   \
+  msda_bwd_win_rows_kernel<T, VEC, PER_POINT>                               \
+      <<<gm.blocks, gm.threads, 0, s>>>((const T*)value, bi, fx, fy, fa,    \
+                                        (const T*)grad, ox, oy, oa, sg, g,  \
+                                        gm, n_warps)
 #define MSDA_ROWS(T, VEC)                                                   \
-  msda_bwd_win_rows_kernel<T, VEC><<<gm.blocks, gm.threads, 0, s>>>(        \
-      (const T*)value, bi, fx, fy, fa, (const T*)grad, ox, oy, oa, sg, g, gm, \
-      bh_stride, p_stride, n_warps)
+  if (per_point)                                                            \
+    MSDA_ROWS_FORM(T, VEC, true);                                           \
+  else                                                                      \
+    MSDA_ROWS_FORM(T, VEC, false)
   if (is_bf16) {
     switch (gm.vec) {
       case 8: MSDA_ROWS(__nv_bfloat16, 8); break;
@@ -570,6 +467,7 @@ static int launch_rows(const void* value, const void* bidx, const void* ix,
     }
   }
 #undef MSDA_ROWS
+#undef MSDA_ROWS_FORM
   return (int)cudaGetLastError();
 }
 
@@ -604,31 +502,18 @@ extern "C" int msda_bwd_win_rows_pp(const void* value, const void* bidx,
                      batch_stride, is_bf16, geometry, 1, stream);
 }
 
-// dvalue: float32 [B, h*w, H, D], zeroed by the caller.
-extern "C" int msda_bwd_win_value(const void* bidx, const void* ix,
-                                  const void* iy_band, const void* aw_eff,
-                                  const void* grad, void* dvalue,
-                                  const int* segments, int n_segments, int B,
-                                  int Q, int Qp, int H, int D, int P, int h,
-                                  int w, int win, int TQ, int is_bf16,
-                                  void* stream) {
-  return launch_value(bidx, ix, iy_band, aw_eff, grad, dvalue,
-                      segments, n_segments, B, Q, Qp, H, D, P, h, w, win, TQ,
-                      is_bf16, stream);
-}
-
+// K9 and K10: msda_bwd_win_value_kernel in the tile or the point form.
 // dvalue: float32 [B, h*w, H, D] with `out_batch_stride` elements between
 // two batches (the level's slice of a layer's [B, S, H, D] gradient, or a
 // buffer of its own); the kernel adds into it. geometry: the nine ints of
 // struct WGeom (msda_band.cuh), in its order.
-extern "C" int msda_bwd_win_value_pp(const void* bidx, const void* ix,
-                                     const void* iy_band, const void* aw_eff,
-                                     const void* grad, void* dvalue,
-                                     const int* segments, int n_segments,
-                                     int B, int Q, int Qp, int H, int D,
-                                     int P, int h, int w, int win, int TQ,
-                                     long out_batch_stride, int is_bf16,
-                                     const int* geometry, void* stream) {
+static int launch_value(const void* bidx, const void* ix,
+                        const void* iy_band, const void* aw_eff,
+                        const void* grad, void* dvalue, const int* segments,
+                        int n_segments, int B, int Q, int Qp, int H, int D,
+                        int P, int h, int w, int win, int TQ,
+                        long out_batch_stride, int is_bf16,
+                        const int* geometry, int per_point, void* stream) {
   Segments sg;
   Geometry g;
   const int rc = read_band_geometry(segments, n_segments, Q, Qp, H, D, P, h,
@@ -648,24 +533,59 @@ extern "C" int msda_bwd_win_value_pp(const void* bidx, const void* ix,
   const float *fx = (const float*)ix, *fy = (const float*)iy_band;
   const float* fa = (const float*)aw_eff;
   float* dv = (float*)dvalue;
-#define MSDA_K10(T, VEC)                                                     \
-  msda_bwd_win_value_pp_kernel<T, VEC><<<gm.blocks, gm.threads, 0, s>>>(     \
-      bi, fx, fy, fa, (const T*)grad, dv, sg, g, gm, n_warps)
+#define MSDA_VALUE_FORM(T, VEC, PER_POINT)                                  \
+  msda_bwd_win_value_kernel<T, VEC, PER_POINT>                              \
+      <<<gm.blocks, gm.threads, 0, s>>>(bi, fx, fy, fa, (const T*)grad, dv, \
+                                        sg, g, gm, n_warps)
+#define MSDA_VALUE(T, VEC)                                                  \
+  if (per_point)                                                            \
+    MSDA_VALUE_FORM(T, VEC, true);                                          \
+  else                                                                      \
+    MSDA_VALUE_FORM(T, VEC, false)
   if (is_bf16) {
     switch (gm.vec) {
-      case 4: MSDA_K10(__nv_bfloat16, 4); break;
-      case 2: MSDA_K10(__nv_bfloat16, 2); break;
-      case 1: MSDA_K10(__nv_bfloat16, 1); break;
+      case 4: MSDA_VALUE(__nv_bfloat16, 4); break;
+      case 2: MSDA_VALUE(__nv_bfloat16, 2); break;
+      case 1: MSDA_VALUE(__nv_bfloat16, 1); break;
       default: return (int)cudaErrorInvalidValue;
     }
   } else {
     switch (gm.vec) {
-      case 4: MSDA_K10(float, 4); break;
-      case 2: MSDA_K10(float, 2); break;
-      case 1: MSDA_K10(float, 1); break;
+      case 4: MSDA_VALUE(float, 4); break;
+      case 2: MSDA_VALUE(float, 2); break;
+      case 1: MSDA_VALUE(float, 1); break;
       default: return (int)cudaErrorInvalidValue;
     }
   }
-#undef MSDA_K10
+#undef MSDA_VALUE
+#undef MSDA_VALUE_FORM
   return (int)cudaGetLastError();
+}
+
+// K9: bidx [B, H, T]; the rest as launch_value.
+extern "C" int msda_bwd_win_value(const void* bidx, const void* ix,
+                                  const void* iy_band, const void* aw_eff,
+                                  const void* grad, void* dvalue,
+                                  const int* segments, int n_segments, int B,
+                                  int Q, int Qp, int H, int D, int P, int h,
+                                  int w, int win, int TQ,
+                                  long out_batch_stride, int is_bf16,
+                                  const int* geometry, void* stream) {
+  return launch_value(bidx, ix, iy_band, aw_eff, grad, dvalue, segments,
+                      n_segments, B, Q, Qp, H, D, P, h, w, win, TQ,
+                      out_batch_stride, is_bf16, geometry, 0, stream);
+}
+
+// K10: bidx [B, H, P, T]; the rest as launch_value.
+extern "C" int msda_bwd_win_value_pp(const void* bidx, const void* ix,
+                                     const void* iy_band, const void* aw_eff,
+                                     const void* grad, void* dvalue,
+                                     const int* segments, int n_segments,
+                                     int B, int Q, int Qp, int H, int D,
+                                     int P, int h, int w, int win, int TQ,
+                                     long out_batch_stride, int is_bf16,
+                                     const int* geometry, void* stream) {
+  return launch_value(bidx, ix, iy_band, aw_eff, grad, dvalue, segments,
+                      n_segments, B, Q, Qp, H, D, P, h, w, win, TQ,
+                      out_batch_stride, is_bf16, geometry, 1, stream);
 }

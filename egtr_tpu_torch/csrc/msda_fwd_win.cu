@@ -36,20 +36,17 @@
 //                                          even; exact in float32)
 //   out += t0 * fmul_rn(hy0, aw) + t1 * fmul_rn(hy1, aw)
 //
-// K5 (msda_fwd_win): one warp per (batch, head, query), the query fastest;
-// lanes over the head dim D, every lane reading the same row entries; the
-// points walked in turn. No atomics, deterministic.
-//
 // K6 (msda_fwd_win_pp), redesigned for this card. What bounded the layout
-// it replaces (K5's, with one band lookup a point): a warp walked its P = 4
-// samples in turn with lanes over D, so a sample's four corner loads were 2-
-// (bfloat16) or 1-byte (int8) loads one sample at a time, each lane read the
-// same row entries and searched the segment table itself, and every point
-// waited on the last: 0.333 ms at the served encoder call's three banded
-// levels (bfloat16, H100), 18x off its bound. Here msda_cuda.win_geometry
-// (form "fwd") lays a warp's lanes over (query, point, channel group), K1's
-// layout (msda_fwd.cu) through K8's lane map (msda_bwd_win.cu): a warp takes
-// (batch, head) and `queries` neighbouring queries, a lane reads VEC
+// it replaces (one warp per (batch, head, query), one band lookup a point):
+// a warp walked its P = 4 samples in turn with lanes over D, so a sample's
+// four corner loads were 2- (bfloat16) or 1-byte (int8) loads one sample at
+// a time, each lane read the same row entries and searched the segment
+// table itself, and every point waited on the last: 0.333 ms at the served
+// encoder call's three banded levels (bfloat16, H100), 18x off its bound.
+// Here msda_cuda.win_geometry (form "fwd") lays a warp's lanes over (query,
+// point, channel group), K1's layout (msda_fwd.cu) through K8's lane map
+// (msda_bwd_win.cu): a warp takes (batch, head) and `queries` neighbouring
+// queries, a lane reads VEC
 // channels of a corner with one 16-byte load where D and the value pointer
 // allow it (bfloat16 8 channels, 4 lanes a sample, 2 queries x 4 points a
 // pass; int8 16 channels, 2 lanes a sample; float32 4, 8 lanes), two passes'
@@ -62,12 +59,25 @@
 // divide the samples a pass holds (fold = 0: P not a power of two, or D
 // wide enough that a sample takes the whole warp), a slot takes a whole
 // query and the lane walks its points in turn. Every rounding above is
-// kept; the sum over a query's points is taken in another order than K5's
-// (pairwise instead of in turn), which moves float32 bits within
-// chip_smoke.TOL. No atomics: deterministic, bit-equal run to run. Measured
-// on the H100 in turns with the layout it replaces (device time in a CUDA
-// graph, the three banded levels): bfloat16 0.105 ms (0.32x), int8 0.104
-// (0.32x), float32 0.158 (0.50x); bfloat16 at batch 4 0.388 (0.25x).
+// kept; the sum over a query's points is taken pairwise instead of in turn,
+// which moves float32 bits within chip_smoke.TOL. No atomics:
+// deterministic, bit-equal run to run. Measured on the H100 in turns with
+// the layout it replaces (device time in a CUDA graph, the three banded
+// levels): bfloat16 0.105 ms (0.32x), int8 0.104 (0.32x), float32 0.158
+// (0.50x); bfloat16 at batch 4 0.388 (0.25x).
+//
+// K5 (msda_fwd_win) runs K6's kernel (msda_fwd_win_kernel). The JAX package
+// computes both with the same per-point sum (_fwd_body_hb and
+// _fwd_kernel_win_pp), and under one band per tile every point of a tile
+// takes the same band, so K5 is K6 with a band table whose point stride is
+// zero: the kernel reads the band of (b * H + head, point, tile) at
+// bidx[bh * bh_stride + p * p_stride + tile], with strides P * T and T for
+// K6's [B, H, P, T] table, T and 0 for K5's [B, H, T] (band_entry in
+// msda_band.cuh, the form a template flag). K5 takes K6's launch and is
+// bit-equal to K6 given its tile bands broadcast over the points. The
+// layout it replaces (the one K6's redesign replaced, with one band lookup
+// a query) ran 17x off its bound: 0.298 ms at the served encoder call's
+// three banded levels (bfloat16, H100).
 //
 // Bound: memory. The rows (12 bytes a sample, 16 with the band index) and
 // the output dominate the bytes that must move; the corner rows are mostly
@@ -80,10 +90,10 @@
 
 #include "msda_band.cuh"
 
-// The x hat as stage 1 takes it, and a corner value, per value type: float32
-// as they are, bfloat16 with the hat rounded to bfloat16, int8 with the hat
-// as round(127 * hat) (half to even). The sums are exact in float32 for int8
-// (at most 2 * 127 * 127), so one float path serves all three.
+// The x hat as stage 1 takes it, per value type: float32 as it is, bfloat16
+// rounded to bfloat16, int8 as round(127 * hat) (half to even). The sums
+// are exact in float32 for int8 (at most 2 * 127 * 127), so one float path
+// serves all three.
 template <typename T>
 __device__ __forceinline__ float stage1_hat(float v) {
   if constexpr (sizeof(T) == 4) {
@@ -94,83 +104,8 @@ __device__ __forceinline__ float stage1_hat(float v) {
     return (float)__float2int_rn(__fmul_rn(v, 127.0f));
   }
 }
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ float load(const int8_t* p) { return (float)*p; }
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-msda_fwd_win_kernel(const T* __restrict__ value, const int* __restrict__ bidx,
-                    const float* __restrict__ ix,
-                    const float* __restrict__ iy_band,
-                    const float* __restrict__ aw_eff,
-                    float* __restrict__ out,
-                    const __grid_constant__ Segments sg,
-                    const __grid_constant__ Geometry g, long n_warps) {
-  const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= n_warps) return;
-  // warp = (b * H + head) * Q + q
-  const int q = (int)(warp % g.Q);
-  const long bh = warp / g.Q;
-  const int head = (int)(bh % g.H);
-  const long b = bh / g.H;
-  const int qp = padded_row(q, sg);
-  const int tile = qp / g.TQ;
-  const long rows = bh * g.P * (long)g.Qp + qp;  // p = 0
-  const int* bp = bidx + bh * (long)g.T + tile;
-  const long row = (long)g.H * g.D;  // stride between tokens in value
-  const T* vb = value + b * g.batch_stride + (long)head * g.D;
-  float* outp = out + ((b * g.Q + q) * (long)g.H + head) * g.D;
-  const float fw = (float)g.w;
-  const int half = g.win / 2;
-
-  for (int d0 = 0; d0 < g.D; d0 += 32) {
-    const int d = d0 + lane;
-    const bool active = d < g.D;
-    float acc = 0.0f;
-    for (int p = 0; p < g.P; ++p) {
-      const long r = rows + p * (long)g.Qp;
-      const float a = aw_eff[r];
-      if (a == 0.0f || !active) continue;  // padding, or outside the image
-      const float x = ix[r], y = iy_band[r];
-      const int row0 = bp[0] * half;
-      const float fx0 = floorf(x), fy0 = floorf(y);
-      const float fx1 = fx0 + 1.0f, fy1 = fy0 + 1.0f;
-      const float wx0 = stage1_hat<T>(hat(x - fx0));
-      const float wx1 = stage1_hat<T>(hat(x - fx1));
-      const float wy0 = hat(y - fy0), wy1 = hat(y - fy1);
-      const bool okx0 = fx0 >= 0.0f && fx0 <= fw - 1.0f;
-      const bool okx1 = fx1 >= 0.0f && fx1 <= fw - 1.0f;
-      // inside the band, and not past the level's last row
-      const float ylim = fminf((float)(g.win - 1), (float)(g.h - 1 - row0));
-      const bool oky0 = fy0 >= 0.0f && fy0 <= ylim;
-      const bool oky1 = fy1 >= 0.0f && fy1 <= ylim;
-      if (!((okx0 || okx1) && (oky0 || oky1))) continue;
-      const int x0 = (int)fx0, y0 = (int)fy0;
-      const T* vl = vb + d;
-      float v00 = 0.0f, v01 = 0.0f, v10 = 0.0f, v11 = 0.0f;
-      if (oky0) {
-        const T* rp = vl + (long)(row0 + y0) * g.w * row;
-        if (okx0) v00 = load(rp + (long)x0 * row);
-        if (okx1) v01 = load(rp + (long)(x0 + 1) * row);
-      }
-      if (oky1) {
-        const T* rp = vl + (long)(row0 + y0 + 1) * g.w * row;
-        if (okx0) v10 = load(rp + (long)x0 * row);
-        if (okx1) v11 = load(rp + (long)(x0 + 1) * row);
-      }
-      const float t0 = wx0 * v00 + wx1 * v01;
-      const float t1 = wx0 * v10 + wx1 * v11;
-      acc += t0 * __fmul_rn(wy0, a) + t1 * __fmul_rn(wy1, a);
-    }
-    if (active) outp[d] = acc;
-  }
-}
-
-// One sample of K6's pass: its stage-1 x hats, its y hats times the weight,
+// One sample of a pass: its stage-1 x hats, its y hats times the weight,
 // its (y0, x0) corner's channels and its four corners' loads.
 template <typename T, int VEC>
 struct FwdSample {
@@ -180,6 +115,7 @@ struct FwdSample {
   const T* r0;   // the (absolute row y0, x0) corner at channel 0
   Raw<T, VEC> v00, v01, v10, v11;
 
+  template <bool PER_POINT>
   __device__ __forceinline__ void locate(const T* vb, const int* bidx,
                                          const float* ix, const float* iy,
                                          const float* aw, long bh, int p,
@@ -189,7 +125,7 @@ struct FwdSample {
     const float a = aw[r];
     on = false;
     if (a == 0.0f) return;  // padding, or outside the image
-    const int row0 = bidx[(bh * g.P + p) * (long)g.T + qp / g.TQ] *
+    const int row0 = bidx[band_entry<PER_POINT>(g, bh, p, qp / g.TQ)] *
                      (g.win / 2);
     s = band_sample(ix[r], iy[r], row0, g);
     if (!s.any) return;
@@ -242,21 +178,23 @@ __device__ __forceinline__ void store_vec(float* p, const float* v) {
   }
 }
 
-// Three blocks an SM (80 registers a thread; the int8 and bfloat16 forms at
-// 16 and 8 channels spill a little): on the H100 at the served encoder
-// call that measured 0.81x (f32), 0.88x (bf16), 1.00x (int8) and, bf16 at
-// B=4, 0.81x the time of two blocks an SM; four blocks were slower.
-template <typename T, int VEC, bool FOLD>
+// K5 (PER_POINT false) and K6. The band of (b * H + head, point p, tile)
+// is band_entry's: K6's [B, H, P, T] table, or K5's [B, H, T], whose every
+// point takes its tile's band. Three blocks an SM (80 registers
+// a thread; the int8 and bfloat16 forms at 16 and 8 channels spill a
+// little): on the H100 at the served encoder call that measured 0.81x
+// (f32), 0.88x (bf16), 1.00x (int8) and, bf16 at B=4, 0.81x the time of two
+// blocks an SM; four blocks were slower.
+template <typename T, int VEC, bool FOLD, bool PER_POINT>
 __global__ void __launch_bounds__(256, 3)
-msda_fwd_win_pp_kernel(const T* __restrict__ value,
-                       const int* __restrict__ bidx,
-                       const float* __restrict__ ix,
-                       const float* __restrict__ iy_band,
-                       const float* __restrict__ aw_eff,
-                       float* __restrict__ out,
-                       const __grid_constant__ Segments sg,
-                       const __grid_constant__ Geometry g, WGeom gm,
-                       long n_warps) {
+msda_fwd_win_kernel(const T* __restrict__ value, const int* __restrict__ bidx,
+                    const float* __restrict__ ix,
+                    const float* __restrict__ iy_band,
+                    const float* __restrict__ aw_eff,
+                    float* __restrict__ out,
+                    const __grid_constant__ Segments sg,
+                    const __grid_constant__ Geometry g, WGeom gm,
+                    long n_warps) {
   const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= n_warps) return;  // whole warps leave together
@@ -304,8 +242,9 @@ msda_fwd_win_pp_kernel(const T* __restrict__ value,
         for (int u = 0; u < MSDA_UNROLL; ++u) {
           t[u].on = false;
           if (live[u] && on)
-            t[u].locate(vb, bidx, ix, iy_band, aw_eff, bh,
-                        FOLD ? p[u] : pt, qp[u], g, rs);
+            t[u].template locate<PER_POINT>(vb, bidx, ix, iy_band, aw_eff,
+                                            bh, FOLD ? p[u] : pt, qp[u], g,
+                                            rs);
           t[u].load(d, g, rs);
         }
 #pragma unroll
@@ -330,65 +269,30 @@ msda_fwd_win_pp_kernel(const T* __restrict__ value,
   }
 }
 
-template <typename T, int VEC>
-static void launch_pp(const WGeom& gm, const void* value, const int* bi,
-                      const float* fx, const float* fy, const float* fa,
-                      float* o, const Segments& sg, const Geometry& g,
-                      long n_warps, cudaStream_t s) {
+template <typename T, int VEC, bool PER_POINT>
+static void launch_vec(const WGeom& gm, const void* value, const int* bi,
+                       const float* fx, const float* fy, const float* fa,
+                       float* o, const Segments& sg, const Geometry& g,
+                       long n_warps, cudaStream_t s) {
   if (gm.fold)
-    msda_fwd_win_pp_kernel<T, VEC, true><<<gm.blocks, gm.threads, 0, s>>>(
-        (const T*)value, bi, fx, fy, fa, o, sg, g, gm, n_warps);
+    msda_fwd_win_kernel<T, VEC, true, PER_POINT>
+        <<<gm.blocks, gm.threads, 0, s>>>((const T*)value, bi, fx, fy, fa, o,
+                                          sg, g, gm, n_warps);
   else
-    msda_fwd_win_pp_kernel<T, VEC, false><<<gm.blocks, gm.threads, 0, s>>>(
-        (const T*)value, bi, fx, fy, fa, o, sg, g, gm, n_warps);
+    msda_fwd_win_kernel<T, VEC, false, PER_POINT>
+        <<<gm.blocks, gm.threads, 0, s>>>((const T*)value, bi, fx, fy, fa, o,
+                                          sg, g, gm, n_warps);
 }
 
-// vtype: 0 float32, 1 bfloat16, 2 int8 values
-extern "C" int msda_fwd_win(const void* value, const void* bidx,
-                            const void* ix, const void* iy_band,
-                            const void* aw_eff, void* out,
-                            const int* segments, int n_segments, int B, int Q,
-                            int Qp, int H, int D, int P, int h, int w,
-                            int win, int TQ, long batch_stride, int vtype,
-                            void* stream) {
-  Segments sg;
-  Geometry g;
-  const int rc = read_band_geometry(segments, n_segments, Q, Qp, H, D, P, h,
-                                    w, win, TQ, batch_stride, &sg, &g);
-  if (rc != (int)cudaSuccess) return rc;
-  const long n_warps = (long)B * H * Q;
-  if (n_warps == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n_warps * 32 + threads - 1) / threads);
-  cudaStream_t s = (cudaStream_t)stream;
-  const int* bi = (const int*)bidx;
-  const float* fx = (const float*)ix;
-  const float* fy = (const float*)iy_band;
-  const float* fa = (const float*)aw_eff;
-  float* o = (float*)out;
-  if (vtype == 0) {
-    msda_fwd_win_kernel<float><<<blocks, threads, 0, s>>>(
-        (const float*)value, bi, fx, fy, fa, o, sg, g, n_warps);
-  } else if (vtype == 1) {
-    msda_fwd_win_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        (const __nv_bfloat16*)value, bi, fx, fy, fa, o, sg, g, n_warps);
-  } else if (vtype == 2) {
-    msda_fwd_win_kernel<int8_t><<<blocks, threads, 0, s>>>(
-        (const int8_t*)value, bi, fx, fy, fa, o, sg, g, n_warps);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-// geometry: the nine ints of struct WGeom (msda_band.cuh), in its order.
-extern "C" int msda_fwd_win_pp(const void* value, const void* bidx,
-                               const void* ix, const void* iy_band,
-                               const void* aw_eff, void* out,
-                               const int* segments, int n_segments, int B,
-                               int Q, int Qp, int H, int D, int P, int h,
-                               int w, int win, int TQ, long batch_stride,
-                               int vtype, const int* geometry, void* stream) {
+// K5 and K6: msda_fwd_win_kernel in the tile or the point form.
+// vtype: 0 float32, 1 bfloat16, 2 int8 values; geometry: the nine ints of
+// struct WGeom (msda_band.cuh), in its order.
+static int launch(const void* value, const void* bidx, const void* ix,
+                  const void* iy_band, const void* aw_eff, void* out,
+                  const int* segments, int n_segments, int B, int Q, int Qp,
+                  int H, int D, int P, int h, int w, int win, int TQ,
+                  long batch_stride, int vtype, const int* geometry,
+                  int per_point, void* stream) {
   Segments sg;
   Geometry g;
   const int rc = read_band_geometry(segments, n_segments, Q, Qp, H, D, P, h,
@@ -406,33 +310,65 @@ extern "C" int msda_fwd_win_pp(const void* value, const void* bidx,
   const float *fx = (const float*)ix, *fy = (const float*)iy_band;
   const float* fa = (const float*)aw_eff;
   float* o = (float*)out;
-#define MSDA_K6(T, VEC) \
-  launch_pp<T, VEC>(gm, value, bi, fx, fy, fa, o, sg, g, n_warps, s)
+#define MSDA_FWD(T, VEC)                                                    \
+  if (per_point)                                                            \
+    launch_vec<T, VEC, true>(gm, value, bi, fx, fy, fa, o, sg, g, n_warps,  \
+                             s);                                            \
+  else                                                                      \
+    launch_vec<T, VEC, false>(gm, value, bi, fx, fy, fa, o, sg, g, n_warps, \
+                              s)
   if (vtype == 0) {
     switch (gm.vec) {
-      case 4: MSDA_K6(float, 4); break;
-      case 2: MSDA_K6(float, 2); break;
-      case 1: MSDA_K6(float, 1); break;
+      case 4: MSDA_FWD(float, 4); break;
+      case 2: MSDA_FWD(float, 2); break;
+      case 1: MSDA_FWD(float, 1); break;
       default: return (int)cudaErrorInvalidValue;
     }
   } else if (vtype == 1) {
     switch (gm.vec) {
-      case 8: MSDA_K6(__nv_bfloat16, 8); break;
-      case 4: MSDA_K6(__nv_bfloat16, 4); break;
-      case 2: MSDA_K6(__nv_bfloat16, 2); break;
-      case 1: MSDA_K6(__nv_bfloat16, 1); break;
+      case 8: MSDA_FWD(__nv_bfloat16, 8); break;
+      case 4: MSDA_FWD(__nv_bfloat16, 4); break;
+      case 2: MSDA_FWD(__nv_bfloat16, 2); break;
+      case 1: MSDA_FWD(__nv_bfloat16, 1); break;
       default: return (int)cudaErrorInvalidValue;
     }
   } else {
     switch (gm.vec) {
-      case 16: MSDA_K6(int8_t, 16); break;
-      case 8: MSDA_K6(int8_t, 8); break;
-      case 4: MSDA_K6(int8_t, 4); break;
-      case 2: MSDA_K6(int8_t, 2); break;
-      case 1: MSDA_K6(int8_t, 1); break;
+      case 16: MSDA_FWD(int8_t, 16); break;
+      case 8: MSDA_FWD(int8_t, 8); break;
+      case 4: MSDA_FWD(int8_t, 4); break;
+      case 2: MSDA_FWD(int8_t, 2); break;
+      case 1: MSDA_FWD(int8_t, 1); break;
       default: return (int)cudaErrorInvalidValue;
     }
   }
-#undef MSDA_K6
+#undef MSDA_FWD
   return (int)cudaGetLastError();
+}
+
+// K5: bidx [B, H, T]. out: float32 [B, Q, H, D]; vtype: 0 float32,
+// 1 bfloat16, 2 int8 values; geometry: the nine ints of struct WGeom.
+extern "C" int msda_fwd_win(const void* value, const void* bidx,
+                            const void* ix, const void* iy_band,
+                            const void* aw_eff, void* out,
+                            const int* segments, int n_segments, int B, int Q,
+                            int Qp, int H, int D, int P, int h, int w,
+                            int win, int TQ, long batch_stride, int vtype,
+                            const int* geometry, void* stream) {
+  return launch(value, bidx, ix, iy_band, aw_eff, out, segments, n_segments,
+                B, Q, Qp, H, D, P, h, w, win, TQ, batch_stride, vtype,
+                geometry, 0, stream);
+}
+
+// K6: bidx [B, H, P, T]; the rest as msda_fwd_win.
+extern "C" int msda_fwd_win_pp(const void* value, const void* bidx,
+                               const void* ix, const void* iy_band,
+                               const void* aw_eff, void* out,
+                               const int* segments, int n_segments, int B,
+                               int Q, int Qp, int H, int D, int P, int h,
+                               int w, int win, int TQ, long batch_stride,
+                               int vtype, const int* geometry, void* stream) {
+  return launch(value, bidx, ix, iy_band, aw_eff, out, segments, n_segments,
+                B, Q, Qp, H, D, P, h, w, win, TQ, batch_stride, vtype,
+                geometry, 1, stream);
 }

@@ -21,15 +21,14 @@ package's Pallas kernels:
   bfloat16 or int8 values;
 - ``msda_bwd_win_rows`` and ``msda_bwd_win_rows_pp`` (``msda_bwd_win.cu``)
   replace ``_bwd_rows_kernel_win`` and ``_bwd_rows_kernel_win_pp``: the row
-  gradients of one banded level, both from one kernel whose band table has
-  a point stride (0 for the first);
+  gradients of one banded level;
 - ``msda_bwd_win_value`` and ``msda_bwd_win_value_pp`` (``msda_bwd_win.cu``)
   replace ``_bwd_dvtt_kernel_win`` and ``_bwd_dvtt_kernel_win_pp``: the value
-  gradient of one banded level, with float32 atomics (the second adds into
-  the caller's slice of the layer's gradient where it is given one);
-- ``msda_fwd_win_pp``, ``msda_bwd_win_rows``, ``msda_bwd_win_rows_pp`` and
-  ``msda_bwd_win_value_pp`` lay a warp's lanes over (query, point, channel
-  group) as :func:`win_geometry` says;
+  gradient of one banded level, with float32 vector reductions, added into
+  the caller's slice of the layer's gradient where it is given one;
+- each of these pairs is one kernel whose band table has a point stride (0
+  for the tile form), and its lanes lie over (query, point, channel group)
+  as :func:`win_geometry` says;
 - ``msda_fwd_bp`` (``msda_fwd_bp.cu``) replaces ``_fwd_kernel_bp`` (the
   forward with all sampling points in one stage, ``EGTR_MSDA_BATCH_P=1``) in
   a float form (K1's function) and an int8 form (K4's).
@@ -470,9 +469,9 @@ def value_geometry(B: int, Q: int, H: int, D: int,
         threads=threads, blocks=B * H * query_chunks, smem_bytes=total)
 
 
-# The banded kernels with lanes over (query, point, channel group), by the
-# form of win_geometry: K8 (msda_bwd_win_rows_pp), K6 (msda_fwd_win_pp), K10
-# (msda_bwd_win_value_pp); WinForm in msda_band.cuh.
+# The banded kernels' lanes over (query, point, channel group), by the form
+# of win_geometry: the row gradients (K7, K8), the forward (K5, K6), the
+# value gradient (K9, K10); WinForm in msda_band.cuh.
 WIN_FORMS = ("rows", "fwd", "value")
 # K6 (with its fold) takes twice the queries that UNROLL passes hold, at
 # most this many: measured on the H100 at the served encoder call (B=1) and
@@ -484,7 +483,7 @@ WIN_FWD_QUERIES = 8
 
 @dataclass(frozen=True)
 class WinGeometry(_Lanes):
-    """How K6, K8 and K10 lay a banded level's work on a warp.
+    """How the banded kernels (K5-K10) lay a level's work on a warp.
 
     Warp ``n`` (``blocks * threads // 32`` of them, the last block's spare
     warps idle) takes (batch, head) ``n // groups`` with ``groups =
@@ -494,11 +493,11 @@ class WinGeometry(_Lanes):
     group ``l & (lanes_per_sample - 1)`` (plus ``chunk *
     lanes_per_sample``); in pass ``t`` its sample is ``t * samples_per_pass
     + slot``. A query maps to its padded row through the segment table.
-    K6 with ``fold`` folds a query's P points, which lie in neighbouring
-    slots of one pass, over those slots; without it (P does not divide the
-    samples a pass holds) a slot takes a whole query and the lane walks its
-    points. K10 works out sample ``base + l`` on lane ``l`` and hands it out
-    to the slot's lanes with shuffles."""
+    The forward with ``fold`` folds a query's P points, which lie in
+    neighbouring slots of one pass, over those slots; without it (P does not
+    divide the samples a pass holds) a slot takes a whole query and the lane
+    walks its points. The value gradient works out sample ``base + l`` on
+    lane ``l`` and hands it out to the slot's lanes with shuffles."""
 
     vec: int
     lps_log2: int
@@ -514,20 +513,21 @@ class WinGeometry(_Lanes):
 @lru_cache(maxsize=256)
 def win_geometry(BH: int, Q: int, D: int, P: int, element_size: int,
                  alignment: int = 16, form: str = "rows") -> WinGeometry:
-    """The launch of a per-point banded kernel for B*H = ``BH`` (batch,
-    head) pairs of ``Q`` queries of ``P`` points, ``element_size`` the bytes
-    of a value (K10: ignored, its adds are float32) and ``alignment`` that
-    of the pointers its lanes load from or add to.
+    """The launch of a banded kernel for B*H = ``BH`` (batch, head) pairs
+    of ``Q`` queries of ``P`` points, ``element_size`` the bytes of a value
+    (the value gradient: ignored, its adds are float32) and ``alignment``
+    that of the pointers its lanes load from or add to. The tile and point
+    forms of a kernel take the same launch.
 
-    ``"rows"`` (K8): a warp takes as many neighbouring queries as UNROLL
+    ``"rows"`` (K7, K8): a warp takes as many neighbouring queries as UNROLL
     passes hold (at least one), so that their corner loads go together.
-    ``"fwd"`` (K6): it folds a query's points where P divides the samples a
-    pass holds, and then takes twice the queries UNROLL passes hold, at most
-    WIN_FWD_QUERIES; otherwise a slot walks a whole query's points and a
-    warp takes the queries UNROLL passes hold. ``"value"`` (K10): at most
-    four float32 channels a lane (one 16-byte reduction a corner), and
-    32 / P queries a warp, one sample a lane for the hand-out of its
-    geometry."""
+    ``"fwd"`` (K5, K6): it folds a query's points where P divides the
+    samples a pass holds, and then takes twice the queries UNROLL passes
+    hold, at most WIN_FWD_QUERIES; otherwise a slot walks a whole query's
+    points and a warp takes the queries UNROLL passes hold. ``"value"`` (K9,
+    K10): at most four float32 channels a lane (one 16-byte reduction a
+    corner), and 32 / P queries a warp, one sample a lane for the hand-out
+    of its geometry."""
     if form not in WIN_FORMS:
         raise ValueError(f"form must be one of {WIN_FORMS}, got {form!r}")
     vec = vector_width(D, 4 if form == "value" else element_size, alignment)
@@ -552,14 +552,12 @@ def win_geometry(BH: int, Q: int, D: int, P: int, element_size: int,
 
 
 _VOID_P, _INT = ctypes.c_void_p, ctypes.c_int
-_WIN_ARGS = ([_VOID_P] * 6 + [ctypes.POINTER(_INT)] + [_INT] * 11
-             + [ctypes.c_long, _INT, _VOID_P])
 _GEOM_ARG = [ctypes.POINTER(_INT), _VOID_P]  # a launch geometry, the stream
-# K7 and K8: one kernel, with its lanes' layout
-_BWD_WIN_ROWS_ARGS = ([_VOID_P] * 9 + [ctypes.POINTER(_INT)] + [_INT] * 11
-                      + [ctypes.c_long, _INT] + _GEOM_ARG)
-_BWD_WIN_VALUE_ARGS = ([_VOID_P] * 6 + [ctypes.POINTER(_INT)] + [_INT] * 12
-                       + [_VOID_P])
+# the banded kernels, tile and point forms alike: pointers, the segment
+# table, the shapes, a batch stride, the value type, the lanes' layout
+_WIN_ARGS = ([_VOID_P] * 6 + [ctypes.POINTER(_INT)] + [_INT] * 11
+             + [ctypes.c_long, _INT] + _GEOM_ARG)
+_BWD_WIN_ROWS_ARGS = [_VOID_P] * 3 + _WIN_ARGS
 # per exported function: its library and its C argument types
 _FUNCTIONS = {
     "msda_fwd": ("msda_fwd", [_VOID_P] * 4 + [ctypes.POINTER(_INT)]
@@ -567,16 +565,15 @@ _FUNCTIONS = {
     "msda_fwd_q": ("msda_fwd_q", [_VOID_P] * 5 + [ctypes.POINTER(_INT)]
                    + [_INT] * 9 + _GEOM_ARG),
     "msda_fwd_win": ("msda_fwd_win", _WIN_ARGS),
-    "msda_fwd_win_pp": ("msda_fwd_win", _WIN_ARGS[:-1] + _GEOM_ARG),
+    "msda_fwd_win_pp": ("msda_fwd_win", _WIN_ARGS),
     "msda_bwd_rows": ("msda_bwd", [_VOID_P] * 6 + [ctypes.POINTER(_INT)]
                       + [_INT] * 9 + [ctypes.POINTER(_INT), _VOID_P]),
     "msda_bwd_value": ("msda_bwd", [_VOID_P] * 4 + [ctypes.POINTER(_INT)]
                        + [_INT] * 9 + [ctypes.POINTER(_INT), _VOID_P]),
     "msda_bwd_win_rows": ("msda_bwd_win", _BWD_WIN_ROWS_ARGS),
     "msda_bwd_win_rows_pp": ("msda_bwd_win", _BWD_WIN_ROWS_ARGS),
-    "msda_bwd_win_value": ("msda_bwd_win", _BWD_WIN_VALUE_ARGS),
-    "msda_bwd_win_value_pp": ("msda_bwd_win", _BWD_WIN_VALUE_ARGS[:-2]
-                              + [ctypes.c_long, _INT] + _GEOM_ARG),
+    "msda_bwd_win_value": ("msda_bwd_win", _WIN_ARGS),
+    "msda_bwd_win_value_pp": ("msda_bwd_win", _WIN_ARGS),
     "msda_fwd_bp": ("msda_fwd_bp", [_VOID_P] * 4 + [ctypes.POINTER(_INT)]
                     + [_INT] * 10 + [_VOID_P]),
     "msda_fwd_bp_q": ("msda_fwd_bp", [_VOID_P] * 5 + [ctypes.POINTER(_INT)]
@@ -942,7 +939,8 @@ def check_inputs_win(value_l: torch.Tensor, bidx: torch.Tensor,
 def _fwd_win(name: str, per_point: bool, value_l, bidx, ix, iy_band, aw_eff,
              h: int, w: int, win: int, segs: Segments, Q: int
              ) -> Tuple[torch.Tensor, bool]:
-    """Check, allocate and launch for both banded kernels; returns the
+    """Check, allocate and launch for both banded forwards (one kernel,
+    the tile form's band table with a point stride of 0); returns the
     output and whether a kernel was launched (an empty output needs none)."""
     tensors = (value_l, bidx, ix, iy_band, aw_eff)
     _one_cuda_device(name, tensors)
@@ -960,17 +958,16 @@ def _fwd_win(name: str, per_point: bool, value_l, bidx, ix, iy_band, aw_eff,
         return out, False
     table = [v for (q0, _), qp0 in zip(segs, padded_starts(segs, TQ))
              for v in (q0, qp0)]
-    # K6 takes its lanes' layout as an int array
-    layout = (win_geometry(B * H, Q, D, P, value_l.element_size(),
-                           pointer_alignment(value_l, out), "fwd").c_array,
-              ) if per_point else ()
+    # the lanes' layout, as an int array
+    layout = win_geometry(B * H, Q, D, P, value_l.element_size(),
+                          pointer_alignment(value_l, out), "fwd")
     with torch.cuda.device(value_l.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(value_l.data_ptr(), bidx.data_ptr(), ix.data_ptr(),
                 iy_band.data_ptr(), aw_eff.data_ptr(), out.data_ptr(),
                 (ctypes.c_int * len(table))(*table), len(segs), B, Q, Qp, H,
                 D, P, h, w, win, TQ, value_l.stride(0),
-                _WIN_VTYPES[value_l.dtype], *layout, stream)
+                _WIN_VTYPES[value_l.dtype], layout.c_array, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     return out, True
@@ -981,7 +978,10 @@ def msda_fwd_win(value_l: torch.Tensor, bidx: torch.Tensor, ix: torch.Tensor,
                  win: int, segs: Segments, Q: int) -> torch.Tensor:
     """Launch the banded kernel with one band per query tile (``bidx``
     [B, H, T]): the contract of ``msda.msda_fwd_win_plain``, float32
-    [B, Q, H*D] out. int8 values select the kernel's int8 form."""
+    [B, Q, H*D] out. int8 values select the kernel's int8 form.
+    Deterministic: :func:`msda_fwd_win_pp`'s kernel and launch, whose every
+    point reads its tile's band, so bit-equal to it given ``bidx`` broadcast
+    over the points."""
     out, launched = _fwd_win("msda_fwd_win", False, value_l, bidx, ix,
                              iy_band, aw_eff, h, w, win, segs, Q)
     launches["msda_fwd_win"] += int(launched)
@@ -1180,9 +1180,10 @@ def check_value_out(out: torch.Tensor, value_l: torch.Tensor, h: int,
 def _bwd_win_launch(name: str, per_point: bool, rows: bool, value_l, bidx, ix,
                     iy_band, aw_eff, g, h: int, w: int, win: int,
                     segs: Segments, Q: int, out=None):
-    """Check, allocate and launch for the four banded backward kernels.
-    Returns (outputs, launched): (dix, diy, daw) rows for a rows kernel,
-    (dvalue_l,) for a value kernel (``out`` where K10 is given it)."""
+    """Check, allocate and launch for the four banded backward wrappers
+    (two kernels, each with a tile form whose band table has a point stride
+    of 0). Returns (outputs, launched): (dix, diy, daw) rows for a rows
+    kernel, (dvalue_l,) for a value kernel (``out`` where it is given)."""
     tensors = (value_l, bidx, ix, iy_band, aw_eff, g)
     _one_cuda_device(name, tensors)
     h, w, win, Q = int(h), int(w), int(win), int(Q)
@@ -1212,17 +1213,16 @@ def _bwd_win_launch(name: str, per_point: bool, rows: bool, value_l, bidx, ix,
     with torch.cuda.device(ix.device):
         stream = torch.cuda.current_stream().cuda_stream
         if rows:
-            # K7 and K8 (one kernel, K7's band table with a point stride of
-            # 0) take their lanes' layout as an int array
+            # the lanes' layout as an int array
             layout = win_geometry(B * H, Q, D, P, value_l.element_size(),
                                   pointer_alignment(value_l, g))
             rc = fn(value_l.data_ptr(), bidx.data_ptr(), ix.data_ptr(),
                     iy_band.data_ptr(), aw_eff.data_ptr(), g.data_ptr(),
                     *(t.data_ptr() for t in outs), *geometry,
                     value_l.stride(0), is_bf16, layout.c_array, stream)
-        elif per_point:
-            # K10: its lanes' layout, and the batch stride of its output,
-            # to whose alignment the vector adds keep
+        else:
+            # the lanes' layout, and the batch stride of the output, to
+            # whose alignment the vector adds keep
             dv = outs[0]
             align = pointer_alignment(g, dv)
             while (dv.stride(0) * 4) % align:
@@ -1231,10 +1231,6 @@ def _bwd_win_launch(name: str, per_point: bool, rows: bool, value_l, bidx, ix,
             rc = fn(bidx.data_ptr(), ix.data_ptr(), iy_band.data_ptr(),
                     aw_eff.data_ptr(), g.data_ptr(), dv.data_ptr(),
                     *geometry, dv.stride(0), is_bf16, layout.c_array, stream)
-        else:
-            rc = fn(bidx.data_ptr(), ix.data_ptr(), iy_band.data_ptr(),
-                    aw_eff.data_ptr(), g.data_ptr(), outs[0].data_ptr(),
-                    *geometry, is_bf16, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     return outs, True
@@ -1276,14 +1272,20 @@ def msda_bwd_win_rows_pp(value_l: torch.Tensor, bidx: torch.Tensor,
 def msda_bwd_win_value(value_l: torch.Tensor, bidx: torch.Tensor,
                        ix: torch.Tensor, iy_band: torch.Tensor,
                        aw_eff: torch.Tensor, g: torch.Tensor, h: int, w: int,
-                       win: int, segs: Segments, Q: int) -> torch.Tensor:
+                       win: int, segs: Segments, Q: int,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the banded value-gradient kernel with one band per query tile
     (``bidx`` [B, H, T]): ``dvalue_l`` float32 [B, h*w, H, D], the first
-    result of ``msda.msda_bwd_win_plain``. float32 atomics: the last bits
-    vary from run to run. ``value_l`` gives the shape and dtype only."""
+    result of ``msda.msda_bwd_win_plain``, in a zeroed buffer of its own.
+    With ``out``, a float32 [B, h*w, H, D] view contiguous within a batch
+    (the level's slice of the layer's gradient), the kernel adds into it and
+    returns it instead. :func:`msda_bwd_win_value_pp`'s kernel and launch,
+    whose every point reads its tile's band; float32 vector reductions, so
+    the last bits vary from run to run. ``value_l`` gives the shape and
+    dtype only."""
     outs, launched = _bwd_win_launch("msda_bwd_win_value", False, False,
                                      value_l, bidx, ix, iy_band, aw_eff, g, h,
-                                     w, win, segs, Q)
+                                     w, win, segs, Q, out)
     launches["msda_bwd_win_value"] += int(launched)
     return outs[0]
 
@@ -1294,10 +1296,7 @@ def msda_bwd_win_value_pp(value_l: torch.Tensor, bidx: torch.Tensor,
                           w: int, win: int, segs: Segments, Q: int,
                           out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`msda_bwd_win_value` with one band per (sampling point, query
-    tile) (``bidx`` [B, H, P, T]). With ``out``, a float32 [B, h*w, H, D]
-    view contiguous within a batch (the level's slice of the layer's
-    gradient), the kernel adds into it and returns it instead of a zeroed
-    buffer of its own."""
+    tile) (``bidx`` [B, H, P, T])."""
     outs, launched = _bwd_win_launch("msda_bwd_win_value_pp", True, False,
                                      value_l, bidx, ix, iy_band, aw_eff, g, h,
                                      w, win, segs, Q, out)
@@ -1314,16 +1313,10 @@ def msda_bwd_win(value_l: torch.Tensor, bidx: torch.Tensor, ix: torch.Tensor,
     """Both banded backward kernels of one level, per tile or per point as
     ``bidx`` says: ``(dvalue_l, dix, diy, daw)``, the contract of
     ``msda.msda_bwd_win_plain``. With ``out`` (see
-    :func:`msda_bwd_win_value_pp`) the value gradient is added into it,
-    which is returned as ``dvalue_l``: by K10 itself, or after K9."""
+    :func:`msda_bwd_win_value`) the value kernel adds into it, and it is
+    returned as ``dvalue_l``."""
     per_point = bidx.dim() == 4
     args = (value_l, bidx, ix, iy_band, aw_eff, g, h, w, win, segs, Q)
+    value = msda_bwd_win_value_pp if per_point else msda_bwd_win_value
     rows = msda_bwd_win_rows_pp if per_point else msda_bwd_win_rows
-    if per_point:
-        dvalue = msda_bwd_win_value_pp(*args, out=out)
-    else:
-        dvalue = msda_bwd_win_value(*args)
-        if out is not None:
-            check_value_out(out, value_l, int(h), int(w))
-            dvalue = out.add_(dvalue)
-    return (dvalue, *rows(*args))
+    return (value(*args, out=out), *rows(*args))

@@ -1,12 +1,13 @@
 """Time the exact MSDA kernels K1 (msda_fwd), K2 (msda_bwd_rows), K3
 (msda_bwd_value) and K4 (msda_fwd_q, int8 stage 1), and the banded kernels
-K6 (msda_fwd_win_pp), K7 (msda_bwd_win_rows), K8 (msda_bwd_win_rows_pp) and
-K10 (msda_bwd_win_value_pp), on the card, at the calls that chip_smoke.py
-holds them to their plain versions.
+K5 (msda_fwd_win), K6 (msda_fwd_win_pp), K7 (msda_bwd_win_rows), K8
+(msda_bwd_win_rows_pp), K9 (msda_bwd_win_value) and K10
+(msda_bwd_win_value_pp), on the card, at the calls that chip_smoke.py holds
+them to their plain versions.
 
     python egtr_tpu_torch/scripts/time_msda_kernels.py [--root DIR]
         [--label NAME] [--out FILE] [--ptxas] [--k4-variant NAME]
-        [--kernels K1,K2,K3,K4,K6,K7,K8,K10]
+        [--kernels K1,K2,K3,K4,K5,K6,K7,K8,K9,K10]
 
 Calls: chip_smoke.py's ``exact_calls()`` (encoder and decoder calls,
 uniform and raster locations, the decoder call at batch 1 and 2, float32
@@ -16,14 +17,14 @@ and bfloat16) in the serving bucket 608x1008 (K1) and the training bucket
 call); K4 at chip_smoke.py's ``Q_CALLS`` in the serving bucket (the served
 encoder call on the one exact level, the int8 encoder call on every level,
 both Q = S with raster locations, and the decoder call at batch 1 and 2),
-with float32 and bfloat16 weights, as phase 5 makes them; for K7, K8 and
-K10 the three banded levels of the adaptation's encoder call (608x1008,
-window 16, raster locations, batch 4, float32 and bfloat16), as
-chip_smoke.py's phase 12 makes them (K7 with one band per tile); for K6 the
-three banded levels of the served encoder call (608x1008, window 16, raster
+with float32 and bfloat16 weights, as phase 5 makes them; for K7-K10 the
+three banded levels of the adaptation's encoder call (608x1008, window 16,
+raster locations, batch 4, float32 and bfloat16), as chip_smoke.py's phase
+12 makes them (K7 and K9 with one band per tile); for K5 and K6 the three
+banded levels of the served encoder call (608x1008, window 16, raster
 locations, batch 1, in float32, bfloat16 and int8; bfloat16 also at batch
-4), as phase 6 makes them. Per call and kernel it prints one JSON line:
-
+4), as phase 6 makes them (K5 with one band per tile). Per call and kernel
+it prints one JSON line:
 - ``ms``: CUDA events around ITERS calls of the wrapper (what
   chip_smoke.py reports: at the decoder calls the host's wrapper time
   hides the kernel's);
@@ -43,22 +44,25 @@ locations, batch 1, in float32, bfloat16 and int8; bfloat16 also at batch
   0 or 200 KiB of them: every level through global memory, or the two
   coarsest) and ``graph_ms_by_private_threads`` (with blocks of 512 or
   1024 threads where a level is kept);
-- K6, K7, K8, K10: one line per banded level and one that sums them
-  (``level`` "sum"), with the level's clamped share of the in-image samples;
-- K7: where the checkout runs K7 through K8's kernel,
-  ``bit_equal_to_k8_broadcast`` (K7 against K8 given K7's tile bands
-  broadcast over the points);
+- K5-K10: one line per banded level and one that sums them (``level``
+  "sum"), with the level's clamped share of the in-image samples;
+- K5 and K7: where the checkout runs them through K6's and K8's kernels,
+  ``bit_equal_to_k6_broadcast`` and ``bit_equal_to_k8_broadcast`` (against
+  the per-point kernel given the tile bands broadcast over the points);
 - K4: its bound; where the checkout has ``msda_cuda.q_geometry``, its
   ``geometry`` and ``graph_ms_by_vec_bytes`` (the device time with corner
   loads of at most 8 and 16 bytes a lane);
-- K10: ``run_to_run_max_abs_diff``; ``zero_graph_ms`` and
+- K9 and K10: ``run_to_run_max_abs_diff``; ``zero_graph_ms`` and
   ``copy_graph_ms``, the device time of zeroing a float32 [B, h*w, H, D]
   buffer and of copying it into the level's slice of the layer's value
   gradient, which a wrapper that returns a fresh buffer costs the path
   (``msda._windowed_backward``) on top of its own ``graph_ms``;
   ``path_graph_ms``, the device time the path pays a level (the wrapper and,
-  where it returns a fresh buffer, the copy; where the wrapper takes
-  ``out``, it adds into that slice and ``graph_ms`` is all);
+  where it returns a fresh buffer, that buffer added into the slice, as
+  ``msda_cuda.msda_bwd_win`` did for K9; where the wrapper takes ``out``, it
+  adds into that slice and ``graph_ms`` is all); K9 also
+  ``max_abs_diff_to_k10_broadcast`` (against K10 given K9's tile bands
+  broadcast over the points);
 - where the checkout has ``msda_cuda.launch_geometry``: ``geometry_us``
   (the host time per call of what the wrapper does for the launch
   geometry: the pointers' alignment, the cached geometry, its int array);
@@ -73,7 +77,7 @@ parent commit, unpacked under the git-ignored ``build/``) is timed by the
 same code. Run the two in turns in one call on one card (parent, change,
 change, parent) and compare only there. ``--ptxas`` first prints what
 ``nvcc -Xptxas -v`` says of the sources (registers, spills).
-``--kernels`` times a subset (default all eight). ``--k4-variant NAME``
+``--kernels`` times a subset (default all ten). ``--k4-variant NAME``
 times the kernels of a copy of DIR's ``egtr_tpu_torch`` (under DIR's
 ``build/``) whose ``msda_fwd_q.cu`` is edited as ``K4_VARIANTS[NAME]``
 says: ``no_gather_old`` and ``no_gather`` replace each corner load (of
@@ -101,7 +105,7 @@ from unittest import mock
 REPO = Path(__file__).resolve().parents[2]
 ITERS = 100  # wrapper calls per CUDA-event timing, as chip_smoke.py's K1
 WALKS = (1, 2, 4, 8)
-KERNELS = ("K1", "K2", "K3", "K4", "K6", "K7", "K8", "K10")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10")
 # --k4-variant: edits of msda_fwd_q.cu, (text, replacement) pairs that
 # must each match. The no-gather variants replace each corner load by an
 # integer the compiler cannot fold away.
@@ -338,7 +342,7 @@ def _level_rows(smoke, kernel, call, batch, dtype, shapes, make,
             if isinstance(v, bool):
                 total[key] = total.get(key, True) and v
             elif isinstance(v, float):
-                if key == "run_to_run_max_abs_diff":
+                if "max_abs_diff" in key:
                     total[key] = max(total.get(key, 0.0), v)
                 else:
                     total[key] = total.get(key, 0.0) + v
@@ -374,13 +378,11 @@ def banded_rows(msda_cuda, smoke, torch, per_point=True) -> list:
                    "bit_equal": all(torch.equal(x, y)
                                     for x, y in zip(first, second))}
             if not per_point and through_k8:
-                bidx = args[1]
-                wide = bidx[:, :, None, :].expand(
-                    *bidx.shape[:2], args[2].shape[2], bidx.shape[2])
+                wide = smoke.broadcast_bands(args[1], args[2].shape[2])
                 row["bit_equal_to_k8_broadcast"] = all(
                     torch.equal(x, y) for x, y in zip(
                         first, msda_cuda.msda_bwd_win_rows_pp(
-                            args[0], wide.contiguous(), *args[2:])))
+                            args[0], wide, *args[2:])))
             return row
 
         out += _level_rows(
@@ -440,11 +442,12 @@ def q_rows(msda_cuda, smoke, torch) -> list:
     return out
 
 
-def banded_value_rows(msda_cuda, smoke, torch) -> list:
-    """K10 on the three banded levels of the adaptation's encoder call, per
-    level and summed, in float32 and bfloat16: into the level's slice of a
-    zeroed [B, S, H, D] gradient where the wrapper takes ``out``, else into
-    the fresh buffer it returns."""
+def banded_value_rows(msda_cuda, smoke, torch, per_point=True) -> list:
+    """K10 (``per_point``) or K9 on the three banded levels of the
+    adaptation's encoder call, per level and summed, in float32 and
+    bfloat16: into the level's slice of a zeroed [B, S, H, D] gradient
+    where the wrapper takes ``out``, else into the fresh buffer it returns.
+    K9 also against K10 given its tile bands broadcast over the points."""
     import inspect
     from egtr_tpu_torch.models.detr import level_shapes
     from egtr_tpu_torch.scripts import perf_train_step
@@ -453,7 +456,8 @@ def banded_value_rows(msda_cuda, smoke, torch) -> list:
     for h, w in shapes:
         starts.append(starts[-1] + h * w)
     batch = perf_train_step.ADAPT_BATCH
-    kernel = msda_cuda.msda_bwd_win_value_pp
+    name = "msda_bwd_win_value_pp" if per_point else "msda_bwd_win_value"
+    kernel = getattr(msda_cuda, name)
     takes_out = "out" in inspect.signature(kernel).parameters
     out = []
     for n, dtype in enumerate((torch.float32, torch.bfloat16)):
@@ -472,37 +476,50 @@ def banded_value_rows(msda_cuda, smoke, torch) -> list:
                 path = fn
             else:
                 fn = lambda: kernel(*args)
-                path = lambda: sl.copy_(kernel(*args))
+                path = lambda: sl.add_(kernel(*args))
             runs = []
             for _ in range(2):
                 sl.zero_()
                 runs.append(fn().clone())
             buf = torch.zeros_like(runs[0])
-            return {"ms": smoke.cuda_ms(fn, ITERS),
-                    "graph_ms": smoke.graph_ms(fn),
-                    "path_graph_ms": smoke.graph_ms(path),
-                    "zero_graph_ms": smoke.graph_ms(
-                        lambda: torch.zeros_like(buf)),
-                    "copy_graph_ms": smoke.graph_ms(lambda: sl.copy_(buf)),
-                    "host_us": host_us(fn, torch),
-                    "takes_out": takes_out,
-                    "run_to_run_max_abs_diff":
-                        (runs[0] - runs[1]).abs().max().item()}
+            row = {"ms": smoke.cuda_ms(fn, ITERS),
+                   "graph_ms": smoke.graph_ms(fn),
+                   "path_graph_ms": smoke.graph_ms(path),
+                   "zero_graph_ms": smoke.graph_ms(
+                       lambda: torch.zeros_like(buf)),
+                   "copy_graph_ms": smoke.graph_ms(lambda: sl.copy_(buf)),
+                   "host_us": host_us(fn, torch),
+                   "takes_out": takes_out,
+                   "run_to_run_max_abs_diff":
+                       (runs[0] - runs[1]).abs().max().item()}
+            if not per_point:
+                wide = smoke.broadcast_bands(args[1], args[2].shape[2])
+                as_k10 = msda_cuda.msda_bwd_win_value_pp(args[0], wide,
+                                                         *args[2:])
+                row["max_abs_diff_to_k10_broadcast"] = (
+                    runs[0] - as_k10).abs().max().item()
+            return row
 
         out += _level_rows(
-            smoke, "msda_bwd_win_value_pp", "adaptation", batch, str(dtype)[6:],
+            smoke, name, "adaptation", batch, str(dtype)[6:],
             shapes, lambda lid: smoke._banded_bwd_args(
-                value, loc, aw, g, shapes, lid, True), time_level)
+                value, loc, aw, g, shapes, lid, per_point), time_level)
     return out
 
 
-def banded_fwd_rows(msda_cuda, smoke, torch) -> list:
-    """K6 on the three banded levels of the served encoder call (batch 1,
-    raster locations, float32, bfloat16 and int8 values; bfloat16 also at
-    batch 4), per level and summed."""
+def banded_fwd_rows(msda_cuda, smoke, torch, per_point=True) -> list:
+    """K6 (``per_point``) or K5 on the three banded levels of the served
+    encoder call (batch 1, raster locations, float32, bfloat16 and int8
+    values; bfloat16 also at batch 4), per level and summed. K5 also
+    against K6 given its tile bands broadcast over the points, where the
+    checkout runs K5 through K6's kernel (one C signature for both)."""
     from egtr_tpu_torch import infer
     from egtr_tpu_torch.models.detr import level_shapes
     shapes = level_shapes(infer.BUCKET_HW, smoke.L)
+    name = "msda_fwd_win_pp" if per_point else "msda_fwd_win"
+    kernel = getattr(msda_cuda, name)
+    through_k6 = (msda_cuda._FUNCTIONS["msda_fwd_win"]
+                  == msda_cuda._FUNCTIONS["msda_fwd_win_pp"])
     out = []
     for n, (form, dtype, int8, batch) in enumerate((
             ("float32", torch.float32, False, 1),
@@ -513,17 +530,23 @@ def banded_fwd_rows(msda_cuda, smoke, torch) -> list:
                                              batch=batch)
 
         def time_level(args):
-            fn = lambda: msda_cuda.msda_fwd_win_pp(*args)
+            fn = lambda: kernel(*args)
             first, second = fn(), fn()
-            return {"ms": smoke.cuda_ms(fn, ITERS),
-                    "graph_ms": smoke.graph_ms(fn),
-                    "host_us": host_us(fn, torch),
-                    "bit_equal": torch.equal(first, second)}
+            row = {"ms": smoke.cuda_ms(fn, ITERS),
+                   "graph_ms": smoke.graph_ms(fn),
+                   "host_us": host_us(fn, torch),
+                   "bit_equal": torch.equal(first, second)}
+            if not per_point and through_k6:
+                wide = smoke.broadcast_bands(args[1], args[2].shape[2])
+                row["bit_equal_to_k6_broadcast"] = torch.equal(
+                    first, msda_cuda.msda_fwd_win_pp(args[0], wide,
+                                                     *args[2:]))
+            return row
 
         out += _level_rows(
-            smoke, "msda_fwd_win_pp", "serving", batch, form, shapes,
+            smoke, name, "serving", batch, form, shapes,
             lambda lid: smoke._banded_level_args(value, loc, aw, shapes, lid,
-                                                 True, int8), time_level)
+                                                 per_point, int8), time_level)
     return out
 
 
@@ -607,9 +630,13 @@ def main(argv=None) -> int:
         for row in adaptation_value_rows(msda_cuda, smoke, torch):
             emit(row)
     for name, table in (
-            ("K4", q_rows), ("K6", banded_fwd_rows),
+            ("K4", q_rows),
+            ("K5", lambda *a: banded_fwd_rows(*a, per_point=False)),
+            ("K6", banded_fwd_rows),
             ("K7", lambda *a: banded_rows(*a, per_point=False)),
-            ("K8", banded_rows), ("K10", banded_value_rows)):
+            ("K8", banded_rows),
+            ("K9", lambda *a: banded_value_rows(*a, per_point=False)),
+            ("K10", banded_value_rows)):
         if name in wanted:
             for row in table(msda_cuda, smoke, torch):
                 emit(row)

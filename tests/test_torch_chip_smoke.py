@@ -74,20 +74,17 @@ def fake_card(monkeypatch, tmp_path):
         msda_cuda.launches["msda_fwd_q"] += 1
         return msda.msda_fwd_q_plain(vq, scale, shapes, loc, aw, levels)
 
-    def fwd_win(*args):
-        msda_cuda.check_inputs_win(*args, per_point=False)
-        msda_cuda.launches["msda_fwd_win"] += 1
-        return msda.msda_fwd_win_plain(*args)
-
-    def fwd_win_pp(*args):
-        msda_cuda.check_inputs_win(*args, per_point=True)
-        # the launch the kernel would take at these shapes
-        value_l, ix = args[0], args[2]
-        msda_cuda.win_geometry(ix.shape[0] * ix.shape[1], args[-1],
-                               value_l.shape[3], ix.shape[2],
-                               value_l.element_size(), form="fwd")
-        msda_cuda.launches["msda_fwd_win_pp"] += 1
-        return msda.msda_fwd_win_plain(*args)
+    def fwd_win(name, per_point):
+        def kernel(*args):
+            msda_cuda.check_inputs_win(*args, per_point=per_point)
+            # the launch the kernel would take at these shapes
+            value_l, ix = args[0], args[2]
+            msda_cuda.win_geometry(ix.shape[0] * ix.shape[1], args[-1],
+                                   value_l.shape[3], ix.shape[2],
+                                   value_l.element_size(), form="fwd")
+            msda_cuda.launches[name] += 1
+            return msda.msda_fwd_win_plain(*args)
+        return kernel
 
     def bwd_rows(value, shapes, loc, aw, g, levels=None):
         msda_cuda.check_inputs(value, tuple(shapes), loc, aw)
@@ -112,17 +109,17 @@ def fake_card(monkeypatch, tmp_path):
         def kernel(*args, out=None):
             msda_cuda.check_inputs_bwd_win(*args, per_point=per_point)
             value_l, ix = args[0], args[2]
-            if per_point:
-                msda_cuda.win_geometry(
-                    ix.shape[0] * ix.shape[1], args[-1], value_l.shape[3],
-                    ix.shape[2], value_l.element_size(), form=part)
+            msda_cuda.win_geometry(
+                ix.shape[0] * ix.shape[1], args[-1], value_l.shape[3],
+                ix.shape[2], value_l.element_size(), form=part)
             msda_cuda.launches[name] += 1
             grads = msda.msda_bwd_win_plain(*args)
             if part == "rows":
                 return grads[1:]
             if out is None:
                 return grads[0]
-            # K10 adds into the caller's slice of the layer's gradient
+            # the value kernels add into the caller's slice of the layer's
+            # gradient
             msda_cuda.check_value_out(out, value_l, args[6], args[7])
             return out.add_(grads[0])
         return kernel
@@ -140,8 +137,10 @@ def fake_card(monkeypatch, tmp_path):
     monkeypatch.setattr(msda_cuda, "msda_bwd_rows", bwd_rows)
     monkeypatch.setattr(msda_cuda, "msda_bwd_value", bwd_value)
     monkeypatch.setattr(msda_cuda, "msda_fwd_q", fwd_q)
-    monkeypatch.setattr(msda_cuda, "msda_fwd_win", fwd_win)
-    monkeypatch.setattr(msda_cuda, "msda_fwd_win_pp", fwd_win_pp)
+    monkeypatch.setattr(msda_cuda, "msda_fwd_win",
+                        fwd_win("msda_fwd_win", False))
+    monkeypatch.setattr(msda_cuda, "msda_fwd_win_pp",
+                        fwd_win("msda_fwd_win_pp", True))
     monkeypatch.setattr(msda_cuda, "msda_fwd_bp", fwd_bp)
     for name, per_point in (("msda_bwd_win_rows", False),
                             ("msda_bwd_win_rows_pp", True),
@@ -322,14 +321,22 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
     assert k7["graph_ms_float32"] > 0
     assert k7["bit_equal_to_k8_broadcast"]
     assert all(c["rows_bit_equal_to_k8_broadcast"] for c in k7["calls"])
-    # K9 and K10 in a CUDA graph too, K10 adding into a layer's gradient
-    assert k10["graph_ms"] > 0 and k10["graph_ms_float32"] > 0
+    # K9 and K10 in a CUDA graph too, both adding into a layer's gradient;
+    # K9 beside K10 given its tile bands broadcast over the points
+    for k in (k9, k10):
+        assert k["graph_ms"] > 0 and k["graph_ms_float32"] > 0
     assert all(c["value_graph_ms"] > 0 for c in k9["calls"] + k10["calls"])
-    # K5 and K6: bit-equal over two runs, in a CUDA graph per value type
+    assert k9["max_abs_diff_to_k10_broadcast"] == 0.0
+    assert all("value_max_abs_diff_to_k10_broadcast" in c
+               for c in k9["calls"])
+    # K5 and K6: bit-equal over two runs, in a CUDA graph per value type;
+    # K5 bit-equal to K6 given its tile bands broadcast over the points
     for k in (win, win_pp):
         assert k["bit_equal_run_to_run"] and k["graph_ms"] > 0
         assert {"graph_ms_float32", "graph_ms_bfloat16",
                 "graph_ms_int8"} <= set(k)
+    assert win["bit_equal_to_k6_broadcast"]
+    assert all(c["bit_equal_to_k6_broadcast"] for c in win["calls"])
     assert set(result["train_adaptation"]) == {"point", "tile", "point_int8"}
     assert result["train_f32"]["adaptation"]["band_indices"] > 0
     assert "nudged_pixels_max_grad_rel_change" in result["train_f32"]["exact"]
@@ -361,6 +368,10 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
                   "msda_fwd_q serving encoder_served",
                   "msda_fwd_q serving decoder batch 2",
                   "msda_fwd_win serving encoder window 16",
+                  "bit-equal to msda_fwd_win_pp on the bands broadcast over "
+                  "the points True",
+                  "value max abs diff to msda_bwd_win_value_pp on the bands "
+                  "broadcast over the points 0.000e+00",
                   "msda_fwd_win_pp serving encoder batch 2",
                   "serve exact", "serve served", "serve tile",
                   "ms/request, exact | served | tile, 2 rounds in turns",

@@ -29,7 +29,11 @@ slice of a layer's gradient, K6 and K8 bit-equal over two runs, and
 refusals; and the int8 forward (K4) in its Hopper layout (D 8-64, P 3 and
 8, level subsets, flipped levels, loads of at most 16 and 8 bytes,
 unaligned values, bit-equal reruns, the C side's refusals) and K7 bit-equal
-to K8 on its tile bands broadcast over the points. On a GPU
+to K8 on its tile bands broadcast over the points; and the tile forms that
+run the point forms' kernels: K5 bit-equal to K6 on its tile bands
+broadcast over the points (every value type, windows 8-32), K9 against K10
+on them and adding into a slice of a wider gradient that holds values, and
+both refusing a geometry that misses work. On a GPU
 machine without JAX, run them without the suite's conftest (which imports
 JAX):
 
@@ -1226,9 +1230,11 @@ def _unaligned(t, offset):
     return out
 
 
-def _k6_level_args(value, loc, aw, shapes, lid, window, int8):
+def _k6_level_args(value, loc, aw, shapes, lid, window, int8,
+                   per_point=True):
     value_l, bidx, ix, iy_band, aw_eff, _, h, w, win, segs, Q = (
-        _banded_bwd_args(value, loc, aw, None, shapes, lid, window, True))
+        _banded_bwd_args(value, loc, aw, None, shapes, lid, window,
+                         per_point))
     if int8:
         vq, scale = msda.quantize_levels(value, shapes)
         start = msda.level_starts(shapes)[lid]
@@ -1355,21 +1361,26 @@ def test_k10_unaligned_pointers_match_plain(cuda, offset, dtype):
 
 
 def test_k6_k10_refuse_a_geometry_that_misses_work(cuda, monkeypatch):
-    """msda_band.cuh's win_geometry_ok refuses for K6 and K10 what the CPU
-    tests' model of it refuses; K10 refuses an output that is not a float32
-    [B, h*w, H, D] view contiguous within a batch."""
+    """msda_band.cuh's win_geometry_ok refuses for K6 and K10, and for K5
+    and K9, which take their launch, what the CPU tests' model of it
+    refuses; K10 and K9 refuse an output that is not a float32 [B, h*w, H,
+    D] view contiguous within a batch."""
     from test_torch_msda_geometry import _accepted_win
 
     shapes = ((24, 16), (12, 8))
     value, loc, aw = _raster(cuda, torch.bfloat16, shapes, 1, 2, 32)
     g = torch.randn((1, value.shape[1], 64), device=cuda).bfloat16()
     args = _banded_bwd_args(value, loc, aw, g, shapes, 0, 8, True)
+    tile = _banded_bwd_args(value, loc, aw, g, shapes, 0, 8, False)
     fwd_args = (*args[:5], *args[6:])
+    fwd_tile = (*tile[:5], *tile[6:])
     Q = args[-1]
     real = msda_cuda.win_geometry
     for form, call, es in (
             ("fwd", lambda: msda_cuda.msda_fwd_win_pp(*fwd_args), 2),
-            ("value", lambda: msda_cuda.msda_bwd_win_value_pp(*args), 4)):
+            ("fwd", lambda: msda_cuda.msda_fwd_win(*fwd_tile), 2),
+            ("value", lambda: msda_cuda.msda_bwd_win_value_pp(*args), 4),
+            ("value", lambda: msda_cuda.msda_bwd_win_value(*tile), 4)):
         geom = real(2, Q, 32, 4, 2, form=form)
         bad = [replace(geom, blocks=geom.blocks - 1),
                replace(geom, passes=geom.passes - 1),
@@ -1389,8 +1400,11 @@ def test_k6_k10_refuse_a_geometry_that_misses_work(cuda, monkeypatch):
     good = torch.zeros((1, h * w, 2, 32), device=cuda)
     for out in (good.bfloat16(), good[:, :-1], good.cpu(),
                 good.transpose(2, 3).contiguous().transpose(2, 3)):
-        with pytest.raises(ValueError, match="out must be"):
-            msda_cuda.msda_bwd_win_value_pp(*args, out=out)
+        for value_kernel, value_args in (
+                (msda_cuda.msda_bwd_win_value_pp, args),
+                (msda_cuda.msda_bwd_win_value, tile)):
+            with pytest.raises(ValueError, match="out must be"):
+                value_kernel(*value_args, out=out)
 
 
 # --------------------------------------------------------------------------
@@ -1506,3 +1520,85 @@ def test_k7_bit_equal_to_k8_on_broadcast_bands(cuda, case, dtype):
                                                 *args[2:])))
         ref = msda.msda_bwd_win_plain(*args)
         _assert_win_bwd_close((ref[0], *got), ref, dtype)
+
+
+# --------------------------------------------------------------------------
+# K5 (msda_fwd_win) and K9 (msda_bwd_win_value) through K6's and K10's
+# kernels
+# --------------------------------------------------------------------------
+
+def _broadcast(bidx, P):
+    """A tile band table [B, H, T] broadcast over P points: the per-point
+    kernels' table for the same bands."""
+    B, H, T = bidx.shape
+    return bidx[:, :, None, :].expand(B, H, P, T).contiguous()
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("case", sorted(c for c in WIN_CASES
+                                        if c != "w32_all_exact"))
+def test_k5_bit_equal_to_k6_on_broadcast_bands(cuda, case, form):
+    """K5 runs K6's kernel with a band table whose point stride is 0: on
+    every banded level (windows 8, 16 and 32, an overhanging last band,
+    batches of 1-3, D 8-64) it is bit-equal to K6 given K5's tile bands
+    broadcast over the points, bit-equal over two runs, one launch a call,
+    and held to the plain version."""
+    kw = dict(WIN_CASES[case])
+    window, shapes = kw.pop("window"), kw["shapes"]
+    dtype = torch.float32 if form == "f32" else torch.bfloat16
+    value, loc, aw = _raster(cuda, dtype, **kw)
+    for lid, (h, _) in enumerate(shapes):
+        if h <= window:
+            continue
+        args = _k6_level_args(value, loc, aw, shapes, lid, window,
+                              form == "int8", per_point=False)
+        before = _counts()
+        got = msda_cuda.msda_fwd_win(*args)
+        assert _counts() == [b + (c == "msda_fwd_win")
+                             for b, c in zip(before, COUNTERS)]
+        assert torch.equal(got, msda_cuda.msda_fwd_win(*args))
+        wide = _broadcast(args[1], args[2].shape[2])
+        assert torch.equal(got, msda_cuda.msda_fwd_win_pp(args[0], wide,
+                                                          *args[2:]))
+        _assert_f32_close(got, msda.msda_fwd_win_plain(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [8, 32, 64])
+@pytest.mark.parametrize("case", sorted(K6_K10_CASES))
+def test_k9_adds_into_a_slice_and_matches_k10(cuda, case, D, dtype):
+    """K9 on every banded level of a raster call at batch 2: into a fresh
+    buffer and into the level's slice of a wider [B, S, H, D] float32
+    gradient that already holds values (it adds; the rest of the gradient
+    is not touched), against the plain version, and against K10 given its
+    tile bands broadcast over the points (the same sums up to the order of
+    the float32 additions)."""
+    window, shapes = K6_K10_CASES[case]
+    value, loc, aw = _raster(cuda, dtype, shapes, 2, 2, D)
+    B, S, H, _ = value.shape
+    g = torch.randn((B, S, H * D), device=cuda).to(dtype)
+    starts = msda.level_starts(shapes)
+    for lid, (h, w) in enumerate(shapes):
+        if h <= window:
+            continue
+        args = _banded_bwd_args(value, loc, aw, g, shapes, lid, window, False)
+        ref = msda.msda_bwd_win_plain(*args)[0]
+        fresh = msda_cuda.msda_bwd_win_value(*args)
+        _assert_win_bwd_close((fresh,), (ref,), dtype)
+        wide = _broadcast(args[1], args[2].shape[2])
+        torch.testing.assert_close(fresh, msda_cuda.msda_bwd_win_value_pp(
+            args[0], wide, *args[2:]), atol=1e-5, rtol=1e-5)
+        held = torch.randn((B, S, H, D), device=cuda)
+        dvalue = held.clone()
+        level = slice(starts[lid], starts[lid] + h * w)
+        before = _counts()
+        got = msda_cuda.msda_bwd_win_value(*args, out=dvalue[:, level])
+        assert _counts() == [b + (c == "msda_bwd_win_value")
+                             for b, c in zip(before, COUNTERS)]
+        assert got.data_ptr() == dvalue[:, level].data_ptr()
+        _assert_win_bwd_close((dvalue[:, level] - held[:, level],), (ref,),
+                              dtype)
+        rest = torch.ones(S, dtype=torch.bool, device=cuda)
+        rest[level] = False
+        assert torch.equal(dvalue[:, rest], held[:, rest])

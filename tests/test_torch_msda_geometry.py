@@ -722,12 +722,15 @@ def test_k6_geometry_at_odd_shapes(Q, P_):
                 _assert_k6_covers_once(geom, 3, Q, D, P_, segs, 4)
 
 
-@pytest.mark.parametrize("P_,D", [(4, 8), (3, 8), (4, 256)])
-def test_k6_fold_sums_match_plain(P_, D):
+@pytest.mark.parametrize("P_,D,per_point", [
+    (4, 8, True), (3, 8, True), (4, 256, True), (4, 8, False), (3, 8, False)],
+    ids=["4-8", "3-8", "4-256", "tile-4-8", "tile-3-8"])
+def test_k6_fold_sums_match_plain(P_, D, per_point):
     """K6's sums as its lanes make them: each point's float32 contribution
     (the plain version with the other points' weights zeroed), summed over
     the stored lane's fold group (or, without a fold, the lane's walk) in
-    float64, against the plain version's float32 sum."""
+    float64, against the plain version's float32 sum; with one band per
+    tile (``tile-*``) the same for K5, which runs K6's kernel and launch."""
     shapes = ((21, 11), (11, 7))
     h, w = shapes[0]
     Q, B, H_ = sum(a * b for a, b in shapes), 2, 3
@@ -746,7 +749,8 @@ def test_k6_fold_sums_match_plain(P_, D):
                             torch.from_numpy(aw))
     segs = segment_bounds(Q, shapes)
     bidx, ix, iy_band, _, aw_eff, _, _ = msda.win_level_rows(
-        locT, awT, 0, h, w, 8, segs, D, True)
+        locT, awT, 0, h, w, 8, segs, D, per_point)
+    assert bidx.dim() == (4 if per_point else 3)
     args = (value[:, :h * w], bidx, ix, iy_band)
     ref = msda.msda_fwd_win_plain(*args, aw_eff, h, w, 8, segs, Q)
     parts = []
@@ -1071,15 +1075,17 @@ def test_k4_geometry_refuses_what_misses_work():
 
 
 # --------------------------------------------------------------------------
-# K7 (msda_bwd_win_rows) through K8's kernel: the band table's strides
+# K5, K7 and K9 through K6's, K8's and K10's kernels: the band table's
+# strides
 # --------------------------------------------------------------------------
 
 
 def _band_entry(bh, p, qp, P_, T, TQ, per_point):
-    """The band table entry the rows kernel reads for (b * H + head, point,
-    padded row), as msda_bwd_win.cu writes it: bidx[bh * bh_stride + p *
-    p_stride + qp / TQ] with strides P * T and T for K8's [B, H, P, T]
-    table, T and 0 for K7's [B, H, T]."""
+    """The band table entry a banded kernel reads for (b * H + head, point,
+    padded row), as msda_band.cuh's band_entry writes it: bidx[bh *
+    bh_stride + p * p_stride + qp / TQ] with strides P * T and T for the
+    point forms' [B, H, P, T] table (K6, K8, K10), T and 0 for the tile
+    forms' [B, H, T] (K5, K7, K9)."""
     p_stride = T if per_point else 0
     bh_stride = P_ * T if per_point else T
     return bh * bh_stride + p * p_stride + qp // TQ
@@ -1112,6 +1118,68 @@ def test_rows_kernel_band_lookup(per_point, D, dtype, TQ):
             else bidx[b, h, qp // TQ])
     assert (got == want).all()
     # K7's table broadcast over the points is K8's table for the same bands
+    if not per_point:
+        wide = np.broadcast_to(bidx[:, :, None, :], (B, H_, P, T))
+        assert (wide.reshape(-1)[_band_entry(bh, p, qp, P, T, TQ, True)]
+                == got).all()
+
+
+def _band_readers(form, geom, BH, Q, P_, segs, TQ):
+    """(b * H + head, point, padded row) of every sample a banded kernel
+    looks its band up for, under the lane map of ``form``: K6's lanes (with
+    ``fold`` each lane's point, without it the lane's walk over its query's
+    points) or the lanes of K10 that work a sample out."""
+    if form == "fwd":
+        m = _k6_lanes(geom, BH, Q, P_)
+        live = m["live"]
+        points = [m["p"][live]] if geom.fold else [
+            np.full(live.sum(), pt) for pt in range(P_)]
+        bh = np.concatenate([m["bh"][live]] * len(points))
+        q = np.concatenate([m["q"][live]] * len(points))
+        p = np.concatenate(points)
+    else:
+        bh, q, p, _ = _k10_lanes(geom, BH, Q, P_)
+    return bh, p, _padded(q, segs, TQ)
+
+
+@pytest.mark.parametrize("per_point", [False, True], ids=["tile", "point"])
+@pytest.mark.parametrize("form,D,dtype", [
+    ("fwd", 32, "bf16"), ("fwd", 32, "int8"), ("fwd", 32, "f32"),
+    ("fwd", 256, "f32"), ("value", 32, "bf16"), ("value", 8, "f32"),
+    ("value", 64, "f32")])
+@pytest.mark.parametrize("TQ", [8, 128])
+def test_fwd_and_value_kernels_band_lookup(form, D, dtype, per_point, TQ):
+    """Under K6's lane map (K5 takes the same launch; a fold, or the walk
+    over a query's points at D = 256) and K10's (K9 likewise), every (query,
+    point) of the served encoder call's segments reads its tile's band:
+    bidx[b, h, tile] for the tile form, whatever the point, and bidx[b, h,
+    p, tile] for the point form; the lookup stays inside the table, and the
+    tile table broadcast over the points gives the point form the same
+    bands."""
+    shapes = BUCKET_LEVELS["serving"]
+    Q = sum(h * w for h, w in shapes)
+    segs = segment_bounds(Q, shapes)
+    B, H_ = 2, 3
+    geom = msda_cuda.win_geometry(B * H_, Q, D, P, WIN_ELEMENT_SIZE[dtype],
+                                  form=form)
+    assert geom.fold == int(form == "fwd" and D < 256)
+    bh, p, qp = _band_readers(form, geom, B * H_, Q, P, segs, TQ)
+    Qp = padded_starts(segs, TQ)[-1]
+    T = Qp // TQ
+    # every real (batch, head, point, query) looks its band up
+    seen = np.zeros((B * H_, P, Qp), dtype=bool)
+    seen[bh, p, qp] = True
+    assert seen.sum() == B * H_ * P * Q
+    rng = np.random.default_rng(int(per_point))
+    shape = (B, H_, P, T) if per_point else (B, H_, T)
+    bidx = rng.integers(0, 100, shape)
+    entry = _band_entry(bh, p, qp, P, T, TQ, per_point)
+    assert 0 <= entry.min() and entry.max() < bidx.size
+    got = bidx.reshape(-1)[entry]
+    b, h = divmod(bh, H_)
+    want = (bidx[b, h, p, qp // TQ] if per_point
+            else bidx[b, h, qp // TQ])
+    assert (got == want).all()
     if not per_point:
         wide = np.broadcast_to(bidx[:, :, None, :], (B, H_, P, T))
         assert (wide.reshape(-1)[_band_entry(bh, p, qp, P, T, TQ, True)]
