@@ -94,13 +94,17 @@ and no result line. In order it:
    plain version and beside K1 on the same inputs, at the serving and
    training buckets' encoder and decoder calls in float32 and bfloat16 at a
    batch of 2, its int8 form beside K4 on the served encoder call's exact
-   level and the decoder call, and a windowed call's exact level (float32
-   out), timing both kernels at each call (this runs before phase 7);
+   level and the decoder call, a windowed call's exact level (float32
+   out), and the bfloat16 and int8 forms at three points a level and on
+   values one element off their allocation; the bfloat16 and int8 forms
+   run K1's and K4's kernels (``msda_cuda.BP_ROUTES``) and must give their
+   bits at every call; times both kernels at each call (this runs before
+   phase 7);
 16. serves one request of each of phase 7's configurations with the flag on
    (``msda.FWD_BATCH_P``, what the environment variable sets at import):
    K11 takes every K1 / K4 launch (exact: K11 12; served: K6 18, K11 12;
-   tile: K5 18, K11 12); the outputs against the flag-off forward of the
-   same model; phase 8 adds a float32 run with the flag on against the
+   tile: K5 18, K11 12); the outputs bit-equal to the flag-off forward of
+   the same model; phase 8 adds a float32 run with the flag on against the
    plain path;
 17. runs the training driver ``scripts.train_egtr.main`` in-process with
    the flag on, at full width on its defaults: a synthetic VG set (8/2/2
@@ -181,12 +185,6 @@ ADAPT_GRAD_RTOL = 1e-2
 # and where a band index differs between the two runs: its tile's samples
 # clamp to other rows in the forward and the backward
 FLIPPED_BAND_GRAD_RTOL = 5e-2
-# the bf16 served model with and without batch_p: K11 and K1 / K4 differ
-# in the order of a float32 sum, so an MSDA output may round to the
-# neighbouring bf16 value (2**-8 relative) and 12 layers carry it on (an
-# H100: logits 7.7e-3 to 9.9e-3 in the three configurations); the strict
-# check is the float32 one (compare_f32, MODEL_ATOL)
-BATCH_P_BF16_ATOL = 5e-2
 
 # what library_composite_ms times: no one PyTorch call computes MSDA, so
 # library_ms stays null
@@ -233,15 +231,15 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def msda_inputs(Q, S, dtype, seed, batch=1):
+def msda_inputs(Q, S, dtype, seed, batch=1, points=P):
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     value = torch.randn((batch, S, H, D), generator=g, device=DEVICE).to(dtype)
     # locations roam slightly outside [0, 1] so the zero padding is hit
-    loc = torch.rand((batch, Q, H, L, P, 2), generator=g,
+    loc = torch.rand((batch, Q, H, L, points, 2), generator=g,
                      device=DEVICE) * 1.2 - 0.1
-    aw = torch.randn((batch, Q, H, L * P), generator=g,
+    aw = torch.randn((batch, Q, H, L * points), generator=g,
                      device=DEVICE).softmax(-1)
-    return value, loc, aw.reshape(batch, Q, H, L, P).to(dtype)
+    return value, loc, aw.reshape(batch, Q, H, L, points).to(dtype)
 
 
 def raster_inputs(shapes, dtype, seed, batch=1):
@@ -827,11 +825,14 @@ def check_bwd_win_kernels(shapes, batch):
     return rows
 
 
-def _bp_row(label, kern, plain, same, same_name, timed, same_timed, bound_of):
+def _bp_row(label, kern, plain, same, same_name, timed, same_timed, bound_of,
+            routed):
     """One K11 call held to its plain version (float32 sums on both sides
     for the float32 and int8 forms; one bf16 rounding of the output for the
-    bf16 form) and beside K1 / K4 on the same inputs (the same products,
-    folded over the points in another order)."""
+    bf16 form) and beside K1 / K4 on the same inputs: bit for bit where the
+    form runs that kernel (``routed``: ``msda_cuda.BP_ROUTES``), else the
+    same products folded over the points in another order, within the same
+    limit."""
     torch.cuda.synchronize()
     if not torch.isfinite(kern.float()).all():
         raise SystemExit(f"msda_fwd_bp {label}: non-finite output")
@@ -842,23 +843,38 @@ def _bp_row(label, kern, plain, same, same_name, timed, same_timed, bound_of):
     diff = (kern.float() - same.float()).abs()
     same_over = (diff / (atol + rtol * same.float().abs())).max().item()
     row = {"call": label, "max_abs_err": err.max().item(),
-           "max_err_over_limit": over,
+           "max_err_over_limit": over, "routed_to": same_name if routed
+           else "msda_fwd_bp",
            f"{same_name}_max_abs_diff": diff.max().item(),
            f"{same_name}_diff_over_limit": same_over,
+           f"bit_equal_to_{same_name}": torch.equal(kern, same),
            "ms": cuda_ms(timed, 100), f"ms_{same_name}_same_call":
                cuda_ms(same_timed, 100)}
     row["bound_ms"], row["bound_by"] = bound_of(kern)
-    print(f"msda_fwd_bp {label}: max abs err {row['max_abs_err']:.3e} "
-          f"(err/limit {over:.3f}, atol {atol} rtol {rtol}); against "
-          f"{same_name} on the same inputs max abs diff "
+    print(f"msda_fwd_bp {label}: runs {row['routed_to']}; max abs err "
+          f"{row['max_abs_err']:.3e} (err/limit {over:.3f}, atol {atol} rtol "
+          f"{rtol}); against {same_name} on the same inputs max abs diff "
           f"{row[f'{same_name}_max_abs_diff']:.3e} (over the same limit "
-          f"{same_over:.3f}: the sum order); kernel {row['ms']:.4f} ms, "
+          f"{same_over:.3f}), bit-equal "
+          f"{row[f'bit_equal_to_{same_name}']}; kernel {row['ms']:.4f} ms, "
           f"{same_name} {row[f'ms_{same_name}_same_call']:.4f} ms, bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
     if over > 1.0 or same_over > 1.0:
         raise SystemExit(f"msda_fwd_bp {label}: kernel disagrees with the "
                          f"plain version or with {same_name}")
+    if routed and not row[f"bit_equal_to_{same_name}"]:
+        raise SystemExit(f"msda_fwd_bp {label}: runs {same_name}'s kernel "
+                         f"but is not bit-equal to {same_name}")
     return row
+
+
+def _unaligned(t):
+    """``t``'s values in a tensor whose storage starts one element past an
+    allocation: a pointer that takes only the narrowest loads."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def check_bp_kernel(shapes, train_shapes, batch=2):
@@ -866,31 +882,68 @@ def check_bp_kernel(shapes, train_shapes, batch=2):
     at the serving and training calls (encoder Q = S, decoder Q = 200) in
     float32 and bfloat16, at a batch of 2; the int8 form on the served
     encoder call's exact level 3 and on the decoder call; the float form on
-    a windowed call's exact level (float32 out)."""
+    a windowed call's exact level (float32 out); the bfloat16 and int8 forms
+    on the serving decoder call at three points a level and on values one
+    element off their allocation. The bfloat16 and int8 forms run K1's and
+    K4's kernels and must give their bits."""
     rows = []
+
+    def float_row(label, value, shp, loc, aw, moved, samples, **kw):
+        """``moved``: what the call reads; ``samples``: one weight a summed
+        sample."""
+        args = (value, shp, loc, aw)
+        return _bp_row(
+            label, msda_cuda.msda_fwd_bp(*args, **kw),
+            msda.msda_fwd_bp_plain(*args, **kw),
+            msda_cuda.msda_fwd(*args, **kw), "msda_fwd",
+            lambda: msda_cuda.msda_fwd_bp(*args, **kw),
+            lambda: msda_cuda.msda_fwd(*args, **kw),
+            lambda out: bound((*moved, out), samples),
+            msda_cuda.BP_ROUTES[value.dtype] == "msda_fwd") | {
+                "plain_ms": cuda_ms(
+                    lambda: msda.msda_fwd_bp_plain(*args, **kw), 5)}
+
+    def int8_row(label, vq, scale, loc, aw, levels, moved, samples):
+        args = (vq, shapes, loc, aw)
+        kw = dict(levels=levels, scale=scale)
+        return _bp_row(
+            label, msda_cuda.msda_fwd_bp(*args, **kw),
+            msda.msda_fwd_bp_plain(*args, **kw),
+            msda_cuda.msda_fwd_q(vq, scale, shapes, loc, aw, levels=levels),
+            "msda_fwd_q", lambda: msda_cuda.msda_fwd_bp(*args, **kw),
+            lambda: msda_cuda.msda_fwd_q(vq, scale, shapes, loc, aw,
+                                         levels=levels),
+            lambda out: bound((*moved, out), samples),
+            msda_cuda.BP_ROUTES[vq.dtype] == "msda_fwd_q") | {
+                "plain_ms": cuda_ms(
+                    lambda: msda.msda_fwd_bp_plain(*args, **kw), 5)}
+
     for bucket, shp in (("serving", shapes), ("training", train_shapes)):
         S = sum(h * w for h, w in shp)
-        for call, Q in (("encoder", S), ("decoder", 200)):
+        for call, Q in (("encoder", S), ("decoder", DECODER_Q)):
             for dtype in (torch.float32, torch.bfloat16):
                 value, loc, aw = msda_inputs(Q, S, dtype, seed=500 + len(rows),
                                              batch=batch)
-                args = (value, shp, loc, aw)
-                row = _bp_row(
+                row = float_row(
                     f"{bucket} {call} Q={Q} {str(dtype)[6:]} batch {batch}",
-                    msda_cuda.msda_fwd_bp(*args),
-                    msda.msda_fwd_bp_plain(*args), msda_cuda.msda_fwd(*args),
-                    "msda_fwd", lambda: msda_cuda.msda_fwd_bp(*args),
-                    lambda: msda_cuda.msda_fwd(*args),
-                    lambda out: bound((value, loc, aw, out), aw))
-                row.update(bucket=bucket, Q=Q, form=str(dtype)[6:],
-                           plain_ms=cuda_ms(
-                               lambda: msda.msda_fwd_bp_plain(*args), 5))
+                    value, shp, loc, aw, (value, loc, aw), aw)
+                row.update(bucket=bucket, Q=Q, form=str(dtype)[6:])
                 rows.append(row)
     S = sum(h * w for h, w in shapes)
     exact = tuple(l for l, (h, _) in enumerate(shapes) if h <= WINDOW)
     starts = msda.level_starts(shapes)
+
+    def moved_levels(values, levels, *per_level):
+        """What a call on ``levels`` reads: those levels' values and the
+        level slices of ``per_level`` (scales, locations, weights)."""
+        return [t for l in levels for t in (
+            values[:, starts[l]:starts[l] + shapes[l][0] * shapes[l][1]],
+            *(x[..., l] if x.dim() == 3 else x[:, :, :, l]
+              for x in per_level))]
+
     for call, Q, levels in (("encoder_served", S, exact),
-                            ("decoder", 200, tuple(range(len(shapes))))):
+                            ("decoder", DECODER_Q,
+                             tuple(range(len(shapes))))):
         if Q == S:
             value, loc, aw = raster_inputs(shapes, torch.bfloat16,
                                            seed=600 + len(rows), batch=batch)
@@ -898,44 +951,43 @@ def check_bp_kernel(shapes, train_shapes, batch=2):
             value, loc, aw = msda_inputs(Q, S, torch.bfloat16,
                                          seed=600 + len(rows), batch=batch)
         vq, scale = msda.quantize_levels(value, shapes)
-        kw = dict(levels=levels)
-        moved = [t for l in levels for t in (
-            vq[:, starts[l]:starts[l] + shapes[l][0] * shapes[l][1]],
-            scale[..., l], loc[:, :, :, l], aw[:, :, :, l])]
-        row = _bp_row(
+        row = int8_row(
             f"serving {call} Q={Q} levels {list(levels)} int8 batch {batch}",
-            msda_cuda.msda_fwd_bp(vq, shapes, loc, aw, scale=scale, **kw),
-            msda.msda_fwd_bp_plain(vq, shapes, loc, aw, scale=scale, **kw),
-            msda_cuda.msda_fwd_q(vq, scale, shapes, loc, aw, **kw),
-            "msda_fwd_q",
-            lambda: msda_cuda.msda_fwd_bp(vq, shapes, loc, aw, scale=scale,
-                                          **kw),
-            lambda: msda_cuda.msda_fwd_q(vq, scale, shapes, loc, aw, **kw),
-            lambda out: bound((*moved, out), aw[:, :, :, :len(levels)]))
-        row.update(bucket="serving", Q=Q, form="int8", levels=list(levels),
-                   plain_ms=cuda_ms(lambda: msda.msda_fwd_bp_plain(
-                       vq, shapes, loc, aw, scale=scale, **kw), 5))
+            vq, scale, loc, aw, levels,
+            moved_levels(vq, levels, scale, loc, aw),
+            aw[:, :, :, :len(levels)])
+        row.update(bucket="serving", Q=Q, form="int8", levels=list(levels))
         rows.append(row)
     # a windowed call's exact level (band="tile"), float32 out
     value, loc, aw = raster_inputs(shapes, torch.bfloat16, seed=700,
                                    batch=batch)
-    kw = dict(levels=exact, out_dtype=torch.float32)
-    args = (value, shapes, loc, aw)
-    moved = [t for l in exact for t in (
-        value[:, starts[l]:starts[l] + shapes[l][0] * shapes[l][1]],
-        loc[:, :, :, l], aw[:, :, :, l])]
-    row = _bp_row(
+    row = float_row(
         f"serving encoder_windowed Q={S} levels {list(exact)} bfloat16, "
-        f"float32 out, batch {batch}",
-        msda_cuda.msda_fwd_bp(*args, **kw),
-        msda.msda_fwd_bp_plain(*args, **kw), msda_cuda.msda_fwd(*args, **kw),
-        "msda_fwd", lambda: msda_cuda.msda_fwd_bp(*args, **kw),
-        lambda: msda_cuda.msda_fwd(*args, **kw),
-        lambda out: bound((*moved, out), aw[:, :, :, :len(exact)]))
+        f"float32 out, batch {batch}", value, shapes, loc, aw,
+        moved_levels(value, exact, loc, aw), aw[:, :, :, :len(exact)],
+        levels=exact, out_dtype=torch.float32)
     row.update(bucket="serving", Q=S, form="bfloat16_f32_out",
-               levels=list(exact), plain_ms=cuda_ms(
-                   lambda: msda.msda_fwd_bp_plain(*args, **kw), 5))
+               levels=list(exact))
     rows.append(row)
+    # the routed forms where K11's own lane split took no call: three
+    # points a level, and values one element off their allocation
+    for label, points, shift in (("P=3", 3, False), ("unaligned", P, True)):
+        value, loc, aw = msda_inputs(DECODER_Q, S, torch.bfloat16,
+                                     seed=710 + len(rows), batch=batch,
+                                     points=points)
+        vq, scale = msda.quantize_levels(value, shapes)
+        if shift:
+            value, vq = _unaligned(value), _unaligned(vq)
+        row = float_row(f"serving decoder Q={DECODER_Q} {label} bfloat16 "
+                        f"batch {batch}", value, shapes, loc, aw,
+                        (value, loc, aw), aw)
+        row.update(bucket="serving", Q=DECODER_Q, form=f"bfloat16 {label}")
+        rows.append(row)
+        row = int8_row(f"serving decoder Q={DECODER_Q} {label} int8 batch "
+                       f"{batch}", vq, scale, loc, aw, None,
+                       (vq, scale, loc, aw), aw)
+        row.update(bucket="serving", Q=DECODER_Q, form=f"int8 {label}")
+        rows.append(row)
     return rows
 
 
@@ -1109,8 +1161,9 @@ def compare_f32(cfg, label, limit):
 def serve_batch_p(models, x):
     """The served forward with the flag on (what EGTR_MSDA_BATCH_P=1 sets
     at import): one request of each configuration through ``infer.infer``
-    and one forward, K11 in place of every K1 / K4 launch; the outputs
-    against the same model's flag-off forward on the same input."""
+    and one forward, K11 in place of every K1 / K4 launch; the outputs bit
+    for bit those of the same model's flag-off forward on the same input,
+    since K11's bfloat16 and int8 forms run K1's and K4's kernels."""
     results = {}
     shapes = level_shapes(infer.BUCKET_HW, 4)
     for label, model in models.items():
@@ -1128,22 +1181,24 @@ def serve_batch_p(models, x):
             msda.FWD_BATCH_P = old_flag
         counts = kernel_counts()
         per_forward = forward_counts(cfg, shapes, batch_p=True)
+        keys = ("logits", "pred_boxes", "pred_rel")
         errs = {k: (on[k].float() - off[k].float()).abs().max().item()
-                for k in ("logits", "pred_boxes", "pred_rel")}
+                for k in keys}
+        equal = all(torch.equal(on[k], off[k]) for k in keys)
         print(f"serve {label} with batch_p: launches per forward "
               f"{ {k: v // 2 for k, v in counts.items() if v} }; outputs "
-              f"against the flag-off forward, max abs diff {errs} (atol "
-              f"{BATCH_P_BF16_ATOL})", flush=True)
+              f"bit-equal to the flag-off forward {equal} (max abs diff "
+              f"{errs})", flush=True)
         for name, n in counts.items():
             if n != 2 * per_forward[name]:
                 raise SystemExit(f"serve {label} with batch_p: {name} "
                                  f"launched {n} times in 2 forwards, "
                                  f"expected {2 * per_forward[name]}")
-        if not torch.isfinite(packed).all() or max(errs.values()) > \
-                BATCH_P_BF16_ATOL:
+        if not torch.isfinite(packed).all() or not equal:
             raise SystemExit(f"serve {label} with batch_p: outputs differ "
                              "from the flag-off forward")
-        results[label] = {"counts": counts, "max_abs_diff": errs}
+        results[label] = {"counts": counts, "max_abs_diff": errs,
+                          "bit_equal_flag_off": equal}
     return results
 
 
@@ -1747,9 +1802,17 @@ def main() -> int:
     bp_launches = {label: r["counts"]["msda_fwd_bp"]
                    for label, r in batch_p_serve.items()}
     bp_launches["driver"] = driver["counts"]["msda_fwd_bp"]
+    # the source that serves each form of K11, the main (bfloat16) form's
+    # first
+    here = os.path.dirname(os.path.abspath(__file__))
+    bp_routes = {str(dtype)[6:]: fn
+                 for dtype, fn in msda_cuda.BP_ROUTES.items()}
+    bp_sources = {form: os.path.relpath(msda_cuda.source_of(fn), here)
+                  for form, fn in bp_routes.items()}
     bp_entry = {
         "name": "msda_fwd_bp", "route": "cuda",
-        "source": "egtr_tpu_torch/csrc/msda_fwd_bp.cu",
+        "source": bp_sources["bfloat16"],
+        "sources_by_form": bp_sources, "routes_by_form": bp_routes,
         "replaces": "egtr_tpu/ops/msda_pallas.py:180",
         "launches": sum(bp_launches.values()),
         **{f"launches_{k}": v for k, v in bp_launches.items()},
@@ -1759,11 +1822,17 @@ def main() -> int:
         "bound_ms": bp_main["bound_ms"], "bound_by": bp_main["bound_by"],
         "library_ms": None, "form": "bfloat16",
         "ms_msda_fwd_same_call": bp_main["ms_msda_fwd_same_call"],
+        "bit_equal_where_routed": all(
+            r[f"bit_equal_to_{r['routed_to']}"] for r in bp_rows
+            if r["routed_to"] != "msda_fwd_bp"),
         "calls": bp_rows,
         "served_f32_max_abs_err": {"exact": model_errs["batch_p"],
                                    "served": served_errs["batch_p"]},
         "served_bf16_max_abs_diff_flag_off": {
             label: r["max_abs_diff"] for label, r in batch_p_serve.items()},
+        "served_bf16_bit_equal_flag_off": {
+            label: r["bit_equal_flag_off"]
+            for label, r in batch_p_serve.items()},
     }
     bwd_row = pick(bwd_rows, "encoder")
     q_row = pick(q_rows, "encoder_served")

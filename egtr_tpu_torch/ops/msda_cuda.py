@@ -29,9 +29,10 @@ package's Pallas kernels:
 - each of these pairs is one kernel whose band table has a point stride (0
   for the tile form), and its lanes lie over (query, point, channel group)
   as :func:`win_geometry` says;
-- ``msda_fwd_bp`` (``msda_fwd_bp.cu``) replaces ``_fwd_kernel_bp`` (the
-  forward with all sampling points in one stage, ``EGTR_MSDA_BATCH_P=1``) in
-  a float form (K1's function) and an int8 form (K4's).
+- ``msda_fwd_bp`` replaces ``_fwd_kernel_bp`` (the forward with all
+  sampling points in one stage, ``EGTR_MSDA_BATCH_P=1``): its bfloat16 form
+  runs K1's kernel, its int8 form K4's, its float32 form its own
+  (``msda_fwd_bp.cu``), as ``BP_ROUTES`` says.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes``. The libraries are built
@@ -575,10 +576,13 @@ _FUNCTIONS = {
     "msda_bwd_win_value": ("msda_bwd_win", _WIN_ARGS),
     "msda_bwd_win_value_pp": ("msda_bwd_win", _WIN_ARGS),
     "msda_fwd_bp": ("msda_fwd_bp", [_VOID_P] * 4 + [ctypes.POINTER(_INT)]
-                    + [_INT] * 10 + [_VOID_P]),
-    "msda_fwd_bp_q": ("msda_fwd_bp", [_VOID_P] * 5 + [ctypes.POINTER(_INT)]
-                      + [_INT] * 9 + [_VOID_P]),
+                    + [_INT] * 8 + [_VOID_P]),
 }
+
+
+def source_of(function: str) -> Path:
+    """The source of the library that exports the C function ``function``."""
+    return sources()[_FUNCTIONS[function][0]]
 
 
 def _function(name: str):
@@ -687,6 +691,46 @@ def _refuse_grad(name: str, tensors) -> None:
             "own; call msda.ms_deform_attn where a gradient is needed")
 
 
+def _fwd(name: str, value: torch.Tensor,
+         spatial_shapes: Sequence[Tuple[int, int]],
+         sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
+         levels: Optional[Sequence[int]], out_dtype: Optional[torch.dtype]
+         ) -> Tuple[torch.Tensor, bool]:
+    """Check, allocate and launch K1's kernel for the wrapper ``name``
+    (``msda_fwd``, and ``msda_fwd_bp`` for its bfloat16 form); returns the
+    output and whether a kernel was launched (an empty output needs none)."""
+    tensors = (value, sampling_locations, attention_weights)
+    _one_cuda_device(name, tensors)
+    _refuse_grad(name, tensors)
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    check_inputs(value, spatial_shapes, sampling_locations, attention_weights)
+    B, S, H, D = value.shape
+    _, Q, _, L, P, _ = sampling_locations.shape
+    levels = _check_levels(levels, L)
+    out_dtype = value.dtype if out_dtype is None else out_dtype
+    if out_dtype not in (value.dtype, torch.float32):
+        raise TypeError(f"out_dtype must be {value.dtype} or float32, got "
+                        f"{out_dtype}")
+    fn = _function("msda_fwd")
+    out = torch.empty((B, Q, H * D), dtype=out_dtype, device=value.device)
+    if out.numel() == 0:
+        return out, False
+    table = _levels_arg(spatial_shapes, D, levels,
+                        value.dtype != torch.float32)
+    geometry = launch_geometry(B * Q * H, D, len(levels) * P, L * P,
+                               value.element_size(), pointer_alignment(value))
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(value.data_ptr(), sampling_locations.data_ptr(),
+                attention_weights.data_ptr(), out.data_ptr(),
+                table, len(levels), L, B, S, Q, H, D, P,
+                int(value.dtype == torch.bfloat16),
+                int(out_dtype == torch.float32), geometry.c_array, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return out, True
+
+
 def msda_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
              sampling_locations: torch.Tensor,
              attention_weights: torch.Tensor,
@@ -700,36 +744,10 @@ def msda_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
     would be needed: ``msda.ms_deform_attn`` wraps it in the op that carries
     the backward kernels.
     """
-    tensors = (value, sampling_locations, attention_weights)
-    _one_cuda_device("msda_fwd", tensors)
-    _refuse_grad("msda_fwd", tensors)
-    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
-    check_inputs(value, spatial_shapes, sampling_locations, attention_weights)
-    B, S, H, D = value.shape
-    _, Q, _, L, P, _ = sampling_locations.shape
-    levels = _check_levels(levels, L)
-    out_dtype = value.dtype if out_dtype is None else out_dtype
-    if out_dtype not in (value.dtype, torch.float32):
-        raise TypeError(f"out_dtype must be {value.dtype} or float32, got "
-                        f"{out_dtype}")
-    fn = _function("msda_fwd")
-    out = torch.empty((B, Q, H * D), dtype=out_dtype, device=value.device)
-    if out.numel() == 0:
-        return out
-    table = _levels_arg(spatial_shapes, D, levels,
-                        value.dtype != torch.float32)
-    geometry = launch_geometry(B * Q * H, D, len(levels) * P, L * P,
-                               value.element_size(), pointer_alignment(value))
-    with torch.cuda.device(value.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(value.data_ptr(), sampling_locations.data_ptr(),
-                attention_weights.data_ptr(), out.data_ptr(),
-                table, len(levels), L, B, S, Q, H, D, P,
-                int(value.dtype == torch.bfloat16),
-                int(out_dtype == torch.float32), geometry.c_array, stream)
-    if rc != 0:
-        raise RuntimeError(f"msda_fwd kernel launch failed: CUDA error {rc}")
-    launches["msda_fwd"] += 1
+    out, launched = _fwd("msda_fwd", value, spatial_shapes,
+                         sampling_locations, attention_weights, levels,
+                         out_dtype)
+    launches["msda_fwd"] += int(launched)
     return out
 
 
@@ -756,17 +774,16 @@ def check_inputs_q(vq: torch.Tensor, scale: torch.Tensor,
                          f"{tuple(scale.shape)}")
 
 
-def msda_fwd_q(vq: torch.Tensor, scale: torch.Tensor,
-               spatial_shapes: Sequence[Tuple[int, int]],
-               sampling_locations: torch.Tensor,
-               attention_weights: torch.Tensor,
-               levels: Optional[Sequence[int]] = None) -> torch.Tensor:
-    """Launch the int8-stage-1 forward kernel: the contract of
-    ``msda.msda_fwd_q_plain`` (``(vq, scale)`` from
-    ``msda.quantize_levels``; float32 [B, Q, H*D] out)."""
+def _fwd_q(name: str, vq: torch.Tensor, scale: torch.Tensor,
+           spatial_shapes: Sequence[Tuple[int, int]],
+           sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
+           levels: Optional[Sequence[int]]) -> Tuple[torch.Tensor, bool]:
+    """Check, allocate and launch K4's kernel for the wrapper ``name``
+    (``msda_fwd_q``, and ``msda_fwd_bp`` for its int8 form); returns the
+    output and whether a kernel was launched."""
     tensors = (vq, scale, sampling_locations, attention_weights)
-    _one_cuda_device("msda_fwd_q", tensors)
-    _refuse_grad("msda_fwd_q", tensors)
+    _one_cuda_device(name, tensors)
+    _refuse_grad(name, tensors)
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     check_inputs_q(vq, scale, spatial_shapes, sampling_locations,
                    attention_weights)
@@ -776,7 +793,7 @@ def msda_fwd_q(vq: torch.Tensor, scale: torch.Tensor,
     fn = _function("msda_fwd_q")
     out = torch.empty((B, Q, H * D), dtype=torch.float32, device=vq.device)
     if out.numel() == 0:
-        return out
+        return out, False
     table = _levels_arg(spatial_shapes, D, levels, True)
     geometry = q_geometry(B * Q * H, D, len(levels) * P,
                           pointer_alignment(vq))
@@ -788,20 +805,45 @@ def msda_fwd_q(vq: torch.Tensor, scale: torch.Tensor,
                 int(attention_weights.dtype == torch.bfloat16),
                 geometry.c_array, stream)
     if rc != 0:
-        raise RuntimeError(f"msda_fwd_q kernel launch failed: CUDA error {rc}")
-    launches["msda_fwd_q"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return out, True
+
+
+def msda_fwd_q(vq: torch.Tensor, scale: torch.Tensor,
+               spatial_shapes: Sequence[Tuple[int, int]],
+               sampling_locations: torch.Tensor,
+               attention_weights: torch.Tensor,
+               levels: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Launch the int8-stage-1 forward kernel: the contract of
+    ``msda.msda_fwd_q_plain`` (``(vq, scale)`` from
+    ``msda.quantize_levels``; float32 [B, Q, H*D] out)."""
+    out, launched = _fwd_q("msda_fwd_q", vq, scale, spatial_shapes,
+                           sampling_locations, attention_weights, levels)
+    launches["msda_fwd_q"] += int(launched)
     return out
+
+
+# The kernel that serves each form of msda_fwd_bp (K11), by value dtype: the
+# kernel of the same function where it measured no slower on the H100 (K1's
+# at bfloat16, K4's at int8: their outputs bit for bit), K11's own at
+# float32, where K1's measured 1.17-1.20x its time at the encoder calls
+# (PERF.md, scripts/time_msda_kernels.py --kernels K1,K11)
+BP_ROUTES = {torch.bfloat16: "msda_fwd", torch.int8: "msda_fwd_q",
+             torch.float32: "msda_fwd_bp"}
 
 
 def check_inputs_bp(value: torch.Tensor,
                     spatial_shapes: Sequence[Tuple[int, int]],
                     sampling_locations: torch.Tensor,
                     attention_weights: torch.Tensor,
-                    scale: Optional[torch.Tensor]) -> None:
-    """Raise on anything ``msda_fwd_bp`` does not take (device aside): K1's
-    inputs (float form) or K4's (int8 values with their ``scale``), P
-    dividing 32 (the warp's lanes split over the points), D a multiple of 4
-    and a value pointer aligned for a four-channel load."""
+                    scale: Optional[torch.Tensor]) -> str:
+    """Raise on anything ``msda_fwd_bp`` does not take (device aside): what
+    the kernel that serves the form refuses. Returns that kernel's C function
+    (``BP_ROUTES``): ``msda_fwd`` for bfloat16 values (K1's inputs),
+    ``msda_fwd_q`` for int8 values with their ``scale`` (K4's), and
+    ``msda_fwd_bp`` for float32 values (K1's inputs, and K11's own lane
+    split: P dividing 32, D a multiple of 4, a value pointer aligned for a
+    four-channel load)."""
     if value.dtype == torch.int8:
         if scale is None:
             raise ValueError("int8 values need their scale (int8 form)")
@@ -812,17 +854,22 @@ def check_inputs_bp(value: torch.Tensor,
             raise ValueError("scale is for int8 values only")
         check_inputs(value, spatial_shapes, sampling_locations,
                      attention_weights)
+    route = BP_ROUTES[value.dtype]
+    if route != "msda_fwd_bp":
+        return route
     D, P = value.shape[3], sampling_locations.shape[4]
     if P < 1 or 32 % P:
-        raise ValueError(f"msda_fwd_bp splits a warp's 32 lanes over the "
-                         f"sampling points: P must divide 32, got P = {P}")
+        raise ValueError(f"msda_fwd_bp's float32 kernel splits a warp's 32 "
+                         f"lanes over the sampling points: P must divide 32, "
+                         f"got P = {P}")
     if D % 4:
-        raise ValueError(f"msda_fwd_bp reads four channels per lane: D must "
-                         f"be a multiple of 4, got D = {D}")
-    if value.data_ptr() % (4 * value.element_size()):
-        raise ValueError("value must be aligned to four channels (a tensor "
-                         "whose storage starts at an element offset that is "
-                         "not a multiple of 4 is not)")
+        raise ValueError(f"msda_fwd_bp's float32 kernel reads four channels "
+                         f"per lane: D must be a multiple of 4, got D = {D}")
+    if value.data_ptr() % 16:
+        raise ValueError("float32 value must be aligned to four channels (a "
+                         "tensor whose storage starts at an element offset "
+                         "that is not a multiple of 4 is not)")
+    return route
 
 
 def msda_fwd_bp(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
@@ -831,56 +878,60 @@ def msda_fwd_bp(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                 levels: Optional[Sequence[int]] = None,
                 out_dtype: Optional[torch.dtype] = None,
                 scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the batched-P forward kernel (K11): the contract of
+    """Launch the batched-P forward (K11): the contract of
     ``msda.msda_fwd_bp_plain``. Float form: K1's (``msda_fwd``), ``levels``
     and ``out_dtype`` included. int8 form (``value`` int8 from
     ``msda.quantize_levels`` with its ``scale``): K4's (``msda_fwd_q``),
-    float32 out. Both forms count as launches of ``msda_fwd_bp``."""
+    float32 out. Each form runs the kernel ``BP_ROUTES`` names (bfloat16:
+    K1's launch, bit-equal to ``msda_fwd``; int8: K4's, bit-equal to
+    ``msda_fwd_q``; float32: K11's own) and counts as a launch of
+    ``msda_fwd_bp`` alone."""
     tensors = (value, sampling_locations, attention_weights) + (
         () if scale is None else (scale,))
     _one_cuda_device("msda_fwd_bp", tensors)
     _refuse_grad("msda_fwd_bp", tensors)
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
-    check_inputs_bp(value, spatial_shapes, sampling_locations,
-                    attention_weights, scale)
-    B, S, H, D = value.shape
-    _, Q, _, L, P, _ = sampling_locations.shape
-    levels = _check_levels(levels, L)
-    int8 = value.dtype == torch.int8
-    if int8:
+    route = check_inputs_bp(value, spatial_shapes, sampling_locations,
+                            attention_weights, scale)
+    if route == "msda_fwd":
+        out, launched = _fwd("msda_fwd_bp", value, spatial_shapes,
+                             sampling_locations, attention_weights, levels,
+                             out_dtype)
+    elif route == "msda_fwd_q":
         if out_dtype not in (None, torch.float32):
             raise TypeError(f"the int8 form returns float32, got out_dtype "
                             f"{out_dtype}")
-        out_dtype = torch.float32
+        out, launched = _fwd_q("msda_fwd_bp", value, scale, spatial_shapes,
+                               sampling_locations, attention_weights, levels)
     else:
-        out_dtype = value.dtype if out_dtype is None else out_dtype
-        if out_dtype not in (value.dtype, torch.float32):
-            raise TypeError(f"out_dtype must be {value.dtype} or float32, got "
-                            f"{out_dtype}")
-    fn = _function("msda_fwd_bp_q" if int8 else "msda_fwd_bp")
-    out = torch.empty((B, Q, H * D), dtype=out_dtype, device=value.device)
+        out, launched = _fwd_bp_own(value, spatial_shapes, sampling_locations,
+                                    attention_weights, levels, out_dtype)
+    launches["msda_fwd_bp"] += int(launched)
+    return out
+
+
+def _fwd_bp_own(value, spatial_shapes, sampling_locations, attention_weights,
+                levels, out_dtype) -> Tuple[torch.Tensor, bool]:
+    """Allocate and launch K11's own (float32) kernel on checked inputs;
+    returns the output and whether a kernel was launched."""
+    if out_dtype not in (None, torch.float32):
+        raise TypeError(f"out_dtype must be float32, got {out_dtype}")
+    B, S, H, D = value.shape
+    _, Q, _, L, P, _ = sampling_locations.shape
+    levels = _check_levels(levels, L)
+    fn = _function("msda_fwd_bp")
+    out = torch.empty((B, Q, H * D), dtype=torch.float32, device=value.device)
     if out.numel() == 0:
-        return out
-    table = _levels_arg(spatial_shapes, D, levels,
-                        value.dtype != torch.float32)
+        return out, False
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if int8:
-            rc = fn(value.data_ptr(), scale.data_ptr(),
-                    sampling_locations.data_ptr(),
-                    attention_weights.data_ptr(), out.data_ptr(), table,
-                    len(levels), L, B, S, Q, H, D, P,
-                    int(attention_weights.dtype == torch.bfloat16), stream)
-        else:
-            rc = fn(value.data_ptr(), sampling_locations.data_ptr(),
-                    attention_weights.data_ptr(), out.data_ptr(), table,
-                    len(levels), L, B, S, Q, H, D, P,
-                    int(value.dtype == torch.bfloat16),
-                    int(out_dtype == torch.float32), stream)
+        rc = fn(value.data_ptr(), sampling_locations.data_ptr(),
+                attention_weights.data_ptr(), out.data_ptr(),
+                _levels_arg(spatial_shapes, D, levels, False), len(levels),
+                L, B, S, Q, H, D, P, stream)
     if rc != 0:
         raise RuntimeError(f"msda_fwd_bp kernel launch failed: CUDA error {rc}")
-    launches["msda_fwd_bp"] += 1
-    return out
+    return out, True
 
 
 _WIN_VTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}

@@ -2,12 +2,13 @@
 (msda_bwd_value) and K4 (msda_fwd_q, int8 stage 1), and the banded kernels
 K5 (msda_fwd_win), K6 (msda_fwd_win_pp), K7 (msda_bwd_win_rows), K8
 (msda_bwd_win_rows_pp), K9 (msda_bwd_win_value) and K10
-(msda_bwd_win_value_pp), on the card, at the calls that chip_smoke.py holds
-them to their plain versions.
+(msda_bwd_win_value_pp), and the batched-P forward K11 (msda_fwd_bp), on
+the card, at the calls that chip_smoke.py holds them to their plain
+versions.
 
     python egtr_tpu_torch/scripts/time_msda_kernels.py [--root DIR]
-        [--label NAME] [--out FILE] [--ptxas] [--k4-variant NAME]
-        [--kernels K1,K2,K3,K4,K5,K6,K7,K8,K9,K10]
+        [--label NAME] [--out FILE] [--ptxas] [--variant NAME]
+        [--kernels K1,K2,K3,K4,K5,K6,K7,K8,K9,K10,K11]
 
 Calls: chip_smoke.py's ``exact_calls()`` (encoder and decoder calls,
 uniform and raster locations, the decoder call at batch 1 and 2, float32
@@ -23,8 +24,13 @@ raster locations, batch 4, float32 and bfloat16), as chip_smoke.py's phase
 12 makes them (K7 and K9 with one band per tile); for K5 and K6 the three
 banded levels of the served encoder call (608x1008, window 16, raster
 locations, batch 1, in float32, bfloat16 and int8; bfloat16 also at batch
-4), as phase 6 makes them (K5 with one band per tile). Per call and kernel
-it prints one JSON line:
+4), as phase 6 makes them (K5 with one band per tile); K11 in each form
+at the calls of the kernel that computes the same function, beside that
+kernel on the same inputs: float32 and bfloat16 at ``exact_calls()`` in
+both buckets and at the encoder call at batch 2, int8 at ``q_calls()`` and
+at the served encoder call at batch 2, and bfloat16 with float32 out on the
+served encoder call's exact level (a windowed call's) at batch 1 and 2.
+Per call and kernel it prints one JSON line:
 - ``ms``: CUDA events around ITERS calls of the wrapper (what
   chip_smoke.py reports: at the decoder calls the host's wrapper time
   hides the kernel's);
@@ -33,6 +39,9 @@ it prints one JSON line:
   outputs);
 - ``host_us``: the wrapper's host time per call (the time to queue ITERS
   calls, the card not waited for);
+- ``output_sha256``: a digest of the output's bytes (K1-K4 and K11; K2 its
+  two gradients; K3's varies run to run), so that two checkouts' runs on
+  the same seeded inputs compare bit for bit;
 - ``bit_equal``: two runs on the same inputs give the same bits; for K3,
   whose float32 atomics add in no fixed order, ``run_to_run_max_abs_diff``
   beside it;
@@ -52,6 +61,9 @@ it prints one JSON line:
 - K4: its bound; where the checkout has ``msda_cuda.q_geometry``, its
   ``geometry`` and ``graph_ms_by_vec_bytes`` (the device time with corner
   loads of at most 8 and 16 bytes a lane);
+- K11: ``same_kernel`` (K1's ``msda_fwd`` or K4's ``msda_fwd_q``), its
+  ``same_ms`` and ``same_graph_ms`` at the call, ``bit_equal_to_same``
+  and ``max_abs_diff_to_same``, and the call's bound;
 - K9 and K10: ``run_to_run_max_abs_diff``; ``zero_graph_ms`` and
   ``copy_graph_ms``, the device time of zeroing a float32 [B, h*w, H, D]
   buffer and of copying it into the level's slice of the layer's value
@@ -77,21 +89,25 @@ parent commit, unpacked under the git-ignored ``build/``) is timed by the
 same code. Run the two in turns in one call on one card (parent, change,
 change, parent) and compare only there. ``--ptxas`` first prints what
 ``nvcc -Xptxas -v`` says of the sources (registers, spills).
-``--kernels`` times a subset (default all ten). ``--k4-variant NAME``
+``--kernels`` times a subset (default all eleven). ``--variant NAME``
 times the kernels of a copy of DIR's ``egtr_tpu_torch`` (under DIR's
-``build/``) whose ``msda_fwd_q.cu`` is edited as ``K4_VARIANTS[NAME]``
-says: ``no_gather_old`` and ``no_gather`` replace each corner load (of
-the layout before the redesign, one warp a row with lanes over D, or of
-this one) by a small integer from the corner's column or token, so that
-the time left is the walk, the geometry and the arithmetic; ``index64`` does the row index math (batch, head, a sample's
-entries) in 64 bits; ``bounds_free`` leaves the registers a thread to
-the compiler, ``bounds_4`` asks for four blocks of 256 threads an SM (at
-most 64 registers a thread) where the kernel asks for three.
+``build/``) whose source is edited as ``VARIANTS[NAME]`` says: for K4
+(``msda_fwd_q.cu``), ``no_gather_old`` and ``no_gather`` replace each
+corner load (of the layout before the redesign, one warp a row with lanes
+over D, or of this one) by a small integer from the corner's column or
+token, so that the time left is the walk, the geometry and the arithmetic;
+``index64`` does the row index math (batch, head, a sample's entries) in 64
+bits; ``bounds_free`` leaves the registers a thread to the compiler,
+``bounds_4`` asks for four blocks of 256 threads an SM (at most 64
+registers a thread) where the kernel asks for three; for K1
+(``msda_fwd.cu``), ``k1_bounds_4`` asks for four blocks an SM and
+``k1_unroll_1`` issues one pass's loads at a time.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import subprocess
@@ -105,33 +121,44 @@ from unittest import mock
 REPO = Path(__file__).resolve().parents[2]
 ITERS = 100  # wrapper calls per CUDA-event timing, as chip_smoke.py's K1
 WALKS = (1, 2, 4, 8)
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10")
-# --k4-variant: edits of msda_fwd_q.cu, (text, replacement) pairs that
-# must each match. The no-gather variants replace each corner load by an
-# integer the compiler cannot fold away.
-K4_VARIANTS = {
-    "no_gather_old": (("r[(long)x0 * row]", "(x0 & 7)"),
-                      ("r[(long)(x0 + 1) * row]", "((x0 + 1) & 7)")),
-    "no_gather": (("q.a0.load(p0)", "q.a0.w[0] = (uint32_t)token"),
-                  ("q.a1.load(p0 + sa)", "q.a1.w[0] = (uint32_t)(token + 1)"),
-                  ("q.b0.load(p0 + sb)", "q.b0.w[0] = (uint32_t)(token + w)"),
-                  ("q.b1.load(p0 + sa + sb)",
-                   "q.b1.w[0] = (uint32_t)(token + w + 1)")),
-    "index64": (("const int first = (int)first_l, rows = (int)n_rows;",
-                 "const long first = first_l, rows = n_rows;"),
-                ("const int row = first + (slot",
-                 "const long row = first + (slot"),
-                ("const int mine_row = first", "const long mine_row = first"),
-                ("const int mine_bh = mine_row",
-                 "const long mine_bh = mine_row"),
-                ("int row, int bh, int j, int L, int P)",
-                 "long row, long bh, int j, int L, int P)"),
-                ("const int i = (row * L + lid) * P + p;",
-                 "const long i = (row * L + lid) * P + p;")),
-    "bounds_free": (("__launch_bounds__(256, 3)\nmsda_fwd_q_kernel",
-                     "__launch_bounds__(256)\nmsda_fwd_q_kernel"),),
-    "bounds_4": (("__launch_bounds__(256, 3)\nmsda_fwd_q_kernel",
-                  "__launch_bounds__(256, 4)\nmsda_fwd_q_kernel"),),
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10",
+           "K11")
+# --variant: edits of one source, (text, replacement) pairs that must each
+# match, by name: (source, edits). K4's no-gather variants replace each
+# corner load by an integer the compiler cannot fold away.
+VARIANTS = {
+    "no_gather_old": ("msda_fwd_q.cu", (
+        ("r[(long)x0 * row]", "(x0 & 7)"),
+        ("r[(long)(x0 + 1) * row]", "((x0 + 1) & 7)"))),
+    "no_gather": ("msda_fwd_q.cu", (
+        ("q.a0.load(p0)", "q.a0.w[0] = (uint32_t)token"),
+        ("q.a1.load(p0 + sa)", "q.a1.w[0] = (uint32_t)(token + 1)"),
+        ("q.b0.load(p0 + sb)", "q.b0.w[0] = (uint32_t)(token + w)"),
+        ("q.b1.load(p0 + sa + sb)", "q.b1.w[0] = (uint32_t)(token + w + 1)"))),
+    "index64": ("msda_fwd_q.cu", (
+        ("const int first = (int)first_l, rows = (int)n_rows;",
+         "const long first = first_l, rows = n_rows;"),
+        ("const int row = first + (slot", "const long row = first + (slot"),
+        ("const int mine_row = first", "const long mine_row = first"),
+        ("const int mine_bh = mine_row", "const long mine_bh = mine_row"),
+        ("int row, int bh, int j, int L, int P)",
+         "long row, long bh, int j, int L, int P)"),
+        ("const int i = (row * L + lid) * P + p;",
+         "const long i = (row * L + lid) * P + p;"))),
+    "bounds_free": ("msda_fwd_q.cu", (
+        ("__launch_bounds__(256, 3)\nmsda_fwd_q_kernel",
+         "__launch_bounds__(256)\nmsda_fwd_q_kernel"),)),
+    "bounds_4": ("msda_fwd_q.cu", (
+        ("__launch_bounds__(256, 3)\nmsda_fwd_q_kernel",
+         "__launch_bounds__(256, 4)\nmsda_fwd_q_kernel"),)),
+    # K1: four blocks of 256 threads an SM (at most 64 registers a thread)
+    # where the compiler takes 80, or one pass's loads at a time
+    "k1_bounds_4": ("msda_fwd.cu", (
+        ("__launch_bounds__(256)\nmsda_fwd_kernel",
+         "__launch_bounds__(256, 4)\nmsda_fwd_kernel"),)),
+    "k1_unroll_1": ("msda_fwd.cu", (
+        ('#include "msda_geom.cuh"\n',
+         '#include "msda_geom.cuh"\n#undef MSDA_UNROLL\n#define MSDA_UNROLL 1\n'),)),
 }
 # K4's widest corner loads timed by graph_ms_by_vec_bytes
 K4_VEC_BYTES = (8, 16)
@@ -149,27 +176,26 @@ def _args(argv=None):
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--kernels", default=",".join(KERNELS),
                     help="comma-separated subset of " + ",".join(KERNELS))
-    ap.add_argument("--k4-variant", choices=sorted(K4_VARIANTS),
-                    help="time a copy whose msda_fwd_q.cu is edited so")
+    ap.add_argument("--variant", choices=sorted(VARIANTS),
+                    help="time a copy whose source is edited so")
     return ap.parse_args(argv)
 
 
 def variant_copy(root: Path, name: str) -> Path:
     """A copy of ``root``'s egtr_tpu_torch under ``root/build`` whose
-    msda_fwd_q.cu is edited as K4_VARIANTS[name] says; returns the copy's
-    root."""
+    source is edited as VARIANTS[name] says; returns the copy's root."""
     import shutil
-    out = root / "build" / f"k4_{name}"
+    source, edits = VARIANTS[name]
+    out = root / "build" / f"variant_{name}"
     if out.exists():
         shutil.rmtree(out)
     shutil.copytree(root / "egtr_tpu_torch", out / "egtr_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    src = out / "egtr_tpu_torch" / "csrc" / "msda_fwd_q.cu"
+    src = out / "egtr_tpu_torch" / "csrc" / source
     text = src.read_text()
-    for old, new in K4_VARIANTS[name]:
+    for old, new in edits:
         if old not in text:
-            raise SystemExit(f"--k4-variant {name}: {src} does not hold "
-                             f"{old!r}")
+            raise SystemExit(f"--variant {name}: {src} does not hold {old!r}")
         text = text.replace(old, new)
     src.write_text(text)
     return out
@@ -187,8 +213,10 @@ def _chip_smoke():
 
 def ptxas_report(root: Path, nvcc: str) -> None:
     for name in ("msda_fwd.cu", "msda_bwd.cu", "msda_fwd_q.cu",
-                 "msda_fwd_win.cu", "msda_bwd_win.cu"):
+                 "msda_fwd_win.cu", "msda_bwd_win.cu", "msda_fwd_bp.cu"):
         src = root / "egtr_tpu_torch" / "csrc" / name
+        if not src.exists():
+            continue
         with tempfile.TemporaryDirectory() as tmp:
             out = subprocess.run(
                 [nvcc, "-gencode",
@@ -198,6 +226,17 @@ def ptxas_report(root: Path, nvcc: str) -> None:
         print(f"ptxas {name}:\n{out.stdout}{out.stderr}", flush=True)
         if out.returncode:
             raise SystemExit(f"nvcc failed on {src}")
+
+
+def digest(*tensors) -> str:
+    """SHA-256 of the tensors' bytes: two checkouts' outputs on the same
+    seeded inputs compare bit for bit across processes."""
+    import torch
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+                 .numpy().tobytes())
+    return h.hexdigest()
 
 
 def host_us(fn, torch) -> float:
@@ -423,6 +462,7 @@ def q_rows(msda_cuda, smoke, torch) -> list:
                "graph_ms": smoke.graph_ms(fn),
                "host_us": host_us(fn, torch),
                "bit_equal": torch.equal(first, second),
+               "output_sha256": digest(first),
                "bound_ms": bound_ms, "bound_by": bound_by}
         if hasattr(msda_cuda, "q_geometry"):
             geom = msda_cuda.q_geometry(
@@ -550,11 +590,96 @@ def banded_fwd_rows(msda_cuda, smoke, torch, per_point=True) -> list:
     return out
 
 
+def bp_rows(msda_cuda, smoke, torch) -> list:
+    """K11 in each form beside the kernel that computes the same function,
+    on the same inputs: float32 and bfloat16 beside K1 at ``exact_calls()``
+    in both buckets and at the encoder call at batch 2; int8 beside K4 at
+    ``q_calls()`` and at the served encoder call at batch 2; bfloat16 with
+    float32 out beside K1 on the served encoder call's exact level, at batch
+    1 and 2."""
+    from egtr_tpu_torch import infer
+    from egtr_tpu_torch.models.detr import level_shapes
+    from egtr_tpu_torch.ops import msda
+    from egtr_tpu_torch.scripts import perf_train_step
+    out = []
+
+    def row(fields, fn, same_name, same, moved, aw):
+        first, second, other = fn(), fn(), same()
+        bound_ms, bound_by = smoke.bound((*moved, first), aw)
+        return {"kernel": "msda_fwd_bp", **fields,
+                "ms": smoke.cuda_ms(fn, ITERS), "graph_ms": smoke.graph_ms(fn),
+                "host_us": host_us(fn, torch),
+                "bit_equal": torch.equal(first, second),
+                "output_sha256": digest(first),
+                "same_kernel": same_name,
+                "same_ms": smoke.cuda_ms(same, ITERS),
+                "same_graph_ms": smoke.graph_ms(same),
+                "bit_equal_to_same": torch.equal(first, other),
+                "max_abs_diff_to_same": (first.float() - other.float()).abs()
+                .max().item(),
+                "bound_ms": bound_ms, "bound_by": bound_by}
+
+    for bucket, hw in (("serving", infer.BUCKET_HW),
+                       ("training", perf_train_step.BUCKET_HW)):
+        shapes = level_shapes(hw, smoke.L)
+        calls = smoke.exact_calls() + [("encoder", 2, torch.float32),
+                                       ("encoder", 2, torch.bfloat16)]
+        for n, (call, batch, dtype) in enumerate(calls):
+            Q, value, loc, aw = smoke.exact_call_inputs(shapes, call, batch,
+                                                        dtype, 1100 + n)
+            args = (value, shapes, loc, aw)
+            out.append(row(
+                {"bucket": bucket, "call": call, "Q": Q, "batch": batch,
+                 "form": str(dtype)[6:]},
+                lambda: msda_cuda.msda_fwd_bp(*args), "msda_fwd",
+                lambda: msda_cuda.msda_fwd(*args), (value, loc, aw), aw))
+    shapes = level_shapes(infer.BUCKET_HW, smoke.L)
+    starts = msda.level_starts(shapes)
+    exact = tuple(l for l, (h, _) in enumerate(shapes) if h <= smoke.WINDOW)
+
+    def level_part(t, levels):
+        return [t[:, starts[l]:starts[l] + shapes[l][0] * shapes[l][1]]
+                for l in levels]
+
+    for batch in (1, 2):
+        value, loc, aw = smoke.raster_inputs(shapes, torch.bfloat16,
+                                             1200 + batch, batch)
+        args = (value, shapes, loc, aw)
+        kw = dict(levels=exact, out_dtype=torch.float32)
+        out.append(row(
+            {"bucket": "serving", "call": "encoder_windowed",
+             "Q": value.shape[1], "batch": batch, "levels": list(exact),
+             "form": "bfloat16_f32_out"},
+            lambda: msda_cuda.msda_fwd_bp(*args, **kw), "msda_fwd",
+            lambda: msda_cuda.msda_fwd(*args, **kw),
+            level_part(value, exact)
+            + [t[:, :, :, l] for l in exact for t in (loc, aw)],
+            aw[:, :, :, :len(exact)]))
+    calls = smoke.q_calls() + [("encoder_served", 2, torch.float32),
+                               ("encoder_served", 2, torch.bfloat16)]
+    for n, (call, batch, dtype) in enumerate(calls):
+        Q, levels, value, loc, aw = smoke.q_call_inputs(shapes, call, batch,
+                                                        dtype, 1300 + n)
+        vq, scale = msda.quantize_levels(value, shapes)
+        out.append(row(
+            {"bucket": "serving", "call": call, "Q": Q, "batch": batch,
+             "levels": list(levels), "form": "int8",
+             "weights": str(dtype)[6:]},
+            lambda: msda_cuda.msda_fwd_bp(vq, shapes, loc, aw, levels=levels,
+                                          scale=scale), "msda_fwd_q",
+            lambda: msda_cuda.msda_fwd_q(vq, scale, shapes, loc, aw,
+                                         levels=levels),
+            level_part(vq, levels) + [scale[..., list(levels)]]
+            + [t[:, :, :, l] for l in levels for t in (loc, aw)],
+            aw[:, :, :, :len(levels)]))
+    return out
+
+
 def main(argv=None) -> int:
     args = _args(argv)
     root = Path(args.root).resolve()
-    if args.k4_variant:
-        root = variant_copy(root, args.k4_variant)
+    if args.variant:
+        root = variant_copy(root, args.variant)
     sys.path.insert(0, str(root))
     import torch
     from egtr_tpu_torch import infer
@@ -612,7 +737,8 @@ def main(argv=None) -> int:
                        "graph_ms": smoke.graph_ms(fn),
                        "host_us": host_us(fn, torch),
                        "bit_equal": all(torch.equal(x, y)
-                                        for x, y in zip(first, second))}
+                                        for x, y in zip(first, second)),
+                       "output_sha256": digest(*first)}
                 if name == "msda_bwd_value":
                     row.update(value_split(msda_cuda, smoke, fn, first[0],
                                            second[0], value, shapes, Q, g))
@@ -636,7 +762,8 @@ def main(argv=None) -> int:
             ("K7", lambda *a: banded_rows(*a, per_point=False)),
             ("K8", banded_rows),
             ("K9", lambda *a: banded_value_rows(*a, per_point=False)),
-            ("K10", banded_value_rows)):
+            ("K10", banded_value_rows),
+            ("K11", bp_rows)):
         if name in wanted:
             for row in table(msda_cuda, smoke, torch):
                 emit(row)

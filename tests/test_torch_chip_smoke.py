@@ -64,8 +64,16 @@ def fake_card(monkeypatch, tmp_path):
 
     def fwd_bp(value, shapes, loc, aw, levels=None, out_dtype=None,
                scale=None):
-        msda_cuda.check_inputs_bp(value, tuple(shapes), loc, aw, scale)
+        # each form computes what the kernel that serves it computes
+        route = msda_cuda.check_inputs_bp(value, tuple(shapes), loc, aw,
+                                          scale)
         msda_cuda.launches["msda_fwd_bp"] += 1
+        if route == "msda_fwd":
+            return msda.ms_deform_attn_plain(value, shapes, loc, aw, levels,
+                                             out_dtype)
+        if route == "msda_fwd_q":
+            return msda.msda_fwd_q_plain(value, scale, shapes, loc, aw,
+                                         levels)
         return msda.msda_fwd_bp_plain(value, shapes, loc, aw, levels,
                                       out_dtype, scale)
 
@@ -344,15 +352,29 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
     # 2+2 layers each; the driver's 7 forwards (per phase 2 microbatches and
     # 1 validation batch, then 1 test image)
     assert bp["replaces"] == "egtr_tpu/ops/msda_pallas.py:180"
-    assert bp["source"] == "egtr_tpu_torch/csrc/msda_fwd_bp.cu"
+    # its main (bfloat16) form runs K1's kernel, int8 K4's, float32 its own
+    assert bp["source"] == "egtr_tpu_torch/csrc/msda_fwd.cu"
+    assert bp["sources_by_form"] == {
+        "bfloat16": "egtr_tpu_torch/csrc/msda_fwd.cu",
+        "int8": "egtr_tpu_torch/csrc/msda_fwd_q.cu",
+        "float32": "egtr_tpu_torch/csrc/msda_fwd_bp.cu"}
+    assert bp["routes_by_form"] == {"bfloat16": "msda_fwd",
+                                    "int8": "msda_fwd_q",
+                                    "float32": "msda_fwd_bp"}
+    assert bp["bit_equal_where_routed"]
+    assert all(bp["served_bf16_bit_equal_flag_off"].values())
     assert (bp["launches_exact"], bp["launches_served"],
             bp["launches_tile"], bp["launches_driver"]) == (8, 8, 8, 28)
     assert bp["launches"] == 8 * 3 + 28
     assert "ms_msda_fwd_same_call" in bp
-    # both buckets x (encoder, decoder) x (f32, bf16), int8 x 2, windowed
-    assert len(bp["calls"]) == 8 + 2 + 1
-    assert [c["form"] for c in bp["calls"][-3:]] == [
-        "int8", "int8", "bfloat16_f32_out"]
+    # both buckets x (encoder, decoder) x (f32, bf16), int8 x 2, windowed,
+    # then bf16 and int8 at P = 3 and on unaligned values
+    assert len(bp["calls"]) == 8 + 2 + 1 + 4
+    assert [c["form"] for c in bp["calls"][-7:]] == [
+        "int8", "int8", "bfloat16_f32_out", "bfloat16 P=3", "int8 P=3",
+        "bfloat16 unaligned", "int8 unaligned"]
+    assert [c["routed_to"] for c in bp["calls"][:4]] == [
+        "msda_fwd_bp", "msda_fwd", "msda_fwd_bp", "msda_fwd"]
     assert set(bp["served_f32_max_abs_err"]) == {"exact", "served"}
     driver = result["driver"]
     assert set(driver["phases"]) == {"main", "finetune"}
@@ -446,6 +468,27 @@ def test_chip_smoke_fails_when_batch_p_bypasses_k11(fake_card, monkeypatch):
     monkeypatch.setattr(msda_cuda, "msda_fwd_bp", uncounted)
     with pytest.raises(SystemExit, match="with batch_p: msda_fwd_bp launched"):
         chip_smoke.main()
+
+
+def test_chip_smoke_fails_when_routed_k11_differs_from_k1(fake_card,
+                                                          monkeypatch):
+    """K11's bfloat16 form runs K1's kernel and must give K1's bits: an
+    output one bf16 step off in one element, well inside the tolerance
+    against the plain version, fails the K11 phase."""
+    from egtr_tpu_torch.models.detr import level_shapes
+
+    real = msda_cuda.msda_fwd_bp
+
+    def one_step_off(value, *args, **kw):
+        out = real(value, *args, **kw)
+        if value.dtype == torch.bfloat16:
+            out.view(torch.int16).view(-1)[0] += 1
+        return out
+
+    monkeypatch.setattr(msda_cuda, "msda_fwd_bp", one_step_off)
+    shapes = level_shapes(infer.BUCKET_HW, 4)
+    with pytest.raises(SystemExit, match="not bit-equal to msda_fwd"):
+        chip_smoke.check_bp_kernel(shapes, shapes)
 
 
 def test_forward_counts_at_the_serving_bucket():

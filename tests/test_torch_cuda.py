@@ -804,6 +804,10 @@ def test_batched_p_dispatch_on_the_card(cuda, form):
 
 
 def test_fwd_bp_refusals(cuda):
+    """What the kernel that serves each form refuses: the float32 form's
+    own lane split (P dividing 32, D a multiple of 4, 16-byte aligned
+    values); the bfloat16 and int8 forms take any P, D and alignment that K1
+    and K4 take."""
     value, loc, aw = _inputs(cuda, torch.float32, 1, 5, 2, 8, ((3, 4),))
     with pytest.raises(NotImplementedError, match="no backward"):
         msda_cuda.msda_fwd_bp(value.requires_grad_(), ((3, 4),), loc, aw)
@@ -819,13 +823,58 @@ def test_fwd_bp_refusals(cuda):
     with pytest.raises(ValueError, match="aligned"):
         msda_cuda.msda_fwd_bp(torch.randn(1 + 24 * 8, device=cuda)[1:]
                               .view(1, 12, 2, 8), ((3, 4),), loc, aw)
+    # routed forms: K1's and K4's contracts
+    for v, l, a in ((v3, l3, a3), (v6, l6, a6)):
+        msda_cuda.msda_fwd_bp(v.bfloat16(), ((3, 4),), l, a.bfloat16())
+        vq, scale = msda.quantize_levels(v, ((3, 4),))
+        msda_cuda.msda_fwd_bp(vq, ((3, 4),), l, a, scale=scale)
     vq, scale = msda.quantize_levels(value, ((3, 4),))
     with pytest.raises(TypeError, match="float32"):
         msda_cuda.msda_fwd_bp(vq, ((3, 4),), loc, aw, scale=scale,
                               out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="need their scale"):
+        msda_cuda.msda_fwd_bp(vq, ((3, 4),), loc, aw)
+    with pytest.raises(TypeError, match="out_dtype must be float32"):
+        msda_cuda.msda_fwd_bp(value, ((3, 4),), loc, aw,
+                              out_dtype=torch.bfloat16)
     empty = msda_cuda.msda_fwd_bp(value, ((3, 4),), loc[:, :0].contiguous(),
                                   aw[:, :0].contiguous())
     assert empty.shape == (1, 0, 16)
+
+
+@pytest.mark.parametrize("case", ["p3", "p4", "unaligned"])
+def test_fwd_bp_routed_forms_bit_equal(cuda, case):
+    """K11's bfloat16 form runs K1's kernel and its int8 form K4's: their
+    outputs bit for bit, with bf16 and float32 out, on every level and on a
+    level subset, at 3 and 4 points a level and on values one element off
+    their allocation; a K11 launch moves K11's count alone."""
+    shapes = ((20, 30), (10, 15), (5, 8), (3, 4))
+    value, loc, aw = _inputs(cuda, torch.bfloat16, 2, 150, 8, 32, shapes,
+                             P=3 if case == "p3" else 4, seed=11)
+    vq, scale = msda.quantize_levels(value, shapes)
+    if case == "unaligned":
+        value, vq = _offset(value, 1), _offset(vq, 1)
+    for kw in ({}, dict(out_dtype=torch.float32),
+               dict(levels=(3, 1), out_dtype=torch.float32), dict(levels=(2,))):
+        before = _counts()
+        out = msda_cuda.msda_fwd_bp(value, shapes, loc, aw, **kw)
+        assert _counts() == [b + (c == "msda_fwd_bp")
+                             for b, c in zip(before, COUNTERS)]
+        assert torch.equal(out, msda_cuda.msda_fwd(value, shapes, loc, aw,
+                                                   **kw))
+        ref = msda.msda_fwd_bp_plain(value, shapes, loc, aw, **kw)
+        atol, rtol = TOL[out.dtype]
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+    for kw in ({}, dict(levels=(3,)), dict(levels=(0, 2))):
+        before = _counts()
+        out = msda_cuda.msda_fwd_bp(vq, shapes, loc, aw, scale=scale, **kw)
+        assert _counts() == [b + (c == "msda_fwd_bp")
+                             for b, c in zip(before, COUNTERS)]
+        assert torch.equal(out, msda_cuda.msda_fwd_q(vq, scale, shapes, loc,
+                                                     aw, **kw))
+        _assert_f32_close(out, msda.msda_fwd_bp_plain(vq, shapes, loc, aw,
+                                                      scale=scale, **kw))
 
 
 # --------------------------------------------------------------------------

@@ -49,9 +49,10 @@ def grid_sample_oracle(value, spatial_shapes, loc, aw):
     return out.view(N, M * D, Lq).transpose(1, 2)
 
 
-def make_inputs(seed, B=2, Q=7, H=4, D=8, shapes=((6, 9), (3, 5), (2, 2))):
+def make_inputs(seed, B=2, Q=7, H=4, D=8, shapes=((6, 9), (3, 5), (2, 2)),
+                P=4):
     rng = np.random.default_rng(seed)
-    L, P = len(shapes), 4
+    L = len(shapes)
     S = sum(h * w for h, w in shapes)
     value = rng.standard_normal((B, S, H, D)).astype(np.float32)
     # locations roam outside [0,1] to exercise the zero padding
@@ -378,7 +379,7 @@ def test_every_source_has_a_library_and_a_counter():
         "msda_bwd_win_rows_pp": "msda_bwd_win",
         "msda_bwd_win_value": "msda_bwd_win",
         "msda_bwd_win_value_pp": "msda_bwd_win",
-        "msda_fwd_bp": "msda_fwd_bp", "msda_fwd_bp_q": "msda_fwd_bp"}
+        "msda_fwd_bp": "msda_fwd_bp"}
     text = msda_cuda.SOURCE_BWD.read_text()
     for fn in ("msda_bwd_rows", "msda_bwd_value"):
         assert f'extern "C" int {fn}(' in text
@@ -421,11 +422,16 @@ def jax_batched_p(value, shapes, loc, aw, dtype=jnp.float32, **kw):
         mp.FWD_BATCH_P = old
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+# three points a level: no power of two, so no even split of a warp's lanes
+BP_CASES = {**CASES, "p3": dict(B=2, Q=5, H=2, D=8, P=3,
+                                shapes=((6, 9), (3, 5)))}
+
+
+@pytest.mark.parametrize("case", sorted(BP_CASES))
 def test_batched_p_plain_matches_jax_f32(case):
-    value, shapes, loc, aw = make_inputs(31, **CASES[case])
+    value, shapes, loc, aw = make_inputs(31, **BP_CASES[case])
     ref = jax_batched_p(value, shapes, loc, aw)
-    tv, _, tl, ta = torch_inputs(31, **CASES[case])
+    tv, _, tl, ta = torch_inputs(31, **BP_CASES[case])
     plain = msda.msda_fwd_bp_plain(tv, shapes, tl, ta)
     np.testing.assert_allclose(plain.numpy(), ref, **BP_TOL)
     before = dict(msda_cuda.launches)
@@ -562,8 +568,9 @@ def test_environment_variable_sets_the_flag():
 
 
 def test_batched_p_wrapper_refuses():
-    """No fallback for a CPU tensor, and K11's own limits: P divides the
-    warp's 32 lanes, D is a multiple of 4; the int8 form needs its scale."""
+    """No fallback for a CPU tensor, and the float32 form's own limits (its
+    kernel's lane split): P divides the warp's 32 lanes, D is a multiple of
+    4; the int8 form needs its scale."""
     value, shapes, loc, aw = torch_inputs(3)
     with pytest.raises(ValueError, match="CUDA tensors"):
         msda_cuda.msda_fwd_bp(value, shapes, loc, aw)
@@ -582,3 +589,55 @@ def test_batched_p_wrapper_refuses():
         msda_cuda.check_inputs_bp(value, shapes, loc, aw, scale)
     msda_cuda.check_inputs_bp(value, shapes, loc, aw, None)
     msda_cuda.check_inputs_bp(vq, shapes, loc, aw, scale)
+
+
+def _unaligned(t):
+    """``t``'s values in a tensor whose storage starts one element past an
+    allocation."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("P,D", [(4, 8), (3, 8), (4, 6), (5, 12)])
+def test_batched_p_forms_route_to_their_kernels(P, D):
+    """Each form of K11 names the kernel that serves it, and refuses only
+    what that kernel refuses: bfloat16 runs K1's and int8 K4's (any P and
+    D, any alignment, where K1 and K4 take them), float32 K11's own (P
+    dividing 32, D a multiple of 4, 16-byte aligned values); int8 without
+    its scale, or a scale beside float values, is refused in every form."""
+    assert msda_cuda.BP_ROUTES == {torch.bfloat16: "msda_fwd",
+                                   torch.int8: "msda_fwd_q",
+                                   torch.float32: "msda_fwd_bp"}
+    value, shapes, loc, aw = torch_inputs(37, P=P, D=D)
+    bf16 = (value.bfloat16(), aw.bfloat16())
+    vq, scale = msda.quantize_levels(value, shapes)
+    for v, a in (bf16, (_unaligned(bf16[0]), bf16[1])):
+        assert msda_cuda.check_inputs_bp(v, shapes, loc, a, None) == "msda_fwd"
+        msda_cuda.check_inputs(v, shapes, loc, a)
+    for q in (vq, _unaligned(vq)):
+        assert msda_cuda.check_inputs_bp(q, shapes, loc, aw,
+                                         scale) == "msda_fwd_q"
+        msda_cuda.check_inputs_q(q, scale, shapes, loc, aw)
+        with pytest.raises(ValueError, match="need their scale"):
+            msda_cuda.check_inputs_bp(q, shapes, loc, aw, None)
+    with pytest.raises(ValueError, match="int8 values only"):
+        msda_cuda.check_inputs_bp(*bf16[:1], shapes, loc, bf16[1], scale)
+    own = 32 % P == 0 and D % 4 == 0
+    if own:
+        assert msda_cuda.check_inputs_bp(value, shapes, loc, aw,
+                                         None) == "msda_fwd_bp"
+        with pytest.raises(ValueError, match="aligned to four channels"):
+            msda_cuda.check_inputs_bp(_unaligned(value), shapes, loc, aw,
+                                      None)
+    else:
+        with pytest.raises(ValueError, match="float32 kernel"):
+            msda_cuda.check_inputs_bp(value, shapes, loc, aw, None)
+    # what each route launches: a C function of the library of that source
+    for route in msda_cuda.BP_ROUTES.values():
+        lib, _ = msda_cuda._FUNCTIONS[route]
+        assert msda_cuda.source_of(route) == msda_cuda.sources()[lib]
+    assert msda_cuda.source_of("msda_fwd") == msda_cuda.SOURCE
+    assert msda_cuda.source_of("msda_fwd_q") == msda_cuda.SOURCE_Q
+    assert msda_cuda.source_of("msda_fwd_bp") == msda_cuda.SOURCE_BP
