@@ -9,8 +9,8 @@ and no result line. In order it:
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the hand-written MSDA kernels (exact forward; backward rows and
    value; int8 forward; banded forward; banded backward rows and value;
-   batched-P forward) from egtr_tpu_torch/csrc, the compilers started
-   together;
+   batched-P forward) from egtr_tpu_torch/csrc and the native evaluation
+   kernels from egtr_tpu_torch/native, the compilers started together;
 3. holds the forward kernel against its plain PyTorch version at the two
    main paths' shapes (serving bucket 608x1008: levels (76,126),(38,63),
    (19,32),(10,16), S = 12738; training bucket 800x1344: levels (100,168),
@@ -117,13 +117,38 @@ and no result line. In order it:
    relaunch on the same output path that resumes and takes no step (only
    the test evaluation's 24 K11 launches); prints seconds per phase and
    ms per optimizer step from metrics.jsonl;
-18. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+18. holds K4, K5 and K6 against their plain versions at the test bucket's
+   levels (800x1344), as phases 5 and 6 do at the serving bucket's; then
+   runs the evaluation driver ``scripts.evaluate_egtr.main`` in-process,
+   with the flag off, on phase 17's artifact and test split (800/1333,
+   bf16, batch 1): R@K and mR@K equal to phase 17's ``metrics_test.json``
+   (its test evaluation ran K11's bf16 form, bit-equal to K1, on the model
+   the artifact reloads bit-equal), K1 12 per forward and nothing else; the
+   SGG evaluator's calls of that run replayed with the native matcher and
+   with the numpy loop, host ms of each and the same recalls; the same
+   split with ``--msda_window 16 --msda_band point --msda_int8 true`` (K6
+   18, K4 12, K1 0 per forward), its R@K beside the exact run's; and
+   ``--infer_only`` (K1 12 per forward: the warm-up, the timed loop and the
+   three decomposition loops), whose fps, strict-sync fps, chained and
+   device-busy ms per image and host round trip must be finite and
+   positive; prints each run's seconds;
+19. runs the pretraining driver ``scripts.pretrain_detr.main`` in-process
+   on the same synthetic VG set at full width (ResNet-50, d_model 256, 6+6
+   layers, 200 queries, bf16, auxiliary losses, the crop augmentor), batch
+   2 x accum 2, one epoch per phase: K1, K2 and K3 12 per microbatch and K1
+   12 per evaluation forward, nothing else; finite losses in both phases'
+   metrics.jsonl; the COCO entries of metrics_test.json; and
+   ``merge_pretrained`` of the exported artifact into a fresh ``EgtrModel``
+   init takes every detector leaf from the artifact and keeps the relation
+   head's leaves and the frequency-bias tables fresh; prints its seconds;
+20. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 It exits nonzero without a result where CUDA is absent.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -131,10 +156,15 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from egtr_tpu_torch import infer
+import numpy as np
+
+from egtr_tpu_torch import infer, native
+from egtr_tpu_torch.evaluation import sg_eval
+from egtr_tpu_torch.evaluation.sg_eval import SceneGraphEvaluator
 from egtr_tpu_torch.models.detr import level_shapes
 from egtr_tpu_torch.models.egtr import EgtrModel
 from egtr_tpu_torch.models.layers import MSDeformableAttention
@@ -207,6 +237,20 @@ SYNTH_VG = dict(n_train=8, n_val=2, n_test=2, height=600, width=1000)
 DRIVER_ARGS = ["--from_scratch", "true", "--batch_size", "2", "--accumulate",
                "2", "--max_epochs", "1", "--max_epochs_finetune", "1",
                "--num_workers", "2", "--seed", "0", "--log_every", "1"]
+# the pretraining driver's run on the same set, on its own defaults at full
+# width (ResNet-50, d_model 256, 6+6 layers, 200 queries, bf16)
+PRETRAIN_ARGS = ["--batch_size", "2", "--accumulate", "2", "--max_epochs",
+                 "1", "--max_epochs_finetune", "1", "--num_workers", "2",
+                 "--seed", "0", "--log_every", "1"]
+# the served configuration's overrides for the evaluation driver
+SERVED_EVAL_ARGS = ["--msda_window", str(WINDOW), "--msda_band", "point",
+                    "--msda_int8", "true"]
+RECALL_KEYS = [f"single/{m}@{k}" for m in ("R", "mR") for k in (20, 50, 100)]
+# replays of the exact evaluation's SGG-evaluator work, per matching path
+SG_EVAL_ROUNDS = 20
+# the ranks of each image's own top-k that a planted ground truth holds:
+# six triplets
+PLANTED_RANKS = (0, 10, 20, 30, 40, 50)
 
 
 def card_line() -> str:
@@ -480,10 +524,10 @@ def q_call_inputs(shapes, call, batch, dtype, seed):
     return Q, levels, value, loc, aw
 
 
-def check_q_kernel(shapes):
-    """K4 against its plain version at every call of Q_CALLS: within the
-    float32 tolerance, bit-equal over two runs, timed by CUDA events and in
-    a CUDA graph beside its bound."""
+def check_q_kernel(shapes, bucket="serving"):
+    """K4 against its plain version at every call of Q_CALLS on ``bucket``'s
+    levels: within the float32 tolerance, bit-equal over two runs, timed by
+    CUDA events and in a CUDA graph beside its bound."""
     S = sum(h * w for h, w in shapes)
     starts = msda.level_starts(shapes)
     rows = []
@@ -502,8 +546,8 @@ def check_q_kernel(shapes):
         kern, again = fn(), fn()
         plain = msda.msda_fwd_q_plain(*args, levels=levels)
         torch.cuda.synchronize()
-        row = {"call": call, "Q": Q, "batch": batch, "levels": list(levels),
-               "dtype": str(dtype).split(".")[-1]}
+        row = {"bucket": bucket, "call": call, "Q": Q, "batch": batch,
+               "levels": list(levels), "dtype": str(dtype).split(".")[-1]}
         row["max_abs_err"], row["max_err_over_limit"] = _f32_err(kern, plain)
         row["bit_equal_run_to_run"] = torch.equal(kern, again)
         row["ms"] = cuda_ms(fn, 100)
@@ -518,7 +562,7 @@ def check_q_kernel(shapes):
         row["bound_ms"], row["bound_by"] = bound(
             (*moved, kern), aw[:, :, :, :len(levels)])
         atol, rtol = TOL[torch.float32]
-        print(f"msda_fwd_q serving {call} Q={Q} B={batch} levels "
+        print(f"msda_fwd_q {bucket} {call} Q={Q} B={batch} levels "
               f"{list(levels)} {row['dtype']} weights: max abs err "
               f"{row['max_abs_err']:.3e} (err/limit "
               f"{row['max_err_over_limit']:.3f}, atol {atol} rtol {rtol}), "
@@ -528,12 +572,14 @@ def check_q_kernel(shapes):
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}); quantized "
               "values equal to the CPU's", flush=True)
         if not torch.isfinite(kern).all():
-            raise SystemExit(f"msda_fwd_q {call} {dtype}: non-finite")
+            raise SystemExit(f"msda_fwd_q {bucket} {call} {dtype}: "
+                             "non-finite")
         if row["max_err_over_limit"] > 1.0:
-            raise SystemExit(f"msda_fwd_q {call} {dtype}: kernel "
+            raise SystemExit(f"msda_fwd_q {bucket} {call} {dtype}: kernel "
                              "disagrees with the plain version")
         if not row["bit_equal_run_to_run"]:
-            raise SystemExit(f"msda_fwd_q {call} {dtype}: two runs differ")
+            raise SystemExit(f"msda_fwd_q {bucket} {call} {dtype}: two runs "
+                             "differ")
         rows.append(row)
     # the batch index of the kernel's addressing, on two mirrored images
     value, loc, aw = msda_inputs(200, S, torch.float32, seed=len(rows))
@@ -541,10 +587,11 @@ def check_q_kernel(shapes):
     vq, scale = msda.quantize_levels(value, shapes)
     _, over = _f32_err(msda_cuda.msda_fwd_q(vq, scale, shapes, loc, aw),
                        msda.msda_fwd_q_plain(vq, scale, shapes, loc, aw))
-    print(f"msda_fwd_q serving decoder batch 2: err/limit {over:.3f}",
+    print(f"msda_fwd_q {bucket} decoder batch 2: err/limit {over:.3f}",
           flush=True)
     if over > 1.0:
-        raise SystemExit("msda_fwd_q batch 2: kernel disagrees with plain")
+        raise SystemExit(f"msda_fwd_q {bucket} batch 2: kernel disagrees "
+                         "with plain")
     return rows
 
 
@@ -577,11 +624,11 @@ def broadcast_bands(bidx, P):
     return bidx[:, :, None, :].expand(B, H_, P, T).contiguous()
 
 
-def check_win_kernels(shapes):
+def check_win_kernels(shapes, bucket="serving"):
     """K5 and K6 against their plain version on the banded levels of the
-    served encoder call, K5 also against K6 on its tile bands broadcast over
-    the points; one row per (band, value type), times summed over the
-    levels (one launch each)."""
+    served encoder call on ``bucket``'s levels, K5 also against K6 on its
+    tile bands broadcast over the points; one row per (band, value type),
+    times summed over the levels (one launch each)."""
     banded = [l for l, (h, _) in enumerate(shapes) if h > WINDOW]
     rows = []
     for band, (name, per_point) in BANDED.items():
@@ -590,7 +637,8 @@ def check_win_kernels(shapes):
                                   ("bfloat16", torch.bfloat16, False),
                                   ("int8", torch.bfloat16, True)):
             value, loc, aw = raster_inputs(shapes, dtype, seed=len(rows))
-            row = {"kernel": name, "band": band, "dtype": form,
+            row = {"bucket": bucket, "kernel": name, "band": band,
+                   "dtype": form,
                    "levels": banded, "max_abs_err": 0.0,
                    "max_err_over_limit": 0.0, "ms": 0.0, "graph_ms": 0.0,
                    "plain_ms": 0.0, "bound_ms": 0.0, "ms_per_level": [],
@@ -613,7 +661,8 @@ def check_win_kernels(shapes):
                 plain = msda.msda_fwd_win_plain(*args)
                 torch.cuda.synchronize()
                 if not torch.isfinite(kern).all():
-                    raise SystemExit(f"{name} {form} level {lid}: non-finite")
+                    raise SystemExit(f"{name} {bucket} {form} level {lid}: "
+                                     "non-finite")
                 err, over = _f32_err(kern, plain)
                 row["max_abs_err"] = max(row["max_abs_err"], err)
                 row["max_err_over_limit"] = max(row["max_err_over_limit"],
@@ -631,7 +680,7 @@ def check_win_kernels(shapes):
                 row["bound_ms"] += level_ms
                 row["bound_by"] = by
             atol, rtol = TOL[torch.float32]
-            print(f"{name} serving encoder window {WINDOW} levels {banded} "
+            print(f"{name} {bucket} encoder window {WINDOW} levels {banded} "
                   f"{form}: max abs err {row['max_abs_err']:.3e} (err/limit "
                   f"{row['max_err_over_limit']:.3f}, atol {atol} rtol {rtol}); "
                   f"kernel {row['ms']:.4f} ms "
@@ -647,12 +696,12 @@ def check_win_kernels(shapes):
                   + "; clamped share of the in-image samples per level "
                   f"{[round(c, 4) for c in row['clamped_share']]}", flush=True)
             if row["max_err_over_limit"] > 1.0:
-                raise SystemExit(f"{name} {form}: kernel disagrees with the "
-                                 "plain version")
+                raise SystemExit(f"{name} {bucket} {form}: kernel disagrees "
+                                 "with the plain version")
             if not row["bit_equal_run_to_run"]:
-                raise SystemExit(f"{name} {form}: two runs differ")
+                raise SystemExit(f"{name} {bucket} {form}: two runs differ")
             if not row.get("bit_equal_to_k6_broadcast", True):
-                raise SystemExit(f"{name} {form}: differs from "
+                raise SystemExit(f"{name} {bucket} {form}: differs from "
                                  "msda_fwd_win_pp on the tile bands "
                                  "broadcast over the points")
             rows.append(row)
@@ -663,10 +712,11 @@ def check_win_kernels(shapes):
                                      banded[len(banded) // 2], per_point,
                                      False)
         _, over = _f32_err(kernel(*args), msda.msda_fwd_win_plain(*args))
-        print(f"{name} serving encoder batch 2 float32: err/limit {over:.3f}",
-              flush=True)
+        print(f"{name} {bucket} encoder batch 2 float32: err/limit "
+              f"{over:.3f}", flush=True)
         if over > 1.0:
-            raise SystemExit(f"{name} batch 2: kernel disagrees with plain")
+            raise SystemExit(f"{name} {bucket} batch 2: kernel disagrees "
+                             "with plain")
     return rows
 
 
@@ -1545,6 +1595,108 @@ def _driver_forwards(args):
     return microbatches + 2 * val_batches + SYNTH_VG["n_test"], microbatches
 
 
+@contextlib.contextmanager
+def recorded_entries(cls=SceneGraphEvaluator, calls=None):
+    """Each image's prediction entry (top-k pairs, their predicate scores,
+    boxes, classes) as an SGG evaluator class ``cls`` receives it, once per
+    image (the per-predicate evaluators see the same entry again); with a
+    list ``calls``, also every call, as (evaluator, gt entry, prediction
+    entry, keywords)."""
+    log = []
+    real = cls.evaluate_entry
+
+    def evaluate_entry(self, gt_entry, pred_entry, *args, **kw):
+        if not log or log[-1] is not pred_entry:
+            log.append(pred_entry)
+        if calls is not None:
+            calls.append((self, gt_entry, pred_entry, kw))
+        return real(self, gt_entry, pred_entry, *args, **kw)
+
+    cls.evaluate_entry = evaluate_entry
+    try:
+        yield log
+    finally:
+        cls.evaluate_entry = real
+
+
+def planted_gt(pred_entry):
+    """A ground truth of the triplets at PLANTED_RANKS of an image's own
+    ranking, under its top predicate: the traffic of a model that finds
+    them, where every gt triplet has predictions with its labels to match
+    boxes against."""
+    ranks = [r for r in PLANTED_RANKS if r < len(pred_entry["pred_rel_inds"])]
+    pairs = np.asarray(pred_entry["pred_rel_inds"])[ranks]
+    predicates = np.asarray(pred_entry["rel_scores"])[ranks].argmax(1)
+    objects = sorted(set(pairs.ravel().tolist()))
+    index = {q: i for i, q in enumerate(objects)}
+    return {"gt_relations": np.array([[index[s], index[o], p] for (s, o), p
+                                      in zip(pairs.tolist(), predicates)]),
+            "gt_boxes": np.asarray(pred_entry["pred_boxes"], float)[objects],
+            "gt_classes": np.asarray(pred_entry["pred_classes"])[objects]}
+
+
+def time_sg_eval(calls, rounds=SG_EVAL_ROUNDS):
+    """The SGG evaluators' work of one evaluation run (``calls`` from
+    ``recorded_entries``, replayed on fresh evaluators), as recorded and
+    with each call's ground truth planted from its predictions
+    (``planted_gt``), its triplets matched by the native kernel and by the
+    numpy loop, its plain version: host ms per replay (the least of
+    ``rounds``), whether both give the same recalls, and the largest
+    recall."""
+    paths = {"native": sg_eval._compute_pred_matches,
+             "numpy": sg_eval._compute_pred_matches_plain}
+    traffic = {"recorded": calls,
+               "planted": [(evaluator, planted_gt(pred_entry), pred_entry, kw)
+                           for evaluator, _, pred_entry, kw in calls]}
+    out = {"calls": len(calls)}
+    for name, replay in traffic.items():
+        ms, recalls = {}, {}
+        for label, match in paths.items():
+            sg_eval._compute_pred_matches = match
+            try:
+                for _ in range(rounds):
+                    fresh = {}
+                    t0 = time.perf_counter()
+                    for evaluator, gt_entry, pred_entry, kw in replay:
+                        fresh.setdefault(id(evaluator), SceneGraphEvaluator(
+                            evaluator.multiple_preds,
+                            tuple(evaluator.recalls))
+                        ).evaluate_entry(gt_entry, pred_entry, **kw)
+                    t = 1e3 * (time.perf_counter() - t0)
+                    ms[label] = min(ms.get(label, t), t)
+            finally:
+                sg_eval._compute_pred_matches = paths["native"]
+            recalls[label] = [e.recalls for e in fresh.values()]
+        out[name] = {
+            "native_ms": ms["native"], "numpy_ms": ms["numpy"],
+            "same_recalls": recalls["native"] == recalls["numpy"],
+            "max_recall": max(r for e in recalls["native"]
+                              for v in e.values() for r in v)}
+    return out
+
+
+def same_entries(a, b) -> bool:
+    return len(a) == len(b) and all(
+        x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) for k in x)
+        for x, y in zip(a, b))
+
+
+def driver_paths(workdir):
+    """The synthetic VG set and the training driver's output path."""
+    return f"{workdir}/vg", f"{workdir}/run"
+
+
+def _phase_records(out, phase):
+    """A phase's train and val records from its metrics.jsonl, and whether
+    both kinds are there with every loss finite."""
+    records = _records(f"{out}/{phase}/metrics.jsonl")
+    train = [r for r in records if r["phase"] == "train"]
+    val = [r for r in records if r["phase"] == "val"]
+    losses = [v for r in train + val for k, v in r.items() if "loss" in k]
+    return train, val, bool(train and val and all(
+        math.isfinite(v) for v in losses))
+
+
 def drive_trainer(workdir):
     """The training driver's main path, in-process, with the flag on: a
     synthetic VG set, ``train_egtr.main`` (two phases, checkpoints, the
@@ -1554,7 +1706,7 @@ def drive_trainer(workdir):
     from egtr_tpu_torch.scripts.make_synth_vg import make_synth_vg
     from egtr_tpu_torch.train.checkpoint import load_pretrained
 
-    data, out = f"{workdir}/vg", f"{workdir}/run"
+    data, out = driver_paths(workdir)
     t0 = time.perf_counter()
     make_synth_vg(data, seed=0, **SYNTH_VG)
     t_data = time.perf_counter() - t0
@@ -1564,7 +1716,8 @@ def drive_trainer(workdir):
     try:
         reset_kernel_counts()
         t0 = time.perf_counter()
-        model = train_egtr.main(argv)
+        with recorded_entries() as entries:
+            model = train_egtr.main(argv)
         torch.cuda.synchronize()
         t_run = time.perf_counter() - t0
         counts = kernel_counts()
@@ -1599,12 +1752,8 @@ def drive_trainer(workdir):
                   msda_bwd_value=per_forward * microbatches)
     phases, bad = {}, []
     for phase in ("main", "finetune"):
-        records = _records(f"{out}/{phase}/metrics.jsonl")
-        train = [r for r in records if r["phase"] == "train"]
-        val = [r for r in records if r["phase"] == "val"]
-        losses = [v for r in train + val for k, v in r.items()
-                  if "loss" in k]
-        if not train or not val or not all(math.isfinite(v) for v in losses):
+        train, val, ok = _phase_records(out, phase)
+        if not ok:
             bad.append(f"{phase}: {len(train)} train and {len(val)} val "
                        "records, or a non-finite loss")
         phases[phase] = {
@@ -1615,8 +1764,7 @@ def drive_trainer(workdir):
                                       for r in val]}
     with open(f"{out}/metrics_test.json") as f:
         test = json.load(f)
-    keys = [f"single/{m}@{k}" for m in ("R", "mR") for k in (20, 50, 100)]
-    keys += [k for k in test if k.startswith("coco/")]
+    keys = RECALL_KEYS + [k for k in test if k.startswith("coco/")]
     if not all(k in test and math.isfinite(test[k]) for k in keys) or len(
             keys) < 7:
         bad.append(f"metrics_test.json lacks finite {keys}: {test}")
@@ -1650,7 +1798,187 @@ def drive_trainer(workdir):
                          "resume and take no step, only the test evaluation")
     return {"counts": counts, "phases": phases, "seconds": t_run,
             "relaunch_seconds": t_relaunch, "data_seconds": t_data,
-            "mean_step_ms": sum(step_ms) / len(step_ms), "test": test}
+            "mean_step_ms": sum(step_ms) / len(step_ms), "test": test,
+            "entries": entries}
+
+
+def _test_bucket(data, cfg):
+    """The padded (H, W) of the test split's first batch, as the drivers'
+    loaders make it."""
+    from egtr_tpu_torch.data.loader import Loader
+    from egtr_tpu_torch.data.visual_genome import VGDataset
+
+    batch = next(iter(Loader(VGDataset(data, "test", size=800,
+                                       max_size=1333), 1, shuffle=False,
+                             max_gt=cfg.max_gt_boxes,
+                             num_rel_labels=cfg.num_rel_labels,
+                             num_workers=1)))
+    return tuple(batch["pixel_values"].shape[1:3])
+
+
+def drive_evaluate(workdir, driver):
+    """The evaluation driver's main path, in-process, with the flag off, on
+    phase 17's artifact and test split: first K4, K5 and K6 held against
+    their plain versions at the test bucket's levels, the served run's
+    shapes; then the exact run, whose R@K and mR@K, and each image's top-k
+    triplets, must be phase 17's, and whose SGG-evaluator work is replayed
+    with the native matcher and with the numpy loop; the served
+    configuration's overrides; and the FPS loop."""
+    from egtr_tpu_torch.config import EgtrConfig
+    from egtr_tpu_torch.scripts import evaluate_egtr
+
+    data, out = driver_paths(workdir)
+    artifact = f"{out}/artifact"
+    cfg = EgtrConfig.load(f"{artifact}/config.json")
+    bucket = _test_bucket(data, cfg)
+    shapes = level_shapes(bucket, cfg.num_feature_levels)
+    q_rows = check_q_kernel(shapes, "test")
+    win_rows = check_win_kernels(shapes, "test")
+    argv = ["--data_path", data, "--artifact_path", artifact, "--device",
+            DEVICE]
+    n_test = SYNTH_VG["n_test"]
+    served_cfg = cfg.replace(msda_window=WINDOW, msda_band="point",
+                             msda_int8=True)
+    runs, bad, calls = {}, [], []
+    # forwards per run; run_fps: one warm-up, the timed loop's, and
+    # decomposition loops of ten on the first batch (strict sync, chained,
+    # and on the card chained under the profiler)
+    loops = 3 if torch.device(DEVICE).type == "cuda" else 2
+    for label, extra, run_cfg, forwards in (
+            ("exact", [], cfg, n_test),
+            ("served", SERVED_EVAL_ARGS, served_cfg, n_test),
+            ("infer_only", ["--infer_only", "true"], cfg,
+             1 + n_test + loops * 10)):
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        with recorded_entries(
+                calls=calls if label == "exact" else None) as entries:
+            result = evaluate_egtr.main(argv + extra)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = kernel_counts()
+        expect = {k: v * forwards
+                  for k, v in forward_counts(run_cfg, shapes).items()}
+        if counts != expect:
+            bad.append(f"{label}: launches {counts}, expected {expect}")
+        runs[label] = {"seconds": seconds, "counts": counts,
+                       "result": result}
+        if label == "exact":
+            runs[label]["top_k_bit_equal_to_driver"] = same_top_k = (
+                bool(entries) and same_entries(entries, driver["entries"]))
+    matching = time_sg_eval(calls)
+    want = {k: driver["test"][k] for k in RECALL_KEYS}
+    exact = {k: runs["exact"]["result"][k] for k in RECALL_KEYS}
+    served = {k: runs["served"]["result"][k] for k in RECALL_KEYS}
+    fps = runs["infer_only"]["result"]
+    fps_keys = ("fps", "strict_sync_fps", "chained_ms_per_image",
+                "device_ms_per_image", "host_rtt_ms")
+    print(f"evaluate (evaluate_egtr.main, batch_p off; phase 17's artifact, "
+          f"{n_test} test images at {bucket}): exact "
+          f"{runs['exact']['seconds']:.1f} s, R@K/mR@K {exact} (phase 17: "
+          f"{want}), top-k triplets of its {len(driver['entries'])} images "
+          f"with relations bit-equal to phase 17's: {same_top_k}; served "
+          f"({' '.join(SERVED_EVAL_ARGS)}) {runs['served']['seconds']:.1f} s, "
+          f"R@K/mR@K {served}; --infer_only {runs['infer_only']['seconds']:.1f}"
+          f" s, { {k: fps[k] for k in fps_keys + ('device_idle_share', 'images', 'device', 'timer')} }"
+          f"; launches "
+          f"{ {l: {k: v for k, v in r['counts'].items() if v} for l, r in runs.items()} }"
+          f"; SGG evaluator, the exact run's {matching['calls']} calls "
+          f"replayed (host ms, least of {SG_EVAL_ROUNDS}), native matcher | "
+          "numpy loop: "
+          + "; ".join(f"{name} {m['native_ms']:.3f} | {m['numpy_ms']:.3f}, "
+                      f"same recalls {m['same_recalls']}, largest recall "
+                      f"{m['max_recall']}" for name, m in matching.items()
+                      if name != "calls"), flush=True)
+    if not (matching["recorded"]["same_recalls"]
+            and matching["planted"]["same_recalls"]):
+        bad.append("the native matcher's recalls differ from the numpy "
+                   "loop's")
+    if matching["planted"]["max_recall"] != 1.0:
+        bad.append("the planted ground truth found no match")
+    if not same_top_k:
+        bad.append("the top-k triplets differ from phase 17's")
+    if exact != want:
+        bad.append(f"R@K/mR@K {exact} differ from phase 17's {want}")
+    if not all(math.isfinite(fps[k]) and fps[k] > 0 for k in fps_keys):
+        bad.append(f"--infer_only: {fps}")
+    if bad:
+        raise SystemExit(f"evaluate: {bad}")
+    return {"runs": runs, "q_rows": q_rows, "win_rows": win_rows,
+            "sg_eval": matching, "bucket": list(bucket)}
+
+
+def drive_pretrain(workdir):
+    """The pretraining driver's main path, in-process: two phases at full
+    width on the synthetic VG set, the artifact, the COCO test evaluation;
+    then the artifact merged into a fresh EGTR model."""
+    from egtr_tpu_torch.scripts import pretrain_detr
+    from egtr_tpu_torch.train.checkpoint import (load_pretrained,
+                                                 merge_pretrained)
+
+    data, _ = driver_paths(workdir)
+    out = f"{workdir}/pretrain"
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    detector = pretrain_detr.main(["--data_path", data, "--output_path", out,
+                                   "--device", DEVICE, *PRETRAIN_ARGS])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernel_counts()
+    cfg = detector.config
+    del detector
+    per_forward = forward_counts(
+        cfg, level_shapes(perf_train_step.BUCKET_HW,
+                          cfg.num_feature_levels))["msda_fwd"]
+    forwards, microbatches = _driver_forwards(PRETRAIN_ARGS)
+    expect = dict.fromkeys(msda_cuda.KERNELS, 0)
+    expect.update(msda_fwd=per_forward * forwards,
+                  msda_bwd_rows=per_forward * microbatches,
+                  msda_bwd_value=per_forward * microbatches)
+    bad, phases = [], {}
+    for phase in ("main", "finetune"):
+        train, val, ok = _phase_records(out, phase)
+        if not ok:
+            bad.append(f"{phase}: {len(train)} train and {len(val)} val "
+                       "records, or a non-finite loss")
+        phases[phase] = {
+            "step_ms": [1e3 * r["step_seconds"] for r in train],
+            "train_total_loss": [r["total_loss"] for r in train],
+            "validation_total_loss": [r["validation_total_loss"]
+                                      for r in val]}
+    with open(f"{out}/metrics_test.json") as f:
+        test = json.load(f)
+    if not test or not all(k.startswith("coco/") and math.isfinite(v)
+                           for k, v in test.items()):
+        bad.append(f"metrics_test.json: {test}")
+    # train_egtr --pretrained: every detector leaf from the artifact, the
+    # relation head and the frequency-bias tables fresh
+    art_cfg, artifact = load_pretrained(f"{out}/artifact")
+    fresh = EgtrModel(art_cfg).state_dict()
+    _, initialized = merge_pretrained(fresh, artifact)
+    want = sorted(n.replace(".", "/") for n in fresh
+                  if n.startswith("relation_head.")
+                  or n in ("rel_dist", "triplet_dist"))
+    detector_leaves = sum(n.startswith("model.") for n in fresh)
+    if sorted(initialized) != want or len(artifact) != detector_leaves:
+        bad.append(f"merge_pretrained: {len(initialized)} fresh paths "
+                   f"({len(want)} expected), {len(artifact)} artifact "
+                   f"entries for {detector_leaves} detector leaves")
+    print(f"pretrain (pretrain_detr.main; {SYNTH_VG}, "
+          f"{' '.join(PRETRAIN_ARGS)}): {seconds:.1f} s, ms per optimizer "
+          f"step { {p: [round(t, 1) for t in v['step_ms']] for p, v in phases.items()} }"
+          f"; launches { {k: v for k, v in counts.items() if v} } (expected "
+          f"{ {k: v for k, v in expect.items() if v} }); losses "
+          f"{ {p: v['validation_total_loss'] for p, v in phases.items()} }; "
+          f"test metrics {test}; merged into EgtrModel: {len(artifact)} "
+          f"detector leaves loaded, {len(initialized)} paths fresh "
+          "(the relation head and the frequency-bias tables)", flush=True)
+    if counts != expect:
+        raise SystemExit(f"pretrain: launches {counts}, expected {expect}")
+    if bad:
+        raise SystemExit(f"pretrain: {bad}")
+    return {"counts": counts, "seconds": seconds, "phases": phases,
+            "test": test, "fresh_paths": len(initialized)}
 
 
 def main() -> int:
@@ -1663,9 +1991,12 @@ def main() -> int:
     print(card, flush=True)
 
     t0 = time.perf_counter()
-    libs = msda_cuda.build()
-    print(f"kernel build: {sorted(p.name for p in libs.values())} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        built = pool.submit(msda_cuda.build), pool.submit(native.build)
+        libs, native_lib = (f.result() for f in built)
+    print(f"kernel build: {sorted(p.name for p in libs.values())} and "
+          f"{native_lib.name} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     cfg = infer.bench_config()
     train_cfg = perf_train_step.train_config()
@@ -1726,6 +2057,9 @@ def main() -> int:
     # the training driver with every exact forward through K11
     with tempfile.TemporaryDirectory() as workdir:
         driver = drive_trainer(workdir)
+        # the other two entry points on phase 17's set and artifact
+        evaluate = drive_evaluate(workdir, driver)
+        pretrain = drive_pretrain(workdir)
 
     def pick(table, call, dtype="bfloat16", batch=1):
         return next(r for r in table if r["call"] == call
@@ -1733,13 +2067,15 @@ def main() -> int:
 
     def banded_entry(name, line, main_form, launches):
         mine = {r["dtype"]: r for r in win_rows if r["kernel"] == name}
+        test_bucket = [r for r in evaluate["win_rows"] if r["kernel"] == name]
         main = mine[main_form]
         return {
             "name": name, "route": "cuda",
             "source": "egtr_tpu_torch/csrc/msda_fwd_win.cu",
             "replaces": f"egtr_tpu/ops/msda_pallas.py:{line}",
             "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in mine.values()),
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in [*mine.values(), *test_bucket]),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "form": main_form,
@@ -1751,8 +2087,10 @@ def main() -> int:
             "bit_equal_run_to_run": all(r["bit_equal_run_to_run"]
                                         for r in mine.values()),
             "calls": list(mine.values()),
+            "calls_test_bucket": test_bucket,
             **({"bit_equal_to_k6_broadcast": all(
-                r["bit_equal_to_k6_broadcast"] for r in mine.values())}
+                r["bit_equal_to_k6_broadcast"]
+                for r in [*mine.values(), *test_bucket])}
                if name == "msda_fwd_win" else {}),
         }
 
@@ -1837,6 +2175,11 @@ def main() -> int:
     bwd_row = pick(bwd_rows, "encoder")
     q_row = pick(q_rows, "encoder_served")
     bf16_bwd = [r for r in bwd_rows if r["dtype"] == "bfloat16"]
+    # the evaluation driver's runs (exact, served, --infer_only) and the
+    # pretraining driver's
+    evaluated = {label: run["counts"]
+                 for label, run in evaluate["runs"].items()}
+    pretrained = pretrain["counts"]
     fwd_launches = (exact_counts["msda_fwd"] + tile_counts["msda_fwd"]
                     + counts["msda_fwd"])
     kernels = {"kernels": [{
@@ -1850,6 +2193,9 @@ def main() -> int:
         "launches_serving_served": served_counts["msda_fwd"],
         "launches_training": counts["msda_fwd"],
         "launches_adaptation": adapt["counts"]["msda_fwd"],
+        "launches_evaluate": evaluated["exact"]["msda_fwd"],
+        "launches_evaluate_infer_only": evaluated["infer_only"]["msda_fwd"],
+        "launches_pretrain": pretrained["msda_fwd"],
         "max_abs_err": max(r["max_abs_err"] for r in rows + train_rows
                            if r["dtype"] == "bfloat16"),
         "ms": main_row["ms"],
@@ -1880,7 +2226,9 @@ def main() -> int:
         "source": "egtr_tpu_torch/csrc/msda_bwd.cu",
         "replaces": "egtr_tpu/ops/msda_pallas.py:487",
         "launches": counts["msda_bwd_rows"],
+        "launches_training": counts["msda_bwd_rows"],
         "launches_adaptation": adapt["counts"]["msda_bwd_rows"],
+        "launches_pretrain": pretrained["msda_bwd_rows"],
         "max_abs_err": max(max(r["max_abs_err"][k] for k in ("dloc", "daw"))
                            for r in bf16_bwd),
         "ms": bwd_row["rows_ms"],
@@ -1907,7 +2255,9 @@ def main() -> int:
         "source": "egtr_tpu_torch/csrc/msda_bwd.cu",
         "replaces": "egtr_tpu/ops/msda_pallas.py:608",
         "launches": counts["msda_bwd_value"],
+        "launches_training": counts["msda_bwd_value"],
         "launches_adaptation": adapt["counts"]["msda_bwd_value"],
+        "launches_pretrain": pretrained["msda_bwd_value"],
         "max_abs_err": max(r["max_abs_err"]["dvalue"] for r in bf16_bwd),
         "ms": bwd_row["value_ms"],
         "plain_ms": bwd_row["plain_ms"],
@@ -1933,8 +2283,11 @@ def main() -> int:
         "source": "egtr_tpu_torch/csrc/msda_fwd_q.cu",
         "replaces": "egtr_tpu/ops/msda_pallas.py:130",
         "launches": served_counts["msda_fwd_q"],
+        "launches_serving_served": served_counts["msda_fwd_q"],
+        "launches_evaluate_served": evaluated["served"]["msda_fwd_q"],
         "launches_adaptation_int8": adapt_int8["counts"]["msda_fwd_q"],
-        "max_abs_err": max(r["max_abs_err"] for r in q_rows),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in q_rows + evaluate["q_rows"]),
         "ms": q_row["ms"],
         "plain_ms": q_row["plain_ms"],
         "bound_ms": q_row["bound_ms"],
@@ -1951,13 +2304,16 @@ def main() -> int:
         "bit_equal_run_to_run": all(r["bit_equal_run_to_run"]
                                     for r in q_rows),
         "calls": q_rows,
+        "calls_test_bucket": evaluate["q_rows"],
         "int8_grad_launches": int8_grad_counts,
         "served_model_f32_max_abs_err": served_errs,
     },
         banded_entry("msda_fwd_win", 240, "bfloat16",
                      tile_counts["msda_fwd_win"]),
-        banded_entry("msda_fwd_win_pp", 249, "int8",
-                     served_counts["msda_fwd_win_pp"]),
+        {**banded_entry("msda_fwd_win_pp", 249, "int8",
+                        served_counts["msda_fwd_win_pp"]),
+         "launches_serving_served": served_counts["msda_fwd_win_pp"],
+         "launches_evaluate_served": evaluated["served"]["msda_fwd_win_pp"]},
         banded_bwd_entry("rows", "msda_bwd_win_rows", 836,
                          adapt_tile["counts"]["msda_bwd_win_rows"]),
         banded_bwd_entry("rows", "msda_bwd_win_rows_pp", 722,
@@ -1980,7 +2336,13 @@ def main() -> int:
             for label, run in (("point", adapt), ("tile", adapt_tile),
                                ("point_int8", adapt_int8))},
         "train_f32": {"exact": train_errs, "adaptation": adapt_errs},
-        "driver": {k: v for k, v in driver.items() if k != "counts"}}
+        "driver": {k: v for k, v in driver.items()
+                   if k not in ("counts", "entries")},
+        "evaluate": {label: {k: v for k, v in run.items() if k != "counts"}
+                     for label, run in evaluate["runs"].items()},
+        "evaluate_test_bucket": evaluate["bucket"],
+        "sg_eval_host_ms": evaluate["sg_eval"],
+        "pretrain": {k: v for k, v in pretrain.items() if k != "counts"}}
     print(json.dumps(kernels))
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}",
           flush=True)

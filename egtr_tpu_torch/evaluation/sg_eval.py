@@ -1,5 +1,9 @@
-"""Scene-graph Recall@K evaluation on the host (numpy): the port's own copy of
-``egtr_tpu/evaluation/sg_eval.py``, on its numpy matching path.
+"""Scene-graph Recall@K evaluation on the host: the port's own copy of
+``egtr_tpu/evaluation/sg_eval.py``. The triplet matching runs in the native
+C++ kernel (``egtr_tpu_torch/native``) where the JAX package's does; the
+numpy loop, ``_compute_pred_matches_plain``, is its plain version, which
+the evaluator never takes. Unlike the JAX package, a native library that fails
+to build raises.
 
 Re-implementation of the reference evaluator semantics
 (lib/evaluation/sg_eval.py:19-372, itself from KERN/MotifNet):
@@ -62,9 +66,25 @@ def _triplet(predicates, relations, classes, boxes):
 
 def _compute_pred_matches(gt_triplets, pred_triplets, gt_boxes, pred_boxes,
                           iou_thresh: float, phrdet: bool) -> List[List[int]]:
+    """For each predicted triplet, the gt triplets it matches, from the
+    native kernel."""
+    from ..native import triplet_matches
+
+    dense = triplet_matches(gt_triplets, gt_boxes, pred_triplets, pred_boxes,
+                            iou_thresh, phrdet)
+    pred_to_gt: List[List[int]] = [[] for _ in range(pred_boxes.shape[0])]
+    for g, p in zip(*np.nonzero(dense)):
+        pred_to_gt[p].append(int(g))
+    return pred_to_gt
+
+
+def _compute_pred_matches_plain(gt_triplets, pred_triplets, gt_boxes,
+                                pred_boxes, iou_thresh: float,
+                                phrdet: bool) -> List[List[int]]:
+    """``_compute_pred_matches`` by a numpy loop over the gt triplets."""
+    pred_to_gt: List[List[int]] = [[] for _ in range(pred_boxes.shape[0])]
     keeps = intersect_2d(gt_triplets, pred_triplets)
     gt_has_match = keeps.any(1)
-    pred_to_gt: List[List[int]] = [[] for _ in range(pred_boxes.shape[0])]
     for gt_ind, gt_box, keep_inds in zip(
             np.where(gt_has_match)[0], gt_boxes[gt_has_match],
             keeps[gt_has_match]):

@@ -204,8 +204,10 @@ def fake_card(monkeypatch, tmp_path):
     monkeypatch.setattr(config_mod, "EgtrConfig", TinyConfig)
     monkeypatch.setattr(vg_mod, "VGDataset", SmallVG)
     monkeypatch.setattr(transforms_mod, "DETR_TRAIN_SCALES", (96,))
+    # the pretraining driver's crops may turn an image on its side
     monkeypatch.setattr(loader_mod, "default_buckets",
-                        lambda max_size=1333: ((144, 96),))
+                        lambda max_size=1333: ((144, 96), (96, 144),
+                                               (144, 144)))
     monkeypatch.setattr(chip_smoke, "SYNTH_VG", dict(
         n_train=2, n_val=1, n_test=1, height=144, width=96))
     args = list(chip_smoke.DRIVER_ARGS)
@@ -213,6 +215,12 @@ def fake_card(monkeypatch, tmp_path):
         args[args.index(flag) + 1] = value
     monkeypatch.setattr(chip_smoke, "DRIVER_ARGS", args + [
         "--num_queries", "12", "--max_gt_boxes", "8", "--max_gt_rels", "16"])
+    # the pretraining driver: batch 1 x accum 2, one step per phase
+    args = list(chip_smoke.PRETRAIN_ARGS)
+    for flag, value in (("--batch_size", "1"), ("--num_workers", "1")):
+        args[args.index(flag) + 1] = value
+    monkeypatch.setattr(chip_smoke, "PRETRAIN_ARGS", args + [
+        "--num_queries", "12", "--max_gt_boxes", "8"])
     # the float32 phase turns TF32 off; restore both flags afterwards
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32",
                         torch.backends.cudnn.allow_tf32)
@@ -252,11 +260,26 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
     # accumulated one
     assert fwd["launches_serving"] == 7 * 4
     assert fwd["launches_training"] == 5 * 4
+    # pretraining: per phase one step of 2 microbatches and 1 validation
+    # image, then 1 test image
+    assert rows["launches_training"] == value["launches_training"] == 5 * 4
+    assert rows["launches_pretrain"] == value["launches_pretrain"] == 4 * 4
+    assert fwd["launches_pretrain"] == 7 * 4
+    # launches: the training run's; the other paths' under their own keys
     assert rows["launches"] == value["launches"] == 5 * 4
+    # the evaluation driver on the 1 test image: exact, served (144x96:
+    # one banded level), and --infer_only's 1 + 1 + 2 x 10 forwards (on
+    # the card a third loop of ten, under the profiler)
+    assert fwd["launches_evaluate"] == 4
+    assert fwd["launches_evaluate_infer_only"] == 22 * 4
+    assert fwd_q["launches_evaluate_served"] == 2 + 2
+    assert win_pp["launches_evaluate_served"] == 2
     # served (window 16, one band per point, int8), 7 forwards: each of the 2
     # encoder layers launches K6 on the 2 banded levels and K4 once on the 2
     # exact ones, each of the 2 decoder layers K4 once; K1 never
+    assert win_pp["launches_serving_served"] == 7 * 2 * 2
     assert win_pp["launches"] == 7 * 2 * 2 and win_pp["form"] == "int8"
+    assert fwd_q["launches_serving_served"] == 7 * (2 + 2)
     assert fwd_q["launches"] == 7 * (2 + 2)
     assert fwd["launches_serving_served"] == 0
     # one band per tile without int8, 2 timed + 2 warm-up + 1 checked
@@ -272,6 +295,15 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
     assert [(c["call"], c["batch"]) for c in fwd_q["calls"][::2]] == [
         ("encoder_served", 1), ("encoder", 1), ("decoder", 1), ("decoder", 2)]
     assert len(fwd_q["calls"]) == 8
+    # K4, K5 and K6 again at the evaluation's test bucket, 144x96 here
+    assert [(c["bucket"], c["call"]) for c in fwd_q["calls_test_bucket"]
+            ][::2] == [("test", "encoder_served"), ("test", "encoder"),
+                       ("test", "decoder"), ("test", "decoder")]
+    for k in (win, win_pp):
+        assert [(c["bucket"], c["dtype"]) for c in k["calls_test_bucket"]
+                ] == [("test", "float32"), ("test", "bfloat16"),
+                      ("test", "int8")]
+    assert result["evaluate_test_bucket"] == [144, 96]
     assert fwd_q["bit_equal_run_to_run"] and fwd_q["graph_ms"] > 0
     assert all(c["graph_ms"] > 0 and c["bit_equal_run_to_run"]
                for c in fwd_q["calls"])
@@ -380,6 +412,27 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
     assert set(driver["phases"]) == {"main", "finetune"}
     assert all(len(p["step_ms"]) == 1 for p in driver["phases"].values())
     assert "single/R@20" in driver["test"] and "coco/AP" in driver["test"]
+    evaluate = result["evaluate"]
+    assert set(evaluate) == {"exact", "served", "infer_only"}
+    assert {k: evaluate["exact"]["result"][k] for k in chip_smoke.RECALL_KEYS
+            } == {k: driver["test"][k] for k in chip_smoke.RECALL_KEYS}
+    assert evaluate["infer_only"]["result"]["images"] == 1
+    assert evaluate["exact"]["top_k_bit_equal_to_driver"]
+    assert all(r["seconds"] > 0 for r in evaluate.values())
+    fps = evaluate["infer_only"]["result"]
+    assert fps["chained_ms_per_image"] > 0 and fps["device_ms_per_image"] > 0
+    # the exact run's SGG-evaluator calls: the single evaluator's and one
+    # per predicate in the image's ground truth
+    matching = result["sg_eval_host_ms"]
+    assert matching["calls"] >= 2
+    for traffic in ("recorded", "planted"):
+        assert matching[traffic]["same_recalls"]
+        assert matching[traffic]["native_ms"] > 0
+        assert matching[traffic]["numpy_ms"] > 0
+    assert matching["planted"]["max_recall"] == 1.0
+    pretrain = result["pretrain"]
+    assert all(len(p["step_ms"]) == 1 for p in pretrain["phases"].values())
+    assert "coco/AP" in pretrain["test"] and pretrain["fresh_paths"] > 0
     out = "\n".join(lines)
     for phase in ("kernel build:", "msda_fwd serving encoder",
                   "msda_fwd training decoder", "msda_bwd training encoder",
@@ -388,6 +441,9 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
                   "msda_bwd training encoder_raster",
                   "GB/s of L2 gather traffic (not a roofline share)",
                   "msda_fwd_q serving encoder_served",
+                  "msda_fwd_q test encoder_served",
+                  "msda_fwd_win_pp test encoder window 16",
+                  "SGG evaluator, the exact run's",
                   "msda_fwd_q serving decoder batch 2",
                   "msda_fwd_win serving encoder window 16",
                   "bit-equal to msda_fwd_win_pp on the bands broadcast over "
@@ -419,7 +475,12 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
                   "serve exact with batch_p", "serve served with batch_p",
                   "serve tile with batch_p", "with batch_p (K11) vs plain",
                   "driver (train_egtr.main, batch_p on",
-                  "artifact reloaded bit-equal: True"):
+                  "artifact reloaded bit-equal: True",
+                  "evaluate (evaluate_egtr.main, batch_p off",
+                  "images with relations bit-equal to phase 17's: True",
+                  "--infer_only", "host_rtt_ms",
+                  "pretrain (pretrain_detr.main",
+                  "detector leaves loaded"):
         assert phase in out, phase
 
 

@@ -520,3 +520,95 @@ def test_driver_refusals(tmp_path, tiny_driver, argv, error, capsys):
     with pytest.raises(error):
         train_egtr.main(["--data_path", data, "--output_path",
                          str(tmp_path / "run"), "--device", "cpu", *argv])
+
+
+# --------------------------------------------------------------------------
+# a relaunch replays epoch 0's randomness, in both packages
+# --------------------------------------------------------------------------
+
+
+def test_relaunch_replays_epoch_zero_in_both_packages(tmp_path, monkeypatch):
+    """A defect of the JAX package that the port keeps on purpose (ROADMAP
+    queue 3): the loader's epoch counter and the dataset's augmentation
+    generator start afresh in every process and are not in the checkpoint,
+    so the first epoch after a resume sees epoch 0's image order and
+    augmentation again. Each package's ``fit`` runs one epoch, then a
+    relaunch with new loaders resumes for a second; an uninterrupted
+    two-epoch run shuffles its second epoch differently. The train and eval
+    steps are stand-ins that record each batch."""
+    from egtr_tpu.data import loader as jax_loader_mod
+    from egtr_tpu.data import transforms as jax_transforms_mod
+    from egtr_tpu.data.visual_genome import VGDataset as JaxVGDataset
+    from egtr_tpu.train import trainer as jax_trainer
+    from egtr_tpu_torch.data import loader as loader_mod
+    from egtr_tpu_torch.data import transforms as transforms_mod
+    from egtr_tpu_torch.data.visual_genome import VGDataset
+    from egtr_tpu_torch.scripts.make_synth_vg import make_synth_vg
+    from egtr_tpu_torch.train import trainer as port_trainer
+
+    data = str(tmp_path / "vg")
+    make_synth_vg(data, n_train=6, n_val=1, n_test=1, height=48, width=80,
+                  seed=0)
+    for mod in (jax_transforms_mod, transforms_mod):
+        monkeypatch.setattr(mod, "DETR_TRAIN_SCALES", (48, 64))
+    for mod in (jax_loader_mod, loader_mod):
+        monkeypatch.setattr(mod, "default_buckets", lambda max_size=1333: (
+            (96, 160), (160, 96), (160, 160)))
+    seen = {"jax": [], "port": []}
+
+    def jax_train_step(*args, **kw):
+        def step(state, batch, rng, lr_scale=1.0):
+            seen["jax"].append((batch["image_id"].tolist(),
+                                float(batch["pixel_values"].sum())))
+            return state, {}
+        return step
+
+    def port_train_step(*args, **kw):
+        def step(batch, generator, lr_scale=1.0):
+            seen["port"].append((batch["image_id"].tolist(),
+                                 float(batch["pixel_values"].sum())))
+            return {}
+        return step
+
+    monkeypatch.setattr(jax_trainer, "make_train_step", jax_train_step)
+    monkeypatch.setattr(jax_trainer, "make_eval_step", lambda *a, **kw: (
+        lambda params, batch: (None, {"total_loss": 1.0})))
+    monkeypatch.setattr(port_trainer, "make_train_step", port_train_step)
+    monkeypatch.setattr(port_trainer, "make_eval_step", lambda *a, **kw: (
+        lambda batch: (None, {"total_loss": torch.tensor(1.0)})))
+
+    def run(package, log_dir, max_epochs):
+        """One process's run: a new dataset and loader, as a relaunch
+        makes them; returns the batches its train steps saw."""
+        vg, loader, fit_ = ((JaxVGDataset, jax_loader_mod.Loader,
+                             jax_trainer.fit) if package == "jax" else
+                            (VGDataset, Loader, port_trainer.fit))
+        train = loader(vg(data, "train", train_aug=True, seed=0), 2,
+                       shuffle=True, max_gt=8, num_rel_labels=4,
+                       drop_last=True, seed=0, num_workers=1)
+        val = loader(vg(data, "val", size=48, max_size=80), 1,
+                     shuffle=False, max_gt=8, num_rel_labels=4)
+        if package == "jax":
+            kw = dict(init_params={"params": {"w": jnp.zeros(1)}})
+            model, cfg = None, JaxConfig()
+        else:
+            model, cfg = torch.nn.Linear(1, 1), EgtrConfig()
+            kw = dict(init_params=model.state_dict(), device="cpu")
+        start = len(seen[package])
+        fit_(model, cfg, train_loader=train, val_loader=val,
+             log_dir=str(log_dir), max_epochs=max_epochs, seed=0,
+             log_every=1000, **kw)
+        return seen[package][start:]
+
+    ids = {}
+    for package in ("jax", "port"):
+        first = run(package, tmp_path / package / "relaunched", 1)
+        resumed = run(package, tmp_path / package / "relaunched", 2)
+        assert len(first) == len(resumed) == 3
+        # the same images in the same order, augmented the same way
+        assert resumed == first, package
+        straight = run(package, tmp_path / package / "straight", 2)
+        assert straight[:3] == first
+        assert [b[0] for b in straight[3:]] != [b[0] for b in first]
+        ids[package] = [b[0] for b in first + straight]
+    assert ids["port"] == ids["jax"]
