@@ -161,6 +161,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 import numpy as np
+from PIL import Image
 
 from egtr_tpu_torch import infer, native
 from egtr_tpu_torch.evaluation import sg_eval
@@ -251,6 +252,20 @@ SG_EVAL_ROUNDS = 20
 # the ranks of each image's own top-k that a planted ground truth holds:
 # six triplets
 PLANTED_RANKS = (0, 10, 20, 30, 40, 50)
+# Open Images V6 through the three drivers: a synthetic set of the paper's
+# label spaces (601 objects, 30 predicates), the drivers' full width
+SYNTH_OI = dict(n_train=8, n_val=2, n_test=2, height=600, width=1000)
+OI_OBJECTS, OI_PREDICATES = 601, 30
+OI_EVAL_ROUNDS = 5
+# two stages: proposals from the encoder memory, 300 of them as queries
+TWO_STAGE = dict(two_stage=True, with_box_refine=True,
+                 two_stage_num_proposals=300)
+TWO_STAGE_STEPS = 2
+# rematerialized layers, each policy and none
+REMAT = {"off": dict(use_remat=False),
+         "full": dict(use_remat=True, remat_policy="full"),
+         "dots": dict(use_remat=True, remat_policy="dots")}
+REMAT_STEPS = 3
 
 
 def card_line() -> str:
@@ -1086,6 +1101,10 @@ def step_counts(cfg, shapes, batch_p=False):
     counts["msda_bwd_value"] += exact_calls
     for name in BANDED_BWD[cfg.msda_band]:
         counts[name] += cfg.encoder_layers * n_banded
+    if cfg.use_remat and cfg.remat_policy == "full":
+        # the backward recomputes every layer, its MSDA forward included
+        for name, n in forward_counts(cfg, shapes, batch_p).items():
+            counts[name] += n
     return counts
 
 
@@ -1190,18 +1209,28 @@ def compare_f32(cfg, label, limit):
     out_k, out_p, out_bp = outs
     differing = sum(int((a != b).sum()) for (_, a), (_, b) in zip(*bands[:2]))
     total = sum(a.numel() for _, a in bands[0])
+    # two stages: the proposals the decoder starts from, compared first
+    proposals = {label: int((o["proposal_indices"]
+                             != out_p["proposal_indices"]).sum())
+                 for label, o in (("kernels", out_k), ("batch_p", out_bp))
+                 } if cfg.two_stage else {}
     errs, errs_bp = {}, {}
     for key in ("logits", "pred_boxes", "pred_rel"):
         errs[key] = (out_k[key] - out_p[key]).abs().max().item()
         errs_bp[key] = (out_bp[key] - out_p[key]).abs().max().item()
     print(f"model f32 {label} kernels vs plain MSDA: max abs err {errs} "
           f"(atol {limit}); {differing} of {total} band indices differ; "
-          f"with batch_p (K11) vs plain: {errs_bp}", flush=True)
+          f"with batch_p (K11) vs plain: {errs_bp}"
+          + (f"; proposal indices differing from the plain path's "
+             f"{proposals} of {out_p['proposal_indices'].numel()}"
+             if proposals else ""), flush=True)
     if max(errs.values()) > limit or max(errs_bp.values()) > limit or not all(
             torch.isfinite(o[k]).all() for o in (out_k, out_bp)
-            for k in errs):
+            for k in errs) or any(proposals.values()):
         raise SystemExit(f"float32 {label} model: kernel path disagrees with "
                          "plain")
+    if proposals:
+        errs["proposal_indices_differing"] = proposals
     errs["band_indices_differing"] = differing
     errs["band_indices"] = total
     errs["batch_p"] = errs_bp
@@ -1460,6 +1489,8 @@ def train(cfg, label, hw, batch_size, steps, lrs=perf_train_step.LRS,
                   f"rel_gate_{cfg.decoder_layers}"}
         if cfg.auxiliary_loss:
             expect.add(f"loss_ce_{cfg.decoder_layers - 2}")
+        if cfg.two_stage:
+            expect |= {"loss_ce_enc", "loss_bbox_enc", "loss_giou_enc"}
         if not expect <= set(m):
             raise SystemExit(f"train {label} {name}: metrics lack "
                              f"{sorted(expect - set(m))}")
@@ -1583,16 +1614,17 @@ def _records(path):
         return [json.loads(line) for line in f]
 
 
-def _driver_forwards(args):
-    """Forwards of one driver run: per phase, every microbatch of every
-    optimizer step and every validation batch; then the test images, one
-    per batch."""
+def _driver_forwards(args, synth=None):
+    """Forwards of one driver run on the synthetic set ``synth`` (default
+    SYNTH_VG): per phase, every microbatch of every optimizer step and every
+    validation batch; then the test images, one per batch."""
+    synth = SYNTH_VG if synth is None else synth
     batch, accum = (int(args[args.index(k) + 1])
                     for k in ("--batch_size", "--accumulate"))
-    steps = SYNTH_VG["n_train"] // (batch * accum)
-    val_batches = -(-SYNTH_VG["n_val"] // batch)
+    steps = synth["n_train"] // (batch * accum)
+    val_batches = -(-synth["n_val"] // batch)
     microbatches = 2 * steps * accum
-    return microbatches + 2 * val_batches + SYNTH_VG["n_test"], microbatches
+    return microbatches + 2 * val_batches + synth["n_test"], microbatches
 
 
 @contextlib.contextmanager
@@ -1697,6 +1729,23 @@ def _phase_records(out, phase):
         math.isfinite(v) for v in losses))
 
 
+def reloads_bit_equal(model, artifact):
+    """Whether the saved artifact reloads into the trained model's forward,
+    bit for bit, on a seeded image of the training bucket."""
+    from egtr_tpu_torch.train.checkpoint import load_pretrained
+
+    cfg, sd = load_pretrained(artifact, map_location=DEVICE)
+    reloaded = EgtrModel(cfg)
+    reloaded.load_state_dict(sd, strict=True)
+    reloaded = reloaded.to(DEVICE).eval()
+    x = torch.randn((1, *perf_train_step.BUCKET_HW, 3), device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(3))
+    with torch.inference_mode():
+        a, b = model.eval()(x), reloaded(x)
+    return all(torch.equal(a[k], b[k]) for k in (
+        "logits", "pred_boxes", "pred_rel", "pred_connectivity"))
+
+
 def drive_trainer(workdir):
     """The training driver's main path, in-process, with the flag on: a
     synthetic VG set, ``train_egtr.main`` (two phases, checkpoints, the
@@ -1704,7 +1753,6 @@ def drive_trainer(workdir):
     a relaunch on the same output path that resumes and takes no step."""
     from egtr_tpu_torch.scripts import train_egtr
     from egtr_tpu_torch.scripts.make_synth_vg import make_synth_vg
-    from egtr_tpu_torch.train.checkpoint import load_pretrained
 
     data, out = driver_paths(workdir)
     t0 = time.perf_counter()
@@ -1721,18 +1769,7 @@ def drive_trainer(workdir):
         torch.cuda.synchronize()
         t_run = time.perf_counter() - t0
         counts = kernel_counts()
-        # the artifact reloads into the same forward, bit for bit
-        cfg, sd = load_pretrained(f"{out}/artifact", map_location=DEVICE)
-        reloaded = EgtrModel(cfg)
-        reloaded.load_state_dict(sd, strict=True)
-        reloaded = reloaded.to(DEVICE).eval()
-        x = torch.randn((1, 800, 1344, 3), device=DEVICE,
-                        generator=torch.Generator(device=DEVICE).manual_seed(3))
-        with torch.inference_mode():
-            a, b = model.eval()(x), reloaded(x)
-        bit_equal = all(torch.equal(a[k], b[k]) for k in (
-            "logits", "pred_boxes", "pred_rel", "pred_connectivity"))
-        del reloaded, a, b
+        bit_equal = reloads_bit_equal(model, f"{out}/artifact")
         before = kernel_counts()
         t0 = time.perf_counter()
         train_egtr.main(argv)
@@ -1981,6 +2018,386 @@ def drive_pretrain(workdir):
             "test": test, "fresh_paths": len(initialized)}
 
 
+def write_synth_oi(out, n_train, n_val, n_test, height, width, seed=0):
+    """A synthetic Open Images V6 set in the reference's layout
+    (data/open_image.py:31-158): ``annotations/categories_dict.json`` with
+    OI_OBJECTS object and OI_PREDICATES predicate names,
+    ``annotations/vrd-{split}-anno.json`` (xyxy boxes, labels, [subject,
+    object, predicate] triples: every image has some, and a repeated triple
+    and a second predicate on one pair for the train split's filters) and
+    the JPEGs under ``images/``: colored rectangles on noise, one rectangle
+    a box."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(f"{out}/images", exist_ok=True)
+    os.makedirs(f"{out}/annotations", exist_ok=True)
+    with open(f"{out}/annotations/categories_dict.json", "w") as f:
+        json.dump({"obj": [f"object_{i}" for i in range(OI_OBJECTS)],
+                   "rel": [f"predicate_{i}" for i in range(OI_PREDICATES)]},
+                  f)
+    for split, n in (("train", n_train), ("val", n_val), ("test", n_test)):
+        annos = []
+        for i in range(n):
+            img = rng.integers(80, 130, (height, width, 3)).astype(np.uint8)
+            boxes, labels = [], []
+            for _ in range(int(rng.integers(3, 7))):
+                w = int(rng.integers(width // 10, width // 3))
+                h = int(rng.integers(height // 10, height // 3))
+                x = int(rng.integers(0, width - w - 1))
+                y = int(rng.integers(0, height - h - 1))
+                label = int(rng.integers(0, OI_OBJECTS))
+                img[y:y + h, x:x + w] = rng.integers(0, 255, 3)
+                boxes.append([x, y, x + w - 1, y + h - 1])
+                labels.append(label)
+            rels = [[s_, s_ + 1, int(rng.integers(0, OI_PREDICATES))]
+                    for s_ in range(len(boxes) - 1)]
+            rels += [rels[0], [0, 1, (rels[0][2] + 1) % OI_PREDICATES]]
+            fn = f"{split}_{i}"
+            Image.fromarray(img, "RGB").save(f"{out}/images/{fn}.jpg",
+                                             quality=90)
+            annos.append({"img_fn": fn, "bbox": boxes, "det_labels": labels,
+                          "rel": rels})
+        with open(f"{out}/annotations/vrd-{split}-anno.json", "w") as f:
+            json.dump(annos, f)
+
+
+@contextlib.contextmanager
+def recorded_oi_calls():
+    """Every call of an ``OIEvaluator`` as (gt entry, prediction entry), and
+    the bytes per image of each ``rel_full`` the runner made."""
+    from egtr_tpu_torch.evaluation import runner
+    from egtr_tpu_torch.evaluation.oi_eval import OIEvaluator
+
+    calls, rel_bytes = [], []
+    real_call, real_rel_full = OIEvaluator.__call__, runner.rel_full
+
+    def call(self, gt_entry, pred_entry):
+        calls.append((gt_entry, pred_entry))
+        return real_call(self, gt_entry, pred_entry)
+
+    def rel_full(out):
+        t = real_rel_full(out)
+        rel_bytes.append(t[0].numel() * t.element_size())
+        return t
+
+    OIEvaluator.__call__, runner.rel_full = call, rel_full
+    try:
+        yield calls, rel_bytes
+    finally:
+        OIEvaluator.__call__, runner.rel_full = real_call, real_rel_full
+
+
+def time_oi_eval(calls, rel_categories, classes, rounds=OI_EVAL_ROUNDS):
+    """The OI evaluator's work of one run (``calls`` from
+    ``recorded_oi_calls``) replayed on fresh evaluators, its triplets
+    matched by the native kernel and by the numpy loop: host ms per image
+    of the calls plus ``aggregate_metrics`` (the least of ``rounds``) and
+    the metrics of each path."""
+    from egtr_tpu_torch.evaluation.oi_eval import OIEvaluator
+
+    paths = {"native": sg_eval._compute_pred_matches,
+             "numpy": sg_eval._compute_pred_matches_plain}
+    ms, metrics = {}, {}
+    for label, match in paths.items():
+        sg_eval._compute_pred_matches = match
+        try:
+            for _ in range(rounds):
+                evaluator = OIEvaluator(rel_categories, classes)
+                t0 = time.perf_counter()
+                for gt_entry, pred_entry in calls:
+                    evaluator(gt_entry, pred_entry)
+                metrics[label] = evaluator.aggregate_metrics()
+                t = 1e3 * (time.perf_counter() - t0) / max(len(calls), 1)
+                ms[label] = min(ms.get(label, t), t)
+        finally:
+            sg_eval._compute_pred_matches = paths["native"]
+    return {"images": len(calls), "native_ms_per_image": ms["native"],
+            "numpy_ms_per_image": ms["numpy"],
+            "same_metrics": metrics["native"] == metrics["numpy"],
+            "metrics": metrics["native"]}
+
+
+def drive_oi(workdir):
+    """Open Images V6 through the three entry points at full width, on a
+    synthetic OI set (601 objects, 30 predicates): ``train_egtr.main
+    --dataset open_images`` (K1, K2, K3 12 per microbatch, the artifact
+    reloaded bit-equal, the ``oi/*`` test metrics), ``evaluate_egtr.main
+    --dataset open_images`` on that artifact (``oi/*`` equal to the training
+    driver's, ``rel_full``'s bytes per image, the OI evaluator's host ms per
+    image on both matchers) and ``pretrain_detr.main --dataset
+    open_images``."""
+    from egtr_tpu_torch.scripts import evaluate_egtr, pretrain_detr, train_egtr
+
+    data, out = f"{workdir}/oi", f"{workdir}/oi_run"
+    t0 = time.perf_counter()
+    write_synth_oi(data, seed=0, **SYNTH_OI)
+    t_data = time.perf_counter() - t0
+    oi = ["--dataset", "open_images", "--data_path", data, "--device",
+          DEVICE]
+    runs, bad = {}, []
+
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    model = train_egtr.main([*oi, "--output_path", out, *DRIVER_ARGS])
+    torch.cuda.synchronize()
+    runs["train"] = {"seconds": time.perf_counter() - t0,
+                     "counts": kernel_counts()}
+    cfg = model.config
+    bit_equal = reloads_bit_equal(model, f"{out}/artifact")
+    del model
+    with open(f"{out}/metrics_test.json") as f:
+        trained = json.load(f)
+    oi_keys = sorted(k for k in trained if k.startswith("oi/"))
+
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    with recorded_oi_calls() as (calls, rel_bytes):
+        evaluated = evaluate_egtr.main([*oi, "--artifact_path",
+                                        f"{out}/artifact"])
+    torch.cuda.synchronize()
+    runs["evaluate"] = {"seconds": time.perf_counter() - t0,
+                        "counts": kernel_counts()}
+    with open(f"{data}/annotations/categories_dict.json") as f:
+        names = json.load(f)
+    host = time_oi_eval(calls, names["rel"], names["obj"])
+
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    detector = pretrain_detr.main([*oi, "--output_path", f"{workdir}/oi_pre",
+                                   *PRETRAIN_ARGS])
+    torch.cuda.synchronize()
+    runs["pretrain"] = {"seconds": time.perf_counter() - t0,
+                        "counts": kernel_counts()}
+    del detector
+    with open(f"{workdir}/oi_pre/metrics_test.json") as f:
+        pretrained = json.load(f)
+
+    per_forward = forward_counts(cfg, level_shapes(
+        perf_train_step.BUCKET_HW, cfg.num_feature_levels))["msda_fwd"]
+    n_test = SYNTH_OI["n_test"]
+    for label, args in (("train", DRIVER_ARGS), ("evaluate", None),
+                        ("pretrain", PRETRAIN_ARGS)):
+        forwards, microbatches = (_driver_forwards(args, SYNTH_OI) if args
+                                  else (n_test, 0))
+        expect = dict.fromkeys(msda_cuda.KERNELS, 0)
+        expect.update(msda_fwd=per_forward * forwards,
+                      msda_bwd_rows=per_forward * microbatches,
+                      msda_bwd_value=per_forward * microbatches)
+        runs[label]["expected"] = expect
+        if runs[label]["counts"] != expect:
+            bad.append(f"{label}: launches {runs[label]['counts']}, "
+                       f"expected {expect}")
+        counts = runs[label]["counts"]
+        # K1 per forward (each microbatch's included), K2 and K3 per
+        # microbatch
+        runs[label]["per_microbatch"] = {
+            "msda_fwd": counts["msda_fwd"] / forwards,
+            **{k: counts[k] / microbatches
+               for k in ("msda_bwd_rows", "msda_bwd_value") if microbatches}}
+        for phase in ("main", "finetune"):
+            if label != "evaluate":
+                root = out if label == "train" else f"{workdir}/oi_pre"
+                train, val, ok = _phase_records(root, phase)
+                if not ok:
+                    bad.append(f"{label} {phase}: {len(train)} train and "
+                               f"{len(val)} val records, or a non-finite "
+                               "loss")
+                runs[label].setdefault("step_ms", {})[phase] = [
+                    1e3 * r["step_seconds"] for r in train]
+    if (cfg.num_labels, cfg.num_rel_labels) != (OI_OBJECTS, OI_PREDICATES):
+        bad.append(f"labels {cfg.num_labels}/{cfg.num_rel_labels}")
+    want_keys = {"oi/w_rel_mAP", "oi/w_phr_mAP", "oi/microR@50", "oi/score",
+                 "oi/bbox/AP"}
+    if not want_keys <= set(oi_keys) or not all(
+            math.isfinite(trained[k]) for k in oi_keys):
+        bad.append(f"metrics_test.json: {trained}")
+    same = {k: evaluated[k] == trained[k] for k in oi_keys}
+    if not all(same.values()):
+        bad.append(f"evaluate_egtr's oi/* differ from train_egtr's: {same}")
+    if not bit_equal:
+        bad.append("the reloaded artifact's forward differs")
+    if not host["same_metrics"]:
+        bad.append("the OI evaluator's metrics differ between the native "
+                   "matcher and the numpy loop")
+    if len(calls) != n_test or set(rel_bytes) != {
+            cfg.num_queries ** 2 * cfg.num_rel_labels * 4}:
+        bad.append(f"{len(calls)} OI evaluator calls, rel_full bytes per "
+                   f"image {sorted(set(rel_bytes))}")
+    if not pretrained or not all(k.startswith("coco/") and math.isfinite(v)
+                                 for k, v in pretrained.items()):
+        bad.append(f"pretrain metrics_test.json: {pretrained}")
+    print(f"open images (synthetic, {SYNTH_OI}, {OI_OBJECTS} objects and "
+          f"{OI_PREDICATES} predicates, written in {t_data:.1f} s): "
+          f"train_egtr {runs['train']['seconds']:.1f} s, launches per "
+          f"microbatch {runs['train']['per_microbatch']}, ms per optimizer "
+          f"step {runs['train']['step_ms']}, artifact reloaded bit-equal "
+          f"{bit_equal}; test metrics { {k: trained[k] for k in oi_keys} }; "
+          f"evaluate_egtr {runs['evaluate']['seconds']:.1f} s, launches "
+          f"{ {k: v for k, v in runs['evaluate']['counts'].items() if v} }, "
+          f"oi/* equal to train_egtr's: {all(same.values())}; rel_full "
+          f"{sorted(set(rel_bytes))} bytes per image; OI evaluator host ms "
+          f"per image over {host['images']} images, native matcher "
+          f"{host['native_ms_per_image']:.3f} | numpy loop "
+          f"{host['numpy_ms_per_image']:.3f}, same metrics "
+          f"{host['same_metrics']}; pretrain_detr "
+          f"{runs['pretrain']['seconds']:.1f} s, launches per microbatch "
+          f"{runs['pretrain']['per_microbatch']}, test metrics {pretrained}",
+          flush=True)
+    if bad:
+        raise SystemExit(f"open images: {bad}")
+    return {"runs": runs, "test": {k: trained[k] for k in oi_keys},
+            "rel_full_bytes_per_image": rel_bytes[0],
+            "oi_eval_host": {k: v for k, v in host.items() if k != "metrics"},
+            "pretrain_test": pretrained, "data_seconds": t_data}
+
+
+def check_two_stage(train_shapes):
+    """``two_stage`` at full width (Q = two_stage_num_proposals = 300, 4-d
+    reference points): K1, K2 and K3 against their plain versions at the
+    decoder's Q = 300 calls of the training bucket; a bfloat16 forward at
+    the serving bucket (K1 12); a train step at batch 2, 800x1344, with the
+    proposals' ``_enc`` losses (K1, K2, K3 12 per microbatch); and the
+    float32 outputs through the kernels against the plain versions, the
+    proposal indices compared first."""
+    cfg = infer.bench_config(**TWO_STAGE)
+    Q = cfg.two_stage_num_proposals
+    S = sum(h * w for h, w in train_shapes)
+    fwd_rows, bwd_rows = [], []
+    for n, (batch, dtype) in enumerate(((1, torch.float32),
+                                        (1, torch.bfloat16),
+                                        (2, torch.bfloat16))):
+        value, loc, aw = msda_inputs(Q, S, dtype, seed=400 + n, batch=batch)
+        fwd_rows.append(_fwd_row("two_stage", "decoder", Q, value,
+                                 train_shapes, loc, aw))
+        g = grad_output(batch, Q, dtype, 410 + n)
+        bwd_rows.append(_bwd_row("two_stage", "decoder", Q, value,
+                                 train_shapes, loc, aw, g))
+    model, x = infer.build(cfg, 1, *infer.BUCKET_HW, seed=0)
+    reset_kernel_counts()
+    with torch.inference_mode():
+        out = model(x)
+    torch.cuda.synchronize()
+    serve_counts = kernel_counts()
+    del model
+    expect = forward_counts(cfg, level_shapes(infer.BUCKET_HW,
+                                              cfg.num_feature_levels))
+    shapes_ok = (tuple(out["logits"].shape) == (1, Q, cfg.num_labels)
+                 and tuple(out["pred_rel"].shape)
+                 == (1, Q, Q, cfg.num_rel_labels)
+                 and tuple(out["init_reference_points"].shape) == (1, Q, 4))
+    finite = all(torch.isfinite(out[k].float()).all() for k in (
+        "logits", "pred_boxes", "pred_rel", "pred_connectivity"))
+    print(f"two-stage forward (bf16, {infer.BUCKET_HW}, Q {Q}): launches "
+          f"{ {k: v for k, v in serve_counts.items() if v} } (expected "
+          f"{ {k: v for k, v in expect.items() if v} }); shapes {shapes_ok}, "
+          f"finite {finite}", flush=True)
+    if serve_counts != expect or not (shapes_ok and finite):
+        raise SystemExit("two-stage forward: launches, shapes or values")
+    del out
+    step = train(perf_train_step.train_config(**TWO_STAGE), "two-stage",
+                 perf_train_step.BUCKET_HW, 2, TWO_STAGE_STEPS)
+    errs = compare_f32(cfg, "two-stage", MODEL_ATOL)
+    return {"fwd_rows": fwd_rows, "bwd_rows": bwd_rows,
+            "serve_counts": serve_counts, "train": step, "f32": errs}
+
+
+def _grads_f32(cfg, batch):
+    """One float32 forward + backward (TF32 off) of the train probe's model,
+    its dropout masks from a seeded generator: (total loss, gradients,
+    launches)."""
+    model, _, _ = perf_train_step.build(cfg, DEVICE, seed=0)
+    _noise_msda_heads(model, DEVICE)
+    generator = torch.Generator(device=DEVICE).manual_seed(7)
+    reset_kernel_counts()
+    out = model.train()(batch["pixel_values"], batch["pixel_mask"], generator)
+    total, _ = criterion.sgg_criterion(out, batch["labels"], cfg, True,
+                                       generator=generator)
+    total.backward()
+    torch.cuda.synchronize()
+    return total.item(), {n: p.grad for n, p in model.named_parameters()}, \
+        kernel_counts()
+
+
+def check_remat(train_cfg):
+    """Rematerialized layers at full width, batch 2, 800x1344: bfloat16
+    train steps with ``use_remat`` off, "full" and "dots" (K1 12, 24 and 12
+    per microbatch; K2 and K3 12), each with its peak memory; then one
+    float32 forward + backward under each policy at dropout 0.1, its
+    gradients against the step without remat within GRAD_RTOL (the same
+    dropout masks: the recompute restores the step generator)."""
+    hw = perf_train_step.BUCKET_HW
+    runs = {}
+    for label, kw in REMAT.items():
+        runs[label] = train(train_cfg.replace(**kw), f"remat {label}", hw, 2,
+                            REMAT_STEPS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = train_cfg.replace(compute_dtype="float32")
+    batch = perf_train_step.synthetic_batch(f32, 2, *hw, DEVICE, seed=0)
+    loss0, grads0, _ = _grads_f32(f32, batch)
+    grads = {}
+    for label, kw in REMAT.items():
+        if not kw["use_remat"]:
+            continue
+        loss, g, counts = _grads_f32(f32.replace(**kw), batch)
+        worst, name = _largest_grad_err(g, grads0, f"remat {label}")
+        grads[label] = {"loss": loss, "loss_off": loss0,
+                        "max_grad_rel_err": worst, "worst_parameter": name,
+                        "counts": counts}
+    # train() held each run to step_counts, which doubles the forward's
+    # launches under "full"
+    per_microbatch = {label: r["counts"]["msda_fwd"] // REMAT_STEPS
+                      for label, r in runs.items()}
+    print(f"remat (bf16, {hw[0]}x{hw[1]} b2): K1 launches per microbatch "
+          f"{per_microbatch}; max memory allocated GB "
+          f"{ {k: round(r['max_memory_allocated_gb'], 3) for k, r in runs.items()} }"
+          f"; ms per step { {k: [round(t, 1) for t in r['ms_per_step']] for k, r in runs.items()} }"
+          f"; float32 at dropout 0.1, against the step without remat: "
+          f"{ {k: (v['loss'], v['loss_off'], v['max_grad_rel_err'], v['worst_parameter']) for k, v in grads.items()} }"
+          f" (rtol {GRAD_RTOL})", flush=True)
+    off = per_microbatch["off"]
+    if per_microbatch != {"off": off, "full": 2 * off, "dots": off}:
+        raise SystemExit(f"remat: K1 per microbatch {per_microbatch}")
+    for label, v in grads.items():
+        if v["max_grad_rel_err"] > GRAD_RTOL or abs(
+                v["loss"] - loss0) > 1e-5 * abs(loss0):
+            raise SystemExit(f"remat {label}: the gradients or the loss "
+                             "differ from the step without remat")
+    return {"train": runs, "f32_grads": {
+        k: {n: x for n, x in v.items() if n != "counts"}
+        for k, v in grads.items()}, "k1_per_microbatch": per_microbatch}
+
+
+def check_approx_topk(train_cfg):
+    """``rel_sample_approx_topk`` on the card: the exact top-k, so one train
+    step with the flag equals the same step without it (the same weights,
+    batch and generator): every loss term bit for bit, the gradient norm
+    within the value kernel's run-to-run spread (GRAD_RTOL)."""
+    hw = perf_train_step.BUCKET_HW
+    results = {}
+    for flag in (False, True):
+        cfg = train_cfg.replace(rel_sample_approx_topk=flag)
+        model, optimizer, generator = perf_train_step.build(cfg, DEVICE,
+                                                            seed=0)
+        batch = perf_train_step.synthetic_batch(cfg, 2, *hw, DEVICE, seed=0)
+        step = make_train_step(model, cfg, optimizer, task="sgg")
+        results[flag] = perf_train_step.time_steps(step, batch, generator, 1,
+                                                   DEVICE)[1]
+        del model, optimizer
+    off, on = results[False], results[True]
+    losses_equal = all(on[k] == off[k] for k in off if k != "grad_norm")
+    norm_diff = abs(on["grad_norm"] - off["grad_norm"]) / off["grad_norm"]
+    print(f"rel_sample_approx_topk (bf16, {hw[0]}x{hw[1]} b2, one step): "
+          f"loss terms bit-equal to the step without the flag "
+          f"{losses_equal} (total {on['total_loss']} vs "
+          f"{off['total_loss']}); grad norm relative difference "
+          f"{norm_diff:.3e}", flush=True)
+    if not losses_equal or not norm_diff <= GRAD_RTOL:
+        raise SystemExit("rel_sample_approx_topk: the step differs from the "
+                         "step without the flag")
+    return {"losses_bit_equal": losses_equal,
+            "grad_norm_rel_diff": norm_diff, "total_loss": on["total_loss"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; it needs one GPU",
@@ -2060,6 +2477,27 @@ def main() -> int:
         # the other two entry points on phase 17's set and artifact
         evaluate = drive_evaluate(workdir, driver)
         pretrain = drive_pretrain(workdir)
+        # Open Images V6 through the same three entry points
+        open_images = drive_oi(workdir)
+    # the options the port took last: two stages, rematerialized layers and
+    # the approximate top-k of the negative mining
+    two_stage = check_two_stage(train_shapes)
+    remat = check_remat(train_cfg)
+    approx_topk = check_approx_topk(train_cfg)
+    oi_runs = {label: run["counts"]
+               for label, run in open_images["runs"].items()}
+    new_paths = {"oi_train": oi_runs["train"],
+                 "oi_evaluate": oi_runs["evaluate"],
+                 "oi_pretrain": oi_runs["pretrain"],
+                 "two_stage_serving": two_stage["serve_counts"],
+                 "two_stage_training": two_stage["train"]["counts"],
+                 **{f"remat_{label}_training": run["counts"]
+                    for label, run in remat["train"].items()
+                    if label != "off"}}
+
+    def new_launches(kernel):
+        return {f"launches_{path}": counts[kernel]
+                for path, counts in new_paths.items() if counts[kernel]}
 
     def pick(table, call, dtype="bfloat16", batch=1):
         return next(r for r in table if r["call"] == call
@@ -2196,7 +2634,9 @@ def main() -> int:
         "launches_evaluate": evaluated["exact"]["msda_fwd"],
         "launches_evaluate_infer_only": evaluated["infer_only"]["msda_fwd"],
         "launches_pretrain": pretrained["msda_fwd"],
+        **new_launches("msda_fwd"),
         "max_abs_err": max(r["max_abs_err"] for r in rows + train_rows
+                           + two_stage["fwd_rows"]
                            if r["dtype"] == "bfloat16"),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -2219,7 +2659,9 @@ def main() -> int:
                                            "encoder_raster")["ms"],
         "ms_decoder_training": pick(train_rows, "decoder")["ms"],
         "calls": rows + train_rows,
+        "calls_two_stage": two_stage["fwd_rows"],
         "model_f32_max_abs_err": model_errs,
+        "two_stage_model_f32_max_abs_err": two_stage["f32"],
     }, {
         "name": "msda_bwd_rows",
         "route": "cuda",
@@ -2229,6 +2671,7 @@ def main() -> int:
         "launches_training": counts["msda_bwd_rows"],
         "launches_adaptation": adapt["counts"]["msda_bwd_rows"],
         "launches_pretrain": pretrained["msda_bwd_rows"],
+        **new_launches("msda_bwd_rows"),
         "max_abs_err": max(max(r["max_abs_err"][k] for k in ("dloc", "daw"))
                            for r in bf16_bwd),
         "ms": bwd_row["rows_ms"],
@@ -2249,6 +2692,7 @@ def main() -> int:
         "graph_ms_decoder_batch2": pick(bwd_rows, "decoder",
                                         batch=2)["rows_graph_ms"],
         "calls": bwd_rows,
+        "calls_two_stage": two_stage["bwd_rows"],
     }, {
         "name": "msda_bwd_value",
         "route": "cuda",
@@ -2258,6 +2702,7 @@ def main() -> int:
         "launches_training": counts["msda_bwd_value"],
         "launches_adaptation": adapt["counts"]["msda_bwd_value"],
         "launches_pretrain": pretrained["msda_bwd_value"],
+        **new_launches("msda_bwd_value"),
         "max_abs_err": max(r["max_abs_err"]["dvalue"] for r in bf16_bwd),
         "ms": bwd_row["value_ms"],
         "plain_ms": bwd_row["plain_ms"],
@@ -2275,6 +2720,7 @@ def main() -> int:
         "graph_ms_decoder_batch2": pick(bwd_rows, "decoder",
                                         batch=2)["value_graph_ms"],
         "calls": bwd_rows,
+        "calls_two_stage": two_stage["bwd_rows"],
         "run_to_run_max_abs_diff": max(
             r["value_run_to_run_max_abs_diff"] for r in bwd_rows),
     }, {
@@ -2342,7 +2788,17 @@ def main() -> int:
                      for label, run in evaluate["runs"].items()},
         "evaluate_test_bucket": evaluate["bucket"],
         "sg_eval_host_ms": evaluate["sg_eval"],
-        "pretrain": {k: v for k, v in pretrain.items() if k != "counts"}}
+        "pretrain": {k: v for k, v in pretrain.items() if k != "counts"},
+        "open_images": open_images,
+        "two_stage": {"train": {k: v for k, v in two_stage["train"].items()
+                                if k != "counts"},
+                      "f32": two_stage["f32"]},
+        "remat": {"train": {label: {k: v for k, v in run.items()
+                                    if k != "counts"}
+                            for label, run in remat["train"].items()},
+                  "f32_grads": remat["f32_grads"],
+                  "k1_per_microbatch": remat["k1_per_microbatch"]},
+        "approx_topk": approx_topk}
     print(json.dumps(kernels))
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}",
           flush=True)

@@ -6,10 +6,10 @@ to both packages. Mirrors the hyperparameter surface of the reference
 ``DeformableDetrConfig`` (reference: model/deformable_detr.py:72-267) plus the
 EGTR fields the reference attaches at runtime (train_egtr.py:230-252).
 
-Some fields select behaviour that only the JAX package implements so far
-(``two_stage``, ``use_remat``); the port's model refuses them at construction
-(``models/detr.py``). ``msda_window``, ``msda_band`` and ``msda_int8`` are
-ported, forward and backward.
+Every field is ported, forward and backward. ``rel_sample_approx_topk``
+selects ``jax.lax.approx_max_k`` in the JAX package (about 95% recall on the
+TPU); the port takes the exact ``torch.topk`` for it, which is what
+``approx_max_k`` returns on the CPU.
 """
 
 from __future__ import annotations

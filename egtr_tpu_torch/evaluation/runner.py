@@ -13,6 +13,12 @@ ground-truth relations — matching the reference, which evaluates detection
 on the whole split (train_egtr.py:369-396) while the SGG recall evaluator
 skips relation-less images. One process evaluates the whole split; the
 evaluators' ``merge_state`` is there for several.
+
+For Open Images (``oi_evaluator``) the forward also yields ``rel_full``, the
+clipped relation scores times the clipped connectivity over all Q^2 pairs
+([B, Q, Q, R] float32, computed on the device), which crosses to the host
+with the batch's top-k results; the evaluator scores every (subject,
+object) pair of each image that has relations.
 """
 
 from __future__ import annotations
@@ -62,15 +68,11 @@ def evaluate_sgg(model, cfg, loader, rel_categories: Sequence[str], *,
                  categories=None) -> Dict[str, float]:
     """Run the full evaluation protocol over ``loader``; returns metrics.
 
-    oi_evaluator: the Open Images evaluator, not ported yet (it needs
-    ``evaluation/oi_eval.py``): anything but None raises.
+    oi_evaluator: an ``oi_eval.OIEvaluator`` for Open Images runs (scores
+    all Q^2 pairs, reference train_egtr.py:154-173); None for Visual Genome.
     categories: detection category ids for the COCO evaluator (defaults to
     range(num_labels)).
     """
-    if oi_evaluator is not None:
-        raise NotImplementedError(
-            "the Open Images evaluation (evaluation/oi_eval.py) is not "
-            "ported yet")
     coco = None
     if coco_eval:
         # VG detection eval re-offsets category ids by +1
@@ -94,6 +96,7 @@ def evaluate_sgg(model, cfg, loader, rel_categories: Sequence[str], *,
         if eval_multiple_preds else None
 
     n_img = 0
+    so_pairs = {}
     for batch in loader:
         out = _forward(model, batch)
         post = sgg_postprocess(
@@ -104,6 +107,8 @@ def evaluate_sgg(model, cfg, loader, rel_categories: Sequence[str], *,
             post["det_scores"] = det["scores"]
             post["det_labels"] = det["labels"]
             post["det_boxes_norm"] = det["boxes"]
+        if oi_evaluator is not None:
+            post["rel_full"] = rel_full(out)
         post = _to_host(post)
         B = batch["pixel_values"].shape[0]
         for j in range(B):
@@ -158,6 +163,22 @@ def evaluate_sgg(model, cfg, loader, rel_categories: Sequence[str], *,
                 evaluator.evaluate_entry(gt_entry, entry, image_id=image_id)
                 evaluate_per_predicate(gt_entry, entry, per_pred,
                                        rel_categories, image_id=image_id)
+            if oi_evaluator is not None:
+                Q = post["pred_classes"].shape[1]
+                if so_pairs.get("Q") != Q:
+                    # all Q^2 (subject, object) index pairs, built once; the
+                    # reference rebuilds them per image
+                    # (train_egtr.py:154-173)
+                    so_pairs = {"Q": Q, "pairs": np.indices(
+                        (Q, Q)).reshape(2, -1).T}
+                oi_evaluator(gt_entry, {
+                    "pred_boxes": pred_boxes_abs,
+                    "pred_classes": post["pred_classes"][j],
+                    "obj_scores": post["obj_scores"][j],
+                    "sbj_obj_inds": so_pairs["pairs"],
+                    "pred_scores": post["rel_full"][j].reshape(
+                        -1, cfg.num_rel_labels),
+                })
         if max_images and n_img >= max_images:
             break
 
@@ -174,7 +195,18 @@ def evaluate_sgg(model, cfg, loader, rel_categories: Sequence[str], *,
             results, len(rel_categories)).items()})
     if coco is not None:
         metrics.update({f"coco/{k}": v for k, v in coco.summarize().items()})
+    if oi_evaluator is not None:
+        metrics.update({f"oi/{k}": v for k, v in
+                        oi_evaluator.aggregate_metrics().items()})
     return metrics
+
+
+def rel_full(out) -> torch.Tensor:
+    """The Open Images evaluation's scores of every (subject, object,
+    predicate): clip(pred_rel, 0, 1) * clip(pred_connectivity, 0, 1), [B, Q,
+    Q, R] (egtr_tpu's runner.py:61-63)."""
+    return (out["pred_rel"].clamp(0, 1)
+            * out["pred_connectivity"].clamp(0, 1))
 
 
 def evaluate_detection(model, cfg, loader, *,

@@ -6,11 +6,14 @@ Backbone -> input projections with GroupNorm, sine (or learned) position and
 level embeddings -> MSDA encoder -> query decoder that exposes the per-layer
 self-attention Q/K -> per-layer class and box heads.
 
-The port covers the exact path, the banded MSDA approximation
-(``msda_window``, ``msda_band``: encoder self-attention only) and int8 stage
-1 (``msda_int8``: encoder and decoder), forward and gradient. It refuses at
-construction what only the JAX package implements so far:
-``two_stage`` and rematerialization (``use_remat``).
+The port covers every option of the JAX package's model: the exact path,
+the banded MSDA approximation (``msda_window``, ``msda_band``: encoder
+self-attention only), int8 stage 1 (``msda_int8``: encoder and decoder),
+``two_stage`` (proposals from the encoder memory: the top
+``two_stage_num_proposals`` tokens by the extra head's first class logit
+become the decoder's queries and 4-d reference points) and rematerialized
+layers (``use_remat``, ``remat_policy``; ``layers.run_layer``), forward and
+gradient.
 """
 
 from __future__ import annotations
@@ -26,17 +29,8 @@ from ..ops.boxes import inverse_sigmoid
 from ..ops.posenc import sine_position_embedding, sine_position_embedding_full
 from .backbone import ResNet50
 from .layers import (Conv, DecoderLayer, Dense, EncoderLayer, Initialized,
-                     MLPHead, constant_init, dropout, normal_init, ones,
-                     uniform_init, xavier_uniform, zeros)
-
-
-def check_supported(cfg: EgtrConfig) -> None:
-    """Raise NotImplementedError for options outside the port so far."""
-    if cfg.two_stage:
-        raise NotImplementedError("two_stage is not ported yet")
-    if cfg.use_remat:
-        raise NotImplementedError(
-            "use_remat (rematerialized layers) is not ported yet")
+                     LayerNorm, MLPHead, constant_init, dropout, normal_init,
+                     ones, uniform_init, xavier_uniform, zeros)
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -96,6 +90,74 @@ def encoder_reference_points(spatial_shapes, valid_ratios: torch.Tensor):
     return ref[:, :, None, :] * valid_ratios[:, None, :, :]  # [B,S,L,2]
 
 
+def gen_encoder_output_proposals(enc_output: torch.Tensor,
+                                 mask_flatten: Optional[torch.Tensor],
+                                 spatial_shapes):
+    """Proposal grid from the encoder memory (deformable_detr.py:2098-2159).
+
+    Returns (object_query [B,S,E] with padded and invalid positions zeroed,
+    output_proposals [B,S,4] inverse-sigmoid boxes, +inf where invalid)."""
+    B = enc_output.shape[0]
+    dev = enc_output.device
+    proposals = []
+    start = 0
+    for level, (h, w) in enumerate(spatial_shapes):
+        if mask_flatten is not None:
+            m = mask_flatten[:, start:start + h * w].reshape(B, h, w)
+            valid_h = m[:, :, 0].sum(1).float()
+            valid_w = m[:, 0, :].sum(1).float()
+        else:
+            valid_h = torch.full((B,), float(h), device=dev)
+            valid_w = torch.full((B,), float(w), device=dev)
+        gy, gx = torch.meshgrid(
+            torch.arange(h, dtype=torch.float32, device=dev),
+            torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
+        grid = torch.stack([gx, gy], -1)[None]                    # [1,h,w,2]
+        scale = torch.stack([valid_w, valid_h], -1).reshape(B, 1, 1, 2)
+        grid = (grid.expand(B, h, w, 2) + 0.5) / scale
+        wh = torch.ones_like(grid) * 0.05 * (2.0 ** level)
+        proposals.append(torch.cat([grid, wh], -1).reshape(B, -1, 4))
+        start += h * w
+    output_proposals = torch.cat(proposals, 1)                    # [B,S,4]
+    valid = ((output_proposals > 0.01) & (output_proposals < 0.99)).all(
+        -1, keepdim=True)
+    output_proposals = torch.log(output_proposals / (1 - output_proposals))
+    inf = torch.full((), float("inf"), device=dev)
+    object_query = enc_output
+    if mask_flatten is not None:
+        output_proposals = torch.where(mask_flatten[..., None],
+                                       output_proposals, inf)
+        object_query = object_query.masked_fill(~mask_flatten[..., None], 0.0)
+    output_proposals = torch.where(valid, output_proposals, inf)
+    object_query = object_query.masked_fill(~valid, 0.0)
+    return object_query, output_proposals
+
+
+def proposal_pos_embed(proposals: torch.Tensor, num_pos_feats: int = 128,
+                       temperature: float = 10000.0) -> torch.Tensor:
+    """Sine embedding of proposal boxes (deformable_detr.py:2076-2096):
+    [B,k,4] logits -> [B,k,4*num_pos_feats]."""
+    dim_t = torch.arange(num_pos_feats, dtype=torch.float32,
+                         device=proposals.device)
+    dim_t = temperature ** (2 * torch.div(dim_t, 2, rounding_mode="floor")
+                            / num_pos_feats)
+    pos = proposals.sigmoid() * (2 * math.pi)
+    pos = pos[..., None] / dim_t                                  # [B,k,4,F]
+    pos = torch.stack([pos[..., 0::2].sin(), pos[..., 1::2].cos()], dim=-1)
+    return pos.reshape(*pos.shape[:2], -1)
+
+
+def top_proposals(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices [B,k] of the ``k`` largest scores per row, the lower index
+    first among equal scores, as ``jax.lax.top_k`` orders them
+    (``torch.topk`` promises no order among ties, and masked or invalid
+    tokens all share one score): a stable descending sort."""
+    if k > scores.shape[1]:
+        raise ValueError(f"two_stage_num_proposals {k} exceeds the "
+                         f"{scores.shape[1]} encoder tokens")
+    return torch.sort(scores, dim=1, descending=True, stable=True)[1][:, :k]
+
+
 class GroupNorm(Initialized):
     """GroupNorm computed in float32 (the JAX module's ``dtype=float32``)."""
 
@@ -120,7 +182,6 @@ class DeformableDetrBase(Initialized):
 
     def __init__(self, config: EgtrConfig):
         super().__init__()
-        check_supported(config)
         cfg = self.config = config
         E = cfg.d_model
         dtype = self.dtype = torch_dtype(cfg.compute_dtype)
@@ -147,35 +208,49 @@ class DeformableDetrBase(Initialized):
                        uniform_init(0.0, 1.0))
         self.param("level_embed", (Lv, E), normal_init(1.0))
 
+        remat = cfg.remat_policy if cfg.use_remat else None
         for i in range(cfg.encoder_layers):
             self.add_module(f"encoder_layer_{i}", EncoderLayer(
                 E, cfg.encoder_ffn_dim, cfg.encoder_attention_heads, Lv,
                 cfg.encoder_n_points, cfg.activation_function, dtype,
                 cfg.msda_impl, cfg.dropout, cfg.activation_dropout,
-                cfg.msda_window, cfg.msda_band, cfg.msda_int8))
+                cfg.msda_window, cfg.msda_band, cfg.msda_int8, remat))
 
-        # detection heads: per-layer clones with box refinement, else one
-        # shared pair (deformable_detr.py:2426-2443)
+        # detection heads: per-layer clones with box refinement or two
+        # stages, else one shared pair; two stages add one more head, for
+        # the proposals (deformable_detr.py:2426-2443, egtr.py:140-161)
         cls_bias = float(-math.log((1 - 0.01) / 0.01))
-        self.n_heads = cfg.decoder_layers if cfg.with_box_refine else 1
+        num_pred = cfg.decoder_layers + int(cfg.two_stage)
+        self.n_heads = num_pred if (cfg.with_box_refine
+                                    or cfg.two_stage) else 1
+        box_bias = (0.0, 0.0, 0.0, 0.0) if cfg.two_stage else (
+            0.0, 0.0, -2.0, -2.0)
         for i in range(self.n_heads):
             self.add_module(f"class_embed_{i}", Dense(
                 E, cfg.num_labels, torch.float32,
                 bias_init=constant_init(cls_bias)))
             self.add_module(f"bbox_embed_{i}", MLPHead(
-                E, E, 4, 3, final_kernel_zero=True,
-                final_bias=(0.0, 0.0, -2.0, -2.0), dtype=torch.float32))
+                E, E, 4, 3, final_kernel_zero=True, final_bias=box_bias,
+                dtype=torch.float32))
 
-        self.param("query_position_embeddings", (cfg.num_queries, 2 * E),
-                   normal_init(0.02))
-        self.reference_points = Dense(E, 2, torch.float32,
-                                      kernel_init=xavier_uniform)
+        if cfg.two_stage:
+            # float32, as the JAX package's modules without a dtype compute
+            # on the float32 memory
+            self.enc_output = Dense(E, E)
+            self.enc_output_norm = LayerNorm(E)
+            self.pos_trans = Dense(2 * E, 2 * E)
+            self.pos_trans_norm = LayerNorm(2 * E)
+        else:
+            self.param("query_position_embeddings", (cfg.num_queries, 2 * E),
+                       normal_init(0.02))
+            self.reference_points = Dense(E, 2, torch.float32,
+                                          kernel_init=xavier_uniform)
         for i in range(cfg.decoder_layers):
             self.add_module(f"decoder_layer_{i}", DecoderLayer(
                 E, cfg.decoder_ffn_dim, cfg.decoder_attention_heads, Lv,
                 cfg.decoder_n_points, cfg.activation_function, dtype,
                 cfg.msda_impl, cfg.dropout, cfg.attention_dropout,
-                cfg.activation_dropout, cfg.msda_int8))
+                cfg.activation_dropout, cfg.msda_int8, remat))
 
     def _head(self, i: int):
         i = i if self.n_heads > 1 else 0
@@ -259,10 +334,33 @@ class DeformableDetrBase(Initialized):
         encoder_hidden = hidden
 
         # ---- query init ----
-        query_pos, target = self.query_position_embeddings.split(E, dim=1)
-        query_pos = query_pos[None].expand(B, cfg.num_queries, E)
-        target = target[None].expand(B, cfg.num_queries, E)
-        reference_points = self.reference_points(query_pos).sigmoid()
+        extra = {}
+        if cfg.two_stage:
+            # proposals from the encoder memory (deformable_detr.py:
+            # 2098-2159, 2306-2337)
+            object_query, output_proposals = gen_encoder_output_proposals(
+                encoder_hidden.float(), mask_flatten, shapes)
+            object_query = self.enc_output_norm(self.enc_output(object_query))
+            cls_head, box_head = self._head(self.n_heads - 1)
+            enc_outputs_class = cls_head(object_query)
+            enc_outputs_coord_logits = box_head(object_query) + output_proposals
+            topk_idx = top_proposals(enc_outputs_class[..., 0],
+                                     cfg.two_stage_num_proposals)
+            topk_coords_logits = torch.gather(
+                enc_outputs_coord_logits, 1,
+                topk_idx[..., None].expand(-1, -1, 4)).detach()
+            reference_points = topk_coords_logits.sigmoid()      # [B,k,4]
+            pos_trans = self.pos_trans_norm(self.pos_trans(
+                proposal_pos_embed(topk_coords_logits, E // 2)))
+            query_pos, target = pos_trans.split(E, dim=2)
+            extra = {"enc_outputs_class": enc_outputs_class,
+                     "enc_outputs_coord_logits": enc_outputs_coord_logits,
+                     "proposal_indices": topk_idx}
+        else:
+            query_pos, target = self.query_position_embeddings.split(E, dim=1)
+            query_pos = query_pos[None].expand(B, cfg.num_queries, E)
+            target = target[None].expand(B, cfg.num_queries, E)
+            reference_points = self.reference_points(query_pos).sigmoid()
         init_reference = reference_points
         query_pos = query_pos.to(dtype)
         target = target.to(dtype)
@@ -322,4 +420,5 @@ class DeformableDetrBase(Initialized):
             "init_reference_points": init_reference,
             "intermediate_reference_points": torch.stack(inter_refs, dim=1),
             "encoder_last_hidden_state": encoder_hidden,
+            **extra,
         }

@@ -16,6 +16,20 @@ modules' ``deterministic=False``), at the JAX package's sites, and draws its
 masks from the ``torch.Generator`` handed down the forward call, never from
 the global random state.
 
+Rematerialization (the config's ``use_remat`` / ``remat_policy``, the JAX
+package's ``nn.remat`` per layer) runs each encoder and decoder layer under
+``torch.utils.checkpoint`` (:func:`run_layer`): ``"full"`` recomputes the
+whole layer in the backward pass, the MSDA op included; ``"dots"`` saves the
+outputs of the layer's matmuls without batch dimensions (its Dense layers)
+and of the MSDA op and recomputes the elementwise chains. The MSDA op runs
+through a ctypes launch that a dispatcher-level policy cannot see, so
+``"dots"`` keeps it out of the checkpointed regions: one region before it
+(up to its sampling locations and weights), one after it (from its output
+projection on). A recompute redraws the first run's dropout masks: the step
+generator's state is saved before each region and restored for its
+recompute, since ``checkpoint``'s ``preserve_rng_state`` covers only the
+default generators.
+
 Submodules and parameters are named after the flax tree
 (``self_attn.value_proj``, ``fc1``, ``layers_0``), so the weight bridge
 (``utils/convert.py``) is a mechanical walk. Parameters are created empty;
@@ -32,6 +46,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ..ops.msda import ms_deform_attn
 
@@ -292,7 +309,9 @@ class MSDeformableAttention(nn.Module):
     ``band`` turn on the banded approximation (``ops/msda_window.py``) and
     are set only where the queries are raster-ordered (encoder
     self-attention, which passes ``query_segments``); ``int8`` the int8
-    stage 1."""
+    stage 1. A layer calls its three parts, :meth:`sampling`, :meth:`attend`
+    (the MSDA op) and ``output_proj``, so that a rematerialized layer can
+    keep the op out of its checkpointed regions."""
 
     def __init__(self, d_model: int, num_heads: int, n_levels: int,
                  n_points: int, dtype: Optional[torch.dtype] = None,
@@ -314,9 +333,11 @@ class MSDeformableAttention(nn.Module):
         self.output_proj = Dense(d_model, d_model, dtype,
                                  kernel_init=xavier_uniform)
 
-    def forward(self, hidden_states, encoder_hidden_states, reference_points,
-                spatial_shapes, position_embeddings=None, value_mask=None,
-                query_segments=None):
+    def sampling(self, hidden_states, encoder_hidden_states, reference_points,
+                 spatial_shapes, position_embeddings=None, value_mask=None):
+        """The MSDA op's inputs: (value [B,S,H,D] in the compute dtype,
+        sampling locations [B,Q,H,L,P,2] float32, attention weights
+        [B,Q,H,L,P] in the value's dtype)."""
         H, L, P = self.num_heads, self.n_levels, self.n_points
         E = self.d_model
         B, Q, _ = hidden_states.shape
@@ -346,12 +367,73 @@ class MSDeformableAttention(nn.Module):
         else:
             raise ValueError("reference_points last dim must be 2 or 4")
 
-        out = ms_deform_attn(value, spatial_shapes, loc.float().contiguous(),
-                             weights.to(value.dtype), impl=self.msda_impl,
-                             window=self.window,
-                             query_segments=query_segments, int8=self.int8,
-                             band=self.band)
-        return self.output_proj(out)
+        return value, loc.float().contiguous(), weights.to(value.dtype)
+
+    def attend(self, value, loc, weights, spatial_shapes,
+               query_segments=None):
+        """The MSDA op on :meth:`sampling`'s outputs (the output that the JAX
+        package names "msda" for its remat policy)."""
+        return ms_deform_attn(value, spatial_shapes, loc, weights,
+                              impl=self.msda_impl, window=self.window,
+                              query_segments=query_segments, int8=self.int8,
+                              band=self.band)
+
+
+
+# the matmuls without batch dimensions (F.linear's), whose outputs "dots"
+# saves: jax.checkpoint_policies.dots_with_no_batch_dims_saveable
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _checkpointed(fn, args, generator: Optional[torch.Generator],
+                  context_fn=noop_context_fn):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant); its
+    recompute starts from the generator state of the first run and leaves
+    the generator where it was."""
+    start = None if generator is None else generator.get_state()
+    runs = []
+
+    def run(*a):
+        if start is None or not runs:
+            runs.append(None)
+            return fn(*a)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(*a)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False, context_fn=context_fn)
+
+
+def run_layer(remat: Optional[str], generator, pre, core, post, *inputs):
+    """One encoder or decoder layer: ``pre(*inputs)`` gives (value, loc,
+    weights, *carry), ``core`` is the MSDA op on the first three, and
+    ``post(attn, *carry)`` the rest of the layer. ``remat`` None runs it
+    plainly, "full" as one checkpointed region, "dots" as two selectively
+    checkpointed regions around the MSDA op."""
+    def layer(*x):
+        value, loc, weights, *carry = pre(*x)
+        return post(core(value, loc, weights), *carry)
+
+    if remat is None or not torch.is_grad_enabled():
+        return layer(*inputs)
+    if remat == "full":
+        return _checkpointed(layer, inputs, generator)
+    value, loc, weights, *carry = _checkpointed(pre, inputs, generator,
+                                                _dots_context)
+    return _checkpointed(post, (core(value, loc, weights), *carry),
+                         generator, _dots_context)
 
 
 class EncoderLayer(nn.Module):
@@ -362,11 +444,12 @@ class EncoderLayer(nn.Module):
                  dtype: Optional[torch.dtype] = None, msda_impl: str = "auto",
                  dropout: float = 0.0, activation_dropout: float = 0.0,
                  msda_window: int = 0, msda_band: str = "tile",
-                 msda_int8: bool = False):
+                 msda_int8: bool = False, remat: Optional[str] = None):
         super().__init__()
         self.activation = ACT_FN[activation]
         self.dropout, self.activation_dropout = dropout, activation_dropout
         self.msda_window = msda_window
+        self.remat = remat
         self.self_attn = MSDeformableAttention(
             d_model, num_heads, n_levels, n_points, dtype, msda_impl,
             window=msda_window, band=msda_band, int8=msda_int8)
@@ -380,20 +463,30 @@ class EncoderLayer(nn.Module):
         def drop(x, rate):
             return dropout(x, rate, self.training, generator)
 
-        residual = hidden_states
-        # encoder queries are the raster-flattened tokens, so they qualify
-        # for the windowed approximation with segments = spatial_shapes
-        hidden_states = self.self_attn(
-            hidden_states, hidden_states, reference_points, spatial_shapes,
-            position_embeddings=position_embeddings, value_mask=value_mask,
-            query_segments=spatial_shapes if self.msda_window else None)
-        hidden_states = drop(hidden_states, self.dropout)
-        hidden_states = self.self_attn_layer_norm(residual + hidden_states)
-        residual = hidden_states
-        hidden_states = drop(self.activation(self.fc1(hidden_states)),
-                             self.activation_dropout)
-        hidden_states = drop(self.fc2(hidden_states), self.dropout)
-        return self.final_layer_norm(residual + hidden_states)
+        def pre(residual):
+            return (*self.self_attn.sampling(
+                residual, residual, reference_points, spatial_shapes,
+                position_embeddings, value_mask), residual)
+
+        def core(value, loc, weights):
+            # encoder queries are the raster-flattened tokens, so they
+            # qualify for the windowed approximation with segments =
+            # spatial_shapes
+            return self.self_attn.attend(
+                value, loc, weights, spatial_shapes,
+                spatial_shapes if self.msda_window else None)
+
+        def post(attn, residual):
+            hidden = drop(self.self_attn.output_proj(attn), self.dropout)
+            hidden = self.self_attn_layer_norm(residual + hidden)
+            residual = hidden
+            hidden = drop(self.activation(self.fc1(hidden)),
+                          self.activation_dropout)
+            hidden = drop(self.fc2(hidden), self.dropout)
+            return self.final_layer_norm(residual + hidden)
+
+        return run_layer(self.remat, generator, pre, core, post,
+                         hidden_states)
 
 
 class DecoderLayer(nn.Module):
@@ -406,10 +499,12 @@ class DecoderLayer(nn.Module):
                  n_levels: int, n_points: int, activation: str = "relu",
                  dtype: Optional[torch.dtype] = None, msda_impl: str = "auto",
                  dropout: float = 0.0, attention_dropout: float = 0.0,
-                 activation_dropout: float = 0.0, msda_int8: bool = False):
+                 activation_dropout: float = 0.0, msda_int8: bool = False,
+                 remat: Optional[str] = None):
         super().__init__()
         self.activation = ACT_FN[activation]
         self.dropout, self.activation_dropout = dropout, activation_dropout
+        self.remat = remat
         self.self_attn = MultiheadAttention(d_model, num_heads, dtype,
                                             attention_dropout)
         self.self_attn_layer_norm = LayerNorm(d_model, dtype)
@@ -427,21 +522,28 @@ class DecoderLayer(nn.Module):
         def drop(x, rate):
             return dropout(x, rate, self.training, generator)
 
-        residual = hidden_states
-        hidden_states, q, k = self.self_attn(
-            hidden_states, position_embeddings=query_pos, generator=generator)
-        hidden_states = drop(hidden_states, self.dropout)
-        hidden_states = self.self_attn_layer_norm(residual + hidden_states)
-        residual = hidden_states
-        hidden_states = self.encoder_attn(
-            hidden_states, encoder_hidden_states, reference_points,
-            spatial_shapes, position_embeddings=query_pos,
-            value_mask=value_mask)
-        hidden_states = drop(hidden_states, self.dropout)
-        hidden_states = self.encoder_attn_layer_norm(residual + hidden_states)
-        residual = hidden_states
-        hidden_states = drop(self.activation(self.fc1(hidden_states)),
-                             self.activation_dropout)
-        hidden_states = drop(self.fc2(hidden_states), self.dropout)
-        hidden_states = self.final_layer_norm(residual + hidden_states)
-        return hidden_states, q, k
+        def pre(hidden, encoder_hidden):
+            residual = hidden
+            hidden, q, k = self.self_attn(
+                hidden, position_embeddings=query_pos, generator=generator)
+            hidden = drop(hidden, self.dropout)
+            hidden = self.self_attn_layer_norm(residual + hidden)
+            return (*self.encoder_attn.sampling(
+                hidden, encoder_hidden, reference_points, spatial_shapes,
+                query_pos, value_mask), hidden, q, k)
+
+        def core(value, loc, weights):
+            return self.encoder_attn.attend(value, loc, weights,
+                                            spatial_shapes)
+
+        def post(attn, residual, q, k):
+            hidden = drop(self.encoder_attn.output_proj(attn), self.dropout)
+            hidden = self.encoder_attn_layer_norm(residual + hidden)
+            residual = hidden
+            hidden = drop(self.activation(self.fc1(hidden)),
+                          self.activation_dropout)
+            hidden = drop(self.fc2(hidden), self.dropout)
+            return self.final_layer_norm(residual + hidden), q, k
+
+        return run_layer(self.remat, generator, pre, core, post,
+                         hidden_states, encoder_hidden_states)

@@ -154,11 +154,10 @@ def relation_losses(pred_rel_logits, pred_conn_logits, targets,
     and likewise for non-matching pairs, as a fixed-size top-k with rank
     masking. Eval averages BCE.mean(-1) over all Q^2 pairs. ``generator``
     feeds the uniform (``rel_sample_*_largest=False``) sampling.
+    ``rel_sample_approx_topk`` (the JAX package's ``approx_max_k``, about
+    95% recall on the TPU) takes the exact top-k here, on the card as on the
+    CPU, where ``approx_max_k`` returns ``lax.top_k``'s values and indices.
     """
-    if cfg.rel_sample_approx_topk:
-        raise NotImplementedError(
-            "rel_sample_approx_topk (approximate top-k negative mining) is "
-            "not ported yet")
     B, Q, _, R = pred_rel_logits.shape
     dev = pred_rel_logits.device
     v = (torch.ones((B,), dtype=torch.float32, device=dev)

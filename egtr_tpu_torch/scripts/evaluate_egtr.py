@@ -2,9 +2,10 @@
 ``scripts/evaluate_egtr.py``, the reference's ``evaluate_egtr.py``).
 
 Loads an artifact (the port's own, or a reference checkpoint converted on the
-fly), runs the Visual Genome evaluation of a split (R@K, mR@K, optionally the
-COCO detection metrics) and writes ``metrics_{split}.json`` beside the
-artifact; or, with ``--infer_only``, the FPS loop of the reference protocol.
+fly), runs the evaluation of a split (Visual Genome: R@K, mR@K, optionally the
+COCO detection metrics; ``--dataset open_images``: also the OI evaluator's
+``oi/*`` metrics) and writes ``metrics_{split}.json`` beside the artifact;
+or, with ``--infer_only``, the FPS loop of the reference protocol.
 
     python -m egtr_tpu_torch.scripts.evaluate_egtr --data_path DIR \
         --artifact_path DIR_OR_FILE [--split test] [--infer_only true] \
@@ -19,8 +20,7 @@ tensors, so they are read with ``torch.load(weights_only=False)``: load only
 checkpoints you trust.
 
 It runs on the GPU unless ``--device cpu`` is given (and raises where CUDA
-is absent), in one process on one device. ``--dataset open_images`` is
-refused until its dataset and evaluator are ported.
+is absent), in one process on one device.
 """
 
 from __future__ import annotations
@@ -268,17 +268,15 @@ def main(argv: Optional[List[str]] = None) -> dict:
     """Evaluate (or time) the artifact; returns the metrics (or the FPS
     result)."""
     from ..data.loader import Loader
+    from ..data.open_images import OIDataset
     from ..data.visual_genome import VGDataset
+    from ..evaluation.oi_eval import OIEvaluator
     from ..evaluation.postprocess import sgg_postprocess
     from ..evaluation.runner import evaluate_sgg, write_metrics
     from ..infer import resolve_device
     from ..models.egtr import EgtrModel
 
     args = parse_args(argv)
-    if args.dataset != "visual_genome":
-        raise NotImplementedError(
-            "--dataset open_images needs data/open_images.py and "
-            "evaluation/oi_eval.py, which are not ported yet")
     device = resolve_device(args.device)
 
     cfg, state_dict = load_artifact(args.artifact_path, args)
@@ -291,8 +289,15 @@ def main(argv: Optional[List[str]] = None) -> dict:
     model.load_state_dict(state_dict, strict=True)
     model = model.to(device).eval()
 
-    ds = VGDataset(args.data_path, args.split, size=args.min_size,
-                   max_size=args.max_size)
+    if args.dataset == "visual_genome":
+        ds = VGDataset(args.data_path, args.split, size=args.min_size,
+                       max_size=args.max_size)
+        oi, categories = None, sorted(ds.categories.keys())
+    else:
+        ds = OIDataset(args.data_path, args.split, size=args.min_size,
+                       max_size=args.max_size)
+        oi = OIEvaluator(ds.rel_categories, ds.ind_to_classes)
+        categories = None
     loader = Loader(ds, args.batch_size, shuffle=False,
                     max_gt=cfg.max_gt_boxes,
                     num_rel_labels=cfg.num_rel_labels)
@@ -314,8 +319,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         model, cfg, loader, ds.rel_categories,
         eval_single_preds=args.eval_single_preds,
         eval_multiple_preds=args.eval_multiple_preds,
-        coco_eval=args.coco_eval, max_images=args.max_images,
-        categories=sorted(ds.categories.keys()))
+        coco_eval=args.coco_eval, oi_evaluator=oi,
+        max_images=args.max_images, categories=categories)
     print(json.dumps(metrics, indent=2))
     out_path = os.path.join(os.path.dirname(args.artifact_path) or ".",
                             f"metrics_{args.split}.json")

@@ -15,8 +15,9 @@ merges it, and the COCO detection evaluation of the test split into
 It runs on the GPU unless ``--device cpu`` is given (and raises where CUDA
 is absent), in one process on one device, so ``--dp`` and ``--mp`` other
 than 1 are refused; ``--precompile`` is accepted and does nothing (the port
-runs eager and compiles no program); ``--use_remat true`` is refused by the
-model and ``--dataset open_images`` until its dataset is ported.
+runs eager and compiles no program). ``--dataset open_images`` pretrains on
+Open Images V6 (no crop augmentation, as in the JAX driver) and evaluates
+its test split's detections with the COCO protocol.
 """
 
 from __future__ import annotations
@@ -81,6 +82,7 @@ def main(argv: Optional[List[str]] = None):
     trained detector (in eval mode, on its device)."""
     from ..config import EgtrConfig
     from ..data.loader import Loader
+    from ..data.open_images import OIDataset
     from ..data.visual_genome import VGDataset
     from ..evaluation.runner import evaluate_detection, write_metrics
     from ..infer import resolve_device
@@ -91,20 +93,22 @@ def main(argv: Optional[List[str]] = None):
     from ..utils.convert import backbone_state_dict_from_timm
 
     args = parse_args(argv)
-    if args.dataset != "visual_genome":
-        raise NotImplementedError(
-            "--dataset open_images needs data/open_images.py, which is not "
-            "ported yet")
     if args.dp not in (None, 1) or args.mp != 1:
         raise NotImplementedError(
             f"--dp {args.dp} --mp {args.mp}: the port trains in one process "
             "on one device (multi-process training is not ported yet)")
     device = resolve_device(args.device)
 
-    # detector pretraining uses the crop augmentor (pretrain_detr.py:267)
-    train_ds = VGDataset(args.data_path, "train", train_aug=True,
-                         use_crop=True, debug=args.debug, seed=args.seed)
-    val_ds = VGDataset(args.data_path, "val")
+    if args.dataset == "visual_genome":
+        # detector pretraining uses the crop augmentor (pretrain_detr.py:267)
+        train_ds = VGDataset(args.data_path, "train", train_aug=True,
+                             use_crop=True, debug=args.debug, seed=args.seed)
+        val_ds = VGDataset(args.data_path, "val")
+    else:
+        train_ds = OIDataset(args.data_path, "train", train_aug=True,
+                             num_object_queries=args.num_queries,
+                             debug=args.debug, seed=args.seed)
+        val_ds = OIDataset(args.data_path, "val")
     num_rel = len(train_ds.rel_categories)
     cfg = EgtrConfig(
         num_queries=args.num_queries, num_labels=train_ds.num_classes(),
@@ -152,12 +156,16 @@ def main(argv: Optional[List[str]] = None):
 
     # end-of-pretraining detection evaluation (pretrain_detr.py:500-542);
     # eval mode turns dropout off
-    test_ds = VGDataset(args.data_path, "test", size=800, max_size=1333)
+    if args.dataset == "visual_genome":
+        test_ds = VGDataset(args.data_path, "test", size=800, max_size=1333)
+        categories = sorted(test_ds.categories.keys())
+    else:
+        test_ds = OIDataset(args.data_path, "test", size=800, max_size=1333)
+        categories = None
     test_loader = Loader(test_ds, 1, shuffle=False, max_gt=cfg.max_gt_boxes,
                          num_rel_labels=num_rel)
-    metrics = evaluate_detection(
-        model, cfg, test_loader,
-        categories=sorted(test_ds.categories.keys()))
+    metrics = evaluate_detection(model, cfg, test_loader,
+                                 categories=categories)
     write_metrics(metrics,
                   os.path.join(args.output_path, "metrics_test.json"))
     print("[pretrain_detr] done; test metrics written")

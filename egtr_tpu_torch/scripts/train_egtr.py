@@ -12,11 +12,14 @@ end-of-training SGG + COCO evaluation of the test split into
         --output_path DIR [--from_scratch true] [--batch_size 4] \
         [--accumulate 2] [--max_epochs 50] [--device cpu] ...
 
-It runs on the GPU unless ``--device cpu`` is given (and raises where CUDA
-is absent), in one process on one device. ``--dataset open_images`` is
-refused until its dataset and evaluator are ported; ``--use_remat true`` is
-refused by the model. ``EGTR_MSDA_BATCH_P=1`` sends every exact MSDA forward
-through the batched-P kernel, as in the JAX package.
+``--dataset open_images`` reads Open Images V6 (``vrd-{split}-anno.json``
+and ``categories_dict.json`` under ``annotations/``, JPEGs under
+``images/``), takes the label counts and ``fg_matrix`` from its train split
+and evaluates the test split with the OI evaluator (``oi/*`` metrics, no
+COCO entries). It runs on the GPU unless ``--device cpu`` is given (and
+raises where CUDA is absent), in one process on one device.
+``EGTR_MSDA_BATCH_P=1`` sends every exact MSDA forward through the
+batched-P kernel, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -114,7 +117,9 @@ def main(argv: Optional[List[str]] = None):
     trained model (in eval mode, on its device)."""
     from ..config import EgtrConfig
     from ..data.loader import Loader
+    from ..data.open_images import OIDataset, oi_get_statistics
     from ..data.visual_genome import VGDataset, vg_get_statistics
+    from ..evaluation.oi_eval import OIEvaluator
     from ..evaluation.runner import evaluate_sgg, write_metrics
     from ..infer import resolve_device
     from ..models.egtr import EgtrModel, compute_freq_dists
@@ -125,16 +130,22 @@ def main(argv: Optional[List[str]] = None):
     from ..utils.convert import backbone_state_dict_from_timm
 
     args = parse_args(argv)
-    if args.dataset != "visual_genome":
-        raise NotImplementedError(
-            "--dataset open_images needs data/open_images.py and "
-            "evaluation/oi_eval.py, which are not ported yet")
     device = resolve_device(args.device)
 
-    train_ds = VGDataset(args.data_path, "train", train_aug=True,
-                         debug=args.debug, seed=args.seed)
-    val_ds = VGDataset(args.data_path, "val")
-    fg_matrix = vg_get_statistics(train_ds)
+    if args.dataset == "visual_genome":
+        train_ds = VGDataset(args.data_path, "train", train_aug=True,
+                             debug=args.debug, seed=args.seed)
+        val_ds = VGDataset(args.data_path, "val")
+        fg_matrix = vg_get_statistics(train_ds)
+    else:
+        train_ds = OIDataset(
+            args.data_path, "train", train_aug=True,
+            filter_duplicate_rels=args.filter_duplicate_rels,
+            filter_multiple_rels=args.filter_multiple_rels,
+            num_object_queries=args.num_queries, debug=args.debug,
+            seed=args.seed)
+        val_ds = OIDataset(args.data_path, "val")
+        fg_matrix = oi_get_statistics(train_ds)
     num_labels = train_ds.num_classes()
     num_rel = len(train_ds.rel_categories)
 
@@ -212,12 +223,18 @@ def main(argv: Optional[List[str]] = None):
 
     # end-of-training test evaluation + metrics JSON next to the artifact
     # (reference train_egtr.py:879-935); eval mode turns dropout off
-    test_ds = VGDataset(args.data_path, "test", size=800, max_size=1333)
+    if args.dataset == "visual_genome":
+        test_ds = VGDataset(args.data_path, "test", size=800, max_size=1333)
+        oi, categories = None, sorted(test_ds.categories.keys())
+    else:
+        test_ds = OIDataset(args.data_path, "test", size=800, max_size=1333)
+        oi = OIEvaluator(test_ds.rel_categories, test_ds.ind_to_classes)
+        categories = None
     test_loader = Loader(test_ds, 1, shuffle=False,
                          max_gt=cfg.max_gt_boxes, num_rel_labels=num_rel)
     metrics = evaluate_sgg(model, cfg, test_loader, test_ds.rel_categories,
-                           coco_eval=True,
-                           categories=sorted(test_ds.categories.keys()))
+                           coco_eval=oi is None, oi_evaluator=oi,
+                           categories=categories)
     write_metrics(metrics,
                   os.path.join(args.output_path, "metrics_test.json"))
     print("[train_egtr] done; test metrics written")

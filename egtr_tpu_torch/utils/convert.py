@@ -148,7 +148,6 @@ def _array(value) -> np.ndarray:
 
 _REF_BACKBONE = "model.backbone.conv_encoder.model."
 _REF_BLOCK_RE = re.compile(r"layer([1-4])\.(\d+)\.")
-_TWO_STAGE_KEYS = ("model.enc_output", "model.pos_trans")
 
 
 def _check_reference_depth(sd: Mapping[str, object], cfg: EgtrConfig) -> None:
@@ -178,16 +177,12 @@ def convert_detr_state_dict(sd: Mapping[str, object], cfg: EgtrConfig
     Pieces absent from ``sd`` are absent from the result (merge with a fresh
     init via ``checkpoint.merge_pretrained``, or load with
     ``load_state_dict(strict=True)`` to require every leaf). A key this map
-    does not take raises, naming it, as do backbone block counts other than
-    the config's and a two-stage checkpoint (the port refuses ``two_stage``).
-    The BN counters ``num_batches_tracked`` have no counterpart and are
-    dropped."""
+    does not take raises, naming it (a two-stage checkpoint under a config
+    without ``two_stage`` among them), as do backbone block counts other than
+    the config's. The BN counters ``num_batches_tracked`` have no
+    counterpart and are dropped."""
     sd = {k: v for k, v in strip_prefix(sd).items()
           if not k.endswith("num_batches_tracked")}
-    if cfg.two_stage or any(k.startswith(_TWO_STAGE_KEYS) for k in sd):
-        raise NotImplementedError(
-            "two_stage checkpoints are not ported yet (the port's model "
-            "refuses two_stage)")
     _check_reference_depth(sd, cfg)
     out: Dict[str, torch.Tensor] = {}
     taken = set()
@@ -214,9 +209,16 @@ def convert_detr_state_dict(sd: Mapping[str, object], cfg: EgtrConfig
         src, dst = f"model.input_proj.{lvl}", f"model.input_proj_{lvl}"
         linear(f"{src}.0", f"{dst}_conv")
         linear(f"{src}.1", f"{dst}_norm")
-    put("model.query_position_embeddings.weight",
-        "model.query_position_embeddings")
-    linear("model.reference_points", "model.reference_points")
+    if cfg.two_stage:
+        # the proposal machinery in place of the learned queries and
+        # reference points (deformable_detr.py:2306-2343)
+        for name in ("enc_output", "enc_output_norm", "pos_trans",
+                     "pos_trans_norm"):
+            linear(f"model.{name}", f"model.{name}")
+    else:
+        put("model.query_position_embeddings.weight",
+            "model.query_position_embeddings")
+        linear("model.reference_points", "model.reference_points")
     put("model.level_embed", "model.level_embed")
     # the learned 50x50 position embedding lives under the reference's
     # backbone wrapper (deformable_detr.py:880-906)
@@ -232,9 +234,12 @@ def convert_detr_state_dict(sd: Mapping[str, object], cfg: EgtrConfig
             for key in [k for k in sd if k.startswith(src)]:
                 put(key, f"model.{kind}_layer_{i}.{key[len(src):]}")
 
-    # detection heads: per-layer clones with box refinement, else one
-    # shared pair (deformable_detr.py:2426-2443)
-    for idx in range(cfg.decoder_layers if cfg.with_box_refine else 1):
+    # detection heads: per-layer clones with box refinement or two stages,
+    # else one shared pair; two stages add the proposals' head
+    # (deformable_detr.py:2426-2443)
+    num_pred = cfg.decoder_layers + int(cfg.two_stage)
+    for idx in range(num_pred if (cfg.with_box_refine or cfg.two_stage)
+                     else 1):
         linear(f"class_embed.{idx}", f"model.class_embed_{idx}")
         for j in range(3):
             linear(f"bbox_embed.{idx}.layers.{j}",

@@ -24,6 +24,7 @@ import chip_smoke
 from egtr_tpu_torch import config as config_mod
 from egtr_tpu_torch import infer
 from egtr_tpu_torch.data import loader as loader_mod
+from egtr_tpu_torch.data import open_images as oi_mod
 from egtr_tpu_torch.data import transforms as transforms_mod
 from egtr_tpu_torch.data import visual_genome as vg_mod
 from egtr_tpu_torch.ops import msda, msda_cuda
@@ -201,8 +202,23 @@ def fake_card(monkeypatch, tmp_path):
         def __init__(self, **kw):
             super().__init__(**{**kw, **DRIVER_TINY})
 
+    class SmallOI(oi_mod.OIDataset):
+        def __init__(self, *a, size=800, max_size=1333, **kw):
+            super().__init__(*a, size=96, max_size=144, **kw)
+
     monkeypatch.setattr(config_mod, "EgtrConfig", TinyConfig)
     monkeypatch.setattr(vg_mod, "VGDataset", SmallVG)
+    monkeypatch.setattr(oi_mod, "OIDataset", SmallOI)
+    # the same for Open Images: 2+1+1 images of 144x96; two stages with
+    # 100 of the train bucket's 128 tokens as proposals (two steps: the
+    # heads' zeroed last layers keep the layers before them still in the
+    # first); one remat step and one evaluator replay each
+    monkeypatch.setattr(chip_smoke, "SYNTH_OI", dict(
+        n_train=2, n_val=1, n_test=1, height=144, width=96))
+    monkeypatch.setattr(chip_smoke, "TWO_STAGE", dict(
+        chip_smoke.TWO_STAGE, two_stage_num_proposals=100))
+    monkeypatch.setattr(chip_smoke, "REMAT_STEPS", 1)
+    monkeypatch.setattr(chip_smoke, "OI_EVAL_ROUNDS", 1)
     monkeypatch.setattr(transforms_mod, "DETR_TRAIN_SCALES", (96,))
     # the pretraining driver's crops may turn an image on its side
     monkeypatch.setattr(loader_mod, "default_buckets",
@@ -282,6 +298,26 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
     assert fwd_q["launches_serving_served"] == 7 * (2 + 2)
     assert fwd_q["launches"] == 7 * (2 + 2)
     assert fwd["launches_serving_served"] == 0
+    # Open Images through the three drivers, on 2+1+1 images as the VG
+    # drivers: the same launches
+    assert fwd["launches_oi_train"] == fwd["launches_oi_pretrain"] == 7 * 4
+    assert rows["launches_oi_train"] == value["launches_oi_pretrain"] == 4 * 4
+    assert fwd["launches_oi_evaluate"] == 4
+    assert result["open_images"]["rel_full_bytes_per_image"] == (
+        12 * 12 * 30 * 4)
+    # two stages: one forward and two steps; remat: "full" recomputes each
+    # layer's forward in the backward pass, "dots" none
+    assert fwd["launches_two_stage_serving"] == 4
+    assert fwd["launches_two_stage_training"] == rows[
+        "launches_two_stage_training"] == 2 * 4
+    assert len(fwd["calls_two_stage"]) == len(rows["calls_two_stage"]) == 3
+    assert fwd["launches_remat_full_training"] == 2 * 4
+    assert fwd["launches_remat_dots_training"] == 4
+    assert rows["launches_remat_full_training"] == value[
+        "launches_remat_dots_training"] == 4
+    assert result["remat"]["k1_per_microbatch"] == {"off": 4, "full": 8,
+                                                    "dots": 4}
+    assert result["approx_topk"]["losses_bit_equal"]
     # one band per tile without int8, 2 timed + 2 warm-up + 1 checked
     # forward: K5 on the banded levels, K1 on the exact ones and the decoder
     assert win["launches"] == 5 * 2 * 2 and win["form"] == "bfloat16"
@@ -608,6 +644,24 @@ def test_step_counts_at_the_adaptation_bucket():
         "msda_bwd_win_rows_pp": 18, "msda_bwd_win_value_pp": 18}
     assert chip_smoke.step_counts(adapt.replace(msda_window=0), shapes) == {
         **zero, **exact, "msda_fwd": 12}
+
+
+def test_step_counts_under_remat():
+    """At full depth (6+6 layers) "full" adds each layer's forward launch to
+    the microbatch's (K1 24), "dots" none (K1 12); the backward's K2 and K3
+    stay at 12."""
+    from egtr_tpu_torch.models.detr import level_shapes
+
+    shapes = level_shapes(perf_train_step.BUCKET_HW, 4)
+    zero = dict.fromkeys(msda_cuda.KERNELS, 0)
+    exact = {"msda_bwd_rows": 12, "msda_bwd_value": 12}
+    cfg = perf_train_step.train_config(use_remat=True)
+    assert chip_smoke.step_counts(cfg.replace(remat_policy="full"),
+                                  shapes) == {**zero, **exact,
+                                              "msda_fwd": 24}
+    assert chip_smoke.step_counts(cfg.replace(remat_policy="dots"),
+                                  shapes) == {**zero, **exact,
+                                              "msda_fwd": 12}
 
 
 def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):

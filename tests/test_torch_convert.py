@@ -59,7 +59,8 @@ def _assert_bit_equal(a, b):
 
 
 @pytest.mark.parametrize("variant", ["box_refine", "shared_heads",
-                                     "learned_posemb", "resnet101"])
+                                     "learned_posemb", "resnet101",
+                                     "two_stage"])
 def test_conversion_equals_the_jax_path(variant):
     _, cfg, via_jax, direct = _both_ways({**SMALL, **VARIANTS[variant]}, 0)
     _assert_bit_equal(direct, via_jax)
@@ -97,10 +98,14 @@ def test_refusals():
     two_stage = {**SMALL, **VARIANTS["two_stage"]}
     sd = build_reference_named_state_dict(JaxConfig(**two_stage),
                                           np.random.default_rng(3))
-    with pytest.raises(NotImplementedError, match="two_stage"):
-        convert_detr_state_dict(sd, EgtrConfig(**two_stage))
-    # a two-stage checkpoint under a config that does not say so
-    with pytest.raises(NotImplementedError, match="two_stage"):
+    # a two-stage checkpoint converts under its own config, the proposal
+    # machinery and the extra head included
+    direct = convert_detr_state_dict(sd, EgtrConfig(**two_stage))
+    EgtrModel(EgtrConfig(**two_stage)).load_state_dict(direct, strict=True)
+    assert "model.enc_output_norm.weight" in direct
+    assert f"model.class_embed_{two_stage['decoder_layers']}.bias" in direct
+    # under a config that does not say so, its extra keys are named
+    with pytest.raises(ValueError, match="no counterpart.*bbox_embed.2"):
         convert_detr_state_dict(sd, EgtrConfig(**SMALL))
     deep = build_reference_named_state_dict(
         EgtrConfig(**SMALL, backbone="resnet101"), np.random.default_rng(4))

@@ -248,12 +248,38 @@ def test_uniform_sampling_needs_a_generator():
     assert torch.isfinite(a) and a == b and a != c
 
 
-def test_approx_topk_is_refused():
+def test_approx_topk_matches_jax():
+    """``rel_sample_approx_topk``: JAX's ``approx_max_k`` returns
+    ``lax.top_k``'s values and indices on the CPU; the port takes the exact
+    ``torch.topk`` for it (on the card too). The indices mined from the
+    candidate scores, then the training criterion with the flag, equal
+    JAX's with the flag, and the flag changes nothing in the port."""
     outputs, targets = make_case(8)
-    to, tt = tj(outputs)[0], tj(targets)[0]
+    (to, jo), (tt, jt) = tj(outputs), tj(targets)
+    # the candidate scores as sampled_sum builds them: logits, -inf off
+    # the candidates
+    flat = outputs["pred_rel_logits"].reshape(B, -1)
+    cand = np.random.default_rng(9).random(flat.shape) < 0.3
+    score = np.where(cand, flat, -np.inf).astype(np.float32)
+    K = CFG["max_gt_rels"] * 80
+    jvals, jidx = jax.lax.approx_max_k(jnp.asarray(score), K)
+    vals, idx = torch.topk(torch.from_numpy(score), K, dim=1)
+    finite = np.isfinite(np.asarray(jvals))
+    assert finite.sum() == cand.sum(1).clip(max=K).sum()
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jvals))
+    np.testing.assert_array_equal(idx.numpy()[finite], np.asarray(jidx)[finite])
+
     cfg = EgtrConfig(**CFG, rel_sample_approx_topk=True)
-    with pytest.raises(NotImplementedError, match="rel_sample_approx_topk"):
-        criterion.sgg_criterion(to, tt, cfg, True)
+    jcfg = JaxConfig(**CFG, rel_sample_approx_topk=True)
+    total, terms = criterion.sgg_criterion(to, tt, cfg, True)
+    jtotal, jterms = jax.jit(lambda o, t: jax_criterion.sgg_criterion(
+        o, t, jcfg, True))(jo, jt)
+    assert set(terms) == set(jterms)
+    for k in sorted(jterms):
+        close(terms[k], jterms[k], err_msg=k)
+    close(total, jtotal)
+    exact, _ = criterion.sgg_criterion(to, tt, EgtrConfig(**CFG), True)
+    assert torch.equal(total, exact)
 
 
 def test_nonmatching_cost_matches_jax():

@@ -252,11 +252,24 @@ def test_overrides_reach_the_config(runs, monkeypatch):
         assert torch.equal(a, b)
 
 
-def test_refusals(runs, monkeypatch):
+def test_refusals(runs, monkeypatch, tmp_path):
+    """``--dataset open_images`` is no longer refused: the artifact
+    evaluates a synthetic Open Images split (its ``oi/*`` metrics); the
+    card is still the default."""
+    import shutil
+
+    from chip_smoke import write_synth_oi
+
+    oi = str(tmp_path / "oi")
+    write_synth_oi(oi, n_train=1, n_val=1, n_test=1, height=HW[0],
+                   width=HW[1])
+    # a copy: the driver writes its metrics beside the artifact
+    artifact = shutil.copytree(runs.port_art, tmp_path / "artifact")
+    metrics = evaluate_egtr.main(["--data_path", oi, "--artifact_path",
+                                  str(artifact), "--device", "cpu",
+                                  "--dataset", "open_images", *ARGS])
+    assert np.isfinite(metrics["oi/score"]) and "oi/bbox/AP" in metrics
     base = ["--data_path", runs.data, "--artifact_path", runs.port_art]
-    with pytest.raises(NotImplementedError, match="open_images"):
-        evaluate_egtr.main(base + ["--device", "cpu", "--dataset",
-                                   "open_images"])
     # the card by default: no silent CPU path
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

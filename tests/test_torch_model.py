@@ -386,20 +386,18 @@ def test_config_mirrors_jax_config():
 @pytest.mark.parametrize("option", ["msda_window", "msda_int8", "two_stage",
                                     "use_remat"])
 def test_refused_options(option):
-    """``two_stage`` and ``use_remat`` are refused at construction. The
-    banded approximation and int8 stage 1 construct and run; the banded one
-    also trains (forward and backward through a banded level). int8 is
+    """Every option constructs: the banded approximation, ``two_stage`` (12
+    proposals of the 128 tokens) and ``use_remat`` (its "full" policy) run
+    and train (forward and backward through the encoder's MSDA). int8 is
     refused on the plain "matmul" path, as in the JAX package."""
     value = {"msda_window": 4, "msda_int8": True, "two_stage": True,
              "use_remat": True}[option]
     kw = {option: value}
     if option == "msda_int8":
         kw["msda_impl"] = "matmul"
+    if option == "two_stage":
+        kw["two_stage_num_proposals"] = TINY["num_queries"]
     cfg = EgtrConfig(**TINY, **kw)
-    if option in ("two_stage", "use_remat"):
-        with pytest.raises(NotImplementedError, match=option):
-            EgtrModel(cfg)
-        return
     model, x = port_infer.build(cfg, 1, 64, 96, device="cpu", seed=0)
     if option == "msda_int8":
         with pytest.raises(ValueError, match="int8 stage-1"):

@@ -376,9 +376,19 @@ def test_dropout_function_keeps_the_mean():
 
 
 @pytest.mark.parametrize("option", ["use_remat"])
-def test_train_options_refused(option):
-    with pytest.raises(NotImplementedError, match=option):
-        EgtrModel(EgtrConfig(**TINY, **{option: True}))
+def test_train_options_refused(option, reference):
+    """No train option is refused any more: ``use_remat`` (both policies)
+    takes microbatch 0's step with JAX's gradients (dropout 0)."""
+    for policy in ("full", "dots"):
+        cfg = reference["cfg"].replace(**{option: True},
+                                       remat_policy=policy)
+        model = EgtrModel(cfg)
+        model.load_state_dict(
+            state_dict_from_jax(reference["params"], cfg), strict=True)
+        step = make_train_step(model, cfg, make_optimizer(model, **LRS))
+        metrics = step(to_torch(reference["mb0"]))
+        np.testing.assert_allclose(metrics["total_loss"].numpy(),
+                                   reference["mb0_total"], rtol=1e-4)
 
 
 def test_profile_kernel_kinds():

@@ -26,6 +26,7 @@ import torch
 from egtr_tpu.config import EgtrConfig as JaxConfig
 from egtr_tpu.data.loader import Loader as JaxLoader
 from egtr_tpu.data.transforms import Sample as JaxSample
+from egtr_tpu.evaluation.oi_eval import OIEvaluator as JaxOIEvaluator
 from egtr_tpu.evaluation.runner import evaluate_sgg as jax_evaluate_sgg
 from egtr_tpu.models.egtr import EgtrModel as JaxEgtrModel
 from egtr_tpu.train import checkpoint as jax_checkpoint
@@ -35,6 +36,7 @@ from egtr_tpu.utils.convert import convert_backbone_state_dict
 from egtr_tpu_torch.config import EgtrConfig
 from egtr_tpu_torch.data.loader import Loader
 from egtr_tpu_torch.data.transforms import Sample
+from egtr_tpu_torch.evaluation.oi_eval import OIEvaluator
 from egtr_tpu_torch.evaluation.runner import evaluate_sgg
 from egtr_tpu_torch.models.egtr import EgtrModel
 from egtr_tpu_torch.train import checkpoint
@@ -420,8 +422,19 @@ def test_evaluate_sgg_matches_jax(params):
     # every image has relations, so every recall is a number
     assert all(np.isfinite(got[f"{mode}/R@{k}"]) for k in (20, 50, 100)
                for mode in ("single", "multiple"))
-    with pytest.raises(NotImplementedError, match="oi_eval"):
-        evaluate_sgg(model, cfg, loader, REL_NAMES, oi_evaluator=object())
+    # the Open Images evaluator on the same weights and batches: rel_full
+    # over all Q^2 pairs, the same oi/* metrics
+    classes = [f"c{i}" for i in range(CFG["num_labels"])]
+    want = jax_evaluate_sgg(JaxEgtrModel(jcfg), jcfg,
+                            jax.tree_util.tree_map(jnp.asarray, params),
+                            jloader, REL_NAMES, eval_single_preds=False,
+                            oi_evaluator=JaxOIEvaluator(REL_NAMES, classes))
+    got = evaluate_sgg(model, cfg, loader, REL_NAMES, eval_single_preds=False,
+                       oi_evaluator=OIEvaluator(REL_NAMES, classes))
+    assert set(got) == set(want) and "oi/score" in got
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-9,
+                                   err_msg=k)
 
 
 # --------------------------------------------------------------------------
@@ -506,20 +519,45 @@ def test_driver_end_to_end_on_cpu(tmp_path, tiny_driver, capsys):
         assert len(_val_losses(os.path.join(out, phase))[1]) == 2
 
 
+class ReachedFit(Exception):
+    """Raised by a stand-in for ``two_phase_fit``: the driver built its data
+    and model and was about to train."""
+
+
+# the first two options were refused until the port took them; they keep
+# their cases' ids and now reach the fit with the option in effect
 @pytest.mark.parametrize("argv,error", [
-    (["--dataset", "open_images"], NotImplementedError),
-    (["--use_remat", "true"], NotImplementedError),
+    pytest.param(["--dataset", "open_images"], ReachedFit,
+                 id="argv0-NotImplementedError"),
+    pytest.param(["--use_remat", "true"], ReachedFit,
+                 id="argv1-NotImplementedError"),
     (["--dp", "2"], SystemExit),
 ])
-def test_driver_refusals(tmp_path, tiny_driver, argv, error, capsys):
+def test_driver_refusals(tmp_path, tiny_driver, argv, error, capsys,
+                         monkeypatch):
     from egtr_tpu_torch.scripts import train_egtr
     from egtr_tpu_torch.scripts.make_synth_vg import make_synth_vg
+    from egtr_tpu_torch.train import trainer as trainer_mod
+    from chip_smoke import write_synth_oi
 
+    def reached(model, cfg, **kwargs):
+        raise ReachedFit(model, cfg)
+
+    monkeypatch.setattr(trainer_mod, "two_phase_fit", reached)
     data = str(tmp_path / "vg")
     make_synth_vg(data, n_train=1, n_val=1, n_test=1, height=48, width=80)
-    with pytest.raises(error):
+    # the Open Images layout beside it (annotations/, images/)
+    write_synth_oi(data, n_train=1, n_val=1, n_test=1, height=48, width=80)
+    with pytest.raises(error) as info:
         train_egtr.main(["--data_path", data, "--output_path",
                          str(tmp_path / "run"), "--device", "cpu", *argv])
+    if error is ReachedFit:
+        model, cfg = info.value.args
+        if "open_images" in argv:
+            assert (cfg.num_labels, cfg.num_rel_labels) == (601, 30)
+        else:
+            assert cfg.use_remat and cfg.remat_policy == "dots"
+            assert model.model.encoder_layer_0.remat == "dots"
 
 
 # --------------------------------------------------------------------------
