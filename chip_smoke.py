@@ -141,7 +141,41 @@ and no result line. In order it:
    ``merge_pretrained`` of the exported artifact into a fresh ``EgtrModel``
    init takes every detector leaf from the artifact and keeps the relation
    head's leaves and the frequency-bias tables fresh; prints its seconds;
-20. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+20. (after the Open Images, two-stage, remat and approximate top-k phases)
+   runs the data-parallel path, its ranks processes that torchrun starts
+   (``parallel.launch.spawn``, a timeout on each run), two of them sharing
+   the card under gloo (NCCL refuses two ranks on one device); torchrun
+   stops the others when a rank fails, and the script fails. (c), inside
+   phase 17's directory, in one pair of ranks (gloo) on phase 17's set:
+   ``train_egtr`` (global batch 8: one step per phase) with one
+   metrics.jsonl a phase, the artifact and every checkpoint written by rank
+   0 alone, both ranks' test metrics equal and equal to metrics_test.json;
+   then ``evaluate_egtr`` of the artifact and ``pretrain_detr``; one
+   process's ``evaluate_egtr`` of the artifact equal, to 1e-12, to both
+   ranks' train and evaluate runs; each rank's K1/K2/K3 launches exact.
+   (a): the DDP step at full width, float32 (TF32 off), dropout 0, global
+   batch 4 at 800x1344 (two images a rank) against one process's step on
+   the same batch: the loss terms and ``grad_norm`` within 1e-4, the
+   reduced gradients and the updated parameters within ``GRAD_RTOL`` of
+   their largest entries, the zero-initialised parameters' first update
+   within ``GRAD_RTOL`` of lr where their gradient decides it (their
+   values' spread beside that of one process's step taken twice,
+   ``_compare_step``), the ranks' parameters bit-equal, K1/K2/K3 12 per
+   rank; then bf16 steps a rank (dropout 0.1): a warm-up, and rounds of a
+   step and the step with DDP's gradient reduction skipped, their ms per
+   optimizer step and the reduction's exposed ms, beside phase 10's
+   one-process steps; and a loop of all-reduces of the gradient bytes DDP
+   reduces, alone, in its 25 MiB buckets (``DP_NOTE`` says what these
+   times are not). (b): two ranks x accumulation 2 x the adaptation config
+   at 608x1008, float32, global batch 8 (two ranks x two microbatches x
+   two images), against one process's accumulated step: losses within
+   1e-4, gradients, parameters and first updates within
+   ``ADAPT_GRAD_RTOL``, each rank's K6/K8/K10 (and K1/K2/K3) launches
+   exact. (d) ``dryrun_multichip(1)``, whose one rank runs NCCL on the
+   card (a step and ``all_gather_objects``), and (e)
+   ``dryrun_multichip(2)`` under gloo; prints each phase's seconds;
+21. prints a ``kernels`` JSON line (with each kernel's launches per rank on
+   the data-parallel paths), then ``{"ok": true, "device": ...}`` last.
 
 It exits nonzero without a result where CUDA is absent.
 """
@@ -149,6 +183,7 @@ It exits nonzero without a result where CUDA is absent.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -171,6 +206,8 @@ from egtr_tpu_torch.models.egtr import EgtrModel
 from egtr_tpu_torch.models.layers import MSDeformableAttention
 from egtr_tpu_torch.ops import criterion, msda, msda_cuda
 from egtr_tpu_torch.ops.msda_window import segment_bounds
+from egtr_tpu_torch.parallel import dist, dryrun
+from egtr_tpu_torch.parallel.launch import spawn
 from egtr_tpu_torch.scripts import perf_train_step
 from egtr_tpu_torch.train.train_step import make_train_step
 
@@ -2398,6 +2435,587 @@ def check_approx_topk(train_cfg):
             "grad_norm_rel_diff": norm_diff, "total_loss": on["total_loss"]}
 
 
+# --------------------------------------------------------------------------
+# data-parallel: ranks of one process group started by torchrun with a
+# timeout, two of them sharing the one card under gloo (NCCL refuses two
+# ranks on one device); torchrun stops the others when one fails, and the
+# phase fails
+# --------------------------------------------------------------------------
+
+DP_RANKS = 2
+RANK_TIMEOUT_S = 600
+# phase (a): the global batch of the DDP step (two images a rank), the
+# loss terms held to one process's step on it, and their rtol
+DDP_GLOBAL_BATCH = 4
+DDP_LOSS_KEYS = ("total_loss", "loss_ce", "loss_bbox", "loss_giou",
+                 "loss_rel", "grad_norm")
+DDP_LOSS_RTOL = 1e-4
+# phase (a)'s bf16 timing: after a warm-up step, this many rounds of a step
+# and of the same step with DDP's gradient reduction skipped
+DDP_STEPS = 3
+# phase (b): two ranks x two microbatches x two images
+DDP_ADAPT_GLOBAL_BATCH = 8
+# DDP's gradient bucket (``bucket_cap_mb``'s default): the standalone
+# all-reduce is timed over the gradient bytes in buckets of this size
+DDP_BUCKET_BYTES = 25 * 2 ** 20
+# AdamW's eps (train/optim.py). A parameter that was zero takes a first
+# step of lr * g / (|g| + eps): the update of such a parameter is held where
+# its gradient is at least this many eps
+ADAM_EPS = 1e-8
+ZERO_INIT_HELD_EPS = 100
+# the dry runs' world sizes: (d) one rank under NCCL, (e) two under gloo
+DRYRUN_WORLDS = (1, 2)
+DP_NOTE = ("two ranks time-slice one card and gloo stages every collective "
+           "through the host: not a node of cards, and not scaling")
+
+
+def run_ranks(target, workdir, n=DP_RANKS, **kwargs):
+    """``target`` (a function of this script) in ``n`` ranks on the card
+    under torchrun (gloo: ``dist.init_from_env`` takes it for ranks that
+    share a card); returns each rank's value."""
+    return spawn(f"chip_smoke:{target}", n, workdir=workdir, kwargs=kwargs,
+                 device=DEVICE, timeout=RANK_TIMEOUT_S)
+
+
+def _rows(tree, lo, hi):
+    if isinstance(tree, dict):
+        return {k: _rows(v, lo, hi) for k, v in tree.items()}
+    return tree[lo:hi]
+
+
+def _digest(model) -> str:
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _f32_step(cfg, hw, global_batch, accum, lrs, device, rank=0, world=1):
+    """One float32 step (TF32 off) of a seeded model on rank ``rank``'s
+    slice of the seeded global batch: (metrics, model, launches, the
+    learning rate of each trained parameter that was zero before it)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, optimizer, generator = perf_train_step.build(cfg, device, seed=0,
+                                                        lrs=lrs)
+    zero = {n for n, p in model.named_parameters() if not p.any()}
+    batch = perf_train_step.synthetic_batch(cfg, global_batch, *hw, device,
+                                            seed=0)
+    n = global_batch // world
+    step = make_train_step(model, cfg, optimizer, accum_steps=accum)
+    reset_kernel_counts()
+    metrics = step(_rows(batch, rank * n, (rank + 1) * n), generator)
+    torch.cuda.synchronize()
+    lr = {id(p): g["lr"] for g in optimizer.adamw.param_groups
+          for p in g["params"]}
+    zero_lr = {n: lr[id(p)] for n, p in model.named_parameters()
+               if n in zero and id(p) in lr}
+    return ({k: float(v) for k, v in metrics.items()}, model, kernel_counts(),
+            zero_lr)
+
+
+def _one_process_twice(cfg, hw, global_batch, accum, lrs):
+    """One process's float32 step, and its parameters after the same step
+    taken a second time (on the host): their difference is the spread that
+    the run-to-run round-off of the kernels' float32 atomics gives."""
+    _, again, _, _ = _f32_step(cfg, hw, global_batch, accum, lrs, DEVICE)
+    again = {n: p.detach().cpu() for n, p in again.named_parameters()}
+    torch.cuda.empty_cache()
+    ref, model, _, zero = _f32_step(cfg, hw, global_batch, accum, lrs, DEVICE)
+    model.cpu()
+    torch.cuda.empty_cache()
+    return ref, model, zero, again
+
+
+def _save_step(model, path):
+    """A step's parameters and gradients, on the host."""
+    torch.save({n: (p.detach().cpu(), p.grad.cpu())
+                for n, p in model.named_parameters()}, path)
+
+
+@contextlib.contextmanager
+def _unsynced():
+    """DDP with its gradient reduction skipped (``no_sync`` around each
+    forward): the same step without the all-reduce, for timing only."""
+    ddp = torch.nn.parallel.DistributedDataParallel
+    forward = ddp.forward
+
+    def unsynced(self, *args, **kw):
+        with self.no_sync():
+            return forward(self, *args, **kw)
+
+    ddp.forward = unsynced
+    try:
+        yield
+    finally:
+        ddp.forward = forward
+
+
+def rank_ddp_step(device, out):
+    """Phase (a) in one rank: the float32 DDP step on the rank's two images
+    (its parameters and gradients saved for the comparison); then bf16
+    steps at the probe's settings (dropout 0.1): a warm-up, and rounds of a
+    step and the same step with DDP's gradient reduction skipped, timed;
+    and the all-reduce of the gradient bytes that DDP reduces, alone, in
+    its buckets."""
+    rank = dist.process_index()
+    world = dist.process_count()
+    cfg = perf_train_step.train_config(compute_dtype="float32", dropout=0.0)
+    metrics, model, counts, _ = _f32_step(cfg, perf_train_step.BUCKET_HW,
+                                          DDP_GLOBAL_BATCH, 1,
+                                          perf_train_step.LRS, device, rank,
+                                          world)
+    if rank == 0:
+        _save_step(model, f"{out}/rank0.pt")
+    digest = _digest(model)
+    del model
+    torch.cuda.empty_cache()
+
+    cfg = perf_train_step.train_config()
+    model, optimizer, _ = perf_train_step.build(cfg, device, seed=0)
+    generator = torch.Generator(device=device).manual_seed(1 + rank)
+    n = DDP_GLOBAL_BATCH // world
+    batch = _rows(perf_train_step.synthetic_batch(
+        cfg, DDP_GLOBAL_BATCH, *perf_train_step.BUCKET_HW, device, seed=1),
+        rank * n, (rank + 1) * n)
+    step = make_train_step(model, cfg, optimizer)
+    reset_kernel_counts()
+    step(batch, generator)
+    ms = {"synced": [], "unsynced": []}
+    for _ in range(DDP_STEPS):
+        for kind, times in ms.items():
+            with (_unsynced() if kind == "unsynced"
+                  else contextlib.nullcontext()):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                bf16 = step(batch, generator)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+    bf16_counts = kernel_counts()
+    grad_bytes = sum(p.numel() * p.element_size()
+                     for p in model.parameters() if p.requires_grad)
+    flat = torch.zeros(grad_bytes // 4, dtype=torch.float32, device=device)
+    buckets = flat.split(DDP_BUCKET_BYTES // 4)
+    allreduce_ms = []
+    for _ in range(3):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in buckets:
+            torch.distributed.all_reduce(b)
+        torch.cuda.synchronize()
+        allreduce_ms.append(1e3 * (time.perf_counter() - t0))
+    return {"metrics": metrics, "digest": digest, "counts": counts,
+            "bf16_ms_per_step": ms["synced"],
+            "bf16_unsynced_ms_per_step": ms["unsynced"],
+            "bf16_counts": bf16_counts,
+            "bf16_total_loss": float(bf16["total_loss"]),
+            "grad_bytes": grad_bytes, "allreduce_ms": allreduce_ms,
+            "buckets": len(buckets)}
+
+
+def _value_errs(values, ref_model):
+    """Each parameter's largest |value - ref| over ref's largest entry."""
+    errs = {}
+    for n, p in ref_model.named_parameters():
+        r = p.detach().cpu()
+        errs[n] = float((values[n] - r).abs().max()) / max(
+            float(r.abs().max()), 1e-12)
+    return errs
+
+
+def _zero_init_update_err(values, ref_model, zero, limit):
+    """The first update of the parameters that were zero (``zero``: name ->
+    lr) against one process's, over lr, at the entries where one process's
+    clipped gradient g decides it: |g| at least ZERO_INIT_HELD_EPS x eps and
+    ten times ``limit`` of the parameter's largest |g|. There the update
+    lr * g / (|g| + eps) is lr to 1% with g's sign, and a gradient that
+    differs by ``limit`` of the largest entry moves it by 1e-3 of lr; below,
+    it follows the gradient's last bits. Returns (largest error over lr,
+    its parameter, the entries held, and the largest |g| over eps at the
+    entries whose update differs by more than ``limit`` x lr: the witness
+    that those are the entries where |g| is near eps)."""
+    worst, worst_name, held, differ_g = 0.0, "", 0, 0.0
+    for n, p in ref_model.named_parameters():
+        if n not in zero or p.grad is None:
+            continue
+        g = p.grad.cpu().abs()
+        err = (values[n] - p.detach().cpu()).abs() / zero[n]
+        if (err > limit).any():
+            differ_g = max(differ_g, float(g[err > limit].max()) / ADAM_EPS)
+        mask = g >= max(ZERO_INIT_HELD_EPS * ADAM_EPS,
+                        10 * limit * float(g.max()))
+        if not mask.any():
+            continue
+        held += int(mask.sum())
+        if float(err[mask].max()) > worst:
+            worst, worst_name = float(err[mask].max()), n
+    return worst, worst_name, held, differ_g
+
+
+def _compare_step(label, path, ref_model, zero, limit, again):
+    """Rank 0's step (``_save_step`` at ``path``) against one process's
+    model after its step: each parameter's gradient and updated value, the
+    largest difference over its largest entry, within ``limit``; the
+    parameters that were zero before the step (``zero``: name -> lr) by
+    their update where their gradient decides it
+    (``_zero_init_update_err``), within ``limit`` x lr. Their values'
+    largest difference over all entries is reported beside that of
+    ``again``, one process's step taken a second time: the spread that the
+    kernels' run-to-run round-off alone gives them."""
+    saved = torch.load(path)
+    grad_err, grad_name = _largest_grad_err(
+        {n: g for n, (_, g) in saved.items()},
+        {n: p.grad.cpu() for n, p in ref_model.named_parameters()}, label)
+    errs = _value_errs({n: v for n, (v, _) in saved.items()}, ref_model)
+    again_errs = _value_errs(again, ref_model)
+    param_name = max((n for n in errs if n not in zero), key=errs.get)
+    zero_name = max(zero, key=errs.get) if zero else ""
+    again_name = max(zero, key=again_errs.get) if zero else ""
+    update_err, update_name, held, differ_g = _zero_init_update_err(
+        {n: v for n, (v, _) in saved.items()}, ref_model, zero, limit)
+    out = {"grad_max_rel_err": grad_err, "grad_worst": grad_name,
+           "param_max_rel_err": errs[param_name], "param_worst": param_name,
+           "zero_init_params": len(zero),
+           "zero_init_update_err_over_lr": update_err,
+           "zero_init_update_worst": update_name,
+           "zero_init_entries_held": held,
+           "zero_init_differing_max_grad_over_eps": differ_g,
+           "zero_init_param_max_rel_err": errs.get(zero_name, 0.0),
+           "zero_init_param_worst": zero_name,
+           "one_process_again_zero_init_max_rel_err":
+               again_errs.get(again_name, 0.0),
+           "one_process_again_zero_init_worst": again_name,
+           "one_process_again_param_max_rel_err": max(
+               v for n, v in again_errs.items() if n not in zero),
+           "limit": limit}
+    text = (f"reduced gradients' largest error over their largest entry "
+            f"{grad_err:.3e} ({grad_name}), updated parameters' "
+            f"{errs[param_name]:.3e} ({param_name}), limit {limit}; the "
+            f"{len(zero)} zero-initialised parameters' first update at the "
+            f"{held} entries their gradient decides {update_err:.3e} of lr "
+            f"({update_name}), limit {limit}, and where it differs by more "
+            f"|g| <= {differ_g:.3g} eps; their values over all entries "
+            f"{out['zero_init_param_max_rel_err']:.3e} ({zero_name}), one "
+            f"process against itself "
+            f"{out['one_process_again_zero_init_max_rel_err']:.3e} "
+            f"({again_name}; the other parameters "
+            f"{out['one_process_again_param_max_rel_err']:.3e})")
+    if (grad_err > limit or errs[param_name] > limit or update_err > limit
+            or (zero and not held)):
+        raise SystemExit(f"{label}: {text}")
+    return out, text
+
+
+def _check_ranks(label, ranks, ref, keys, expect_counts):
+    """The ranks' metrics equal each other and, for ``keys``, one process's
+    within DDP_LOSS_RTOL; their parameters bit-equal; each rank's launches
+    ``expect_counts``."""
+    bad = []
+    if any(r["metrics"] != ranks[0]["metrics"] for r in ranks):
+        bad.append("the ranks' metrics differ")
+    if any(r["digest"] != ranks[0]["digest"] for r in ranks):
+        bad.append("the ranks' parameters differ")
+    for k in keys:
+        got, want = ranks[0]["metrics"][k], ref[k]
+        if not abs(got - want) <= DDP_LOSS_RTOL * abs(want):
+            bad.append(f"{k} {got} vs one process's {want}")
+    for r, rank in enumerate(ranks):
+        if rank["counts"] != expect_counts:
+            bad.append(f"rank {r} launches {rank['counts']}, expected "
+                       f"{expect_counts}")
+    if bad:
+        raise SystemExit(f"{label}: {bad}")
+
+
+def check_ddp(single_rank_ms):
+    """Phase (a): the DDP step at full width, two ranks on the card, against
+    one process's step on the same global batch; then the ranks' bf16
+    steps with and without DDP's gradient reduction, the standalone
+    all-reduce and the gradient bytes (``DP_NOTE``)."""
+    t_phase = time.perf_counter()
+    hw = perf_train_step.BUCKET_HW
+    cfg = perf_train_step.train_config(compute_dtype="float32", dropout=0.0)
+    ref, model, zero, again = _one_process_twice(cfg, hw, DDP_GLOBAL_BATCH,
+                                                 1, perf_train_step.LRS)
+    with tempfile.TemporaryDirectory() as work:
+        ranks = run_ranks("rank_ddp_step", work, out=work)
+        step_errs, step_text = _compare_step("ddp f32", f"{work}/rank0.pt",
+                                             model, zero, GRAD_RTOL, again)
+    del model
+    shapes = level_shapes(hw, cfg.num_feature_levels)
+    _check_ranks("ddp f32", ranks, ref, DDP_LOSS_KEYS,
+                 step_counts(cfg, shapes))
+    bf16_expect = {k: v * (1 + 2 * DDP_STEPS) for k, v in step_counts(
+        perf_train_step.train_config(), shapes).items()}
+    if any(r["bf16_counts"] != bf16_expect for r in ranks):
+        raise SystemExit(f"ddp bf16: launches per rank "
+                         f"{[r['bf16_counts'] for r in ranks]}, expected "
+                         f"{bf16_expect}")
+    ms, unsynced = ([max(r[key][i] for r in ranks) for i in range(DDP_STEPS)]
+                    for key in ("bf16_ms_per_step",
+                                "bf16_unsynced_ms_per_step"))
+    exposed = [a - b for a, b in zip(ms, unsynced)]
+    exposed_median = sorted(exposed)[len(exposed) // 2]
+    allreduce = [max(r["allreduce_ms"][i] for r in ranks) for i in range(3)]
+    seconds = time.perf_counter() - t_phase
+    print(f"ddp (a): {DP_RANKS} ranks (gloo, CUDA tensors) on one card, "
+          f"float32 at {hw[0]}x{hw[1]}, global batch {DDP_GLOBAL_BATCH}: "
+          + ", ".join(f"{k} {ranks[0]['metrics'][k]:.6f} vs one process's "
+                      f"{ref[k]:.6f}" for k in DDP_LOSS_KEYS)
+          + f"; {step_text}; ranks' parameters bit-equal; launches per "
+          f"rank {ranks[0]['counts']}. bf16 (dropout 0.1, 2 images a rank, "
+          f"after a warm-up step): ms per optimizer step "
+          f"{[round(t, 1) for t in ms]} on {DP_RANKS} ranks, "
+          f"{[round(t, 1) for t in unsynced]} with DDP's gradient reduction "
+          f"skipped, the reduction's exposed ms "
+          f"{[round(t, 1) for t in exposed]} (median {exposed_median:.1f}); "
+          f"{[round(t, 1) for t in single_rank_ms]} on one process "
+          f"(phase 10); all-reduce of {ranks[0]['grad_bytes']} gradient "
+          f"bytes alone, in {ranks[0]['buckets']} buckets: "
+          f"{[round(t, 1) for t in allreduce]} ms ({DP_NOTE}); "
+          f"{seconds:.1f} s", flush=True)
+    return {"metrics": ranks[0]["metrics"], "one_process": ref, **step_errs,
+            "counts_per_rank": [r["counts"] for r in ranks],
+            "bf16_counts_per_rank": [r["bf16_counts"] for r in ranks],
+            "bf16_ms_per_step": ms, "bf16_unsynced_ms_per_step": unsynced,
+            "exposed_reduction_ms": exposed,
+            "exposed_reduction_ms_median": exposed_median,
+            "one_process_ms_per_step": single_rank_ms,
+            "allreduce_alone_ms": allreduce,
+            "grad_bytes": ranks[0]["grad_bytes"],
+            "buckets": ranks[0]["buckets"], "seconds": seconds,
+            "note": DP_NOTE}
+
+
+def rank_adapt_accum(device, out):
+    """Phase (b) in one rank: the adaptation config's float32 step,
+    accumulation 2, on the rank's half of the global batch."""
+    rank = dist.process_index()
+    cfg = perf_train_step.adapt_config(compute_dtype="float32", dropout=0.0)
+    metrics, model, counts, _ = _f32_step(
+        cfg, perf_train_step.ADAPT_HW, DDP_ADAPT_GLOBAL_BATCH, 2,
+        perf_train_step.ADAPT_LRS, device, rank, dist.process_count())
+    if rank == 0:
+        _save_step(model, f"{out}/rank0.pt")
+    return {"metrics": metrics, "digest": _digest(model), "counts": counts}
+
+
+def check_adapt_accum():
+    """Phase (b): two ranks x accumulation 2 x the adaptation config (window
+    16, one band per point) at 608x1008, float32, against one process's
+    accumulated step on the same global batch."""
+    t_phase = time.perf_counter()
+    cfg = perf_train_step.adapt_config(compute_dtype="float32", dropout=0.0)
+    hw, global_batch = perf_train_step.ADAPT_HW, DDP_ADAPT_GLOBAL_BATCH
+    ref, model, zero, again = _one_process_twice(
+        cfg, hw, global_batch, 2, perf_train_step.ADAPT_LRS)
+    with tempfile.TemporaryDirectory() as work:
+        ranks = run_ranks("rank_adapt_accum", work, out=work)
+        step_errs, step_text = _compare_step(
+            "ddp adaptation", f"{work}/rank0.pt", model, zero,
+            ADAPT_GRAD_RTOL, again)
+    del model
+    loss_keys = [k for k in DDP_LOSS_KEYS if k in ref]
+    expect = {k: 2 * v for k, v in step_counts(
+        cfg, level_shapes(hw, cfg.num_feature_levels)).items()}
+    _check_ranks("ddp adaptation", ranks, ref, loss_keys, expect)
+    seconds = time.perf_counter() - t_phase
+    banded = {k: [r["counts"][k] for r in ranks] for k in (
+        "msda_fwd_win_pp", "msda_bwd_win_rows_pp", "msda_bwd_win_value_pp")}
+    print(f"ddp (b): {DP_RANKS} ranks x accum 2 x window {cfg.msda_window} "
+          f"per point, float32 at {hw[0]}x{hw[1]}, global batch "
+          f"{global_batch}: "
+          + ", ".join(f"{k} {ranks[0]['metrics'][k]:.6f} vs one process's "
+                      f"{ref[k]:.6f}" for k in loss_keys)
+          + f"; {step_text}; K6/K8/K10 per rank {banded}; {seconds:.1f} s",
+          flush=True)
+    return {"metrics": ranks[0]["metrics"], "one_process": ref, **step_errs,
+            "counts_per_rank": [r["counts"] for r in ranks],
+            "seconds": seconds}
+
+
+def rank_drivers(device, runs):
+    """The drivers' ``main`` one after another in one rank, in one process
+    group; ``runs``: [driver, argv, path or None]. Per run: the metrics its
+    evaluation returned, the files it wrote with ``torch.save`` (the
+    collectives pickle through it too, into memory), its launches, its
+    seconds, and on rank 0 the JSON at ``path`` as the run left it."""
+    import importlib
+
+    from egtr_tpu_torch.evaluation import runner
+
+    seen = {}
+    real_save = torch.save
+
+    def save(obj, f, *a, **kw):
+        if isinstance(f, (str, os.PathLike)):   # not the collectives' bytes
+            seen["saved"].append(str(f))
+        return real_save(obj, f, *a, **kw)
+
+    def capture(real):
+        def evaluate(*a, **kw):
+            seen["metrics"] = real(*a, **kw)
+            return seen["metrics"]
+        return evaluate
+
+    torch.save = save
+    for fn in ("evaluate_sgg", "evaluate_detection"):
+        setattr(runner, fn, capture(getattr(runner, fn)))
+    results = []
+    for driver, argv, path in runs:
+        seen["saved"] = []
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        importlib.import_module(f"egtr_tpu_torch.scripts.{driver}").main(argv)
+        torch.cuda.synchronize()
+        run = {"metrics": seen.pop("metrics"), "saved": seen["saved"],
+               "counts": kernel_counts(),
+               "seconds": time.perf_counter() - t0}
+        if path and dist.is_primary():
+            with open(path) as f:
+                run["read"] = json.load(f)
+        results.append(run)
+    return results
+
+
+def _same_metrics(a, b) -> bool:
+    return a.keys() == b.keys() and all(
+        (math.isnan(a[k]) and math.isnan(b[k]))
+        or math.isclose(a[k], b[k], rel_tol=1e-12, abs_tol=1e-12)
+        for k in a)
+
+
+def _rank_forwards(args, world, synth):
+    """Per rank: (forwards, microbatches) of one driver run, each phase one
+    epoch of global batches of ``batch_size x world x accumulate``, the
+    validation's of ``batch_size x world``, one test image a rank."""
+    batch, accum = (int(args[args.index(k) + 1])
+                    for k in ("--batch_size", "--accumulate"))
+    steps = synth["n_train"] // (batch * world * accum)
+    val_batches = -(-synth["n_val"] // (batch * world))
+    microbatches = 2 * steps * accum
+    return (microbatches + 2 * val_batches
+            + -(-synth["n_test"] // world)), microbatches
+
+
+def drive_ranks(workdir):
+    """Phase (c): ``train_egtr``, ``evaluate_egtr`` and ``pretrain_detr`` on
+    two ranks on the card (gloo), one after another in the same ranks, on
+    phase 17's synthetic set; then one process's ``evaluate_egtr`` of the
+    artifact."""
+    from egtr_tpu_torch.scripts import evaluate_egtr
+
+    t_phase = time.perf_counter()
+    data, _ = driver_paths(workdir)
+    out, pre_out = f"{workdir}/run_dp", f"{workdir}/pretrain_dp"
+    on_card = ["--device", DEVICE]
+    eval_argv = ["--data_path", data, "--artifact_path", f"{out}/artifact",
+                 "--coco_eval", "true"]
+    ranks = run_ranks("rank_drivers", f"{workdir}/ranks", runs=[
+        ["train_egtr", ["--data_path", data, "--output_path", out, *on_card,
+                        *DRIVER_ARGS], f"{out}/metrics_test.json"],
+        ["evaluate_egtr", [*eval_argv, *on_card], None],
+        ["pretrain_detr", ["--data_path", data, "--output_path", pre_out,
+                           *on_card, *PRETRAIN_ARGS], None]])
+    train, two, pre = zip(*ranks)
+    t_train, t_two, t_pre = (max(r["seconds"] for r in runs)
+                             for runs in (train, two, pre))
+    written = train[0]["read"]
+    bad = []
+    records = {p: _records(f"{out}/{p}/metrics.jsonl")
+               for p in ("main", "finetune")}
+    forwards, microbatches = _rank_forwards(DRIVER_ARGS, DP_RANKS, SYNTH_VG)
+    steps = microbatches // 2 // int(
+        DRIVER_ARGS[DRIVER_ARGS.index("--accumulate") + 1])
+    for phase, recs in records.items():
+        kinds = [r["phase"] for r in recs]
+        if kinds != ["train"] * steps + ["val"]:
+            bad.append(f"{phase} metrics.jsonl holds {kinds}")
+    artifact = sorted(os.listdir(f"{out}/artifact"))
+    weights = [f for r in train for f in r["saved"]
+               if f.endswith("weights.pt")]
+    if artifact != ["config.json", "weights.pt"] or len(weights) != 1:
+        bad.append(f"artifact {artifact}, weights written {weights}")
+    if train[1]["saved"]:
+        bad.append(f"rank 1 wrote {train[1]['saved']}")
+    if not _same_metrics(train[0]["metrics"], train[1]["metrics"]):
+        bad.append("the ranks' test metrics differ")
+    if not _same_metrics(written, train[0]["metrics"]):
+        bad.append("metrics_test.json is not the ranks' metrics")
+    # one process's evaluation of the same artifact
+    t0 = time.perf_counter()
+    one = evaluate_egtr.main([*eval_argv, "--device", DEVICE])
+    t_one = time.perf_counter() - t0
+    if not _same_metrics({k: one[k] for k in written}, written):
+        bad.append(f"one process's evaluate_egtr {one} vs {written}")
+    if not all(_same_metrics(r["metrics"], one) for r in two):
+        bad.append("evaluate_egtr on two ranks differs from one process")
+    if not _same_metrics(pre[0]["metrics"], pre[1]["metrics"]):
+        bad.append("pretrain_detr: the ranks' test metrics differ")
+    cfg = perf_train_step.train_config()
+    per_forward = cfg.encoder_layers + cfg.decoder_layers
+    expect = {}
+    for name, runs, args, synth in (
+            ("train_egtr", train, DRIVER_ARGS, SYNTH_VG),
+            ("pretrain_detr", pre, PRETRAIN_ARGS, SYNTH_VG)):
+        fwd, mbs = _rank_forwards(args, DP_RANKS, synth)
+        expect[name] = {**dict.fromkeys(msda_cuda.KERNELS, 0),
+                        "msda_fwd": per_forward * fwd,
+                        "msda_bwd_rows": per_forward * mbs,
+                        "msda_bwd_value": per_forward * mbs}
+        for r, run in enumerate(runs):
+            if run["counts"] != expect[name]:
+                bad.append(f"{name} rank {r} launches {run['counts']}, "
+                           f"expected {expect[name]}")
+    seconds = time.perf_counter() - t_phase
+    print(f"ddp (c): the drivers on {DP_RANKS} ranks (gloo) on one card, "
+          f"{SYNTH_VG}: train_egtr ({' '.join(DRIVER_ARGS)}) {t_train:.1f} s,"
+          f" launches per rank {[r['counts']['msda_fwd'] for r in train]} K1 "
+          f"/ {[r['counts']['msda_bwd_rows'] for r in train]} K2 / "
+          f"{[r['counts']['msda_bwd_value'] for r in train]} K3, test "
+          f"metrics {written}; evaluate_egtr on {DP_RANKS} ranks "
+          f"{t_two:.1f} s; pretrain_detr ({' '.join(PRETRAIN_ARGS)}) "
+          f"{t_pre:.1f} s, test metrics {pre[0]['metrics']}; one process's "
+          f"evaluate_egtr {t_one:.1f} s, equal to 1e-12 to both ranks' runs; "
+          f"{seconds:.1f} s", flush=True)
+    if bad:
+        raise SystemExit(f"ddp drivers: {bad}")
+    return {"train_seconds": t_train, "evaluate_one_seconds": t_one,
+            "evaluate_seconds": t_two, "pretrain_seconds": t_pre,
+            "seconds": seconds, "test": written,
+            "counts_per_rank": {"train": [r["counts"] for r in train],
+                                "evaluate": [r["counts"] for r in two],
+                                "pretrain": [r["counts"] for r in pre]}}
+
+
+def check_dryruns():
+    """Phases (d) and (e): ``dryrun_multichip`` in one rank, whose group
+    runs NCCL on the card (world size 1, torchrun's variables), and in two
+    ranks sharing the card (gloo): one step, the loader shards and the
+    evaluator merge (``all_gather_objects``) in each."""
+    out = {}
+    for n in DRYRUN_WORLDS:
+        backend = "nccl" if n == 1 and DEVICE == "cuda" else "gloo"
+        t0 = time.perf_counter()
+        result = dryrun.dryrun_multichip(n, device=DEVICE,
+                                         timeout=RANK_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        launched = result["launches"]
+        print(f"ddp ({'d' if n == 1 else 'e'}): dryrun_multichip({n}) on "
+              f"{result['backend']}: launches {launched}; {seconds:.1f} s",
+              flush=True)
+        if result["backend"] != backend or not all(
+                launched[k] for k in ("msda_fwd", "msda_bwd_rows",
+                                      "msda_bwd_value")):
+            raise SystemExit(f"dryrun_multichip({n}): backend "
+                             f"{result['backend']} (expected {backend}), "
+                             f"launches {launched}")
+        out[f"world_{n}"] = {**result, "seconds": seconds}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; it needs one GPU",
@@ -2479,11 +3097,20 @@ def main() -> int:
         pretrain = drive_pretrain(workdir)
         # Open Images V6 through the same three entry points
         open_images = drive_oi(workdir)
+        # (c) the three drivers on two ranks sharing the card
+        torch.cuda.empty_cache()
+        ddp_drivers = drive_ranks(workdir)
     # the options the port took last: two stages, rematerialized layers and
     # the approximate top-k of the negative mining
     two_stage = check_two_stage(train_shapes)
     remat = check_remat(train_cfg)
     approx_topk = check_approx_topk(train_cfg)
+    # data-parallel: (a) the DDP step, (b) with accumulation and the banded
+    # kernels, (d) NCCL in one rank and (e) the dry run in two
+    torch.cuda.empty_cache()
+    ddp = check_ddp(exact_train["ms_per_step"])
+    ddp_adapt = check_adapt_accum()
+    ddp_dryruns = check_dryruns()
     oi_runs = {label: run["counts"]
                for label, run in open_images["runs"].items()}
     new_paths = {"oi_train": oi_runs["train"],
@@ -2799,6 +3426,28 @@ def main() -> int:
                   "f32_grads": remat["f32_grads"],
                   "k1_per_microbatch": remat["k1_per_microbatch"]},
         "approx_topk": approx_topk}
+    # each kernel's launches in every rank of the data-parallel paths
+    ddp_paths = {
+        "ddp": ddp["counts_per_rank"],
+        "ddp_bf16": ddp["bf16_counts_per_rank"],
+        "ddp_adaptation": ddp_adapt["counts_per_rank"],
+        **{f"ddp_{k}": v for k, v in ddp_drivers["counts_per_rank"].items()},
+        **{f"ddp_dryrun_{k}": [r["launches"]] for k, r in
+           ddp_dryruns.items()}}
+    for entry in kernels["kernels"]:
+        for path, ranks in ddp_paths.items():
+            per_rank = [counts[entry["name"]] for counts in ranks]
+            if any(per_rank):
+                entry[f"launches_{path}_per_rank"] = per_rank
+    kernels["data_parallel"] = {
+        "ddp": {k: v for k, v in ddp.items() if "counts" not in k},
+        "adaptation": {k: v for k, v in ddp_adapt.items()
+                       if "counts" not in k},
+        "drivers": {k: v for k, v in ddp_drivers.items()
+                    if "counts" not in k},
+        "dryruns": {k: {"backend": r["backend"], "metrics": r["metrics"],
+                        "seconds": r["seconds"]}
+                    for k, r in ddp_dryruns.items()}}
     print(json.dumps(kernels))
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}",
           flush=True)

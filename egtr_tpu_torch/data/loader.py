@@ -13,7 +13,8 @@ seeded global index order and take their contiguous ``batch_size /
 process_count`` slice of each global batch, deriving each batch's bucket
 from the dataset's metadata-only size bounds (``nominal_size``) so that all
 agree on the batch's shape. This module takes them as plain arguments; the
-port's trainer runs one process.
+drivers pass the rank and the world size of their process group
+(``parallel.dist``).
 """
 
 from __future__ import annotations

@@ -42,3 +42,9 @@ class CocoEvaluator:
 
     def merge_state(self, other: dict) -> None:
         self._map.merge_state(other)
+
+    def clear(self) -> None:
+        self._map.clear()
+
+    def num_images(self) -> int:
+        return self._map.num_images()

@@ -83,6 +83,14 @@ class CocoMAP:
         return {"gts": dict(self._gts), "dts": dict(self._dts),
                 "img_ids": list(self._img_ids)}
 
+    def clear(self) -> None:
+        self._gts.clear()
+        self._dts.clear()
+        self._img_ids = []
+
+    def num_images(self) -> int:
+        return len(self._img_ids)
+
     def merge_state(self, other: Dict) -> None:
         """Fold another evaluator's ``state()`` into this one. Each image
         must come from one evaluator: a repeated image id raises (its

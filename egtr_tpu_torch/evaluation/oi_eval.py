@@ -250,6 +250,12 @@ class OIEvaluator:
     def merge_state(self, other: List[dict]) -> None:
         self.results.extend(other)
 
+    def clear(self) -> None:
+        self.results = []
+
+    def num_images(self) -> int:
+        return len(self.results)
+
     def _eval_rel(self) -> Dict[str, float]:
         all_gt_cnt = 0
         recalls = {k: 0 for k in (1, 5, 10, 20, 50, 100)}

@@ -11,8 +11,13 @@ numpy.
 Detection (COCO) updates run for EVERY image — including images with zero
 ground-truth relations — matching the reference, which evaluates detection
 on the whole split (train_egtr.py:369-396) while the SGG recall evaluator
-skips relation-less images. One process evaluates the whole split; the
-evaluators' ``merge_state`` is there for several.
+skips relation-less images. In a process group (``parallel.dist``) each
+rank evaluates its slice of the split (the loader's, pad rows skipped, so
+the ranks' image ids are disjoint); before aggregating, every rank folds the
+others' evaluator states into its own (``_merge_across_hosts``), in the
+order one process would have evaluated the images, so every rank returns
+the single-process metrics. Only the primary writes them
+(``write_metrics``).
 
 For Open Images (``oi_evaluator``) the forward also yields ``rel_full``, the
 clipped relation scores times the clipped connectivity over all Q^2 pairs
@@ -30,6 +35,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel import dist
 from .coco_eval import CocoEvaluator
 from .postprocess import (detection_postprocess, rescale_boxes_np,
                           sgg_postprocess)
@@ -49,6 +55,54 @@ def _forward(model, batch):
     with torch.no_grad():
         return model(torch.from_numpy(batch["pixel_values"]).to(device),
                      torch.from_numpy(batch["pixel_mask"]).to(device))
+
+
+def _in_order(states, chunks):
+    """One evaluator state made of ``chunks``, (rank, first, end) runs of
+    the ranks' ``states``, in that order."""
+    def cat(get):
+        return [x for r, lo, hi in chunks for x in get(states[r])[lo:hi]]
+
+    if isinstance(states[0], list):                   # OIEvaluator
+        return cat(lambda s: s)
+    if "recalls" in states[0]:                        # SceneGraphEvaluator
+        return {"recalls": {k: cat(lambda s: s["recalls"][k])
+                            for k in states[0]["recalls"]},
+                "image_ids": cat(lambda s: s["image_ids"])}
+    merged = {"gts": {}, "dts": {}, "img_ids": cat(lambda s: s["img_ids"])}
+    for s in states:                                  # CocoEvaluator
+        merged["gts"].update(s["gts"])
+        merged["dts"].update(s["dts"])
+    return merged
+
+
+def _merge_across_hosts(evaluators, marks) -> None:
+    """Fold every rank's evaluator state into the local evaluators (JAX
+    ``runner.py:207-221``; the reference's pickle all_gather,
+    util/misc.py:93-135). ``marks[i]``: evaluator i's image count after
+    each batch, so that the merged state takes the ranks' images batch by
+    batch, rank by rank: the single-process order, which the COCO and OI
+    evaluators' score sorts depend on where scores tie. No-op without a
+    process group."""
+    if not dist.is_distributed():
+        return
+    gathered = dist.all_gather_objects(
+        [(e.state(), m) for e, m in zip(evaluators, marks)])
+    for i, e in enumerate(evaluators):
+        states = [g[i][0] for g in gathered]
+        ends = [g[i][1] for g in gathered]
+        chunks = []
+        for b in range(max(len(m) for m in ends)):
+            for r, m in enumerate(ends):
+                if b < len(m):
+                    chunks.append((r, m[b - 1] if b else 0, m[b]))
+        e.clear()
+        e.merge_state(_in_order(states, chunks))
+
+
+def _mark(evaluators, marks) -> None:
+    for e, m in zip(evaluators, marks):
+        m.append(e.num_images())
 
 
 def _detections(out) -> Dict[str, torch.Tensor]:
@@ -95,6 +149,11 @@ def evaluate_sgg(model, cfg, loader, rel_categories: Sequence[str], *,
                          for name in rel_categories} \
         if eval_multiple_preds else None
 
+    evaluators = [e for e in (single, multiple, coco, oi_evaluator)
+                  if e is not None]
+    for per_pred in (per_pred_single, per_pred_multiple):
+        evaluators += list((per_pred or {}).values())
+    marks = [[] for _ in evaluators]
     n_img = 0
     so_pairs = {}
     for batch in loader:
@@ -179,8 +238,10 @@ def evaluate_sgg(model, cfg, loader, rel_categories: Sequence[str], *,
                     "pred_scores": post["rel_full"][j].reshape(
                         -1, cfg.num_rel_labels),
                 })
+        _mark(evaluators, marks)
         if max_images and n_img >= max_images:
             break
+    _merge_across_hosts(evaluators, marks)
 
     metrics: Dict[str, float] = {}
     for label, evaluator, per_pred in (("single", single, per_pred_single),
@@ -216,6 +277,7 @@ def evaluate_detection(model, cfg, loader, *,
     end-of-pretraining eval of reference pretrain_detr.py:500-542."""
     coco = CocoEvaluator(sorted(categories) if categories is not None
                          else list(range(cfg.num_labels)))
+    marks = [[]]
     n_img = 0
     for batch in loader:
         det = _to_host(_detections(_forward(model, batch)))
@@ -233,15 +295,20 @@ def evaluate_detection(model, cfg, loader, *,
                 det["boxes"][j] * np.array([w0, h0, w0, h0]),
                 det["scores"][j], det["labels"][j] + 1)
             n_img += 1
+        _mark([coco], marks)
         if max_images and n_img >= max_images:
             break
+    _merge_across_hosts([coco], marks)
     return {f"coco/{k}": v for k, v in coco.summarize().items()}
 
 
 def write_metrics(metrics: Dict[str, float], path: str,
                   extra: Optional[dict] = None) -> None:
     """Dump the metrics JSON the reference writes next to the checkpoint
-    (train_egtr.py:928-935)."""
+    (train_egtr.py:928-935). The primary rank only: after the merge every
+    rank holds the same metrics."""
+    if not dist.is_primary():
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         json.dump({**metrics, **(extra or {})}, f, indent=2, default=float)

@@ -171,6 +171,13 @@ class SceneGraphEvaluator:
     def state(self) -> dict:
         return {"recalls": self.recalls, "image_ids": self.image_ids}
 
+    def clear(self) -> None:
+        self.recalls = {k: [] for k in self.recalls}
+        self.image_ids = []
+
+    def num_images(self) -> int:
+        return len(next(iter(self.recalls.values()), []))
+
     def merge_state(self, other: dict) -> None:
         """Fold another process's per-image recalls into this accumulator;
         raises where both evaluated one image."""

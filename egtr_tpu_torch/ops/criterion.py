@@ -11,14 +11,20 @@ Padded target convention:
     class_labels [B, G] int, boxes [B, G, 4] cxcywh (pad = (0.5,0.5,1,1)),
     num_boxes [B] int, rel [B, G, G, R] {0,1}.
 
-Normalization is per process, as in the reference (egtr.py:976-980 keeps the
-``num_boxes`` all-reduce commented out).
+Normalization is over the global batch, as in the JAX package, whose step
+runs under ``jit`` over one array sharded across processes (the reference,
+egtr.py:976-980, keeps its ``num_boxes`` all-reduce commented out). In a
+data-parallel run each criterion takes ``reduce``, a sum over the processes
+(``parallel.dist.all_reduce_sum``), and every denominator (``num_boxes``,
+the image count, the relation-entry counts) goes through it: each rank's
+loss is then its share of the global batch's loss, and the shares add up to
+it. Without ``reduce`` (one process) nothing changes.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +33,8 @@ from ..config import EgtrConfig
 from .boxes import box_cxcywh_to_xyxy, generalized_box_iou
 from .losses import bce_with_logits, sigmoid_focal_loss_elementwise
 from .matcher import MatchResult, compute_cost_matrix, hungarian_match
+
+Reduce = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 
 def nonmatching_cost(cfg: EgtrConfig) -> float:
@@ -65,7 +73,7 @@ def match(logits, pred_boxes, targets, cfg: EgtrConfig,
 
 def detection_losses(logits, pred_boxes, targets, res: MatchResult,
                      num_boxes_total, cfg: EgtrConfig,
-                     valid_img=None) -> Dict[str, torch.Tensor]:
+                     valid_img=None, n_img=None) -> Dict[str, torch.Tensor]:
     """labels (focal), boxes (L1 + GIoU), cardinality.
 
     Reference reductions: loss_ce = focal.mean(1).sum()/num_boxes * Q
@@ -74,7 +82,8 @@ def detection_losses(logits, pred_boxes, targets, res: MatchResult,
 
     ``valid_img`` ([B] float, optional): per-image weight, 0 for the
     duplicated pad rows of a padded eval tail, so the loss over a padded
-    batch equals the loss over its real rows. None = all ones.
+    batch equals the loss over its real rows. None = all ones. ``n_img``:
+    the number of real images of the global batch (default: of this one).
     """
     B, Q, C = logits.shape
     v = (torch.ones((B,), dtype=logits.dtype, device=logits.device)
@@ -110,16 +119,19 @@ def detection_losses(logits, pred_boxes, targets, res: MatchResult,
     #     egtr.py:663-677) ---
     card_pred = (logits.argmax(-1) != C - 1).sum(1)
     card_abs = (card_pred.float() - targets["num_boxes"].float()).abs()
-    card_err = (card_abs * v).sum() / v.sum().clamp(min=1.0)
+    card_err = (card_abs * v).sum() / (
+        v.sum() if n_img is None else n_img).clamp(min=1.0)
 
     return {"loss_ce": loss_ce, "loss_bbox": loss_bbox,
             "loss_giou": loss_giou, "cardinality_error": card_err}
 
 
-def uncertainty_loss(targets, res: MatchResult, valid_img=None
+def uncertainty_loss(targets, res: MatchResult, valid_img=None, n_rel=None
                      ) -> torch.Tensor:
     """No-grad diagnostic (egtr.py:679-689): mean over gt relation entries of
-    sigmoid(cost_i) * sigmoid(cost_j). ``valid_img`` zeroes pad images."""
+    sigmoid(cost_i) * sigmoid(cost_j). ``valid_img`` zeroes pad images;
+    ``n_rel``: the global batch's gt relation entries (default: this
+    one's)."""
     with torch.no_grad():
         u = torch.sigmoid(res.matching_cost)                       # [B,G]
         rel_n = targets["rel"].sum(-1)                             # [B,G,G]
@@ -127,7 +139,7 @@ def uncertainty_loss(targets, res: MatchResult, valid_img=None
         if valid_img is not None:
             rel_n = rel_n * valid_img[:, None, None]
         total = (rel_n * pair_u).sum()
-        count = rel_n.sum()
+        count = rel_n.sum() if n_rel is None else n_rel
         return total / count.clamp(min=1.0)
 
 
@@ -146,7 +158,8 @@ def _permuted_rel_target(targets, res: MatchResult, Q: int) -> torch.Tensor:
 def relation_losses(pred_rel_logits, pred_conn_logits, targets,
                     res: MatchResult, cfg: EgtrConfig, train: bool,
                     generator: Optional[torch.Generator] = None,
-                    valid_img=None) -> Dict[str, torch.Tensor]:
+                    valid_img=None, n_img=None,
+                    reduce: Reduce = None) -> Dict[str, torch.Tensor]:
     """loss_rel + loss_connectivity (egtr.py:754-921).
 
     Training uses hard-negative sampling: per image, k = num_gt_rels *
@@ -157,12 +170,14 @@ def relation_losses(pred_rel_logits, pred_conn_logits, targets,
     ``rel_sample_approx_topk`` (the JAX package's ``approx_max_k``, about
     95% recall on the TPU) takes the exact top-k here, on the card as on the
     CPU, where ``approx_max_k`` returns ``lax.top_k``'s values and indices.
+    ``n_img`` (the global batch's real images) and ``reduce`` (a sum over
+    processes, for the sampled-entry count) make the denominators global.
     """
     B, Q, _, R = pred_rel_logits.shape
     dev = pred_rel_logits.device
     v = (torch.ones((B,), dtype=torch.float32, device=dev)
          if valid_img is None else valid_img.float())
-    nv = v.sum().clamp(min=1.0)
+    nv = (v.sum() if n_img is None else n_img).clamp(min=1.0)
     nm_cost = nonmatching_cost(cfg)
 
     matched = res.gt_index >= 0                                     # [B,Q]
@@ -246,6 +261,8 @@ def relation_losses(pred_rel_logits, pred_conn_logits, targets,
 
     total = ((sum_true + sum_neg + sum_nonm) * v).sum()
     count = ((n_true + k_neg + k_nonm) * v).sum()
+    if reduce is not None:
+        count = reduce(count)
     loss_rel = total / count.clamp(min=1)
     # how often the fixed-K cap binds (images with > max_gt_rels true
     # relation entries), as a streamed metric
@@ -255,7 +272,7 @@ def relation_losses(pred_rel_logits, pred_conn_logits, targets,
 
 
 def _aux_losses(outputs, targets, cfg, num_boxes_total, losses, weight,
-                smoothing, valid_img) -> None:
+                smoothing, valid_img, n_img) -> None:
     """Per-layer auxiliary detection losses with their own matching."""
     if not cfg.auxiliary_loss:
         return
@@ -265,7 +282,8 @@ def _aux_losses(outputs, targets, cfg, num_boxes_total, losses, weight,
         aux_res = match(aux_logits, aux_boxes, targets, cfg,
                         smoothing=smoothing)
         aux = detection_losses(aux_logits, aux_boxes, targets, aux_res,
-                               num_boxes_total, cfg, valid_img=valid_img)
+                               num_boxes_total, cfg, valid_img=valid_img,
+                               n_img=n_img)
         for k in ("loss_ce", "loss_bbox", "loss_giou"):
             losses[f"{k}_{i}"] = aux[k]
             weight[f"{k}_{i}"] = weight[k]
@@ -274,7 +292,8 @@ def _aux_losses(outputs, targets, cfg, num_boxes_total, losses, weight,
 
 def _enc_losses(outputs, targets, cfg: EgtrConfig, num_boxes_total,
                 losses: dict, weight: dict,
-                smoothing: Optional[float] = None, valid_img=None) -> None:
+                smoothing: Optional[float] = None, valid_img=None,
+                n_img=None) -> None:
     """Two-stage proposal losses with binarized class labels
     (egtr.py:1019-1033 / deformable_detr.py:2848-2859)."""
     if not cfg.two_stage or outputs.get("enc_outputs_class") is None:
@@ -285,7 +304,8 @@ def _enc_losses(outputs, targets, cfg: EgtrConfig, num_boxes_total,
     bin_targets["class_labels"] = torch.zeros_like(targets["class_labels"])
     res = match(enc_logits, enc_boxes, bin_targets, cfg, smoothing=smoothing)
     enc = detection_losses(enc_logits, enc_boxes, bin_targets, res,
-                           num_boxes_total, cfg, valid_img=valid_img)
+                           num_boxes_total, cfg, valid_img=valid_img,
+                           n_img=n_img)
     for k in ("loss_ce", "loss_bbox", "loss_giou"):
         losses[f"{k}_enc"] = enc[k]
         weight[f"{k}_enc"] = weight[k]
@@ -299,26 +319,48 @@ def _num_boxes_total(targets, v) -> torch.Tensor:
     return num_boxes.sum().clamp(min=1.0)
 
 
+def _denominators(targets, v, reduce: Reduce):
+    """(num_boxes_total, n_img, n_rel): the gt boxes, real images and gt
+    relation entries of the global batch, summed over the processes in one
+    ``reduce``. Without ``reduce``: ``num_boxes_total`` alone, and None for
+    the other two, which the losses then count on their own batch."""
+    if reduce is None:
+        return _num_boxes_total(targets, v), None, None
+    num_boxes = targets["num_boxes"].float()
+    rel_n = targets["rel"].sum(-1).float()
+    n_img = torch.ones_like(num_boxes)
+    if v is not None:
+        num_boxes, n_img = num_boxes * v, n_img * v
+        rel_n = rel_n * v[:, None, None]
+    total = reduce(torch.stack([num_boxes.sum(), n_img.sum(), rel_n.sum()]))
+    return total[0].clamp(min=1.0), total[1], total[2]
+
+
 def sgg_criterion(outputs, targets, cfg: EgtrConfig, train: bool,
-                  generator: Optional[torch.Generator] = None, valid=None
+                  generator: Optional[torch.Generator] = None, valid=None,
+                  reduce: Reduce = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full EGTR loss (egtr.py:421-505 + SceneGraphGenerationLoss.forward).
 
     ``valid`` ([B] bool, optional): per-image mask for padded eval tails;
-    masked losses equal the losses over the real rows only.
+    masked losses equal the losses over the real rows only. ``reduce``: the
+    sum over the processes of a data-parallel run (module docstring).
     """
     logits = outputs["logits"]
     pred_boxes = outputs["pred_boxes"]
     v = None if valid is None else valid.float()
-    num_boxes_total = _num_boxes_total(targets, v)
+    num_boxes_total, n_img, n_rel = _denominators(targets, v, reduce)
 
     res = match(logits, pred_boxes, targets, cfg)
     losses = detection_losses(
-        logits, pred_boxes, targets, res, num_boxes_total, cfg, valid_img=v)
+        logits, pred_boxes, targets, res, num_boxes_total, cfg, valid_img=v,
+        n_img=n_img)
     losses.update(relation_losses(
         outputs["pred_rel_logits"], outputs["pred_connectivity_logits"],
-        targets, res, cfg, train, generator, valid_img=v))
-    losses["uncertainty"] = uncertainty_loss(targets, res, valid_img=v)
+        targets, res, cfg, train, generator, valid_img=v, n_img=n_img,
+        reduce=reduce))
+    losses["uncertainty"] = uncertainty_loss(targets, res, valid_img=v,
+                                             n_rel=n_rel)
 
     weight = {
         "loss_ce": cfg.ce_loss_coefficient,
@@ -328,27 +370,30 @@ def sgg_criterion(outputs, targets, cfg: EgtrConfig, train: bool,
         "loss_connectivity": cfg.connectivity_loss_coefficient,
     }
     _aux_losses(outputs, targets, cfg, num_boxes_total, losses, weight,
-                None, v)
+                None, v, n_img)
     _enc_losses(outputs, targets, cfg, num_boxes_total, losses, weight,
-                valid_img=v)
+                valid_img=v, n_img=n_img)
     total = sum(losses[k] * w for k, w in weight.items() if k in losses)
     return total, losses
 
 
-def detection_criterion(outputs, targets, cfg: EgtrConfig, valid=None
+def detection_criterion(outputs, targets, cfg: EgtrConfig, valid=None,
+                        reduce: Reduce = None
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Detector pretraining loss (DeformableDetrForObjectDetection,
     deformable_detr.py:2562-2618): labels/boxes/cardinality with matcher
     class_cost = ce_loss_coefficient, no smoothing; aux per-layer re-match.
-    ``valid``: per-image mask for padded eval tails (see sgg_criterion)."""
+    ``valid``: per-image mask for padded eval tails; ``reduce``: as in
+    ``sgg_criterion``."""
     logits = outputs["logits"]
     pred_boxes = outputs["pred_boxes"]
     v = None if valid is None else valid.float()
-    num_boxes_total = _num_boxes_total(targets, v)
+    num_boxes_total, n_img, _ = _denominators(targets, v, reduce)
 
     res = match(logits, pred_boxes, targets, cfg, smoothing=0.0)
     losses = detection_losses(
-        logits, pred_boxes, targets, res, num_boxes_total, cfg, valid_img=v)
+        logits, pred_boxes, targets, res, num_boxes_total, cfg, valid_img=v,
+        n_img=n_img)
 
     weight = {
         "loss_ce": cfg.ce_loss_coefficient,
@@ -356,8 +401,8 @@ def detection_criterion(outputs, targets, cfg: EgtrConfig, valid=None
         "loss_giou": cfg.giou_loss_coefficient,
     }
     _aux_losses(outputs, targets, cfg, num_boxes_total, losses, weight,
-                0.0, v)
+                0.0, v, n_img)
     _enc_losses(outputs, targets, cfg, num_boxes_total, losses, weight,
-                smoothing=0.0, valid_img=v)
+                smoothing=0.0, valid_img=v, n_img=n_img)
     total = sum(losses[k] * w for k, w in weight.items() if k in losses)
     return total, losses

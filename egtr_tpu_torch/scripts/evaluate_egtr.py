@@ -20,7 +20,11 @@ tensors, so they are read with ``torch.load(weights_only=False)``: load only
 checkpoints you trust.
 
 It runs on the GPU unless ``--device cpu`` is given (and raises where CUDA
-is absent), in one process on one device.
+is absent). Under ``torchrun --nproc_per_node N -m
+egtr_tpu_torch.scripts.evaluate_egtr`` each rank evaluates its slice of the
+split (``batch_size`` images a rank a step), the evaluators merge across the
+ranks and rank 0 writes the metrics; ``--infer_only`` times one process
+and is refused there.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import Callable, Iterable, List, Optional
 
 import torch
 
+from ..parallel import dist
 from .train_egtr import str2bool
 
 # what the JAX driver reports as tunnel_rtt_ms, renamed: see run_fps
@@ -273,11 +278,15 @@ def main(argv: Optional[List[str]] = None) -> dict:
     from ..evaluation.oi_eval import OIEvaluator
     from ..evaluation.postprocess import sgg_postprocess
     from ..evaluation.runner import evaluate_sgg, write_metrics
-    from ..infer import resolve_device
     from ..models.egtr import EgtrModel
 
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device = dist.init_from_env(args.device)
+    rank, world = dist.process_index(), dist.process_count()
+    if args.infer_only and world > 1:
+        raise SystemExit("evaluate_egtr: error: --infer_only times one "
+                         f"process; launch it without torchrun (world size "
+                         f"{world})")
 
     cfg, state_dict = load_artifact(args.artifact_path, args)
     overrides = {k: v for k, v in (("msda_window", args.msda_window),
@@ -298,9 +307,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
                        max_size=args.max_size)
         oi = OIEvaluator(ds.rel_categories, ds.ind_to_classes)
         categories = None
-    loader = Loader(ds, args.batch_size, shuffle=False,
+    loader = Loader(ds, args.batch_size * world, shuffle=False,
                     max_gt=cfg.max_gt_boxes,
-                    num_rel_labels=cfg.num_rel_labels)
+                    num_rel_labels=cfg.num_rel_labels, process_index=rank,
+                    process_count=world)
 
     if args.infer_only:
         def infer(pixel_values, pixel_mask):
@@ -321,7 +331,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         eval_multiple_preds=args.eval_multiple_preds,
         coco_eval=args.coco_eval, oi_evaluator=oi,
         max_images=args.max_images, categories=categories)
-    print(json.dumps(metrics, indent=2))
+    if dist.is_primary():
+        print(json.dumps(metrics, indent=2))
     out_path = os.path.join(os.path.dirname(args.artifact_path) or ".",
                             f"metrics_{args.split}.json")
     write_metrics(metrics, out_path, extra={"args": vars(args)})
@@ -330,3 +341,4 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
 if __name__ == "__main__":
     main()
+    dist.shutdown()

@@ -13,9 +13,10 @@ merges it, and the COCO detection evaluation of the test split into
         [--max_epochs 150] [--backbone_dirpath DIR] [--device cpu] ...
 
 It runs on the GPU unless ``--device cpu`` is given (and raises where CUDA
-is absent), in one process on one device, so ``--dp`` and ``--mp`` other
-than 1 are refused; ``--precompile`` is accepted and does nothing (the port
-runs eager and compiles no program). ``--dataset open_images`` pretrains on
+is absent); ``--precompile`` is accepted and does nothing (the port runs
+eager and compiles no program). Under ``torchrun --nproc_per_node N -m
+egtr_tpu_torch.scripts.pretrain_detr`` it trains data-parallel, as
+``train_egtr`` does (``--dp``, ``--mp`` and the loaders there). ``--dataset open_images`` pretrains on
 Open Images V6 (no crop augmentation, as in the JAX driver) and evaluates
 its test split's detections with the COCO protocol.
 """
@@ -28,7 +29,8 @@ from typing import List, Optional
 
 import torch
 
-from .train_egtr import str2bool
+from ..parallel import dist
+from .train_egtr import add_parallel_args, start_ranks, str2bool
 
 
 def parse_args(argv: Optional[List[str]] = None):
@@ -58,11 +60,7 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--remat_policy", default="dots",
                    choices=["full", "dots"])
     p.add_argument("--max_gt_boxes", type=int, default=64)
-    p.add_argument("--dp", type=int, default=None,
-                   help="data-parallel devices: one here (DDP is not "
-                        "ported)")
-    p.add_argument("--mp", type=int, default=1,
-                   help="model-parallel devices: one here")
+    add_parallel_args(p)
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--debug", type=str2bool, default=False)
     p.add_argument("--seed", type=int, default=42)
@@ -85,7 +83,6 @@ def main(argv: Optional[List[str]] = None):
     from ..data.open_images import OIDataset
     from ..data.visual_genome import VGDataset
     from ..evaluation.runner import evaluate_detection, write_metrics
-    from ..infer import resolve_device
     from ..models.detr import DeformableDetrBase
     from ..models.layers import init_params
     from ..train.checkpoint import merge_pretrained, save_pretrained
@@ -93,11 +90,8 @@ def main(argv: Optional[List[str]] = None):
     from ..utils.convert import backbone_state_dict_from_timm
 
     args = parse_args(argv)
-    if args.dp not in (None, 1) or args.mp != 1:
-        raise NotImplementedError(
-            f"--dp {args.dp} --mp {args.mp}: the port trains in one process "
-            "on one device (multi-process training is not ported yet)")
-    device = resolve_device(args.device)
+    device, mesh = start_ranks(args, "pretrain_detr")
+    rank, world = dist.process_index(), dist.process_count()
 
     if args.dataset == "visual_genome":
         # detector pretraining uses the crop augmentor (pretrain_detr.py:267)
@@ -117,12 +111,15 @@ def main(argv: Optional[List[str]] = None):
         max_gt_boxes=args.max_gt_boxes, compute_dtype=args.compute_dtype,
         use_remat=args.use_remat, remat_policy=args.remat_policy)
 
-    train_loader = Loader(train_ds, args.batch_size * args.accumulate,
-                          shuffle=True, max_gt=cfg.max_gt_boxes,
-                          num_rel_labels=num_rel, drop_last=True,
-                          seed=args.seed, num_workers=args.num_workers)
-    val_loader = Loader(val_ds, args.batch_size, shuffle=False,
-                        max_gt=cfg.max_gt_boxes, num_rel_labels=num_rel)
+    global_bs = args.batch_size * mesh.dp * args.accumulate
+    train_loader = Loader(train_ds, global_bs, shuffle=True,
+                          max_gt=cfg.max_gt_boxes, num_rel_labels=num_rel,
+                          drop_last=True, seed=args.seed,
+                          num_workers=args.num_workers, process_index=rank,
+                          process_count=world)
+    val_loader = Loader(val_ds, global_bs // args.accumulate, shuffle=False,
+                        max_gt=cfg.max_gt_boxes, num_rel_labels=num_rel,
+                        process_index=rank, process_count=world)
 
     model = DeformableDetrBase(cfg)
     params = None
@@ -152,7 +149,8 @@ def main(argv: Optional[List[str]] = None):
     # the EGTR model's scope so that merge_pretrained aligns the names
     save_pretrained(os.path.join(args.output_path, "artifact"), cfg,
                     {f"model.{k}": v for k, v in model.state_dict().items()})
-    print("[pretrain_detr] artifact saved")
+    if dist.is_primary():
+        print("[pretrain_detr] artifact saved")
 
     # end-of-pretraining detection evaluation (pretrain_detr.py:500-542);
     # eval mode turns dropout off
@@ -162,15 +160,18 @@ def main(argv: Optional[List[str]] = None):
     else:
         test_ds = OIDataset(args.data_path, "test", size=800, max_size=1333)
         categories = None
-    test_loader = Loader(test_ds, 1, shuffle=False, max_gt=cfg.max_gt_boxes,
-                         num_rel_labels=num_rel)
+    test_loader = Loader(test_ds, world, shuffle=False,
+                         max_gt=cfg.max_gt_boxes, num_rel_labels=num_rel,
+                         process_index=rank, process_count=world)
     metrics = evaluate_detection(model, cfg, test_loader,
                                  categories=categories)
     write_metrics(metrics,
                   os.path.join(args.output_path, "metrics_test.json"))
-    print("[pretrain_detr] done; test metrics written")
+    if dist.is_primary():
+        print("[pretrain_detr] done; test metrics written")
     return model
 
 
 if __name__ == "__main__":
     main()
+    dist.shutdown()

@@ -17,18 +17,32 @@ and ``categories_dict.json`` under ``annotations/``, JPEGs under
 ``images/``), takes the label counts and ``fg_matrix`` from its train split
 and evaluates the test split with the OI evaluator (``oi/*`` metrics, no
 COCO entries). It runs on the GPU unless ``--device cpu`` is given (and
-raises where CUDA is absent), in one process on one device.
-``EGTR_MSDA_BATCH_P=1`` sends every exact MSDA forward through the
-batched-P kernel, as in the JAX package.
+raises where CUDA is absent). ``EGTR_MSDA_BATCH_P=1`` sends every exact
+MSDA forward through the batched-P kernel, as in the JAX package.
+
+Data-parallel, one process a rank, as PyTorch users launch DDP::
+
+    torchrun --nproc_per_node N -m egtr_tpu_torch.scripts.train_egtr ...
+
+Each rank loads its slice of every global batch of ``batch_size x dp x
+accumulate`` images (validation: ``batch_size x dp``; test: one image a
+rank); the loss is the global batch's (``train.train_step``), only rank 0
+writes metrics, checkpoints, the artifact and ``metrics_test.json``, and
+the test evaluation merges the ranks' evaluators. ``--dp`` defaults to the
+world size and must equal it; ``--mp`` must be 1. The ranks talk NCCL
+where each has a card of its own, else gloo (``parallel.dist``).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
+
+from ..parallel import dist
+from ..parallel.mesh import Mesh, make_mesh
 
 
 def str2bool(v):
@@ -39,6 +53,28 @@ def str2bool(v):
     if v.lower() in ("no", "false", "f", "n", "0"):
         return False
     raise argparse.ArgumentTypeError("Boolean value expected.")
+
+
+def add_parallel_args(p: argparse.ArgumentParser) -> None:
+    """``--dp`` and ``--mp``, as the JAX drivers take them."""
+    p.add_argument("--dp", type=int, default=None,
+                   help="data-parallel size (default: all devices: the "
+                        "world size)")
+    p.add_argument("--mp", type=int, default=1,
+                   help="model-parallel size: 1 (tensor parallelism of the "
+                        "relation head is not ported)")
+
+
+def start_ranks(args, prog: str) -> Tuple[torch.device, Mesh]:
+    """Join the process group torchrun's environment describes (none
+    without one) and check ``--dp``/``--mp`` against it; returns the rank's
+    device and the mesh. A bad ``--dp``/``--mp`` exits as argparse does."""
+    device = dist.init_from_env(args.device)
+    try:
+        mesh = make_mesh(args.dp, args.mp)
+    except (ValueError, NotImplementedError) as e:
+        raise SystemExit(f"{prog}: error: {e}") from e
+    return device, mesh
 
 
 def parse_args(argv: Optional[List[str]] = None):
@@ -101,6 +137,7 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--msda_int8", type=str2bool, default=False)
     p.add_argument("--max_gt_boxes", type=int, default=64)
     p.add_argument("--max_gt_rels", type=int, default=192)
+    add_parallel_args(p)
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--debug", type=str2bool, default=False)
     p.add_argument("--seed", type=int, default=42)
@@ -121,7 +158,6 @@ def main(argv: Optional[List[str]] = None):
     from ..data.visual_genome import VGDataset, vg_get_statistics
     from ..evaluation.oi_eval import OIEvaluator
     from ..evaluation.runner import evaluate_sgg, write_metrics
-    from ..infer import resolve_device
     from ..models.egtr import EgtrModel, compute_freq_dists
     from ..models.layers import init_params
     from ..train.checkpoint import (load_pretrained, merge_pretrained,
@@ -130,7 +166,8 @@ def main(argv: Optional[List[str]] = None):
     from ..utils.convert import backbone_state_dict_from_timm
 
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device, mesh = start_ranks(args, "train_egtr")
+    rank, world = dist.process_index(), dist.process_count()
 
     if args.dataset == "visual_genome":
         train_ds = VGDataset(args.data_path, "train", train_aug=True,
@@ -170,13 +207,17 @@ def main(argv: Optional[List[str]] = None):
         remat_policy=args.remat_policy, msda_window=args.msda_window,
         msda_band=args.msda_band, msda_int8=args.msda_int8)
 
-    global_bs = args.batch_size * args.accumulate
+    # each rank loads its slice of every global batch (JAX
+    # train_egtr.py:161-176)
+    global_bs = args.batch_size * mesh.dp * args.accumulate
     train_loader = Loader(train_ds, global_bs, shuffle=True,
                           max_gt=cfg.max_gt_boxes, drop_last=True,
                           num_rel_labels=num_rel, seed=args.seed,
-                          num_workers=args.num_workers)
-    val_loader = Loader(val_ds, args.batch_size, shuffle=False,
-                        max_gt=cfg.max_gt_boxes, num_rel_labels=num_rel)
+                          num_workers=args.num_workers, process_index=rank,
+                          process_count=world)
+    val_loader = Loader(val_ds, global_bs // args.accumulate, shuffle=False,
+                        max_gt=cfg.max_gt_boxes, num_rel_labels=num_rel,
+                        process_index=rank, process_count=world)
 
     model = EgtrModel(cfg)
     init_params(model, torch.Generator().manual_seed(args.seed))
@@ -219,7 +260,8 @@ def main(argv: Optional[List[str]] = None):
 
     save_pretrained(os.path.join(args.output_path, "artifact"), cfg,
                     model.state_dict())
-    print("[train_egtr] artifact saved")
+    if dist.is_primary():
+        print("[train_egtr] artifact saved")
 
     # end-of-training test evaluation + metrics JSON next to the artifact
     # (reference train_egtr.py:879-935); eval mode turns dropout off
@@ -230,16 +272,20 @@ def main(argv: Optional[List[str]] = None):
         test_ds = OIDataset(args.data_path, "test", size=800, max_size=1333)
         oi = OIEvaluator(test_ds.rel_categories, test_ds.ind_to_classes)
         categories = None
-    test_loader = Loader(test_ds, 1, shuffle=False,
-                         max_gt=cfg.max_gt_boxes, num_rel_labels=num_rel)
+    # one image a rank a step; the evaluators merge across the ranks
+    test_loader = Loader(test_ds, world, shuffle=False,
+                         max_gt=cfg.max_gt_boxes, num_rel_labels=num_rel,
+                         process_index=rank, process_count=world)
     metrics = evaluate_sgg(model, cfg, test_loader, test_ds.rel_categories,
                            coco_eval=oi is None, oi_evaluator=oi,
                            categories=categories)
     write_metrics(metrics,
                   os.path.join(args.output_path, "metrics_test.json"))
-    print("[train_egtr] done; test metrics written")
+    if dist.is_primary():
+        print("[train_egtr] done; test metrics written")
     return model
 
 
 if __name__ == "__main__":
     main()
+    dist.shutdown()

@@ -17,6 +17,10 @@ order, so the later of two equal metrics ranks higher) and all but the
 ``latest_step`` is the highest step kept and ``best_step`` the best-ranked.
 So after epochs without improvement the latest kept step can lie behind the
 last epoch run, and a relaunch resumes from there, as the JAX package does.
+
+In a process group (``parallel.dist``) every rank calls ``save`` and
+``save_pretrained``, as every JAX process calls orbax's: the primary rank
+writes, and every rank returns once the files are on disk.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import torch
 
 from ..config import EgtrConfig
+from ..parallel import dist
 
 PAYLOAD = "payload.pt"
 METRICS = "metrics.json"
@@ -66,6 +71,12 @@ class CheckpointManager:
              metrics: Optional[dict] = None) -> None:
         """Write ``payload`` as step ``step`` with its metrics, then delete
         what the retention rule drops. Steps must rise."""
+        if dist.is_primary():
+            self._save(step, payload, metrics)
+        dist.barrier()
+
+    def _save(self, step: int, payload: Dict[str, Any],
+              metrics: Optional[dict]) -> None:
         latest = self.latest_step()
         if latest is not None and step <= latest:
             raise ValueError(f"step {step} is not above the latest "
@@ -105,10 +116,12 @@ class CheckpointManager:
 def save_pretrained(directory: str, cfg: EgtrConfig,
                     state_dict: Mapping[str, torch.Tensor]) -> None:
     """config.json + the model's weights (pretrain_detr.py:480-490)."""
-    os.makedirs(directory, exist_ok=True)
-    cfg.save(os.path.join(directory, "config.json"))
-    torch.save({k: v.detach() for k, v in state_dict.items()},
-               os.path.join(directory, WEIGHTS))
+    if dist.is_primary():
+        os.makedirs(directory, exist_ok=True)
+        cfg.save(os.path.join(directory, "config.json"))
+        torch.save({k: v.detach() for k, v in state_dict.items()},
+                   os.path.join(directory, WEIGHTS))
+    dist.barrier()
 
 
 def load_pretrained(directory: str, map_location="cpu"

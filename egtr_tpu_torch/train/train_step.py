@@ -11,16 +11,35 @@ The model and the optimizer carry the state (parameters, AdamW moments) and
 are updated in place; a step returns the metrics only. Randomness (dropout
 masks, uniform negative sampling) comes from the ``torch.Generator`` handed
 to the step, on the model's device.
+
+Inside a process group (``parallel.dist``) the step is data-parallel, with
+the JAX package's semantics: its loss is the loss of the global batch, the
+concatenation of the ranks' batches. The model runs under
+``DistributedDataParallel``, whose broadcast from rank 0 when it wraps the
+model replaces the JAX package's ``replicate_state``. The criterion sums its
+denominators over the ranks, so each rank's loss is its share of the global
+loss; DDP averages gradients, so each rank backpropagates ``world_size``
+times its share and the reduced gradient is the global loss's. Every
+parameter takes part (``find_unused_parameters``: ``rel_dist`` and the
+options' unused heads get no gradient), the frozen leaves too, so the clip
+norm and ``grad_norm`` cover them as in the JAX package; there are no
+buffers to broadcast. Microbatches before the last run under ``no_sync``.
+The logged metrics are summed over the ranks (``rel_gate_*``, a batch mean,
+averaged), so every rank returns the same numbers. Dropout masks cannot
+match the JAX package's global mask bit for bit (each rank draws from its
+own generator), so parity with it holds at dropout 0.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, Optional
 
 import torch
 
 from ..config import EgtrConfig
 from ..ops.criterion import detection_criterion, sgg_criterion
+from ..parallel import dist
 from .optim import Optimizer
 
 
@@ -34,7 +53,9 @@ def _map_batch(fn, value):
 def split_microbatches(batch: dict, accum_steps: int) -> List[dict]:
     """Split a global batch into ``accum_steps`` microbatches by row stride
     (microbatch ``a`` takes rows ``a::accum_steps``), the JAX package's
-    convention.
+    convention. Applied to each rank's contiguous slice of a global batch
+    (the loader's), it keeps the rows of microbatch ``a`` over all ranks,
+    in rank order, those of the single-process split.
 
     EVERY key of the batch is split (each value must be a [B, ...] tensor or
     a dict of them, like ``labels``): dropping unknown keys would strip e.g.
@@ -63,21 +84,35 @@ def make_train_step(model, cfg: EgtrConfig, optimizer: Optimizer,
     already be a list of A microbatch dicts. Metrics, as 0-d tensors on the
     device: every loss term, ``rel_gate_{i}`` (sgg), ``total_loss`` and
     ``grad_norm`` (the global norm before the clip, frozen leaves included).
+    Inside a process group the batch is the rank's slice and the metrics
+    are the global batch's (module docstring); making the step wraps the
+    model in DDP, so every rank makes it at the same point.
     """
+    reduce = dist.all_reduce_sum if dist.is_distributed() else None
+    world = dist.process_count()
+    net = model
+    if reduce is not None:
+        device = next(model.parameters()).device
+        net = torch.nn.parallel.DistributedDataParallel(
+            model, device_ids=[device] if device.type == "cuda" else None,
+            find_unused_parameters=True)
+
     def loss_fn(mb, generator):
-        out = model(mb["pixel_values"], mb.get("pixel_mask"),
-                    generator=generator)
+        out = net(mb["pixel_values"], mb.get("pixel_mask"),
+                  generator=generator)
         if task == "sgg":
             total, losses = sgg_criterion(out, mb["labels"], cfg, train=True,
                                           generator=generator,
-                                          valid=mb.get("valid"))
+                                          valid=mb.get("valid"),
+                                          reduce=reduce)
             # per-layer mean gate values logged as pseudo-losses
             # (egtr.py:496-505)
             for i in range(cfg.decoder_layers + 1):
                 losses[f"rel_gate_{i}"] = out["rel_gate_mean"][i]
         else:
             total, losses = detection_criterion(out, mb["labels"], cfg,
-                                                valid=mb.get("valid"))
+                                                valid=mb.get("valid"),
+                                                reduce=reduce)
         return total, losses
 
     def train_step(batch, generator: Optional[torch.Generator] = None,
@@ -94,9 +129,13 @@ def make_train_step(model, cfg: EgtrConfig, optimizer: Optimizer,
         model.train()
         optimizer.zero_grad()
         metrics: Dict[str, torch.Tensor] = {}
-        for mb in mbs:
-            total, losses = loss_fn(mb, generator)
-            total.backward()  # sums into .grad across the microbatches
+        for i, mb in enumerate(mbs):
+            # DDP reduces the gradients in the last microbatch's backward
+            with (net.no_sync() if net is not model and i < len(mbs) - 1
+                  else contextlib.nullcontext()):
+                total, losses = loss_fn(mb, generator)
+                # sums into .grad across the microbatches
+                (total if net is model else total * world).backward()
             losses["total_loss"] = total
             for k, x in losses.items():
                 x = x.detach().float()
@@ -105,17 +144,32 @@ def make_train_step(model, cfg: EgtrConfig, optimizer: Optimizer,
             inv = 1.0 / accum_steps
             torch._foreach_mul_(optimizer.grads(), inv)
             metrics = {k: x * inv for k, x in metrics.items()}
+        if reduce is not None:
+            metrics = _global_metrics(metrics, reduce, world)
         metrics["grad_norm"] = optimizer.step(lr_scale)
         return metrics
 
     return train_step
 
 
+def _global_metrics(metrics: Dict[str, torch.Tensor], reduce, world: int
+                    ) -> Dict[str, torch.Tensor]:
+    """The ranks' metrics in one collective: the loss shares summed, the
+    batch-mean gate values averaged."""
+    total = reduce(torch.stack(list(metrics.values())))
+    return {k: x / world if k.startswith("rel_gate_") else x
+            for k, x in zip(metrics, total.unbind())}
+
+
 def make_eval_step(model, cfg: EgtrConfig, task: str = "sgg") -> Callable:
     """``eval_step(batch) -> (outputs, losses)`` without sampling or dropout.
 
     ``batch["valid"]`` (when present) masks the padded tail rows a loader
-    appends, so the validation loss covers real images only."""
+    appends, so the validation loss covers real images only. Inside a
+    process group the denominators are the global batch's, so the ranks'
+    losses add up to the global batch's loss (the caller sums them)."""
+    reduce = dist.all_reduce_sum if dist.is_distributed() else None
+
     def eval_step(batch):
         model.eval()
         with torch.no_grad():
@@ -123,10 +177,12 @@ def make_eval_step(model, cfg: EgtrConfig, task: str = "sgg") -> Callable:
             valid = batch.get("valid")
             if task == "sgg":
                 total, losses = sgg_criterion(out, batch["labels"], cfg,
-                                              train=False, valid=valid)
+                                              train=False, valid=valid,
+                                              reduce=reduce)
             else:
                 total, losses = detection_criterion(out, batch["labels"], cfg,
-                                                    valid=valid)
+                                                    valid=valid,
+                                                    reduce=reduce)
         losses["total_loss"] = total
         return out, losses
 

@@ -15,6 +15,16 @@ every train step draws its dropout masks from one generator on the model's
 device, seeded with ``seed`` too, whose state the checkpoints carry. What the
 JAX loop has only for the TPU is left out: ahead-of-time compiled steps, the
 warm-up thread that compiles the eval program, and the device mesh.
+
+Inside a process group (``parallel.dist``; the loaders hand each rank its
+slice) the steps are data-parallel (``train_step``), and as in the JAX loop
+only the primary rank writes ``metrics.jsonl`` and checkpoints; the others
+wait at a barrier after each save and resume from the same checkpoint. The
+validation losses are summed over the ranks like the training losses, so
+every rank takes the same best-checkpoint and early-stopping decision. Each
+rank seeds its step generator with ``seed + rank`` (rank 0: ``seed``, as one
+process does), so the ranks draw different dropout masks; a checkpoint
+carries every rank's generator state.
 """
 
 from __future__ import annotations
@@ -31,19 +41,25 @@ import torch
 from ..config import EgtrConfig
 from ..infer import resolve_device
 from ..models.layers import init_params as init_model_params
+from ..parallel import dist
 from .checkpoint import CheckpointManager
 from .optim import make_optimizer
 from .train_step import make_eval_step, make_train_step
 
 
 class MetricLogger:
-    """Append-only JSONL metric stream (``<log_dir>/metrics.jsonl``)."""
+    """Append-only JSONL metric stream (``<log_dir>/metrics.jsonl``),
+    written by the primary rank only: every rank holds the same metrics."""
 
     def __init__(self, log_dir: str):
+        self.primary = dist.is_primary()
         self.path = os.path.join(log_dir, "metrics.jsonl")
-        os.makedirs(log_dir, exist_ok=True)
+        if self.primary:
+            os.makedirs(log_dir, exist_ok=True)
 
     def log(self, record: Dict) -> None:
+        if not self.primary:
+            return
         rec = {k: (float(v) if hasattr(v, "item") or isinstance(
             v, (int, float, np.floating)) else v) for k, v in record.items()}
         rec["time"] = time.time()
@@ -67,13 +83,27 @@ def _sync(device: torch.device) -> None:
 def _payload(model, optimizer, generator, best_val: float,
              epochs_no_improve: int, step: int) -> dict:
     """Checkpoint payload: the weights, the AdamW moments, and the loop
-    state (``egtr_tpu/train/trainer.py:_payload``) with the generator's."""
+    state (``egtr_tpu/train/trainer.py:_payload``) with the generator's: one
+    state, or in a process group the list of every rank's. Every rank calls
+    it (the list is gathered); the primary saves it."""
+    state = generator.get_state()
     return {"model": model.state_dict(),
             "optimizer": optimizer.adamw.state_dict()["state"],
             "loop": {"best_val": float(best_val),
                      "epochs_no_improve": int(epochs_no_improve),
                      "step": int(step)},
-            "generator": generator.get_state()}
+            "generator": (dist.all_gather_objects(state)
+                          if dist.is_distributed() else state)}
+
+
+def _reduced_mean(sums: Dict[str, float], n: int, device) -> Dict[str, float]:
+    """Per-key sums over ``n`` batches as means, the sums first added over
+    the ranks (each holds its share of every batch's loss)."""
+    if not dist.is_distributed():
+        return {k: v / max(n, 1) for k, v in sums.items()}
+    total = dist.all_reduce_sum(torch.tensor(
+        list(sums.values()), dtype=torch.float64, device=device))
+    return {k: v / max(n, 1) for k, v in zip(sums, total.tolist())}
 
 
 def fit(model, cfg: EgtrConfig, *, train_loader, val_loader, log_dir: str,
@@ -92,7 +122,9 @@ def fit(model, cfg: EgtrConfig, *, train_loader, val_loader, log_dir: str,
     ``merge_pretrained``; they form the ``lr_initialized`` group (reference
     train_egtr.py:426-467); None keeps the relation-head heuristic
     (``optim.param_label``). Train records carry ``step_seconds``, the host
-    time of the step until its metrics reached the host."""
+    time of the step until its metrics reached the host. In a process group
+    ``device`` is the rank's (``dist.init_from_env``) and every rank calls
+    ``fit`` with its own loaders."""
     device = resolve_device(device)
     logger = MetricLogger(log_dir)
     if init_params is None:
@@ -103,7 +135,8 @@ def fit(model, cfg: EgtrConfig, *, train_loader, val_loader, log_dir: str,
     optimizer = make_optimizer(model, lr, lr_backbone, lr_initialized,
                                weight_decay, grad_clip,
                                initialized_paths=initialized_paths)
-    generator = torch.Generator(device=device).manual_seed(seed)
+    rank = dist.process_index()
+    generator = torch.Generator(device=device).manual_seed(seed + rank)
     ckpt = CheckpointManager(os.path.join(log_dir, "checkpoints"))
     train_step = make_train_step(model, cfg, optimizer, task=task,
                                  accum_steps=accum_steps)
@@ -120,14 +153,18 @@ def fit(model, cfg: EgtrConfig, *, train_loader, val_loader, log_dir: str,
         state = optimizer.adamw.state_dict()
         state["state"] = payload["optimizer"]
         optimizer.adamw.load_state_dict(state)
-        generator.set_state(payload["generator"].cpu())
+        state = payload["generator"]
+        if isinstance(state, list):  # saved by a data-parallel run
+            state = state[rank % len(state)]
+        generator.set_state(state.cpu())
         best_val = payload["loop"]["best_val"]
         epochs_no_improve = payload["loop"]["epochs_no_improve"]
         step = payload["loop"]["step"]
         start_epoch = latest
-        print(f"[trainer] resumed from epoch {latest} "
-              f"(best_val={best_val:.4f}, "
-              f"epochs_no_improve={epochs_no_improve})")
+        if dist.is_primary():
+            print(f"[trainer] resumed from epoch {latest} "
+                  f"(best_val={best_val:.4f}, "
+                  f"epochs_no_improve={epochs_no_improve})")
 
     for epoch in range(start_epoch, max_epochs):
         t0 = time.time()
@@ -152,15 +189,16 @@ def fit(model, cfg: EgtrConfig, *, train_loader, val_loader, log_dir: str,
             for k, v in losses.items():
                 val_sums[k] = val_sums.get(k, 0.0) + float(v)
             val_n += 1
-        val = {f"validation_{k}": v / max(val_n, 1)
-               for k, v in val_sums.items()}
+        val = {f"validation_{k}": v for k, v in
+               _reduced_mean(val_sums, val_n, device).items()}
         val_loss = val.get("validation_total_loss", float("inf"))
         _sync(device)
         logger.log({"phase": "val", "epoch": epoch, **val,
                     "train_steps": n_steps,
                     "epoch_seconds": time.time() - t0})
-        print(f"[trainer] epoch {epoch}: validation_loss={val_loss:.4f} "
-              f"({time.time() - t0:.0f}s, {n_steps} steps)")
+        if dist.is_primary():
+            print(f"[trainer] epoch {epoch}: validation_loss={val_loss:.4f} "
+                  f"({time.time() - t0:.0f}s, {n_steps} steps)")
 
         if val_loss < best_val:
             best_val = val_loss
@@ -173,8 +211,9 @@ def fit(model, cfg: EgtrConfig, *, train_loader, val_loader, log_dir: str,
                   metrics={"validation_loss": val_loss})
 
         if epochs_no_improve >= patience:
-            print(f"[trainer] early stop at epoch {epoch} "
-                  f"(patience {patience})")
+            if dist.is_primary():
+                print(f"[trainer] early stop at epoch {epoch} "
+                      f"(patience {patience})")
             break
 
     return model
@@ -199,7 +238,8 @@ def two_phase_fit(model, cfg: EgtrConfig, *, log_dir: str,
     best = main_ckpt.best_step()
     if best is not None:
         params = main_ckpt.restore(best, map_location="cpu")["model"]
-        print(f"[trainer] finetune from best main epoch {best}")
+        if dist.is_primary():
+            print(f"[trainer] finetune from best main epoch {best}")
     else:
         warnings.warn(
             "two_phase_fit: no best main-phase checkpoint found (metrics "

@@ -13,6 +13,7 @@ and the train step make, and it ends with the result line. The kernels' own
 checks run only on the card.
 """
 
+import importlib
 import json
 import time
 from pathlib import Path
@@ -28,6 +29,7 @@ from egtr_tpu_torch.data import open_images as oi_mod
 from egtr_tpu_torch.data import transforms as transforms_mod
 from egtr_tpu_torch.data import visual_genome as vg_mod
 from egtr_tpu_torch.ops import msda, msda_cuda
+from egtr_tpu_torch.parallel import dryrun, launch
 from egtr_tpu_torch.scripts import perf_train_step
 
 torch.set_num_threads(1)
@@ -57,6 +59,55 @@ class HostEvent:
 
 @pytest.fixture
 def fake_card(monkeypatch, tmp_path):
+    install_fake_card(monkeypatch.setattr, tmp_path)
+    fake_ranks(monkeypatch, tmp_path)
+
+
+def fake_ranks(monkeypatch, tmp_path, **faults):
+    """The data-parallel phases' ranks are processes of their own: each one
+    installs the same fake before it runs its part (``faked_rank``, with
+    ``faults``)."""
+    real_spawn = launch.spawn
+
+    def spawn(target, nprocs, *, kwargs=None, **kw):
+        kw.setdefault("threads", 1)
+        return real_spawn(
+            "test_torch_chip_smoke:faked_rank", nprocs,
+            kwargs={"target": target, "kwargs": kwargs or {},
+                    "fake_dir": str(tmp_path), **faults},
+            path=[str(REPO / "tests")], **kw)
+
+    monkeypatch.setattr(chip_smoke, "spawn", spawn)
+    monkeypatch.setattr(dryrun, "spawn", spawn)
+
+
+def faked_rank(device, target, kwargs, fake_dir, fail_rank=None,
+               uncounted=None):
+    """A rank of a data-parallel phase on the faked card; rank
+    ``fail_rank`` exits with 3 before its part, and kernel ``uncounted``
+    takes its launches back."""
+    from egtr_tpu_torch.parallel import dist
+
+    install_fake_card(setattr, Path(fake_dir))
+    if dist.process_index() == fail_rank:
+        raise SystemExit(3)
+    if uncounted is not None:
+        real = getattr(msda_cuda, uncounted)
+
+        def kernel(*args, **kw):
+            out = real(*args, **kw)
+            msda_cuda.launches[uncounted] -= 1
+            return out
+
+        setattr(msda_cuda, uncounted, kernel)
+    module, name = target.split(":")
+    return getattr(importlib.import_module(module), name)(device=device,
+                                                          **kwargs)
+
+
+def install_fake_card(set_attr, tmp_path):
+    """The fake, through ``set_attr`` (``monkeypatch.setattr`` in the test
+    process, ``setattr`` in a rank's)."""
     def kernel(value, shapes, loc, aw, levels=None, out_dtype=None):
         msda_cuda.check_inputs(value, tuple(shapes), loc, aw)
         msda_cuda.launches["msda_fwd"] += 1
@@ -135,59 +186,59 @@ def fake_card(monkeypatch, tmp_path):
 
     bench_config = infer.bench_config
     train_config = perf_train_step.train_config
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "Event", HostEvent)
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "host")
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
-    monkeypatch.setattr(msda_cuda, "msda_fwd", kernel)
-    monkeypatch.setattr(msda_cuda, "msda_bwd_rows", bwd_rows)
-    monkeypatch.setattr(msda_cuda, "msda_bwd_value", bwd_value)
-    monkeypatch.setattr(msda_cuda, "msda_fwd_q", fwd_q)
-    monkeypatch.setattr(msda_cuda, "msda_fwd_win",
-                        fwd_win("msda_fwd_win", False))
-    monkeypatch.setattr(msda_cuda, "msda_fwd_win_pp",
-                        fwd_win("msda_fwd_win_pp", True))
-    monkeypatch.setattr(msda_cuda, "msda_fwd_bp", fwd_bp)
+    set_attr(torch.cuda, "is_available", lambda: True)
+    set_attr(torch.cuda, "Event", HostEvent)
+    set_attr(torch.cuda, "synchronize", lambda *a: None)
+    set_attr(torch.cuda, "get_device_name", lambda i=0: "host")
+    set_attr(torch.cuda, "device_count", lambda: 1)
+    set_attr(torch.cuda, "reset_peak_memory_stats", lambda *a: None)
+    set_attr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    set_attr(msda_cuda, "msda_fwd", kernel)
+    set_attr(msda_cuda, "msda_bwd_rows", bwd_rows)
+    set_attr(msda_cuda, "msda_bwd_value", bwd_value)
+    set_attr(msda_cuda, "msda_fwd_q", fwd_q)
+    set_attr(msda_cuda, "msda_fwd_win",
+             fwd_win("msda_fwd_win", False))
+    set_attr(msda_cuda, "msda_fwd_win_pp",
+             fwd_win("msda_fwd_win_pp", True))
+    set_attr(msda_cuda, "msda_fwd_bp", fwd_bp)
     for name, per_point in (("msda_bwd_win_rows", False),
                             ("msda_bwd_win_rows_pp", True),
                             ("msda_bwd_win_value", False),
                             ("msda_bwd_win_value_pp", True)):
         part = "value" if "value" in name else "rows"
-        monkeypatch.setattr(msda_cuda, name, bwd_win(name, per_point, part))
+        set_attr(msda_cuda, name, bwd_win(name, per_point, part))
     # the dispatch takes the (faked) kernels for these CPU tensors, as it
     # does for CUDA tensors on the card
-    monkeypatch.setattr(msda, "_takes_kernels",
-                        lambda impl, value: impl in ("auto", "pallas"))
-    monkeypatch.setattr(msda_cuda, "build", lambda: {
+    set_attr(msda, "_takes_kernels",
+             lambda impl, value: impl in ("auto", "pallas"))
+    set_attr(msda_cuda, "build", lambda: {
         name: tmp_path / f"lib{name}.so" for name in msda_cuda.sources()})
-    monkeypatch.setattr(chip_smoke, "card_line", lambda: "Host, 0.00 W")
-    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
-    monkeypatch.setattr(chip_smoke, "SIDE_BY_SIDE_ROUNDS", 2)
+    set_attr(chip_smoke, "card_line", lambda: "Host, 0.00 W")
+    set_attr(chip_smoke, "DEVICE", "cpu")
+    set_attr(chip_smoke, "SIDE_BY_SIDE_ROUNDS", 2)
     # one call each; a positive time, as a card's, for the rates
-    monkeypatch.setattr(chip_smoke, "cuda_ms",
-                        lambda fn, iters, warmup=0: (fn(), 1.0)[1])
-    monkeypatch.setattr(chip_smoke, "graph_ms", lambda fn, *a: (fn(), 1.0)[1])
-    monkeypatch.setattr(infer, "BUCKET_HW", (272, 96))
-    monkeypatch.setattr(infer, "bench_config",
-                        lambda **kw: bench_config(**{**TINY, **kw}))
-    monkeypatch.setattr(infer, "resolve_device",
-                        lambda device=None: torch.device("cpu"))
-    monkeypatch.setattr(perf_train_step, "resolve_device",
-                        lambda device=None: torch.device("cpu"))
-    monkeypatch.setattr(perf_train_step, "BUCKET_HW", (64, 96))
-    monkeypatch.setattr(
+    set_attr(chip_smoke, "cuda_ms",
+             lambda fn, iters, warmup=0: (fn(), 1.0)[1])
+    set_attr(chip_smoke, "graph_ms", lambda fn, *a: (fn(), 1.0)[1])
+    set_attr(infer, "BUCKET_HW", (272, 96))
+    set_attr(infer, "bench_config",
+             lambda **kw: bench_config(**{**TINY, **kw}))
+    set_attr(infer, "resolve_device",
+             lambda device=None: torch.device("cpu"))
+    set_attr(perf_train_step, "resolve_device",
+             lambda device=None: torch.device("cpu"))
+    set_attr(perf_train_step, "BUCKET_HW", (64, 96))
+    set_attr(
         perf_train_step, "train_config",
         lambda **kw: train_config(**{**perf_train_step.TINY, **kw}))
     adapt_config = perf_train_step.adapt_config
-    monkeypatch.setattr(
+    set_attr(
         perf_train_step, "adapt_config",
         lambda **kw: adapt_config(**{**perf_train_step.TINY, **kw}))
-    monkeypatch.setattr(perf_train_step, "ADAPT_HW", (144, 96))
-    monkeypatch.setattr(perf_train_step, "ADAPT_BATCH", 1)
-    monkeypatch.setattr(chip_smoke, "ADAPT_STEPS", 1)
+    set_attr(perf_train_step, "ADAPT_HW", (144, 96))
+    set_attr(perf_train_step, "ADAPT_BATCH", 1)
+    set_attr(chip_smoke, "ADAPT_STEPS", 1)
     # the driver: 2+1+1 synthetic images of 144x96 that no resize changes
     # (the DETR scales and the test size set to their short side), one
     # bucket, a 2+2-layer model of the driver's bf16, 12 queries; batch 1
@@ -206,42 +257,48 @@ def fake_card(monkeypatch, tmp_path):
         def __init__(self, *a, size=800, max_size=1333, **kw):
             super().__init__(*a, size=96, max_size=144, **kw)
 
-    monkeypatch.setattr(config_mod, "EgtrConfig", TinyConfig)
-    monkeypatch.setattr(vg_mod, "VGDataset", SmallVG)
-    monkeypatch.setattr(oi_mod, "OIDataset", SmallOI)
+    set_attr(config_mod, "EgtrConfig", TinyConfig)
+    set_attr(vg_mod, "VGDataset", SmallVG)
+    set_attr(oi_mod, "OIDataset", SmallOI)
     # the same for Open Images: 2+1+1 images of 144x96; two stages with
     # 100 of the train bucket's 128 tokens as proposals (two steps: the
     # heads' zeroed last layers keep the layers before them still in the
     # first); one remat step and one evaluator replay each
-    monkeypatch.setattr(chip_smoke, "SYNTH_OI", dict(
+    set_attr(chip_smoke, "SYNTH_OI", dict(
         n_train=2, n_val=1, n_test=1, height=144, width=96))
-    monkeypatch.setattr(chip_smoke, "TWO_STAGE", dict(
+    set_attr(chip_smoke, "TWO_STAGE", dict(
         chip_smoke.TWO_STAGE, two_stage_num_proposals=100))
-    monkeypatch.setattr(chip_smoke, "REMAT_STEPS", 1)
-    monkeypatch.setattr(chip_smoke, "OI_EVAL_ROUNDS", 1)
-    monkeypatch.setattr(transforms_mod, "DETR_TRAIN_SCALES", (96,))
+    set_attr(chip_smoke, "REMAT_STEPS", 1)
+    set_attr(chip_smoke, "OI_EVAL_ROUNDS", 1)
+    set_attr(transforms_mod, "DETR_TRAIN_SCALES", (96,))
     # the pretraining driver's crops may turn an image on its side
-    monkeypatch.setattr(loader_mod, "default_buckets",
-                        lambda max_size=1333: ((144, 96), (96, 144),
-                                               (144, 144)))
-    monkeypatch.setattr(chip_smoke, "SYNTH_VG", dict(
+    set_attr(loader_mod, "default_buckets",
+             lambda max_size=1333: ((144, 96), (96, 144),
+                                    (144, 144)))
+    set_attr(chip_smoke, "SYNTH_VG", dict(
         n_train=2, n_val=1, n_test=1, height=144, width=96))
     args = list(chip_smoke.DRIVER_ARGS)
     for flag, value in (("--batch_size", "1"), ("--num_workers", "1")):
         args[args.index(flag) + 1] = value
-    monkeypatch.setattr(chip_smoke, "DRIVER_ARGS", args + [
+    set_attr(chip_smoke, "DRIVER_ARGS", args + [
         "--num_queries", "12", "--max_gt_boxes", "8", "--max_gt_rels", "16"])
     # the pretraining driver: batch 1 x accum 2, one step per phase
     args = list(chip_smoke.PRETRAIN_ARGS)
     for flag, value in (("--batch_size", "1"), ("--num_workers", "1")):
         args[args.index(flag) + 1] = value
-    monkeypatch.setattr(chip_smoke, "PRETRAIN_ARGS", args + [
+    set_attr(chip_smoke, "PRETRAIN_ARGS", args + [
         "--num_queries", "12", "--max_gt_boxes", "8"])
     # the float32 phase turns TF32 off; restore both flags afterwards
-    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32",
-                        torch.backends.cudnn.allow_tf32)
-    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32",
-                        torch.backends.cuda.matmul.allow_tf32)
+    set_attr(torch.backends.cudnn, "allow_tf32",
+             torch.backends.cudnn.allow_tf32)
+    set_attr(torch.backends.cuda.matmul, "allow_tf32",
+             torch.backends.cuda.matmul.allow_tf32)
+    # the data-parallel phases: one bf16 round a rank; the adaptation's two
+    # ranks x two microbatches of one image; the dry run in one rank, (d)
+    # (tests/test_torch_parallel.py runs it in two on the CPU)
+    set_attr(chip_smoke, "DDP_STEPS", 1)
+    set_attr(chip_smoke, "DDP_ADAPT_GLOBAL_BATCH", 4)
+    set_attr(chip_smoke, "DRYRUN_WORLDS", (1,))
 
 
 def test_chip_smoke_runs_its_phases(fake_card, capsys):
@@ -516,8 +573,32 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
                   "images with relations bit-equal to phase 17's: True",
                   "--infer_only", "host_rtt_ms",
                   "pretrain (pretrain_detr.main",
-                  "detector leaves loaded"):
+                  "detector leaves loaded",
+                  "ddp (c): the drivers on 2 ranks (gloo)",
+                  "one process's evaluate_egtr",
+                  "ddp (a): 2 ranks (gloo, CUDA tensors) on one card",
+                  "ranks' parameters bit-equal",
+                  "all-reduce of", "ddp (b): 2 ranks x accum 2 x window 16",
+                  "ddp (d): dryrun_multichip(1) on gloo"):
         assert phase in out, phase
+    # the data-parallel paths' launches in each of their ranks: 2+2 layers,
+    # (a) one float32 step and three bf16 steps; (b) two microbatches, one
+    # banded level of the 144x96 adaptation image
+    for kernel in (fwd, rows, value):
+        assert kernel["launches_ddp_per_rank"] == [4, 4]
+        # a warm-up and a step with and one without DDP's reduction
+        assert kernel["launches_ddp_bf16_per_rank"] == [3 * 4, 3 * 4]
+        assert kernel["launches_ddp_adaptation_per_rank"] == [8, 8]
+        assert kernel["launches_ddp_dryrun_world_1_per_rank"] == [4]
+    for kernel in (win_pp, bwd_win[1], bwd_win[3]):
+        assert kernel["launches_ddp_adaptation_per_rank"] == [4, 4]
+    # (c) the drivers: no train step (2 images, global batch 4), a
+    # validation batch a phase and one test image a rank
+    assert fwd["launches_ddp_train_per_rank"] == [3 * 4, 3 * 4]
+    assert fwd["launches_ddp_evaluate_per_rank"] == [4, 4]
+    parallel = result["data_parallel"]
+    assert parallel["ddp"]["buckets"] >= 1
+    assert set(parallel["dryruns"]) == {"world_1"}
 
 
 def test_chip_smoke_fails_when_a_kernel_is_bypassed(fake_card, monkeypatch):
@@ -534,6 +615,27 @@ def test_chip_smoke_fails_when_a_kernel_is_bypassed(fake_card, monkeypatch):
     # the int8 op's forward + backward is the first phase to run it
     with pytest.raises(SystemExit, match="expected .*'msda_bwd_value': 1"):
         chip_smoke.main()
+
+
+def test_ddp_phase_fails_when_a_rank_fails(fake_card, monkeypatch,
+                                           tmp_path):
+    """One rank that exits non-zero fails the phase and ends the other."""
+    monkeypatch.setattr(chip_smoke, "DRYRUN_WORLDS", (2,))
+    fake_ranks(monkeypatch, tmp_path, fail_rank=1)
+    with pytest.raises(RuntimeError,
+                       match=r"(?s)Root Cause.*rank +: 1 .*exitcode +: 3"):
+        chip_smoke.check_dryruns()
+
+
+@pytest.mark.parametrize("phase,kernel", [
+    ("check_adapt_accum", "msda_bwd_win_value_pp"),
+    ("check_dryruns", "msda_fwd")])
+def test_ddp_phase_fails_when_a_rank_counts_no_launch(
+        fake_card, monkeypatch, tmp_path, phase, kernel):
+    """The ranks' launch counts are the proof that they ran the kernels."""
+    fake_ranks(monkeypatch, tmp_path, uncounted=kernel)
+    with pytest.raises(SystemExit, match=f"'{kernel}': 0"):
+        getattr(chip_smoke, phase)()
 
 
 def test_chip_smoke_fails_when_the_served_path_bypasses_a_kernel(

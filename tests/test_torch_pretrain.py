@@ -11,7 +11,8 @@ package's detection step, and the pretraining driver
   ``train_egtr.main --pretrained`` on its artifact: every detector leaf comes
   from the artifact, and the freshly initialized paths are the relation
   head's and the frequency-bias tables'.
-- The options with no counterpart on one device are refused.
+- ``--dp`` other than the world size and ``--mp`` other than 1 are
+  refused.
 """
 
 import json
@@ -159,11 +160,15 @@ def test_pretrain_then_train_egtr_on_cpu(tmp_path, tiny_driver,  # noqa: F811
 
 # "--dataset open_images" and "--use_remat true" were refused until the
 # port took them; under their old ids they now reach the fit with the
-# option in effect, while --dp and --mp other than 1 stay refused
+# option in effect. --dp and --mp were refused whenever other than 1 until
+# the port trained data-parallel; under their old ids, --dp other than the
+# world size (one process here) and --mp other than 1 stay refused
 @pytest.mark.parametrize("argv,error", [
     pytest.param(["--dataset", "open_images"], None, id="argv0-open_images"),
-    (["--dp", "2"], "one process on one device"),
-    (["--mp", "2"], "one process on one device"),
+    pytest.param(["--dp", "2"], r"dp\(2\) \* mp\(1\) != world size \(1\)",
+                 id="argv1-one process on one device"),
+    pytest.param(["--mp", "2"], "tensor parallelism of the relation head",
+                 id="argv2-one process on one device"),
     pytest.param(["--use_remat", "true"], None, id="argv3-use_remat"),
 ])
 def test_pretrain_refusals(tmp_path, tiny_driver, argv, error,  # noqa: F811
@@ -186,7 +191,7 @@ def test_pretrain_refusals(tmp_path, tiny_driver, argv, error,  # noqa: F811
     argv = ["--data_path", data, "--output_path", str(tmp_path / "run"),
             "--device", "cpu", *argv]
     if error is not None:
-        with pytest.raises(NotImplementedError, match=error):
+        with pytest.raises(SystemExit, match=error):
             pretrain_detr.main(argv)
         return
     with pytest.raises(ReachedFit) as info:
