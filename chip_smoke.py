@@ -141,7 +141,25 @@ and no result line. In order it:
    ``merge_pretrained`` of the exported artifact into a fresh ``EgtrModel``
    init takes every detector leaf from the artifact and keeps the relation
    head's leaves and the frequency-bias tables fresh; prints its seconds;
-20. (after the Open Images, two-stage, remat and approximate top-k phases)
+20. runs the trained-offsets experiment (``scripts.exp_trained_offsets``)
+   in-process on its own synthetic VG set (8/2/2 images at 600x1000: one
+   608x1008 bucket) at full width (ResNet-50, d_model 256, 6+6 layers, 200
+   queries, the set's 6 object and 4 predicate labels, bf16, batch 4):
+   ``train`` (exact, a checkpoint a step) on a clock budget of seconds, ``train
+   --resume`` (the step counter goes on; a resume with a drifted flag is
+   refused by name), the adaptation ``--init_from`` the exact artifact
+   with window 16 and one band per point, and its ``band="tile"``
+   sibling; each command's launches equal step_counts x the steps its
+   state directory records, and every loss is finite; then ``sweep
+   --windows 0,16,16p,16pi,8p --int8`` on the adaptation's artifact
+   (forward_counts per variant: K1, K4, K5, K6), the same command again
+   (every variant skipped, no launch), R@K in [0, 1] and finite deltas to
+   the exact outputs; ``offsets`` (K1 12), and the clamp fractions of the
+   same captured offsets on the card and on the CPU within
+   ``EXP_CLAMP_ATOL``; and ``scripts.exp_window_deltas.main`` at 608x1008
+   (K1, K5, K6); prints each command's seconds and ms per step from the
+   script's clock;
+21. (after the Open Images, two-stage, remat and approximate top-k phases)
    runs the data-parallel path, its ranks processes that torchrun starts
    (``parallel.launch.spawn``, a timeout on each run), two of them sharing
    the card under gloo (NCCL refuses two ranks on one device); torchrun
@@ -174,7 +192,7 @@ and no result line. In order it:
    exact. (d) ``dryrun_multichip(1)``, whose one rank runs NCCL on the
    card (a step and ``all_gather_objects``), and (e)
    ``dryrun_multichip(2)`` under gloo; prints each phase's seconds;
-21. prints a ``kernels`` JSON line (with each kernel's launches per rank on
+22. prints a ``kernels`` JSON line (with each kernel's launches per rank on
    the data-parallel paths), then ``{"ok": true, "device": ...}`` last.
 
 It exits nonzero without a result where CUDA is absent.
@@ -289,6 +307,17 @@ SG_EVAL_ROUNDS = 20
 # the ranks of each image's own top-k that a planted ground truth holds:
 # six triplets
 PLANTED_RANKS = (0, 10, 20, 30, 40, 50)
+# the trained-offsets experiment (scripts/exp_trained_offsets): its own
+# 8/2/2 synthetic VG set at 600x1000 (one 608x1008 bucket), the script's
+# full-width bf16 model (ResNet-50, d_model 256, 6+6 layers, 200 queries) at
+# batch 4; each train command's clock budget in seconds (the clock starts
+# after the first step); the sweep's variants
+SYNTH_EXP = dict(n_train=8, n_val=2, n_test=2, height=600, width=1000)
+EXP_ARGS = ["--size", "600", "--max_size", "1000", "--batch", "4"]
+EXP_TRAIN_SECONDS = {"exact": 2, "resume": 1, "point": 2, "tile": 1}
+EXP_SWEEP = ["--windows", "0,16,16p,16pi,8p", "--int8"]
+# the clamp fractions on the card against the CPU on the same offsets
+EXP_CLAMP_ATOL = 1e-6
 # Open Images V6 through the three drivers: a synthetic set of the paper's
 # label spaces (601 objects, 30 predicates), the drivers' full width
 SYNTH_OI = dict(n_train=8, n_val=2, n_test=2, height=600, width=1000)
@@ -2055,6 +2084,214 @@ def drive_pretrain(workdir):
             "test": test, "fresh_paths": len(initialized)}
 
 
+def exp_command(argv):
+    """One command of the experiment script, in-process, with its launches
+    counted alone: (its result, seconds, launches)."""
+    from egtr_tpu_torch.scripts import exp_trained_offsets as exp
+
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    result = exp.main(argv)
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0, kernel_counts()
+
+
+def exp_sweep(data, out, bucket):
+    """The sweep over EXP_SWEEP on ``out``'s artifact, then the same
+    command again: per variant forward_counts x the test batches; the
+    rerun skips every variant and launches nothing."""
+    from egtr_tpu_torch.scripts import exp_trained_offsets as exp
+    from egtr_tpu_torch.train.checkpoint import load_pretrained
+
+    argv = ["sweep", "--data_path", data, "--out", out, "--device", DEVICE,
+            *EXP_ARGS, *EXP_SWEEP]
+    args = exp.parse_args(argv)
+    cfg, _ = load_pretrained(f"{out}/artifact")
+    shapes = level_shapes(bucket, cfg.num_feature_levels)
+    batches = -(-SYNTH_EXP["n_test"] // args.batch)
+    variants = exp.parse_windows(args.windows, args.int8)
+    expect = dict.fromkeys(msda_cuda.KERNELS, 0)
+    for win, band, int8 in variants:
+        per_forward = forward_counts(cfg.replace(
+            msda_window=win, msda_band=band, msda_int8=int8), shapes)
+        for name, n in per_forward.items():
+            expect[name] += n * batches
+    report, seconds, counts = exp_command(argv)
+    again, seconds_again, counts_again = exp_command(argv)
+    keys = [exp.variant_key(*v) for v in variants]
+    bad = []
+    if counts != expect:
+        bad.append(f"launches {counts}, expected {expect}")
+    if any(counts_again.values()) or again != report:
+        bad.append(f"the rerun launched {counts_again} or changed the "
+                   "report: it must skip every variant")
+    recalls = {k: [report.get(k, {}).get(m) for m in (
+        "R@20", "R@50", "R@100", "mR@20", "mR@50", "mR@100")] for k in keys}
+    if not all(v is not None and 0.0 <= v <= 1.0
+               for row in recalls.values() for v in row):
+        bad.append(f"R@K outside [0, 1]: {recalls}")
+    deltas = {k: report.get(f"{k}_vs_exact_outputs") for k in keys[1:]}
+    if not all(d and sorted(d) == sorted(exp.KEYS) and all(
+            math.isfinite(v) for row in d.values() for v in row.values())
+            for d in deltas.values()):
+        bad.append(f"the deltas to the exact outputs: {deltas}")
+    print(f"experiment sweep {' '.join(EXP_SWEEP)} ({batches} batch of "
+          f"{args.batch} a variant): {seconds:.1f} s, rerun "
+          f"{seconds_again:.1f} s (launches {counts_again}); launches "
+          f"{ {k: v for k, v in counts.items() if v} } (expected "
+          f"{ {k: v for k, v in expect.items() if v} }); R@50 "
+          f"{ {k: r[1] for k, r in recalls.items()} }; logits max abs delta "
+          f"{ {k: d['logits']['max_abs'] for k, d in deltas.items() if d} }",
+          flush=True)
+    if bad:
+        raise SystemExit(f"experiment sweep: {bad}")
+    return {"counts": counts, "seconds": seconds,
+            "rerun_seconds": seconds_again,
+            "recall": {k: dict(zip(("R@20", "R@50", "R@100", "mR@20",
+                                    "mR@50", "mR@100"), v))
+                       for k, v in recalls.items()},
+            "vs_exact_outputs": deltas}
+
+
+def drive_experiment(workdir):
+    """The trained-offsets experiment's main path, in-process, through
+    ``exp_trained_offsets.main``: train (exact), train --resume (and a
+    resume with a drifted flag, refused), the adaptation (window 16, one
+    band per point) and its tile sibling from the exact artifact, the sweep
+    twice, offsets (the clamp fractions also on the CPU), and
+    ``exp_window_deltas.main``; each command's launches against
+    step_counts x the steps its state directory records, or
+    forward_counts x its forwards."""
+    from egtr_tpu_torch.scripts import exp_trained_offsets as exp
+    from egtr_tpu_torch.scripts import exp_window_deltas
+    from egtr_tpu_torch.scripts.make_synth_vg import make_synth_vg
+    from egtr_tpu_torch.train.checkpoint import (CheckpointManager,
+                                                 load_pretrained)
+
+    data, out = f"{workdir}/exp_vg", f"{workdir}/exp"
+    make_synth_vg(data, seed=0, **SYNTH_EXP)
+    common = ["--data_path", data, "--device", DEVICE, *EXP_ARGS]
+    bucket = exp._bucket(exp.parse_args(["train", "--out", out, *common]))[0]
+    runs, bad = {}, []
+    commands = (
+        ("exact", out, ["--ckpt_every", "1"]),
+        ("resume", out, ["--resume"]),
+        ("point", f"{out}_w16p", ["--init_from", f"{out}/artifact",
+                                  "--window", "16", "--band", "point"]),
+        ("tile", f"{out}_w16", ["--init_from", f"{out}/artifact",
+                                "--window", "16"]))
+    for label, run_out, extra in commands:
+        result, seconds, counts = exp_command([
+            "train", "--out", run_out, *common, "--train_seconds",
+            str(EXP_TRAIN_SECONDS[label]), *extra])
+        losses = result["losses"]
+        cfg, _ = load_pretrained(f"{run_out}/artifact")
+        state = CheckpointManager(f"{run_out}/state", max_to_keep=2)
+        steps = state.latest_step() - result["start_step"]
+        expect = {k: v * steps for k, v in step_counts(
+            cfg, level_shapes(bucket, cfg.num_feature_levels)).items()}
+        ms = (1e3 * result["clock_seconds"] / (steps - 1)
+              if steps > 1 else None)
+        runs[label] = {"seconds": seconds, "steps": steps,
+                       "start_step": result["start_step"],
+                       "ms_per_step_clock": ms, "losses": losses,
+                       "counts": counts}
+        print(f"experiment train {label} (window {cfg.msda_window}, band "
+              f"{cfg.msda_band}): {seconds:.1f} s, steps "
+              f"{result['start_step']} -> {result['step']}, ms per step "
+              f"from the clock {ms}; launches "
+              f"{ {k: v for k, v in counts.items() if v} } (expected "
+              f"{ {k: v for k, v in expect.items() if v} }); losses "
+              f"{[round(x, 4) for x in losses]}", flush=True)
+        if counts != expect:
+            bad.append(f"train {label}: launches {counts}, expected {expect}")
+        if steps < 1 or result["step"] != state.latest_step() or len(
+                losses) != steps or not all(map(math.isfinite, losses)):
+            bad.append(f"train {label}: {steps} steps, state at "
+                       f"{state.all_steps()}, losses {losses}")
+        if label == "resume" and result["start_step"] != (
+                runs["exact"]["start_step"] + runs["exact"]["steps"]):
+            bad.append(f"the resume started at step {result['start_step']}")
+    # a resume whose flags build another config is refused by name
+    refusal = None
+    try:
+        exp_command(["train", "--out", out, *common, "--resume",
+                     "--window", "8"])
+    except SystemExit as e:
+        refusal = str(e)
+    print(f"experiment train --resume --window 8: refused: {refusal}",
+          flush=True)
+    if not refusal or "['msda_window']" not in refusal:
+        bad.append(f"a drifted resume was not refused by name: {refusal}")
+    if bad:
+        raise SystemExit(f"experiment: {bad}")
+
+    sweep = exp_sweep(data, f"{out}_w16p", bucket)
+    result, seconds, counts = exp_command(
+        ["offsets", "--out", f"{out}_w16p", *common])
+    stats = result["stats"]
+    cfg, _ = load_pretrained(f"{out}_w16p/artifact")
+    shapes = level_shapes(bucket, cfg.num_feature_levels)
+    expect = forward_counts(cfg.replace(msda_window=0), shapes)
+    runs["offsets"] = {"seconds": seconds, "counts": counts}
+    # the clamp fractions of the command's captured offsets, on the card
+    # and again on the CPU
+    card = {k: v for k, v in stats.items() if k.startswith("clamp_frac_")}
+    host = exp._clamp_fracs(
+        [o.cpu() for o in result["offsets"]],
+        [a.cpu() for a in result["weights"]], shapes,
+        cfg.d_model // cfg.encoder_attention_heads)
+    clamp_err = max(abs(card[k] - host[k]) for k in card)
+    print(f"experiment offsets: {seconds:.1f} s; launches "
+          f"{ {k: v for k, v in counts.items() if v} } (expected "
+          f"{ {k: v for k, v in expect.items() if v} }); stats {stats}; "
+          f"clamp fractions on the card {card}, largest difference to the "
+          f"CPU's {clamp_err:.3e} (limit {EXP_CLAMP_ATOL})", flush=True)
+    if counts != expect:
+        bad.append(f"offsets: launches {counts}, expected {expect}")
+    if not all(math.isfinite(v) for v in stats.values()) or not card:
+        bad.append(f"offsets: {stats}")
+    if clamp_err > EXP_CLAMP_ATOL:
+        bad.append(f"clamp fractions: card {card}, CPU {host}")
+
+    # the window-deltas script at the FPS-protocol shape
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    deltas = exp_window_deltas.main([f"{workdir}/win_deltas.json",
+                                     "--device", DEVICE])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernel_counts()
+    base = exp_window_deltas.base_config()
+    shapes = level_shapes(exp_window_deltas.HW, base.num_feature_levels)
+    expect = dict.fromkeys(msda_cuda.KERNELS, 0)
+    for kw in [{}] + [kw for _, kw in exp_window_deltas.VARIANTS]:
+        for name, n in forward_counts(base.replace(**kw), shapes).items():
+            expect[name] += n
+    runs["window_deltas"] = {"seconds": seconds, "counts": counts}
+    print(f"experiment window deltas ({exp_window_deltas.HW[0]}x"
+          f"{exp_window_deltas.HW[1]}): {seconds:.1f} s; launches "
+          f"{ {k: v for k, v in counts.items() if v} } (expected "
+          f"{ {k: v for k, v in expect.items() if v} }); {deltas}",
+          flush=True)
+    if counts != expect:
+        bad.append(f"window deltas: launches {counts}, expected {expect}")
+    if sorted(deltas) != sorted(n for n, _ in exp_window_deltas.VARIANTS) \
+            or not all(math.isfinite(v) for row in deltas.values()
+                       for d in row.values() for v in d.values()):
+        bad.append(f"window deltas: {deltas}")
+    if bad:
+        raise SystemExit(f"experiment: {bad}")
+    total = dict.fromkeys(msda_cuda.KERNELS, 0)
+    for counts in [r["counts"] for r in runs.values()] + [sweep["counts"]]:
+        for name, n in counts.items():
+            total[name] += n
+    return {"counts": total, "runs": runs, "sweep": sweep,
+            "offset_stats": stats, "clamp_fracs_card": card,
+            "clamp_fracs_max_abs_diff_cpu": clamp_err,
+            "window_deltas": deltas}
+
+
 def write_synth_oi(out, n_train, n_val, n_test, height, width, seed=0):
     """A synthetic Open Images V6 set in the reference's layout
     (data/open_image.py:31-158): ``annotations/categories_dict.json`` with
@@ -3095,6 +3332,8 @@ def main() -> int:
         # the other two entry points on phase 17's set and artifact
         evaluate = drive_evaluate(workdir, driver)
         pretrain = drive_pretrain(workdir)
+        # the trained-offsets experiment and the window-deltas script
+        experiment = drive_experiment(workdir)
         # Open Images V6 through the same three entry points
         open_images = drive_oi(workdir)
         # (c) the three drivers on two ranks sharing the card
@@ -3113,7 +3352,8 @@ def main() -> int:
     ddp_dryruns = check_dryruns()
     oi_runs = {label: run["counts"]
                for label, run in open_images["runs"].items()}
-    new_paths = {"oi_train": oi_runs["train"],
+    new_paths = {"experiment": experiment["counts"],
+                 "oi_train": oi_runs["train"],
                  "oi_evaluate": oi_runs["evaluate"],
                  "oi_pretrain": oi_runs["pretrain"],
                  "two_stage_serving": two_stage["serve_counts"],
@@ -3138,7 +3378,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "egtr_tpu_torch/csrc/msda_fwd_win.cu",
             "replaces": f"egtr_tpu/ops/msda_pallas.py:{line}",
-            "launches": launches,
+            "launches": launches, **new_launches(name),
             "max_abs_err": max(r["max_abs_err"]
                                for r in [*mine.values(), *test_bucket]),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -3167,7 +3407,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "egtr_tpu_torch/csrc/msda_bwd_win.cu",
             "replaces": f"egtr_tpu/ops/msda_pallas.py:{line}",
-            "launches": launches,
+            "launches": launches, **new_launches(name),
             "max_abs_err": max(main["max_abs_err"][k] for k in keys),
             "ms": main[f"{kind}_ms"],
             # the plain version computes rows and value in one call
@@ -3359,6 +3599,7 @@ def main() -> int:
         "launches_serving_served": served_counts["msda_fwd_q"],
         "launches_evaluate_served": evaluated["served"]["msda_fwd_q"],
         "launches_adaptation_int8": adapt_int8["counts"]["msda_fwd_q"],
+        **new_launches("msda_fwd_q"),
         "max_abs_err": max(r["max_abs_err"]
                            for r in q_rows + evaluate["q_rows"]),
         "ms": q_row["ms"],
@@ -3416,6 +3657,13 @@ def main() -> int:
         "evaluate_test_bucket": evaluate["bucket"],
         "sg_eval_host_ms": evaluate["sg_eval"],
         "pretrain": {k: v for k, v in pretrain.items() if k != "counts"},
+        "experiment": {
+            **{k: v for k, v in experiment.items() if k != "counts"},
+            "runs": {label: {k: v for k, v in run.items()
+                             if k != "counts"}
+                     for label, run in experiment["runs"].items()},
+            "sweep": {k: v for k, v in experiment["sweep"].items()
+                      if k != "counts"}},
         "open_images": open_images,
         "two_stage": {"train": {k: v for k, v in two_stage["train"].items()
                                 if k != "counts"},

@@ -7,7 +7,9 @@ a 272x96 image (levels of 34, 17, 9 and 5 rows, so that a window of 16 bands
 two levels and leaves two exact, as at 608x1008), the adaptation's bucket by
 a 144x96 image (levels of 18, 9, 5 and 3 rows: one banded; no level one
 pixel wide, where PyTorch's bfloat16 convolution on the CPU reads memory it
-did not write) and 2+2-layer models. What this checks is the script itself:
+did not write), the experiment's by 144x224 landscape images (levels of
+18, 9, 5 and 3 rows: a window of 16 bands one, a window of 8 two) and
+2+2-layer models. What this checks is the script itself:
 its phases run in order, the launch counts it demands match what the model
 and the train step make, and it ends with the result line. The kernels' own
 checks run only on the card.
@@ -15,6 +17,7 @@ checks run only on the card.
 
 import importlib
 import json
+import shutil
 import time
 from pathlib import Path
 
@@ -30,7 +33,7 @@ from egtr_tpu_torch.data import transforms as transforms_mod
 from egtr_tpu_torch.data import visual_genome as vg_mod
 from egtr_tpu_torch.ops import msda, msda_cuda
 from egtr_tpu_torch.parallel import dryrun, launch
-from egtr_tpu_torch.scripts import perf_train_step
+from egtr_tpu_torch.scripts import exp_window_deltas, perf_train_step
 
 torch.set_num_threads(1)
 
@@ -41,6 +44,16 @@ TINY = dict(d_model=64, encoder_layers=2, decoder_layers=2,
             num_labels=7, num_rel_labels=5)
 DRIVER_TINY = dict(d_model=64, encoder_layers=2, decoder_layers=2,
                    encoder_ffn_dim=128, decoder_ffn_dim=128)
+# the experiment phase's image size and its --size / --max_size
+EXP_SIZE = (144, 224)
+
+
+@pytest.fixture(autouse=True)
+def free_disk(tmp_path):
+    """A test's checkpoints and artifacts hold a ResNet-50 backbone's
+    weights (and moments), hundreds of MB: remove them after it."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 class HostEvent:
@@ -247,7 +260,9 @@ def install_fake_card(set_attr, tmp_path):
 
     class SmallVG(real_ds):
         def __init__(self, *a, size=800, max_size=1333, **kw):
-            super().__init__(*a, size=96, max_size=144, **kw)
+            if (size, max_size) != EXP_SIZE:  # the experiment's pass
+                size, max_size = 96, 144
+            super().__init__(*a, size=size, max_size=max_size, **kw)
 
     class TinyConfig(real_cfg):
         def __init__(self, **kw):
@@ -277,6 +292,19 @@ def install_fake_card(set_attr, tmp_path):
                                     (144, 144)))
     set_attr(chip_smoke, "SYNTH_VG", dict(
         n_train=2, n_val=1, n_test=1, height=144, width=96))
+    # the experiment: 2+1+1 landscape images of 144x224, its one bucket
+    # (levels of 18, 9, 5 and 3 rows: a window of 16 bands one, a window of
+    # 8 two), batch 1, one step a train command (a budget of 0 seconds), the
+    # sweep's exact and served variants; the window deltas at that size
+    set_attr(chip_smoke, "SYNTH_EXP", dict(
+        n_train=2, n_val=1, n_test=1, height=EXP_SIZE[0], width=EXP_SIZE[1]))
+    set_attr(chip_smoke, "EXP_ARGS", [
+        "--size", str(EXP_SIZE[0]), "--max_size", str(EXP_SIZE[1]),
+        "--batch", "1"])
+    set_attr(chip_smoke, "EXP_TRAIN_SECONDS", dict.fromkeys(
+        chip_smoke.EXP_TRAIN_SECONDS, 0))
+    set_attr(chip_smoke, "EXP_SWEEP", ["--windows", "0,16p,16pi"])
+    set_attr(exp_window_deltas, "HW", EXP_SIZE)
     args = list(chip_smoke.DRIVER_ARGS)
     for flag, value in (("--batch_size", "1"), ("--num_workers", "1")):
         args[args.index(flag) + 1] = value
@@ -525,6 +553,31 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
     assert matching["planted"]["max_recall"] == 1.0
     pretrain = result["pretrain"]
     assert all(len(p["step_ms"]) == 1 for p in pretrain["phases"].values())
+    # the experiment (144x224, 2+2 layers, batch 1, one step a train
+    # command): K1 4 a step (exact levels and decoder), 4 in the offsets'
+    # forward; the sweep's three variants K1 4 + 4, K6 2 + 2, K4 4; the
+    # window deltas' four forwards K1 16, K5 2, K6 2 + 4 (win8_point's two
+    # banded levels)
+    experiment = result["experiment"]
+    assert set(experiment["runs"]) == {"exact", "resume", "point", "tile",
+                                       "offsets", "window_deltas"}
+    assert [experiment["runs"][k]["start_step"] for k in (
+        "exact", "resume", "point", "tile")] == [0, 1, 0, 0]
+    assert all(experiment["runs"][k]["steps"] == 1 for k in (
+        "exact", "resume", "point", "tile"))
+    assert fwd["launches_experiment"] == 4 * 4 + 8 + 4 + 16
+    assert rows["launches_experiment"] == value["launches_experiment"] == 16
+    assert fwd_q["launches_experiment"] == 4
+    assert win["launches_experiment"] == 2 + 2
+    assert win_pp["launches_experiment"] == 2 + 4 + 6
+    assert [k["launches_experiment"] for k in bwd_win] == [2, 2, 2, 2]
+    assert set(experiment["sweep"]["recall"]) == {
+        "win0", "win16_pp", "win16_pp_int8"}
+    assert all(len(experiment["runs"][k]["losses"]) == 1 for k in (
+        "exact", "resume", "point", "tile"))
+    assert experiment["clamp_fracs_max_abs_diff_cpu"] <= (
+        chip_smoke.EXP_CLAMP_ATOL)
+    assert experiment["clamp_fracs_card"]["clamp_frac_win16_point"] > 0
     assert "coco/AP" in pretrain["test"] and pretrain["fresh_paths"] > 0
     out = "\n".join(lines)
     for phase in ("kernel build:", "msda_fwd serving encoder",
@@ -573,6 +626,12 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
                   "images with relations bit-equal to phase 17's: True",
                   "--infer_only", "host_rtt_ms",
                   "pretrain (pretrain_detr.main",
+                  "experiment train exact (window 0",
+                  "experiment train --resume --window 8: refused",
+                  "experiment train point (window 16, band point)",
+                  "experiment sweep --windows 0,16p,16pi (",
+                  "rerun 0.", "experiment offsets", "largest difference "
+                  "to the CPU's", "experiment window deltas (144x224)",
                   "detector leaves loaded",
                   "ddp (c): the drivers on 2 ranks (gloo)",
                   "one process's evaluate_egtr",
@@ -615,6 +674,37 @@ def test_chip_smoke_fails_when_a_kernel_is_bypassed(fake_card, monkeypatch):
     # the int8 op's forward + backward is the first phase to run it
     with pytest.raises(SystemExit, match="expected .*'msda_bwd_value': 1"):
         chip_smoke.main()
+
+
+def test_experiment_sweep_fails_when_a_windowed_variant_bypasses_its_kernel(
+        fake_card, monkeypatch, tmp_path):
+    """The sweep's launch counts are the proof that each variant ran its
+    kernels: a windowed variant sent to the matmul oracle (which refuses
+    int8, so the variant here is 16p) fails the phase."""
+    from egtr_tpu_torch.models.layers import init_params
+    from egtr_tpu_torch.scripts import exp_trained_offsets as exp
+    from egtr_tpu_torch.scripts.make_synth_vg import make_synth_vg
+    from egtr_tpu_torch.train.checkpoint import save_pretrained
+
+    data, out = str(tmp_path / "vg"), str(tmp_path / "exp")
+    make_synth_vg(data, seed=0, **chip_smoke.SYNTH_EXP)
+    args = exp.parse_args(["train", "--data_path", data, "--out", out,
+                           *chip_smoke.EXP_ARGS])
+    cfg, model, *_ = exp.build(args)
+    init_params(model, torch.Generator().manual_seed(0))
+    save_pretrained(f"{out}/artifact", cfg, model.state_dict())
+    real = exp._load_model
+
+    def bypass(cfg, state, device):
+        if cfg.msda_window:
+            cfg = cfg.replace(msda_impl="matmul")
+        return real(cfg, state, device)
+
+    monkeypatch.setattr(exp, "_load_model", bypass)
+    monkeypatch.setattr(chip_smoke, "EXP_SWEEP", ["--windows", "16p"])
+    with pytest.raises(SystemExit, match="experiment sweep: .*"
+                       "'msda_fwd_win_pp': 0, .*expected"):
+        chip_smoke.exp_sweep(data, out, exp._bucket(args)[0])
 
 
 def test_ddp_phase_fails_when_a_rank_fails(fake_card, monkeypatch,

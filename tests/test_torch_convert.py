@@ -12,6 +12,7 @@ run through the port's ``load_artifact``, follow.
 """
 
 import json
+import shutil
 import types
 
 import jax.numpy as jnp
@@ -37,6 +38,14 @@ torch.set_num_threads(1)
 SMALL = dict(num_queries=12, num_labels=7, num_rel_labels=5,
              encoder_layers=2, decoder_layers=2)
 FULL = dict(num_queries=200, num_labels=150, num_rel_labels=50)
+
+
+@pytest.fixture(autouse=True)
+def free_disk(tmp_path):
+    """A test's checkpoints and artifacts hold a ResNet-50 backbone's
+    weights (and moments), hundreds of MB: remove them after it."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _both_ways(kw, seed):

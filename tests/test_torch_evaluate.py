@@ -13,6 +13,7 @@ mR@K must be equal.
 
 import json
 import os
+import shutil
 import sys
 import types
 from pathlib import Path
@@ -54,6 +55,14 @@ N_TEST = 4
 PLANTED_RANKS = (1, 30, 75)
 ARGS = ["--min_size", str(HW[0]), "--max_size", str(HW[1]),
         "--compute_dtype", "float32"]
+
+
+@pytest.fixture(autouse=True)
+def free_disk(tmp_path):
+    """A test's checkpoints and artifacts hold a ResNet-50 backbone's
+    weights (and moments), hundreds of MB: remove them after it."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _jax_driver():
@@ -149,9 +158,10 @@ def runs(tmp_path_factory):
     for name in ("jax", "port"):
         with open(root / name / "metrics_test.json") as f:
             metrics[name] = json.load(f)
-    return types.SimpleNamespace(entries=entries, metrics=metrics,
-                                 returned=returned, data=data,
-                                 port_art=str(port_art))
+    yield types.SimpleNamespace(entries=entries, metrics=metrics,
+                                returned=returned, data=data,
+                                port_art=str(port_art))
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_top_k_triplets_match_jax(runs):
@@ -256,8 +266,6 @@ def test_refusals(runs, monkeypatch, tmp_path):
     """``--dataset open_images`` is no longer refused: the artifact
     evaluates a synthetic Open Images split (its ``oi/*`` metrics); the
     card is still the default."""
-    import shutil
-
     from chip_smoke import write_synth_oi
 
     oi = str(tmp_path / "oi")

@@ -16,6 +16,7 @@
 
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -31,6 +32,14 @@ from egtr_tpu_torch.evaluation.oi_eval import OIEvaluator
 from chip_smoke import write_synth_oi
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def free_disk(tmp_path):
+    """A test's checkpoints and artifacts hold a ResNet-50 backbone's
+    weights (and moments), hundreds of MB: remove them after it."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

@@ -17,6 +17,7 @@ package's detection step, and the pretraining driver
 
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +48,14 @@ pytestmark = pytest.mark.filterwarnings("ignore:Some donated buffers")
 # the detection groups of test_torch_train's learning rates (no relation
 # head, so no lr_initialized group, as pretrain_detr passes None)
 LRS = dict(lr=2e-3, lr_backbone=2e-4, lr_initialized=None)
+
+
+@pytest.fixture(autouse=True)
+def free_disk(tmp_path):
+    """A test's checkpoints and artifacts hold a ResNet-50 backbone's
+    weights (and moments), hundreds of MB: remove them after it."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

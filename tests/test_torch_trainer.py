@@ -16,6 +16,7 @@ driver against the JAX package's, on the CPU.
 
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -68,6 +69,14 @@ SEQUENCES = {
     "ties": [2.0, 1.0, 1.0, 3.0, 1.0, 2.0],
     "mixed": [3.0, 1.5, 4.0, 1.0, 2.5, 0.5, 6.0],
 }
+
+
+@pytest.fixture(autouse=True)
+def free_disk(tmp_path):
+    """A test's checkpoints and artifacts hold a ResNet-50 backbone's
+    weights (and moments), hundreds of MB: remove them after it."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.mark.parametrize("name", sorted(SEQUENCES))
