@@ -56,6 +56,10 @@ and no result line. In order it:
 8. runs the exact and the served model in float32 (TF32 off) through the
    kernels and through the plain versions and compares logits, boxes and
    relation scores, counting the band indices on which the two runs differ;
+   then the same weights and input through the plain path on the CPU: the
+   band indices on which the card's and the CPU's picks differ (open check
+   F1: a float32 weighted mean summed in another order moves a near-tie
+   band) beside the largest output delta, card against CPU;
 9. runs one forward + backward of the int8 op without a window: K4, K2 and
    K3 one launch each, gradients equal to the exact op's;
 10. trains: the train probe's step (``scripts/perf_train_step``) at full
@@ -156,7 +160,9 @@ and no result line. In order it:
    (every variant skipped, no launch), R@K in [0, 1] and finite deltas to
    the exact outputs; ``offsets`` (K1 12), and the clamp fractions of the
    same captured offsets on the card and on the CPU within
-   ``EXP_CLAMP_ATOL``; and ``scripts.exp_window_deltas.main`` at 608x1008
+   ``EXP_CLAMP_ATOL``; F1 on the adapted weights (one float32 forward on
+   the card and on the CPU: the band indices that differ, the largest
+   output delta); and ``scripts.exp_window_deltas.main`` at 608x1008
    (K1, K5, K6); prints each command's seconds and ms per step from the
    script's clock;
 21. (after the Open Images, two-stage, remat and approximate top-k phases)
@@ -191,7 +197,23 @@ and no result line. In order it:
    ``ADAPT_GRAD_RTOL``, each rank's K6/K8/K10 (and K1/K2/K3) launches
    exact. (d) ``dryrun_multichip(1)``, whose one rank runs NCCL on the
    card (a step and ``all_gather_objects``), and (e)
-   ``dryrun_multichip(2)`` under gloo; prints each phase's seconds;
+   ``dryrun_multichip(2)`` (dp 1 x mp 2) and ``dryrun_multichip(4)`` (dp 2
+   x mp 2, four ranks sharing the card) under gloo. (a), (b) and (f) also
+   print open check F2: the gradients' largest relative error entry by
+   entry and the entries of another sign, and the parameters' difference
+   less the first AdamW update's of the two gradients. (f), the model axis
+   (``--mp``), two ranks of dp 1 x mp 2 on the card, each computing half
+   of the relation grid's rows: the float32 step at full width, batch 2 at
+   800x1344, against one process's (losses within 1e-4, gradients and
+   parameters within ``GRAD_RTOL``), the ranks bit-equal, K1/K2/K3 12 per
+   rank (a rank without them fails itself); bf16 steps (dropout 0.1) after
+   a warm-up, ms per optimizer step per rank beside one process's, the
+   model group's collectives of a step replayed alone, each rank's peak
+   memory of the relation head (forward, and forward + backward, alone on
+   the step's inputs) and of the step beside one process's; then
+   ``train_egtr --dp 1 --mp 2`` on a synthetic set like phase 17's, both
+   ranks' test metrics equal and rank 0 alone writing; prints each
+   phase's seconds;
 22. prints a ``kernels`` JSON line (with each kernel's launches per rank on
    the data-parallel paths), then ``{"ok": true, "device": ...}`` last.
 
@@ -201,6 +223,7 @@ It exits nonzero without a result where CUDA is absent.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import json
 import math
@@ -226,6 +249,7 @@ from egtr_tpu_torch.ops import criterion, msda, msda_cuda
 from egtr_tpu_torch.ops.msda_window import segment_bounds
 from egtr_tpu_torch.parallel import dist, dryrun
 from egtr_tpu_torch.parallel.launch import spawn
+from egtr_tpu_torch.parallel.mesh import make_mesh
 from egtr_tpu_torch.scripts import perf_train_step
 from egtr_tpu_torch.train.train_step import make_train_step
 
@@ -1243,9 +1267,33 @@ def plain_copy(model, cfg, device):
     return copy.to(device)
 
 
-def compare_f32(cfg, label, limit):
+def bands_vs_cpu(model, cfg, x, out, bands):
+    """The card's band picks against the CPU's (open check F1): the same
+    float32 weights and input through the plain path on the CPU, whose
+    ``window_rows`` sums each band's weighted mean in its own order. Returns
+    (the ``bidx`` that differ from the card's ``bands``, how many there are,
+    the largest |card - CPU| of the outputs: the flips' effect on top of the
+    round-off of two devices)."""
+    host = plain_copy(model, cfg, "cpu").eval()
+    msda.band_index_log = []
+    try:
+        with torch.inference_mode():
+            out_h = host(x.cpu())
+    finally:
+        bands_h = msda.band_index_log
+        msda.band_index_log = None
+    differing = sum(int((a.cpu() != b).sum())
+                    for (_, a), (_, b) in zip(bands, bands_h))
+    total = sum(a.numel() for _, a in bands)
+    deltas = {k: (out[k].float().cpu() - out_h[k].float()).abs().max().item()
+              for k in ("logits", "pred_boxes", "pred_rel")}
+    return differing, total, deltas
+
+
+def compare_f32(cfg, label, limit, cpu=False):
     """Same float32 weights, kernel path against the plain-MSDA path, and
-    the kernel path again with ``batch_p`` (K11 for K1 / K4)."""
+    the kernel path again with ``batch_p`` (K11 for K1 / K4); ``cpu``: also
+    the card's band picks and outputs against the CPU's (``bands_vs_cpu``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = cfg.replace(compute_dtype="float32")
@@ -1300,6 +1348,15 @@ def compare_f32(cfg, label, limit):
     errs["band_indices_differing"] = differing
     errs["band_indices"] = total
     errs["batch_p"] = errs_bp
+    if cpu:
+        flips, n, deltas = bands_vs_cpu(model_k, cfg, x, out_k, bands[0])
+        print(f"model f32 {label} card vs CPU (F1): {flips} of {n} band "
+              f"indices differ; largest output delta card - CPU {deltas}",
+              flush=True)
+        if not all(math.isfinite(v) for v in deltas.values()):
+            raise SystemExit(f"float32 {label} model on the CPU: {deltas}")
+        errs["cpu_band_indices_differing"] = flips
+        errs["cpu_max_abs_delta"] = deltas
     return errs
 
 
@@ -2153,6 +2210,41 @@ def exp_sweep(data, out, bucket):
             "vs_exact_outputs": deltas}
 
 
+def exp_bands_vs_cpu(artifact, bucket):
+    """F1 on the adaptation's weights (window 16, one band per point, its
+    trained offsets): one float32 forward of a seeded image at the bucket
+    on the card, and the same on the CPU (``bands_vs_cpu``)."""
+    from egtr_tpu_torch.train.checkpoint import load_pretrained
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, state = load_pretrained(artifact)
+    cfg = cfg.replace(compute_dtype="float32", dropout=0.0)
+    model = EgtrModel(cfg)
+    model.load_state_dict(state, strict=True)
+    model = model.to(DEVICE).eval()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(
+        (1, *bucket, 3)).astype(np.float32)).to(DEVICE)
+    msda.band_index_log = []
+    try:
+        with torch.inference_mode():
+            out = model(x)
+    finally:
+        bands = msda.band_index_log
+        msda.band_index_log = None
+    flips, n, deltas = bands_vs_cpu(model, cfg, x, out, bands)
+    print(f"experiment adapted model (window {cfg.msda_window}, band "
+          f"{cfg.msda_band}) f32 card vs CPU (F1): {flips} of {n} band "
+          f"indices differ; largest output delta card - CPU {deltas}",
+          flush=True)
+    if not n or not all(math.isfinite(v) for v in deltas.values()):
+        raise SystemExit(f"experiment card vs CPU: {n} band indices, "
+                         f"deltas {deltas}")
+    return {"band_indices_differing": flips, "band_indices": n,
+            "max_abs_delta": deltas}
+
+
 def drive_experiment(workdir):
     """The trained-offsets experiment's main path, in-process, through
     ``exp_trained_offsets.main``: train (exact), train --resume (and a
@@ -2253,6 +2345,7 @@ def drive_experiment(workdir):
         bad.append(f"offsets: {stats}")
     if clamp_err > EXP_CLAMP_ATOL:
         bad.append(f"clamp fractions: card {card}, CPU {host}")
+    flips = exp_bands_vs_cpu(f"{out}_w16p/artifact", bucket)
 
     # the window-deltas script at the FPS-protocol shape
     reset_kernel_counts()
@@ -2289,7 +2382,7 @@ def drive_experiment(workdir):
     return {"counts": total, "runs": runs, "sweep": sweep,
             "offset_stats": stats, "clamp_fracs_card": card,
             "clamp_fracs_max_abs_diff_cpu": clamp_err,
-            "window_deltas": deltas}
+            "band_flips_vs_cpu": flips, "window_deltas": deltas}
 
 
 def write_synth_oi(out, n_train, n_val, n_test, height, width, seed=0):
@@ -2700,8 +2793,9 @@ DDP_BUCKET_BYTES = 25 * 2 ** 20
 # its gradient is at least this many eps
 ADAM_EPS = 1e-8
 ZERO_INIT_HELD_EPS = 100
-# the dry runs' world sizes: (d) one rank under NCCL, (e) two under gloo
-DRYRUN_WORLDS = (1, 2)
+# the dry runs' world sizes: (d) one rank under NCCL, (e) two (dp 1 x mp 2)
+# and four (dp 2 x mp 2) under gloo
+DRYRUN_WORLDS = (1, 2, 4)
 DP_NOTE = ("two ranks time-slice one card and gloo stages every collective "
            "through the host: not a node of cards, and not scaling")
 
@@ -2727,14 +2821,19 @@ def _digest(model) -> str:
     return h.hexdigest()
 
 
-def _f32_step(cfg, hw, global_batch, accum, lrs, device, rank=0, world=1):
+def _f32_step(cfg, hw, global_batch, accum, lrs, device, rank=0, world=1,
+              mesh=None):
     """One float32 step (TF32 off) of a seeded model on rank ``rank``'s
-    slice of the seeded global batch: (metrics, model, launches, the
-    learning rate of each trained parameter that was zero before it)."""
+    slice of the seeded global batch (with ``mesh``: its data rank's, the
+    model on the mesh): (metrics, model, launches, the learning rate of
+    each trained parameter: ``{"lr": name -> lr, "zero": the same for the
+    parameters that were zero before it}``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model, optimizer, generator = perf_train_step.build(cfg, device, seed=0,
-                                                        lrs=lrs)
+                                                        lrs=lrs, mesh=mesh)
+    if mesh is not None:
+        rank, world = mesh.data_index, mesh.dp
     zero = {n for n, p in model.named_parameters() if not p.any()}
     batch = perf_train_step.synthetic_batch(cfg, global_batch, *hw, device,
                                             seed=0)
@@ -2745,23 +2844,26 @@ def _f32_step(cfg, hw, global_batch, accum, lrs, device, rank=0, world=1):
     torch.cuda.synchronize()
     lr = {id(p): g["lr"] for g in optimizer.adamw.param_groups
           for p in g["params"]}
-    zero_lr = {n: lr[id(p)] for n, p in model.named_parameters()
-               if n in zero and id(p) in lr}
+    lr_of = {n: lr[id(p)] for n, p in model.named_parameters() if id(p) in lr}
     return ({k: float(v) for k, v in metrics.items()}, model, kernel_counts(),
-            zero_lr)
+            {"lr": lr_of, "zero": {n: v for n, v in lr_of.items()
+                                   if n in zero}})
 
 
 def _one_process_twice(cfg, hw, global_batch, accum, lrs):
     """One process's float32 step, and its parameters after the same step
     taken a second time (on the host): their difference is the spread that
-    the run-to-run round-off of the kernels' float32 atomics gives."""
+    the run-to-run round-off of the kernels' float32 atomics gives. Returns
+    (metrics, model, learning rates as ``_f32_step``'s, the second
+    parameters)."""
     _, again, _, _ = _f32_step(cfg, hw, global_batch, accum, lrs, DEVICE)
     again = {n: p.detach().cpu() for n, p in again.named_parameters()}
     torch.cuda.empty_cache()
-    ref, model, _, zero = _f32_step(cfg, hw, global_batch, accum, lrs, DEVICE)
+    ref, model, _, step_lrs = _f32_step(cfg, hw, global_batch, accum, lrs,
+                                        DEVICE)
     model.cpu()
     torch.cuda.empty_cache()
-    return ref, model, zero, again
+    return ref, model, step_lrs, again
 
 
 def _save_step(model, path):
@@ -2891,16 +2993,67 @@ def _zero_init_update_err(values, ref_model, zero, limit):
     return worst, worst_name, held, differ_g
 
 
-def _compare_step(label, path, ref_model, zero, limit, again):
+def _adam_first_step_check(saved, ref_model, lr_of):
+    """Open check F2: is the parameters' difference after one step the
+    first AdamW update's, lr * g / (|g| + eps) of each side's clipped
+    gradient g? Compares every trained entry's measured difference with
+    lr * (u(g_rank) - u(g_one)), over the parameter's largest entry, and
+    counts the entries whose gradients differ in sign. Returns the largest
+    relative difference of the gradients (entry by entry, where one
+    process's |g| is at least ZERO_INIT_HELD_EPS x eps), the sign flips,
+    the largest unexplained residual, and the parameter of the largest
+    measured difference with its lr and the |g| / eps of both sides
+    there."""
+    def u(g):
+        return g / (g.abs() + ADAM_EPS)
+
+    rel, flips, residual = 0.0, 0, 0.0
+    worst = (0.0, "", 0.0, 0.0, 0.0)
+    for name, p in ref_model.named_parameters():
+        value, g_rank = saved[name]
+        g_one = p.grad.cpu() if p.grad is not None else None
+        if g_one is None or g_rank is None:
+            continue
+        g_rank = g_rank.double()
+        g_one = g_one.double()
+        flips += int((torch.sign(g_rank) != torch.sign(g_one)).sum())
+        held = g_one.abs() >= ZERO_INIT_HELD_EPS * ADAM_EPS
+        if held.any():
+            rel = max(rel, float(((g_rank - g_one).abs()[held]
+                                  / g_one.abs()[held]).max()))
+        if name not in lr_of:
+            continue
+        ref = p.detach().cpu().double()
+        scale = max(float(ref.abs().max()), 1e-12)
+        measured = value.double() - ref
+        predicted = -lr_of[name] * (u(g_rank) - u(g_one))
+        residual = max(residual, float((measured - predicted).abs().max())
+                       / scale)
+        at = int(measured.abs().argmax())
+        if float(measured.abs().flatten()[at]) / scale > worst[0]:
+            worst = (float(measured.abs().flatten()[at]) / scale, name,
+                     lr_of[name], float(g_rank.flatten()[at]) / ADAM_EPS,
+                     float(g_one.flatten()[at]) / ADAM_EPS)
+    return {"grad_max_entry_rel_err": rel, "grad_sign_flips": flips,
+            "adam_residual_over_largest_entry": residual,
+            "param_worst_delta": worst[0], "param_worst_delta_name": worst[1],
+            "param_worst_delta_lr": worst[2],
+            "param_worst_delta_grad_over_eps": [worst[3], worst[4]]}
+
+
+def _compare_step(label, path, ref_model, step_lrs, limit, again):
     """Rank 0's step (``_save_step`` at ``path``) against one process's
     model after its step: each parameter's gradient and updated value, the
     largest difference over its largest entry, within ``limit``; the
-    parameters that were zero before the step (``zero``: name -> lr) by
-    their update where their gradient decides it
+    parameters that were zero before the step (``step_lrs["zero"]``: name
+    -> lr) by their update where their gradient decides it
     (``_zero_init_update_err``), within ``limit`` x lr. Their values'
     largest difference over all entries is reported beside that of
     ``again``, one process's step taken a second time: the spread that the
-    kernels' run-to-run round-off alone gives them."""
+    kernels' run-to-run round-off alone gives them. F2: the difference of
+    the parameters against the first AdamW update's of the two gradients
+    (``_adam_first_step_check``)."""
+    zero = step_lrs["zero"]
     saved = torch.load(path)
     grad_err, grad_name = _largest_grad_err(
         {n: g for n, (_, g) in saved.items()},
@@ -2926,7 +3079,8 @@ def _compare_step(label, path, ref_model, zero, limit, again):
            "one_process_again_zero_init_worst": again_name,
            "one_process_again_param_max_rel_err": max(
                v for n, v in again_errs.items() if n not in zero),
-           "limit": limit}
+           "limit": limit,
+           **_adam_first_step_check(saved, ref_model, step_lrs["lr"])}
     text = (f"reduced gradients' largest error over their largest entry "
             f"{grad_err:.3e} ({grad_name}), updated parameters' "
             f"{errs[param_name]:.3e} ({param_name}), limit {limit}; the "
@@ -2938,7 +3092,17 @@ def _compare_step(label, path, ref_model, zero, limit, again):
             f"process against itself "
             f"{out['one_process_again_zero_init_max_rel_err']:.3e} "
             f"({again_name}; the other parameters "
-            f"{out['one_process_again_param_max_rel_err']:.3e})")
+            f"{out['one_process_again_param_max_rel_err']:.3e}); F2: the "
+            f"gradients' largest relative error entry by entry (|g| >= "
+            f"{ZERO_INIT_HELD_EPS} eps) {out['grad_max_entry_rel_err']:.3e}, "
+            f"{out['grad_sign_flips']} entries of another sign; the largest "
+            f"parameter difference {out['param_worst_delta']:.3e} "
+            f"({out['param_worst_delta_name']}, lr "
+            f"{out['param_worst_delta_lr']:.1e}, |g| / eps there "
+            f"{[round(v, 3) for v in out['param_worst_delta_grad_over_eps']]}"
+            f"), the parameters' difference less the first AdamW update's "
+            f"of the two gradients {out['adam_residual_over_largest_entry']:.3e}"
+            f" of the largest entry")
     if (grad_err > limit or errs[param_name] > limit or update_err > limit
             or (zero and not held)):
         raise SystemExit(f"{label}: {text}")
@@ -2974,12 +3138,13 @@ def check_ddp(single_rank_ms):
     t_phase = time.perf_counter()
     hw = perf_train_step.BUCKET_HW
     cfg = perf_train_step.train_config(compute_dtype="float32", dropout=0.0)
-    ref, model, zero, again = _one_process_twice(cfg, hw, DDP_GLOBAL_BATCH,
-                                                 1, perf_train_step.LRS)
+    ref, model, step_lrs, again = _one_process_twice(
+        cfg, hw, DDP_GLOBAL_BATCH, 1, perf_train_step.LRS)
     with tempfile.TemporaryDirectory() as work:
         ranks = run_ranks("rank_ddp_step", work, out=work)
         step_errs, step_text = _compare_step("ddp f32", f"{work}/rank0.pt",
-                                             model, zero, GRAD_RTOL, again)
+                                             model, step_lrs, GRAD_RTOL,
+                                             again)
     del model
     shapes = level_shapes(hw, cfg.num_feature_levels)
     _check_ranks("ddp f32", ranks, ref, DDP_LOSS_KEYS,
@@ -3046,12 +3211,12 @@ def check_adapt_accum():
     t_phase = time.perf_counter()
     cfg = perf_train_step.adapt_config(compute_dtype="float32", dropout=0.0)
     hw, global_batch = perf_train_step.ADAPT_HW, DDP_ADAPT_GLOBAL_BATCH
-    ref, model, zero, again = _one_process_twice(
+    ref, model, step_lrs, again = _one_process_twice(
         cfg, hw, global_batch, 2, perf_train_step.ADAPT_LRS)
     with tempfile.TemporaryDirectory() as work:
         ranks = run_ranks("rank_adapt_accum", work, out=work)
         step_errs, step_text = _compare_step(
-            "ddp adaptation", f"{work}/rank0.pt", model, zero,
+            "ddp adaptation", f"{work}/rank0.pt", model, step_lrs,
             ADAPT_GRAD_RTOL, again)
     del model
     loss_keys = [k for k in DDP_LOSS_KEYS if k in ref]
@@ -3230,7 +3395,8 @@ def drive_ranks(workdir):
 def check_dryruns():
     """Phases (d) and (e): ``dryrun_multichip`` in one rank, whose group
     runs NCCL on the card (world size 1, torchrun's variables), and in two
-    ranks sharing the card (gloo): one step, the loader shards and the
+    (dp 1 x mp 2) and four (dp 2 x mp 2) ranks sharing the card (gloo):
+    one step on the JAX dry run's mesh, the loader shards and the
     evaluator merge (``all_gather_objects``) in each."""
     out = {}
     for n in DRYRUN_WORLDS:
@@ -3241,8 +3407,8 @@ def check_dryruns():
         seconds = time.perf_counter() - t0
         launched = result["launches"]
         print(f"ddp ({'d' if n == 1 else 'e'}): dryrun_multichip({n}) on "
-              f"{result['backend']}: launches {launched}; {seconds:.1f} s",
-              flush=True)
+              f"{result['backend']}, dp x mp {result['mesh']}: launches "
+              f"{launched}; {seconds:.1f} s", flush=True)
         if result["backend"] != backend or not all(
                 launched[k] for k in ("msda_fwd", "msda_bwd_rows",
                                       "msda_bwd_value")):
@@ -3251,6 +3417,377 @@ def check_dryruns():
                              f"launches {launched}")
         out[f"world_{n}"] = {**result, "seconds": seconds}
     return out
+
+
+# --------------------------------------------------------------------------
+# phase (f): the model axis (--mp), dp 1 x mp 2, two ranks time-slicing the
+# card under gloo; each computes half of the relation grid's rows
+# --------------------------------------------------------------------------
+
+TP_MP = 2
+# the float32 step's and the bf16 rounds' global batch (one data rank)
+TP_GLOBAL_BATCH = 2
+# bf16 rounds after a warm-up step
+TP_STEPS = 3
+TP_NOTE = ("two ranks time-slice one card and gloo stages each collective "
+           "through the host: correctness and memory per rank, not scaling")
+# the trained model's float32 evaluation forward, mp 2 vs one process: the
+# same kernels at the same shapes; the head's products over half the rows
+# differ in summation order only, so MODEL_ATOL's bound serves
+TP_EVAL_ATOL = MODEL_ATOL
+
+
+def _head_inputs(model):
+    """Keep the relation head's inputs of the model's next forwards (the
+    last one): (the dict they go into, the hook's handle)."""
+    seen = {}
+
+    def pre(module, args, kwargs):
+        seen["args"] = [a.detach() for a in args]
+        seen["kwargs"] = kwargs
+
+    return seen, model.relation_head.register_forward_pre_hook(
+        pre, with_kwargs=True)
+
+
+def head_peak_bytes(head, seen):
+    """The relation head alone on kept inputs (``_head_inputs``): the peak
+    bytes allocated above what was allocated before it, over its forward
+    and over its forward and backward. Every rank of a model group calls
+    it together (the head's collectives)."""
+    args = [a.clone().requires_grad_(a.is_floating_point())
+            for a in seen["args"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = head(*args, **seen["kwargs"])
+    torch.cuda.synchronize()
+    fwd = torch.cuda.max_memory_allocated() - base
+    (out["pred_rel_logits"].sum()
+     + out["pred_connectivity_logits"].sum()).backward()
+    torch.cuda.synchronize()
+    return fwd, torch.cuda.max_memory_allocated() - base
+
+
+@contextlib.contextmanager
+def _recording(calls, group):
+    """Record (op, shape, dtype) of every sum and gather over ``group``
+    meanwhile."""
+    real = {op: getattr(dist, op) for op in ("all_reduce_sum", "all_gather")}
+
+    def recorder(op):
+        def record(tensor, group_=None):
+            if group_ is group:
+                calls.append((op, tuple(tensor.shape), tensor.dtype))
+            return real[op](tensor, group_)
+        return record
+
+    for op in real:
+        setattr(dist, op, recorder(op))
+    try:
+        yield
+    finally:
+        for op, fn in real.items():
+            setattr(dist, op, fn)
+
+
+def _replay_ms(calls, group, device, mp, gather_as_sum=False):
+    """The recorded collectives of one step (``_recording``) alone, three
+    times: ms of each round. ``gather_as_sum``: each gather as the sum of
+    zero-filled buffers of the gathered size, each rank's rows written in
+    place (the all_reduce a gather would be without ``all_gather``)."""
+    bufs = []
+    for op, shape, dtype in calls:
+        if op == "all_gather" and gather_as_sum:
+            op, shape = "all_reduce_sum", (shape[0], shape[1] * mp,
+                                           *shape[2:])
+        bufs.append((getattr(dist, op),
+                     torch.zeros(shape, dtype=dtype, device=device)))
+    ms = []
+    for _ in range(3):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for collective, b in bufs:
+            collective(b, group)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return ms
+
+
+def trained_forward(artifact, data, device, mesh=None):
+    """The float32 evaluation forward (TF32 off) of a trained artifact, on
+    the model of ``mesh``, of the first test image of the synthetic set at
+    ``data`` as the drivers load it: its relation and connectivity logits,
+    on the host."""
+    from egtr_tpu_torch.data.loader import Loader
+    from egtr_tpu_torch.data.visual_genome import VGDataset
+    from egtr_tpu_torch.evaluation.runner import _forward
+    from egtr_tpu_torch.train.checkpoint import load_pretrained
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, sd = load_pretrained(artifact)
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    model = EgtrModel(cfg, mesh=mesh)
+    model.load_state_dict(sd, strict=True)
+    batch = next(iter(Loader(VGDataset(data, "test", size=800,
+                                       max_size=1333), 1, shuffle=False,
+                             max_gt=cfg.max_gt_boxes,
+                             num_rel_labels=cfg.num_rel_labels,
+                             num_workers=1)))
+    out = _forward(model.to(device), batch)
+    return {k: out[k].float().cpu() for k in ("pred_rel_logits",
+                                              "pred_connectivity_logits")}
+
+
+def _bf16_rounds(model, optimizer, generator, device):
+    """The probe's bf16 step (dropout 0.1) on the seeded global batch of
+    TP_GLOBAL_BATCH: a warm-up step that keeps the head's inputs, then
+    TP_STEPS timed steps with the step's peak memory. Returns (ms per step,
+    peak bytes, the warm-up's kept head inputs, the last metrics)."""
+    cfg = model.config
+    batch = perf_train_step.synthetic_batch(
+        cfg, TP_GLOBAL_BATCH, *perf_train_step.BUCKET_HW, device, seed=1)
+    step = make_train_step(model, cfg, optimizer)
+    seen, handle = _head_inputs(model)
+    step(batch, generator)
+    handle.remove()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, metrics = [], {}
+    for _ in range(TP_STEPS):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(batch, generator)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return ms, torch.cuda.max_memory_allocated(), seen, metrics
+
+
+def rank_tp(device, out, runs):
+    """Phase (f) in one rank of dp 1 x mp 2: the float32 step on the
+    global batch (its launches checked; rank 0's parameters and gradients
+    saved for the comparison); the bf16 rounds, the model group's
+    collectives of one step replayed alone, the head's peak memory; then
+    the drivers ``runs`` (``rank_drivers``)."""
+    mesh = make_mesh(1, TP_MP)
+    rank = dist.process_index()
+    cfg = perf_train_step.train_config(compute_dtype="float32", dropout=0.0)
+    metrics, model, counts, _ = _f32_step(
+        cfg, perf_train_step.BUCKET_HW, TP_GLOBAL_BATCH, 1,
+        perf_train_step.LRS, device, mesh=mesh)
+    # a rank that did not run the kernels fails here, before the rest
+    expect = step_counts(cfg, level_shapes(perf_train_step.BUCKET_HW,
+                                           cfg.num_feature_levels))
+    if counts != expect:
+        raise SystemExit(f"tp (f) rank {rank}: launches {counts}, expected "
+                         f"{expect}")
+    if rank == 0:
+        _save_step(model, f"{out}/rank0.pt")
+    digest = _digest(model)
+    del model
+    torch.cuda.empty_cache()
+
+    model, optimizer, generator = perf_train_step.build(
+        perf_train_step.train_config(), device, seed=0, mesh=mesh)
+    calls = []
+    reset_kernel_counts()
+    with _recording(calls, mesh.model_group):
+        ms, peak, seen, bf16 = _bf16_rounds(model, optimizer, generator,
+                                            device)
+    bf16_counts = kernel_counts()
+    per_step = calls[:len(calls) // (1 + TP_STEPS)]
+    group = mesh.model_group
+    collective_ms = _replay_ms(per_step, group, device, TP_MP)
+    gathers = [c for c in per_step if c[0] == "all_gather"]
+    gather_ms = _replay_ms(gathers, group, device, TP_MP)
+    gather_as_sum_ms = _replay_ms(gathers, group, device, TP_MP,
+                                  gather_as_sum=True)
+    head_fwd, head_both = head_peak_bytes(model.relation_head, seen)
+    del model, optimizer, seen
+    torch.cuda.empty_cache()
+    drivers = rank_drivers(device, runs)
+    argv = runs[0][1]
+    logits = trained_forward(
+        f"{argv[argv.index('--output_path') + 1]}/artifact",
+        argv[argv.index("--data_path") + 1], device, mesh)
+    if rank == 0:
+        torch.save(logits, f"{out}/tp_eval.pt")
+    return {"metrics": metrics, "digest": digest, "counts": counts,
+            "mesh": [mesh.data_index, mesh.model_index],
+            "bf16_ms_per_step": ms, "bf16_counts": bf16_counts,
+            "bf16_total_loss": float(bf16["total_loss"]),
+            "step_peak_bytes": peak, "head_fwd_peak_bytes": head_fwd,
+            "head_peak_bytes": head_both,
+            "collectives_per_step": [op for op, _, _ in per_step],
+            "collective_bytes_per_step": sum(
+                math.prod(shape) * dtype.itemsize
+                for _, shape, dtype in per_step),
+            "collectives_alone_ms": collective_ms,
+            "gathers_alone_ms": gather_ms,
+            "gathers_as_sums_ms": gather_as_sum_ms,
+            "drivers": drivers}
+
+
+def _one_process_memory():
+    """One process's bf16 rounds (``_bf16_rounds``) and its head's peak
+    memory, for phase (f)'s comparison."""
+    model, optimizer, generator = perf_train_step.build(
+        perf_train_step.train_config(), DEVICE, seed=0)
+    ms, peak, seen, _ = _bf16_rounds(model, optimizer, generator, DEVICE)
+    head_fwd, head_both = head_peak_bytes(model.relation_head, seen)
+    del model, optimizer, seen
+    torch.cuda.empty_cache()
+    return {"ms_per_step": ms, "step_peak_bytes": peak,
+            "head_fwd_peak_bytes": head_fwd, "head_peak_bytes": head_both}
+
+
+def check_tp():
+    """Phase (f): the relation grid's rows split over two ranks on the card
+    (dp 1 x mp 2, gloo), against one process: the float32 step at full
+    width on the global batch of TP_GLOBAL_BATCH at 800x1344 (losses within
+    DDP_LOSS_RTOL, gradients and parameters within GRAD_RTOL,
+    ``_compare_step``), the ranks bit-equal, K1/K2/K3 12 a microbatch in
+    each; the bf16 step's ms per rank, its model-group collectives alone,
+    each rank's peak memory of the head and of the step beside one
+    process's; and ``train_egtr --dp 1 --mp 2`` on phase 17's synthetic set
+    (``TP_NOTE``)."""
+    from egtr_tpu_torch.scripts.make_synth_vg import make_synth_vg
+
+    t_phase = time.perf_counter()
+    hw = perf_train_step.BUCKET_HW
+    cfg = perf_train_step.train_config(compute_dtype="float32", dropout=0.0)
+    shapes = level_shapes(hw, cfg.num_feature_levels)
+    with tempfile.TemporaryDirectory() as work:
+        data, out = f"{work}/vg", f"{work}/run_tp"
+        make_synth_vg(data, seed=0, **SYNTH_VG)
+        driver_args = ["--data_path", data, "--output_path", out,
+                       "--device", DEVICE, *DRIVER_ARGS, "--dp", "1",
+                       "--mp", str(TP_MP)]
+        ranks = run_ranks("rank_tp", f"{work}/ranks", n=TP_MP, out=work,
+                          runs=[["train_egtr", driver_args,
+                                 f"{out}/metrics_test.json"]])
+        # one process's references, after the ranks have left the card
+        ref, model, step_lrs, again = _one_process_twice(
+            cfg, hw, TP_GLOBAL_BATCH, 1, perf_train_step.LRS)
+        one = _one_process_memory()
+        step_errs, step_text = _compare_step("tp f32", f"{work}/rank0.pt",
+                                             model, step_lrs, GRAD_RTOL,
+                                             again)
+        del model
+        torch.cuda.empty_cache()
+        got = torch.load(f"{work}/tp_eval.pt", weights_only=True)
+        want = trained_forward(f"{out}/artifact", data, DEVICE)
+    # the trained model's relation grid, gathered over the model group vs
+    # one process, and what the ranks' blocks gathered in the wrong order
+    # would differ by: the check must see that fault at least tenfold
+    eval_err = max(float((got[k] - want[k]).abs().max()) for k in want)
+    eval_swapped = min(float((torch.roll(
+        want[k], want[k].shape[1] // TP_MP, dims=1) - want[k]).abs().max())
+        for k in want)
+    _check_ranks("tp f32", ranks, ref, DDP_LOSS_KEYS,
+                 step_counts(cfg, shapes))
+    bad = []
+    bf16_expect = {k: v * (1 + TP_STEPS) for k, v in step_counts(
+        perf_train_step.train_config(), shapes).items()}
+    for r, rank in enumerate(ranks):
+        if rank["bf16_counts"] != bf16_expect or not all(
+                rank["counts"][k] for k in ("msda_fwd", "msda_bwd_rows",
+                                            "msda_bwd_value")):
+            bad.append(f"rank {r} launches {rank['counts']} / bf16 "
+                       f"{rank['bf16_counts']}, expected {bf16_expect}")
+    if [r["mesh"] for r in ranks] != [[0, m] for m in range(TP_MP)]:
+        bad.append(f"meshes {[r['mesh'] for r in ranks]}")
+    driver = [r["drivers"][0] for r in ranks]
+    fwd, mbs = _rank_forwards(DRIVER_ARGS, 1, SYNTH_VG)
+    per_forward = cfg.encoder_layers + cfg.decoder_layers
+    driver_expect = {**dict.fromkeys(msda_cuda.KERNELS, 0),
+                     "msda_fwd": per_forward * fwd,
+                     "msda_bwd_rows": per_forward * mbs,
+                     "msda_bwd_value": per_forward * mbs}
+    for r, run in enumerate(driver):
+        if run["counts"] != driver_expect:
+            bad.append(f"train_egtr --mp {TP_MP} rank {r} launches "
+                       f"{run['counts']}, expected {driver_expect}")
+    if not all(_same_metrics(run["metrics"], driver[0]["metrics"])
+               for run in driver):
+        bad.append("train_egtr --mp: the ranks' test metrics differ")
+    if not (eval_err <= TP_EVAL_ATOL and 10 * eval_err < eval_swapped):
+        bad.append(f"train_egtr --mp: the trained model's float32 logits "
+                   f"differ from one process's by {eval_err:.3g} (limit "
+                   f"{TP_EVAL_ATOL}; blocks swapped {eval_swapped:.3g})")
+    if not _same_metrics(driver[0]["read"], driver[0]["metrics"]):
+        bad.append("train_egtr --mp: metrics_test.json is not the ranks'")
+    if any(run["saved"] for run in driver[1:]):
+        bad.append(f"rank 1 wrote {driver[1]['saved']}")
+    ms = [max(r["bf16_ms_per_step"][i] for r in ranks)
+          for i in range(TP_STEPS)]
+    coll, gathers, as_sums = ([max(r[key][i] for r in ranks)
+                               for i in range(3)]
+                              for key in ("collectives_alone_ms",
+                                          "gathers_alone_ms",
+                                          "gathers_as_sums_ms"))
+    ops = ranks[0]["collectives_per_step"]
+    mb = 1e-6
+    head_mb = [(round(r["head_fwd_peak_bytes"] * mb, 1),
+                round(r["head_peak_bytes"] * mb, 1)) for r in ranks]
+    seconds = time.perf_counter() - t_phase
+    print(f"tp (f): dp 1 x mp {TP_MP} ({TP_MP} ranks, gloo) on one card, "
+          f"float32 at {hw[0]}x{hw[1]}, global batch {TP_GLOBAL_BATCH}: "
+          + ", ".join(f"{k} {ranks[0]['metrics'][k]:.6f} vs one process's "
+                      f"{ref[k]:.6f}" for k in DDP_LOSS_KEYS)
+          + f"; {step_text}; ranks' parameters bit-equal; launches per "
+          f"rank {[r['counts'] for r in ranks]}. bf16 (dropout 0.1, after a "
+          f"warm-up step): ms per optimizer step per rank "
+          f"{[round(t, 1) for t in ms]}, one process "
+          f"{[round(t, 1) for t in one['ms_per_step']]}; the model group's "
+          f"{len(ops)} collectives of a step ({ops.count('all_gather')} "
+          f"all_gather; {ranks[0]['collective_bytes_per_step']} bytes in) "
+          f"alone {[round(t, 1) for t in coll]} ms, its gathers "
+          f"{[round(t, 1) for t in gathers]} ms, as sums of zero-filled "
+          f"buffers {[round(t, 1) for t in as_sums]} ms; the head's peak "
+          f"MB, forward / "
+          f"forward + backward, per rank "
+          f"{head_mb}, one process ({round(one['head_fwd_peak_bytes'] * mb, 1)}, "
+          f"{round(one['head_peak_bytes'] * mb, 1)}); the step's peak GB per "
+          f"rank {[round(r['step_peak_bytes'] / 1e9, 3) for r in ranks]}, "
+          f"one process {one['step_peak_bytes'] / 1e9:.3f}; train_egtr "
+          f"--dp 1 --mp {TP_MP} {max(r['seconds'] for r in driver):.1f} s, "
+          f"launches per rank {[r['counts']['msda_fwd'] for r in driver]} "
+          f"K1, test metrics equal on every rank, the trained model's "
+          f"float32 logits vs one process's {eval_err:.3g} (limit "
+          f"{TP_EVAL_ATOL}; the ranks' blocks swapped {eval_swapped:.3g}) "
+          f"({TP_NOTE}); "
+          f"{seconds:.1f} s", flush=True)
+    if bad:
+        raise SystemExit(f"tp (f): {bad}")
+    return {"metrics": ranks[0]["metrics"], "one_process": ref, **step_errs,
+            "counts_per_rank": [r["counts"] for r in ranks],
+            "bf16_counts_per_rank": [r["bf16_counts"] for r in ranks],
+            "train_counts_per_rank": [r["counts"] for r in driver],
+            "bf16_ms_per_step": ms,
+            "one_process_bf16_ms_per_step": one["ms_per_step"],
+            "collectives_per_step": ranks[0]["collectives_per_step"],
+            "collective_bytes_per_step":
+                ranks[0]["collective_bytes_per_step"],
+            "collectives_alone_ms": coll, "gathers_alone_ms": gathers,
+            "gathers_as_sums_ms": as_sums,
+            "trained_eval_max_abs_err": eval_err,
+            "trained_eval_blocks_swapped": eval_swapped,
+            "head_fwd_peak_bytes_per_rank": [r["head_fwd_peak_bytes"]
+                                             for r in ranks],
+            "head_peak_bytes_per_rank": [r["head_peak_bytes"]
+                                         for r in ranks],
+            "one_process_head_fwd_peak_bytes": one["head_fwd_peak_bytes"],
+            "one_process_head_peak_bytes": one["head_peak_bytes"],
+            "step_peak_bytes_per_rank": [r["step_peak_bytes"]
+                                         for r in ranks],
+            "one_process_step_peak_bytes": one["step_peak_bytes"],
+            "train_egtr_seconds": max(r["seconds"] for r in driver),
+            "train_egtr_test": driver[0]["metrics"],
+            "seconds": seconds, "note": TP_NOTE}
 
 
 def main() -> int:
@@ -3305,8 +3842,9 @@ def main() -> int:
     batch_p_serve = serve_batch_p(
         {"exact": exact_model, "served": served_model, "tile": tile_model}, x)
     del exact_model, served_model, tile_model
-    model_errs = compare_f32(cfg, "exact", MODEL_ATOL)
-    served_errs = compare_f32(served_cfg, "served", SERVED_MODEL_ATOL)
+    model_errs = compare_f32(cfg, "exact", MODEL_ATOL, cpu=True)
+    served_errs = compare_f32(served_cfg, "served", SERVED_MODEL_ATOL,
+                              cpu=True)
     int8_grad_counts = check_int8_grad(shapes)
     exact_train = train(train_cfg, "exact", perf_train_step.BUCKET_HW, 2,
                         TRAIN_STEPS, accum=True)
@@ -3350,6 +3888,9 @@ def main() -> int:
     ddp = check_ddp(exact_train["ms_per_step"])
     ddp_adapt = check_adapt_accum()
     ddp_dryruns = check_dryruns()
+    # (f) the model axis: the relation grid's rows over two ranks
+    torch.cuda.empty_cache()
+    tp = check_tp()
     oi_runs = {label: run["counts"]
                for label, run in open_images["runs"].items()}
     new_paths = {"experiment": experiment["counts"],
@@ -3681,7 +4222,10 @@ def main() -> int:
         "ddp_adaptation": ddp_adapt["counts_per_rank"],
         **{f"ddp_{k}": v for k, v in ddp_drivers["counts_per_rank"].items()},
         **{f"ddp_dryrun_{k}": [r["launches"]] for k, r in
-           ddp_dryruns.items()}}
+           ddp_dryruns.items()},
+        "tp": tp["counts_per_rank"],
+        "tp_bf16": tp["bf16_counts_per_rank"],
+        "tp_train": tp["train_counts_per_rank"]}
     for entry in kernels["kernels"]:
         for path, ranks in ddp_paths.items():
             per_rank = [counts[entry["name"]] for counts in ranks]
@@ -3694,8 +4238,10 @@ def main() -> int:
         "drivers": {k: v for k, v in ddp_drivers.items()
                     if "counts" not in k},
         "dryruns": {k: {"backend": r["backend"], "metrics": r["metrics"],
-                        "seconds": r["seconds"]}
+                        "mesh": r["mesh"], "seconds": r["seconds"]}
                     for k, r in ddp_dryruns.items()}}
+    kernels["tensor_parallel"] = {k: v for k, v in tp.items()
+                                  if "counts" not in k}
     print(json.dumps(kernels))
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}",
           flush=True)

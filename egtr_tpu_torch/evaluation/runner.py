@@ -12,12 +12,14 @@ Detection (COCO) updates run for EVERY image — including images with zero
 ground-truth relations — matching the reference, which evaluates detection
 on the whole split (train_egtr.py:369-396) while the SGG recall evaluator
 skips relation-less images. In a process group (``parallel.dist``) each
-rank evaluates its slice of the split (the loader's, pad rows skipped, so
-the ranks' image ids are disjoint); before aggregating, every rank folds the
-others' evaluator states into its own (``_merge_across_hosts``), in the
-order one process would have evaluated the images, so every rank returns
-the single-process metrics. Only the primary writes them
-(``write_metrics``).
+data rank evaluates its slice of the split (the loader's, pad rows skipped,
+so the data ranks' image ids are disjoint); before aggregating, every rank
+folds the other data ranks' evaluator states into its own
+(``_merge_across_hosts``, over the mesh's data group: the ranks of a model
+group evaluate the same images and hold the same states, so each image is
+counted once), in the order one process would have evaluated the images,
+so every rank returns the single-process metrics. Only the primary writes
+them (``write_metrics``).
 
 For Open Images (``oi_evaluator``) the forward also yields ``rel_full``, the
 clipped relation scores times the clipped connectivity over all Q^2 pairs
@@ -76,18 +78,20 @@ def _in_order(states, chunks):
     return merged
 
 
-def _merge_across_hosts(evaluators, marks) -> None:
+def _merge_across_hosts(evaluators, marks, mesh=None) -> None:
     """Fold every rank's evaluator state into the local evaluators (JAX
     ``runner.py:207-221``; the reference's pickle all_gather,
     util/misc.py:93-135). ``marks[i]``: evaluator i's image count after
     each batch, so that the merged state takes the ranks' images batch by
     batch, rank by rank: the single-process order, which the COCO and OI
-    evaluators' score sorts depend on where scores tie. No-op without a
-    process group."""
-    if not dist.is_distributed():
+    evaluators' score sorts depend on where scores tie. ``mesh``: the merge
+    runs over its data group (None: every rank is a data rank). No-op
+    without a process group or with one data rank."""
+    if not dist.is_distributed() or (mesh is not None and mesh.dp == 1):
         return
     gathered = dist.all_gather_objects(
-        [(e.state(), m) for e, m in zip(evaluators, marks)])
+        [(e.state(), m) for e, m in zip(evaluators, marks)],
+        mesh.data_group if mesh is not None else None)
     for i, e in enumerate(evaluators):
         states = [g[i][0] for g in gathered]
         ends = [g[i][1] for g in gathered]
@@ -125,7 +129,8 @@ def evaluate_sgg(model, cfg, loader, rel_categories: Sequence[str], *,
     oi_evaluator: an ``oi_eval.OIEvaluator`` for Open Images runs (scores
     all Q^2 pairs, reference train_egtr.py:154-173); None for Visual Genome.
     categories: detection category ids for the COCO evaluator (defaults to
-    range(num_labels)).
+    range(num_labels)). The evaluators merge over the data group of the
+    model's mesh (``model.mesh``; None: every rank is a data rank).
     """
     coco = None
     if coco_eval:
@@ -241,7 +246,7 @@ def evaluate_sgg(model, cfg, loader, rel_categories: Sequence[str], *,
         _mark(evaluators, marks)
         if max_images and n_img >= max_images:
             break
-    _merge_across_hosts(evaluators, marks)
+    _merge_across_hosts(evaluators, marks, getattr(model, "mesh", None))
 
     metrics: Dict[str, float] = {}
     for label, evaluator, per_pred in (("single", single, per_pred_single),
@@ -272,9 +277,11 @@ def rel_full(out) -> torch.Tensor:
 
 def evaluate_detection(model, cfg, loader, *,
                        max_images: Optional[int] = None,
-                       categories=None) -> Dict[str, float]:
+                       categories=None, mesh=None) -> Dict[str, float]:
     """COCO-protocol detection evaluation for the base detector — the
-    end-of-pretraining eval of reference pretrain_detr.py:500-542."""
+    end-of-pretraining eval of reference pretrain_detr.py:500-542. ``mesh``:
+    the ranks' layout, whose data group the merge runs over (None: every
+    rank a data rank)."""
     coco = CocoEvaluator(sorted(categories) if categories is not None
                          else list(range(cfg.num_labels)))
     marks = [[]]
@@ -298,7 +305,7 @@ def evaluate_detection(model, cfg, loader, *,
         _mark([coco], marks)
         if max_images and n_img >= max_images:
             break
-    _merge_across_hosts([coco], marks)
+    _merge_across_hosts([coco], marks, mesh)
     return {f"coco/{k}": v for k, v in coco.summarize().items()}
 
 

@@ -14,17 +14,28 @@ both 3-layer MLP heads is linear in ``[gq; gk]``, so with
 
 the first hidden layer is ``h1[i,j] = sum_l gate[i,j,l] (Aq[i,l] + Bk[j,l]) + b1``
 and the largest live tensor is [B, Q, Q, d] instead of [B, Q, Q, L+1, 2d].
+
+With a mesh whose model axis is larger than one (``EgtrModel(cfg,
+mesh=...)``, ``--mp``), each rank of a model group computes the grid's
+subject rows ``i`` of its ``parallel.tensor_parallel.RowSplit`` only, as the
+JAX package shards ``_PAIR_SPEC = P(DATA_AXIS, MODEL_AXIS)`` over its mesh:
+``gate``, ``h1``, ``c1``, both MLPs and the frequency bias hold
+[B, ceil(Q/mp), Q, .] on a rank, and the two logit grids are gathered to
+[B, Q, Q, .], so postprocess and the criterion see what one process sees.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..config import EgtrConfig
+from ..parallel import dist
+from ..parallel.tensor_parallel import (RowSplit, copy_to_model_group,
+                                        gather_rows)
 from .detr import DeformableDetrBase, torch_dtype
 from .layers import Dense, Initialized, _matmul_f32, normal_init, zeros
 
@@ -49,10 +60,14 @@ def compute_freq_dists(fg_matrix, eps: float, use_log_softmax: bool):
 
 
 class EgtrHead(Initialized):
-    """Relation + connectivity head over decoder (q, k) by-products."""
+    """Relation + connectivity head over decoder (q, k) by-products.
 
-    def __init__(self, config: EgtrConfig):
+    ``mesh``: a ``parallel.mesh.Mesh``; where its ``mp`` is above one the
+    head computes this rank's grid rows (module docstring)."""
+
+    def __init__(self, config: EgtrConfig, mesh=None):
         super().__init__()
+        self.mesh = mesh
         cfg = self.config = config
         E, L, R = cfg.d_model, cfg.decoder_layers, cfg.num_rel_labels
         dtype = self.dtype = torch_dtype(cfg.compute_dtype)
@@ -100,6 +115,13 @@ class EgtrHead(Initialized):
         E, L = cfg.d_model, cfg.decoder_layers
         dtype = self.dtype
         B, _, H, Q, Dh = attention_queries.shape
+        mesh = self.mesh
+        split = None
+        if mesh is not None and mesh.mp > 1:
+            split = RowSplit(Q, mesh.mp, mesh.model_index)
+            attention_queries, attention_keys, last_hidden_state = (
+                copy_to_model_group((attention_queries, attention_keys,
+                                     last_hidden_state), mesh.model_group))
 
         def merge_heads(t):  # [B,L,H,Q,Dh] -> [B,L,Q,E]
             return t.permute(0, 1, 3, 2, 4).reshape(B, L, Q, E)
@@ -112,12 +134,14 @@ class EgtrHead(Initialized):
         ks.append(self.final_obj_proj(last_hidden_state))
         Qs = torch.stack(qs, dim=2)                           # [B,Q,L+1,E]
         Ks = torch.stack(ks, dim=2)
+        if split is not None:          # this rank's subject rows
+            Qs = split.take(Qs)                               # [B,Qr,L+1,E]
 
         wg = self.rel_predictor_gate_kernel
-        ga = _matmul_f32(Qs, wg[:E].to(Qs.dtype))[..., 0]     # [B,Q,L+1]
+        ga = _matmul_f32(Qs, wg[:E].to(Qs.dtype))[..., 0]     # [B,Qr,L+1]
         gb = _matmul_f32(Ks, wg[E:].to(Ks.dtype))[..., 0]
         gate = torch.sigmoid(ga[:, :, None, :] + gb[:, None, :, :]
-                             + self.rel_predictor_gate_bias[0])  # [B,Q,Q,L+1]
+                             + self.rel_predictor_gate_bias[0])  # [B,Qr,Q,L+1]
         gate_c = gate.to(dtype)
 
         h1 = self._pairwise(gate_c, Qs, Ks, self.rel_predictor_layers_0_kernel,
@@ -128,13 +152,14 @@ class EgtrHead(Initialized):
         # frequency bias (Neural Motifs; egtr.py:405-413)
         if cfg.use_freq_bias and triplet_dist is not None:
             node = logits.argmax(-1)                          # [B,Q]
+            sub = node if split is None else split.take(node)
             # one row lookup per (subject, object) pair; index_select's
             # gradient is an index_add, where the gradient of advanced
             # indexing sorts all B*Q*Q pairs
             n_cls = triplet_dist.shape[0]
-            pair = (node[:, :, None] * n_cls + node[:, None, :]).reshape(-1)
+            pair = (sub[:, :, None] * n_cls + node[:, None, :]).reshape(-1)
             bias = triplet_dist.reshape(n_cls * n_cls, -1).index_select(0, pair)
-            pred_rel = pred_rel + bias.reshape(B, Q, Q, -1)
+            pred_rel = pred_rel + bias.reshape(*pred_rel.shape)
 
         # connectivity head shares the gated source (egtr.py:218-223,416)
         c1 = self._pairwise(gate_c, Qs, Ks, self.connectivity_layers_0_kernel,
@@ -142,10 +167,19 @@ class EgtrHead(Initialized):
         c = F.relu(self.connectivity_layers_1(F.relu(c1.to(dtype))))
         pred_connectivity = self.connectivity_layers_2(c).float()
 
+        if split is None:
+            gate_mean = gate.mean(dim=(0, 1, 2))              # [L+1]
+        else:
+            group = mesh.model_group
+            pred_rel = gather_rows(pred_rel, split, group)
+            pred_connectivity = gather_rows(pred_connectivity, split, group)
+            # the real rows' sum over the group, over all B*Q*Q pairs
+            gate_mean = dist.all_reduce_sum(
+                gate[:, :split.real].sum(dim=(0, 1, 2)), group) / (B * Q * Q)
         return {
             "pred_rel_logits": pred_rel,
             "pred_connectivity_logits": pred_connectivity,
-            "rel_gate_mean": gate.mean(dim=(0, 1, 2)),        # [L+1]
+            "rel_gate_mean": gate_mean,
         }
 
 
@@ -160,9 +194,13 @@ class EgtrModel(Initialized):
     ``egtr_tpu/models/egtr.py:194-203``, ``pred_rel`` is the sigmoid of the
     logit-adjusted relation logits while ``pred_rel_logits`` is returned
     unadjusted.
+
+    ``mesh`` (``parallel.mesh.make_mesh``; None: one process): the ranks'
+    layout, which the relation head reads (module docstring). Every rank of
+    a model group must run the model's forwards together.
     """
 
-    def __init__(self, config: EgtrConfig):
+    def __init__(self, config: EgtrConfig, mesh=None):
         super().__init__()
         cfg = self.config = config
         self.model = DeformableDetrBase(cfg)
@@ -171,7 +209,21 @@ class EgtrModel(Initialized):
         # frozen by the optimizer's labels
         self.param("rel_dist", (R,), zeros)
         self.param("triplet_dist", (C + 1, C + 1, R), zeros)
-        self.relation_head = EgtrHead(cfg)
+        self.relation_head = EgtrHead(cfg, mesh)
+
+    @property
+    def mesh(self):
+        return self.relation_head.mesh
+
+    def grid_parameters(self) -> List[torch.nn.Parameter]:
+        """The parameters whose gradient each rank of a model group computes
+        from its grid rows only (the head's and the frequency-bias table),
+        which the train step sums over the group; none at ``mp == 1``."""
+        mesh = self.mesh
+        if mesh is None or mesh.mp == 1:
+            return []
+        return [*self.relation_head.parameters(),
+                *([self.triplet_dist] if self.config.use_freq_bias else [])]
 
     def forward(self, pixel_values: torch.Tensor,
                 pixel_mask: Optional[torch.Tensor] = None,

@@ -14,11 +14,14 @@ Padded target convention:
 Normalization is over the global batch, as in the JAX package, whose step
 runs under ``jit`` over one array sharded across processes (the reference,
 egtr.py:976-980, keeps its ``num_boxes`` all-reduce commented out). In a
-data-parallel run each criterion takes ``reduce``, a sum over the processes
-(``parallel.dist.all_reduce_sum``), and every denominator (``num_boxes``,
-the image count, the relation-entry counts) goes through it: each rank's
-loss is then its share of the global batch's loss, and the shares add up to
-it. Without ``reduce`` (one process) nothing changes.
+data-parallel run each criterion takes ``reduce``, a sum over the data
+group (``parallel.dist.all_reduce_sum`` with the mesh's ``data_group``, as
+``train.train_step.data_reduce`` makes it; the ranks of a model group share
+one batch slice, so a sum over the world would count it ``mp`` times), and
+every denominator (``num_boxes``, the image count, the relation-entry
+counts) goes through it: each data rank's loss is then its share of the
+global batch's loss, and the shares add up to it. Without ``reduce`` (one
+data rank) nothing changes.
 """
 
 from __future__ import annotations

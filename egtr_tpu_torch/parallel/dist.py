@@ -17,7 +17,10 @@ backend or to the CPU.
 
 Without a process group every function here is the single-process identity
 (rank 0 of 1, ``all_gather_objects(x) == [x]``, sums are the tensor itself),
-so single-process code paths stay as they were.
+so single-process code paths stay as they were. The collectives take a
+``group`` (a data or model group of ``mesh.make_mesh``; None: the world).
+Two collectives carry tensors, ``all_reduce`` and ``all_gather``: both
+backends run them on CUDA tensors (gloo through the host).
 """
 
 from __future__ import annotations
@@ -100,23 +103,37 @@ def barrier() -> None:
         dist.barrier()
 
 
-def all_gather_objects(obj: Any) -> List[Any]:
-    """Gather one picklable object per process; returns [obj_rank0, ...]
-    on every process (``[obj]`` without a process group)."""
+def all_gather_objects(obj: Any, group=None) -> List[Any]:
+    """Gather one picklable object per process of ``group`` (None: all);
+    returns them in the group's rank order on every process (``[obj]``
+    without a process group)."""
     if not is_distributed():
         return [obj]
-    out: List[Any] = [None] * process_count()
-    dist.all_gather_object(out, obj)
+    out: List[Any] = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 
-def all_reduce_sum(tensor: torch.Tensor) -> torch.Tensor:
-    """The sum of ``tensor`` over all processes, as a new tensor (the tensor
-    itself without a process group). Every process gets the same bits."""
+def all_reduce_sum(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``tensor`` over the processes of ``group`` (None: all), as
+    a new tensor (the tensor itself without a process group). Every process
+    gets the same bits."""
     if not is_distributed():
         return tensor
     out = tensor.detach().clone()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def all_gather(tensor: torch.Tensor, group=None) -> List[torch.Tensor]:
+    """``tensor`` of every process of ``group`` (None: all), equal shapes,
+    as a list in the group's rank order on every process (``[tensor]``
+    without a process group)."""
+    if not is_distributed():
+        return [tensor]
+    tensor = tensor.detach().contiguous()
+    out = [torch.empty_like(tensor) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, tensor, group=group)
     return out
 
 

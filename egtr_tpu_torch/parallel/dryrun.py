@@ -1,13 +1,16 @@
-"""``dryrun_multichip``: one data-parallel training step in several ranks
-(the port's counterpart of ``__graft_entry__.dryrun_multichip`` and
-``_check_multihost_pipeline``).
+"""``dryrun_multichip``: one training step in several ranks on the JAX dry
+run's mesh (the port's counterpart of ``__graft_entry__.dryrun_multichip``
+and ``_check_multihost_pipeline``).
 
     python -m egtr_tpu_torch.parallel.dryrun 2 [--device cpu]
 
 It starts ``n`` ranks (``launch.spawn``: torchrun, with a timeout) and
-takes one full training step under DDP at the JAX dry run's tiny config
-(d_model 64, 2+2 layers, 16 queries, 12/6 labels, dropout 0.1) on a seeded
-global batch of two 64x64 images a rank. Then, in the same ranks, it checks the
+takes one full training step at the JAX dry run's tiny config (d_model 64,
+2+2 layers, 16 queries, 12/6 labels, dropout 0.1) and layout: ``mp = 2``
+where ``n`` is even, else 1, and ``dp = n / mp`` (``__graft_entry__.py``),
+so 2 ranks are dp 1 x mp 2 and 4 are dp 2 x mp 2, each data rank with two
+64x64 images of a seeded global batch and the ranks of a model group
+splitting its relation grid. Then, in the same ranks, it checks the
 multi-process contracts: the loaders' per-rank slices concatenate to the
 one-process loader's global batch, and the SGG evaluator merged across the
 ranks (``runner._merge_across_hosts``) aggregates to what one evaluator of
@@ -73,17 +76,21 @@ def _step(device) -> dict:
     from ..train.optim import make_optimizer
     from ..train.trainer import to_device
     from ..train.train_step import make_train_step
+    from .mesh import make_mesh
 
     rank, world = dist.process_index(), dist.process_count()
+    mp = 2 if world % 2 == 0 else 1
+    mesh = make_mesh(world // mp, mp)
+    d = mesh.data_index
     cfg = tiny_config()
-    model = EgtrModel(cfg)
+    model = EgtrModel(cfg, mesh=mesh)
     init_params(model, torch.Generator().manual_seed(0))
     model.to(device)
     optimizer = make_optimizer(model, lr=2e-6, lr_backbone=2e-7,
                                lr_initialized=2e-4)
     step = make_train_step(model, cfg, optimizer, task="sgg")
-    batch = _slice(global_batch(cfg, 2 * world), 2 * rank, 2 * rank + 2)
-    generator = torch.Generator(device=device).manual_seed(1 + rank)
+    batch = _slice(global_batch(cfg, 2 * mesh.dp), 2 * d, 2 * d + 2)
+    generator = torch.Generator(device=device).manual_seed(1 + d)
     msda_cuda.reset_launches()
     metrics = {k: float(v) for k, v in
                step(to_device(batch, device), generator).items()}
@@ -95,7 +102,8 @@ def _step(device) -> dict:
                         for p in model.parameters()])
     return {"metrics": metrics, "param_sum": float(params.sum()),
             "param_abs_sum": float(params.abs().sum()),
-            "backend": torch.distributed.get_backend(), "launches": launches}
+            "backend": torch.distributed.get_backend(), "launches": launches,
+            "mesh": [mesh.dp, mesh.mp]}
 
 
 class _Images:
@@ -183,8 +191,9 @@ def dryrun_multichip(n_devices: int, device=None,
     if not (first["shards_ok"] and first["merge_ok"]):
         raise RuntimeError(f"dryrun_multichip: {first}")
     m = first["metrics"]
+    dp, mp = first["mesh"]
     print(f"dryrun_multichip({n_devices}): world={n_devices} (data="
-          f"{n_devices}, model=1) on {dev.type} ({first['backend']}) "
+          f"{dp}, model={mp}) on {dev.type} ({first['backend']}) "
           f"total_loss={m['total_loss']:.4f} "
           f"grad_norm={m['grad_norm']:.4f} OK")
     print("multi-process loader shard + metric merge OK")

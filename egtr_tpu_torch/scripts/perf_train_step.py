@@ -107,13 +107,14 @@ def synthetic_batch(cfg: EgtrConfig, B: int, H: int, W: int, device,
     return put(batch)
 
 
-def build(cfg: EgtrConfig, device=None, seed: int = 0, lrs: dict = LRS
-          ) -> Tuple[EgtrModel, Optimizer, torch.Generator]:
-    """A seeded random-weight model, its optimizer at the learning rates
-    ``lrs`` (the recipe's by default), and the step's generator, all on
-    ``device``."""
+def build(cfg: EgtrConfig, device=None, seed: int = 0, lrs: dict = LRS,
+          mesh=None) -> Tuple[EgtrModel, Optimizer, torch.Generator]:
+    """A seeded random-weight model (on the ranks' ``mesh``, where given),
+    its optimizer at the learning rates ``lrs`` (the recipe's by default),
+    and the step's generator, all on ``device``."""
     device = resolve_device(device)
-    model = init_params(EgtrModel(cfg), torch.Generator().manual_seed(seed))
+    model = init_params(EgtrModel(cfg, mesh=mesh),
+                        torch.Generator().manual_seed(seed))
     model = model.to(device)
     optimizer = make_optimizer(model, **lrs)
     generator = torch.Generator(device=device).manual_seed(seed + 1)

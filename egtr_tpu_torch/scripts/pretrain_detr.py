@@ -91,7 +91,9 @@ def main(argv: Optional[List[str]] = None):
 
     args = parse_args(argv)
     device, mesh = start_ranks(args, "pretrain_detr")
-    rank, world = dist.process_index(), dist.process_count()
+    # the loaders' slices are the data ranks'; the detector has no relation
+    # grid, so the ranks of a model group compute the same (as JAX's mesh)
+    rank, world = mesh.data_index, mesh.dp
 
     if args.dataset == "visual_genome":
         # detector pretraining uses the crop augmentor (pretrain_detr.py:267)
@@ -143,7 +145,8 @@ def main(argv: Optional[List[str]] = None):
         grad_clip=args.gradient_clip_val, max_epochs=args.max_epochs,
         max_epochs_finetune=args.max_epochs_finetune,
         patience=args.patience, accum_steps=args.accumulate, seed=args.seed,
-        task="detection", log_every=args.log_every, device=device)
+        task="detection", log_every=args.log_every, device=device,
+        mesh=mesh)
 
     # export for train_egtr --pretrained (pretrain_detr.py:480-490), under
     # the EGTR model's scope so that merge_pretrained aligns the names
@@ -164,7 +167,7 @@ def main(argv: Optional[List[str]] = None):
                          max_gt=cfg.max_gt_boxes, num_rel_labels=num_rel,
                          process_index=rank, process_count=world)
     metrics = evaluate_detection(model, cfg, test_loader,
-                                 categories=categories)
+                                 categories=categories, mesh=mesh)
     write_metrics(metrics,
                   os.path.join(args.output_path, "metrics_test.json"))
     if dist.is_primary():

@@ -24,13 +24,19 @@ Data-parallel, one process a rank, as PyTorch users launch DDP::
 
     torchrun --nproc_per_node N -m egtr_tpu_torch.scripts.train_egtr ...
 
-Each rank loads its slice of every global batch of ``batch_size x dp x
+The ranks form a ``--dp`` x ``--mp`` mesh (``parallel.mesh``; ``dp * mp``
+must be the world size, ``--dp`` defaults to it over ``--mp``). Each data
+rank loads its slice of every global batch of ``batch_size x dp x
 accumulate`` images (validation: ``batch_size x dp``; test: one image a
-rank); the loss is the global batch's (``train.train_step``), only rank 0
-writes metrics, checkpoints, the artifact and ``metrics_test.json``, and
-the test evaluation merges the ranks' evaluators. ``--dp`` defaults to the
-world size and must equal it; ``--mp`` must be 1. The ranks talk NCCL
-where each has a card of its own, else gloo (``parallel.dist``).
+data rank), and the ``mp`` ranks of its model group share that slice and
+split the relation grid's rows (``--mp``, the JAX mesh's ``model`` axis);
+the loss is the global batch's (``train.train_step``), only rank 0 writes
+metrics, checkpoints, the artifact and ``metrics_test.json``, and the test
+evaluation merges the data ranks' evaluators. The ranks talk NCCL where
+each has a card of its own, else gloo (``parallel.dist``)::
+
+    torchrun --nproc_per_node 4 -m egtr_tpu_torch.scripts.train_egtr \
+        --dp 2 --mp 2 ...
 """
 
 from __future__ import annotations
@@ -61,8 +67,8 @@ def add_parallel_args(p: argparse.ArgumentParser) -> None:
                    help="data-parallel size (default: all devices: the "
                         "world size)")
     p.add_argument("--mp", type=int, default=1,
-                   help="model-parallel size: 1 (tensor parallelism of the "
-                        "relation head is not ported)")
+                   help="model-parallel size: the ranks that split the "
+                        "relation grid's rows")
 
 
 def start_ranks(args, prog: str) -> Tuple[torch.device, Mesh]:
@@ -72,7 +78,7 @@ def start_ranks(args, prog: str) -> Tuple[torch.device, Mesh]:
     device = dist.init_from_env(args.device)
     try:
         mesh = make_mesh(args.dp, args.mp)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         raise SystemExit(f"{prog}: error: {e}") from e
     return device, mesh
 
@@ -167,7 +173,8 @@ def main(argv: Optional[List[str]] = None):
 
     args = parse_args(argv)
     device, mesh = start_ranks(args, "train_egtr")
-    rank, world = dist.process_index(), dist.process_count()
+    # the loaders' slices are the data ranks'; a model group shares one
+    rank, world = mesh.data_index, mesh.dp
 
     if args.dataset == "visual_genome":
         train_ds = VGDataset(args.data_path, "train", train_aug=True,
@@ -219,7 +226,7 @@ def main(argv: Optional[List[str]] = None):
                         max_gt=cfg.max_gt_boxes, num_rel_labels=num_rel,
                         process_index=rank, process_count=world)
 
-    model = EgtrModel(cfg)
+    model = EgtrModel(cfg, mesh=mesh)
     init_params(model, torch.Generator().manual_seed(args.seed))
     params = dict(model.state_dict())
     # frequency-bias buffers from train statistics (egtr.py:169-194)
@@ -256,7 +263,7 @@ def main(argv: Optional[List[str]] = None):
         patience=args.patience, accum_steps=args.accumulate,
         init_params=params, seed=args.seed, task="sgg",
         initialized_paths=initialized, log_every=args.log_every,
-        device=device)
+        device=device, mesh=mesh)
 
     save_pretrained(os.path.join(args.output_path, "artifact"), cfg,
                     model.state_dict())
@@ -272,7 +279,7 @@ def main(argv: Optional[List[str]] = None):
         test_ds = OIDataset(args.data_path, "test", size=800, max_size=1333)
         oi = OIEvaluator(test_ds.rel_categories, test_ds.ind_to_classes)
         categories = None
-    # one image a rank a step; the evaluators merge across the ranks
+    # one image a data rank a step; the evaluators merge across them
     test_loader = Loader(test_ds, world, shuffle=False,
                          max_gt=cfg.max_gt_boxes, num_rel_labels=num_rel,
                          process_index=rank, process_count=world)

@@ -14,25 +14,41 @@ to the step, on the model's device.
 
 Inside a process group (``parallel.dist``) the step is data-parallel, with
 the JAX package's semantics: its loss is the loss of the global batch, the
-concatenation of the ranks' batches. The model runs under
-``DistributedDataParallel``, whose broadcast from rank 0 when it wraps the
-model replaces the JAX package's ``replicate_state``. The criterion sums its
-denominators over the ranks, so each rank's loss is its share of the global
-loss; DDP averages gradients, so each rank backpropagates ``world_size``
-times its share and the reduced gradient is the global loss's. Every
-parameter takes part (``find_unused_parameters``: ``rel_dist`` and the
-options' unused heads get no gradient), the frozen leaves too, so the clip
-norm and ``grad_norm`` cover them as in the JAX package; there are no
-buffers to broadcast. Microbatches before the last run under ``no_sync``.
-The logged metrics are summed over the ranks (``rel_gate_*``, a batch mean,
-averaged), so every rank returns the same numbers. Dropout masks cannot
-match the JAX package's global mask bit for bit (each rank draws from its
-own generator), so parity with it holds at dropout 0.
+concatenation of the data ranks' batches. The layout is a
+``parallel.mesh.Mesh`` of ``dp`` x ``mp`` ranks (``make_train_step``'s
+``mesh``; by default the model's, else every rank data-parallel). The model
+runs under ``DistributedDataParallel`` over every rank of the world, whose
+broadcast from rank 0 when it wraps the model replaces the JAX package's
+``replicate_state``. The criterion sums its denominators over the data
+group, so each data rank's loss is its share of the global loss, and the
+ranks of a model group, which share one batch slice, hold the same share;
+DDP averages gradients over the ``dp * mp`` ranks, so each rank
+backpropagates ``dp`` times its share and the reduced gradient is the
+global loss's. With ``mp > 1`` each rank of a model group computes its rows
+of the relation grid only (``models/egtr.py``): the gradients of the
+grid's parameters (``EgtrModel.grid_parameters``) are partial sums, which
+the world average divides by ``mp``, so the step multiplies them by ``mp``
+before the clip; the detector's gradients, which every rank of a model
+group computes in full, come out of the average as they are. DDP reduces
+over the world and not over the data group because the ranks of a model
+group compute the detector's gradients each on its own: on the card the
+float32 scatter-adds of the MSDA backward round them differently from run
+to run, and only one reduction over every rank keeps all parameters
+bit-equal. Every parameter takes part (``find_unused_parameters``:
+``rel_dist`` and the options' unused heads get no gradient), the frozen
+leaves too, so the clip norm and ``grad_norm`` cover them as in the JAX
+package; there are no buffers to broadcast. Microbatches before the last
+run under ``no_sync``. The logged metrics are summed over the data group
+(``rel_gate_*``, a batch mean, averaged), so every rank returns the same
+numbers. Dropout masks cannot match the JAX package's global mask bit for
+bit (each data rank draws from its own generator, and the ranks of a model
+group from the same one), so parity with it holds at dropout 0.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -40,6 +56,7 @@ import torch
 from ..config import EgtrConfig
 from ..ops.criterion import detection_criterion, sgg_criterion
 from ..parallel import dist
+from ..parallel.mesh import Mesh, make_mesh
 from .optim import Optimizer
 
 
@@ -74,8 +91,27 @@ def split_microbatches(batch: dict, accum_steps: int) -> List[dict]:
             for a in range(accum_steps)]
 
 
+def resolve_mesh(model, mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """``mesh``, else the model's, else (in a process group) every rank
+    data-parallel; None in one process."""
+    if mesh is None:
+        mesh = getattr(model, "mesh", None)
+    if mesh is None and dist.is_distributed():
+        mesh = make_mesh()
+    return mesh
+
+
+def data_reduce(mesh: Optional[Mesh]):
+    """The criterion's ``reduce``: a sum over the data group, None where
+    there is one data rank (the batch is the global batch)."""
+    if mesh is None or mesh.dp == 1:
+        return None
+    return functools.partial(dist.all_reduce_sum, group=mesh.data_group)
+
+
 def make_train_step(model, cfg: EgtrConfig, optimizer: Optimizer,
-                    task: str = "sgg", accum_steps: int = 1) -> Callable:
+                    task: str = "sgg", accum_steps: int = 1,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """Returns ``train_step(batch, generator=None, lr_scale=1.0) -> metrics``.
 
     batch: dict with pixel_values [A*B,H,W,3], pixel_mask [A*B,H,W] (or
@@ -84,14 +120,23 @@ def make_train_step(model, cfg: EgtrConfig, optimizer: Optimizer,
     already be a list of A microbatch dicts. Metrics, as 0-d tensors on the
     device: every loss term, ``rel_gate_{i}`` (sgg), ``total_loss`` and
     ``grad_norm`` (the global norm before the clip, frozen leaves included).
-    Inside a process group the batch is the rank's slice and the metrics
-    are the global batch's (module docstring); making the step wraps the
-    model in DDP, so every rank makes it at the same point.
+    Inside a process group the batch is the rank's slice (the data rank's:
+    the ranks of a model group take the same slice and the same generator)
+    and the metrics are the global batch's (module docstring); making the
+    step wraps the model in DDP, so every rank makes it at the same point.
+    ``mesh``: the ranks' layout (``resolve_mesh``); a model with a mesh of
+    its own must have this one.
     """
-    reduce = dist.all_reduce_sum if dist.is_distributed() else None
-    world = dist.process_count()
+    mesh = resolve_mesh(model, mesh)
+    if getattr(model, "mesh", None) not in (None, mesh):
+        raise ValueError("make_train_step: the model's mesh is not the "
+                         "step's")
+    reduce = data_reduce(mesh)
+    dp = mesh.dp if mesh is not None else 1
+    grid = (model.grid_parameters() if hasattr(model, "grid_parameters")
+            else [])
     net = model
-    if reduce is not None:
+    if dist.is_distributed():
         device = next(model.parameters()).device
         net = torch.nn.parallel.DistributedDataParallel(
             model, device_ids=[device] if device.type == "cuda" else None,
@@ -135,40 +180,46 @@ def make_train_step(model, cfg: EgtrConfig, optimizer: Optimizer,
                   else contextlib.nullcontext()):
                 total, losses = loss_fn(mb, generator)
                 # sums into .grad across the microbatches
-                (total if net is model else total * world).backward()
+                (total if net is model else total * dp).backward()
             losses["total_loss"] = total
             for k, x in losses.items():
                 x = x.detach().float()
                 metrics[k] = x if k not in metrics else metrics[k] + x
+        # the grid's gradients: each rank's rows, averaged over the world
+        grid_grads = [p.grad for p in grid if p.grad is not None]
+        if grid_grads:
+            torch._foreach_mul_(grid_grads, float(mesh.mp))
         if accum_steps > 1:
             inv = 1.0 / accum_steps
             torch._foreach_mul_(optimizer.grads(), inv)
             metrics = {k: x * inv for k, x in metrics.items()}
         if reduce is not None:
-            metrics = _global_metrics(metrics, reduce, world)
+            metrics = _global_metrics(metrics, reduce, dp)
         metrics["grad_norm"] = optimizer.step(lr_scale)
         return metrics
 
     return train_step
 
 
-def _global_metrics(metrics: Dict[str, torch.Tensor], reduce, world: int
+def _global_metrics(metrics: Dict[str, torch.Tensor], reduce, dp: int
                     ) -> Dict[str, torch.Tensor]:
-    """The ranks' metrics in one collective: the loss shares summed, the
-    batch-mean gate values averaged."""
+    """The data ranks' metrics in one collective: the loss shares summed,
+    the batch-mean gate values averaged."""
     total = reduce(torch.stack(list(metrics.values())))
-    return {k: x / world if k.startswith("rel_gate_") else x
+    return {k: x / dp if k.startswith("rel_gate_") else x
             for k, x in zip(metrics, total.unbind())}
 
 
-def make_eval_step(model, cfg: EgtrConfig, task: str = "sgg") -> Callable:
+def make_eval_step(model, cfg: EgtrConfig, task: str = "sgg",
+                   mesh: Optional[Mesh] = None) -> Callable:
     """``eval_step(batch) -> (outputs, losses)`` without sampling or dropout.
 
     ``batch["valid"]`` (when present) masks the padded tail rows a loader
     appends, so the validation loss covers real images only. Inside a
-    process group the denominators are the global batch's, so the ranks'
-    losses add up to the global batch's loss (the caller sums them)."""
-    reduce = dist.all_reduce_sum if dist.is_distributed() else None
+    process group the denominators are the global batch's, so the data
+    ranks' losses add up to the global batch's loss (the caller sums them
+    over the data group). ``mesh``: as ``make_train_step`` takes it."""
+    reduce = data_reduce(resolve_mesh(model, mesh))
 
     def eval_step(batch):
         model.eval()

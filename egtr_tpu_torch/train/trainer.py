@@ -13,18 +13,21 @@ PyTorch-Lightning Trainer wiring, train_egtr.py:762-877).
 The model is initialised from a ``torch.Generator`` seeded with ``seed``;
 every train step draws its dropout masks from one generator on the model's
 device, seeded with ``seed`` too, whose state the checkpoints carry. What the
-JAX loop has only for the TPU is left out: ahead-of-time compiled steps, the
-warm-up thread that compiles the eval program, and the device mesh.
+JAX loop has only for the TPU is left out: ahead-of-time compiled steps and
+the warm-up thread that compiles the eval program. The device mesh is the
+ranks' ``parallel.mesh.Mesh`` (``fit``'s ``mesh``).
 
 Inside a process group (``parallel.dist``; the loaders hand each rank its
 slice) the steps are data-parallel (``train_step``), and as in the JAX loop
 only the primary rank writes ``metrics.jsonl`` and checkpoints; the others
 wait at a barrier after each save and resume from the same checkpoint. The
-validation losses are summed over the ranks like the training losses, so
-every rank takes the same best-checkpoint and early-stopping decision. Each
-rank seeds its step generator with ``seed + rank`` (rank 0: ``seed``, as one
-process does), so the ranks draw different dropout masks; a checkpoint
-carries every rank's generator state.
+validation losses are summed over the data group like the training losses,
+so every rank takes the same best-checkpoint and early-stopping decision.
+Each rank seeds its step generator with ``seed + data_index`` (the first:
+``seed``, as one process does; ``parallel.mesh``), so the data ranks draw
+different dropout masks and the ranks of a model group, which compute one
+batch slice together, draw the same masks and relation samples; a
+checkpoint carries every rank's generator state.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from ..models.layers import init_params as init_model_params
 from ..parallel import dist
 from .checkpoint import CheckpointManager
 from .optim import make_optimizer
-from .train_step import make_eval_step, make_train_step
+from .train_step import make_eval_step, make_train_step, resolve_mesh
 
 
 class MetricLogger:
@@ -96,13 +99,16 @@ def _payload(model, optimizer, generator, best_val: float,
                           if dist.is_distributed() else state)}
 
 
-def _reduced_mean(sums: Dict[str, float], n: int, device) -> Dict[str, float]:
+def _reduced_mean(sums: Dict[str, float], n: int, device, mesh
+                  ) -> Dict[str, float]:
     """Per-key sums over ``n`` batches as means, the sums first added over
-    the ranks (each holds its share of every batch's loss)."""
-    if not dist.is_distributed():
+    the data group (each data rank holds its share of every batch's
+    loss)."""
+    if mesh is None or mesh.dp == 1:
         return {k: v / max(n, 1) for k, v in sums.items()}
     total = dist.all_reduce_sum(torch.tensor(
-        list(sums.values()), dtype=torch.float64, device=device))
+        list(sums.values()), dtype=torch.float64, device=device),
+        mesh.data_group)
     return {k: v / max(n, 1) for k, v in zip(sums, total.tolist())}
 
 
@@ -112,7 +118,7 @@ def fit(model, cfg: EgtrConfig, *, train_loader, val_loader, log_dir: str,
         grad_clip: float = 0.1, max_epochs: int = 50, patience: int = 15,
         accum_steps: int = 1, init_params=None, seed: int = 42,
         log_every: int = 50, lr_scale: float = 1.0, initialized_paths=None,
-        device=None):
+        device=None, mesh=None):
     """Run one training phase on ``device`` (default: the card); returns
     the model with the last state's weights (the best is on disk).
 
@@ -124,7 +130,8 @@ def fit(model, cfg: EgtrConfig, *, train_loader, val_loader, log_dir: str,
     (``optim.param_label``). Train records carry ``step_seconds``, the host
     time of the step until its metrics reached the host. In a process group
     ``device`` is the rank's (``dist.init_from_env``) and every rank calls
-    ``fit`` with its own loaders."""
+    ``fit`` with its own loaders (its data rank's slices); ``mesh``: the
+    ranks' layout (``train_step.resolve_mesh``)."""
     device = resolve_device(device)
     logger = MetricLogger(log_dir)
     if init_params is None:
@@ -136,11 +143,13 @@ def fit(model, cfg: EgtrConfig, *, train_loader, val_loader, log_dir: str,
                                weight_decay, grad_clip,
                                initialized_paths=initialized_paths)
     rank = dist.process_index()
-    generator = torch.Generator(device=device).manual_seed(seed + rank)
+    mesh = resolve_mesh(model, mesh)
+    generator = torch.Generator(device=device).manual_seed(
+        seed + (mesh.data_index if mesh is not None else 0))
     ckpt = CheckpointManager(os.path.join(log_dir, "checkpoints"))
     train_step = make_train_step(model, cfg, optimizer, task=task,
-                                 accum_steps=accum_steps)
-    eval_step = make_eval_step(model, cfg, task=task)
+                                 accum_steps=accum_steps, mesh=mesh)
+    eval_step = make_eval_step(model, cfg, task=task, mesh=mesh)
 
     best_val = float("inf")
     epochs_no_improve = 0
@@ -190,7 +199,7 @@ def fit(model, cfg: EgtrConfig, *, train_loader, val_loader, log_dir: str,
                 val_sums[k] = val_sums.get(k, 0.0) + float(v)
             val_n += 1
         val = {f"validation_{k}": v for k, v in
-               _reduced_mean(val_sums, val_n, device).items()}
+               _reduced_mean(val_sums, val_n, device, mesh).items()}
         val_loss = val.get("validation_total_loss", float("inf"))
         _sync(device)
         logger.log({"phase": "val", "epoch": epoch, **val,

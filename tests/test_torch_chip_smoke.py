@@ -206,6 +206,7 @@ def install_fake_card(set_attr, tmp_path):
     set_attr(torch.cuda, "device_count", lambda: 1)
     set_attr(torch.cuda, "reset_peak_memory_stats", lambda *a: None)
     set_attr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    set_attr(torch.cuda, "memory_allocated", lambda *a: 0)
     set_attr(msda_cuda, "msda_fwd", kernel)
     set_attr(msda_cuda, "msda_bwd_rows", bwd_rows)
     set_attr(msda_cuda, "msda_bwd_value", bwd_value)
@@ -327,6 +328,8 @@ def install_fake_card(set_attr, tmp_path):
     set_attr(chip_smoke, "DDP_STEPS", 1)
     set_attr(chip_smoke, "DDP_ADAPT_GLOBAL_BATCH", 4)
     set_attr(chip_smoke, "DRYRUN_WORLDS", (1,))
+    # (f), the model axis: one bf16 round a rank
+    set_attr(chip_smoke, "TP_STEPS", 1)
 
 
 def test_chip_smoke_runs_its_phases(fake_card, capsys):
@@ -638,7 +641,15 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
                   "ddp (a): 2 ranks (gloo, CUDA tensors) on one card",
                   "ranks' parameters bit-equal",
                   "all-reduce of", "ddp (b): 2 ranks x accum 2 x window 16",
-                  "ddp (d): dryrun_multichip(1) on gloo"):
+                  "ddp (d): dryrun_multichip(1) on gloo",
+                  "model f32 exact card vs CPU (F1)",
+                  "model f32 served card vs CPU (F1)",
+                  "experiment adapted model (window 16, band point) f32 card "
+                  "vs CPU (F1)", "F2: the gradients' largest relative error",
+                  "tp (f): dp 1 x mp 2 (2 ranks, gloo) on one card",
+                  "the model group's 4 collectives of a step (2 all_gather",
+                  "train_egtr --dp 1 --mp 2",
+                  "the trained model's float32 logits vs one process's"):
         assert phase in out, phase
     # the data-parallel paths' launches in each of their ranks: 2+2 layers,
     # (a) one float32 step and three bf16 steps; (b) two microbatches, one
@@ -658,6 +669,28 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
     parallel = result["data_parallel"]
     assert parallel["ddp"]["buckets"] >= 1
     assert set(parallel["dryruns"]) == {"world_1"}
+    # (f) dp 1 x mp 2: each rank runs the whole detector, one float32 step,
+    # a warm-up and one bf16 round, and the driver (one data rank: a step
+    # of two microbatches, a validation batch a phase, 1 test image)
+    for kernel in (fwd, rows, value):
+        assert kernel["launches_tp_per_rank"] == [4, 4]
+        assert kernel["launches_tp_bf16_per_rank"] == [2 * 4, 2 * 4]
+    assert fwd["launches_tp_train_per_rank"] == [7 * 4, 7 * 4]
+    assert rows["launches_tp_train_per_rank"] == [4 * 4, 4 * 4]
+    tp = result["tensor_parallel"]
+    # the forward gathers the two grids and sums the gate's mean; the
+    # backward sums the head's input gradients
+    assert tp["collectives_per_step"] == ["all_gather", "all_gather",
+                                          "all_reduce_sum", "all_reduce_sum"]
+    assert tp["trained_eval_max_abs_err"] <= chip_smoke.TP_EVAL_ATOL
+    assert 10 * tp["trained_eval_max_abs_err"] < tp[
+        "trained_eval_blocks_swapped"]
+    assert len(tp["head_peak_bytes_per_rank"]) == 2
+    assert tp["grad_sign_flips"] >= 0 and tp["param_worst_delta_name"]
+    # F1: the card's band picks against the CPU's, served and experiment
+    assert fwd_q["served_model_f32_max_abs_err"][
+        "cpu_band_indices_differing"] == 0
+    assert result["experiment"]["band_flips_vs_cpu"]["band_indices"] > 0
 
 
 def test_chip_smoke_fails_when_a_kernel_is_bypassed(fake_card, monkeypatch):
@@ -726,6 +759,16 @@ def test_ddp_phase_fails_when_a_rank_counts_no_launch(
     fake_ranks(monkeypatch, tmp_path, uncounted=kernel)
     with pytest.raises(SystemExit, match=f"'{kernel}': 0"):
         getattr(chip_smoke, phase)()
+
+
+def test_tp_phase_fails_when_a_rank_counts_no_launch(fake_card, monkeypatch,
+                                                    tmp_path):
+    """Phase (f): a rank whose backward skips K3 fails itself after its
+    float32 step, and with it the phase."""
+    fake_ranks(monkeypatch, tmp_path, uncounted="msda_bwd_value")
+    with pytest.raises(RuntimeError, match=r"(?s)tp \(f\) rank \d: "
+                       r"launches .*'msda_bwd_value': 0"):
+        chip_smoke.check_tp()
 
 
 def test_chip_smoke_fails_when_the_served_path_bypasses_a_kernel(

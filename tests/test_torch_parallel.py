@@ -38,7 +38,7 @@ from egtr_tpu_torch.data.loader import Loader
 from egtr_tpu_torch.data.transforms import Sample
 from egtr_tpu_torch.parallel import dist
 from egtr_tpu_torch.parallel.launch import spawn
-from egtr_tpu_torch.parallel.mesh import make_mesh
+from egtr_tpu_torch.parallel.mesh import make_mesh, mesh_ranks
 
 # the ranks run one thread each; so does this process, whose CPU
 # convolutions then add in the ranks' order
@@ -311,8 +311,8 @@ def evaluate(weights, rank=0, world=1, out=None):
     states = []
     merge = runner._merge_across_hosts
 
-    def merged(evaluators, marks):
-        merge(evaluators, marks)
+    def merged(evaluators, marks, mesh=None):
+        merge(evaluators, marks, mesh)
         states.append([e.state() for e in evaluators])
 
     runner._merge_across_hosts = merged
@@ -590,7 +590,7 @@ def test_dryrun_multichip_on_cpu(capsys):
 
 @pytest.mark.parametrize("driver", ["train_egtr", "pretrain_detr"])
 @pytest.mark.parametrize("argv,message", [
-    (["--mp", "2"], "tensor parallelism"),
+    (["--mp", "2"], r"dp\(1\) \* mp\(2\) != world size \(1\)"),
     (["--dp", "2"], r"dp\(2\) \* mp\(1\) != world size \(1\)"),
 ])
 def test_driver_refuses_dp_and_mp(driver, argv, message, tmp_path):
@@ -619,8 +619,17 @@ def test_make_mesh(monkeypatch):
     assert make_mesh().dp == 4 and make_mesh(4, 1).dp == 4
     with pytest.raises(ValueError, match="world size"):
         make_mesh(2)
-    with pytest.raises(NotImplementedError):
-        make_mesh(2, 2)
+    # dp 2 x mp 2 at world size 4, rank 3 = d 1 * mp + m 1 (JAX's
+    # reshape(dp, mp)); without a process group no group is created
+    monkeypatch.setattr(dist, "process_index", lambda: 3)
+    mesh = make_mesh(2, 2)
+    assert (mesh.dp, mesh.mp, mesh.data_index, mesh.model_index) == (
+        2, 2, 1, 1)
+    data, model = mesh_ranks(2, 2)
+    assert (data[mesh.model_index], model[mesh.data_index]) == ([1, 3],
+                                                                [2, 3])
+    assert mesh.data_group is None and mesh.model_group is None
+    assert make_mesh(mp=2).dp == 2
 
 
 def rank_fault(device, fault):

@@ -170,13 +170,14 @@ def test_pretrain_then_train_egtr_on_cpu(tmp_path, tiny_driver,  # noqa: F811
 # "--dataset open_images" and "--use_remat true" were refused until the
 # port took them; under their old ids they now reach the fit with the
 # option in effect. --dp and --mp were refused whenever other than 1 until
-# the port trained data-parallel; under their old ids, --dp other than the
-# world size (one process here) and --mp other than 1 stay refused
+# the port trained data-parallel and then split the relation grid; under
+# their old ids, a --dp x --mp other than the world size (one process here)
+# stays refused
 @pytest.mark.parametrize("argv,error", [
     pytest.param(["--dataset", "open_images"], None, id="argv0-open_images"),
     pytest.param(["--dp", "2"], r"dp\(2\) \* mp\(1\) != world size \(1\)",
                  id="argv1-one process on one device"),
-    pytest.param(["--mp", "2"], "tensor parallelism of the relation head",
+    pytest.param(["--mp", "2"], r"dp\(1\) \* mp\(2\) != world size \(1\)",
                  id="argv2-one process on one device"),
     pytest.param(["--use_remat", "true"], None, id="argv3-use_remat"),
 ])

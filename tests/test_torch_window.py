@@ -655,3 +655,49 @@ def test_new_sources_and_counters():
                  "msda_bwd_win_value", "msda_bwd_win_value_pp",
                  "msda_fwd_bp"):
         assert isinstance(msda_cuda.launches[name], int)
+
+
+def test_band_pick_near_a_tie_follows_the_summation_order():
+    """The band is the ``round`` of a float32 weighted mean (``window_rows``
+    in both packages): on tiles whose exact mean sits on a rounding
+    boundary, reversing the order of each tile's queries, which changes no
+    real sum, flips ``bidx`` in the port and in ``egtr_tpu`` alike. So no
+    fixed order can agree with every platform's (the card's, XLA's) at a
+    near-tie; each flip is one stride of the band."""
+    h, win, TQ, T = 64, 16, 8, 4096
+    stride = window.band_stride(win)
+    rng = np.random.default_rng(0)
+    aw = rng.uniform(0.05, 1.0, (T, TQ))
+    iy = rng.uniform(12.0, 36.0, (T, TQ))
+    # shift each tile so that its exact mean is (k + 1/2) stride + (win-1)/2
+    ties = (rng.integers(1, 4, (T, 1)) + 0.5) * stride + (win - 1) / 2.0
+    iy += ties - (iy * aw).sum(1, keepdims=True) / aw.sum(1, keepdims=True)
+    iy, aw = iy.astype(np.float32), aw.astype(np.float32)
+    forward = [x.reshape(1, 1, 1, T * TQ) for x in (iy, aw)]
+    backward = [np.ascontiguousarray(x[:, ::-1]).reshape(1, 1, 1, T * TQ)
+                for x in (iy, aw)]
+    exact = ((iy.astype(np.float64) * aw).sum(1) / aw.sum(1)
+             - (win - 1) / 2.0) / stride
+
+    def port(a, b):
+        return window.window_rows(torch.from_numpy(a), torch.from_numpy(b),
+                                  h, win, TQ, per_point=True)[0].numpy()
+
+    pick = jax.jit(lambda a, b: jax_window.window_rows(
+        a, b, h, win, TQ, per_point=True)[0])
+    for name, one, other in (
+            ("port", port(*forward), port(*backward)),
+            ("egtr_tpu", np.asarray(pick(*map(jnp.asarray, forward))),
+             np.asarray(pick(*map(jnp.asarray, backward))))):
+        flips = (one != other).reshape(T)
+        print(f"{name}: {int(flips.sum())} of {T} near-tie tiles flip")
+        assert flips.any(), name
+        assert (np.abs(one - other).reshape(T)[flips] == 1).all(), name
+        # only near-ties flip: the float32 data's exact mean is on the tie
+        assert (np.abs(exact[flips] - np.floor(exact[flips]) - 0.5)
+                < 1e-5).all(), name
+    # away from the tie no order moves the band
+    iy_far = forward[0] + np.float32(stride / 4)
+    assert np.array_equal(port(iy_far, forward[1]), port(
+        np.ascontiguousarray(iy_far.reshape(T, TQ)[:, ::-1]).reshape(
+            1, 1, 1, T * TQ), backward[1]))
