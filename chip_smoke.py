@@ -9,8 +9,9 @@ and no result line. In order it:
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the hand-written MSDA kernels (exact forward; backward rows and
    value; int8 forward; banded forward; banded backward rows and value;
-   batched-P forward) from egtr_tpu_torch/csrc and the native evaluation
-   kernels from egtr_tpu_torch/native, the compilers started together;
+   batched-P forward) and the matcher's assignment kernel (lsap) from
+   egtr_tpu_torch/csrc and the native evaluation kernels from
+   egtr_tpu_torch/native, the compilers started together;
 3. holds the forward kernel against its plain PyTorch version at the two
    main paths' shapes (serving bucket 608x1008: levels (76,126),(38,63),
    (19,32),(10,16), S = 12738; training bucket 800x1344: levels (100,168),
@@ -46,13 +47,32 @@ and no result line. In order it:
    and int8 values, and a batch of 2; checks that two runs are bit-equal
    and that K5 is bit-equal to K6 given K5's tile bands broadcast over the
    points, and times both kernels by CUDA events and in a CUDA graph;
+(g) (after phase 15) holds the matcher's kernel ``lsap`` (the JAX
+   package's in-jit Hungarian solver) against its plain version, bit for bit
+   in its three outputs, at B 2 and 4, Q 200 and 300 (two stages), the
+   two-stage proposal matching's Q = S (22,323) at B 2, G 64,
+   ``num_boxes`` from 0 to G and G everywhere, on random costs and on costs
+   full of ties; each image's total cost equal to scipy's to 1e-6; times the
+   kernel (CUDA events and a CUDA graph) beside the host scipy path it
+   replaced (the copies included) and its bound;
 7. serves a few requests through ``infer.infer`` at full width (ResNet-50,
    d_model 256, 6+6 layers, 200 queries, 150/50 labels, bfloat16, seeded
    random weights) in three configurations and checks the outputs and each
    kernel's launches per forward: the exact bench configuration (K1 12), the
    JAX package's serving default ``infer.serving_config()`` (window 16, one
    band per point, int8: K6 18, K4 12, K1 0) and ``msda_band="tile"`` without
-   int8 (K5 18, K1 12); then times the three in turns, side by side;
+   int8 (K5 18, K1 12); then times the three in turns, side by side. Each
+   request is the model's captured CUDA graph, one per input signature
+   (``utils/aot.py``; the first request captures it), and every launch
+   count, measured on the card (``CardLaunches``), holds over replays;
+(h) (after phase 16) the exact and the served request as a graph against
+   the same request op by op (``infer.infer_eager``): outputs (largest
+   delta, bit-equality), launches per forward both ways, ms per request in
+   turns, the card's launches and idle share per request (torch.profiler),
+   peak and held memory; then the captured request replayed on another
+   image, and the evaluation's forward + post-processing program
+   (``runner.infer_program``) replayed on a batch it was not captured
+   with, each against eager;
 8. runs the exact and the served model in float32 (TF32 off) through the
    kernels and through the plain versions and compares logits, boxes and
    relation scores, counting the band indices on which the two runs differ;
@@ -64,10 +84,22 @@ and no result line. In order it:
    K3 one launch each, gradients equal to the exact op's;
 10. trains: the train probe's step (``scripts/perf_train_step``) at full
    width, bfloat16, batch 2 at 800x1344, dropout 0.1: three steps and one
-   accumulated step (accum 2 over a batch of 4). Checks that every metric
-   is finite, the gradient norm positive, the trainable parameters moved,
-   the frozen ones bit-identical, and that each microbatch launched each of
-   the three kernels 12 times;
+   accumulated step (accum 2 over a batch of 4), each a captured program
+   (the accumulated one a microbatch program twice and an apply program).
+   Checks that every metric is finite, the gradient norm positive, the
+   trainable parameters moved, the frozen ones bit-identical, and that each
+   microbatch launched each of the three kernels 12 times and the matcher
+   kernel once per matching (6 with the auxiliary losses);
+(i) the training step as programs against eager: float32 (TF32 off,
+   dropout 0) three steps, each on its own batch and learning-rate scale,
+   the graph run's losses, gradient norms, parameter changes and last
+   gradients from the nearest of three eager runs within four times the
+   eager runs' largest distance of a pair, and
+   two planted faults (a step that never zeroes its gradients, an update
+   that reads the scale it was captured with) outside; bfloat16 batch 2 x
+   accum 2 at 800x1344, ms per step in turns and memory both ways; at
+   dropout 0.1 two replays on one batch give different losses (new masks
+   each replay);
 11. runs one float32 (TF32 off) forward + backward of the same model through
    the kernels and through the plain op and compares the total loss and
    every parameter's gradient, beside the plain path's own change when the
@@ -120,7 +152,8 @@ and no result line. In order it:
    the reloaded artifact's forward bit-equal to the trained model's, and a
    relaunch on the same output path that resumes and takes no step (only
    the test evaluation's 24 K11 launches); prints seconds per phase and
-   ms per optimizer step from metrics.jsonl;
+   ms per optimizer step from metrics.jsonl, and the run's peak memory
+   against the same run with every step and evaluation forward eager;
 18. holds K4, K5 and K6 against their plain versions at the test bucket's
    levels (800x1344), as phases 5 and 6 do at the serving bucket's; then
    runs the evaluation driver ``scripts.evaluate_egtr.main`` in-process,
@@ -215,7 +248,19 @@ and no result line. In order it:
    ranks' test metrics equal and rank 0 alone writing; prints each
    phase's seconds;
 22. prints a ``kernels`` JSON line (with each kernel's launches per rank on
-   the data-parallel paths), then ``{"ok": true, "device": ...}`` last.
+   the data-parallel paths, the matcher kernel's entry last; the request
+   and train-step graphs beside it), then ``{"ok": true, "device": ...}``
+   last.
+
+The drivers of phases 17-20 run their steps, evaluation forwards and
+requests as captured programs too. A replay launches its kernels without
+their wrappers, so in this process every launch count is measured on the
+card: a torch.profiler trace of the card's activity from
+``reset_kernel_counts`` to ``kernel_counts``, its kernel rows read back to
+the wrappers (``CardLaunches``, ``kernel_of``); timings taken inside such a
+window carry the trace's cost. The data-parallel phases (21) stay eager,
+as ``utils/aot.maybe_aot`` is inside a process group, and count by
+wrapper.
 
 It exits nonzero without a result where CUDA is absent.
 """
@@ -228,11 +273,13 @@ import hashlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import torch
 
@@ -240,17 +287,20 @@ import numpy as np
 from PIL import Image
 
 from egtr_tpu_torch import infer, native
+from egtr_tpu_torch.evaluation import runner as runner_module
 from egtr_tpu_torch.evaluation import sg_eval
 from egtr_tpu_torch.evaluation.sg_eval import SceneGraphEvaluator
 from egtr_tpu_torch.models.detr import level_shapes
 from egtr_tpu_torch.models.egtr import EgtrModel
 from egtr_tpu_torch.models.layers import MSDeformableAttention
-from egtr_tpu_torch.ops import criterion, msda, msda_cuda
+from egtr_tpu_torch.ops import criterion, matcher, msda, msda_cuda
 from egtr_tpu_torch.ops.msda_window import segment_bounds
 from egtr_tpu_torch.parallel import dist, dryrun
 from egtr_tpu_torch.parallel.launch import spawn
 from egtr_tpu_torch.parallel.mesh import make_mesh
 from egtr_tpu_torch.scripts import perf_train_step
+from egtr_tpu_torch.train import train_step as train_step_module
+from egtr_tpu_torch.train.optim import Optimizer
 from egtr_tpu_torch.train.train_step import make_train_step
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
@@ -1151,12 +1201,145 @@ BANDED_BWD = {"tile": ("msda_bwd_win_rows", "msda_bwd_win_value"),
               "point": ("msda_bwd_win_rows_pp", "msda_bwd_win_value_pp")}
 
 
-def kernel_counts():
-    return dict(msda_cuda.launches)
+# the hand-written kernels' __global__ functions, by the wrapper that
+# launches each: a banded kernel serves both forms of its pair, told apart
+# by its last template argument (PER_POINT); K11's bfloat16 and int8 forms
+# run K1's and K4's kernels (msda_cuda.BP_ROUTES), so a trace counts them
+# under msda_fwd and msda_fwd_q (``kernel_counts(batch_p=True)``)
+DEVICE_KERNELS = {
+    "msda_fwd_kernel": "msda_fwd", "msda_fwd_q_kernel": "msda_fwd_q",
+    "msda_fwd_bp_kernel": "msda_fwd_bp",
+    "msda_bwd_rows_kernel": "msda_bwd_rows",
+    "msda_bwd_value_kernel": "msda_bwd_value", "lsap_kernel": "lsap",
+    "msda_fwd_win_kernel": ("msda_fwd_win", "msda_fwd_win_pp"),
+    "msda_bwd_win_rows_kernel": ("msda_bwd_win_rows",
+                                 "msda_bwd_win_rows_pp"),
+    "msda_bwd_win_value_kernel": ("msda_bwd_win_value",
+                                  "msda_bwd_win_value_pp")}
+
+
+def kernel_of(key):
+    """The wrapper whose kernel a profiler row names (``DEVICE_KERNELS``),
+    or None for any other kernel."""
+    for found in re.finditer(r"\b(\w+_kernel)\b(?:<([^<>]*)>)?", key):
+        name = DEVICE_KERNELS.get(found.group(1))
+        if isinstance(name, tuple):
+            per_point = (found.group(2) or "").split(",")[-1].strip()
+            if per_point not in ("true", "false"):
+                raise ValueError(f"{key!r}: no PER_POINT argument")
+            return name[per_point == "true"]
+        if name is not None:
+            return name
+    return None
+
+
+class CardLaunches:
+    """The hand-written kernels' launches on the card, measured: a
+    torch.profiler trace of the card's activity, which sees each kernel that
+    a graph replay runs, counted by kernel (``kernel_of``). ``pause`` ends
+    the trace so far and counts it, so that another profiler may run;
+    ``resume`` starts the next; ``add`` counts another's finished trace."""
+
+    def __init__(self):
+        self.counts = dict.fromkeys(
+            msda_cuda.KERNELS + msda_cuda.MATCHER_KERNELS, 0)
+        self._prof = None
+
+    def resume(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        self._prof = profile(activities=[ProfilerActivity.CUDA])
+        self._prof.start()
+
+    def pause(self):
+        if self._prof is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self._prof.stop()
+            self.add(self._prof)
+            self._prof = None
+            TRACE_COST["traces"] += 1
+            TRACE_COST["seconds"] += time.perf_counter() - t0
+
+    def add(self, prof):
+        # the raw events: no per-event Python objects, no averaging
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type().name == "CUDA":
+                name = kernel_of(e.name())
+                if name is not None:
+                    self.counts[name] += 1
+
+
+# what reading the traces cost (their stop and count), over the run
+TRACE_COST = {"traces": 0, "seconds": 0.0}
+
+
+_meter = None
+
+
+def measured() -> bool:
+    """Whether this process counts launches on the card (``CardLaunches``)
+    rather than by wrapper: one process on a card, where requests and steps
+    replay captured programs. Inside a process group the steps run eagerly
+    and every launch passes through its wrapper."""
+    return torch.device(DEVICE).type == "cuda" and not dist.is_distributed()
 
 
 def reset_kernel_counts():
+    """Every count to 0 and, where ``measured``, a new measurement on the
+    card, which the next ``kernel_counts`` or ``matcher_launches`` ends."""
+    global _meter
     msda_cuda.reset_launches()
+    if _meter is not None:
+        _meter.pause()
+    _meter = None
+    if measured():
+        _meter = CardLaunches()
+        _meter.resume()
+
+
+def _counts(batch_p=False):
+    if not measured():
+        return dict(msda_cuda.launches)
+    if _meter is None:
+        raise RuntimeError("kernel counts read without reset_kernel_counts")
+    _meter.pause()
+    counts = dict(_meter.counts)
+    if batch_p:
+        # every exact forward went through K11, whose bfloat16 and int8
+        # forms the trace counts under their routes; the wrappers show that
+        # no K1 or K4 call of their own was among them
+        direct = {k: msda_cuda.launches[k] for k in ("msda_fwd",
+                                                     "msda_fwd_q")}
+        if any(direct.values()):
+            raise SystemExit(f"batch_p run: K1/K4 called directly {direct}")
+        for route in direct:
+            counts["msda_fwd_bp"] += counts.pop(route)
+            counts[route] = 0
+    return counts
+
+
+def kernel_counts(batch_p=False):
+    """The MSDA kernels' launches since ``reset_kernel_counts``: on the card
+    measured (``CardLaunches``), replays included, else the wrappers'
+    counts; with ``batch_p`` (a run with the flag on) K11's launches
+    include those the trace counts under its routes (the matcher's:
+    ``matcher_launches``)."""
+    counts = _counts(batch_p)
+    return {k: counts[k] for k in msda_cuda.KERNELS}
+
+
+def matcher_launches():
+    return _counts()["lsap"]
+
+
+def matches_per_pass(cfg):
+    """Hungarian matches per criterion pass (a microbatch of a train step,
+    or an evaluation batch's loss): the last layer's, one per earlier
+    decoder layer with auxiliary losses, one for the two-stage proposals."""
+    return (1 + (cfg.decoder_layers - 1) * int(cfg.auxiliary_loss)
+            + int(cfg.two_stage))
 
 
 def forward_counts(cfg, shapes, batch_p=False):
@@ -1317,9 +1500,9 @@ def compare_f32(cfg, label, limit, cpu=False):
             msda.FWD_BATCH_P = old_flag
             bands.append(msda.band_index_log)
             msda.band_index_log = None
-        if kernel_counts() != expect:
+        if kernel_counts(batch_p) != expect:
             raise SystemExit(f"f32 {label} (batch_p {batch_p}) launches "
-                             f"{kernel_counts()}, expected {expect}")
+                             f"{kernel_counts(batch_p)}, expected {expect}")
     out_k, out_p, out_bp = outs
     differing = sum(int((a != b).sum()) for (_, a), (_, b) in zip(*bands[:2]))
     total = sum(a.numel() for _, a in bands[0])
@@ -1381,7 +1564,7 @@ def serve_batch_p(models, x):
             torch.cuda.synchronize()
         finally:
             msda.FWD_BATCH_P = old_flag
-        counts = kernel_counts()
+        counts = kernel_counts(batch_p=True)
         per_forward = forward_counts(cfg, shapes, batch_p=True)
         keys = ("logits", "pred_boxes", "pred_rel")
         errs = {k: (on[k].float() - off[k].float()).abs().max().item()
@@ -1586,6 +1769,7 @@ def train(cfg, label, hw, batch_size, steps, lrs=perf_train_step.LRS,
             step_accum, batch2, generator, 1, DEVICE)
         microbatches += 2
     counts = kernel_counts()
+    matched = matcher_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     per_microbatch = step_counts(cfg, level_shapes(hw, cfg.num_feature_levels))
     launched = {k: v for k, v in counts.items() if v}
@@ -1623,6 +1807,10 @@ def train(cfg, label, hw, batch_size, steps, lrs=perf_train_step.LRS,
                 f"train {label}: {kernel} launched {n} times, expected "
                 f"{per_microbatch[kernel] * microbatches} "
                 f"({per_microbatch[kernel]} per microbatch)")
+    if matched != matches_per_pass(cfg) * microbatches:
+        raise SystemExit(f"train {label}: the matcher kernel launched "
+                         f"{matched} times, expected "
+                         f"{matches_per_pass(cfg) * microbatches}")
     moved = {group: [0, 0] for group in ("main", "backbone", "initialized")}
     for name, p in model.named_parameters():
         group = optimizer.labels[name]
@@ -1643,6 +1831,7 @@ def train(cfg, label, hw, batch_size, steps, lrs=perf_train_step.LRS,
             raise SystemExit(f"train {label}: only {n_moved} of {n_all} "
                              f"{group} parameters moved")
     return {"counts": counts, "per_microbatch": per_microbatch,
+            "lsap_launches": matched,
             "ms_per_step": times, "accumulated_step_ms": accum_times,
             "max_memory_allocated_gb": peak_gb}
 
@@ -1852,6 +2041,15 @@ def _phase_records(out, phase):
         math.isfinite(v) for v in losses))
 
 
+def _peak_memory():
+    """(peak allocated, peak reserved) GB since the last reset: a captured
+    program's memory is its pool's, reserved and not allocated while it
+    replays."""
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() / 1e9,
+            torch.cuda.max_memory_reserved() / 1e9)
+
+
 def reloads_bit_equal(model, artifact):
     """Whether the saved artifact reloads into the trained model's forward,
     bit for bit, on a seeded image of the training bucket."""
@@ -1885,20 +2083,33 @@ def drive_trainer(workdir):
             *DRIVER_ARGS]
     old_flag, msda.FWD_BATCH_P = msda.FWD_BATCH_P, True
     try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         reset_kernel_counts()
         t0 = time.perf_counter()
         with recorded_entries() as entries:
             model = train_egtr.main(argv)
         torch.cuda.synchronize()
         t_run = time.perf_counter() - t0
-        counts = kernel_counts()
+        memory = {"graph": _peak_memory()}
+        counts = kernel_counts(batch_p=True)
+        matched = matcher_launches()
         bit_equal = reloads_bit_equal(model, f"{out}/artifact")
-        before = kernel_counts()
+        reset_kernel_counts()
         t0 = time.perf_counter()
         train_egtr.main(argv)
         torch.cuda.synchronize()
         t_relaunch = time.perf_counter() - t0
-        after = kernel_counts()
+        relaunched = kernel_counts(batch_p=True)
+        # the same run op by op, in a directory of its own: its memory
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eager_argv = list(argv)
+        eager_argv[eager_argv.index("--output_path") + 1] = f"{out}_eager"
+        with _eager_steps(), mock.patch.object(
+                runner_module, "maybe_aot", lambda fn, tag, device=None: fn):
+            train_egtr.main(eager_argv)
+        memory["eager"] = _peak_memory()
     finally:
         msda.FWD_BATCH_P = old_flag
     per_forward = forward_counts(
@@ -1910,6 +2121,10 @@ def drive_trainer(workdir):
     expect.update(msda_fwd_bp=per_forward * forwards,
                   msda_bwd_rows=per_forward * microbatches,
                   msda_bwd_value=per_forward * microbatches)
+    # a match per criterion pass: the train microbatches and the
+    # validation batches (the test evaluation computes no loss)
+    expect_matched = matches_per_pass(model.config) * (
+        forwards - SYNTH_VG["n_test"])
     phases, bad = {}, []
     for phase in ("main", "finetune"):
         train, val, ok = _phase_records(out, phase)
@@ -1943,20 +2158,24 @@ def drive_trainer(workdir):
           f"{ {p: v['validation_total_loss'] for p, v in phases.items()} }; "
           f"test metrics {test}; artifact reloaded bit-equal: {bit_equal}; "
           f"relaunch {t_relaunch:.1f} s, launches "
-          f"{ {k: after[k] - before[k] for k in after if after[k] != before[k]} }",
-          flush=True)
+          f"{ {k: v for k, v in relaunched.items() if v} }"
+          f"; (peak allocated, peak reserved) GB of the run, graphs "
+          f"{memory['graph']} against eager {memory['eager']}", flush=True)
     if counts != expect:
         raise SystemExit(f"driver: launches {counts}, expected {expect}")
+    if matched != expect_matched:
+        raise SystemExit(f"driver: the matcher kernel launched {matched} "
+                         f"times, expected {expect_matched}")
     if bad:
         raise SystemExit(f"driver: {bad}")
     if not bit_equal:
         raise SystemExit("driver: the reloaded artifact's forward differs")
-    relaunch = {k: after[k] - before[k] for k in after}
-    if relaunch != {**dict.fromkeys(after, 0),
-                    "msda_fwd_bp": per_forward * SYNTH_VG["n_test"]}:
-        raise SystemExit(f"driver relaunch: launches {relaunch}: it must "
+    if relaunched != {**dict.fromkeys(relaunched, 0),
+                      "msda_fwd_bp": per_forward * SYNTH_VG["n_test"]}:
+        raise SystemExit(f"driver relaunch: launches {relaunched}: it must "
                          "resume and take no step, only the test evaluation")
-    return {"counts": counts, "phases": phases, "seconds": t_run,
+    return {"counts": counts, "lsap_launches": matched, "phases": phases,
+            "seconds": t_run, "peak_memory_gb": memory,
             "relaunch_seconds": t_relaunch, "data_seconds": t_data,
             "mean_step_ms": sum(step_ms) / len(step_ms), "test": test,
             "entries": entries}
@@ -1974,6 +2193,31 @@ def _test_bucket(data, cfg):
                              num_rel_labels=cfg.num_rel_labels,
                              num_workers=1)))
     return tuple(batch["pixel_values"].shape[1:3])
+
+
+@contextlib.contextmanager
+def _fps_trace_counted(evaluate_egtr):
+    """The FPS loop's own torch.profiler run (the card's busy time) with
+    the launch measurement paused around it and counting its trace, since
+    two profilers cannot run at once."""
+    if _meter is None:
+        yield
+        return
+    real_busy, real_rows = evaluate_egtr._device_busy_ms, infer.device_rows
+
+    def rows(prof, n):
+        _meter.add(prof)
+        return real_rows(prof, n)
+
+    def busy_ms(fn):
+        _meter.pause()
+        with mock.patch.object(infer, "device_rows", rows):
+            ms = real_busy(fn)
+        _meter.resume()
+        return ms
+
+    with mock.patch.object(evaluate_egtr, "_device_busy_ms", busy_ms):
+        yield
 
 
 def drive_evaluate(workdir, driver):
@@ -2012,7 +2256,8 @@ def drive_evaluate(workdir, driver):
         reset_kernel_counts()
         t0 = time.perf_counter()
         with recorded_entries(
-                calls=calls if label == "exact" else None) as entries:
+                calls=calls if label == "exact" else None) as entries, \
+                _fps_trace_counted(evaluate_egtr):
             result = evaluate_egtr.main(argv + extra)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
@@ -2842,7 +3087,7 @@ def _f32_step(cfg, hw, global_batch, accum, lrs, device, rank=0, world=1,
     reset_kernel_counts()
     metrics = step(_rows(batch, rank * n, (rank + 1) * n), generator)
     torch.cuda.synchronize()
-    lr = {id(p): g["lr"] for g in optimizer.adamw.param_groups
+    lr = {id(p): float(g["lr"]) for g in optimizer.adamw.param_groups
           for p in g["params"]}
     lr_of = {n: lr[id(p)] for n, p in model.named_parameters() if id(p) in lr}
     return ({k: float(v) for k, v in metrics.items()}, model, kernel_counts(),
@@ -3522,7 +3767,6 @@ def trained_forward(artifact, data, device, mesh=None):
     on the host."""
     from egtr_tpu_torch.data.loader import Loader
     from egtr_tpu_torch.data.visual_genome import VGDataset
-    from egtr_tpu_torch.evaluation.runner import _forward
     from egtr_tpu_torch.train.checkpoint import load_pretrained
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3536,7 +3780,10 @@ def trained_forward(artifact, data, device, mesh=None):
                              max_gt=cfg.max_gt_boxes,
                              num_rel_labels=cfg.num_rel_labels,
                              num_workers=1)))
-    out = _forward(model.to(device), batch)
+    model = model.to(device).eval()
+    with torch.no_grad():
+        out = model(torch.from_numpy(batch["pixel_values"]).to(device),
+                    torch.from_numpy(batch["pixel_mask"]).to(device))
     return {k: out[k].float().cpu() for k in ("pred_rel_logits",
                                               "pred_connectivity_logits")}
 
@@ -3790,6 +4037,513 @@ def check_tp():
             "seconds": seconds, "note": TP_NOTE}
 
 
+# (g) the matcher's assignment kernel: the JAX package's in-jit solver
+# (egtr_tpu/ops/matcher.py:_lsa_single) at the criterion's shapes: B images
+# a microbatch, Q queries (300 with two stages, and the two-stage proposal
+# matching's Q = S tokens of the training bucket), G = max_gt_boxes slots
+LSAP_G = 64
+LSAP_CASES = ((2, 200), (4, 200), (2, 300), (4, 300), (2, 22323))
+LSAP_ITERS = 50
+LSAP_SCIPY_ITERS = 5
+# relaxing one column in a search step: an add, two subtractions and the
+# comparison
+LSAP_OPS_PER_COLUMN = 4
+
+
+def lsap_costs(B, Q, G, kind, seed):
+    """Random costs, or costs full of ties: integers of {0, 1, 2},
+    duplicate queries and a slot every query reaches at the same cost."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return (3.0 * rng.standard_normal((B, Q, G))).astype(np.float32)
+    cost = rng.integers(0, 3, (B, Q, G)).astype(np.float32)
+    cost[:, 10] = cost[:, 3]
+    cost[:, 20:24] = cost[:, 0:1]
+    cost[:, :, 5] = 1.0
+    return cost
+
+
+def host_scipy_match(cost, num_boxes):
+    """The port's former matcher: the cost matrix copied to the host,
+    scipy's ``linear_sum_assignment`` per image on its real slots, the
+    assignment copied back (query_index, gt_index)."""
+    from scipy.optimize import linear_sum_assignment
+
+    B, Q, G = cost.shape
+    host = cost.transpose(1, 2).cpu().numpy()
+    counts = num_boxes.cpu().numpy()
+    col4row = np.full((B, G), -1, np.int64)
+    gt_index = np.full((B, Q), -1, np.int64)
+    for b in range(B):
+        rows, cols = linear_sum_assignment(host[b, :int(counts[b])])
+        col4row[b, rows] = cols
+        gt_index[b, cols] = rows
+    return (torch.from_numpy(col4row).to(cost.device),
+            torch.from_numpy(gt_index).to(cost.device))
+
+
+def check_lsap():
+    """(g) The matcher kernel against its plain version on the card's
+    inputs, bit for bit in all three outputs, at B 2 and 4, Q 200 and 300,
+    and Q = S (22,323) at B 2, G 64, nb from 0 to G (and nb = G everywhere), on random costs and on
+    costs full of ties; each image's total cost equal to scipy's to 1e-6;
+    the kernel's ms (CUDA events, and in a CUDA graph) beside the host
+    scipy path's (copies included) and the plain version's (on the CPU, the
+    only place it runs)."""
+    from scipy.optimize import linear_sum_assignment
+
+    rows, bad = [], []
+    for B, Q in LSAP_CASES:
+        for kind in ("random", "ties"):
+            cost = lsap_costs(B, Q, LSAP_G, kind, seed=B * Q)
+            for nb in (np.linspace(0, LSAP_G, B).round(),
+                       np.full(B, LSAP_G)):
+                ct = torch.from_numpy(cost)
+                nt = torch.from_numpy(nb.astype(np.int32))
+                stats = {}
+                t0 = time.perf_counter()
+                plain = matcher.lsap_plain(ct, nt, stats)
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                cost_d, nb_d = ct.to(DEVICE), nt.to(DEVICE)
+                kern = [t.cpu() for t in msda_cuda.lsap(cost_d, nb_d)]
+                equal = all(torch.equal(k, p) for k, p in zip(kern, plain))
+                err = float((kern[1] - plain[1]).abs().max())
+                optimal = True
+                for b in range(B):
+                    n = int(nb[b])
+                    r, c = linear_sum_assignment(cost[b].T[:n])
+                    best = float(cost[b].T[r, c].astype(np.float64).sum())
+                    q = kern[0][b, :n].numpy()
+                    got = float(cost[b].T[np.arange(n), q]
+                                .astype(np.float64).sum())
+                    optimal &= (len(set(q.tolist())) == n
+                                and abs(got - best) <= 1e-6 * max(
+                                    1.0, abs(best)))
+                ms = cuda_ms(lambda: msda_cuda.lsap(cost_d, nb_d),
+                             LSAP_ITERS)
+                g_ms = graph_ms(lambda: msda_cuda.lsap(cost_d, nb_d))
+                host_scipy_match(cost_d, nb_d)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(LSAP_SCIPY_ITERS):
+                    host_scipy_match(cost_d, nb_d)
+                torch.cuda.synchronize()
+                scipy_ms = (time.perf_counter() - t0) * 1e3 / LSAP_SCIPY_ITERS
+                nbytes = (cost_d.numel() * 4 + nb_d.numel() * 4
+                          + sum(t.numel() * t.element_size() for t in kern))
+                byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                op_ms = (stats.get("steps", 0) * Q * LSAP_OPS_PER_COLUMN
+                         / FP32_FLOPS * 1e3)
+                row = {"B": B, "Q": Q, "G": LSAP_G, "costs": kind,
+                       "num_boxes": [int(v) for v in nb],
+                       "search_steps": stats.get("steps", 0),
+                       "bit_equal_to_plain": equal, "max_abs_err": err,
+                       "optimal_vs_scipy": optimal, "ms": ms,
+                       "graph_ms": g_ms, "host_scipy_ms": scipy_ms,
+                       "plain_ms": plain_ms, "plain_device": "cpu",
+                       "bound_ms": max(byte_ms, op_ms),
+                       "bound_by": ("bytes" if byte_ms >= op_ms
+                                    else "operations")}
+                rows.append(row)
+                if not (equal and optimal):
+                    bad.append(row)
+    main = next(r for r in rows if (r["B"], r["Q"], r["costs"]) == (
+        2, 200, "random") and r["num_boxes"][0] == 0)
+    print(f"(g) matcher kernel (lsap) vs its plain version: "
+          f"{sum(r['bit_equal_to_plain'] for r in rows)} of {len(rows)} "
+          f"cases bit-equal, {sum(r['optimal_vs_scipy'] for r in rows)} "
+          f"optimal against scipy; B2 Q200 G64: kernel {main['ms']:.4f} ms "
+          f"(graph {main['graph_ms']:.4f}), host scipy path "
+          f"{main['host_scipy_ms']:.3f} ms, plain (CPU) "
+          f"{main['plain_ms']:.1f} ms, bound {main['bound_ms']:.6f} ms "
+          f"({main['bound_by']}); per case (B, Q, costs, ms, scipy ms): "
+          + "; ".join(f"{r['B']},{r['Q']},{r['costs']},{r['ms']:.4f},"
+                      f"{r['host_scipy_ms']:.3f}" for r in rows), flush=True)
+    if bad:
+        raise SystemExit(f"(g) matcher kernel disagrees: {bad}")
+    return {"rows": rows, "main": main}
+
+
+REQUEST_ROUNDS = 10
+REQUEST_PROFILED = 5
+
+
+def _memory():
+    """(peak allocated GB since the last reset, reserved GB once the
+    caching allocator gave back what no tensor and no program holds)."""
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    return peak, torch.cuda.memory_reserved() / 1e9
+
+
+def check_request_graphs(models, x):
+    """(h) Each configuration's request as its captured program
+    (``infer.infer``, one replay; phase 7 captured it) against the same
+    request op by op (``infer.infer_eager``): the packed outputs, their
+    largest delta and whether they are bit-equal; the launches per forward
+    of both against ``forward_counts``; ms per request in turns (graph,
+    eager, ...); the card's launches and idle share per request under
+    torch.profiler; peak memory."""
+    results = {}
+    shapes = level_shapes(infer.BUCKET_HW, 4)
+    for label, model in models.items():
+        per_forward = forward_counts(model.config, shapes)
+        outs, counts, peaks = {}, {}, {}
+        for way, request in (("graph", infer.infer),
+                             ("eager", infer.infer_eager)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_kernel_counts()
+            outs[way] = request(model, x)
+            counts[way] = kernel_counts()
+            peaks[way] = _memory()
+        delta = float((outs["graph"] - outs["eager"]).abs().max())
+        equal = bool(torch.equal(outs["graph"], outs["eager"]))
+        times = {"graph": [], "eager": []}
+        for _ in range(REQUEST_ROUNDS):
+            for way, request in (("graph", infer.infer),
+                                 ("eager", infer.infer_eager)):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                request(model, x)
+                end.record()
+                end.synchronize()
+                times[way].append(start.elapsed_time(end))
+        prof = {way: infer.profile_requests(model, x, REQUEST_PROFILED,
+                                            top=5, request=request)
+                for way, request in (("graph", infer.infer),
+                                     ("eager", infer.infer_eager))}
+        med = {w: sorted(t)[len(t) // 2] for w, t in times.items()}
+        print(f"(h) request {label} as a graph vs eager: bit-equal {equal} "
+              f"(max abs delta {delta}); launches per forward graph "
+              f"{ {k: v for k, v in counts['graph'].items() if v} } eager "
+              f"{ {k: v for k, v in counts['eager'].items() if v} }; ms per "
+              f"request in turns, median graph {med['graph']:.3f} eager "
+              f"{med['eager']:.3f}; card launches per request graph "
+              f"{prof['graph']['device_launches_per_request']:.0f} eager "
+              f"{prof['eager']['device_launches_per_request']:.0f}, idle "
+              f"share graph {prof['graph']['device_idle_share']:.3f} eager "
+              f"{prof['eager']['device_idle_share']:.3f}; (peak allocated, "
+              f"reserved) GB graph {peaks['graph']} eager {peaks['eager']}",
+              flush=True)
+        for way in counts:
+            if counts[way] != per_forward:
+                raise SystemExit(f"(h) request {label} {way}: launches "
+                                 f"{counts[way]}, expected {per_forward}")
+        if not delta <= SERVED_MODEL_ATOL:
+            raise SystemExit(f"(h) request {label}: the graph's outputs "
+                             f"differ from eager by {delta}")
+        other = replayed_on_other_inputs(model, x)
+        print(f"(h) request {label} on another image: {other}", flush=True)
+        results[label] = {
+            "other_inputs": other,
+            "bit_equal": equal, "max_abs_delta": delta,
+            "launches_per_forward": counts["graph"],
+            "ms_in_turns": times, "median_ms": med,
+            "profile": {w: {k: p[k] for k in (
+                "wall_ms_per_request", "device_busy_ms_per_request",
+                "device_idle_share", "device_launches_per_request")}
+                for w, p in prof.items()},
+            "peak_allocated_gb": {w: p[0] for w, p in peaks.items()},
+            "reserved_gb": {w: p[1] for w, p in peaks.items()}}
+    return results
+
+
+def _max_delta(a, b):
+    """(largest |a - b| over the tensors of two dicts or two tensors,
+    whether all are bit-equal)."""
+    if isinstance(a, torch.Tensor):
+        a, b = {"": a}, {"": b}
+    delta = max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+    return delta, all(torch.equal(a[k], b[k]) for k in a)
+
+
+def replayed_on_other_inputs(model, x):
+    """A captured request replayed on an image it was not captured with, and
+    the evaluation's forward + post-processing program
+    (``runner.infer_program``) replayed on a batch it was not captured
+    with, each against the same call op by op: their largest delta, which
+    must stay within ``SERVED_MODEL_ATOL``, and whether the replay's
+    outputs moved with its inputs."""
+    rng = np.random.default_rng(1)
+    images = [rng.standard_normal(tuple(x.shape)).astype(np.float32)
+              for _ in range(2)]
+    x2 = torch.from_numpy(images[0]).to(x.device)
+    request = infer.infer(model, x2)
+    delta, equal = _max_delta(request, infer.infer_eager(model, x2))
+    moved = not torch.equal(request, infer.infer(model, x))
+    batches = [{"pixel_values": im, "pixel_mask": np.ones(im.shape[:3], bool)}
+               for im in images]
+    run = runner_module.infer_program(model, model.config)
+    first = run(batches[0])  # the warm-up; the program is captured
+    replayed = run(batches[1])
+    with mock.patch.object(runner_module, "maybe_aot",
+                           lambda fn, tag, device=None: fn):
+        eager = runner_module.infer_program(model, model.config)(batches[1])
+    run_delta, run_equal = _max_delta(replayed, eager)
+    run_moved = not _max_delta(replayed, first)[1]
+    result = {"request_max_abs_delta": delta, "request_bit_equal": equal,
+              "request_moved": moved,
+              "runner_max_abs_delta": run_delta,
+              "runner_bit_equal": run_equal, "runner_moved": run_moved}
+    if not (delta <= SERVED_MODEL_ATOL and run_delta <= SERVED_MODEL_ATOL
+            and moved and run_moved):
+        raise SystemExit(f"(h) a replay on other inputs: {result}")
+    return result
+
+
+TRAIN_GRAPH_TURNS = 2
+# (i), float32: each step's learning-rate scale (a replay must read each,
+# as the warm-up schedule changes it from step to step) and batch seed
+TRAIN_GRAPH_LR_SCALES = (1.0, 0.5, 0.25)
+TRAIN_GRAPH_SEEDS = (10, 11, 12)
+# the least limit of (i)'s float32 comparisons, about 32 float32 steps of
+# the value: the replays run the kernels cuBLAS and cuDNN chose under
+# capture, which may differ from eager's, so the graph run's loss and
+# gradient norm may sit a few steps from both eager runs while these agree
+# bit for bit (an H100: 1 step of the loss, 13 of the gradient norm)
+TRAIN_GRAPH_FLOOR = 2.0 ** -18
+# the eager runs whose pairwise distances make (i)'s spread, and how far
+# beyond the spread the graph run may lie: the distance between two runs
+# of the same step varies tenfold from pair to pair (K3's atomics flip the
+# sign of AdamW's first update wherever a gradient is near zero; an H100
+# measured the parameters' change 6.0e-7, 7.8e-6 and 7.8e-7 apart between
+# two eager runs, the graph run's 7.0e-7, 6.6e-7 and 4.95e-6 from the
+# nearer), so the spread is the largest of three pairs
+TRAIN_GRAPH_EAGER_RUNS = 3
+TRAIN_GRAPH_SPREAD_FACTOR = 4
+
+
+def _eager_steps():
+    """The train step's functions without their programs: what maybe_aot
+    wraps, op by op."""
+    return mock.patch.object(train_step_module, "maybe_aot",
+                             lambda fn, tag, device=None: fn)
+
+
+def _planted(fault):
+    """A step program with a planted fault, for the reading that (i)'s
+    check must refuse: ``zero_grad`` a step that never zeroes its
+    gradients (each replay adds to the last one's), ``lr_scale`` an update
+    that reads the scale it was captured with."""
+    if fault == "zero_grad":
+        return mock.patch.object(Optimizer, "zero_grad", lambda self: None)
+    real = Optimizer.step
+    return mock.patch.object(Optimizer, "step",
+                             lambda self, lr_scale=1.0: real(self, 1.0))
+
+
+def _rel_err(a, b):
+    """Largest |a - b| over b's largest entry, over all tensors."""
+    return max(float((a[n] - b[n]).abs().max())
+               / max(float(b[n].abs().max()), 1e-30) for n in b)
+
+
+def _median(values):
+    values = sorted(values)
+    return values[len(values) // 2] if values else 0.0
+
+
+def _f32_run(f32, hw, way):
+    """Three float32 steps at batch 2, each on its own seeded batch and
+    learning-rate scale, ``way`` "graph", "eager" or a planted fault
+    (``_planted``) in the programs: each step's total loss and gradient
+    norm, each trainable leaf's change, the last step's gradients, and the
+    launches (measured on the card)."""
+    model, optimizer, generator = perf_train_step.build(f32, DEVICE, seed=0)
+    batches = [perf_train_step.synthetic_batch(f32, 2, *hw, DEVICE, seed=s)
+               for s in TRAIN_GRAPH_SEEDS]
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    frozen = {n for n, label in optimizer.labels.items()
+              if label == "frozen"}
+    with (_eager_steps() if way == "eager" else _planted(way)
+          if way != "graph" else contextlib.nullcontext()):
+        step = make_train_step(model, f32, optimizer)
+        reset_kernel_counts()
+        metrics = [step(b, generator, lr_scale=scale) for b, scale
+                   in zip(batches, TRAIN_GRAPH_LR_SCALES)]
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        matched = matcher_launches()
+    run = {"loss": [float(m["total_loss"]) for m in metrics],
+           "grad_norm": [float(m["grad_norm"]) for m in metrics],
+           "change": {n: p.detach() - start[n] for n, p
+                      in model.named_parameters() if n not in frozen},
+           "grad": {n: p.grad.detach().clone() for n, p
+                    in model.named_parameters()},
+           "counts": counts, "matched": matched}
+    del model, optimizer, step, start
+    return run
+
+
+def _f32_distances(a, b):
+    """How far run ``a`` lies from run ``b``: each step's total loss and
+    gradient norm (the largest relative difference over the steps), the
+    parameters' change (per trainable leaf, the mean |change_a - change_b|
+    over the mean |change_b|; the median leaf) and the last step's
+    gradients (per leaf the L2 distance over b's L2 norm; the median
+    leaf)."""
+    def steps(key):
+        return max(abs(x - y) / max(abs(y), 1e-30)
+                   for x, y in zip(a[key], b[key]))
+
+    change = [float((a["change"][n] - d).abs().mean() / d.abs().mean())
+              for n, d in b["change"].items() if d.abs().mean() > 0]
+    grad = [float((a["grad"][n] - g).norm() / g.norm())
+            for n, g in b["grad"].items() if g.norm() > 0]
+    return {"loss": steps("loss"), "grad_norm": steps("grad_norm"),
+            "param_change": _median(change), "grad": _median(grad)}
+
+
+def check_train_graphs(train_cfg):
+    """(i) The training step as programs against eager: float32 (TF32 off)
+    at dropout 0, three steps at batch 2, 800x1344, each on its own batch
+    and learning-rate scale; the graph run against three eager runs: each
+    step's loss and gradient norm, the median leaf's parameter change and
+    last gradients (``_f32_distances``) of the nearer eager run, each
+    within ``TRAIN_GRAPH_SPREAD_FACTOR`` times the eager runs' largest
+    distance of a pair (K3's float32 atomics add in an order that
+    changes), or ``TRAIN_GRAPH_FLOOR`` where they agree bit for bit;
+    two planted faults (``_planted``) must fall outside; the launches
+    measured on the card. Then bfloat16 batch 2 x accum 2 (the microbatch
+    program twice, then the apply program) against eager in turns, ms per
+    step and memory both ways; at dropout 0.1 (learning rates 0), replays
+    on one batch draw new masks: their losses differ."""
+    hw = perf_train_step.BUCKET_HW
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = train_cfg.replace(compute_dtype="float32", dropout=0.0)
+    eager_ways = [f"eager_{i}" for i in range(TRAIN_GRAPH_EAGER_RUNS)]
+    ways = ("graph", *eager_ways, "zero_grad", "lr_scale")
+    runs = {}
+    try:
+        for way in ways:
+            runs[way] = _f32_run(f32, hw, "eager" if way in eager_ways
+                                 else way)
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    eager = [runs[w] for w in eager_ways]
+    pairs = [_f32_distances(a, b) for i, a in enumerate(eager)
+             for b in eager[i + 1:]]
+    spread = {k: max(d[k] for d in pairs) for k in pairs[0]}
+    limit = {k: max(TRAIN_GRAPH_SPREAD_FACTOR * v, TRAIN_GRAPH_FLOOR)
+             for k, v in spread.items()}
+    readings = {}
+    for way in ("graph", "zero_grad", "lr_scale"):
+        to_each = [_f32_distances(runs[way], e) for e in eager]
+        readings[way] = {k: min(d[k] for d in to_each) for k in spread}
+    worst_leaf = {
+        "param_change": [_rel_err(runs["graph"]["change"], e["change"])
+                         for e in eager],
+        "grad": [_rel_err(runs["graph"]["grad"], e["grad"])
+                 for e in eager],
+        "eager_vs_eager": [_rel_err(eager[1]["change"], eager[0]["change"]),
+                           _rel_err(eager[1]["grad"], eager[0]["grad"])]}
+    per_mb = step_counts(f32, level_shapes(hw, 4))
+    f32_counts = {way: (r["counts"], r["matched"]) for way, r in runs.items()
+                  if way in ("graph", "eager_0")}
+    f32_result = {
+        "losses": {w: runs[w]["loss"] for w in ways},
+        "grad_norms": {w: runs[w]["grad_norm"] for w in ways},
+        "eager_pairs": pairs, "eager_spread": spread, "limit": limit,
+        "readings": readings,
+        "worst_leaf_rel_err": worst_leaf, "launches": f32_counts}
+    del runs, eager
+    torch.cuda.empty_cache()
+    # bf16, batch 2 x accum 2, in turns on one model and optimizer
+    model, optimizer, generator = perf_train_step.build(train_cfg, DEVICE,
+                                                        seed=0)
+    batch = perf_train_step.synthetic_batch(train_cfg, 4, *hw, DEVICE,
+                                            seed=1)
+    steps = {"graph": make_train_step(model, train_cfg, optimizer,
+                                      accum_steps=2)}
+    with _eager_steps():
+        steps["eager"] = make_train_step(model, train_cfg, optimizer,
+                                         accum_steps=2)
+    memory, counts = {}, {}
+    for way in ("eager", "graph"):
+        steps[way](batch, generator)  # the graph's first call captures
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts()
+        steps[way](batch, generator)
+        counts[way] = (kernel_counts(), matcher_launches())
+        memory[way] = _memory()
+    times = {"graph": [], "eager": []}
+    for _ in range(TRAIN_GRAPH_TURNS):
+        for way in ("graph", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps[way](batch, generator)
+            torch.cuda.synchronize()
+            times[way].append((time.perf_counter() - t0) * 1e3)
+    programs = {name: len(getattr(steps["graph"], name).programs)
+                for name in ("whole", "grads_mb", "apply")}
+    per_mb_bf16 = step_counts(train_cfg, level_shapes(hw, 4))
+    del model, optimizer, steps
+    torch.cuda.empty_cache()
+    # dropout 0.1, learning rates 0: the same batch through the program
+    model, optimizer, generator = perf_train_step.build(
+        train_cfg, DEVICE, seed=0,
+        lrs=dict(lr=0.0, lr_backbone=0.0, lr_initialized=0.0))
+    batch = perf_train_step.synthetic_batch(train_cfg, 2, *hw, DEVICE,
+                                            seed=2)
+    step = make_train_step(model, train_cfg, optimizer)
+    dropout_losses = [float(step(batch, generator)["total_loss"])
+                      for _ in range(3)]
+    del model, optimizer, step
+    torch.cuda.empty_cache()
+    print(f"(i) train step as programs vs eager: float32 3 steps (own "
+          f"batches, lr scales {TRAIN_GRAPH_LR_SCALES}), losses "
+          f"{f32_result['losses']}, gradient norms "
+          f"{f32_result['grad_norms']}; distances (loss, grad_norm, median "
+          f"leaf's parameter change, median leaf's gradient) eager-eager "
+          f"pairs {pairs}, limit {limit}, to the nearer eager run "
+          f"{readings}; worst leaf (informative) {worst_leaf}; launches "
+          f"measured {f32_counts}; bf16 b2 x accum 2 {hw[0]}x{hw[1]}: "
+          f"programs {programs}, ms per step in turns {times}, (peak "
+          f"allocated, reserved) GB {memory}, launches {counts}; dropout "
+          f"0.1 losses of one batch, warm-up then two replays: "
+          f"{dropout_losses}", flush=True)
+    beyond = {k: v for k, v in readings["graph"].items() if v > limit[k]}
+    if beyond:
+        raise SystemExit(f"(i) float32: graph vs eager beyond the limit "
+                         f"{limit} in {beyond}")
+    for fault in ("zero_grad", "lr_scale"):
+        if all(v <= limit[k] for k, v in readings[fault].items()):
+            raise SystemExit(f"(i) float32: the planted fault {fault} "
+                             f"passes the check: {readings[fault]}")
+    for way, (c, m) in f32_counts.items():
+        if c != {k: TRAIN_STEPS * v for k, v in per_mb.items()} or (
+                m != TRAIN_STEPS * matches_per_pass(f32)):
+            raise SystemExit(f"(i) float32 {way}: launches {c}, matcher "
+                             f"{m}")
+    if programs != {"whole": 0, "grads_mb": 1, "apply": 1}:
+        raise SystemExit(f"(i) the accumulated step ran programs "
+                         f"{programs}")
+    for way, (c, m) in counts.items():
+        if c != {k: 2 * v for k, v in per_mb_bf16.items()} or (
+                m != 2 * matches_per_pass(train_cfg)):
+            raise SystemExit(f"(i) accumulated step {way}: launches {c}, "
+                             f"matcher {m}")
+    if len(set(dropout_losses[1:])) != 2:
+        raise SystemExit(f"(i) replays drew the same dropout masks: "
+                         f"{dropout_losses}")
+    return {"float32": f32_result,
+            "bf16_accum2": {"ms_in_turns": times, "programs": programs,
+                            "peak_allocated_gb": {w: m[0] for w, m
+                                                  in memory.items()},
+                            "reserved_gb": {w: m[1] for w, m
+                                            in memory.items()}},
+            "dropout_replay_losses": dropout_losses}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; it needs one GPU",
@@ -3821,6 +4575,7 @@ def main() -> int:
     q_rows = check_q_kernel(shapes)
     win_rows = check_win_kernels(shapes)
     bp_rows = check_bp_kernel(shapes, train_shapes)
+    lsap = check_lsap()
 
     served_cfg = infer.serving_config()
     tile_cfg = infer.bench_config(msda_window=WINDOW, msda_band="tile")
@@ -3841,6 +4596,8 @@ def main() -> int:
           flush=True)
     batch_p_serve = serve_batch_p(
         {"exact": exact_model, "served": served_model, "tile": tile_model}, x)
+    request_graphs = check_request_graphs(
+        {"exact": exact_model, "served": served_model}, x)
     del exact_model, served_model, tile_model
     model_errs = compare_f32(cfg, "exact", MODEL_ATOL, cpu=True)
     served_errs = compare_f32(served_cfg, "served", SERVED_MODEL_ATOL,
@@ -3849,6 +4606,7 @@ def main() -> int:
     exact_train = train(train_cfg, "exact", perf_train_step.BUCKET_HW, 2,
                         TRAIN_STEPS, accum=True)
     counts = exact_train["counts"]
+    train_graphs = check_train_graphs(train_cfg)
     train_errs = compare_train_f32(train_cfg, "exact",
                                    perf_train_step.BUCKET_HW, 2, GRAD_RTOL)
     # the windowed path: the banded backward kernels, the band-adaptation
@@ -4178,8 +4936,31 @@ def main() -> int:
         banded_bwd_entry("value", "msda_bwd_win_value_pp", 772,
                          adapt["counts"]["msda_bwd_win_value_pp"]),
         bp_entry,
+        {"name": "lsap", "route": "cuda",
+         "source": "egtr_tpu_torch/csrc/lsap.cu",
+         "replaces": "egtr_tpu/ops/matcher.py:77",
+         "replaces_note": "device code outside Pallas: the in-jit "
+                          "Jonker-Volgenant solver _lsa_single, vmapped by "
+                          "hungarian_match",
+         "launches": exact_train["lsap_launches"],
+         "launches_training": exact_train["lsap_launches"],
+         "launches_driver": driver["lsap_launches"],
+         "max_abs_err": max(r["max_abs_err"] for r in lsap["rows"]),
+         "ms": lsap["main"]["ms"], "plain_ms": lsap["main"]["plain_ms"],
+         "plain_device": "cpu",
+         "bound_ms": lsap["main"]["bound_ms"],
+         "bound_by": lsap["main"]["bound_by"], "library_ms": None,
+         "graph_ms": lsap["main"]["graph_ms"],
+         "host_scipy_ms": lsap["main"]["host_scipy_ms"],
+         "bit_equal_to_plain": all(r["bit_equal_to_plain"]
+                                   for r in lsap["rows"]),
+         "optimal_vs_scipy": all(r["optimal_vs_scipy"]
+                                 for r in lsap["rows"]),
+         "calls": lsap["rows"]},
     ], "serve_ms_per_request": {"exact": exact_ms, "served": served_ms,
                                 "tile": tile_ms},
+        "request_graphs": request_graphs,
+        "train_graphs": train_graphs,
         "serve_ms_per_request_in_turns": side_by_side,
         "train": {"ms_per_step": exact_train["ms_per_step"],
                   "accumulated_step_ms":
@@ -4228,7 +5009,7 @@ def main() -> int:
         "tp_train": tp["train_counts_per_rank"]}
     for entry in kernels["kernels"]:
         for path, ranks in ddp_paths.items():
-            per_rank = [counts[entry["name"]] for counts in ranks]
+            per_rank = [counts.get(entry["name"], 0) for counts in ranks]
             if any(per_rank):
                 entry[f"launches_{path}_per_rank"] = per_rank
     kernels["data_parallel"] = {
@@ -4242,6 +5023,13 @@ def main() -> int:
                     for k, r in ddp_dryruns.items()}}
     kernels["tensor_parallel"] = {k: v for k, v in tp.items()
                                   if "counts" not in k}
+    kernels["launch_counting"] = {
+        "how": "one process: measured on the card (torch.profiler trace of "
+               "the card's activity, graph replays included; CardLaunches); "
+               "ranks of a process group (eager steps): by wrapper",
+        **TRACE_COST}
+    print(f"launch measurement: {TRACE_COST['traces']} traces read in "
+          f"{TRACE_COST['seconds']:.1f} s", flush=True)
     print(json.dumps(kernels))
     print(f"total {time.perf_counter() - t_start:.1f} s; card: {card}",
           flush=True)

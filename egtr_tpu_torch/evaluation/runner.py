@@ -4,9 +4,10 @@
 The training driver runs it after fitting, as the reference does
 (train_egtr.py:879-935, pretrain_detr.py:500-542), and dumps a metrics JSON
 next to the artifact. The forward runs under ``torch.no_grad()`` in eval
-mode on the model's device, the top-k post-processing there too, and the
-small top-k results cross to the host once per batch; the evaluators are
-numpy.
+mode on the model's device, the top-k post-processing there too, as one
+program per batch signature (``infer_program``: on the card a captured CUDA
+graph, as the JAX runner jits its ``infer``), and the small top-k results
+cross to the host once per batch; the evaluators are numpy.
 
 Detection (COCO) updates run for EVERY image — including images with zero
 ground-truth relations — matching the reference, which evaluates detection
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 
 from ..parallel import dist
+from ..utils.aot import maybe_aot
 from .coco_eval import CocoEvaluator
 from .postprocess import (detection_postprocess, rescale_boxes_np,
                           sgg_postprocess)
@@ -51,12 +53,40 @@ def _to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
             for k, v in tensors.items()}
 
 
-def _forward(model, batch):
+def infer_program(model, cfg, *, sgg: bool = True, coco: bool = False,
+                  oi: bool = False):
+    """``run(batch) -> dict of tensors``: a loader batch's forward and its
+    post-processing on the model's device in one program (JAX
+    ``runner.py:46-67``): ``sgg_postprocess``'s top-k (``sgg``), the top-100
+    detections as ``det_scores``/``det_labels``/``det_boxes_norm``
+    (``coco``) and ``rel_full`` (``oi``). On the card one captured program
+    per input signature (``utils/aot.maybe_aot``)."""
     device = next(model.parameters()).device
-    model.eval()
-    with torch.no_grad():
-        return model(torch.from_numpy(batch["pixel_values"]).to(device),
-                     torch.from_numpy(batch["pixel_mask"]).to(device))
+
+    def forward_post(pixel_values, pixel_mask):
+        with torch.no_grad():
+            out = model(pixel_values, pixel_mask)
+            post = sgg_postprocess(
+                out["logits"], out["pred_boxes"], out["pred_rel"],
+                out["pred_connectivity"], num_labels=cfg.num_labels,
+                top_k=100) if sgg else {}
+            if coco:
+                det = _detections(out)
+                post["det_scores"] = det["scores"]
+                post["det_labels"] = det["labels"]
+                post["det_boxes_norm"] = det["boxes"]
+            if oi:
+                post["rel_full"] = rel_full(out)
+        return post
+
+    program = maybe_aot(forward_post, "infer", device)
+
+    def run(batch):
+        model.eval()
+        return program(torch.from_numpy(batch["pixel_values"]).to(device),
+                       torch.from_numpy(batch["pixel_mask"]).to(device))
+
+    return run
 
 
 def _in_order(states, chunks):
@@ -161,19 +191,10 @@ def evaluate_sgg(model, cfg, loader, rel_categories: Sequence[str], *,
     marks = [[] for _ in evaluators]
     n_img = 0
     so_pairs = {}
+    run = infer_program(model, cfg, coco=coco is not None,
+                        oi=oi_evaluator is not None)
     for batch in loader:
-        out = _forward(model, batch)
-        post = sgg_postprocess(
-            out["logits"], out["pred_boxes"], out["pred_rel"],
-            out["pred_connectivity"], num_labels=cfg.num_labels, top_k=100)
-        if coco is not None:
-            det = _detections(out)
-            post["det_scores"] = det["scores"]
-            post["det_labels"] = det["labels"]
-            post["det_boxes_norm"] = det["boxes"]
-        if oi_evaluator is not None:
-            post["rel_full"] = rel_full(out)
-        post = _to_host(post)
+        post = _to_host(run(batch))
         B = batch["pixel_values"].shape[0]
         for j in range(B):
             # pad rows of a trailing partial batch (valid=False) are
@@ -286,8 +307,11 @@ def evaluate_detection(model, cfg, loader, *,
                          else list(range(cfg.num_labels)))
     marks = [[]]
     n_img = 0
+    run = infer_program(model, cfg, sgg=False, coco=True)
     for batch in loader:
-        det = _to_host(_detections(_forward(model, batch)))
+        det = _to_host(run(batch))
+        det = {"scores": det["det_scores"], "labels": det["det_labels"],
+               "boxes": det["det_boxes_norm"]}
         B = batch["pixel_values"].shape[0]
         for j in range(B):
             if "valid" in batch and not batch["valid"][j]:

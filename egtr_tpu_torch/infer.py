@@ -8,8 +8,9 @@ serving consumer needs packed into one tensor.
     python -m egtr_tpu_torch.infer --msda-window 16 --msda-band point \
         --msda-int8 --iters 20 [--profile 5]
 
-answers N requests (batch 1, 608x1008, after 3 warm-up requests) on the GPU
-and prints the per-request latency from CUDA events; ``--profile K`` adds a
+answers N requests (batch 1, 608x1008, after 3 warm-up requests, the first
+of which captures the request's CUDA graph) on the GPU and prints the
+per-request latency from CUDA events; ``--profile K`` adds a
 torch.profiler breakdown of K more requests (device time per request by
 kernel, and the device's busy share). Without flags it runs the exact path
 (``msda_window=0``); the second line is the JAX package's serving default
@@ -25,6 +26,7 @@ from __future__ import annotations
 import argparse
 import json
 import re
+import weakref
 from typing import Optional, Tuple
 
 import numpy as np
@@ -34,6 +36,7 @@ from .config import EgtrConfig
 from .evaluation.postprocess import sgg_postprocess
 from .models.egtr import EgtrModel
 from .models.layers import init_params
+from .utils.aot import maybe_aot
 
 # the FPS-protocol bucket: 600x1000 padded to a multiple of 16
 BUCKET_HW = (608, 1008)
@@ -79,11 +82,30 @@ def build(cfg: EgtrConfig, batch: int, H: int, W: int, device=None,
     return model, x
 
 
+# each model's request programs (utils/aot.py), dropped with the model
+_PROGRAMS: "weakref.WeakKeyDictionary[EgtrModel, object]" = (
+    weakref.WeakKeyDictionary())
+
+
 def infer(model: EgtrModel, pixel_values: torch.Tensor,
           pixel_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Forward + top-k postprocessing, packed into one float32 vector
-    (``bench.py:63-68``): mult_inds, mult_trip_scores, single_inds,
-    single_rel_vec, obj_scores, pred_classes, pred_boxes."""
+    """The request: forward + top-k postprocessing, packed into one float32
+    vector (``bench.py:63-68``): mult_inds, mult_trip_scores, single_inds,
+    single_rel_vec, obj_scores, pred_classes, pred_boxes. On the card one
+    captured program per input signature (``utils/aot.maybe_aot``, as the
+    JAX bench jits its request); on the CPU :func:`infer_eager`."""
+    program = _PROGRAMS.get(model)
+    if program is None:
+        ref = weakref.ref(model)
+        program = _PROGRAMS[model] = maybe_aot(
+            lambda x, mask: infer_eager(ref(), x, mask), "infer",
+            pixel_values.device)
+    return program(pixel_values, pixel_mask)
+
+
+def infer_eager(model: EgtrModel, pixel_values: torch.Tensor,
+                pixel_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`infer` op by op: the function its programs capture."""
     with torch.inference_mode():
         out = model(pixel_values, pixel_mask)
         post = sgg_postprocess(
@@ -142,19 +164,23 @@ def msda_rows(rows) -> dict:
     return out
 
 
-def profile_requests(model: EgtrModel, x: torch.Tensor, n: int, top: int = 25):
+def profile_requests(model: EgtrModel, x: torch.Tensor, n: int, top: int = 25,
+                     request=None):
     """Device time per request by kernel over ``n`` requests, from
-    torch.profiler, and the share of the wall time the device was busy."""
+    torch.profiler, the device's launches per request and the share of the
+    wall time the device was busy. ``request``: the function that answers
+    one (default :func:`infer`; :func:`infer_eager` op by op)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if x.device.type == "cuda" else [])
+    with profile(activities=activities) as prof:
         start.record()
         for _ in range(n):
-            infer(model, x)
+            (request or infer)(model, x)
         end.record()
         end.synchronize()
     wall_ms = start.elapsed_time(end) / n
@@ -163,6 +189,7 @@ def profile_requests(model: EgtrModel, x: torch.Tensor, n: int, top: int = 25):
         "requests": n, "wall_ms_per_request": wall_ms,
         "device_busy_ms_per_request": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "device_launches_per_request": sum(c for _, _, c in rows),
         "kernels": [{"name": k[:120], "ms_per_request": ms,
                      "calls_per_request": c, "share_of_busy": ms / busy_ms}
                     for k, ms, c in rows[:top]],

@@ -29,8 +29,8 @@ from ..ops.boxes import inverse_sigmoid
 from ..ops.posenc import sine_position_embedding, sine_position_embedding_full
 from .backbone import ResNet50
 from .layers import (Conv, DecoderLayer, Dense, EncoderLayer, Initialized,
-                     LayerNorm, MLPHead, constant_init, dropout, normal_init,
-                     ones, uniform_init, xavier_uniform, zeros)
+                     LayerNorm, MLPHead, constant_init, dropout, level_wh,
+                     normal_init, ones, uniform_init, xavier_uniform, zeros)
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -83,8 +83,8 @@ def encoder_reference_points(spatial_shapes, valid_ratios: torch.Tensor):
             torch.arange(w, dtype=torch.float32, device=dev) + 0.5,
             indexing="ij")
         r = torch.stack([ref_x.reshape(-1), ref_y.reshape(-1)], -1)[None]
-        denom = valid_ratios[:, None, lid, :] * torch.tensor(
-            [w, h], dtype=torch.float32, device=dev)
+        denom = valid_ratios[:, None, lid, :] * level_wh(
+            spatial_shapes, torch.float32, dev)[lid]
         refs.append(r / denom)
     ref = torch.cat(refs, dim=1)                             # [B, S, 2]
     return ref[:, :, None, :] * valid_ratios[:, None, :, :]  # [B,S,L,2]

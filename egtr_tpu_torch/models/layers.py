@@ -25,10 +25,13 @@ and of the MSDA op and recomputes the elementwise chains. The MSDA op runs
 through a ctypes launch that a dispatcher-level policy cannot see, so
 ``"dots"`` keeps it out of the checkpointed regions: one region before it
 (up to its sampling locations and weights), one after it (from its output
-projection on). A recompute redraws the first run's dropout masks: the step
-generator's state is saved before each region and restored for its
-recompute, since ``checkpoint``'s ``preserve_rng_state`` covers only the
-default generators.
+projection on). A recompute uses the first run's dropout masks, as JAX's
+remat recomputes with the same keys: the region's first run records the
+masks it draws from the step generator (:class:`MaskTape`) and the
+recompute takes them back in order. Redrawing them by rewinding the
+generator's state would not hold inside a captured train step
+(``utils/aot.py``): a graph's replays draw from offsets that the capture
+counts itself, which a state set on the host does not rewind.
 
 Submodules and parameters are named after the flax tree
 (``self_attn.value_proj``, ``fc1``, ``layers_0``), so the weight bridge
@@ -40,7 +43,7 @@ Submodules and parameters are named after the flax tree
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -127,11 +130,55 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
+# level_wh's tables, kept for the life of the process: a captured program
+# (utils/aot.py) reads the one it was captured with
+_LEVEL_WH: Dict[tuple, torch.Tensor] = {}
+
+
+def level_wh(spatial_shapes, dtype: torch.dtype, device) -> torch.Tensor:
+    """[L, 2] the levels' (w, h) as ``dtype`` on ``device``, made once per
+    (shapes, dtype, device): a tensor made from host numbers is a copy that
+    waits for the device, which a CUDA graph cannot capture. Made outside
+    inference mode, so that a request's table serves a train step too."""
+    key = (tuple((int(h), int(w)) for h, w in spatial_shapes), dtype,
+           torch.device(device))
+    if key not in _LEVEL_WH:
+        with torch.inference_mode(False):
+            _LEVEL_WH[key] = torch.tensor([[w, h] for h, w in key[0]],
+                                          dtype=dtype, device=device)
+    return _LEVEL_WH[key]
+
+
+class MaskTape:
+    """The dropout masks of a rematerialized region, drawn from
+    ``generator`` in its first run and handed back in the same order to its
+    recompute (``rewind``)."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.masks: List[torch.Tensor] = []
+        self.replayed: Optional[int] = None
+
+    def rewind(self) -> None:
+        self.replayed = 0
+
+    def keep(self, shape, rate: float, device) -> torch.Tensor:
+        if self.replayed is None:
+            mask = torch.rand(shape, device=device,
+                              generator=self.generator) >= rate
+            self.masks.append(mask)
+            return mask
+        mask = self.masks[self.replayed]
+        self.replayed += 1
+        return mask
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale the
     kept values by ``1 / (1 - rate)``. Identity unless ``training`` and
-    ``rate > 0``; then ``generator`` (on the tensor's device) is required."""
+    ``rate > 0``; then ``generator`` (a ``torch.Generator`` on the tensor's
+    device, or a rematerialized region's :class:`MaskTape`) is required."""
     if not training or rate == 0.0:
         return x
     if generator is None:
@@ -140,7 +187,11 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
             "generator=... to the model's forward (or call model.eval())")
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, device=x.device, generator=generator) >= rate
+    if isinstance(generator, MaskTape):
+        keep = generator.keep(x.shape, rate, x.device)
+    else:
+        keep = torch.rand(x.shape, device=x.device,
+                          generator=generator) >= rate
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 
@@ -356,8 +407,7 @@ class MSDeformableAttention(nn.Module):
 
         if reference_points.shape[-1] == 2:
             # normalize offsets by (w, h) per level (deformable_detr.py:1066-1073)
-            wh = torch.tensor([[w, h] for (h, w) in spatial_shapes],
-                              dtype=offsets.dtype, device=offsets.device)
+            wh = level_wh(spatial_shapes, offsets.dtype, offsets.device)
             loc = (reference_points[:, :, None, :, None, :]
                    + offsets / wh[None, None, None, :, None, :])
         elif reference_points.shape[-1] == 4:
@@ -396,38 +446,37 @@ def _dots_context():
 
 def _checkpointed(fn, args, generator: Optional[torch.Generator],
                   context_fn=noop_context_fn):
-    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant); its
-    recompute starts from the generator state of the first run and leaves
-    the generator where it was."""
-    start = None if generator is None else generator.get_state()
+    """``fn(gen, *args)`` under ``torch.utils.checkpoint`` (non-reentrant),
+    ``gen`` a :class:`MaskTape` of ``generator``: the recompute takes the
+    first run's dropout masks and leaves the generator where it was. The
+    layers draw nothing from the default generators, so their state is not
+    kept (``preserve_rng_state``)."""
+    tape = None if generator is None else MaskTape(generator)
     runs = []
 
     def run(*a):
-        if start is None or not runs:
-            runs.append(None)
-            return fn(*a)
-        now = generator.get_state()
-        generator.set_state(start)
-        try:
-            return fn(*a)
-        finally:
-            generator.set_state(now)
+        if runs and tape is not None:
+            tape.rewind()
+        runs.append(None)
+        return fn(tape, *a)
 
-    return checkpoint(run, *args, use_reentrant=False, context_fn=context_fn)
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False, context_fn=context_fn)
 
 
 def run_layer(remat: Optional[str], generator, pre, core, post, *inputs):
-    """One encoder or decoder layer: ``pre(*inputs)`` gives (value, loc,
-    weights, *carry), ``core`` is the MSDA op on the first three, and
-    ``post(attn, *carry)`` the rest of the layer. ``remat`` None runs it
-    plainly, "full" as one checkpointed region, "dots" as two selectively
+    """One encoder or decoder layer: ``pre(gen, *inputs)`` gives (value,
+    loc, weights, *carry), ``core`` is the MSDA op on the first three, and
+    ``post(gen, attn, *carry)`` the rest of the layer, ``gen`` the source of
+    their dropout masks. ``remat`` None runs it plainly with ``generator``,
+    "full" as one checkpointed region, "dots" as two selectively
     checkpointed regions around the MSDA op."""
-    def layer(*x):
-        value, loc, weights, *carry = pre(*x)
-        return post(core(value, loc, weights), *carry)
+    def layer(gen, *x):
+        value, loc, weights, *carry = pre(gen, *x)
+        return post(gen, core(value, loc, weights), *carry)
 
     if remat is None or not torch.is_grad_enabled():
-        return layer(*inputs)
+        return layer(generator, *inputs)
     if remat == "full":
         return _checkpointed(layer, inputs, generator)
     value, loc, weights, *carry = _checkpointed(pre, inputs, generator,
@@ -460,10 +509,7 @@ class EncoderLayer(nn.Module):
 
     def forward(self, hidden_states, position_embeddings, reference_points,
                 spatial_shapes, value_mask=None, generator=None):
-        def drop(x, rate):
-            return dropout(x, rate, self.training, generator)
-
-        def pre(residual):
+        def pre(gen, residual):
             return (*self.self_attn.sampling(
                 residual, residual, reference_points, spatial_shapes,
                 position_embeddings, value_mask), residual)
@@ -476,7 +522,10 @@ class EncoderLayer(nn.Module):
                 value, loc, weights, spatial_shapes,
                 spatial_shapes if self.msda_window else None)
 
-        def post(attn, residual):
+        def post(gen, attn, residual):
+            def drop(x, rate):
+                return dropout(x, rate, self.training, gen)
+
             hidden = drop(self.self_attn.output_proj(attn), self.dropout)
             hidden = self.self_attn_layer_norm(residual + hidden)
             residual = hidden
@@ -519,14 +568,11 @@ class DecoderLayer(nn.Module):
     def forward(self, hidden_states, query_pos, encoder_hidden_states,
                 reference_points, spatial_shapes, value_mask=None,
                 generator=None):
-        def drop(x, rate):
-            return dropout(x, rate, self.training, generator)
-
-        def pre(hidden, encoder_hidden):
+        def pre(gen, hidden, encoder_hidden):
             residual = hidden
             hidden, q, k = self.self_attn(
-                hidden, position_embeddings=query_pos, generator=generator)
-            hidden = drop(hidden, self.dropout)
+                hidden, position_embeddings=query_pos, generator=gen)
+            hidden = dropout(hidden, self.dropout, self.training, gen)
             hidden = self.self_attn_layer_norm(residual + hidden)
             return (*self.encoder_attn.sampling(
                 hidden, encoder_hidden, reference_points, spatial_shapes,
@@ -536,7 +582,10 @@ class DecoderLayer(nn.Module):
             return self.encoder_attn.attend(value, loc, weights,
                                             spatial_shapes)
 
-        def post(attn, residual, q, k):
+        def post(gen, attn, residual, q, k):
+            def drop(x, rate):
+                return dropout(x, rate, self.training, gen)
+
             hidden = drop(self.encoder_attn.output_proj(attn), self.dropout)
             hidden = self.encoder_attn_layer_norm(residual + hidden)
             residual = hidden

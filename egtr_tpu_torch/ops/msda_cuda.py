@@ -1,4 +1,5 @@
-"""Wrappers, build step and launch counters of the hand-written MSDA kernels.
+"""Wrappers, build step and launch counters of the hand-written MSDA kernels
+and of the matcher's assignment kernel.
 
 Eleven kernels, in six sources under ``egtr_tpu_torch/csrc``, replace the JAX
 package's Pallas kernels:
@@ -49,6 +50,12 @@ CUDA tensors raises. The plain versions (``msda.ms_deform_attn_plain``,
 ``msda.msda_fwd_bp_plain``) run for CPU
 tensors, or where the caller asks for them by name, through the dispatch in
 ``msda.ms_deform_attn``.
+
+One more kernel shares the build and the counters: ``lsap`` (``lsap.cu``),
+the Hungarian matcher's assignment, which replaces the JAX package's in-jit
+solver ``egtr_tpu/ops/matcher.py:_lsa_single`` (device code outside Pallas);
+``matcher.hungarian_match`` launches it on CUDA tensors and runs its plain
+version ``matcher.lsap_plain`` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -77,6 +84,7 @@ SOURCE_Q = _CSRC / "msda_fwd_q.cu"
 SOURCE_WIN = _CSRC / "msda_fwd_win.cu"
 SOURCE_BWD_WIN = _CSRC / "msda_bwd_win.cu"
 SOURCE_BP = _CSRC / "msda_fwd_bp.cu"
+SOURCE_LSAP = _CSRC / "lsap.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -90,16 +98,29 @@ KERNELS = ("msda_fwd", "msda_bwd_rows", "msda_bwd_value", "msda_fwd_q",
            "msda_bwd_win_rows_pp", "msda_bwd_win_value",
            "msda_bwd_win_value_pp", "msda_fwd_bp")
 
+# The matcher's assignment kernel, counted beside the MSDA kernels.
+MATCHER_KERNELS = ("lsap",)
+
 # Kernel launches since the counts were last set to 0 (reset_launches), by
-# kernel; a wrapper raises its kernel's count by one per launch and nowhere
-# else. chip_smoke.py reads them to show that the main path went through the
-# kernels.
-launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+# kernel; a wrapper raises its kernel's count by one per launch
+# (``_count``) and nowhere else. A call made while a CUDA graph is being
+# captured (utils/aot.py) launches nothing: it records the kernel into the
+# graph, whose replays launch it without the wrapper, so these counts are
+# the eager launches only; chip_smoke.py counts the replays' from a
+# torch.profiler trace of the card.
+launches: Dict[str, int] = dict.fromkeys(KERNELS + MATCHER_KERNELS, 0)
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
+    for name in launches:
         launches[name] = 0
+
+
+def _count(name: str, launched: bool = True) -> None:
+    """One launch of kernel ``name`` where the wrapper ``launched`` it on
+    a stream that is not being captured."""
+    if launched and not torch.cuda.is_current_stream_capturing():
+        launches[name] += 1
 
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -110,7 +131,8 @@ def sources() -> Dict[str, Path]:
     """Library name -> its source."""
     return {"msda_fwd": SOURCE, "msda_bwd": SOURCE_BWD,
             "msda_fwd_q": SOURCE_Q, "msda_fwd_win": SOURCE_WIN,
-            "msda_bwd_win": SOURCE_BWD_WIN, "msda_fwd_bp": SOURCE_BP}
+            "msda_bwd_win": SOURCE_BWD_WIN, "msda_fwd_bp": SOURCE_BP,
+            "lsap": SOURCE_LSAP}
 
 
 def _nvcc() -> str:
@@ -577,6 +599,7 @@ _FUNCTIONS = {
     "msda_bwd_win_value_pp": ("msda_bwd_win", _WIN_ARGS),
     "msda_fwd_bp": ("msda_fwd_bp", [_VOID_P] * 4 + [ctypes.POINTER(_INT)]
                     + [_INT] * 8 + [_VOID_P]),
+    "lsap": ("lsap", [_VOID_P] * 6 + [_INT] * 5 + [_VOID_P]),
 }
 
 
@@ -747,7 +770,7 @@ def msda_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
     out, launched = _fwd("msda_fwd", value, spatial_shapes,
                          sampling_locations, attention_weights, levels,
                          out_dtype)
-    launches["msda_fwd"] += int(launched)
+    _count("msda_fwd", launched)
     return out
 
 
@@ -819,7 +842,7 @@ def msda_fwd_q(vq: torch.Tensor, scale: torch.Tensor,
     ``msda.quantize_levels``; float32 [B, Q, H*D] out)."""
     out, launched = _fwd_q("msda_fwd_q", vq, scale, spatial_shapes,
                            sampling_locations, attention_weights, levels)
-    launches["msda_fwd_q"] += int(launched)
+    _count("msda_fwd_q", launched)
     return out
 
 
@@ -906,7 +929,7 @@ def msda_fwd_bp(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
     else:
         out, launched = _fwd_bp_own(value, spatial_shapes, sampling_locations,
                                     attention_weights, levels, out_dtype)
-    launches["msda_fwd_bp"] += int(launched)
+    _count("msda_fwd_bp", launched)
     return out
 
 
@@ -1035,7 +1058,7 @@ def msda_fwd_win(value_l: torch.Tensor, bidx: torch.Tensor, ix: torch.Tensor,
     over the points."""
     out, launched = _fwd_win("msda_fwd_win", False, value_l, bidx, ix,
                              iy_band, aw_eff, h, w, win, segs, Q)
-    launches["msda_fwd_win"] += int(launched)
+    _count("msda_fwd_win", launched)
     return out
 
 
@@ -1049,7 +1072,7 @@ def msda_fwd_win_pp(value_l: torch.Tensor, bidx: torch.Tensor,
     the kernel's int8 form."""
     out, launched = _fwd_win("msda_fwd_win_pp", True, value_l, bidx, ix,
                              iy_band, aw_eff, h, w, win, segs, Q)
-    launches["msda_fwd_win_pp"] += int(launched)
+    _count("msda_fwd_win_pp", launched)
     return out
 
 
@@ -1117,7 +1140,7 @@ def msda_bwd_rows(value: torch.Tensor,
     if rc != 0:
         raise RuntimeError(
             f"msda_bwd_rows kernel launch failed: CUDA error {rc}")
-    launches["msda_bwd_rows"] += 1
+    _count("msda_bwd_rows")
     return dloc, daw
 
 
@@ -1165,7 +1188,7 @@ def msda_bwd_value(value: torch.Tensor,
     if rc != 0:
         raise RuntimeError(
             f"msda_bwd_value kernel launch failed: CUDA error {rc}")
-    launches["msda_bwd_value"] += 1
+    _count("msda_bwd_value")
     return acc.to(out_dtype)
 
 
@@ -1301,7 +1324,7 @@ def msda_bwd_win_rows(value_l: torch.Tensor, bidx: torch.Tensor,
     outs, launched = _bwd_win_launch("msda_bwd_win_rows", False, True,
                                      value_l, bidx, ix, iy_band, aw_eff, g, h,
                                      w, win, segs, Q)
-    launches["msda_bwd_win_rows"] += int(launched)
+    _count("msda_bwd_win_rows", launched)
     return outs
 
 
@@ -1316,7 +1339,7 @@ def msda_bwd_win_rows_pp(value_l: torch.Tensor, bidx: torch.Tensor,
     outs, launched = _bwd_win_launch("msda_bwd_win_rows_pp", True, True,
                                      value_l, bidx, ix, iy_band, aw_eff, g, h,
                                      w, win, segs, Q)
-    launches["msda_bwd_win_rows_pp"] += int(launched)
+    _count("msda_bwd_win_rows_pp", launched)
     return outs
 
 
@@ -1337,7 +1360,7 @@ def msda_bwd_win_value(value_l: torch.Tensor, bidx: torch.Tensor,
     outs, launched = _bwd_win_launch("msda_bwd_win_value", False, False,
                                      value_l, bidx, ix, iy_band, aw_eff, g, h,
                                      w, win, segs, Q, out)
-    launches["msda_bwd_win_value"] += int(launched)
+    _count("msda_bwd_win_value", launched)
     return outs[0]
 
 
@@ -1351,7 +1374,7 @@ def msda_bwd_win_value_pp(value_l: torch.Tensor, bidx: torch.Tensor,
     outs, launched = _bwd_win_launch("msda_bwd_win_value_pp", True, False,
                                      value_l, bidx, ix, iy_band, aw_eff, g, h,
                                      w, win, segs, Q, out)
-    launches["msda_bwd_win_value_pp"] += int(launched)
+    _count("msda_bwd_win_value_pp", launched)
     return outs[0]
 
 
@@ -1371,3 +1394,81 @@ def msda_bwd_win(value_l: torch.Tensor, bidx: torch.Tensor, ix: torch.Tensor,
     value = msda_bwd_win_value_pp if per_point else msda_bwd_win_value
     rows = msda_bwd_win_rows_pp if per_point else msda_bwd_win_rows
     return (value(*args, out=out), *rows(*args))
+
+
+# The matcher's assignment kernel (lsap.cu): one block an image, its query
+# columns strided over the block's threads, a whole number of warps.
+LSAP_MAX_THREADS = 1024   # LSAP_MAX_THREADS in lsap.cu
+LSAP_MAX_G = 1024         # LSAP_MAX_G: the shared-memory row state
+LSAP_MAX_CPT = 32         # columns a thread, the kernel's largest template
+
+
+def lsap_geometry(B: int, Q: int, G: int) -> Tuple[int, int, int]:
+    """(blocks, threads, columns a thread) of ``lsap``'s launch for cost
+    [B, Q, G]: one block an image, Q rounded up to a warp and at most 1024
+    threads, each thread the fewest columns, a power of two, that cover
+    Q."""
+    if not 1 <= Q <= LSAP_MAX_THREADS * LSAP_MAX_CPT:
+        raise ValueError(f"lsap takes 1..{LSAP_MAX_THREADS * LSAP_MAX_CPT} "
+                         f"queries, got {Q}")
+    if not 0 <= G <= min(Q, LSAP_MAX_G):
+        raise ValueError(f"lsap needs 0 <= G <= Q (at least as many queries "
+                         f"as padded targets) and G <= {LSAP_MAX_G}, got "
+                         f"G={G}, Q={Q}")
+    threads = min(LSAP_MAX_THREADS, -(-Q // 32) * 32)
+    cpt = 1
+    while threads * cpt < Q:
+        cpt *= 2
+    return B, threads, cpt
+
+
+def check_inputs_lsap(cost: torch.Tensor, num_boxes: torch.Tensor) -> None:
+    """Raise on anything ``lsap`` does not take (device aside)."""
+    if cost.dtype != torch.float32:
+        raise TypeError(f"cost must be float32, got {cost.dtype}")
+    if cost.dim() != 3:
+        raise ValueError(f"cost must be [B,Q,G], got {tuple(cost.shape)}")
+    B, Q, G = cost.shape
+    if Q:
+        lsap_geometry(B, Q, G)
+    elif G:
+        raise ValueError("need at least as many queries as (padded) targets")
+    if num_boxes.dtype != torch.int32:
+        raise TypeError(f"num_boxes must be int32, got {num_boxes.dtype}")
+    if tuple(num_boxes.shape) != (B,):
+        raise ValueError(f"num_boxes must be [{B}], got "
+                         f"{tuple(num_boxes.shape)}")
+    for name, t in (("cost", cost), ("num_boxes", num_boxes)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if cost.numel() >= 2 ** 31:
+        raise ValueError("tensors of 2**31 or more elements are not supported")
+
+
+def lsap(cost: torch.Tensor, num_boxes: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the assignment kernel: same contract as
+    ``matcher.lsap_plain`` (``query_index`` [B, G] int64, ``matching_cost``
+    [B, G] float32, ``gt_index`` [B, Q] int64), for cost [B, Q, G] float32
+    and num_boxes [B] int32 on one card."""
+    _one_cuda_device("lsap", (cost, num_boxes))
+    check_inputs_lsap(cost, num_boxes)
+    B, Q, G = cost.shape
+    dev = cost.device
+    query_index = torch.empty((B, G), dtype=torch.int64, device=dev)
+    matching_cost = torch.empty((B, G), dtype=torch.float32, device=dev)
+    gt_index = torch.empty((B, Q), dtype=torch.int64, device=dev)
+    if B == 0 or Q == 0:  # nothing to solve (Q == 0 leaves G == 0)
+        return query_index, matching_cost, gt_index
+    path = torch.empty((B, Q), dtype=torch.int32, device=dev)
+    blocks, threads, cpt = lsap_geometry(B, Q, G)
+    fn = _function("lsap")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(cost.data_ptr(), num_boxes.data_ptr(), path.data_ptr(),
+                query_index.data_ptr(), matching_cost.data_ptr(),
+                gt_index.data_ptr(), blocks, Q, G, threads, cpt, stream)
+    if rc != 0:
+        raise RuntimeError(f"lsap kernel launch failed: CUDA error {rc}")
+    _count("lsap")
+    return query_index, matching_cost, gt_index

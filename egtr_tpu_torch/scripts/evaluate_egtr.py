@@ -160,10 +160,11 @@ def run_fps(infer: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     the host clock after a fetch on the CPU, as ``timer`` says); and, on the
     card, ``device_ms_per_image``, the time the card was busy (the kernel
     times of a torch.profiler trace of the same forwards, summed) and
-    ``device_idle_share``. In an eager loop the host issues every launch,
-    so the chained time is the host's pace where the card waits for it: it
-    is the JAX driver's ``device_ms_per_image`` (one compiled program
-    there), not the card's. On the CPU the device is the host, and
+    ``device_idle_share``. On the card ``infer`` is one captured program
+    per bucket (``utils/aot.maybe_aot``), one replay a forward, as the JAX
+    driver's is one compiled program; where the host still issues the
+    launches (an eager ``infer``), the chained time is the host's pace, not
+    the card's. On the CPU the device is the host, and
     ``device_ms_per_image`` is the chained time. Last, ``host_rtt_ms``
     (``RTT_NOTE``)."""
     device = torch.device(device)
@@ -279,6 +280,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     from ..evaluation.postprocess import sgg_postprocess
     from ..evaluation.runner import evaluate_sgg, write_metrics
     from ..models.egtr import EgtrModel
+    from ..utils.aot import maybe_aot
 
     args = parse_args(argv)
     device = dist.init_from_env(args.device)
@@ -321,7 +323,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     out["pred_connectivity"], num_labels=cfg.num_labels,
                     top_k=100)["mult_inds"]
 
-        result = run_fps(infer, loader, device, max_images=args.max_images)
+        # the request as one program per bucket, as the JAX driver's
+        result = run_fps(maybe_aot(infer, "infer_only", device), loader,
+                         device, max_images=args.max_images)
         print(json.dumps(result))
         return result
 

@@ -388,6 +388,7 @@ def _sweep_eval(model, cfg, ds, batch_size, buckets):
     from ..data.loader import Loader
     from ..evaluation.postprocess import rescale_boxes_np, sgg_postprocess
     from ..evaluation.runner import _to_host
+    from ..utils.aot import maybe_aot
     from ..evaluation.sg_eval import (SceneGraphEvaluator,
                                       evaluate_mean_recall,
                                       evaluate_per_predicate)
@@ -400,15 +401,23 @@ def _sweep_eval(model, cfg, ds, batch_size, buckets):
     per_pred = {n: SceneGraphEvaluator(multiple_preds=False)
                 for n in ds.rel_categories}
     raw0 = None
-    model.eval()
-    for bi, batch in enumerate(loader):
+
+    def forward_post(pixel_values, pixel_mask):
         with torch.inference_mode():
-            out = model(torch.from_numpy(batch["pixel_values"]).to(device),
-                        torch.from_numpy(batch["pixel_mask"]).to(device))
+            out = model(pixel_values, pixel_mask)
             post = sgg_postprocess(
                 out["logits"], out["pred_boxes"], out["pred_rel"],
                 out["pred_connectivity"], num_labels=cfg.num_labels,
                 top_k=100)
+        return {k: out[k] for k in KEYS}, post
+
+    # one program per bucket (utils/aot.py), as the JAX script jits it
+    program = maybe_aot(forward_post, "sweep_eval", device)
+    model.eval()
+    for bi, batch in enumerate(loader):
+        out, post = program(
+            torch.from_numpy(batch["pixel_values"]).to(device),
+            torch.from_numpy(batch["pixel_mask"]).to(device))
         post = _to_host(post)
         # the raw Q^2-sized head outputs are compared for batch 0 only
         if bi == 0:

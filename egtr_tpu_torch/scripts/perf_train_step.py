@@ -21,8 +21,10 @@ op).
 
 It runs on the GPU unless ``--device cpu`` is given (and raises where CUDA
 is absent). ``--profile K`` adds a torch.profiler breakdown of K more steps:
-device time per step by kernel, the device's idle share, and the host time
-of the Hungarian matcher (scipy). ``--tiny`` swaps in a 2+2-layer narrow
+device time per step by kernel, the device's idle share, and the device
+time of the Hungarian matcher's kernel (``lsap``). On the card the step is
+the captured program(s) of ``train_step`` (``utils/aot.py``): the first step
+captures them. ``--tiny`` swaps in a 2+2-layer narrow
 model for a rehearsal on the CPU. It defines no benchmark metric.
 """
 
@@ -40,7 +42,6 @@ from ..config import EgtrConfig
 from ..infer import device_rows, msda_rows, resolve_device
 from ..models.egtr import EgtrModel
 from ..models.layers import init_params
-from ..ops import criterion, matcher
 from ..train.optim import Optimizer, make_optimizer
 from ..train.train_step import make_train_step
 
@@ -166,40 +167,20 @@ def kernel_kind(name: str) -> str:
 
 def profile_steps(step, batch, generator, n: int, top: int = 30) -> dict:
     """Device time per step by kernel over ``n`` steps (torch.profiler), the
-    device's idle share, and the matcher's host time: the whole of
-    ``hungarian_match`` (it waits for the device to deliver the cost matrix)
-    and the scipy solver alone."""
+    device's idle share, and the matcher kernel's device time and launches
+    per step."""
     from torch.profiler import ProfilerActivity, profile
 
-    spent = {"hungarian_match": 0.0, "linear_sum_assignment": 0.0,
-             "matches": 0}
-    match_fn, solve_fn = criterion.hungarian_match, matcher.linear_sum_assignment
-
-    def timed(fn, key, count=False):
-        def wrapper(*args, **kw):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kw)
-            finally:
-                spent[key] += time.perf_counter() - t0
-                spent["matches"] += int(count)
-        return wrapper
-
-    criterion.hungarian_match = timed(match_fn, "hungarian_match", True)
-    matcher.linear_sum_assignment = timed(solve_fn, "linear_sum_assignment")
-    try:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step(batch, generator)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                step(batch, generator)
-            torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    finally:
-        criterion.hungarian_match = match_fn
-        matcher.linear_sum_assignment = solve_fn
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
     rows, busy_ms = device_rows(prof, n)
+    lsap = [(ms, c) for name, ms, c in rows if "lsap_kernel" in name]
     by_kind: Dict[str, float] = {}
     for name, ms, _ in rows:
         by_kind[kernel_kind(name)] = by_kind.get(kernel_kind(name), 0.0) + ms
@@ -211,11 +192,8 @@ def profile_steps(step, batch, generator, n: int, top: int = 30) -> dict:
         "device_launches_per_step": sum(c for _, _, c in rows),
         "device_ms_by_kind": dict(sorted(by_kind.items(),
                                          key=lambda kv: -kv[1])),
-        "matches_per_step": spent["matches"] / n,
-        "hungarian_match_host_ms_per_step":
-            spent["hungarian_match"] * 1e3 / n,
-        "scipy_solver_host_ms_per_step":
-            spent["linear_sum_assignment"] * 1e3 / n,
+        "matches_per_step": sum(c for _, c in lsap),
+        "lsap_device_ms_per_step": sum(ms for ms, _ in lsap),
         "kernels": [{"name": k[:120], "ms_per_step": ms,
                      "calls_per_step": c, "share_of_busy": ms / busy_ms}
                     for k, ms, c in rows[:top]],

@@ -26,6 +26,17 @@ What is held to the JAX package rather than to ``torch.optim`` habits:
   ``torch.optim.AdamW`` decays the parameter first (``p *= 1 - lr*wd``) and
   then takes the Adam step. The two agree to first order in ``lr*wd``
   (2e-8 at the largest learning rate of the recipe).
+
+A step a CUDA graph can hold, as the JAX package's ``_update`` is one
+compiled program (``utils/aot.py`` captures the train step): on the card
+the AdamW is ``capturable`` (its step counts and bias corrections on the
+device), each group's learning rate is a float32 device tensor that
+``step`` writes in place from the group's base rate times ``lr_scale`` (a
+number or a 0-d device tensor), and the gradient buffers are allocated once
+and zeroed in place. A captured step reads those tensors; restoring a
+checkpoint into the optimizer (``adamw.load_state_dict``) replaces them, so
+it comes before the first step, as every caller does it. ``torch.optim``
+has no capturable AdamW on the CPU: there the learning rates stay numbers.
 """
 
 from __future__ import annotations
@@ -90,18 +101,29 @@ class Optimizer:
         self.labels = labels
         self.leaves = [p for _, p in named_params]
         self.grad_clip = grad_clip
+        # capturable on the card only: torch.optim refuses it on the CPU
+        self.capturable = bool(self.leaves) and all(
+            p.device.type == "cuda" for p in self.leaves)
         groups = []
         for label, lr in lrs.items():
             params = [p for n, p in named_params if labels[n] == label]
             if params:
-                groups.append({"params": params, "lr": lr, "base_lr": lr,
-                               "name": label})
+                group = {"params": params, "lr": lr, "base_lr": lr,
+                         "name": label}
+                if self.capturable:
+                    group["lr"], group["base_lr_tensor"] = (
+                        torch.tensor(lr, dtype=torch.float32,
+                                     device=params[0].device)
+                        for _ in range(2))
+                groups.append(group)
         self.adamw = torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8,
-                                       weight_decay=weight_decay)
+                                       weight_decay=weight_decay,
+                                       capturable=self.capturable)
 
     def zero_grad(self) -> None:
-        for p in self.leaves:
-            p.grad = None
+        """Zero every leaf's gradient in place (allocated at the first
+        call): the buffers keep their storage from step to step."""
+        torch._foreach_zero_(self.grads())
 
     def grads(self) -> List[torch.Tensor]:
         """Gradients of all leaves; a leaf the loss did not reach gets
@@ -111,10 +133,11 @@ class Optimizer:
                 p.grad = torch.zeros_like(p)
         return [p.grad for p in self.leaves]
 
-    def step(self, lr_scale: float = 1.0) -> torch.Tensor:
+    def step(self, lr_scale=1.0) -> torch.Tensor:
         """Clip, update, and return the global gradient norm before the
-        clip. ``lr_scale`` multiplies the whole update, weight decay
-        included: each group's learning rate is scaled."""
+        clip. ``lr_scale`` (a number, or on the card a 0-d device tensor)
+        multiplies the whole update, weight decay included: each group's
+        learning rate is scaled."""
         grads = self.grads()
         norm = torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads)))
@@ -126,7 +149,11 @@ class Optimizer:
             torch._foreach_mul_(grads, torch.where(
                 trigger, one, torch.full_like(norm, self.grad_clip)))
         for group in self.adamw.param_groups:
-            group["lr"] = group["base_lr"] * lr_scale
+            if self.capturable:
+                # float32 on the device, the same for a number or a tensor
+                torch.mul(group["base_lr_tensor"], lr_scale, out=group["lr"])
+            else:
+                group["lr"] = group["base_lr"] * float(lr_scale)
         self.adamw.step()
         return norm
 

@@ -1,11 +1,17 @@
 """Train / eval steps (PyTorch port of ``egtr_tpu/train/train_step.py``).
 
-One step: forward -> loss -> backward -> clip -> AdamW update, eagerly.
-Gradient accumulation (the reference's Lightning
-``accumulate_grad_batches=2``, train_egtr.py:531,771) runs the microbatches
-one after the other, so the peak memory is one microbatch's; the gradients
-are summed and divided by the depth, and the logged metrics are averaged
-over the microbatches.
+One step: forward -> loss (its matching on the device) -> backward -> clip
+-> AdamW update. On the card each step is run as the JAX package splits it
+into compiled programs, here captured CUDA graphs (``utils/aot.py``), one
+per batch signature: with ``accum_steps == 1`` one program of the whole
+step; with gradient accumulation (the reference's Lightning
+``accumulate_grad_batches=2``, train_egtr.py:531,771) the microbatch
+program (forward + backward into the gradient buffers, JAX's ``_grads_mb``)
+once per microbatch, then the apply program (the depth's mean, the clip and
+the update, JAX's ``_apply``), so the peak memory is one microbatch's; the
+logged metrics are averaged over the microbatches. The eval step is one
+program. On the CPU, and inside a process group, the same functions run
+eagerly.
 
 The model and the optimizer carry the state (parameters, AdamW moments) and
 are updated in place; a step returns the metrics only. Randomness (dropout
@@ -57,6 +63,7 @@ from ..config import EgtrConfig
 from ..ops.criterion import detection_criterion, sgg_criterion
 from ..parallel import dist
 from ..parallel.mesh import Mesh, make_mesh
+from ..utils.aot import maybe_aot
 from .optim import Optimizer
 
 
@@ -160,31 +167,18 @@ def make_train_step(model, cfg: EgtrConfig, optimizer: Optimizer,
                                                 reduce=reduce)
         return total, losses
 
-    def train_step(batch, generator: Optional[torch.Generator] = None,
-                   lr_scale: float = 1.0) -> Dict[str, torch.Tensor]:
-        if isinstance(batch, (list, tuple)):
-            mbs = list(batch)
-        elif accum_steps == 1:
-            mbs = [batch]
-        else:
-            mbs = split_microbatches(batch, accum_steps)
-        if len(mbs) != accum_steps:
-            raise ValueError(f"{len(mbs)} microbatches for accum_steps="
-                             f"{accum_steps}")
-        model.train()
-        optimizer.zero_grad()
-        metrics: Dict[str, torch.Tensor] = {}
-        for i, mb in enumerate(mbs):
-            # DDP reduces the gradients in the last microbatch's backward
-            with (net.no_sync() if net is not model and i < len(mbs) - 1
-                  else contextlib.nullcontext()):
-                total, losses = loss_fn(mb, generator)
-                # sums into .grad across the microbatches
-                (total if net is model else total * dp).backward()
-            losses["total_loss"] = total
-            for k, x in losses.items():
-                x = x.detach().float()
-                metrics[k] = x if k not in metrics else metrics[k] + x
+    def grads_mb(mb, generator):
+        """One microbatch's forward + backward, its gradients added into
+        the buffers; its loss terms as float32 metrics."""
+        total, losses = loss_fn(mb, generator)
+        # each data rank backpropagates dp times its share (module docstring)
+        (total if net is model else total * dp).backward()
+        losses["total_loss"] = total
+        return {k: x.detach().float() for k, x in losses.items()}
+
+    def apply(metrics, lr_scale):
+        """The grid's gradients scaled by mp, the accumulation's mean, the
+        metrics of the global batch, the clip and the update."""
         # the grid's gradients: each rank's rows, averaged over the world
         grid_grads = [p.grad for p in grid if p.grad is not None]
         if grid_grads:
@@ -198,6 +192,48 @@ def make_train_step(model, cfg: EgtrConfig, optimizer: Optimizer,
         metrics["grad_norm"] = optimizer.step(lr_scale)
         return metrics
 
+    def whole_step(mb, generator, lr_scale):
+        optimizer.zero_grad()
+        return apply(grads_mb(mb, generator), lr_scale)
+
+    device = next(model.parameters()).device
+    whole_program = maybe_aot(whole_step, "train_step", device)
+    grads_program = maybe_aot(grads_mb, "train_grads_mb", device)
+    apply_program = maybe_aot(apply, "train_apply", device)
+
+    def train_step(batch, generator: Optional[torch.Generator] = None,
+                   lr_scale=1.0) -> Dict[str, torch.Tensor]:
+        if isinstance(batch, (list, tuple)):
+            mbs = list(batch)
+        elif accum_steps == 1:
+            mbs = [batch]
+        else:
+            mbs = split_microbatches(batch, accum_steps)
+        if len(mbs) != accum_steps:
+            raise ValueError(f"{len(mbs)} microbatches for accum_steps="
+                             f"{accum_steps}")
+        model.train()
+        if device.type == "cuda" and not isinstance(lr_scale, torch.Tensor):
+            # an input of the captured update, not a constant in it
+            lr_scale = torch.full((), float(lr_scale), dtype=torch.float32,
+                                  device=device)
+        if accum_steps == 1:
+            return whole_program(mbs[0], generator, lr_scale)
+        optimizer.zero_grad()
+        metrics: Dict[str, torch.Tensor] = {}
+        for i, mb in enumerate(mbs):
+            # DDP reduces the gradients in the last microbatch's backward
+            with (net.no_sync() if net is not model and i < len(mbs) - 1
+                  else contextlib.nullcontext()):
+                m = grads_program(mb, generator)
+            metrics = m if not metrics else {k: metrics[k] + x
+                                             for k, x in m.items()}
+        return apply_program(metrics, lr_scale)
+
+    # the programs, as the JAX step exposes its inner ones
+    train_step.whole = whole_program
+    train_step.grads_mb = grads_program
+    train_step.apply = apply_program
     return train_step
 
 
@@ -221,8 +257,7 @@ def make_eval_step(model, cfg: EgtrConfig, task: str = "sgg",
     over the data group). ``mesh``: as ``make_train_step`` takes it."""
     reduce = data_reduce(resolve_mesh(model, mesh))
 
-    def eval_step(batch):
-        model.eval()
+    def forward_loss(batch):
         with torch.no_grad():
             out = model(batch["pixel_values"], batch.get("pixel_mask"))
             valid = batch.get("valid")
@@ -236,5 +271,12 @@ def make_eval_step(model, cfg: EgtrConfig, task: str = "sgg",
                                                     reduce=reduce)
         losses["total_loss"] = total
         return out, losses
+
+    program = maybe_aot(forward_loss, "eval_step",
+                        next(model.parameters()).device)
+
+    def eval_step(batch):
+        model.eval()
+        return program(batch)
 
     return eval_step

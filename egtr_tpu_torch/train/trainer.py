@@ -12,10 +12,16 @@ PyTorch-Lightning Trainer wiring, train_egtr.py:762-877).
 
 The model is initialised from a ``torch.Generator`` seeded with ``seed``;
 every train step draws its dropout masks from one generator on the model's
-device, seeded with ``seed`` too, whose state the checkpoints carry. What the
-JAX loop has only for the TPU is left out: ahead-of-time compiled steps and
-the warm-up thread that compiles the eval program. The device mesh is the
-ranks' ``parallel.mesh.Mesh`` (``fit``'s ``mesh``).
+device, seeded with ``seed`` too, whose state the checkpoints carry. On the
+card the train and eval steps run as captured programs, one per batch
+signature (``train_step``, ``utils/aot.py``), as the JAX loop runs compiled
+ones; each ``fit`` makes its own optimizer and steps, so the finetune phase
+captures its own programs and never replays one that holds the main phase's
+optimizer state, and a resume restores the checkpoint before the first step
+captures. What the JAX loop has only for the TPU is left out: the warm-up
+thread that compiles the eval program ahead (the first validation batch
+captures it). The device mesh is the ranks' ``parallel.mesh.Mesh``
+(``fit``'s ``mesh``).
 
 Inside a process group (``parallel.dist``; the loaders hand each rank its
 slice) the steps are data-parallel (``train_step``), and as in the JAX loop

@@ -1,0 +1,198 @@
+"""``utils/aot.py`` (per-shape CUDA graphs) and the capturable optimizer, on
+the CPU.
+
+The capture itself needs the card (chip_smoke.py's phases h and i); here:
+the dispatch key (``flatten`` / ``signature``), ``maybe_aot`` staying eager
+on the CPU and inside a process group, the wrappers counting eager launches
+only, and the optimizer a captured step runs against optax over three
+steps with a changing ``lr_scale``, as the JAX step scales its updates.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed
+
+from egtr_tpu.train import optim as jax_optim
+from egtr_tpu_torch.ops import msda, msda_cuda
+from egtr_tpu_torch.utils import aot
+from egtr_tpu_torch.train.optim import Optimizer
+
+torch.set_num_threads(1)
+
+
+def test_signature_covers_shape_dtype_device_structure_and_none():
+    x = torch.zeros((2, 3))
+    base = aot.signature(({"a": x, "b": [x, None]}, 1.0))
+    assert base == aot.signature(({"a": torch.ones((2, 3)),
+                                   "b": [torch.ones((2, 3)), None]}, 1.0))
+    others = [
+        ({"a": torch.zeros((2, 4)), "b": [x, None]}, 1.0),           # shape
+        ({"a": x.double(), "b": [x, None]}, 1.0),                    # dtype
+        ({"a": torch.zeros((2, 3), device="meta"), "b": [x, None]}, 1.0),
+        ({"a": x, "b": [x, x]}, 1.0),                                # None
+        ({"a": x, "b": (x, None)}, 1.0),                             # tuple
+        ({"b": [x, None], "a": x}, 1.0),                             # order
+        ({"a": x, "b": [x, None]}, 0.5),                             # value
+        ({"a": x, "c": [x, None]}, 1.0),                             # key
+    ]
+    keys = {base, *(aot.signature(o) for o in others)}
+    assert len(keys) == len(others) + 1
+    # a generator by identity
+    g1, g2 = torch.Generator(), torch.Generator()
+    assert aot.signature((x, g1)) == aot.signature((x, g1))
+    assert aot.signature((x, g1)) != aot.signature((x, g2))
+
+
+def test_signature_holds_the_module_state_a_capture_reads(monkeypatch):
+    x = torch.zeros(3)
+    key = aot.signature((x,))
+    monkeypatch.setattr(msda, "FWD_BATCH_P", not msda.FWD_BATCH_P)
+    assert aot.signature((x,)) != key
+    monkeypatch.undo()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32",
+                        not torch.backends.cuda.matmul.allow_tf32)
+    assert aot.signature((x,)) != key
+
+
+def test_flatten_unflatten_round_trip():
+    tree = {"pixel_values": torch.ones(2), "labels": {
+        "boxes": torch.zeros((2, 4)), "n": [torch.arange(3), 7, None]},
+        "t": (torch.zeros(1), "s")}
+    leaves, treedef = aot.flatten(tree)
+    assert len(leaves) == 4
+    back = aot.unflatten(treedef, [t + 1 for t in leaves])
+    assert back["labels"]["n"][1:] == [7, None] and back["t"][1] == "s"
+    assert isinstance(back["t"], tuple) and isinstance(back["labels"]["n"],
+                                                       list)
+    torch.testing.assert_close(back["labels"]["boxes"], torch.ones((2, 4)))
+    torch.testing.assert_close(back["pixel_values"], torch.full((2,), 2.0))
+
+
+def test_maybe_aot_is_the_function_itself_on_the_cpu():
+    calls = []
+
+    def fn(x, scale):
+        calls.append(x)
+        return {"y": x * scale}
+
+    assert aot.maybe_aot(fn, "t", device="cpu") is fn
+    assert aot.maybe_aot(fn, "t", device=torch.device("cpu")) is fn
+    # without a device: CPU tensors run the function eagerly, no program
+    wrapped = aot.maybe_aot(fn, "t")
+    out = wrapped(torch.ones(2), 3.0)
+    torch.testing.assert_close(out["y"], torch.full((2,), 3.0))
+    assert len(calls) == 1 and wrapped.programs == {}
+
+
+def test_maybe_aot_is_the_function_itself_in_a_process_group(tmp_path):
+    def fn(x):
+        return x + 1
+
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+        world_size=1)
+    try:
+        assert aot.maybe_aot(fn, "t") is fn
+        assert aot.maybe_aot(fn, "t", device="cuda") is fn
+    finally:
+        torch.distributed.destroy_process_group()
+    assert aot.maybe_aot(fn, "t") is not fn
+
+
+def test_a_launch_under_capture_is_not_counted(monkeypatch):
+    """A wrapper counts its eager launches only: a call while a CUDA graph
+    is captured records the kernel, and the graph's replays launch it
+    without the wrapper (chip_smoke counts those on the card)."""
+    msda_cuda.reset_launches()
+    capturing = [False]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing[0])
+    msda_cuda._count("msda_fwd")
+    msda_cuda._count("lsap")
+    msda_cuda._count("msda_fwd_win", launched=False)  # no work, no launch
+    capturing[0] = True
+    msda_cuda._count("msda_fwd")
+    assert {k: v for k, v in msda_cuda.launches.items() if v} == {
+        "msda_fwd": 1, "lsap": 1}
+    msda_cuda.reset_launches()
+    # the counters carry the matcher's kernel beside the MSDA kernels
+    assert set(msda_cuda.launches) == set(msda_cuda.KERNELS) | {"lsap"}
+
+
+def _tree():
+    rng = np.random.default_rng(0)
+    return {"params": {
+        "class_embed": {"kernel": rng.standard_normal((4, 3))},
+        "backbone": {"layer2_0": {"conv2": {"kernel":
+                                            rng.standard_normal((5,))}},
+                     "bn1": {"scale": rng.standard_normal((3,))}}}}
+
+
+def test_optimizer_matches_optax_with_a_changing_lr_scale():
+    """Three steps, lr_scale 1, 0.5 (a tensor) and 0.1, against optax's
+    chain (clip over every leaf, frozen ones included, then AdamW per
+    group) with the updates scaled as the JAX step scales them."""
+    import jax
+    import optax
+
+    tree = jax.tree_util.tree_map(lambda a: a.astype(np.float32), _tree())
+    lrs = dict(lr=1e-2, lr_backbone=1e-3)
+    tx = jax_optim.make_optimizer(weight_decay=1e-4, grad_clip=0.1, **lrs)
+    jlabels = jax.tree_util.tree_map_with_path(
+        lambda path, _: jax_optim.param_label(path), tree)
+    paths = {"class_embed.kernel": ("class_embed", "kernel"),
+             "backbone.conv2": ("backbone", "layer2_0", "conv2", "kernel"),
+             "backbone.bn1": ("backbone", "bn1", "scale")}
+
+    def get(t, path):
+        for k in path:
+            t = t[k]
+        return t
+
+    labels = {n: get(jlabels["params"], p) for n, p in paths.items()}
+    assert labels == {"class_embed.kernel": "main",
+                      "backbone.conv2": "backbone", "backbone.bn1": "frozen"}
+    named = [(n, torch.nn.Parameter(torch.from_numpy(
+        np.array(get(tree["params"], p))))) for n, p in paths.items()]
+    opt = Optimizer(named, labels, {"main": lrs["lr"],
+                                    "backbone": lrs["lr_backbone"]},
+                    weight_decay=1e-4, grad_clip=0.1)
+    assert not opt.capturable  # torch.optim has no capturable CPU AdamW
+    params = jax.tree_util.tree_map(jnp.asarray, tree)
+    state = tx.init(params)
+    rng = np.random.default_rng(1)
+    opt.zero_grad()
+    buffers = [p.grad.data_ptr() for _, p in named]
+    for scale in (1.0, torch.tensor(0.5), 0.1):
+        grads = jax.tree_util.tree_map(
+            lambda a: rng.standard_normal(a.shape).astype(np.float32), tree)
+        opt.zero_grad()
+        for n, p in named:
+            p.grad += torch.from_numpy(np.array(get(grads["params"],
+                                                    paths[n])))
+        norm = opt.step(scale)
+        updates, state = tx.update(jax.tree_util.tree_map(jnp.asarray,
+                                                          grads),
+                                   state, params)
+        updates = jax.tree_util.tree_map(lambda u: u * float(scale), updates)
+        params = optax.apply_updates(params, updates)
+        np.testing.assert_allclose(
+            float(norm), float(optax.global_norm(grads)), rtol=1e-6)
+        for n, p in named:
+            # float32, and torch decays before the Adam step (first order
+            # in lr * wd = 1e-6)
+            np.testing.assert_allclose(
+                p.detach().numpy(), np.asarray(get(params["params"],
+                                                   paths[n])),
+                rtol=2e-6, atol=2e-7, err_msg=n)
+    # the frozen leaf never moved; the gradient buffers kept their storage
+    np.testing.assert_array_equal(named[2][1].detach().numpy(),
+                                  tree["params"]["backbone"]["bn1"]["scale"])
+    assert [p.grad.data_ptr() for _, p in named] == buffers
+
+
+def test_load_or_compile_needs_a_card():
+    with pytest.raises(ValueError, match="one card"):
+        aot.load_or_compile(lambda x: x, torch.zeros(2), tag="t")

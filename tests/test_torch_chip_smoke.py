@@ -31,9 +31,11 @@ from egtr_tpu_torch.data import loader as loader_mod
 from egtr_tpu_torch.data import open_images as oi_mod
 from egtr_tpu_torch.data import transforms as transforms_mod
 from egtr_tpu_torch.data import visual_genome as vg_mod
-from egtr_tpu_torch.ops import msda, msda_cuda
+from egtr_tpu_torch.ops import matcher, msda, msda_cuda
 from egtr_tpu_torch.parallel import dryrun, launch
 from egtr_tpu_torch.scripts import exp_window_deltas, perf_train_step
+from egtr_tpu_torch.train import train_step as train_step_module
+from egtr_tpu_torch.utils import aot
 
 torch.set_num_threads(1)
 
@@ -197,6 +199,24 @@ def install_fake_card(set_attr, tmp_path):
             return out.add_(grads[0])
         return kernel
 
+    def lsap(cost, num_boxes):
+        msda_cuda.check_inputs_lsap(cost, num_boxes)
+        msda_cuda.lsap_geometry(*cost.shape)
+        msda_cuda.launches["lsap"] += 1
+        return matcher.lsap_plain(cost, num_boxes)
+
+    def maybe_aot(fn, tag, device=None):
+        """The train step's dispatch without the capture: its programs
+        are keyed by signature as on the card, each call eager."""
+        programs = {}
+
+        def call(*args):
+            programs.setdefault(aot.signature(args), tag)
+            return fn(*args)
+
+        call.programs = programs
+        return call
+
     bench_config = infer.bench_config
     train_config = perf_train_step.train_config
     set_attr(torch.cuda, "is_available", lambda: True)
@@ -206,6 +226,7 @@ def install_fake_card(set_attr, tmp_path):
     set_attr(torch.cuda, "device_count", lambda: 1)
     set_attr(torch.cuda, "reset_peak_memory_stats", lambda *a: None)
     set_attr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    set_attr(torch.cuda, "max_memory_reserved", lambda *a: 0)
     set_attr(torch.cuda, "memory_allocated", lambda *a: 0)
     set_attr(msda_cuda, "msda_fwd", kernel)
     set_attr(msda_cuda, "msda_bwd_rows", bwd_rows)
@@ -222,10 +243,13 @@ def install_fake_card(set_attr, tmp_path):
                             ("msda_bwd_win_value_pp", True)):
         part = "value" if "value" in name else "rows"
         set_attr(msda_cuda, name, bwd_win(name, per_point, part))
+    set_attr(msda_cuda, "lsap", lsap)
+    set_attr(train_step_module, "maybe_aot", maybe_aot)
     # the dispatch takes the (faked) kernels for these CPU tensors, as it
     # does for CUDA tensors on the card
     set_attr(msda, "_takes_kernels",
              lambda impl, value: impl in ("auto", "pallas"))
+    set_attr(matcher, "_takes_kernel", lambda cost: True)
     set_attr(msda_cuda, "build", lambda: {
         name: tmp_path / f"lib{name}.so" for name in msda_cuda.sources()})
     set_attr(chip_smoke, "card_line", lambda: "Host, 0.00 W")
@@ -330,6 +354,8 @@ def install_fake_card(set_attr, tmp_path):
     set_attr(chip_smoke, "DRYRUN_WORLDS", (1,))
     # (f), the model axis: one bf16 round a rank
     set_attr(chip_smoke, "TP_STEPS", 1)
+    # (g), the matcher kernel: the one-stage and two-stage microbatches of 2
+    set_attr(chip_smoke, "LSAP_CASES", ((2, 200), (2, 300)))
 
 
 def test_chip_smoke_runs_its_phases(fake_card, capsys):
@@ -345,7 +371,7 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
         "msda_fwd", "msda_bwd_rows", "msda_bwd_value", "msda_fwd_q",
         "msda_fwd_win", "msda_fwd_win_pp", "msda_bwd_win_rows",
         "msda_bwd_win_rows_pp", "msda_bwd_win_value", "msda_bwd_win_value_pp",
-        "msda_fwd_bp"]
+        "msda_fwd_bp", "lsap"]
     required = {"name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms"}
@@ -355,10 +381,31 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
         assert k["bound_by"] in ("bytes", "operations") and k["bound_ms"] > 0
         assert isinstance(k["max_abs_err"], float)
         path, line = k["replaces"].split(":")
-        assert path == "egtr_tpu/ops/msda_pallas.py" and int(line) > 0
+        assert path == ("egtr_tpu/ops/matcher.py" if k["name"] == "lsap"
+                        else "egtr_tpu/ops/msda_pallas.py") and int(line) > 0
         assert (REPO / k["source"]).exists()
         assert k["launches"] > 0
-    fwd, rows, value, fwd_q, win, win_pp, *bwd_win, bp = kernels
+    fwd, rows, value, fwd_q, win, win_pp, *bwd_win, bp, lsap = kernels
+    # the matcher kernel: bit-equal to its plain version, optimal; training
+    # (auxiliary losses, 2 decoder layers: 2 matches a microbatch) 3 steps
+    # + 2 microbatches of the accumulated one; the driver (no auxiliary
+    # losses) per phase 2 microbatches and 1 validation batch
+    assert lsap["bit_equal_to_plain"] and lsap["optimal_vs_scipy"]
+    assert len(lsap["calls"]) == 8 and lsap["max_abs_err"] == 0.0
+    assert lsap["launches_training"] == 5 * 2
+    assert lsap["launches_driver"] == 3 * 2
+    # the request and the train step as programs against eager (on the
+    # faked card both run eagerly, so the outputs are equal)
+    for label, r in result["request_graphs"].items():
+        assert r["bit_equal"] and set(r["median_ms"]) == {"graph", "eager"}
+        assert r["launches_per_forward"] == {
+            **dict.fromkeys(msda_cuda.KERNELS, 0),
+            **({"msda_fwd": 4} if label == "exact" else
+               {"msda_fwd_q": 4, "msda_fwd_win_pp": 2 * 2})}
+    graphs = result["train_graphs"]
+    assert graphs["bf16_accum2"]["programs"] == {"whole": 0, "grads_mb": 1,
+                                                 "apply": 1}
+    assert len(set(graphs["dropout_replay_losses"][1:])) == 2
     # exact serving: 4 timed + 2 warm-up requests + 1 checked forward, 2+2
     # MSDA layers each; training: 3 steps + 2 microbatches of the
     # accumulated one
@@ -918,3 +965,138 @@ def test_profiles_list_every_msda_kernel():
     assert infer.msda_rows(rows) == {
         "msda_fwd_q_kernel": {"ms": 0.1 + 0.05, "calls": 12.0},
         "msda_bwd_win_rows_kernel": {"ms": 0.2, "calls": 18.0}}
+
+
+def test_kernel_of_names_each_kernel_from_its_trace_row():
+    """The launch measurement reads a trace's kernel rows, as the card's
+    torch.profiler names them, back to the wrappers; a banded kernel's
+    last template argument tells its tile form from its point form."""
+    rows = {
+        "void msda_fwd_kernel<__nv_bfloat16, float, 8, true>(__nv_bfloat16 "
+        "const*, float const*, Levels, int": "msda_fwd",
+        "void (anonymous namespace)::lsap_kernel<1>(float const*, int "
+        "const*, int, int, int*, long*, float*, long*)": "lsap",
+        "void msda_bwd_value_kernel<__nv_bfloat16, 4>(float const*, VGeom)":
+            "msda_bwd_value",
+        "void msda_bwd_rows_kernel<float, 4>(float const*, Levels, int,":
+            "msda_bwd_rows",
+        "void msda_fwd_q_kernel<signed char, 16>(signed char const*)":
+            "msda_fwd_q",
+        "msda_fwd_bp_kernel(float const*, float const*, float const*)":
+            "msda_fwd_bp",
+        "void msda_fwd_win_kernel<__nv_bfloat16, 8, true, true>(__nv_bfloat16"
+        " const*, int const*, Segments, Geometry, W": "msda_fwd_win_pp",
+        "void msda_fwd_win_kernel<__nv_bfloat16, 8, true, false>(Segments, ":
+            "msda_fwd_win",
+        "void msda_bwd_win_rows_kernel<__nv_bfloat16, 8, false>(float*, ":
+            "msda_bwd_win_rows",
+        "void msda_bwd_win_rows_kernel<float, 4, true>(float*, ":
+            "msda_bwd_win_rows_pp",
+        "void msda_bwd_win_value_kernel<__nv_bfloat16, 4, true>(int const*":
+            "msda_bwd_win_value_pp",
+        "void msda_bwd_win_value_kernel<float, 4, false>(int const*":
+            "msda_bwd_win_value",
+        "void at::native::vectorized_elementwise_kernel<4, float>(int)": None,
+        "ampere_bf16_s16816gemm_bf16_128x64_ldg8_f2f_stages_64x4_tn": None,
+    }
+    for row, name in rows.items():
+        assert chip_smoke.kernel_of(row) == name, row
+    names = {n for n in rows.values() if n}
+    assert names == set(msda_cuda.KERNELS) | {"lsap"}
+    with pytest.raises(ValueError, match="PER_POINT"):
+        chip_smoke.kernel_of("msda_fwd_win_kernel(float const*)")
+
+
+def test_f32_distances_of_the_train_graph_check():
+    """Phase (i)'s distances between two runs: each step's loss and
+    gradient norm, the median leaf's parameter change and gradient."""
+    def run(loss, norm, scale):
+        change = {f"p{i}": torch.full((4,), float(i + 1)) for i in range(3)}
+        change["p2"] = change["p2"] * scale
+        return {"loss": loss, "grad_norm": norm, "change": change,
+                "grad": {k: 2 * v for k, v in change.items()}}
+
+    a = run([4.0, 2.0], [1.0, 1.0], 1.0)
+    assert chip_smoke._f32_distances(a, a) == {
+        "loss": 0.0, "grad_norm": 0.0, "param_change": 0.0, "grad": 0.0}
+    # one leaf of three moved twice as far: the median leaf did not
+    b = run([4.0, 2.5], [1.0, 2.0], 2.0)
+    assert chip_smoke._f32_distances(b, a) == {
+        "loss": 0.25, "grad_norm": 1.0, "param_change": 0.0, "grad": 0.0}
+    c = run([4.0, 2.0], [1.0, 1.0], 1.0)
+    c["change"] = {k: 1.5 * v for k, v in c["change"].items()}
+    assert chip_smoke._f32_distances(c, a)["param_change"] == (
+        pytest.approx(0.5))
+
+
+def test_counts_on_the_card_come_from_the_measurement(monkeypatch):
+    """Where launches are measured, ``kernel_counts`` reads the card's
+    trace, not the wrappers; with ``batch_p`` the launches of K11's routes
+    are K11's, and a K1 call of its own in such a run is refused."""
+    class Trace:
+        def __init__(self):
+            self.counts = dict.fromkeys(
+                msda_cuda.KERNELS + msda_cuda.MATCHER_KERNELS, 0)
+            self.running = False
+
+        def resume(self):
+            self.running = True
+
+        def pause(self):
+            if self.running:
+                self.running = False
+                self.counts.update(msda_fwd=24, msda_bwd_rows=12, lsap=6)
+
+    monkeypatch.setattr(chip_smoke, "_meter", None)
+    monkeypatch.setattr(chip_smoke, "measured", lambda: True)
+    monkeypatch.setattr(chip_smoke, "CardLaunches", Trace)
+    chip_smoke.reset_kernel_counts()
+    msda_cuda.launches["msda_fwd"] += 1     # a warm-up's eager launch
+    counts = chip_smoke.kernel_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "msda_fwd": 24, "msda_bwd_rows": 12}
+    assert chip_smoke.matcher_launches() == 6
+    with pytest.raises(SystemExit, match="K1/K4 called directly"):
+        chip_smoke.kernel_counts(batch_p=True)
+    chip_smoke.reset_kernel_counts()
+    msda_cuda.launches["msda_fwd_bp"] += 1
+    counts = chip_smoke.kernel_counts(batch_p=True)
+    assert {k: v for k, v in counts.items() if v} == {
+        "msda_fwd_bp": 24, "msda_bwd_rows": 12}
+    monkeypatch.setattr(chip_smoke, "_meter", None)
+    with pytest.raises(RuntimeError, match="without reset_kernel_counts"):
+        chip_smoke.kernel_counts()
+    msda_cuda.reset_launches()
+
+
+def test_card_launches_counts_the_card_rows_of_a_trace():
+    """``CardLaunches.add`` counts a finished trace's kernel rows on the
+    card by wrapper, and nothing the host ran."""
+    class Event:
+        def __init__(self, name, device):
+            self._name, self._device = name, device
+
+        def name(self):
+            return self._name
+
+        def device_type(self):
+            return getattr(torch.autograd.DeviceType, self._device)
+
+    rows = [("void msda_fwd_kernel<float, float, 4, true>(float const*)",
+             "CUDA")] * 3 + [
+        ("void (anonymous namespace)::lsap_kernel<1>(float const*)", "CUDA"),
+        ("void msda_bwd_win_rows_kernel<float, 4, true>(float*)", "CUDA"),
+        ("cudaGraphLaunch", "CPU"),
+        ("msda_fwd_kernel", "CPU")]
+
+    class Trace:
+        class profiler:
+            class kineto_results:
+                @staticmethod
+                def events():
+                    return [Event(*r) for r in rows]
+
+    meter = chip_smoke.CardLaunches()
+    meter.add(Trace)
+    assert {k: v for k, v in meter.counts.items() if v} == {
+        "msda_fwd": 3, "lsap": 1, "msda_bwd_win_rows_pp": 1}

@@ -2,9 +2,10 @@
 
 Identical outputs and targets, drawn from a numpy seed, go through
 ``egtr_tpu.ops.{boxes,losses,matcher,criterion}`` and their ports. The JAX
-criteria are jitted once per case. Random continuous costs have no ties, so
-scipy's assignment (the port) and the in-jit Jonker-Volgenant solver (JAX)
-must agree exactly. Tolerance: float32, the two sides differ in the order of
+criteria are jitted once per case. The port's matcher runs the JAX
+package's Jonker-Volgenant solver itself (its plain version on the CPU), so
+the assignments agree exactly (``tests/test_torch_lsap.py`` holds it to
+JAX's bit for bit, ties included). Tolerance: float32, the two sides differ in the order of
 summation and in libm (log, exp, sigmoid): rtol 1e-5, atol 1e-6 on values of
 order 1.
 """

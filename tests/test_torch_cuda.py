@@ -33,7 +33,9 @@ to K8 on its tile bands broadcast over the points; and the tile forms that
 run the point forms' kernels: K5 bit-equal to K6 on its tile bands
 broadcast over the points (every value type, windows 8-32), K9 against K10
 on them and adding into a slice of a wider gradient that holds values, and
-both refusing a geometry that misses work. On a GPU
+both refusing a geometry that misses work; and the matcher's assignment
+kernel (lsap) bit for bit against its plain version, one column a thread
+and strided, on random and tied costs, and its refusals. On a GPU
 machine without JAX, run them without the suite's conftest (which imports
 JAX):
 
@@ -1651,3 +1653,58 @@ def test_k9_adds_into_a_slice_and_matches_k10(cuda, case, D, dtype):
         rest = torch.ones(S, dtype=torch.bool, device=cuda)
         rest[level] = False
         assert torch.equal(dvalue[:, rest], held[:, rest])
+
+
+# --------------------------------------------------------------------------
+# the matcher's assignment kernel (lsap.cu) against its plain version
+# --------------------------------------------------------------------------
+
+# (B, Q, G): one column a thread, Q not a whole number of warps with G = Q,
+# and the strided forms (two and eight columns a thread) that the two-stage
+# proposal matching (Q = S) takes
+LSAP_CASES = {"one_column_a_thread": (3, 200, 64),
+              "q_not_a_warp_multiple": (2, 37, 37),
+              "two_columns_a_thread": (2, 1025, 64),
+              "eight_columns_a_thread": (1, 5000, 16)}
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("case", sorted(LSAP_CASES))
+def test_lsap_bit_equal_to_plain(cuda, case, ties):
+    """All three outputs bit for bit, on random costs and on costs full of
+    ties (integers of {0, 1, 2}), num_boxes from 0 to G; hungarian_match
+    on CUDA tensors takes the kernel."""
+    from egtr_tpu_torch.ops import matcher
+
+    B, Q, G = LSAP_CASES[case]
+    g = torch.Generator().manual_seed(Q)
+    cost = (torch.randint(0, 3, (B, Q, G), generator=g).float() if ties
+            else torch.randn((B, Q, G), generator=g))
+    nb = (torch.linspace(0, G, B).round() if B > 1
+          else torch.tensor([G])).to(torch.int32)
+    plain = matcher.lsap_plain(cost, nb)
+    before = msda_cuda.launches["lsap"]
+    kernel = msda_cuda.lsap(cost.to(cuda), nb.to(cuda))
+    torch.cuda.synchronize()
+    assert msda_cuda.launches["lsap"] == before + 1
+    for got, want in zip(kernel, plain):
+        assert torch.equal(got.cpu(), want)
+    res = matcher.hungarian_match(cost.to(cuda), nb.to(cuda))
+    assert res.query_index.device.type == "cuda"
+    assert msda_cuda.launches["lsap"] == before + 2
+    assert torch.equal(res.gt_index.cpu(), plain[2])
+
+
+def test_lsap_refusals(cuda):
+    nb = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        msda_cuda.lsap(torch.zeros((1, 8, 4), device=cuda,
+                                   dtype=torch.float64), nb)
+    with pytest.raises(ValueError, match="queries"):
+        msda_cuda.lsap(torch.zeros((1, 32769, 4), device=cuda), nb)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        msda_cuda.lsap(torch.zeros((1, 8, 4), device=cuda), nb.cpu())
+    from egtr_tpu_torch.ops import matcher
+
+    with pytest.raises(ValueError, match="CPU version"):
+        matcher.lsap_plain(torch.zeros((1, 8, 4), device=cuda), nb)

@@ -630,9 +630,10 @@ def test_new_wrappers_refuse_cpu_tensors_and_bad_inputs():
 
 
 def test_new_sources_and_counters():
-    """Six sources, eleven kernels: each exported function belongs to one
-    library and has a launch count of its own."""
-    assert sorted(msda_cuda.sources()) == ["msda_bwd", "msda_bwd_win",
+    """Seven sources, twelve kernels (the eleven MSDA kernels and the
+    matcher's): each exported function belongs to one library and has a
+    launch count of its own."""
+    assert sorted(msda_cuda.sources()) == ["lsap", "msda_bwd", "msda_bwd_win",
                                            "msda_fwd", "msda_fwd_bp",
                                            "msda_fwd_q", "msda_fwd_win"]
     owners = {fn: lib for fn, (lib, _) in msda_cuda._FUNCTIONS.items()}
@@ -650,10 +651,11 @@ def test_new_sources_and_counters():
         decl = text[text.index(f'extern "C" int {fn}('):]
         decl = decl[:decl.index(")")]
         assert decl.count(",") + 1 == len(msda_cuda._FUNCTIONS[fn][1]), fn
+    assert owners["lsap"] == "lsap"
     for name in ("msda_fwd_q", "msda_fwd_win", "msda_fwd_win_pp",
                  "msda_bwd_win_rows", "msda_bwd_win_rows_pp",
                  "msda_bwd_win_value", "msda_bwd_win_value_pp",
-                 "msda_fwd_bp"):
+                 "msda_fwd_bp", "lsap"):
         assert isinstance(msda_cuda.launches[name], int)
 
 
