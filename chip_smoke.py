@@ -52,9 +52,13 @@ and no result line. In order it:
    in its three outputs, at B 2 and 4, Q 200 and 300 (two stages), the
    two-stage proposal matching's Q = S (22,323) at B 2, G 64,
    ``num_boxes`` from 0 to G and G everywhere, on random costs and on costs
-   full of ties; each image's total cost equal to scipy's to 1e-6; times the
-   kernel (CUDA events and a CUDA graph) beside the host scipy path it
-   replaced (the copies included) and its bound;
+   full of ties; each image's total cost equal to scipy's to 1e-6; prints
+   per case the route (one warp an image, or a cluster of blocks), the
+   search steps and µs per step, and times the kernel (CUDA events, and
+   its device time in a CUDA graph) beside the parent commit's kernel
+   (built from ``git show HEAD~1:egtr_tpu_torch/csrc/lsap.cu``, or a copy
+   in ``build/lsap_parent.cu``; in graphs, in turns; held bit-equal too),
+   the host scipy path it replaced (the copies included) and its bound;
 7. serves a few requests through ``infer.infer`` at full width (ResNet-50,
    d_model 256, 6+6 layers, 200 queries, 150/50 labels, bfloat16, seeded
    random weights) in three configurations and checks the outputs and each
@@ -153,7 +157,10 @@ and no result line. In order it:
    relaunch on the same output path that resumes and takes no step (only
    the test evaluation's 24 K11 launches); prints seconds per phase and
    ms per optimizer step from metrics.jsonl, and the run's peak memory
-   against the same run with every step and evaluation forward eager;
+   against the same run with every step and evaluation forward eager,
+   with the reserved memory by pool as each program's warm-up and capture
+   ends and the peak's split; fails where the programs reserve more than
+   1.5 GB over the eager run or allocate more than it;
 18. holds K4, K5 and K6 against their plain versions at the test bucket's
    levels (800x1344), as phases 5 and 6 do at the serving bucket's; then
    runs the evaluation driver ``scripts.evaluate_egtr.main`` in-process,
@@ -1210,7 +1217,8 @@ DEVICE_KERNELS = {
     "msda_fwd_kernel": "msda_fwd", "msda_fwd_q_kernel": "msda_fwd_q",
     "msda_fwd_bp_kernel": "msda_fwd_bp",
     "msda_bwd_rows_kernel": "msda_bwd_rows",
-    "msda_bwd_value_kernel": "msda_bwd_value", "lsap_kernel": "lsap",
+    "msda_bwd_value_kernel": "msda_bwd_value",
+    "lsap_warp_kernel": "lsap", "lsap_cluster_kernel": "lsap",
     "msda_fwd_win_kernel": ("msda_fwd_win", "msda_fwd_win_pp"),
     "msda_bwd_win_rows_kernel": ("msda_bwd_win_rows",
                                  "msda_bwd_win_rows_pp"),
@@ -2050,6 +2058,81 @@ def _peak_memory():
             torch.cuda.max_memory_reserved() / 1e9)
 
 
+# the training driver's programs may reserve at most this much more than
+# its eager run (GB)
+DRIVER_PROGRAM_MEMORY_GB = 1.5
+
+
+def reserved_by_pool():
+    """GB reserved on the card by pool, from ``torch.cuda.memory_snapshot``:
+    the caching allocator's default pool, the programs' shared pool
+    (``aot.graph_pool``) and any other graph pool."""
+    from egtr_tpu_torch.utils import aot
+
+    device = torch.device(DEVICE, torch.cuda.current_device())
+    pool = aot._pools.get(device)
+    split = {"default": 0, "programs": 0, "other": 0}
+    for seg in torch.cuda.memory_snapshot():
+        if seg.get("device", device.index) != device.index:
+            continue
+        pid = tuple(seg.get("segment_pool_id", (0, 0)))
+        key = ("default" if pid == (0, 0) else "programs"
+               if pool is not None and pid == tuple(pool) else "other")
+        split[key] += seg["total_size"]
+    return {k: v / 1e9 for k, v in split.items()}
+
+
+@contextlib.contextmanager
+def program_memory(events):
+    """Record into ``events``, for each program made while active
+    (``aot.Program``), the peak reserved and allocated GB and the reserved
+    GB by pool (``reserved_by_pool``) before its warm-up (or, for a later
+    signature, its capture), as its warm-up ends (before
+    ``aot.release_cached`` returns the warm-up's cache) and as its capture
+    ends. Segments go back to the card only by ``empty_cache``, so the
+    reserved memory when the peak first reaches its final value is the
+    peak's."""
+    from egtr_tpu_torch.utils import aot
+
+    init, release = aot.Program.__init__, aot.release_cached
+    current = []  # [tag, releases so far] of the program being made
+
+    def record(when):
+        torch.cuda.synchronize()
+        events.append({"tag": current[-1][0] if current else None,
+                       "when": when,
+                       "peak_reserved": torch.cuda.max_memory_reserved() / 1e9,
+                       "peak_allocated":
+                           torch.cuda.max_memory_allocated() / 1e9,
+                       **reserved_by_pool()})
+
+    def released(device):
+        # a program releases first, and again as its warm-up ends
+        if current:
+            current[-1][1] += 1
+            record("before" if current[-1][1] == 1 else "warm-up")
+        release(device)
+
+    def program(self, fn, args, tag, warm_up=True):
+        current.append([tag, 0])
+        try:
+            init(self, fn, args, tag, warm_up)
+            record("capture")
+        finally:
+            current.pop()
+
+    with mock.patch.object(aot.Program, "__init__", program), \
+            mock.patch.object(aot, "release_cached", released):
+        yield events
+
+
+def memory_peak_split(events, total):
+    """The event at which the peak reserved memory first reached
+    ``total`` GB (None if it was reached outside a program)."""
+    return next((e for e in events if e["peak_reserved"] >= total - 1e-9),
+                None)
+
+
 def reloads_bit_equal(model, artifact):
     """Whether the saved artifact reloads into the trained model's forward,
     bit for bit, on a seeded image of the training bucket."""
@@ -2087,11 +2170,13 @@ def drive_trainer(workdir):
         torch.cuda.reset_peak_memory_stats()
         reset_kernel_counts()
         t0 = time.perf_counter()
-        with recorded_entries() as entries:
+        events = []
+        with recorded_entries() as entries, program_memory(events):
             model = train_egtr.main(argv)
         torch.cuda.synchronize()
         t_run = time.perf_counter() - t0
         memory = {"graph": _peak_memory()}
+        peak_event = memory_peak_split(events, memory["graph"][1])
         counts = kernel_counts(batch_p=True)
         matched = matcher_launches()
         bit_equal = reloads_bit_equal(model, f"{out}/artifact")
@@ -2161,8 +2246,29 @@ def drive_trainer(workdir):
           f"{ {k: v for k, v in relaunched.items() if v} }"
           f"; (peak allocated, peak reserved) GB of the run, graphs "
           f"{memory['graph']} against eager {memory['eager']}", flush=True)
+    print("driver memory by program (GB; reserved by pool before each "
+          "program, as its warm-up ends and as its capture ends): "
+          + "; ".join(
+              f"{e['tag']} {e['when']}: peak reserved "
+              f"{e['peak_reserved']:.3f}, allocated "
+              f"{e['peak_allocated']:.3f}, default {e['default']:.3f}, "
+              f"programs {e['programs']:.3f}, other {e['other']:.3f}"
+              for e in events)
+          + f"; the peak's ({memory['graph'][1]:.3f} GB reserved): "
+          + (f"{peak_event['tag']} {peak_event['when']}, default "
+             f"{peak_event['default']:.3f}, programs "
+             f"{peak_event['programs']:.3f}, other {peak_event['other']:.3f}"
+             if peak_event else "outside a program"), flush=True)
     if counts != expect:
         raise SystemExit(f"driver: launches {counts}, expected {expect}")
+    over = memory["graph"][1] - memory["eager"][1]
+    if over > DRIVER_PROGRAM_MEMORY_GB:
+        raise SystemExit(f"driver: the programs reserve {over:.3f} GB more "
+                         f"than the eager run (limit "
+                         f"{DRIVER_PROGRAM_MEMORY_GB} GB): {memory}")
+    if memory["graph"][0] > memory["eager"][0]:
+        raise SystemExit(f"driver: the programs' peak allocated exceeds the "
+                         f"eager run's: {memory}")
     if matched != expect_matched:
         raise SystemExit(f"driver: the matcher kernel launched {matched} "
                          f"times, expected {expect_matched}")
@@ -2176,6 +2282,7 @@ def drive_trainer(workdir):
                          "resume and take no step, only the test evaluation")
     return {"counts": counts, "lsap_launches": matched, "phases": phases,
             "seconds": t_run, "peak_memory_gb": memory,
+            "program_memory_gb": events, "peak_split_gb": peak_event,
             "relaunch_seconds": t_relaunch, "data_seconds": t_data,
             "mean_step_ms": sum(step_ms) / len(step_ms), "test": test,
             "entries": entries}
@@ -4082,18 +4189,122 @@ def host_scipy_match(cost, num_boxes):
             torch.from_numpy(gt_index).to(cost.device))
 
 
-def check_lsap():
+# the parent commit's matcher kernel, timed in turns with this one: its
+# source from git, or from a copy left in build/ where the checkout has no
+# history; its C interface is the one-block kernel's
+PARENT_LSAP_REV = "HEAD~1"
+PARENT_LSAP_COPY = "lsap_parent.cu"
+PARENT_LSAP_SIGNATURE = "int B, int Q, int G, int threads, int cpt, void* stream"
+# milliseconds of calls each timing takes (at least 3, at most LSAP_ITERS)
+LSAP_TIMING_MS = 150.0
+
+
+def parent_lsap_source():
+    """(source text, where from) of the parent commit's lsap.cu, or (None,
+    why not)."""
+    copy = msda_cuda.BUILD_DIR / PARENT_LSAP_COPY
+    if copy.exists():
+        return copy.read_text(), str(copy)
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = f"{PARENT_LSAP_REV}:egtr_tpu_torch/csrc/lsap.cu"
+    try:
+        out = subprocess.run(["git", "-C", here, "show", spec],
+                             capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return None, f"git show {spec}: {e}"
+    if out.returncode != 0:
+        return None, f"git show {spec}: {out.stderr.strip()[:200]}"
+    return out.stdout, f"git show {spec}"
+
+
+def build_parent_lsap():
+    """The parent commit's matcher kernel built into build/ (nvcc, the
+    port's flags): (library path or None, where its source came from or why
+    there is none)."""
+    text, origin = parent_lsap_source()
+    if text is None:
+        return None, origin
+    if PARENT_LSAP_SIGNATURE not in text:
+        return None, f"{origin}: not the one-block kernel's interface"
+    if text == msda_cuda.SOURCE_LSAP.read_text():
+        return None, f"{origin}: the same source as this checkout's"
+    key = hashlib.sha256(text.encode()).hexdigest()[:16]
+    lib = msda_cuda.BUILD_DIR / f"liblsap_parent-{key}.so"
+    if not lib.exists():
+        try:
+            nvcc = msda_cuda._nvcc()
+        except RuntimeError as e:
+            return None, f"{origin}: {e}"
+        msda_cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = msda_cuda.BUILD_DIR / f"lsap_parent-{key}.cu"
+        src.write_text(text)
+        tmp = lib.with_suffix(".tmp.so")
+        out = subprocess.run([nvcc, *msda_cuda.NVCC_FLAGS, "-o",
+                              str(tmp), str(src)], capture_output=True,
+                             text=True)
+        if out.returncode != 0:
+            return None, f"{origin}: nvcc failed: {out.stderr[-300:]}"
+        os.replace(tmp, lib)
+    return lib, origin
+
+
+def parent_lsap_call(lib):
+    """A function (cost, num_boxes) -> the parent kernel's three outputs:
+    one block an image, Q rounded up to a warp and at most 1024 threads,
+    the fewest columns a thread (a power of two) that cover Q."""
+    import ctypes
+
+    fn = ctypes.CDLL(str(lib)).lsap
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+
+    def call(cost, num_boxes):
+        B, Q, G = cost.shape
+        threads = min(1024, -(-Q // 32) * 32)
+        cpt = 1
+        while threads * cpt < Q:
+            cpt *= 2
+        out = (torch.empty((B, G), dtype=torch.int64, device=cost.device),
+               torch.empty((B, G), dtype=torch.float32, device=cost.device),
+               torch.empty((B, Q), dtype=torch.int64, device=cost.device))
+        path = torch.empty((B, Q), dtype=torch.int32, device=cost.device)
+        rc = fn(cost.data_ptr(), num_boxes.data_ptr(), path.data_ptr(),
+                *(t.data_ptr() for t in out), B, Q, G, threads, cpt,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"parent lsap kernel: CUDA error {rc}")
+        return out
+
+    return call
+
+
+def _timing_iters(fn):
+    """Calls of ``fn`` that take about LSAP_TIMING_MS (3 to LSAP_ITERS)."""
+    first = cuda_ms(fn, 1, warmup=1)
+    return max(3, min(LSAP_ITERS, int(LSAP_TIMING_MS / max(first, 1e-3))))
+
+
+def check_lsap(parent=(None, "not built")):
     """(g) The matcher kernel against its plain version on the card's
     inputs, bit for bit in all three outputs, at B 2 and 4, Q 200 and 300,
-    and Q = S (22,323) at B 2, G 64, nb from 0 to G (and nb = G everywhere), on random costs and on
-    costs full of ties; each image's total cost equal to scipy's to 1e-6;
-    the kernel's ms (CUDA events, and in a CUDA graph) beside the host
-    scipy path's (copies included) and the plain version's (on the CPU, the
-    only place it runs)."""
+    and Q = S (22,323) at B 2, G 64, nb from 0 to G (and nb = G
+    everywhere), on random costs and on costs full of ties; each image's
+    total cost equal to scipy's to 1e-6; per case the route
+    (``msda_cuda.lsap_geometry``), the search steps (``lsap_plain(stats=)``:
+    summed and the longest image's, which the kernel's chain follows), the
+    kernel's ms (CUDA events around the wrapper), its device ms in a CUDA
+    graph (as the main path's programs run it) and µs per step of the
+    longest image, beside the parent commit's kernel timed in graphs in
+    turns (parent, new, new, parent; ``parent``: ``build_parent_lsap()``,
+    which is also held bit-equal), the host scipy path's (copies included)
+    and the plain version's (on the CPU, the only place it runs)."""
     from scipy.optimize import linear_sum_assignment
 
+    lib, parent_origin = parent
+    old = parent_lsap_call(lib) if lib is not None else None
     rows, bad = [], []
     for B, Q in LSAP_CASES:
+        geom = msda_cuda.lsap_geometry(B, Q, LSAP_G)
         for kind in ("random", "ties"):
             cost = lsap_costs(B, Q, LSAP_G, kind, seed=B * Q)
             for nb in (np.linspace(0, LSAP_G, B).round(),
@@ -4119,9 +4330,33 @@ def check_lsap():
                     optimal &= (len(set(q.tolist())) == n
                                 and abs(got - best) <= 1e-6 * max(
                                     1.0, abs(best)))
-                ms = cuda_ms(lambda: msda_cuda.lsap(cost_d, nb_d),
-                             LSAP_ITERS)
-                g_ms = graph_ms(lambda: msda_cuda.lsap(cost_d, nb_d))
+
+                def new_call():
+                    return msda_cuda.lsap(cost_d, nb_d)
+
+                iters = _timing_iters(new_call)
+                ms = cuda_ms(new_call, iters)
+                timed = {"parent": [], "new": []}
+                parent_equal = None
+                calls = {"new": (new_call, iters)}
+                if old is not None:
+                    parent_equal = all(torch.equal(k, p.cpu()) for k, p in
+                                       zip(kern, old(cost_d, nb_d)))
+
+                    def old_call():
+                        return old(cost_d, nb_d)
+
+                    calls["parent"] = (old_call, _timing_iters(old_call))
+                # device time in CUDA graphs (the main path's programs),
+                # in turns where the parent's kernel is there
+                for who in ("parent", "new", "new", "parent"):
+                    if who in calls:
+                        fn, n_it = calls[who]
+                        timed[who].append(graph_ms(
+                            fn, min(20, n_it), max(1, min(10, n_it // 4))))
+                g_ms = sum(timed["new"]) / len(timed["new"])
+                parent_ms = (sum(timed["parent"]) / len(timed["parent"])
+                             if timed["parent"] else None)
                 host_scipy_match(cost_d, nb_d)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -4134,11 +4369,24 @@ def check_lsap():
                 byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
                 op_ms = (stats.get("steps", 0) * Q * LSAP_OPS_PER_COLUMN
                          / FP32_FLOPS * 1e3)
+                chain = max(stats.get("image_steps", [0]))
                 row = {"B": B, "Q": Q, "G": LSAP_G, "costs": kind,
                        "num_boxes": [int(v) for v in nb],
+                       "route": geom.route, "cluster": geom.cluster,
+                       "cpt": geom.cpt, "smem_bytes": geom.smem,
+                       "rows_in_smem": geom.rows,
                        "search_steps": stats.get("steps", 0),
+                       "longest_image_steps": chain,
                        "bit_equal_to_plain": equal, "max_abs_err": err,
                        "optimal_vs_scipy": optimal, "ms": ms,
+                       "graph_ms_in_turns": timed["new"],
+                       "us_per_step": (1e3 * g_ms / chain if chain else None),
+                       "parent_graph_ms": parent_ms,
+                       "parent_graph_ms_in_turns": timed["parent"],
+                       "parent_us_per_step": (1e3 * parent_ms / chain
+                                              if chain and parent_ms
+                                              else None),
+                       "parent_bit_equal": parent_equal,
                        "graph_ms": g_ms, "host_scipy_ms": scipy_ms,
                        "plain_ms": plain_ms, "plain_device": "cpu",
                        "bound_ms": max(byte_ms, op_ms),
@@ -4149,6 +4397,10 @@ def check_lsap():
                     bad.append(row)
     main = next(r for r in rows if (r["B"], r["Q"], r["costs"]) == (
         2, 200, "random") and r["num_boxes"][0] == 0)
+
+    def fmt(x, spec):
+        return "-" if x is None else format(x, spec)
+
     print(f"(g) matcher kernel (lsap) vs its plain version: "
           f"{sum(r['bit_equal_to_plain'] for r in rows)} of {len(rows)} "
           f"cases bit-equal, {sum(r['optimal_vs_scipy'] for r in rows)} "
@@ -4156,12 +4408,23 @@ def check_lsap():
           f"(graph {main['graph_ms']:.4f}), host scipy path "
           f"{main['host_scipy_ms']:.3f} ms, plain (CPU) "
           f"{main['plain_ms']:.1f} ms, bound {main['bound_ms']:.6f} ms "
-          f"({main['bound_by']}); per case (B, Q, costs, ms, scipy ms): "
-          + "; ".join(f"{r['B']},{r['Q']},{r['costs']},{r['ms']:.4f},"
-                      f"{r['host_scipy_ms']:.3f}" for r in rows), flush=True)
+          f"({main['bound_by']}); parent kernel ({parent_origin}) in turns; "
+          f"per case (B, Q, costs, num_boxes, route, steps summed / longest "
+          f"image, ms, graph ms, us per step, parent graph ms, parent us per "
+          f"step, parent bit-equal, scipy ms): "
+          + "; ".join(
+              f"{r['B']},{r['Q']},{r['costs']},"
+              f"{'0..G' if r['num_boxes'][0] == 0 else 'G'},"
+              f"{r['route']}x{r['cluster']},{r['search_steps']}/"
+              f"{r['longest_image_steps']},{r['ms']:.4f},"
+              f"{r['graph_ms']:.4f},{fmt(r['us_per_step'], '.3f')},"
+              f"{fmt(r['parent_graph_ms'], '.4f')},"
+              f"{fmt(r['parent_us_per_step'], '.3f')},"
+              f"{r['parent_bit_equal']},{r['host_scipy_ms']:.3f}"
+              for r in rows), flush=True)
     if bad:
         raise SystemExit(f"(g) matcher kernel disagrees: {bad}")
-    return {"rows": rows, "main": main}
+    return {"rows": rows, "main": main, "parent_origin": parent_origin}
 
 
 REQUEST_ROUNDS = 10
@@ -4554,9 +4817,11 @@ def main() -> int:
     print(card, flush=True)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         built = pool.submit(msda_cuda.build), pool.submit(native.build)
+        parent_lsap = pool.submit(build_parent_lsap)
         libs, native_lib = (f.result() for f in built)
+        parent_lsap = parent_lsap.result()
     print(f"kernel build: {sorted(p.name for p in libs.values())} and "
           f"{native_lib.name} in {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -4575,7 +4840,7 @@ def main() -> int:
     q_rows = check_q_kernel(shapes)
     win_rows = check_win_kernels(shapes)
     bp_rows = check_bp_kernel(shapes, train_shapes)
-    lsap = check_lsap()
+    lsap = check_lsap(parent_lsap)
 
     served_cfg = infer.serving_config()
     tile_cfg = infer.bench_config(msda_window=WINDOW, msda_band="tile")
@@ -4951,6 +5216,9 @@ def main() -> int:
          "bound_ms": lsap["main"]["bound_ms"],
          "bound_by": lsap["main"]["bound_by"], "library_ms": None,
          "graph_ms": lsap["main"]["graph_ms"],
+         "route_main": lsap["main"]["route"],
+         "parent_graph_ms": lsap["main"]["parent_graph_ms"],
+         "parent_origin": lsap["parent_origin"],
          "host_scipy_ms": lsap["main"]["host_scipy_ms"],
          "bit_equal_to_plain": all(r["bit_equal_to_plain"]
                                    for r in lsap["rows"]),

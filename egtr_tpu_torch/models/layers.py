@@ -135,17 +135,31 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
 _LEVEL_WH: Dict[tuple, torch.Tensor] = {}
 
 
+def _wh_table(shapes, dtype: torch.dtype, device) -> torch.Tensor:
+    """[L, 2] (w, h) made by fill kernels that take the numbers as
+    arguments: no copy from the host, which a CUDA graph cannot hold."""
+    table = torch.empty((len(shapes), 2), dtype=dtype, device=device)
+    for lid, (h, w) in enumerate(shapes):
+        table[lid, 0].fill_(w)
+        table[lid, 1].fill_(h)
+    return table
+
+
 def level_wh(spatial_shapes, dtype: torch.dtype, device) -> torch.Tensor:
     """[L, 2] the levels' (w, h) as ``dtype`` on ``device``, made once per
-    (shapes, dtype, device): a tensor made from host numbers is a copy that
-    waits for the device, which a CUDA graph cannot capture. Made outside
-    inference mode, so that a request's table serves a train step too."""
+    (shapes, dtype, device) and kept. Made outside inference mode, so that
+    a request's table serves a train step too. A capture that meets shapes
+    with no table yet (a later signature of a program, which captures
+    without an eager first call) makes it inside the graph and keeps
+    nothing: a kept tensor would live in the programs' pool, whose free
+    blocks other programs' replays write."""
     key = (tuple((int(h), int(w)) for h, w in spatial_shapes), dtype,
            torch.device(device))
     if key not in _LEVEL_WH:
+        if key[2].type == "cuda" and torch.cuda.is_current_stream_capturing():
+            return _wh_table(key[0], dtype, device)
         with torch.inference_mode(False):
-            _LEVEL_WH[key] = torch.tensor([[w, h] for h, w in key[0]],
-                                          dtype=dtype, device=device)
+            _LEVEL_WH[key] = _wh_table(key[0], dtype, device)
     return _LEVEL_WH[key]
 
 

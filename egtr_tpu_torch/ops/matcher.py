@@ -84,7 +84,8 @@ def lsap_plain(cost: torch.Tensor, num_boxes: torch.Tensor,
     float32, gt_index [B, Q] int64)`` for cost [B, Q, G] on the CPU.
     ``stats``, where given, gets ``steps``: the search steps the images
     took, summed (each relaxes Q columns; chip_smoke.py counts the work
-    from it).
+    from it), and ``image_steps``: each image's (the kernel searches the
+    images side by side, so the longest is its chain of steps).
 
     The rows (gt slots) are solved in turn; each search step relaxes every
     column of the images still searching, takes the first minimum of the
@@ -125,6 +126,9 @@ def lsap_plain(cost: torch.Tensor, num_boxes: torch.Tensor,
                 break
             if stats is not None:
                 stats["steps"] = stats.get("steps", 0) + int(going.sum())
+                steps = stats.setdefault("image_steps", [0] * B)
+                for b in going.nonzero()[:, 0].tolist():
+                    steps[b] += 1
             visited |= going[:, None] & (rows[None] == i[:, None])
             r = ((min_val[:, None] + cost_t[batch, i])
                  - u[batch, i][:, None]) - v                  # [B, Q]

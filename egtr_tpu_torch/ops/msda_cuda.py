@@ -599,7 +599,7 @@ _FUNCTIONS = {
     "msda_bwd_win_value_pp": ("msda_bwd_win", _WIN_ARGS),
     "msda_fwd_bp": ("msda_fwd_bp", [_VOID_P] * 4 + [ctypes.POINTER(_INT)]
                     + [_INT] * 8 + [_VOID_P]),
-    "lsap": ("lsap", [_VOID_P] * 6 + [_INT] * 5 + [_VOID_P]),
+    "lsap": ("lsap", [_VOID_P] * 5 + [_INT] * 3 + _GEOM_ARG),
 }
 
 
@@ -1396,30 +1396,107 @@ def msda_bwd_win(value_l: torch.Tensor, bidx: torch.Tensor, ix: torch.Tensor,
     return (value(*args, out=out), *rows(*args))
 
 
-# The matcher's assignment kernel (lsap.cu): one block an image, its query
-# columns strided over the block's threads, a whole number of warps.
-LSAP_MAX_THREADS = 1024   # LSAP_MAX_THREADS in lsap.cu
-LSAP_MAX_G = 1024         # LSAP_MAX_G: the shared-memory row state
-LSAP_MAX_CPT = 32         # columns a thread, the kernel's largest template
+# The matcher's assignment kernel (lsap.cu), two routes: "warp" (one block
+# an image stages its cost, transposed, into shared memory; one warp
+# searches) and "cluster" (a thread-block cluster an image, each block a
+# slice of the columns, the slots of its warps' minima read through
+# distributed shared memory).
+LSAP_MAX_G = 1024           # LSAP_MAX_G: the shared-memory row state
+LSAP_SMEM_BYTES = 227 * 1024  # LSAP_MAX_SMEM: a block's shared memory
+LSAP_STAGE_THREADS = 256    # LSAP_STAGE_THREADS: warp route, staging
+LSAP_CLUSTER_THREADS = 256  # LSAP_CLUSTER_THREADS: cluster route
+LSAP_MAX_CLUSTER = 16       # the card's largest (non-portable) cluster
+LSAP_CAND_BYTES = 16 * 2 * (LSAP_CLUSTER_THREADS // 32)  # the slots
+# columns a thread: the kernels' templates, by route
+LSAP_WARP_CPTS = (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 16, 20, 24, 28, 32)
+LSAP_CLUSTER_CPTS = (1, 2, 3, 4, 6, 8, 12, 16)
+LSAP_MAX_Q = LSAP_MAX_CLUSTER * LSAP_CLUSTER_THREADS * LSAP_CLUSTER_CPTS[-1]
+LSAP_ROUTES = ("warp", "cluster")
 
 
-def lsap_geometry(B: int, Q: int, G: int) -> Tuple[int, int, int]:
-    """(blocks, threads, columns a thread) of ``lsap``'s launch for cost
-    [B, Q, G]: one block an image, Q rounded up to a warp and at most 1024
-    threads, each thread the fewest columns, a power of two, that cover
-    Q."""
-    if not 1 <= Q <= LSAP_MAX_THREADS * LSAP_MAX_CPT:
-        raise ValueError(f"lsap takes 1..{LSAP_MAX_THREADS * LSAP_MAX_CPT} "
-                         f"queries, got {Q}")
+@dataclass(frozen=True)
+class LsapGeometry:
+    """The launch of ``lsap`` for cost [B, Q, G]; the fields after
+    ``route`` go to the kernel as an int array, in their order, with the
+    route's index first (``geometry_ok`` in lsap.cu re-checks them)."""
+
+    route: str     # "warp" or "cluster"
+    cluster: int   # blocks an image (1 on the warp route)
+    threads: int   # a block's
+    cpt: int       # columns a searching thread
+    width: int     # columns a block (Q on the warp route)
+    pitch: int     # floats between two staged costT rows
+    rows: int      # costT rows a block holds in shared memory
+    smem: int      # dynamic shared-memory bytes a block
+
+    @cached_property
+    def c_array(self):
+        values = (LSAP_ROUTES.index(self.route), self.cluster, self.threads,
+                  self.cpt, self.width, self.pitch, self.rows, self.smem)
+        return (ctypes.c_int * len(values))(*values)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _fewest(cpts: Tuple[int, ...], need: int) -> Optional[int]:
+    return next((c for c in cpts if c >= need), None)
+
+
+def lsap_warp_smem(Q: int, G: int) -> int:
+    """Shared-memory bytes of the warp route: costT [G, Q | 1] float32, row4col
+    [Q], and the row state (u, reach, col4row, the visited marks and the
+    reached rows' paths) [G]."""
+    return 4 * G * (Q | 1) + 4 * Q + 20 * G
+
+
+def lsap_cluster_smem(width: int, pitch: int, rows: int, G: int) -> int:
+    """Shared-memory bytes of a cluster block: the warps' slots (two sets),
+    ``rows`` costT rows of ``pitch`` floats, row4col over its ``width``
+    columns, the row state."""
+    return LSAP_CAND_BYTES + 4 * rows * pitch + 4 * width + 20 * G
+
+
+def lsap_geometry(B: int, Q: int, G: int) -> LsapGeometry:
+    """The launch of ``lsap`` for cost [B, Q, G] (``B`` only sizes the
+    grid). The warp route where the image's cost, transposed, fits in a
+    block's shared memory beside the search state and one warp's lanes
+    cover Q with a template's columns; else the cluster route with the
+    fewest blocks (up to 16) whose slices hold all G rows in shared memory,
+    or 16 blocks holding as many rows as fit (the others are read from
+    global memory)."""
+    if not 1 <= Q <= LSAP_MAX_Q:
+        raise ValueError(f"lsap takes 1..{LSAP_MAX_Q} queries, got {Q}")
     if not 0 <= G <= min(Q, LSAP_MAX_G):
         raise ValueError(f"lsap needs 0 <= G <= Q (at least as many queries "
                          f"as padded targets) and G <= {LSAP_MAX_G}, got "
                          f"G={G}, Q={Q}")
-    threads = min(LSAP_MAX_THREADS, -(-Q // 32) * 32)
-    cpt = 1
-    while threads * cpt < Q:
-        cpt *= 2
-    return B, threads, cpt
+    del B  # one block, or one cluster, an image
+    cpt = _fewest(LSAP_WARP_CPTS, -(-Q // 32))
+    smem = _round_up(lsap_warp_smem(Q, G), 16)
+    if cpt is not None and smem <= LSAP_SMEM_BYTES:
+        return LsapGeometry("warp", 1, LSAP_STAGE_THREADS, cpt, Q, Q | 1, G,
+                            smem)
+    best = None
+    for cluster in range(1, LSAP_MAX_CLUSTER + 1):
+        width = -(-Q // cluster)
+        if width * (cluster - 1) >= Q:
+            continue  # a block without columns
+        cpt = _fewest(LSAP_CLUSTER_CPTS, -(-width // LSAP_CLUSTER_THREADS))
+        if cpt is None:
+            continue
+        pitch = _round_up(width, 32) + 1
+        room = LSAP_SMEM_BYTES - lsap_cluster_smem(width, pitch, 0, G)
+        rows = min(G, max(0, room // (4 * pitch)))
+        best = LsapGeometry(
+            "cluster", cluster, LSAP_CLUSTER_THREADS, cpt, width, pitch, rows,
+            _round_up(lsap_cluster_smem(width, pitch, rows, G), 16))
+        if rows == G:
+            break
+    if best is None or best.smem > LSAP_SMEM_BYTES:
+        raise ValueError(f"lsap has no launch for Q={Q}, G={G}")
+    return best
 
 
 def check_inputs_lsap(cost: torch.Tensor, num_boxes: torch.Tensor) -> None:
@@ -1460,14 +1537,13 @@ def lsap(cost: torch.Tensor, num_boxes: torch.Tensor
     gt_index = torch.empty((B, Q), dtype=torch.int64, device=dev)
     if B == 0 or Q == 0:  # nothing to solve (Q == 0 leaves G == 0)
         return query_index, matching_cost, gt_index
-    path = torch.empty((B, Q), dtype=torch.int32, device=dev)
-    blocks, threads, cpt = lsap_geometry(B, Q, G)
+    geom = lsap_geometry(B, Q, G)
     fn = _function("lsap")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(cost.data_ptr(), num_boxes.data_ptr(), path.data_ptr(),
+        rc = fn(cost.data_ptr(), num_boxes.data_ptr(),
                 query_index.data_ptr(), matching_cost.data_ptr(),
-                gt_index.data_ptr(), blocks, Q, G, threads, cpt, stream)
+                gt_index.data_ptr(), B, Q, G, geom.c_array, stream)
     if rc != 0:
         raise RuntimeError(f"lsap kernel launch failed: CUDA error {rc}")
     _count("lsap")

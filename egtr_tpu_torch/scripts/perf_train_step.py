@@ -10,6 +10,7 @@ random weights, and prints the time per step as one JSON line.
     python -m egtr_tpu_torch.scripts.perf_train_step [--batch 2] [--iters 5]
         [--accum 1] [--msda-impl auto] [--profile K] [--device cpu]
         [--config PATH] [--window N] [--band tile|point] [--int8]
+        [--remat 1] [--remat-policy full|dots] [--approx-topk]
 
 ``--config PATH`` takes the configuration of a ``config.json`` instead of
 the recipe's, e.g. the band-adaptation fine-tune's
@@ -17,7 +18,9 @@ the recipe's, e.g. the band-adaptation fine-tune's
 ``adapt_config`` presets: window 16, one band per point, no auxiliary
 losses; its run took batch 4 at 608x1008). ``--window``, ``--band`` and
 ``--int8`` override the banded-MSDA settings (``--window 0``: the exact
-op).
+op). ``--remat``, ``--remat-policy`` and ``--approx-topk`` set the fields
+the JAX probe sets (``use_remat``, ``remat_policy``,
+``rel_sample_approx_topk``).
 
 It runs on the GPU unless ``--device cpu`` is given (and raises where CUDA
 is absent). ``--profile K`` adds a torch.profiler breakdown of K more steps:
@@ -201,7 +204,7 @@ def profile_steps(step, batch, generator, n: int, top: int = 30) -> dict:
     }
 
 
-def main(argv: Optional[List[str]] = None) -> None:
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=2,
                     help="rows per step (all microbatches together)")
@@ -224,20 +227,39 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="also profile K steps with torch.profiler")
     ap.add_argument("--tiny", action="store_true",
                     help="2+2-layer narrow float32 model, for a rehearsal")
-    args = ap.parse_args(argv)
+    # the JAX probe's options: config fields, as it sets them
+    ap.add_argument("--remat", type=lambda s: s != "0", default=None,
+                    help="rematerialize the layers (use_remat; 0 = off)")
+    ap.add_argument("--remat-policy", dest="remat_policy", default=None,
+                    choices=["full", "dots"], help="remat_policy")
+    ap.add_argument("--approx-topk", dest="approx_topk", action="store_true",
+                    help="approximate top-k hard-negative mining "
+                         "(rel_sample_approx_topk)")
+    return ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+
+def probe_config(args: argparse.Namespace) -> EgtrConfig:
+    """The probe's configuration: the recipe's (or ``--config``'s), with
+    the options given on the command line set over it."""
     kw = dict(TINY, compute_dtype="float32") if args.tiny else {}
     for key, value in (("msda_impl", args.msda_impl),
                        ("msda_window", args.window),
                        ("msda_band", args.band),
-                       ("msda_int8", args.int8 or None)):
+                       ("msda_int8", args.int8 or None),
+                       ("use_remat", args.remat),
+                       ("remat_policy", args.remat_policy),
+                       ("rel_sample_approx_topk", args.approx_topk or None)):
         if value is not None:
             kw[key] = value
     if args.config:
-        cfg = EgtrConfig.load(args.config).replace(**kw)
-    else:
-        cfg = train_config(**kw)
+        return EgtrConfig.load(args.config).replace(**kw)
+    return train_config(**kw)
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = probe_config(args)
     model, optimizer, generator = build(cfg, device)
     batch = synthetic_batch(cfg, args.batch, args.height, args.width, device)
     step = make_train_step(model, cfg, optimizer, task="sgg",
@@ -254,6 +276,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         "config": args.config or "recipe",
         "msda_impl": cfg.msda_impl, "msda_window": cfg.msda_window,
         "msda_band": cfg.msda_band, "msda_int8": cfg.msda_int8,
+        "use_remat": cfg.use_remat, "remat_policy": cfg.remat_policy,
+        "rel_sample_approx_topk": cfg.rel_sample_approx_topk,
         "compute_dtype": cfg.compute_dtype,
         "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
         "first_step_ms": first[0], "ms_per_step": times,

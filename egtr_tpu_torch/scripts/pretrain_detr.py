@@ -13,8 +13,8 @@ merges it, and the COCO detection evaluation of the test split into
         [--max_epochs 150] [--backbone_dirpath DIR] [--device cpu] ...
 
 It runs on the GPU unless ``--device cpu`` is given (and raises where CUDA
-is absent); ``--precompile`` is accepted and does nothing (the port runs
-eager and compiles no program). Under ``torchrun --nproc_per_node N -m
+is absent); ``--precompile`` is accepted and does nothing (the port
+captures each program at its first call, ``utils/aot.py``). Under ``torchrun --nproc_per_node N -m
 egtr_tpu_torch.scripts.pretrain_detr`` it trains data-parallel, as
 ``train_egtr`` does (``--dp``, ``--mp`` and the loaders there). ``--dataset open_images`` pretrains on
 Open Images V6 (no crop augmentation, as in the JAX driver) and evaluates
@@ -66,7 +66,7 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--precompile", type=str2bool, default=True,
                    help="accepted for the JAX driver's surface; the port "
-                        "compiles nothing ahead of time")
+                        "captures each program at its first call")
     # the port's own
     p.add_argument("--device", default=None,
                    help="default: cuda (raises where CUDA is absent)")

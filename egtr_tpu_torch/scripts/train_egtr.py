@@ -19,6 +19,9 @@ and evaluates the test split with the OI evaluator (``oi/*`` metrics, no
 COCO entries). It runs on the GPU unless ``--device cpu`` is given (and
 raises where CUDA is absent). ``EGTR_MSDA_BATCH_P=1`` sends every exact
 MSDA forward through the batched-P kernel, as in the JAX package.
+``--precompile`` is accepted and does nothing: the JAX driver compiles the
+evaluation program beside epoch 0's training, while the port captures each
+program at its first call (``utils/aot.py``).
 
 Data-parallel, one process a rank, as PyTorch users launch DDP::
 
@@ -147,6 +150,9 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--debug", type=str2bool, default=False)
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--precompile", type=str2bool, default=True,
+                   help="accepted for the JAX driver's surface; the port "
+                        "captures each program at its first call")
     # the port's own
     p.add_argument("--device", default=None,
                    help="default: cuda (raises where CUDA is absent)")

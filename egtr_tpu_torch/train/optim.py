@@ -120,6 +120,26 @@ class Optimizer:
                                        weight_decay=weight_decay,
                                        capturable=self.capturable)
 
+    def init_state(self) -> None:
+        """Make every leaf's gradient and AdamW's state now, as the first
+        ``grads`` and ``step`` would (zeros, the step count a float32 on
+        the leaf's device where capturable): made before the first step's
+        warm-up, they take segments of their own instead of pinning the
+        warm-up's freed activations (``utils/aot.py``)."""
+        self.grads()
+        for group in self.adamw.param_groups:
+            for p in group["params"]:
+                state = self.adamw.state[p]
+                if state:
+                    continue
+                state["step"] = (
+                    torch.zeros((), dtype=torch.float32, device=p.device)
+                    if self.capturable else torch.tensor(0.0))
+                state["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+
     def zero_grad(self) -> None:
         """Zero every leaf's gradient in place (allocated at the first
         call): the buffers keep their storage from step to step."""

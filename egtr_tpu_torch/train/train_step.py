@@ -197,6 +197,9 @@ def make_train_step(model, cfg: EgtrConfig, optimizer: Optimizer,
         return apply(grads_mb(mb, generator), lr_scale)
 
     device = next(model.parameters()).device
+    if optimizer.capturable:
+        # the step's persistent state before its programs' first warm-up
+        optimizer.init_state()
     whole_program = maybe_aot(whole_step, "train_step", device)
     grads_program = maybe_aot(grads_mb, "train_grads_mb", device)
     apply_program = maybe_aot(apply, "train_apply", device)

@@ -18,8 +18,13 @@ between its kernels. This module keeps the JAX module's two names:
   largest one's memory, not the sum), into static input buffers for every
   tensor leaf of the (nested) arguments. The warm-up allocates outside the
   pool: a persistent tensor it makes (the optimizer's moments) must not
-  take the free blocks of a program that replays later, so a warm-up's
-  memory is reserved beside the pool's. A
+  take the free blocks of a program that replays later. So that a
+  warm-up's memory is not reserved beside a pool's, the cached free blocks
+  go back to the card before the warm-up (a dead program's pool among
+  them) and after it (``release_cached``), and the static inputs are made
+  after that; persistent state that a warm-up would make amid its
+  activations, pinning their segments, is better made before it (the train
+  step makes the gradients and the optimizer's moments first). A
   ``torch.Generator`` among the arguments (the step's dropout masks and
   negative samples) is registered with the graph, so that every replay
   draws new numbers from it, as an eager call would.
@@ -28,10 +33,15 @@ between its kernels. This module keeps the JAX module's two names:
   the other leaves' values (``None`` included; a generator by identity),
   and the module state a program reads while it is captured
   (``msda.FWD_BATCH_P``, the TF32 switches: ``global_state``). The first
-  call of a signature is the warm-up and returns its outputs; later ones
-  copy the inputs in, replay, and return fresh clones of the outputs (JAX
-  returns new arrays; the trainer keeps metrics until ``log_every``,
-  ``run_fps`` keeps several requests in flight). It returns ``fn`` itself,
+  call of the first signature is the warm-up and returns its outputs. The
+  first call of any later signature (another bucket) captures without a
+  warm-up and replays: an eager warm-up would reserve its activations
+  beside the pool, whose free blocks the earlier programs keep, where a
+  capture reuses them; the lazy state exists by then, and the one made
+  per shape (``layers.level_wh``'s tables) a capture builds inside its
+  graph. Later calls copy the inputs in, replay, and return fresh clones
+  of the outputs (JAX returns new arrays; the trainer keeps metrics until
+  ``log_every``, ``run_fps`` keeps several requests in flight). It returns ``fn`` itself,
   eager, on the CPU (a ``device`` that is not a card, or arguments without
   a CUDA tensor) and inside a process group, as the JAX wrapper does under
   ``process_count() > 1``: DDP and ``--mp`` stay eager.
@@ -130,6 +140,19 @@ def graph_pool(device: torch.device):
     return _pools[device]
 
 
+def release_cached(device: torch.device) -> None:
+    """Return the cached free blocks on ``device`` to the card, once its
+    work is done. A graph's pool and the default pool never lend to each
+    other, so what one caches stays reserved beside the other: before a
+    warm-up this returns a dead program's pool (a training phase's, when
+    the next phase warms up its own step), after it the warm-up's freed
+    activations, so that the static inputs made next take segments of
+    their own (``torch.cuda.graph`` empties the cache again as it
+    begins a capture)."""
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+
+
 def capture_stream(device: torch.device) -> torch.cuda.Stream:
     """The side stream every warm-up and capture on ``device`` runs on (a
     shared pool wants the same stream for each capture)."""
@@ -144,13 +167,15 @@ def _clone(tree):
 
 
 class Program:
-    """``fn`` captured at one signature (``load_or_compile``).
+    """``fn`` captured at one signature (``load_or_compile``), after an eager
+    warm-up unless ``warm_up`` is false (``maybe_aot``'s later signatures).
 
     Calling it copies the arguments' tensor leaves into the static inputs,
     replays the graph on the current stream and returns clones of the
     outputs."""
 
-    def __init__(self, fn: Callable, args: tuple, tag: str):
+    def __init__(self, fn: Callable, args: tuple, tag: str,
+                 warm_up: bool = True):
         self.tag = tag
         leaves, self.treedef = flatten(args)
         devices = {t.device for t in leaves if t.device.type == "cuda"}
@@ -163,14 +188,22 @@ class Program:
                       and g.device.type == "cuda"]
         stream = capture_stream(device)
         t0 = time.perf_counter()
+        release_cached(device)
+        self.warmup_outputs = None
+        if warm_up:
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream):
+                warm = fn(*args)
+            torch.cuda.current_stream(device).wait_stream(stream)
+            # the caller's copy, made on its own stream
+            self.warmup_outputs = _clone(warm)
+            del warm
+            # the warm-up's blocks back to the card: the pool grows into
+            # them, and the static inputs take segments of their own
+            release_cached(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
-            warm = fn(*args)
             self.static_in = [t.detach().clone() for t in leaves]
-        torch.cuda.current_stream(device).wait_stream(stream)
-        # the caller's copy, made on its own stream
-        self.warmup_outputs = _clone(warm)
-        del warm
         self.graph = torch.cuda.CUDAGraph()
         for g in generators:
             self.graph.register_generator_state(g)
@@ -233,6 +266,10 @@ def maybe_aot(fn: Callable, tag: str, device=None) -> Callable:
         key = signature(args)
         program = programs.get(key)
         if program is None:
+            if programs:
+                # a later signature: captured at once, then replayed
+                programs[key] = Program(fn, args, tag, warm_up=False)
+                return programs[key](*args)
             program = programs[key] = load_or_compile(fn, *args, tag=tag)
             out, program.warmup_outputs = program.warmup_outputs, None
             return out

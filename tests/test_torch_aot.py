@@ -196,3 +196,51 @@ def test_optimizer_matches_optax_with_a_changing_lr_scale():
 def test_load_or_compile_needs_a_card():
     with pytest.raises(ValueError, match="one card"):
         aot.load_or_compile(lambda x: x, torch.zeros(2), tag="t")
+
+
+def test_init_state_is_the_first_steps_state():
+    """``Optimizer.init_state`` makes every gradient and AdamW's state
+    ahead of the first step, as the train step does before its programs'
+    first warm-up: the steps after it match an optimizer whose state the
+    first step made, bit for bit, and they keep the storage it made."""
+    rng = np.random.default_rng(3)
+    shapes = {"class_embed.kernel": (6, 4), "backbone.conv2": (3, 3, 2),
+              "backbone.bn1": (5,)}
+    labels = {"class_embed.kernel": "main", "backbone.conv2": "backbone",
+              "backbone.bn1": "frozen"}
+    start = {n: rng.standard_normal(s).astype(np.float32)
+             for n, s in shapes.items()}
+    grads = [{n: rng.standard_normal(s).astype(np.float32)
+              for n, s in shapes.items()} for _ in range(3)]
+
+    def run(early):
+        named = [(n, torch.nn.Parameter(torch.from_numpy(start[n].copy())))
+                 for n in shapes]
+        opt = Optimizer(named, labels, {"main": 1e-2, "backbone": 1e-3},
+                        weight_decay=1e-4, grad_clip=0.1)
+        # the frozen leaf has a gradient and no optimizer state
+        updated = [p for _, p in named[:2]]
+        if early:
+            opt.init_state()
+            assert all(p.grad is not None for _, p in named)
+            assert [len(opt.adamw.state[p]) for _, p in named] == [3, 3, 0]
+            made = [(p.grad.data_ptr(), opt.adamw.state[p]["exp_avg"]
+                     .data_ptr()) for p in updated]
+        for g in grads:
+            opt.zero_grad()
+            for n, p in named:
+                p.grad += torch.from_numpy(g[n])
+            opt.step(0.5)
+        if early:
+            assert made == [(p.grad.data_ptr(), opt.adamw.state[p]["exp_avg"]
+                             .data_ptr()) for p in updated]
+        return named, opt
+
+    (early, opt_e), (lazy, opt_l) = run(True), run(False)
+    for (n, a), (_, b) in zip(early, lazy):
+        assert torch.equal(a, b), n
+        sa, sb = opt_e.adamw.state[a], opt_l.adamw.state[b]
+        assert sa.keys() == sb.keys()
+        for k in sa:
+            assert sa[k].dtype == sb[k].dtype and sa[k].device == sb[k].device
+            assert torch.equal(sa[k], sb[k]), (n, k)

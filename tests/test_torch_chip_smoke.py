@@ -354,8 +354,13 @@ def install_fake_card(set_attr, tmp_path):
     set_attr(chip_smoke, "DRYRUN_WORLDS", (1,))
     # (f), the model axis: one bf16 round a rank
     set_attr(chip_smoke, "TP_STEPS", 1)
-    # (g), the matcher kernel: the one-stage and two-stage microbatches of 2
+    # (g), the matcher kernel: the one-stage and two-stage microbatches of 2;
+    # the parent commit's kernel, in turns, is the plain version here
     set_attr(chip_smoke, "LSAP_CASES", ((2, 200), (2, 300)))
+    set_attr(chip_smoke, "build_parent_lsap",
+             lambda: ("parent", "the plain version on the faked card"))
+    set_attr(chip_smoke, "parent_lsap_call",
+             lambda lib: lambda cost, nb: matcher.lsap_plain(cost, nb))
 
 
 def test_chip_smoke_runs_its_phases(fake_card, capsys):
@@ -392,6 +397,15 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
     # losses) per phase 2 microbatches and 1 validation batch
     assert lsap["bit_equal_to_plain"] and lsap["optimal_vs_scipy"]
     assert len(lsap["calls"]) == 8 and lsap["max_abs_err"] == 0.0
+    # per case the route, the search steps and the parent's kernel in turns
+    for call in lsap["calls"]:
+        assert call["route"] == "warp" and call["cluster"] == 1
+        assert call["longest_image_steps"] <= call["search_steps"]
+        assert call["parent_bit_equal"] and call["parent_graph_ms"] > 0
+        assert len(call["parent_graph_ms_in_turns"]) == 2
+        assert len(call["graph_ms_in_turns"]) == 2
+        assert call["us_per_step"] > 0
+    assert lsap["route_main"] == "warp" and lsap["parent_graph_ms"] > 0
     assert lsap["launches_training"] == 5 * 2
     assert lsap["launches_driver"] == 3 * 2
     # the request and the train step as programs against eager (on the
@@ -580,6 +594,8 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
         "msda_fwd_bp", "msda_fwd", "msda_fwd_bp", "msda_fwd"]
     assert set(bp["served_f32_max_abs_err"]) == {"exact", "served"}
     driver = result["driver"]
+    # on the faked card the steps run eagerly: no program, no pool
+    assert driver["program_memory_gb"] == [] and driver["peak_split_gb"] is None
     assert set(driver["phases"]) == {"main", "finetune"}
     assert all(len(p["step_ms"]) == 1 for p in driver["phases"].values())
     assert "single/R@20" in driver["test"] and "coco/AP" in driver["test"]
@@ -974,8 +990,10 @@ def test_kernel_of_names_each_kernel_from_its_trace_row():
     rows = {
         "void msda_fwd_kernel<__nv_bfloat16, float, 8, true>(__nv_bfloat16 "
         "const*, float const*, Levels, int": "msda_fwd",
-        "void (anonymous namespace)::lsap_kernel<1>(float const*, int "
-        "const*, int, int, int*, long*, float*, long*)": "lsap",
+        "void (anonymous namespace)::lsap_warp_kernel<7>(float const*, int "
+        "const*, int, int, int, long*, float*, long*)": "lsap",
+        "void (anonymous namespace)::lsap_cluster_kernel<6>(float const*, "
+        "int const*, int, int, int, int, int, long*, float*, long*)": "lsap",
         "void msda_bwd_value_kernel<__nv_bfloat16, 4>(float const*, VGeom)":
             "msda_bwd_value",
         "void msda_bwd_rows_kernel<float, 4>(float const*, Levels, int,":
@@ -1084,7 +1102,8 @@ def test_card_launches_counts_the_card_rows_of_a_trace():
 
     rows = [("void msda_fwd_kernel<float, float, 4, true>(float const*)",
              "CUDA")] * 3 + [
-        ("void (anonymous namespace)::lsap_kernel<1>(float const*)", "CUDA"),
+        ("void (anonymous namespace)::lsap_warp_kernel<7>(float const*)",
+         "CUDA"),
         ("void msda_bwd_win_rows_kernel<float, 4, true>(float*)", "CUDA"),
         ("cudaGraphLaunch", "CPU"),
         ("msda_fwd_kernel", "CPU")]
@@ -1100,3 +1119,30 @@ def test_card_launches_counts_the_card_rows_of_a_trace():
     meter.add(Trace)
     assert {k: v for k, v in meter.counts.items() if v} == {
         "msda_fwd": 3, "lsap": 1, "msda_bwd_win_rows_pp": 1}
+
+
+def test_reserved_by_pool_splits_the_snapshot(monkeypatch):
+    """The driver's memory by pool: the snapshot's segments summed by
+    ``segment_pool_id``, the programs' shared pool apart from the default
+    pool and any other graph pool, this card's only; the peak's event is
+    the first that reached the run's peak."""
+    from egtr_tpu_torch.utils import aot
+
+    segments = [
+        {"device": 0, "segment_pool_id": (0, 0), "total_size": 2 * 10**9},
+        {"device": 0, "segment_pool_id": (1, 7), "total_size": 5 * 10**9},
+        {"device": 0, "segment_pool_id": (1, 7), "total_size": 10**9},
+        {"device": 0, "segment_pool_id": (2, 3), "total_size": 10**8},
+        {"device": 1, "segment_pool_id": (0, 0), "total_size": 10**10},
+    ]
+    monkeypatch.setattr(torch.cuda, "memory_snapshot", lambda: segments)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(aot, "_pools",
+                        {torch.device("cuda", 0): (1, 7)})
+    assert chip_smoke.reserved_by_pool() == pytest.approx(
+        {"default": 2.0, "programs": 6.0, "other": 0.1})
+    events = [{"tag": "a", "peak_reserved": 8.0},
+              {"tag": "b", "peak_reserved": 9.5},
+              {"tag": "c", "peak_reserved": 9.5}]
+    assert chip_smoke.memory_peak_split(events, 9.5)["tag"] == "b"
+    assert chip_smoke.memory_peak_split(events, 10.0) is None

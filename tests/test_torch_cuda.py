@@ -34,8 +34,9 @@ run the point forms' kernels: K5 bit-equal to K6 on its tile bands
 broadcast over the points (every value type, windows 8-32), K9 against K10
 on them and adding into a slice of a wider gradient that holds values, and
 both refusing a geometry that misses work; and the matcher's assignment
-kernel (lsap) bit for bit against its plain version, one column a thread
-and strided, on random and tied costs, and its refusals. On a GPU
+kernel (lsap) bit for bit against its plain version on both routes (one
+warp an image, a cluster of blocks an image), on random and tied costs and
+signed zeros, and its refusals. On a GPU
 machine without JAX, run them without the suite's conftest (which imports
 JAX):
 
@@ -1659,13 +1660,16 @@ def test_k9_adds_into_a_slice_and_matches_k10(cuda, case, D, dtype):
 # the matcher's assignment kernel (lsap.cu) against its plain version
 # --------------------------------------------------------------------------
 
-# (B, Q, G): one column a thread, Q not a whole number of warps with G = Q,
-# and the strided forms (two and eight columns a thread) that the two-stage
-# proposal matching (Q = S) takes
-LSAP_CASES = {"one_column_a_thread": (3, 200, 64),
-              "q_not_a_warp_multiple": (2, 37, 37),
-              "two_columns_a_thread": (2, 1025, 64),
-              "eight_columns_a_thread": (1, 5000, 16)}
+# (B, Q, G): the warp route (the criterion's Q 200, Q not a whole number of
+# warps with G = Q, the warp route's largest Q at G 64) and the cluster route
+# (two blocks, one block of twelve columns a thread, and the two-stage
+# proposal matching's Q = S with cost rows in shared and in global memory)
+LSAP_CASES = {"warp": (3, 200, 64),
+              "warp_q_not_a_warp_multiple": (2, 37, 37),
+              "warp_widest": (1, 866, 64),
+              "cluster_of_two": (2, 1025, 64),
+              "cluster_of_one": (1, 3000, 16),
+              "cluster_rows_in_global": (2, 22323, 64)}
 
 
 @pytest.mark.parametrize("ties", [False, True])
@@ -1680,6 +1684,9 @@ def test_lsap_bit_equal_to_plain(cuda, case, ties):
     g = torch.Generator().manual_seed(Q)
     cost = (torch.randint(0, 3, (B, Q, G), generator=g).float() if ties
             else torch.randn((B, Q, G), generator=g))
+    cost[:, ::7, ::3] = -0.0  # signed zeros: equal in the first minimum
+    cost[:, 1::7, ::3] = 0.0
+    assert msda_cuda.lsap_geometry(B, Q, G).route == case.split("_")[0]
     nb = (torch.linspace(0, G, B).round() if B > 1
           else torch.tensor([G])).to(torch.int32)
     plain = matcher.lsap_plain(cost, nb)
@@ -1701,7 +1708,7 @@ def test_lsap_refusals(cuda):
         msda_cuda.lsap(torch.zeros((1, 8, 4), device=cuda,
                                    dtype=torch.float64), nb)
     with pytest.raises(ValueError, match="queries"):
-        msda_cuda.lsap(torch.zeros((1, 32769, 4), device=cuda), nb)
+        msda_cuda.lsap(torch.zeros((1, 65537, 4), device=cuda), nb)
     with pytest.raises(ValueError, match="CUDA tensors"):
         msda_cuda.lsap(torch.zeros((1, 8, 4), device=cuda), nb.cpu())
     from egtr_tpu_torch.ops import matcher

@@ -142,28 +142,211 @@ def test_plain_version_refuses_cuda_and_too_many_targets():
         matcher.lsap_plain(meta, torch.tensor([2]))
 
 
-def test_launch_geometry():
-    """One block an image; the query columns rounded up to whole warps, at
-    most 1024 threads, each thread the fewest columns (a power of two) that
-    cover Q: the two-stage proposal matching has Q = S."""
-    assert msda_cuda.lsap_geometry(4, 200, 64) == (4, 224, 1)
-    assert msda_cuda.lsap_geometry(2, 300, 64) == (2, 320, 1)
-    assert msda_cuda.lsap_geometry(1, 32, 32) == (1, 32, 1)
-    assert msda_cuda.lsap_geometry(3, 1, 0) == (3, 32, 1)
-    assert msda_cuda.lsap_geometry(1, 1024, 64) == (1, 1024, 1)
-    assert msda_cuda.lsap_geometry(1, 1025, 64) == (1, 1024, 2)
-    # the training bucket's tokens (800x1344: S = 22,323)
-    assert msda_cuda.lsap_geometry(2, 22323, 64) == (2, 1024, 32)
-    for B, Q, G in ((1, 1000, 8), (2, 5000, 64), (1, 32768, 1024)):
-        _, threads, cpt = msda_cuda.lsap_geometry(B, Q, G)
-        assert threads % 32 == 0 and threads * cpt >= Q
-        assert cpt == 1 or threads * cpt // 2 < Q
-    with pytest.raises(ValueError, match="1..32768 queries"):
-        msda_cuda.lsap_geometry(1, 32769, 64)
-    with pytest.raises(ValueError, match="G <= Q"):
-        msda_cuda.lsap_geometry(1, 8, 9)
-    with pytest.raises(ValueError, match="G <= 1024"):
-        msda_cuda.lsap_geometry(1, 4096, 1025)
+# (B, Q, G) -> (route, cluster, columns a thread, cost rows in shared
+# memory): the criterion's shapes (Q 200 one stage, 300 two stages, Q = S
+# = 22,323 the two-stage proposal matching at 800x1344), the warp route's
+# largest Q at G 64, and shapes past it
+GEOMETRY = [
+    ((4, 200, 64), ("warp", 1, 7, 64)),
+    ((2, 300, 64), ("warp", 1, 10, 64)),
+    ((1, 32, 32), ("warp", 1, 1, 32)),
+    ((3, 1, 0), ("warp", 1, 1, 0)),
+    ((2, 37, 37), ("warp", 1, 2, 37)),
+    ((1, 866, 64), ("warp", 1, 28, 64)),
+    ((1, 867, 64), ("warp", 1, 28, 64)),
+    ((1, 1025, 64), ("cluster", 2, 3, 64)),
+    ((1, 3000, 16), ("cluster", 1, 12, 16)),
+    ((1, 5000, 16), ("cluster", 2, 12, 16)),
+    ((2, 22323, 64), ("cluster", 16, 6, 39)),
+    ((1, 65536, 64), ("cluster", 16, 16, 13)),
+    ((1, 32768, 1024), ("cluster", 16, 8, 24)),
+]
+
+
+@pytest.mark.parametrize("shape,want", GEOMETRY,
+                         ids=[f"{b}x{q}x{g}" for (b, q, g), _ in GEOMETRY])
+def test_launch_geometry(shape, want):
+    """The route by Q and G: the warp route where the image's transposed
+    cost fits a block's 227 KB of shared memory and one warp covers Q with
+    a template's columns, else a cluster of the fewest blocks (at most 16)
+    whose slices hold every cost row, or 16 holding what fits; the
+    shared-memory bytes of each layout within the budget; every column
+    owned by one thread once."""
+    B, Q, G = shape
+    geom = msda_cuda.lsap_geometry(B, Q, G)
+    assert (geom.route, geom.cluster, geom.cpt, geom.rows) == want
+    assert geom.smem % 16 == 0 and geom.smem <= msda_cuda.LSAP_SMEM_BYTES
+    assert list(geom.c_array) == [
+        msda_cuda.LSAP_ROUTES.index(geom.route), geom.cluster, geom.threads,
+        geom.cpt, geom.width, geom.pitch, geom.rows, geom.smem]
+    if geom.route == "warp":
+        cpts = msda_cuda.LSAP_WARP_CPTS
+        assert geom.width == Q and geom.pitch == Q | 1 and geom.rows == G
+        assert geom.smem >= msda_cuda.lsap_warp_smem(Q, G)
+        assert 32 * geom.cpt >= Q
+        assert geom.threads == msda_cuda.LSAP_STAGE_THREADS
+    else:
+        cpts = msda_cuda.LSAP_CLUSTER_CPTS
+        assert geom.threads == msda_cuda.LSAP_CLUSTER_THREADS
+        assert geom.width == -(-Q // geom.cluster)
+        assert geom.width * (geom.cluster - 1) < Q  # no block without columns
+        assert geom.threads * geom.cpt >= geom.width
+        assert geom.pitch % 32 == 1 and geom.pitch >= geom.width
+        assert geom.smem >= msda_cuda.lsap_cluster_smem(
+            geom.width, geom.pitch, geom.rows, G)
+        # one more row would not fit
+        assert geom.rows == G or msda_cuda.lsap_cluster_smem(
+            geom.width, geom.pitch, geom.rows + 1,
+            G) > msda_cuda.LSAP_SMEM_BYTES
+        # the warp route does not fit, and fewer blocks would not hold
+        # every row
+        assert (msda_cuda.lsap_warp_smem(Q, G) > msda_cuda.LSAP_SMEM_BYTES
+                or 32 * max(msda_cuda.LSAP_WARP_CPTS) < Q)
+    # the fewest columns a thread among the kernel's templates
+    need = -(-geom.width // (geom.threads if geom.route == "cluster"
+                             else 32))
+    assert geom.cpt == min(c for c in cpts if c >= need)
+
+
+@pytest.mark.parametrize("shape,match", [
+    ((1, 65537, 64), "1..65536 queries"),
+    ((1, 0, 0), "1..65536 queries"),
+    ((1, 8, 9), "G <= Q"),
+    ((1, 4096, 1025), "G <= 1024"),
+])
+def test_launch_geometry_refusals(shape, match):
+    with pytest.raises(ValueError, match=match):
+        msda_cuda.lsap_geometry(*shape)
+
+
+def _order_key(x: np.ndarray) -> np.ndarray:
+    """lsap.cu's order_key: float32 bits made monotone, -0 read as +0."""
+    bits = (x.astype(np.float32) + np.float32(0.0)).view(np.uint32)
+    return np.where(bits & 0x80000000, ~bits, bits | 0x80000000)
+
+
+def emulate_lsap(cost: np.ndarray, num_boxes: np.ndarray, geom):
+    """The kernels' search as lsap.cu lays it out, in numpy float32: each
+    thread's first minimum by order key over its columns, the slots of the
+    warps (and, on the cluster route, of the blocks) reduced by (key,
+    column), the dual update from ``reach`` and the walk through ``from``
+    (what the kernel records when a step reaches a row) instead of the
+    columns' paths."""
+    B, Q, G = cost.shape
+    f32 = np.float32
+    threads = 32 if geom.route == "warp" else geom.threads
+    width = Q if geom.route == "warp" else geom.width
+    # a thread's columns in order of c, one row a (block, thread), -1 pads
+    owner = np.full((geom.cluster * threads, geom.cpt), -1)
+    for block in range(geom.cluster):
+        for t in range(threads):
+            for c in range(geom.cpt):
+                j = block * width + t + c * threads
+                if t + c * threads < width and j < Q:
+                    owner[block * threads + t, c] = j
+    NONE = np.uint64(0xFFFFFFFF)
+    out_q = np.full((B, G), -1, np.int64)
+    out_c = np.zeros((B, G), np.float32)
+    out_g = np.full((B, Q), -1, np.int64)
+    for b in range(B):
+        costT = cost[b].T.astype(f32)
+        nb = int(np.clip(num_boxes[b], 0, G))
+        u = np.zeros(G, f32)
+        v = np.zeros(Q, f32)
+        row4col = np.full(Q, -1)
+        col4row = np.full(G, -1)
+        for cur in range(nb):
+            spc = np.full(Q, np.inf, f32)
+            path = np.full(Q, -1)
+            done = np.zeros(Q, bool)
+            reach = np.zeros(G, f32)
+            came_from = np.full(G, -1)
+            visited = {cur}
+            i, min_val = cur, f32(0)
+            while True:
+                r = ((min_val + costT[i]) - u[i]) - v
+                upd = ~done & (r < spc)
+                spc = np.where(upd, r, spc)
+                path = np.where(upd, i, path)
+                keys = _order_key(spc).astype(np.uint64)
+                live = owner >= 0
+                live[live] = ~done[owner[live]]
+                k = np.where(live, keys[np.clip(owner, 0, None)], NONE)
+                # each thread's first minimum (its columns rise with c), then
+                # the slots' (warps', blocks') by (key, column)
+                pick = k.argmin(1)
+                rows = np.arange(len(owner))
+                k_t, col_t = k[rows, pick], owner[rows, pick]
+                has = k_t != NONE
+                q = int(col_t[has][np.lexsort((col_t[has], k_t[has]))[0]])
+                min_val = spc[q]
+                done[q] = True
+                nxt = row4col[q]
+                if nxt < 0:
+                    sink, sink_from = q, path[q]
+                    break
+                visited.add(nxt)
+                reach[nxt], came_from[nxt] = spc[q], path[q]
+                i = nxt
+            for k in sorted(visited):
+                u[k] = (u[k] + min_val) if k == cur else (
+                    (u[k] + min_val) - reach[k])
+            v = np.where(done, v - (min_val - spc), v)
+            j, ii = sink, sink_from
+            while ii >= 0:
+                jn, fn = col4row[ii], came_from[ii]
+                row4col[j] = ii
+                col4row[ii] = j
+                if ii == cur:
+                    break
+                j, ii = jn, fn
+        out_q[b] = col4row
+        out_c[b] = costT[np.arange(G), np.clip(col4row, 0, None)]
+        out_g[b] = row4col
+    return out_q, out_c, out_g
+
+
+@pytest.mark.parametrize("shape,ties,seed", [
+    ((2, 200, 64), False, 10),   # the warp route, one-stage microbatch
+    ((2, 200, 64), True, 11),
+    ((2, 300, 24), True, 12),    # the warp route, two stages' Q
+    ((2, 1100, 64), False, 13),  # the cluster route, two blocks
+    ((2, 1100, 32), True, 14),   # the cluster route, one block
+])
+def test_kernel_search_emulated_bit_equal_to_jax(shape, ties, seed):
+    """The redesigned kernels' search (``emulate_lsap``: order keys with -0
+    read as +0, the slots' first minimum, ``reach`` and ``from`` in place of
+    the columns' spc and path) gives JAX's assignment and costs bit for
+    bit, on costs with signed zeros, ties and nb from 0 to G."""
+    B, Q, G = shape
+    rng = np.random.default_rng(seed)
+    if ties:
+        cost = rng.integers(0, 3, shape).astype(np.float32)
+        cost[:, 10] = cost[:, 3]
+        cost[:, :, 5] = 1.0
+    else:
+        cost = (3.0 * rng.standard_normal(shape)).astype(np.float32)
+    cost[:, ::7, ::3] = -0.0
+    cost[:, 1::7, ::3] = 0.0
+    num_boxes = np.linspace(0, G, B).round().astype(np.int32)
+    num_boxes[-1] = G
+    geom = msda_cuda.lsap_geometry(B, Q, G)
+    got = emulate_lsap(cost, num_boxes, geom)
+    ref = jax_matcher.hungarian_match(jnp.asarray(cost),
+                                      jnp.asarray(num_boxes))
+    np.testing.assert_array_equal(got[0], np.asarray(ref.query_index))
+    np.testing.assert_array_equal(got[2], np.asarray(ref.gt_index))
+    np.testing.assert_array_equal(
+        got[1].view(np.int32), np.asarray(ref.matching_cost).view(np.int32))
+
+
+def test_order_key_orders_as_floats_with_signed_zeros_equal():
+    x = np.array([-np.inf, -3.5, -1e-30, -0.0, 0.0, 1e-30, 2.0, np.inf],
+                 np.float32)
+    keys = _order_key(x)
+    assert (np.diff(keys.astype(np.int64)) >= 0).all()
+    assert keys[3] == keys[4]
+    assert len(set(keys.tolist())) == len(x) - 1
 
 
 def test_kernel_input_checks():
