@@ -96,8 +96,9 @@ and no result line. In order it:
    kernel once per matching (6 with the auxiliary losses);
 (i) the training step as programs against eager: float32 (TF32 off,
    dropout 0) three steps, each on its own batch and learning-rate scale,
-   the graph run's losses, gradient norms, parameter changes and last
-   gradients from the nearest of three eager runs within four times the
+   the graph run's losses, gradient norms, last gradients and parameter
+   changes less its own AdamW updates (recomputed in float64 from its
+   gradients) from the nearest of three eager runs within four times the
    eager runs' largest distance of a pair, and
    two planted faults (a step that never zeroes its gradients, an update
    that reads the scale it was captured with) outside; bfloat16 batch 2 x
@@ -209,34 +210,42 @@ and no result line. In order it:
    runs the data-parallel path, its ranks processes that torchrun starts
    (``parallel.launch.spawn``, a timeout on each run), two of them sharing
    the card under gloo (NCCL refuses two ranks on one device); torchrun
-   stops the others when a rank fails, and the script fails. (c), inside
-   phase 17's directory, in one pair of ranks (gloo) on phase 17's set:
-   ``train_egtr`` (global batch 8: one step per phase) with one
-   metrics.jsonl a phase, the artifact and every checkpoint written by rank
-   0 alone, both ranks' test metrics equal and equal to metrics_test.json;
-   then ``evaluate_egtr`` of the artifact and ``pretrain_detr``; one
-   process's ``evaluate_egtr`` of the artifact equal, to 1e-12, to both
-   ranks' train and evaluate runs; each rank's K1/K2/K3 launches exact.
-   (a): the DDP step at full width, float32 (TF32 off), dropout 0, global
-   batch 4 at 800x1344 (two images a rank) against one process's step on
-   the same batch: the loss terms and ``grad_norm`` within 1e-4, the
+   stops the others when a rank fails, and the script fails. Under gloo a
+   function that holds a collective (the steps) runs eagerly, and one that
+   holds none (the evaluation's forward at ``mp`` 1) is each rank's
+   captured program (``utils/aot.maybe_aot``). (c), inside phase 17's
+   directory, in one pair of ranks (gloo) on a synthetic set like phase
+   17's with two test images a rank: ``train_egtr`` (global batch 8: one
+   step per phase) with one metrics.jsonl a phase, the artifact and every
+   checkpoint written by rank 0 alone, both ranks' test metrics equal and
+   equal to metrics_test.json; then ``evaluate_egtr`` of the artifact,
+   whose forward each rank captures and replays, and ``pretrain_detr``;
+   one process's ``evaluate_egtr`` of the artifact equal, to 1e-12, to
+   both ranks' train and evaluate runs; each rank's K1/K2/K3 launches
+   exact, counted on its card trace (``evaluate_egtr``'s wrappers see the
+   warm-up's alone).
+   (a): the data-parallel step at full width, float32 (TF32 off), dropout
+   0, global batch 4 at 800x1344 (two images a rank) against one
+   process's step on the same batch: the loss terms and ``grad_norm``
+   within 1e-4, the
    reduced gradients and the updated parameters within ``GRAD_RTOL`` of
    their largest entries, the zero-initialised parameters' first update
    within ``GRAD_RTOL`` of lr where their gradient decides it (their
    values' spread beside that of one process's step taken twice,
    ``_compare_step``), the ranks' parameters bit-equal, K1/K2/K3 12 per
    rank; then bf16 steps a rank (dropout 0.1): a warm-up, and rounds of a
-   step and the step with DDP's gradient reduction skipped, their ms per
+   step and the step with its gradient reduction skipped, their ms per
    optimizer step and the reduction's exposed ms, beside phase 10's
-   one-process steps; and a loop of all-reduces of the gradient bytes DDP
-   reduces, alone, in its 25 MiB buckets (``DP_NOTE`` says what these
+   one-process steps; and a loop of the reduction's all-reduce alone, of
+   one buffer of every leaf's gradient bytes (``DP_NOTE`` says what these
    times are not). (b): two ranks x accumulation 2 x the adaptation config
    at 608x1008, float32, global batch 8 (two ranks x two microbatches x
    two images), against one process's accumulated step: losses within
    1e-4, gradients, parameters and first updates within
    ``ADAPT_GRAD_RTOL``, each rank's K6/K8/K10 (and K1/K2/K3) launches
    exact. (d) ``dryrun_multichip(1)``, whose one rank runs NCCL on the
-   card (a step and ``all_gather_objects``), and (e)
+   card (a step, captured as a program, and ``all_gather_objects``), and
+   (e)
    ``dryrun_multichip(2)`` (dp 1 x mp 2) and ``dryrun_multichip(4)`` (dp 2
    x mp 2, four ranks sharing the card) under gloo. (a), (b) and (f) also
    print open check F2: the gradients' largest relative error entry by
@@ -254,6 +263,16 @@ and no result line. In order it:
    ``train_egtr --dp 1 --mp 2`` on a synthetic set like phase 17's, both
    ranks' test metrics equal and rank 0 alone writing; prints each
    phase's seconds;
+(j) (after (d) and (e)) the data-parallel step as programs in one rank
+   under NCCL (torchrun's variables, world 1): every step function is a
+   captured program, its gradient all-reduce inside the graph. The float32
+   runs of (i) in that rank under (i)'s rule, the planted faults outside;
+   one replay each of the bf16 step at batch 2 and at 2 x accum 2 traced
+   on the card, K1/K2/K3 and the matcher as one process's, NCCL's kernel
+   among the rows; ms per step of both as programs and eager in turns,
+   beside (i)'s and phase 10's one-process steps, and the programs'
+   memory beside (i)'s; the eval step and the runner's forward replayed,
+   programs of their own;
 22. prints a ``kernels`` JSON line (with each kernel's launches per rank on
    the data-parallel paths, the matcher kernel's entry last; the request
    and train-step graphs beside it), then ``{"ok": true, "device": ...}``
@@ -265,9 +284,9 @@ their wrappers, so in this process every launch count is measured on the
 card: a torch.profiler trace of the card's activity from
 ``reset_kernel_counts`` to ``kernel_counts``, its kernel rows read back to
 the wrappers (``CardLaunches``, ``kernel_of``); timings taken inside such a
-window carry the trace's cost. The data-parallel phases (21) stay eager,
-as ``utils/aot.maybe_aot`` is inside a process group, and count by
-wrapper.
+window carry the trace's cost. So do the ranks whose programs replay ((c)
+and (j)); the ranks of (a), (b), (d)-(f), whose steps hold gloo
+collectives and run eagerly, count by wrapper.
 
 It exits nonzero without a result where CUDA is absent.
 """
@@ -1241,16 +1260,24 @@ def kernel_of(key):
     return None
 
 
+# the kernels NCCL launches for a collective: its collective kernels
+# (``ncclDevKernel_AllReduce_...``) and, in a group of one rank, the kernel
+# that scales the values of a mean (``oneRankReduce``)
+NCCL_KERNEL = re.compile(r"nccl|onerank", re.IGNORECASE)
+
+
 class CardLaunches:
     """The hand-written kernels' launches on the card, measured: a
     torch.profiler trace of the card's activity, which sees each kernel that
-    a graph replay runs, counted by kernel (``kernel_of``). ``pause`` ends
-    the trace so far and counts it, so that another profiler may run;
-    ``resume`` starts the next; ``add`` counts another's finished trace."""
+    a graph replay runs, counted by kernel (``kernel_of``); NCCL's kernels
+    by name in ``collectives``. ``pause`` ends the trace so far and counts
+    it, so that another profiler may run; ``resume`` starts the next;
+    ``add`` counts another's finished trace."""
 
     def __init__(self):
         self.counts = dict.fromkeys(
             msda_cuda.KERNELS + msda_cuda.MATCHER_KERNELS, 0)
+        self.collectives = {}
         self._prof = None
 
     def resume(self):
@@ -1277,6 +1304,9 @@ class CardLaunches:
                 name = kernel_of(e.name())
                 if name is not None:
                     self.counts[name] += 1
+                elif NCCL_KERNEL.search(e.name()):
+                    self.collectives[e.name()] = (
+                        self.collectives.get(e.name(), 0) + 1)
 
 
 # what reading the traces cost (their stop and count), over the run
@@ -1289,29 +1319,33 @@ _meter = None
 def measured() -> bool:
     """Whether this process counts launches on the card (``CardLaunches``)
     rather than by wrapper: one process on a card, where requests and steps
-    replay captured programs. Inside a process group the steps run eagerly
-    and every launch passes through its wrapper."""
+    replay captured programs. A rank measures where it asks to
+    (``reset_kernel_counts(on_card=True)``): where its programs replay."""
     return torch.device(DEVICE).type == "cuda" and not dist.is_distributed()
 
 
-def reset_kernel_counts():
-    """Every count to 0 and, where ``measured``, a new measurement on the
-    card, which the next ``kernel_counts`` or ``matcher_launches`` ends."""
+def reset_kernel_counts(on_card=None):
+    """Every count to 0 and, where ``on_card`` (default ``measured()``) and
+    the device is a card, a new measurement on the card, which the next
+    ``kernel_counts``, ``matcher_launches`` or ``collective_launches``
+    ends."""
     global _meter
     msda_cuda.reset_launches()
     if _meter is not None:
         _meter.pause()
     _meter = None
-    if measured():
+    if measured() if on_card is None else (
+            on_card and torch.device(DEVICE).type == "cuda"):
         _meter = CardLaunches()
         _meter.resume()
 
 
 def _counts(batch_p=False):
-    if not measured():
-        return dict(msda_cuda.launches)
     if _meter is None:
-        raise RuntimeError("kernel counts read without reset_kernel_counts")
+        if measured():
+            raise RuntimeError("kernel counts read without "
+                               "reset_kernel_counts")
+        return dict(msda_cuda.launches)
     _meter.pause()
     counts = dict(_meter.counts)
     if batch_p:
@@ -1326,6 +1360,15 @@ def _counts(batch_p=False):
             counts["msda_fwd_bp"] += counts.pop(route)
             counts[route] = 0
     return counts
+
+
+def collective_launches():
+    """NCCL's kernels by name since ``reset_kernel_counts``, measured on
+    the card (empty where nothing is measured)."""
+    if _meter is None:
+        return {}
+    _meter.pause()
+    return dict(_meter.collectives)
 
 
 def kernel_counts(batch_p=False):
@@ -2192,7 +2235,7 @@ def drive_trainer(workdir):
         eager_argv = list(argv)
         eager_argv[eager_argv.index("--output_path") + 1] = f"{out}_eager"
         with _eager_steps(), mock.patch.object(
-                runner_module, "maybe_aot", lambda fn, tag, device=None: fn):
+                runner_module, "maybe_aot", lambda fn, tag, *a, **kw: fn):
             train_egtr.main(eager_argv)
         memory["eager"] = _peak_memory()
     finally:
@@ -3126,20 +3169,17 @@ def check_approx_topk(train_cfg):
 
 DP_RANKS = 2
 RANK_TIMEOUT_S = 600
-# phase (a): the global batch of the DDP step (two images a rank), the
-# loss terms held to one process's step on it, and their rtol
+# phase (a): the global batch of the data-parallel step (two images a
+# rank), the loss terms held to one process's step on it, and their rtol
 DDP_GLOBAL_BATCH = 4
 DDP_LOSS_KEYS = ("total_loss", "loss_ce", "loss_bbox", "loss_giou",
                  "loss_rel", "grad_norm")
 DDP_LOSS_RTOL = 1e-4
 # phase (a)'s bf16 timing: after a warm-up step, this many rounds of a step
-# and of the same step with DDP's gradient reduction skipped
+# and of the same step with its gradient reduction skipped
 DDP_STEPS = 3
 # phase (b): two ranks x two microbatches x two images
 DDP_ADAPT_GLOBAL_BATCH = 8
-# DDP's gradient bucket (``bucket_cap_mb``'s default): the standalone
-# all-reduce is timed over the gradient bytes in buckets of this size
-DDP_BUCKET_BYTES = 25 * 2 ** 20
 # AdamW's eps (train/optim.py). A parameter that was zero takes a first
 # step of lr * g / (|g| + eps): the update of such a parameter is held where
 # its gradient is at least this many eps
@@ -3226,29 +3266,21 @@ def _save_step(model, path):
 
 @contextlib.contextmanager
 def _unsynced():
-    """DDP with its gradient reduction skipped (``no_sync`` around each
-    forward): the same step without the all-reduce, for timing only."""
-    ddp = torch.nn.parallel.DistributedDataParallel
-    forward = ddp.forward
-
-    def unsynced(self, *args, **kw):
-        with self.no_sync():
-            return forward(self, *args, **kw)
-
-    ddp.forward = unsynced
-    try:
+    """The step with its gradient reduction skipped
+    (``train_step.GradientReduction`` a no-op): the same step without the
+    all-reduce, for timing only."""
+    with mock.patch.object(train_step_module.GradientReduction, "__call__",
+                           lambda self: None):
         yield
-    finally:
-        ddp.forward = forward
 
 
 def rank_ddp_step(device, out):
-    """Phase (a) in one rank: the float32 DDP step on the rank's two images
-    (its parameters and gradients saved for the comparison); then bf16
-    steps at the probe's settings (dropout 0.1): a warm-up, and rounds of a
-    step and the same step with DDP's gradient reduction skipped, timed;
-    and the all-reduce of the gradient bytes that DDP reduces, alone, in
-    its buckets."""
+    """Phase (a) in one rank: the float32 data-parallel step on the rank's
+    two images (its parameters and gradients saved for the comparison);
+    then bf16 steps at the probe's settings (dropout 0.1): a warm-up, and
+    rounds of a step and the same step with its gradient reduction
+    skipped, timed; and the reduction's all-reduce alone, of one buffer of
+    every leaf's gradient bytes."""
     rank = dist.process_index()
     world = dist.process_count()
     cfg = perf_train_step.train_config(compute_dtype="float32", dropout=0.0)
@@ -3284,17 +3316,14 @@ def rank_ddp_step(device, out):
                 torch.cuda.synchronize()
                 times.append(1e3 * (time.perf_counter() - t0))
     bf16_counts = kernel_counts()
-    grad_bytes = sum(p.numel() * p.element_size()
-                     for p in model.parameters() if p.requires_grad)
+    grad_bytes = sum(4 * p.numel() for p in model.parameters())
     flat = torch.zeros(grad_bytes // 4, dtype=torch.float32, device=device)
-    buckets = flat.split(DDP_BUCKET_BYTES // 4)
     allreduce_ms = []
     for _ in range(3):
         dist.barrier()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for b in buckets:
-            torch.distributed.all_reduce(b)
+        dist.all_reduce_(flat, mean=True)
         torch.cuda.synchronize()
         allreduce_ms.append(1e3 * (time.perf_counter() - t0))
     return {"metrics": metrics, "digest": digest, "counts": counts,
@@ -3302,8 +3331,7 @@ def rank_ddp_step(device, out):
             "bf16_unsynced_ms_per_step": ms["unsynced"],
             "bf16_counts": bf16_counts,
             "bf16_total_loss": float(bf16["total_loss"]),
-            "grad_bytes": grad_bytes, "allreduce_ms": allreduce_ms,
-            "buckets": len(buckets)}
+            "grad_bytes": grad_bytes, "allreduce_ms": allreduce_ms}
 
 
 def _value_errs(values, ref_model):
@@ -3483,10 +3511,10 @@ def _check_ranks(label, ranks, ref, keys, expect_counts):
 
 
 def check_ddp(single_rank_ms):
-    """Phase (a): the DDP step at full width, two ranks on the card, against
-    one process's step on the same global batch; then the ranks' bf16
-    steps with and without DDP's gradient reduction, the standalone
-    all-reduce and the gradient bytes (``DP_NOTE``)."""
+    """Phase (a): the data-parallel step at full width, two ranks on the
+    card, against one process's step on the same global batch; then the
+    ranks' bf16 steps with and without their gradient reduction, the
+    reduction's all-reduce alone and the gradient bytes (``DP_NOTE``)."""
     t_phase = time.perf_counter()
     hw = perf_train_step.BUCKET_HW
     cfg = perf_train_step.train_config(compute_dtype="float32", dropout=0.0)
@@ -3522,12 +3550,12 @@ def check_ddp(single_rank_ms):
           f"rank {ranks[0]['counts']}. bf16 (dropout 0.1, 2 images a rank, "
           f"after a warm-up step): ms per optimizer step "
           f"{[round(t, 1) for t in ms]} on {DP_RANKS} ranks, "
-          f"{[round(t, 1) for t in unsynced]} with DDP's gradient reduction "
-          f"skipped, the reduction's exposed ms "
+          f"{[round(t, 1) for t in unsynced]} with the step's gradient "
+          f"reduction skipped, the reduction's exposed ms "
           f"{[round(t, 1) for t in exposed]} (median {exposed_median:.1f}); "
           f"{[round(t, 1) for t in single_rank_ms]} on one process "
           f"(phase 10); all-reduce of {ranks[0]['grad_bytes']} gradient "
-          f"bytes alone, in {ranks[0]['buckets']} buckets: "
+          f"bytes alone, one buffer: "
           f"{[round(t, 1) for t in allreduce]} ms ({DP_NOTE}); "
           f"{seconds:.1f} s", flush=True)
     return {"metrics": ranks[0]["metrics"], "one_process": ref, **step_errs,
@@ -3538,8 +3566,7 @@ def check_ddp(single_rank_ms):
             "exposed_reduction_ms_median": exposed_median,
             "one_process_ms_per_step": single_rank_ms,
             "allreduce_alone_ms": allreduce,
-            "grad_bytes": ranks[0]["grad_bytes"],
-            "buckets": ranks[0]["buckets"], "seconds": seconds,
+            "grad_bytes": ranks[0]["grad_bytes"], "seconds": seconds,
             "note": DP_NOTE}
 
 
@@ -3594,8 +3621,11 @@ def rank_drivers(device, runs):
     """The drivers' ``main`` one after another in one rank, in one process
     group; ``runs``: [driver, argv, path or None]. Per run: the metrics its
     evaluation returned, the files it wrote with ``torch.save`` (the
-    collectives pickle through it too, into memory), its launches, its
-    seconds, and on rank 0 the JSON at ``path`` as the run left it."""
+    collectives pickle through it too, into memory), its launches measured
+    on the card (``CardLaunches``: the programs the rank replays launch
+    without their wrappers) and those its wrappers saw (``wrapper_counts``:
+    the eager calls alone), its seconds, and on rank 0 the JSON at ``path``
+    as the run left it."""
     import importlib
 
     from egtr_tpu_torch.evaluation import runner
@@ -3620,12 +3650,13 @@ def rank_drivers(device, runs):
     results = []
     for driver, argv, path in runs:
         seen["saved"] = []
-        reset_kernel_counts()
+        reset_kernel_counts(on_card=True)
         t0 = time.perf_counter()
         importlib.import_module(f"egtr_tpu_torch.scripts.{driver}").main(argv)
         torch.cuda.synchronize()
+        wrapper = {k: msda_cuda.launches[k] for k in msda_cuda.KERNELS}
         run = {"metrics": seen.pop("metrics"), "saved": seen["saved"],
-               "counts": kernel_counts(),
+               "counts": kernel_counts(), "wrapper_counts": wrapper,
                "seconds": time.perf_counter() - t0}
         if path and dist.is_primary():
             with open(path) as f:
@@ -3657,12 +3688,19 @@ def _rank_forwards(args, world, synth):
 def drive_ranks(workdir):
     """Phase (c): ``train_egtr``, ``evaluate_egtr`` and ``pretrain_detr`` on
     two ranks on the card (gloo), one after another in the same ranks, on
-    phase 17's synthetic set; then one process's ``evaluate_egtr`` of the
-    artifact."""
+    a synthetic set like phase 17's with two test images a rank; then one
+    process's ``evaluate_egtr`` of the artifact. The steps hold collectives
+    and run eagerly under gloo; the evaluation's forward holds none and is
+    each rank's captured program, which the second test image replays: the
+    launches are counted on each rank's card trace, and the wrappers of
+    ``evaluate_egtr`` see the warm-up's alone."""
     from egtr_tpu_torch.scripts import evaluate_egtr
+    from egtr_tpu_torch.scripts.make_synth_vg import make_synth_vg
 
     t_phase = time.perf_counter()
-    data, _ = driver_paths(workdir)
+    synth = dict(SYNTH_VG, n_test=2 * DP_RANKS)
+    data = f"{workdir}/vg_dp"
+    make_synth_vg(data, seed=0, **synth)
     out, pre_out = f"{workdir}/run_dp", f"{workdir}/pretrain_dp"
     on_card = ["--device", DEVICE]
     eval_argv = ["--data_path", data, "--artifact_path", f"{out}/artifact",
@@ -3680,7 +3718,7 @@ def drive_ranks(workdir):
     bad = []
     records = {p: _records(f"{out}/{p}/metrics.jsonl")
                for p in ("main", "finetune")}
-    forwards, microbatches = _rank_forwards(DRIVER_ARGS, DP_RANKS, SYNTH_VG)
+    forwards, microbatches = _rank_forwards(DRIVER_ARGS, DP_RANKS, synth)
     steps = microbatches // 2 // int(
         DRIVER_ARGS[DRIVER_ARGS.index("--accumulate") + 1])
     for phase, recs in records.items():
@@ -3711,9 +3749,8 @@ def drive_ranks(workdir):
     cfg = perf_train_step.train_config()
     per_forward = cfg.encoder_layers + cfg.decoder_layers
     expect = {}
-    for name, runs, args, synth in (
-            ("train_egtr", train, DRIVER_ARGS, SYNTH_VG),
-            ("pretrain_detr", pre, PRETRAIN_ARGS, SYNTH_VG)):
+    for name, runs, args in (("train_egtr", train, DRIVER_ARGS),
+                             ("pretrain_detr", pre, PRETRAIN_ARGS)):
         fwd, mbs = _rank_forwards(args, DP_RANKS, synth)
         expect[name] = {**dict.fromkeys(msda_cuda.KERNELS, 0),
                         "msda_fwd": per_forward * fwd,
@@ -3723,14 +3760,31 @@ def drive_ranks(workdir):
             if run["counts"] != expect[name]:
                 bad.append(f"{name} rank {r} launches {run['counts']}, "
                            f"expected {expect[name]}")
+    # evaluate_egtr: one forward a test image; on the card the first is
+    # the program's warm-up, the wrappers' only launches, and the others
+    # replays
+    test_forwards = -(-synth["n_test"] // DP_RANKS)
+    expect["evaluate_egtr"] = {**dict.fromkeys(msda_cuda.KERNELS, 0),
+                               "msda_fwd": per_forward * test_forwards}
+    replayed = torch.device(DEVICE).type == "cuda"
+    for r, run in enumerate(two):
+        eager_fwd = per_forward if replayed else per_forward * test_forwards
+        if run["counts"] != expect["evaluate_egtr"] or (
+                run["wrapper_counts"]["msda_fwd"] != eager_fwd):
+            bad.append(f"evaluate_egtr rank {r} launches {run['counts']} "
+                       f"(wrappers {run['wrapper_counts']}), expected "
+                       f"{expect['evaluate_egtr']}, {eager_fwd} K1 eager")
     seconds = time.perf_counter() - t_phase
     print(f"ddp (c): the drivers on {DP_RANKS} ranks (gloo) on one card, "
-          f"{SYNTH_VG}: train_egtr ({' '.join(DRIVER_ARGS)}) {t_train:.1f} s,"
+          f"{synth}: train_egtr ({' '.join(DRIVER_ARGS)}) {t_train:.1f} s,"
           f" launches per rank {[r['counts']['msda_fwd'] for r in train]} K1 "
           f"/ {[r['counts']['msda_bwd_rows'] for r in train]} K2 / "
           f"{[r['counts']['msda_bwd_value'] for r in train]} K3, test "
           f"metrics {written}; evaluate_egtr on {DP_RANKS} ranks "
-          f"{t_two:.1f} s; pretrain_detr ({' '.join(PRETRAIN_ARGS)}) "
+          f"{t_two:.1f} s, its forward a program in each rank: K1 per rank "
+          f"{[r['counts']['msda_fwd'] for r in two]} on the card, "
+          f"{[r['wrapper_counts']['msda_fwd'] for r in two]} through the "
+          f"wrappers (the warm-up); pretrain_detr ({' '.join(PRETRAIN_ARGS)}) "
           f"{t_pre:.1f} s, test metrics {pre[0]['metrics']}; one process's "
           f"evaluate_egtr {t_one:.1f} s, equal to 1e-12 to both ranks' runs; "
           f"{seconds:.1f} s", flush=True)
@@ -3759,16 +3813,222 @@ def check_dryruns():
         seconds = time.perf_counter() - t0
         launched = result["launches"]
         print(f"ddp ({'d' if n == 1 else 'e'}): dryrun_multichip({n}) on "
-              f"{result['backend']}, dp x mp {result['mesh']}: launches "
+              f"{result['backend']}, dp x mp {result['mesh']}, the step "
+              f"{'captured' if result['captured'] else 'eager'}: launches "
               f"{launched}; {seconds:.1f} s", flush=True)
-        if result["backend"] != backend or not all(
+        # the step holds its gradient reduction: a program under NCCL
+        if result["backend"] != backend or result["captured"] != (
+                backend == "nccl") or not all(
                 launched[k] for k in ("msda_fwd", "msda_bwd_rows",
                                       "msda_bwd_value")):
             raise SystemExit(f"dryrun_multichip({n}): backend "
                              f"{result['backend']} (expected {backend}), "
-                             f"launches {launched}")
+                             f"captured {result['captured']}, launches "
+                             f"{launched}")
         out[f"world_{n}"] = {**result, "seconds": seconds}
     return out
+
+
+# --------------------------------------------------------------------------
+# phase (j): the data-parallel step as programs in one rank under NCCL,
+# its gradient all-reduce inside the graph
+# --------------------------------------------------------------------------
+
+NCCL_NOTE = ("one rank under NCCL (world 1): the collective is NCCL's "
+             "one-rank kernel, not a ring over NVLink; the programs and "
+             "their capture are those of any world size")
+
+
+def _bf16_pair(cfg, accum, device):
+    """One bf16 model's step as programs and eager (``_eager_steps``), at
+    batch 2 x ``accum``: the programs' first call (the warm-up and the
+    capture) and a second, the memory then (as (i) takes it, before the
+    eager step exists); one replay traced on the card (the kernels, the
+    matcher, NCCL's kernels); then the eager step's first call. Returns
+    (the model, the two steps, the batch, the generator, the trace, the
+    memory)."""
+    model, optimizer, generator = perf_train_step.build(cfg, device, seed=0)
+    batch = perf_train_step.synthetic_batch(
+        cfg, 2 * accum, *perf_train_step.BUCKET_HW, device, seed=1)
+    steps = {"graph": make_train_step(model, cfg, optimizer,
+                                      accum_steps=accum)}
+    steps["graph"](batch, generator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps["graph"](batch, generator)
+    memory = _memory()
+    reset_kernel_counts(on_card=True)
+    steps["graph"](batch, generator)
+    torch.cuda.synchronize()
+    trace = {"counts": kernel_counts(), "matched": matcher_launches(),
+             "nccl": collective_launches()}
+    with _eager_steps():
+        steps["eager"] = make_train_step(model, cfg, optimizer,
+                                         accum_steps=accum)
+    steps["eager"](batch, generator)
+    return model, steps, batch, generator, trace, memory
+
+
+def _programs_of(fn, names):
+    """How many programs each of ``fn``'s functions holds (0 where it runs
+    eagerly: ``maybe_aot`` gave the function itself)."""
+    return {n: len(getattr(getattr(fn, n), "programs", {})) for n in names}
+
+
+def rank_nccl_programs(device):
+    """Phase (j) in one rank (world 1, torchrun's variables; NCCL on the
+    card): (i)'s float32 runs, their launches measured on the card, and
+    (i)'s rule; bf16 steps at batch 2 and 2 x accum 2 as programs against
+    eager in turns, with a replay of each traced and the programs' memory;
+    the eval step and the runner's forward as programs, a replay of each
+    traced. A failure of the rule returns its message."""
+    from egtr_tpu_torch.train.train_step import make_eval_step
+
+    out = {"backend": torch.distributed.get_backend()}
+    hw = perf_train_step.BUCKET_HW
+    cfg = perf_train_step.train_config()
+    f32 = cfg.replace(compute_dtype="float32", dropout=0.0)
+    runs = f32_runs(f32, hw, on_card=True)
+    out["f32_launches"] = {w: [r["counts"], r["matched"]]
+                           for w, r in runs.items()
+                           if w in ("graph", "eager_0")}
+    try:
+        out["float32"] = f32_rule(runs, "(j)")
+    except SystemExit as e:
+        return {**out, "failed": str(e)}
+    del runs
+    torch.cuda.empty_cache()
+    out["ms_in_turns"], out["traced"], out["memory"] = {}, {}, {}
+    out["programs"] = {}
+    for accum in (2, 1):
+        model, steps, batch, generator, trace, memory = _bf16_pair(
+            cfg, accum, device)
+        times = {"graph": [], "eager": []}
+        for _ in range(TRAIN_GRAPH_TURNS):
+            for way in ("graph", "eager"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                steps[way](batch, generator)
+                torch.cuda.synchronize()
+                times[way].append((time.perf_counter() - t0) * 1e3)
+        key = f"b2_accum{accum}"
+        out["ms_in_turns"][key], out["traced"][key] = times, trace
+        out["memory"][key] = memory
+        out["programs"][key] = _programs_of(steps["graph"],
+                                            ("whole", "grads_mb", "apply"))
+        if accum == 2:
+            del model, steps, batch, generator
+            torch.cuda.empty_cache()
+    # the eval step and the runner's forward (no collective at world 1)
+    batch = perf_train_step.synthetic_batch(cfg, 2, *hw, device, seed=1)
+    eval_step = make_eval_step(model, cfg)
+    first = eval_step(batch)[1]
+    reset_kernel_counts(on_card=True)
+    replayed = eval_step(batch)[1]
+    torch.cuda.synchronize()
+    out["eval"] = {"counts": kernel_counts(), "matched": matcher_launches(),
+                   "programs": len(getattr(eval_step.program, "programs",
+                                           {})),
+                   "total_loss": [float(first["total_loss"]),
+                                  float(replayed["total_loss"])]}
+    images = {"pixel_values": batch["pixel_values"].cpu().numpy(),
+              "pixel_mask": batch["pixel_mask"].cpu().numpy()}
+    run = runner_module.infer_program(model, cfg)
+    first = run(images)
+    reset_kernel_counts(on_card=True)
+    replayed = run(images)
+    torch.cuda.synchronize()
+    out["runner"] = {"counts": kernel_counts(),
+                     "programs": len(getattr(run.program, "programs", {})),
+                     "max_abs_delta_to_warm_up": _max_delta(replayed,
+                                                            first)[0]}
+    return out
+
+
+def check_nccl_programs(one_process):
+    """Phase (j): ``rank_nccl_programs`` in one rank under NCCL on the card
+    (gloo where the device is not a card), against (i)'s one-process
+    programs (``one_process``: phase (i)'s result and phase 10's ms per
+    step). Under NCCL every step function is a program, its gradient
+    all-reduce among the replay's kernels; the float32 runs pass (i)'s rule
+    with the planted faults outside; K1/K2/K3 and the matcher launch as in
+    one process; the eval step and the runner's forward replay
+    (``NCCL_NOTE``)."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        (rank,) = run_ranks("rank_nccl_programs", work, n=1)
+    if "failed" in rank:
+        raise SystemExit(rank["failed"])
+    on_card = torch.device(DEVICE).type == "cuda"
+    backend = "nccl" if on_card else "gloo"
+    captured = rank["backend"] == "nccl"
+    hw = perf_train_step.BUCKET_HW
+    cfg = perf_train_step.train_config()
+    shapes = level_shapes(hw, cfg.num_feature_levels)
+    per_mb, per_mb_f32 = (step_counts(c, shapes) for c in (
+        cfg, cfg.replace(compute_dtype="float32", dropout=0.0)))
+    bad = []
+    if rank["backend"] != backend:
+        bad.append(f"backend {rank['backend']}, expected {backend}")
+    for way, (c, m) in rank["f32_launches"].items():
+        if c != {k: TRAIN_STEPS * v for k, v in per_mb_f32.items()} or (
+                m != TRAIN_STEPS * matches_per_pass(cfg)):
+            bad.append(f"float32 {way}: launches {c}, matcher {m}")
+    # at world 1 the microbatch holds no collective: a program under any
+    # backend; the whole step and the apply hold the gradient reduction
+    expect_programs = {
+        "b2_accum1": {"whole": int(captured), "grads_mb": 0, "apply": 0},
+        "b2_accum2": {"whole": 0, "grads_mb": 1, "apply": int(captured)}}
+    if rank["programs"] != expect_programs:
+        bad.append(f"programs {rank['programs']}, expected "
+                   f"{expect_programs}")
+    for key, trace in rank["traced"].items():
+        accum = int(key[-1])
+        if trace["counts"] != {k: accum * v for k, v in per_mb.items()} or (
+                trace["matched"] != accum * matches_per_pass(cfg)):
+            bad.append(f"{key} replay: launches {trace['counts']}, "
+                       f"matcher {trace['matched']}")
+        if on_card and not trace["nccl"]:
+            bad.append(f"{key} replay: no NCCL kernel in its trace")
+    per_forward = forward_counts(cfg, shapes)
+    if rank["eval"]["counts"] != per_forward or (
+            rank["eval"]["matched"] != matches_per_pass(cfg)) or (
+            rank["runner"]["counts"] != per_forward):
+        bad.append(f"eval / runner replays: launches {rank['eval']} / "
+                   f"{rank['runner']}")
+    # neither holds a collective at world 1 (the runner's is itself where
+    # the device is not a card)
+    if (rank["eval"]["programs"], rank["runner"]["programs"]) != (
+            1, int(on_card)):
+        bad.append(f"eval / runner programs {rank['eval']['programs']} / "
+                   f"{rank['runner']['programs']}")
+    if not all(math.isfinite(x) for x in rank["eval"]["total_loss"]):
+        bad.append(f"eval losses {rank['eval']['total_loss']}")
+    seconds = time.perf_counter() - t_phase
+    f32 = rank["float32"]
+    one = one_process["train_graphs"]["bf16_accum2"]
+    print(f"(j) the data-parallel step in one rank on {rank['backend']} "
+          f"({NCCL_NOTE}), as programs: {rank['programs']}; float32 3 "
+          f"steps against eager in the rank, {_f32_text(f32)}; the "
+          f"replays' kernels K1/K2/K3, matcher, NCCL "
+          + "; ".join(f"{k} {t['counts']['msda_fwd']}/"
+                      f"{t['counts']['msda_bwd_rows']}/"
+                      f"{t['counts']['msda_bwd_value']}, {t['matched']}, "
+                      f"{t['nccl']}" for k, t in rank["traced"].items())
+          + f"; bf16 ms per step in turns {rank['ms_in_turns']}, one "
+          f"process's programs (i) b2 x accum 2 {one['ms_in_turns']} and "
+          f"phase 10's b2 {one_process['ms_per_step']}; (peak allocated, "
+          f"reserved) GB of the programs {rank['memory']}, one process's "
+          f"b2 x accum 2 ({one['peak_allocated_gb']['graph']}, "
+          f"{one['reserved_gb']['graph']}); the eval step {rank['eval']} "
+          f"and the runner's forward {rank['runner']} replayed; "
+          f"{seconds:.1f} s", flush=True)
+    if bad:
+        raise SystemExit(f"(j): {bad}")
+    return {**rank, "seconds": seconds, "note": NCCL_NOTE,
+            "counts_per_rank": [rank["traced"]["b2_accum1"]["counts"]],
+            "one_process_ms_in_turns": one["ms_in_turns"],
+            "one_process_reserved_gb": one["reserved_gb"]["graph"]}
 
 
 # --------------------------------------------------------------------------
@@ -3823,24 +4083,29 @@ def head_peak_bytes(head, seen):
 
 @contextlib.contextmanager
 def _recording(calls, group):
-    """Record (op, shape, dtype) of every sum and gather over ``group``
-    meanwhile."""
-    real = {op: getattr(dist, op) for op in ("all_reduce_sum", "all_gather")}
+    """Record (op, shape, dtype) of every sum ("all_reduce", in place:
+    ``dist.all_reduce_``, which ``all_reduce_sum`` calls too) and gather
+    ("all_gather") over ``group`` meanwhile."""
+    real = {op: getattr(dist, fn) for op, fn in COLLECTIVES.items()}
 
     def recorder(op):
-        def record(tensor, group_=None):
+        def record(tensor, group_=None, *rest, **kw):
             if group_ is group:
                 calls.append((op, tuple(tensor.shape), tensor.dtype))
-            return real[op](tensor, group_)
+            return real[op](tensor, group_, *rest, **kw)
         return record
 
     for op in real:
-        setattr(dist, op, recorder(op))
+        setattr(dist, COLLECTIVES[op], recorder(op))
     try:
         yield
     finally:
         for op, fn in real.items():
-            setattr(dist, op, fn)
+            setattr(dist, COLLECTIVES[op], fn)
+
+
+# the collectives ``_recording`` names, by the function of ``dist`` each is
+COLLECTIVES = {"all_reduce": "all_reduce_", "all_gather": "all_gather"}
 
 
 def _replay_ms(calls, group, device, mp, gather_as_sum=False):
@@ -3851,9 +4116,8 @@ def _replay_ms(calls, group, device, mp, gather_as_sum=False):
     bufs = []
     for op, shape, dtype in calls:
         if op == "all_gather" and gather_as_sum:
-            op, shape = "all_reduce_sum", (shape[0], shape[1] * mp,
-                                           *shape[2:])
-        bufs.append((getattr(dist, op),
+            op, shape = "all_reduce", (shape[0], shape[1] * mp, *shape[2:])
+        bufs.append((getattr(dist, COLLECTIVES[op]),
                      torch.zeros(shape, dtype=dtype, device=device)))
     ms = []
     for _ in range(3):
@@ -4543,7 +4807,7 @@ def replayed_on_other_inputs(model, x):
     first = run(batches[0])  # the warm-up; the program is captured
     replayed = run(batches[1])
     with mock.patch.object(runner_module, "maybe_aot",
-                           lambda fn, tag, device=None: fn):
+                           lambda fn, tag, *a, **kw: fn):
         eager = runner_module.infer_program(model, model.config)(batches[1])
     run_delta, run_equal = _max_delta(replayed, eager)
     run_moved = not _max_delta(replayed, first)[1]
@@ -4570,20 +4834,31 @@ TRAIN_GRAPH_SEEDS = (10, 11, 12)
 TRAIN_GRAPH_FLOOR = 2.0 ** -18
 # the eager runs whose pairwise distances make (i)'s spread, and how far
 # beyond the spread the graph run may lie: the distance between two runs
-# of the same step varies tenfold from pair to pair (K3's atomics flip the
-# sign of AdamW's first update wherever a gradient is near zero; an H100
-# measured the parameters' change 6.0e-7, 7.8e-6 and 7.8e-7 apart between
-# two eager runs, the graph run's 7.0e-7, 6.6e-7 and 4.95e-6 from the
-# nearer), so the spread is the largest of three pairs
+# of the same step varies tenfold from pair to pair, so the spread is the
+# largest of three pairs
 TRAIN_GRAPH_EAGER_RUNS = 3
 TRAIN_GRAPH_SPREAD_FACTOR = 4
+# the readings (i)'s rule holds: each step's loss and gradient norm, the
+# first step's gradients (every run begins from one state there, so that
+# they differ by K3's atomics alone), and the parameters' change less the
+# AdamW updates of the run's own gradients (``AdamReplay``). The raw
+# change and the last step's gradients are printed beside them, not held:
+# from the second step on, a run whose state moved by K3's noise may take
+# a near-tie in the matching or the negatives' top-k the other way, and
+# about one run in four then lies 4-10x farther from the others in both
+# (open check F3), so those readings measure that amplification and not
+# the program
+TRAIN_GRAPH_HELD = ("loss", "grad_norm", "grad", "param_residual")
+# an entry's update differs by at least this share of its learning rate
+# between two runs: a sign that AdamW's normalized step flipped (F3)
+FLIP_SHARE_OF_LR = 0.5
 
 
 def _eager_steps():
     """The train step's functions without their programs: what maybe_aot
     wraps, op by op."""
     return mock.patch.object(train_step_module, "maybe_aot",
-                             lambda fn, tag, device=None: fn)
+                             lambda fn, tag, *a, **kw: fn)
 
 
 def _planted(fault):
@@ -4598,6 +4873,142 @@ def _planted(fault):
                              lambda self, lr_scale=1.0: real(self, 1.0))
 
 
+class AdamReplay:
+    """AdamW's updates recomputed in float64 from a run's own clipped
+    gradients (torch's formula: the decay ``p * (1 - lr * wd)``, then
+    ``lr / (1 - b1^t) * m / (sqrt(v) / sqrt(1 - b2^t) + eps)``), step by
+    step from the parameters each step began with. ``residual``: per
+    trained leaf, the run's change less those updates. Two runs' residuals
+    differ by what their changes differ by beyond AdamW's answer to their
+    own gradients: the program's fault, not the gradient noise that AdamW
+    turns into a change (F3). The trained leaves are read as one flat
+    buffer (``flat``: one kernel), so that a run's snapshots add little to
+    the trace that counts its launches."""
+
+    def __init__(self, model, optimizer):
+        d = optimizer.adamw.defaults
+        (self.b1, self.b2), self.eps, self.wd = (d["betas"], d["eps"],
+                                                 d["weight_decay"])
+        names = {id(p): n for n, p in model.named_parameters()}
+        self.names, self.leaves, base = [], [], []
+        for g in optimizer.adamw.param_groups:
+            for p in g["params"]:
+                self.names.append(names[id(p)])
+                self.leaves.append(p)
+                base.append(torch.full((p.numel(),), g["base_lr"],
+                                       dtype=torch.float32, device=p.device))
+        # each entry's rate as the device computes it: a float32 base
+        # times the float32 scale
+        self.base = torch.cat(base)
+
+    def flat(self, grad=False):
+        return torch.cat([(p.grad if grad else p).detach().reshape(-1)
+                          for p in self.leaves])
+
+    def lr(self, scale):
+        """Each trained leaf's learning rate at ``scale``."""
+        at, out = 0, {}
+        for n, p in zip(self.names, self.leaves):
+            out[n] = float(self.base[at] * torch.tensor(
+                float(scale), dtype=torch.float32))
+            at += p.numel()
+        return out
+
+    def residual(self, steps, after):
+        """``steps``: per step (the flat parameters it began with, its
+        flat clipped gradients, its learning-rate scale); ``after``: the
+        flat parameters after the last. Per trained leaf, the change less
+        the recomputed updates."""
+        begins = [p0 for p0, _, _ in steps[1:]] + [after]
+        m = v = r = 0.0
+        for t, ((p0, g, scale), p1) in enumerate(zip(steps, begins), 1):
+            lr = (self.base * torch.tensor(float(scale), dtype=torch.float32,
+                                           device=self.base.device)).double()
+            g = g.double()
+            m = self.b1 * m + (1 - self.b1) * g
+            v = self.b2 * v + (1 - self.b2) * g * g
+            want = p0.double() * (1 - lr * self.wd) - lr / (
+                1 - self.b1 ** t) * m / (v.sqrt() / (1 - self.b2 ** t) ** 0.5
+                                         + self.eps)
+            r = r + (p1.double() - want)
+        return {n: x.float().view_as(p) for n, p, x in zip(
+            self.names, self.leaves,
+            r.split([p.numel() for p in self.leaves]))}
+
+
+def _restore(model, optimizer, start, generator, state):
+    """The state a run began from, in place (a captured program reads
+    these tensors): the parameters, AdamW's moments and step counts, the
+    generator. The gradients stay: the step zeroes them itself (a planted
+    fault that does not shows)."""
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(start[n])
+        for st in optimizer.adamw.state.values():
+            for t in st.values():
+                if isinstance(t, torch.Tensor):
+                    t.zero_()
+    generator.set_state(state)
+
+
+def _f32_run(f32, hw, way, on_card=None):
+    """Three float32 steps at batch 2, each on its own seeded batch and
+    learning-rate scale, ``way`` "graph", "eager" or a planted fault
+    (``_planted``) in the programs. The step's first call (for the
+    programs their warm-up and capture) takes the first batch, then the
+    initial state comes back (``_restore``), so that every measured step
+    of the graph run is a replay and its first one starts where every
+    eager run's does. Returns each step's total loss and gradient norm,
+    each trainable leaf's change and its residual (``AdamReplay``), each
+    leaf's last learning rate, the first and the last step's gradients,
+    and the launches of the three steps (measured on the card;
+    ``on_card`` as ``reset_kernel_counts`` takes it)."""
+    model, optimizer, generator = perf_train_step.build(f32, DEVICE, seed=0)
+    batches = [perf_train_step.synthetic_batch(f32, 2, *hw, DEVICE, seed=s)
+               for s in TRAIN_GRAPH_SEEDS]
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    seed_state = generator.get_state()
+    frozen = {n for n, label in optimizer.labels.items()
+              if label == "frozen"}
+    adam = AdamReplay(model, optimizer)
+    leaves = dict(model.named_parameters())
+
+    def all_grads():
+        return torch.cat([p.grad.detach().reshape(-1)
+                          for p in leaves.values()])
+
+    with (_eager_steps() if way == "eager" else _planted(way)
+          if way != "graph" else contextlib.nullcontext()):
+        step = make_train_step(model, f32, optimizer)
+        step(batches[0], generator, lr_scale=TRAIN_GRAPH_LR_SCALES[0])
+        _restore(model, optimizer, start, generator, seed_state)
+        reset_kernel_counts(on_card)
+        metrics, steps, first = [], [], None
+        for b, scale in zip(batches, TRAIN_GRAPH_LR_SCALES):
+            before = adam.flat()
+            metrics.append(step(b, generator, lr_scale=scale))
+            steps.append((before, adam.flat(grad=True), scale))
+            if first is None:
+                first = all_grads()
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        matched = matcher_launches()
+    sizes = [p.numel() for p in leaves.values()]
+    run = {"loss": [float(m["total_loss"]) for m in metrics],
+           "grad_norm": [float(m["grad_norm"]) for m in metrics],
+           "change": {n: p.detach() - start[n] for n, p
+                      in model.named_parameters() if n not in frozen},
+           "residual": adam.residual(steps, adam.flat()),
+           "lr": adam.lr(TRAIN_GRAPH_LR_SCALES[-1]),
+           "grad": {n: g.view_as(p) for (n, p), g in zip(
+               leaves.items(), first.split(sizes))},
+           "grad_last": {n: p.grad.detach().clone() for n, p
+                         in model.named_parameters()},
+           "counts": counts, "matched": matched}
+    del model, optimizer, step, start, adam, steps, leaves
+    return run
+
+
 def _rel_err(a, b):
     """Largest |a - b| over b's largest entry, over all tensors."""
     return max(float((a[n] - b[n]).abs().max())
@@ -4609,115 +5020,182 @@ def _median(values):
     return values[len(values) // 2] if values else 0.0
 
 
-def _f32_run(f32, hw, way):
-    """Three float32 steps at batch 2, each on its own seeded batch and
-    learning-rate scale, ``way`` "graph", "eager" or a planted fault
-    (``_planted``) in the programs: each step's total loss and gradient
-    norm, each trainable leaf's change, the last step's gradients, and the
-    launches (measured on the card)."""
-    model, optimizer, generator = perf_train_step.build(f32, DEVICE, seed=0)
-    batches = [perf_train_step.synthetic_batch(f32, 2, *hw, DEVICE, seed=s)
-               for s in TRAIN_GRAPH_SEEDS]
-    start = {n: p.detach().clone() for n, p in model.named_parameters()}
-    frozen = {n for n, label in optimizer.labels.items()
-              if label == "frozen"}
-    with (_eager_steps() if way == "eager" else _planted(way)
-          if way != "graph" else contextlib.nullcontext()):
-        step = make_train_step(model, f32, optimizer)
-        reset_kernel_counts()
-        metrics = [step(b, generator, lr_scale=scale) for b, scale
-                   in zip(batches, TRAIN_GRAPH_LR_SCALES)]
-        torch.cuda.synchronize()
-        counts = kernel_counts()
-        matched = matcher_launches()
-    run = {"loss": [float(m["total_loss"]) for m in metrics],
-           "grad_norm": [float(m["grad_norm"]) for m in metrics],
-           "change": {n: p.detach() - start[n] for n, p
-                      in model.named_parameters() if n not in frozen},
-           "grad": {n: p.grad.detach().clone() for n, p
-                    in model.named_parameters()},
-           "counts": counts, "matched": matched}
-    del model, optimizer, step, start
-    return run
-
-
 def _f32_distances(a, b):
     """How far run ``a`` lies from run ``b``: each step's total loss and
     gradient norm (the largest relative difference over the steps), the
     parameters' change (per trainable leaf, the mean |change_a - change_b|
-    over the mean |change_b|; the median leaf) and the last step's
-    gradients (per leaf the L2 distance over b's L2 norm; the median
-    leaf)."""
+    over the mean |change_b|; the median leaf), the same of the residuals
+    (``param_residual``: the changes less each run's own AdamW updates,
+    over the mean |change_b|), and the first and the last step's gradients
+    (``grad``, ``grad_last``: per leaf the L2 distance over b's L2 norm;
+    the median leaf)."""
     def steps(key):
         return max(abs(x - y) / max(abs(y), 1e-30)
                    for x, y in zip(a[key], b[key]))
 
-    change = [float((a["change"][n] - d).abs().mean() / d.abs().mean())
-              for n, d in b["change"].items() if d.abs().mean() > 0]
-    grad = [float((a["grad"][n] - g).norm() / g.norm())
-            for n, g in b["grad"].items() if g.norm() > 0]
+    def grads(key):
+        return _median([float((a[key][n] - g).norm() / g.norm())
+                        for n, g in b[key].items() if g.norm() > 0])
+
+    moved = {n: d.abs().mean() for n, d in b["change"].items()}
+    change = [float((a["change"][n] - d).abs().mean() / moved[n])
+              for n, d in b["change"].items() if moved[n] > 0]
+    residual = [float((a["residual"][n] - r).abs().mean() / moved[n])
+                for n, r in b["residual"].items() if moved.get(n, 0) > 0]
     return {"loss": steps("loss"), "grad_norm": steps("grad_norm"),
-            "param_change": _median(change), "grad": _median(grad)}
+            "param_change": _median(change),
+            "param_residual": _median(residual), "grad": grads("grad"),
+            "grad_last": grads("grad_last")}
 
 
-def check_train_graphs(train_cfg):
-    """(i) The training step as programs against eager: float32 (TF32 off)
-    at dropout 0, three steps at batch 2, 800x1344, each on its own batch
-    and learning-rate scale; the graph run against three eager runs: each
-    step's loss and gradient norm, the median leaf's parameter change and
-    last gradients (``_f32_distances``) of the nearer eager run, each
-    within ``TRAIN_GRAPH_SPREAD_FACTOR`` times the eager runs' largest
-    distance of a pair (K3's float32 atomics add in an order that
-    changes), or ``TRAIN_GRAPH_FLOOR`` where they agree bit for bit;
-    two planted faults (``_planted``) must fall outside; the launches
-    measured on the card. Then bfloat16 batch 2 x accum 2 (the microbatch
-    program twice, then the apply program) against eager in turns, ms per
-    step and memory both ways; at dropout 0.1 (learning rates 0), replays
-    on one batch draw new masks: their losses differ."""
-    hw = perf_train_step.BUCKET_HW
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    f32 = train_cfg.replace(compute_dtype="float32", dropout=0.0)
-    eager_ways = [f"eager_{i}" for i in range(TRAIN_GRAPH_EAGER_RUNS)]
-    ways = ("graph", *eager_ways, "zero_grad", "lr_scale")
-    runs = {}
-    try:
-        for way in ways:
-            runs[way] = _f32_run(f32, hw, "eager" if way in eager_ways
-                                 else way)
-            torch.cuda.empty_cache()
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = tf32
+def _leaf_group(name):
+    """A leaf's module family: ``model.decoder_layer_3.fc1.weight`` ->
+    ``decoder_layer``."""
+    return re.sub(r"(_\d+)+$", "", name.removeprefix("model.").split(".")[0])
+
+
+def _flip_leaves(a, b, top=3):
+    """Where the parameter change of runs ``a`` and ``b`` differs (F3):
+    the entries whose changes differ by at least ``FLIP_SHARE_OF_LR`` of
+    the leaf's last learning rate, over all leaves; the leaves whose
+    change's distance exceeds 1e-6, by module family; and the ``top``
+    leaves by that distance (name, distance, entries, the same distance
+    of the residuals)."""
+    rows, flips, over = [], 0, {}
+    for n, d in b["change"].items():
+        moved = d.abs().mean()
+        if moved <= 0 or n not in a["lr"]:
+            continue
+        diff = a["change"][n] - d
+        k = int((diff.abs() >= FLIP_SHARE_OF_LR * a["lr"][n]).sum())
+        flips += k
+        x = float(diff.abs().mean() / moved)
+        if x > 1e-6:
+            over[_leaf_group(n)] = over.get(_leaf_group(n), 0) + 1
+        rows.append((n, x, k, float(
+            (a["residual"][n] - b["residual"][n]).abs().mean() / moved)))
+    rows.sort(key=lambda r: -r[1])
+    return {"entries": flips, "leaves_over_1e-6": over,
+            "top": [[n, f"{x:.3g}", k, f"{y:.3g}"] for n, x, k, y
+                    in rows[:top]]}
+
+
+def f32_rule(runs, label):
+    """(i)'s rule on float32 runs (``_f32_run``) "graph", "eager_*" and the
+    planted faults: the eager runs' distances of a pair make the spread;
+    each held reading (``TRAIN_GRAPH_HELD``) of the graph run, to the
+    nearer eager run, within ``TRAIN_GRAPH_SPREAD_FACTOR`` times the spread
+    or ``TRAIN_GRAPH_FLOOR``; each planted fault beyond it in at least one.
+    Returns the readings, with the F3 witness per pair (``_flip_leaves``);
+    raises SystemExit with ``label`` where the rule fails."""
+    eager_ways = sorted(w for w in runs if w.startswith("eager"))
     eager = [runs[w] for w in eager_ways]
     pairs = [_f32_distances(a, b) for i, a in enumerate(eager)
              for b in eager[i + 1:]]
     spread = {k: max(d[k] for d in pairs) for k in pairs[0]}
     limit = {k: max(TRAIN_GRAPH_SPREAD_FACTOR * v, TRAIN_GRAPH_FLOOR)
              for k, v in spread.items()}
-    readings = {}
+    readings, nearest = {}, {}
     for way in ("graph", "zero_grad", "lr_scale"):
         to_each = [_f32_distances(runs[way], e) for e in eager]
         readings[way] = {k: min(d[k] for d in to_each) for k in spread}
-    worst_leaf = {
-        "param_change": [_rel_err(runs["graph"]["change"], e["change"])
-                         for e in eager],
-        "grad": [_rel_err(runs["graph"]["grad"], e["grad"])
-                 for e in eager],
-        "eager_vs_eager": [_rel_err(eager[1]["change"], eager[0]["change"]),
-                           _rel_err(eager[1]["grad"], eager[0]["grad"])]}
+        nearest[way] = eager_ways[min(
+            range(len(eager)), key=lambda i: to_each[i]["param_change"])]
+    flips = {"eager_pairs": [_flip_leaves(a, b) for i, a in enumerate(eager)
+                             for b in eager[i + 1:]],
+             "graph_to_nearest": _flip_leaves(runs["graph"],
+                                              runs[nearest["graph"]])}
+    result = {"losses": {w: r["loss"] for w, r in runs.items()},
+              "grad_norms": {w: r["grad_norm"] for w, r in runs.items()},
+              "eager_pairs": pairs, "eager_spread": spread, "limit": limit,
+              "held": list(TRAIN_GRAPH_HELD), "readings": readings,
+              "flips": flips,
+              "worst_leaf_rel_err": {
+                  "param_change": [_rel_err(runs["graph"]["change"],
+                                            e["change"]) for e in eager],
+                  "grad": [_rel_err(runs["graph"]["grad"], e["grad"])
+                           for e in eager],
+                  "grad_last": [_rel_err(runs["graph"]["grad_last"],
+                                         e["grad_last"]) for e in eager]}}
+    beyond = {k: readings["graph"][k] for k in TRAIN_GRAPH_HELD
+              if readings["graph"][k] > limit[k]}
+    if beyond:
+        raise SystemExit(f"{label} float32: graph vs eager beyond the limit "
+                         f"{limit} in {beyond}: {result}")
+    for fault in ("zero_grad", "lr_scale"):
+        if all(readings[fault][k] <= limit[k] for k in TRAIN_GRAPH_HELD):
+            raise SystemExit(f"{label} float32: the planted fault {fault} "
+                             f"passes the check: {readings[fault]}")
+    return result
+
+
+def f32_runs(f32, hw, on_card=None):
+    """(i)'s float32 runs: the graph run, ``TRAIN_GRAPH_EAGER_RUNS`` eager
+    runs and the two planted faults, TF32 off."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ways = ("graph", *(f"eager_{i}" for i in range(TRAIN_GRAPH_EAGER_RUNS)),
+            "zero_grad", "lr_scale")
+    runs = {}
+    try:
+        for way in ways:
+            runs[way] = _f32_run(f32, hw, "eager" if way.startswith("eager")
+                                 else way, on_card)
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return runs
+
+
+def _f32_text(r):
+    return (f"losses {r['losses']}, gradient norms {r['grad_norms']}; "
+            f"distances (loss, grad_norm, median leaf's parameter change, "
+            f"its residual after each run's own AdamW updates, median "
+            f"leaf's gradient at the first and at the last step) eager-eager "
+            f"pairs {r['eager_pairs']}, limit "
+            f"{r['limit']} on {r['held']}, to the nearer eager run "
+            f"{r['readings']}; F3, entries whose change differs by >= "
+            f"{FLIP_SHARE_OF_LR} lr and the leaves the change's distance "
+            f"is largest in (name, distance, entries, residual's distance) "
+            f"{r['flips']}; worst leaf (informative) "
+            f"{r['worst_leaf_rel_err']}; launches measured "
+            f"{r.get('launches')}")
+
+
+def check_train_graphs(train_cfg):
+    """(i) The training step as programs against eager: float32 (TF32 off)
+    at dropout 0, three steps at batch 2, 800x1344, each on its own batch
+    and learning-rate scale; the graph run against three eager runs
+    (``f32_rule``): each step's loss and gradient norm, the median leaf's
+    last gradients and its parameter change less the run's own AdamW
+    updates (``AdamReplay``; ``_f32_distances``) of the nearer eager run,
+    each within ``TRAIN_GRAPH_SPREAD_FACTOR`` times the eager runs' largest
+    distance of a pair (K3's float32 atomics add in an order that
+    changes), or ``TRAIN_GRAPH_FLOOR`` where they agree bit for bit; the
+    raw parameter change printed beside them with the entries whose
+    update AdamW flipped (F3); two planted faults (``_planted``) must fall
+    outside; the launches measured on the card. Then bfloat16 batch 2 x
+    accum 2 (the microbatch
+    program twice, then the apply program) against eager in turns, ms per
+    step and memory both ways; at dropout 0.1 (learning rates 0), replays
+    on one batch draw new masks: their losses differ."""
+    hw = perf_train_step.BUCKET_HW
+    f32 = train_cfg.replace(compute_dtype="float32", dropout=0.0)
+    runs = f32_runs(f32, hw)
+    f32_result = f32_rule(runs, "(i)")
     per_mb = step_counts(f32, level_shapes(hw, 4))
     f32_counts = {way: (r["counts"], r["matched"]) for way, r in runs.items()
                   if way in ("graph", "eager_0")}
-    f32_result = {
-        "losses": {w: runs[w]["loss"] for w in ways},
-        "grad_norms": {w: runs[w]["grad_norm"] for w in ways},
-        "eager_pairs": pairs, "eager_spread": spread, "limit": limit,
-        "readings": readings,
-        "worst_leaf_rel_err": worst_leaf, "launches": f32_counts}
-    del runs, eager
+    f32_result["launches"] = f32_counts
+    for way, (c, m) in f32_counts.items():
+        if c != {k: TRAIN_STEPS * v for k, v in per_mb.items()} or (
+                m != TRAIN_STEPS * matches_per_pass(f32)):
+            raise SystemExit(f"(i) float32 {way}: launches {c}, matcher "
+                             f"{m}")
+    del runs
     torch.cuda.empty_cache()
     # bf16, batch 2 x accum 2, in turns on one model and optimizer
     model, optimizer, generator = perf_train_step.build(train_cfg, DEVICE,
@@ -4746,8 +5224,7 @@ def check_train_graphs(train_cfg):
             steps[way](batch, generator)
             torch.cuda.synchronize()
             times[way].append((time.perf_counter() - t0) * 1e3)
-    programs = {name: len(getattr(steps["graph"], name).programs)
-                for name in ("whole", "grads_mb", "apply")}
+    programs = _programs_of(steps["graph"], ("whole", "grads_mb", "apply"))
     per_mb_bf16 = step_counts(train_cfg, level_shapes(hw, 4))
     del model, optimizer, steps
     torch.cuda.empty_cache()
@@ -4763,30 +5240,12 @@ def check_train_graphs(train_cfg):
     del model, optimizer, step
     torch.cuda.empty_cache()
     print(f"(i) train step as programs vs eager: float32 3 steps (own "
-          f"batches, lr scales {TRAIN_GRAPH_LR_SCALES}), losses "
-          f"{f32_result['losses']}, gradient norms "
-          f"{f32_result['grad_norms']}; distances (loss, grad_norm, median "
-          f"leaf's parameter change, median leaf's gradient) eager-eager "
-          f"pairs {pairs}, limit {limit}, to the nearer eager run "
-          f"{readings}; worst leaf (informative) {worst_leaf}; launches "
-          f"measured {f32_counts}; bf16 b2 x accum 2 {hw[0]}x{hw[1]}: "
+          f"batches, lr scales {TRAIN_GRAPH_LR_SCALES}), "
+          f"{_f32_text(f32_result)}; bf16 b2 x accum 2 {hw[0]}x{hw[1]}: "
           f"programs {programs}, ms per step in turns {times}, (peak "
           f"allocated, reserved) GB {memory}, launches {counts}; dropout "
           f"0.1 losses of one batch, warm-up then two replays: "
           f"{dropout_losses}", flush=True)
-    beyond = {k: v for k, v in readings["graph"].items() if v > limit[k]}
-    if beyond:
-        raise SystemExit(f"(i) float32: graph vs eager beyond the limit "
-                         f"{limit} in {beyond}")
-    for fault in ("zero_grad", "lr_scale"):
-        if all(v <= limit[k] for k, v in readings[fault].items()):
-            raise SystemExit(f"(i) float32: the planted fault {fault} "
-                             f"passes the check: {readings[fault]}")
-    for way, (c, m) in f32_counts.items():
-        if c != {k: TRAIN_STEPS * v for k, v in per_mb.items()} or (
-                m != TRAIN_STEPS * matches_per_pass(f32)):
-            raise SystemExit(f"(i) float32 {way}: launches {c}, matcher "
-                             f"{m}")
     if programs != {"whole": 0, "grads_mb": 1, "apply": 1}:
         raise SystemExit(f"(i) the accumulated step ran programs "
                          f"{programs}")
@@ -4905,12 +5364,16 @@ def main() -> int:
     two_stage = check_two_stage(train_shapes)
     remat = check_remat(train_cfg)
     approx_topk = check_approx_topk(train_cfg)
-    # data-parallel: (a) the DDP step, (b) with accumulation and the banded
+    # data-parallel: (a) the step, (b) with accumulation and the banded
     # kernels, (d) NCCL in one rank and (e) the dry run in two
     torch.cuda.empty_cache()
     ddp = check_ddp(exact_train["ms_per_step"])
     ddp_adapt = check_adapt_accum()
     ddp_dryruns = check_dryruns()
+    # (j) the step as programs in one rank under NCCL
+    torch.cuda.empty_cache()
+    nccl = check_nccl_programs({"train_graphs": train_graphs,
+                                "ms_per_step": exact_train["ms_per_step"]})
     # (f) the model axis: the relation grid's rows over two ranks
     torch.cuda.empty_cache()
     tp = check_tp()
@@ -5272,6 +5735,7 @@ def main() -> int:
         **{f"ddp_{k}": v for k, v in ddp_drivers["counts_per_rank"].items()},
         **{f"ddp_dryrun_{k}": [r["launches"]] for k, r in
            ddp_dryruns.items()},
+        "nccl_programs_replay": nccl["counts_per_rank"],
         "tp": tp["counts_per_rank"],
         "tp_bf16": tp["bf16_counts_per_rank"],
         "tp_train": tp["train_counts_per_rank"]}
@@ -5287,14 +5751,19 @@ def main() -> int:
         "drivers": {k: v for k, v in ddp_drivers.items()
                     if "counts" not in k},
         "dryruns": {k: {"backend": r["backend"], "metrics": r["metrics"],
-                        "mesh": r["mesh"], "seconds": r["seconds"]}
+                        "mesh": r["mesh"], "captured": r["captured"],
+                        "seconds": r["seconds"]}
                     for k, r in ddp_dryruns.items()}}
+    kernels["data_parallel"]["nccl_programs"] = {
+        k: v for k, v in nccl.items() if k != "counts_per_rank"}
     kernels["tensor_parallel"] = {k: v for k, v in tp.items()
                                   if "counts" not in k}
     kernels["launch_counting"] = {
-        "how": "one process: measured on the card (torch.profiler trace of "
-               "the card's activity, graph replays included; CardLaunches); "
-               "ranks of a process group (eager steps): by wrapper",
+        "how": "measured on the card (torch.profiler trace of the card's "
+               "activity, graph replays included; CardLaunches): one "
+               "process, the drivers' ranks (c), the NCCL rank (j); by "
+               "wrapper: the ranks of (a), (b), (d)-(f), whose steps hold "
+               "gloo collectives and run eagerly",
         **TRACE_COST}
     print(f"launch measurement: {TRACE_COST['traces']} traces read in "
           f"{TRACE_COST['seconds']:.1f} s", flush=True)

@@ -60,8 +60,12 @@ def infer_program(model, cfg, *, sgg: bool = True, coco: bool = False,
     ``runner.py:46-67``): ``sgg_postprocess``'s top-k (``sgg``), the top-100
     detections as ``det_scores``/``det_labels``/``det_boxes_norm``
     (``coco``) and ``rel_full`` (``oi``). On the card one captured program
-    per input signature (``utils/aot.maybe_aot``)."""
+    per input signature (``utils/aot.maybe_aot``), in a process group too:
+    the forward holds a collective only where a model group splits the
+    relation grid (``--mp``, its row gather), and is then a program where
+    the group's backend is NCCL."""
     device = next(model.parameters()).device
+    mesh = getattr(model, "mesh", None)
 
     def forward_post(pixel_values, pixel_mask):
         with torch.no_grad():
@@ -79,13 +83,15 @@ def infer_program(model, cfg, *, sgg: bool = True, coco: bool = False,
                 post["rel_full"] = rel_full(out)
         return post
 
-    program = maybe_aot(forward_post, "infer", device)
+    program = maybe_aot(forward_post, "infer", device,
+                        collectives=mesh is not None and mesh.mp > 1)
 
     def run(batch):
         model.eval()
         return program(torch.from_numpy(batch["pixel_values"]).to(device),
                        torch.from_numpy(batch["pixel_mask"]).to(device))
 
+    run.program = program
     return run
 
 

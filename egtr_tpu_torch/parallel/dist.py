@@ -19,8 +19,40 @@ Without a process group every function here is the single-process identity
 (rank 0 of 1, ``all_gather_objects(x) == [x]``, sums are the tensor itself),
 so single-process code paths stay as they were. The collectives take a
 ``group`` (a data or model group of ``mesh.make_mesh``; None: the world).
-Two collectives carry tensors, ``all_reduce`` and ``all_gather``: both
-backends run them on CUDA tensors (gloo through the host).
+Three collectives carry tensors, ``all_reduce_`` (in place; ``all_reduce_sum``
+its copy), ``all_gather`` (``all_gather_into_tensor``: one output tensor, not
+a list) and ``broadcast_`` (in place): both backends run them on CUDA
+tensors (gloo through the host).
+
+Collectives inside a captured program (``utils/aot.py``). ``capturable``
+says whether a group's collectives can be recorded in a CUDA graph: NCCL's
+can, gloo's cannot (gloo copies a CUDA tensor to the host, reduces it there
+and waits, which a capture cannot hold). The tensor forms above are the
+ones a capture records: each writes into a tensor of fixed address (the
+train step's gradient buffer is made before its first capture), with no
+list of outputs made per call. What ProcessGroupNCCL needs for a capture
+(the PyTorch CUDA-graphs notes, "Usage with DistributedDataParallel", step
+1; the other two steps there are DDP's own: DDP built on a side stream and
+11 eager iterations before the capture, for its reducer's buckets, and the
+port has no DDP):
+
+- ``TORCH_NCCL_ASYNC_ERROR_HANDLING=0``, set before the group is made
+  (``init_from_env`` sets it unless the caller did): the watchdog thread
+  polls each collective's CUDA event and, with error handling on, tears
+  the process down on what it reads as an error; a collective issued
+  while its stream captures is never handed to it (ProcessGroupNCCL skips
+  the queue then, and ``torch.cuda.graph`` waits for the queries pending
+  before it begins), and the captures run in thread-local mode
+  (``aot.Program``), so the watchdog's own calls cannot break them. A
+  collective that times out is then logged, not fatal: the ranks'
+  launcher's timeout (``launch.spawn``) ends such a run.
+- ``TORCH_NCCL_BLOCKING_WAIT`` unset: a blocking wait synchronizes the
+  host, which a capture refuses (``init_from_env`` refuses it under NCCL).
+- A communicator is made at a group's first collective, which a capture
+  cannot hold: each program's first call warms up eagerly on the capture
+  stream (``aot.maybe_aot``), so every group's first collective runs
+  outside any capture, and the train step broadcasts the parameters when
+  it is made.
 """
 
 from __future__ import annotations
@@ -75,6 +107,11 @@ def init_from_env(device=None, backend: Optional[str] = None
         raise ValueError("backend 'nccl' needs the card; the CPU runs gloo")
     if dist.is_initialized():
         return device
+    if backend == "nccl":
+        if os.environ.get("TORCH_NCCL_BLOCKING_WAIT", "0") not in ("", "0"):
+            raise ValueError("TORCH_NCCL_BLOCKING_WAIT: a blocking wait "
+                             "cannot run inside a captured program")
+        os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
     dist.init_process_group(backend, init_method="env://", rank=rank,
                             world_size=world, timeout=TIMEOUT)
     return device
@@ -114,27 +151,83 @@ def all_gather_objects(obj: Any, group=None) -> List[Any]:
     return out
 
 
+def capturable(group=None) -> bool:
+    """Whether the collectives of ``group`` (None: the world) can run inside
+    a captured CUDA graph: NCCL's can, gloo's cannot (module docstring).
+    True without a process group, where there is no collective."""
+    return not is_distributed() or dist.get_backend(group) == "nccl"
+
+
+def all_reduce_(tensor: torch.Tensor, group=None,
+                mean: bool = False) -> torch.Tensor:
+    """Sum ``tensor`` over the processes of ``group`` (None: all) in place,
+    and return it; with ``mean`` divide by their count. Every process gets
+    the same bits. NCCL's mean is its AVG, one collective that scales each
+    rank's values by 1 / count before the sum (a kernel even at one rank);
+    gloo's is the sum, then the division; the two agree bit for bit where
+    the count is a power of two. Without a process group: ``tensor`` as it
+    is."""
+    if not is_distributed():
+        return tensor
+    if mean and dist.get_backend(group) == "nccl":
+        dist.all_reduce(tensor, op=dist.ReduceOp.AVG, group=group)
+        return tensor
+    dist.all_reduce(tensor, group=group)
+    if mean:
+        tensor.div_(dist.get_world_size(group))
+    return tensor
+
+
 def all_reduce_sum(tensor: torch.Tensor, group=None) -> torch.Tensor:
     """The sum of ``tensor`` over the processes of ``group`` (None: all), as
     a new tensor (the tensor itself without a process group). Every process
     gets the same bits."""
     if not is_distributed():
         return tensor
-    out = tensor.detach().clone()
-    dist.all_reduce(out, group=group)
-    return out
+    return all_reduce_(tensor.detach().clone(), group)
 
 
-def all_gather(tensor: torch.Tensor, group=None) -> List[torch.Tensor]:
+def all_gather(tensor: torch.Tensor, group=None) -> torch.Tensor:
     """``tensor`` of every process of ``group`` (None: all), equal shapes,
-    as a list in the group's rank order on every process (``[tensor]``
-    without a process group)."""
+    stacked in the group's rank order: [n, *tensor.shape] (``tensor[None]``
+    without a process group). One ``all_gather_into_tensor`` into one
+    output, the form a capture records."""
     if not is_distributed():
-        return [tensor]
+        return tensor[None]
     tensor = tensor.detach().contiguous()
-    out = [torch.empty_like(tensor) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(out, tensor, group=group)
-    return out
+    n = dist.get_world_size(group)
+    out = tensor.new_empty((n * tensor.shape[0], *tensor.shape[1:]))
+    dist.all_gather_into_tensor(out, tensor, group=group)
+    return out.view(n, *tensor.shape)
+
+
+def broadcast_(tensors: List[torch.Tensor], src: int = 0) -> None:
+    """Overwrite ``tensors`` in place with rank ``src``'s, over every rank:
+    one broadcast of a flat buffer per dtype (their storage is kept, which
+    captured programs read). No-op without a process group."""
+    if not is_distributed():
+        return
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        group = [t for t in tensors if t.dtype == dtype]
+        flat = torch.cat([t.detach().reshape(-1) for t in group])
+        dist.broadcast(flat, src)
+        at = 0
+        with torch.no_grad():
+            for t in group:
+                t.copy_(flat[at:at + t.numel()].view_as(t))
+                at += t.numel()
+
+
+def agree(value: Any, what: str, group=None) -> None:
+    """Raise unless every process of ``group`` (None: all) passes an equal
+    ``value`` (a picklable description, compared with ``==``); the error
+    names each rank's. A collective: every rank calls it at the same
+    point."""
+    values = all_gather_objects(value, group)
+    if any(v != values[0] for v in values[1:]):
+        raise RuntimeError(
+            f"{what}: the ranks disagree: "
+            + "; ".join(f"rank {r}: {v}" for r, v in enumerate(values)))
 
 
 def shutdown() -> None:

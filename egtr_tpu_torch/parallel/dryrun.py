@@ -15,10 +15,13 @@ multi-process contracts: the loaders' per-rank slices concatenate to the
 one-process loader's global batch, and the SGG evaluator merged across the
 ranks (``runner._merge_across_hosts``) aggregates to what one evaluator of
 every image does. It prints ``total_loss`` and ``grad_norm`` and returns
-rank 0's result (also its backend and MSDA kernel launches). It runs on the
-card unless ``device="cpu"``, under NCCL where every rank has a card of its
-own, else under gloo (the ranks share the cards). One rank that fails fails
-the call.
+rank 0's result (also its backend, its MSDA kernel launches and
+``captured``: whether its step was captured as a program, as it is on the
+card under NCCL, its collectives inside the graph; under gloo and on the
+CPU it runs eagerly, ``utils/aot.maybe_aot``'s rule). It runs on the card
+unless ``device="cpu"``, under NCCL where every rank has a card of its own,
+else under gloo (the ranks share the cards). One rank that fails fails the
+call.
 """
 
 from __future__ import annotations
@@ -103,6 +106,7 @@ def _step(device) -> dict:
     return {"metrics": metrics, "param_sum": float(params.sum()),
             "param_abs_sum": float(params.abs().sum()),
             "backend": torch.distributed.get_backend(), "launches": launches,
+            "captured": bool(getattr(step.whole, "programs", None)),
             "mesh": [mesh.dp, mesh.mp]}
 
 
@@ -193,7 +197,8 @@ def dryrun_multichip(n_devices: int, device=None,
     m = first["metrics"]
     dp, mp = first["mesh"]
     print(f"dryrun_multichip({n_devices}): world={n_devices} (data="
-          f"{dp}, model={mp}) on {dev.type} ({first['backend']}) "
+          f"{dp}, model={mp}) on {dev.type} ({first['backend']}, "
+          f"{'a captured program' if first['captured'] else 'eager'}) "
           f"total_loss={m['total_loss']:.4f} "
           f"grad_norm={m['grad_norm']:.4f} OK")
     print("multi-process loader shard + metric merge OK")

@@ -20,8 +20,8 @@ mp)``): rank ``d * mp + m`` has data index ``d`` and model index ``m``.
 What replaces the JAX helpers that are not ported as code:
 
 - ``shard_batch``: the loader's per-process slice is the rank's batch;
-- ``replicate_state``: DDP's broadcast of the parameters from rank 0 when it
-  wraps the model (``train_step.make_train_step``);
+- ``replicate_state``: the broadcast of the parameters from rank 0 when the
+  train step is made (``train_step.make_train_step``);
 - ``_mesh_device_order`` (TPU slices): not applicable to ranks on one node.
 """
 
@@ -95,7 +95,8 @@ def make_mesh(dp: Optional[int] = None, mp: int = 1) -> Mesh:
     data, model = mesh_ranks(dp, mp)
     # at mp == 1 the data group is the world: the default group serves it.
     # The model group is a group of its own even where it spans the world
-    # (dp == 1): its collectives run inside the backward, beside DDP's on
-    # the default group, and two groups never interleave their orders
+    # (dp == 1): its collectives run inside the backward, the gradient
+    # reduction on the default group, and two groups never interleave
+    # their orders
     return Mesh(dp, mp, d, m, _groups(data, rank, mp > 1 and dp > 1),
                 _groups(model, rank, mp > 1))

@@ -17,6 +17,11 @@ As XLA pads a sharded axis that the mesh does not divide, ``RowSplit`` pads
 each rank's rows to ``ceil(Q / mp)`` (zeros past Q, dropped by the gather),
 so every rank sends a block of one shape to the ``all_gather``. The
 gathered grid is the bits each rank computed.
+
+Both collectives take the forms a captured program records
+(``dist.capturable``): the backward's sum is an in-place ``all_reduce`` of
+the one buffer it makes, the gather one ``all_gather_into_tensor`` into a
+[mp, B, rows, ...] output, whose blocks are then laid side by side.
 """
 
 from __future__ import annotations
@@ -66,7 +71,7 @@ class _CopyToModelGroup(torch.autograd.Function):
                                                  dtype=dtype)
              ).reshape(-1).float()
             for g, (shape, dtype) in zip(grads, ctx.meta)])
-        flat = dist.all_reduce_sum(flat, ctx.group)
+        dist.all_reduce_(flat, ctx.group)
         out, at = [], 0
         for shape, dtype in ctx.meta:
             n = shape.numel()
@@ -88,7 +93,9 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, split: RowSplit, group):
         ctx.split = split
-        return torch.cat(dist.all_gather(x, group), dim=1)[:, :split.Q]
+        blocks = dist.all_gather(x, group)             # [mp, B, rows, ...]
+        grid = blocks.movedim(0, 1).flatten(1, 2)      # [B, mp * rows, ...]
+        return grid[:, :split.Q]
 
     @staticmethod
     def backward(ctx, grad):

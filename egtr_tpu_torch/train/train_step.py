@@ -7,11 +7,14 @@ per batch signature: with ``accum_steps == 1`` one program of the whole
 step; with gradient accumulation (the reference's Lightning
 ``accumulate_grad_batches=2``, train_egtr.py:531,771) the microbatch
 program (forward + backward into the gradient buffers, JAX's ``_grads_mb``)
-once per microbatch, then the apply program (the depth's mean, the clip and
-the update, JAX's ``_apply``), so the peak memory is one microbatch's; the
-logged metrics are averaged over the microbatches. The eval step is one
-program. On the CPU, and inside a process group, the same functions run
-eagerly.
+once per microbatch, then the apply program (the gradient reduction in a
+process group, the depth's mean, the clip and the update, JAX's
+``_apply``), so the peak memory is one microbatch's; the logged metrics are
+averaged over the microbatches. The eval step is one program. On the CPU
+the same functions run eagerly; in a process group a function that holds a
+collective is a program where the group's backend is NCCL, whose
+collectives the graph records, and runs eagerly under gloo
+(``aot.maybe_aot``'s rule).
 
 The model and the optimizer carry the state (parameters, AdamW moments) and
 are updated in place; a step returns the metrics only. Randomness (dropout
@@ -22,38 +25,43 @@ Inside a process group (``parallel.dist``) the step is data-parallel, with
 the JAX package's semantics: its loss is the loss of the global batch, the
 concatenation of the data ranks' batches. The layout is a
 ``parallel.mesh.Mesh`` of ``dp`` x ``mp`` ranks (``make_train_step``'s
-``mesh``; by default the model's, else every rank data-parallel). The model
-runs under ``DistributedDataParallel`` over every rank of the world, whose
-broadcast from rank 0 when it wraps the model replaces the JAX package's
-``replicate_state``. The criterion sums its denominators over the data
+``mesh``; by default the model's, else every rank data-parallel). Making
+the step broadcasts the parameters from rank 0 (the JAX package's
+``replicate_state``). The criterion sums its denominators over the data
 group, so each data rank's loss is its share of the global loss, and the
-ranks of a model group, which share one batch slice, hold the same share;
-DDP averages gradients over the ``dp * mp`` ranks, so each rank
+ranks of a model group, which share one batch slice, hold the same share.
+After the last microbatch's backward the step reduces the gradients itself
+(``GradientReduction``, in the whole-step or the apply program): one
+all-reduce over every rank of the world of one flat float32 buffer that
+holds every leaf's gradient, divided by ``dp * mp``, so each rank
 backpropagates ``dp`` times its share and the reduced gradient is the
-global loss's. With ``mp > 1`` each rank of a model group computes its rows
-of the relation grid only (``models/egtr.py``): the gradients of the
-grid's parameters (``EgtrModel.grid_parameters``) are partial sums, which
-the world average divides by ``mp``, so the step multiplies them by ``mp``
-before the clip; the detector's gradients, which every rank of a model
-group computes in full, come out of the average as they are. DDP reduces
-over the world and not over the data group because the ranks of a model
-group compute the detector's gradients each on its own: on the card the
-float32 scatter-adds of the MSDA backward round them differently from run
-to run, and only one reduction over every rank keeps all parameters
-bit-equal. Every parameter takes part (``find_unused_parameters``:
-``rel_dist`` and the options' unused heads get no gradient), the frozen
-leaves too, so the clip norm and ``grad_norm`` cover them as in the JAX
-package; there are no buffers to broadcast. Microbatches before the last
-run under ``no_sync``. The logged metrics are summed over the data group
-(``rel_gate_*``, a batch mean, averaged), so every rank returns the same
-numbers. Dropout masks cannot match the JAX package's global mask bit for
-bit (each data rank draws from its own generator, and the ranks of a model
-group from the same one), so parity with it holds at dropout 0.
+global loss's. (Not ``DistributedDataParallel``: its hooks pick buckets
+on the host during the backward and ``find_unused_parameters`` walks the
+autograd graph every forward, which a captured program cannot repeat.)
+With ``mp > 1`` each rank of a model group computes its rows of the
+relation grid only (``models/egtr.py``): the gradients of the grid's
+parameters (``EgtrModel.grid_parameters``) are partial sums, which the
+world average divides by ``mp``, so the step multiplies them by ``mp``
+before the clip;
+the detector's gradients, which every rank of a model group computes in
+full, come out of the average as they are. The reduction runs over the
+world and not over the data group because the ranks of a model group
+compute the detector's gradients each on its own: on the card the float32
+scatter-adds of the MSDA backward round them differently from run to run,
+and only one reduction over every rank keeps all parameters bit-equal.
+Every leaf takes part, the frozen ones and those the loss does not reach
+(``rel_dist``, the options' unused heads: zeros) too, so the clip norm and
+``grad_norm`` cover them as in the JAX package; there are no buffers to
+broadcast. Microbatches before the last reduce nothing. The logged metrics
+are summed over the data group (``rel_gate_*``, a batch mean, averaged), so
+every rank returns the same numbers. Dropout masks cannot match the JAX
+package's global mask bit for bit (each data rank draws from its own
+generator, and the ranks of a model group from the same one), so parity
+with it holds at dropout 0.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Callable, Dict, List, Optional
 
@@ -116,6 +124,29 @@ def data_reduce(mesh: Optional[Mesh]):
     return functools.partial(dist.all_reduce_sum, group=mesh.data_group)
 
 
+class GradientReduction:
+    """The step's gradient reduction in a process group: ``grads`` (every
+    leaf's, in the optimizer's order) copied into one flat float32 buffer,
+    made here, before any capture, so that its address is the programs';
+    the buffer averaged over every rank of the world in place
+    (``dist.all_reduce_``); the result copied back. One collective per
+    optimizer step, whatever the accumulation depth."""
+
+    def __init__(self, grads: List[torch.Tensor]):
+        self.grads = grads
+        self.flat = torch.zeros(sum(g.numel() for g in grads),
+                                dtype=torch.float32, device=grads[0].device)
+        self.views, at = [], 0
+        for g in grads:
+            self.views.append(self.flat[at:at + g.numel()].view_as(g))
+            at += g.numel()
+
+    def __call__(self) -> None:
+        torch._foreach_copy_(self.views, self.grads)
+        dist.all_reduce_(self.flat, mean=True)
+        torch._foreach_copy_(self.grads, self.views)
+
+
 def make_train_step(model, cfg: EgtrConfig, optimizer: Optimizer,
                     task: str = "sgg", accum_steps: int = 1,
                     mesh: Optional[Mesh] = None) -> Callable:
@@ -130,9 +161,9 @@ def make_train_step(model, cfg: EgtrConfig, optimizer: Optimizer,
     Inside a process group the batch is the rank's slice (the data rank's:
     the ranks of a model group take the same slice and the same generator)
     and the metrics are the global batch's (module docstring); making the
-    step wraps the model in DDP, so every rank makes it at the same point.
-    ``mesh``: the ranks' layout (``resolve_mesh``); a model with a mesh of
-    its own must have this one.
+    step broadcasts the parameters from rank 0, so every rank makes it at
+    the same point. ``mesh``: the ranks' layout (``resolve_mesh``); a model
+    with a mesh of its own must have this one.
     """
     mesh = resolve_mesh(model, mesh)
     if getattr(model, "mesh", None) not in (None, mesh):
@@ -140,17 +171,20 @@ def make_train_step(model, cfg: EgtrConfig, optimizer: Optimizer,
                          "step's")
     reduce = data_reduce(mesh)
     dp = mesh.dp if mesh is not None else 1
+    mp = mesh.mp if mesh is not None else 1
     grid = (model.grid_parameters() if hasattr(model, "grid_parameters")
             else [])
-    net = model
-    if dist.is_distributed():
-        device = next(model.parameters()).device
-        net = torch.nn.parallel.DistributedDataParallel(
-            model, device_ids=[device] if device.type == "cuda" else None,
-            find_unused_parameters=True)
+    distributed = dist.is_distributed()
+    if distributed:
+        dist.broadcast_(list(model.parameters()))
+    device = next(model.parameters()).device
+    if optimizer.capturable:
+        # the step's persistent state before its programs' first warm-up
+        optimizer.init_state()
+    reduction = GradientReduction(optimizer.grads()) if distributed else None
 
     def loss_fn(mb, generator):
-        out = net(mb["pixel_values"], mb.get("pixel_mask"),
+        out = model(mb["pixel_values"], mb.get("pixel_mask"),
                   generator=generator)
         if task == "sgg":
             total, losses = sgg_criterion(out, mb["labels"], cfg, train=True,
@@ -172,17 +206,20 @@ def make_train_step(model, cfg: EgtrConfig, optimizer: Optimizer,
         the buffers; its loss terms as float32 metrics."""
         total, losses = loss_fn(mb, generator)
         # each data rank backpropagates dp times its share (module docstring)
-        (total if net is model else total * dp).backward()
+        (total * dp if distributed else total).backward()
         losses["total_loss"] = total
         return {k: x.detach().float() for k, x in losses.items()}
 
     def apply(metrics, lr_scale):
-        """The grid's gradients scaled by mp, the accumulation's mean, the
-        metrics of the global batch, the clip and the update."""
+        """The gradients reduced over the ranks, the grid's scaled by mp,
+        the accumulation's mean, the metrics of the global batch, the clip
+        and the update."""
+        if reduction is not None:
+            reduction()
         # the grid's gradients: each rank's rows, averaged over the world
         grid_grads = [p.grad for p in grid if p.grad is not None]
         if grid_grads:
-            torch._foreach_mul_(grid_grads, float(mesh.mp))
+            torch._foreach_mul_(grid_grads, float(mp))
         if accum_steps > 1:
             inv = 1.0 / accum_steps
             torch._foreach_mul_(optimizer.grads(), inv)
@@ -196,13 +233,14 @@ def make_train_step(model, cfg: EgtrConfig, optimizer: Optimizer,
         optimizer.zero_grad()
         return apply(grads_mb(mb, generator), lr_scale)
 
-    device = next(model.parameters()).device
-    if optimizer.capturable:
-        # the step's persistent state before its programs' first warm-up
-        optimizer.init_state()
-    whole_program = maybe_aot(whole_step, "train_step", device)
-    grads_program = maybe_aot(grads_mb, "train_grads_mb", device)
-    apply_program = maybe_aot(apply, "train_apply", device)
+    # the reduction (and the global metrics) sit in the whole step and the
+    # apply; a microbatch holds the criterion's sums and --mp's collectives
+    whole_program = maybe_aot(whole_step, "train_step", device,
+                              collectives=distributed)
+    grads_program = maybe_aot(grads_mb, "train_grads_mb", device,
+                              collectives=reduce is not None or mp > 1)
+    apply_program = maybe_aot(apply, "train_apply", device,
+                              collectives=distributed)
 
     def train_step(batch, generator: Optional[torch.Generator] = None,
                    lr_scale=1.0) -> Dict[str, torch.Tensor]:
@@ -224,11 +262,8 @@ def make_train_step(model, cfg: EgtrConfig, optimizer: Optimizer,
             return whole_program(mbs[0], generator, lr_scale)
         optimizer.zero_grad()
         metrics: Dict[str, torch.Tensor] = {}
-        for i, mb in enumerate(mbs):
-            # DDP reduces the gradients in the last microbatch's backward
-            with (net.no_sync() if net is not model and i < len(mbs) - 1
-                  else contextlib.nullcontext()):
-                m = grads_program(mb, generator)
+        for mb in mbs:
+            m = grads_program(mb, generator)
             metrics = m if not metrics else {k: metrics[k] + x
                                              for k, x in m.items()}
         return apply_program(metrics, lr_scale)
@@ -258,7 +293,9 @@ def make_eval_step(model, cfg: EgtrConfig, task: str = "sgg",
     process group the denominators are the global batch's, so the data
     ranks' losses add up to the global batch's loss (the caller sums them
     over the data group). ``mesh``: as ``make_train_step`` takes it."""
-    reduce = data_reduce(resolve_mesh(model, mesh))
+    mesh = resolve_mesh(model, mesh)
+    reduce = data_reduce(mesh)
+    mp = mesh.mp if mesh is not None else 1
 
     def forward_loss(batch):
         with torch.no_grad():
@@ -276,10 +313,12 @@ def make_eval_step(model, cfg: EgtrConfig, task: str = "sgg",
         return out, losses
 
     program = maybe_aot(forward_loss, "eval_step",
-                        next(model.parameters()).device)
+                        next(model.parameters()).device,
+                        collectives=reduce is not None or mp > 1)
 
     def eval_step(batch):
         model.eval()
         return program(batch)
 
+    eval_step.program = program
     return eval_step

@@ -41,10 +41,30 @@ between its kernels. This module keeps the JAX module's two names:
   per shape (``layers.level_wh``'s tables) a capture builds inside its
   graph. Later calls copy the inputs in, replay, and return fresh clones
   of the outputs (JAX returns new arrays; the trainer keeps metrics until
-  ``log_every``, ``run_fps`` keeps several requests in flight). It returns ``fn`` itself,
-  eager, on the CPU (a ``device`` that is not a card, or arguments without
-  a CUDA tensor) and inside a process group, as the JAX wrapper does under
-  ``process_count() > 1``: DDP and ``--mp`` stay eager.
+  ``log_every``, ``run_fps`` keeps several requests in flight). It
+  returns ``fn`` itself, eager, on the CPU (a ``device`` that is not a
+  card, or arguments without a CUDA tensor).
+
+In a process group (the JAX wrapper keeps its jitted program there and
+skips only its on-disk cache) the rule is one, in ``maybe_aot``, and its
+caller says whether ``fn`` holds a collective (``collectives``):
+
+- a function without one (the runner's forward at ``mp`` 1) is captured
+  under any backend, each rank its own program;
+- a function with one (the data-parallel train step's gradient
+  all-reduce, the criterion's global denominators, ``--mp``'s row gather
+  and gradient sum) is captured where the group's collectives can be
+  (``dist.capturable``: NCCL, whose collectives the graph records) and
+  runs eagerly under gloo, which stages CUDA tensors through the host: the
+  layout where ranks share one card, a test layout. It prints
+  ``[aot] TAG: eager, gloo collectives`` once, when it is made.
+
+A capture executes nothing, so every rank must warm up, capture and replay
+a function with collectives at the same call: before a call that would
+warm up or capture, outside any capture, the ranks agree on its signature
+(``dist.agree`` of ``portable_signature``: shapes, dtypes, structure, the
+module state), and a disagreement raises with each rank's. Nothing falls
+back to eager.
 
 A replay launches its kernels without their wrappers, so
 ``msda_cuda.launches`` counts the warm-ups' launches and not the replays'
@@ -125,6 +145,24 @@ def signature(args) -> Any:
     """The dispatch key of a call: its arguments' ``flatten`` definition and
     the ``global_state``."""
     return flatten(args)[1], global_state()
+
+
+def portable_signature(args) -> str:
+    """``signature`` as the ranks of a process group can compare it: the
+    device type in place of a tensor's device (each rank has its own card),
+    a generator by its kind (each rank has its own)."""
+    def port(node):
+        kind, body = node[0], node[1]
+        if kind == _TENSOR:
+            return (kind, body, str(node[2]), node[3].type)
+        if kind == "dict":
+            return (kind, tuple((k, port(v)) for k, v in body))
+        if kind in ("list", "tuple"):
+            return (kind, tuple(port(v) for v in body))
+        return (kind, "generator" if isinstance(body, torch.Generator)
+                else body)
+
+    return repr((port(flatten(args)[1]), global_state()))
 
 
 _pools: Dict[torch.device, Any] = {}
@@ -248,15 +286,19 @@ def load_or_compile(fn: Callable, *args, tag: str) -> Program:
     return Program(fn, args, tag)
 
 
-def maybe_aot(fn: Callable, tag: str, device=None) -> Callable:
+def maybe_aot(fn: Callable, tag: str, device=None,
+              collectives: bool = False) -> Callable:
     """``fn`` dispatched to one captured program per argument signature
-    (module docstring), or ``fn`` itself where ``device`` is not a card or
-    inside a process group. Calls whose arguments hold no CUDA tensor run
-    ``fn`` eagerly."""
+    (module docstring), or ``fn`` itself where ``device`` is not a card, or
+    in a process group whose collectives a capture cannot hold where ``fn``
+    holds one (``collectives``). Calls whose arguments hold no CUDA tensor
+    run ``fn`` eagerly."""
     if device is not None and torch.device(device).type != "cuda":
         return fn
-    if dist.is_distributed():
+    if collectives and not dist.capturable():
+        print(f"[aot] {tag}: eager, gloo collectives", flush=True)
         return fn
+    lockstep = collectives and dist.is_distributed()
     programs: Dict[Any, Program] = {}
 
     def call(*args):
@@ -266,6 +308,10 @@ def maybe_aot(fn: Callable, tag: str, device=None) -> Callable:
         key = signature(args)
         program = programs.get(key)
         if program is None:
+            if lockstep:
+                dist.agree(portable_signature(args),
+                           f"aot {tag}: the signature of a call that "
+                           "captures")
             if programs:
                 # a later signature: captured at once, then replayed
                 programs[key] = Program(fn, args, tag, warm_up=False)

@@ -2,10 +2,12 @@
 the CPU.
 
 The capture itself needs the card (chip_smoke.py's phases h and i); here:
-the dispatch key (``flatten`` / ``signature``), ``maybe_aot`` staying eager
-on the CPU and inside a process group, the wrappers counting eager launches
-only, and the optimizer a captured step runs against optax over three
-steps with a changing ``lr_scale``, as the JAX step scales its updates.
+the dispatch key (``flatten`` / ``signature``, and the ranks'
+``portable_signature``), ``maybe_aot`` staying eager on the CPU and, in a
+process group, for a function with collectives under gloo, the wrappers
+counting eager launches only, and the optimizer a captured step runs
+against optax over three steps with a changing ``lr_scale``, as the JAX
+step scales its updates.
 """
 
 import jax.numpy as jnp
@@ -86,7 +88,16 @@ def test_maybe_aot_is_the_function_itself_on_the_cpu():
     assert len(calls) == 1 and wrapped.programs == {}
 
 
-def test_maybe_aot_is_the_function_itself_in_a_process_group(tmp_path):
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("collectives", [False, True])
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_maybe_aot_is_the_function_itself_in_a_process_group(
+        tmp_path, monkeypatch, capsys, backend, collectives, device):
+    """The rule in a process group: ``fn`` itself where the device is not
+    a card, or where ``fn`` holds a collective that the group's backend
+    cannot capture (gloo), said once; else the dispatch to programs, under
+    NCCL with collectives too (the backend is reported as NCCL to a gloo
+    group here: the CPU cannot make an NCCL one)."""
     def fn(x):
         return x + 1
 
@@ -94,11 +105,40 @@ def test_maybe_aot_is_the_function_itself_in_a_process_group(tmp_path):
         "gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
         world_size=1)
     try:
-        assert aot.maybe_aot(fn, "t") is fn
-        assert aot.maybe_aot(fn, "t", device="cuda") is fn
+        if backend == "nccl":
+            monkeypatch.setattr(torch.distributed, "get_backend",
+                                lambda group=None: "nccl")
+        got = aot.maybe_aot(fn, "t", device=device, collectives=collectives)
+        eager = device == "cpu" or (collectives and backend == "gloo")
+        assert (got is fn) == eager
+        said = capsys.readouterr().out
+        assert said.count("[aot] t: eager, gloo collectives") == int(
+            device == "cuda" and collectives and backend == "gloo")
+        if not eager:
+            # CPU arguments run the function, with no program and no
+            # agreement of the ranks
+            torch.testing.assert_close(got(torch.ones(2)),
+                                       torch.full((2,), 2.0))
+            assert got.programs == {}
     finally:
+        monkeypatch.undo()
         torch.distributed.destroy_process_group()
     assert aot.maybe_aot(fn, "t") is not fn
+
+
+def test_portable_signature_leaves_out_the_rank_s_own_device_and_generator():
+    """What the ranks compare before a capture: the device's type, not its
+    index, and a generator by its kind; shapes and dtypes as ``signature``
+    keys them."""
+    x = torch.zeros((2, 3))
+    a = aot.portable_signature(({"x": x}, torch.Generator(), 1.0))
+    assert a == aot.portable_signature(({"x": torch.ones((2, 3))},
+                                        torch.Generator(), 1.0))
+    assert a != aot.portable_signature(({"x": torch.zeros((2, 4))},
+                                        torch.Generator(), 1.0))
+    assert a != aot.portable_signature(({"x": x.double()},
+                                        torch.Generator(), 1.0))
+    assert "(2, 3)" in a and "'cpu'" in a and "generator" in a
 
 
 def test_a_launch_under_capture_is_not_counted(monkeypatch):

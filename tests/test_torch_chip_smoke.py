@@ -32,7 +32,7 @@ from egtr_tpu_torch.data import open_images as oi_mod
 from egtr_tpu_torch.data import transforms as transforms_mod
 from egtr_tpu_torch.data import visual_genome as vg_mod
 from egtr_tpu_torch.ops import matcher, msda, msda_cuda
-from egtr_tpu_torch.parallel import dryrun, launch
+from egtr_tpu_torch.parallel import dist, dryrun, launch
 from egtr_tpu_torch.scripts import exp_window_deltas, perf_train_step
 from egtr_tpu_torch.train import train_step as train_step_module
 from egtr_tpu_torch.utils import aot
@@ -205,9 +205,13 @@ def install_fake_card(set_attr, tmp_path):
         msda_cuda.launches["lsap"] += 1
         return matcher.lsap_plain(cost, num_boxes)
 
-    def maybe_aot(fn, tag, device=None):
+    def maybe_aot(fn, tag, device=None, collectives=False):
         """The train step's dispatch without the capture: its programs
-        are keyed by signature as on the card, each call eager."""
+        are keyed by signature as on the card, each call eager; a function
+        with collectives under gloo is itself, as ``aot.maybe_aot``'s rule
+        has it."""
+        if collectives and not dist.capturable():
+            return fn
         programs = {}
 
         def call(*args):
@@ -350,6 +354,10 @@ def install_fake_card(set_attr, tmp_path):
     # ranks x two microbatches of one image; the dry run in one rank, (d)
     # (tests/test_torch_parallel.py runs it in two on the CPU)
     set_attr(chip_smoke, "DDP_STEPS", 1)
+    # (i) and (j): the CPU's runs are bit-equal, so one eager pair holds
+    # what three would; one round of the timed steps
+    set_attr(chip_smoke, "TRAIN_GRAPH_EAGER_RUNS", 2)
+    set_attr(chip_smoke, "TRAIN_GRAPH_TURNS", 1)
     set_attr(chip_smoke, "DDP_ADAPT_GLOBAL_BATCH", 4)
     set_attr(chip_smoke, "DRYRUN_WORLDS", (1,))
     # (f), the model axis: one bf16 round a rank
@@ -705,6 +713,10 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
                   "ranks' parameters bit-equal",
                   "all-reduce of", "ddp (b): 2 ranks x accum 2 x window 16",
                   "ddp (d): dryrun_multichip(1) on gloo",
+                  "the step eager: launches",
+                  "(j) the data-parallel step in one rank on gloo",
+                  "its residual after each run's own AdamW updates",
+                  "its forward a program in each rank",
                   "model f32 exact card vs CPU (F1)",
                   "model f32 served card vs CPU (F1)",
                   "experiment adapted model (window 16, band point) f32 card "
@@ -726,12 +738,25 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
     for kernel in (win_pp, bwd_win[1], bwd_win[3]):
         assert kernel["launches_ddp_adaptation_per_rank"] == [4, 4]
     # (c) the drivers: no train step (2 images, global batch 4), a
-    # validation batch a phase and one test image a rank
-    assert fwd["launches_ddp_train_per_rank"] == [3 * 4, 3 * 4]
-    assert fwd["launches_ddp_evaluate_per_rank"] == [4, 4]
+    # validation batch a phase and two test images a rank
+    assert fwd["launches_ddp_train_per_rank"] == [4 * 4, 4 * 4]
+    assert fwd["launches_ddp_evaluate_per_rank"] == [2 * 4, 2 * 4]
     parallel = result["data_parallel"]
-    assert parallel["ddp"]["buckets"] >= 1
+    assert parallel["ddp"]["grad_bytes"] > 0
     assert set(parallel["dryruns"]) == {"world_1"}
+    assert parallel["dryruns"]["world_1"]["captured"] is False
+    # (j) one rank (gloo on the faked card: the step functions that hold
+    # the gradient reduction eager, the microbatch a program): (i)'s rule
+    # on its float32 runs, a replay of the step at batch 2 and at 2 x
+    # accum 2, the eval step and the runner's forward
+    nccl = parallel["nccl_programs"]
+    assert nccl["backend"] == "gloo" and nccl["programs"] == {
+        "b2_accum1": {"whole": 0, "grads_mb": 0, "apply": 0},
+        "b2_accum2": {"whole": 0, "grads_mb": 1, "apply": 0}}
+    assert nccl["float32"]["held"] == list(chip_smoke.TRAIN_GRAPH_HELD)
+    assert set(nccl["ms_in_turns"]["b2_accum2"]) == {"graph", "eager"}
+    for kernel in (fwd, rows, value):
+        assert kernel["launches_nccl_programs_replay_per_rank"] == [4]
     # (f) dp 1 x mp 2: each rank runs the whole detector, one float32 step,
     # a warm-up and one bf16 round, and the driver (one data rank: a step
     # of two microbatches, a validation batch a phase, 1 test image)
@@ -744,7 +769,7 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
     # the forward gathers the two grids and sums the gate's mean; the
     # backward sums the head's input gradients
     assert tp["collectives_per_step"] == ["all_gather", "all_gather",
-                                          "all_reduce_sum", "all_reduce_sum"]
+                                          "all_reduce", "all_reduce"]
     assert tp["trained_eval_max_abs_err"] <= chip_smoke.TP_EVAL_ATOL
     assert 10 * tp["trained_eval_max_abs_err"] < tp[
         "trained_eval_blocks_swapped"]
@@ -1027,24 +1052,71 @@ def test_kernel_of_names_each_kernel_from_its_trace_row():
 
 def test_f32_distances_of_the_train_graph_check():
     """Phase (i)'s distances between two runs: each step's loss and
-    gradient norm, the median leaf's parameter change and gradient."""
+    gradient norm, the median leaf's parameter change, its residual after
+    the run's own AdamW updates, and its gradient at the first and at the
+    last step."""
     def run(loss, norm, scale):
         change = {f"p{i}": torch.full((4,), float(i + 1)) for i in range(3)}
         change["p2"] = change["p2"] * scale
         return {"loss": loss, "grad_norm": norm, "change": change,
-                "grad": {k: 2 * v for k, v in change.items()}}
+                "residual": {k: torch.zeros(4) for k in change},
+                "grad": {k: 2 * v for k, v in change.items()},
+                "grad_last": {k: 3 * v for k, v in change.items()}}
 
+    zero = dict.fromkeys(("loss", "grad_norm", "param_change",
+                          "param_residual", "grad", "grad_last"), 0.0)
     a = run([4.0, 2.0], [1.0, 1.0], 1.0)
-    assert chip_smoke._f32_distances(a, a) == {
-        "loss": 0.0, "grad_norm": 0.0, "param_change": 0.0, "grad": 0.0}
+    assert chip_smoke._f32_distances(a, a) == zero
     # one leaf of three moved twice as far: the median leaf did not
     b = run([4.0, 2.5], [1.0, 2.0], 2.0)
     assert chip_smoke._f32_distances(b, a) == {
-        "loss": 0.25, "grad_norm": 1.0, "param_change": 0.0, "grad": 0.0}
+        **zero, "loss": 0.25, "grad_norm": 1.0}
+    # every leaf moved half as far again: AdamW's answer to the run's own
+    # gradients (no residual), or the update's own fault (a residual)
     c = run([4.0, 2.0], [1.0, 1.0], 1.0)
     c["change"] = {k: 1.5 * v for k, v in c["change"].items()}
-    assert chip_smoke._f32_distances(c, a)["param_change"] == (
+    c["grad_last"] = {k: 2 * v for k, v in c["grad_last"].items()}
+    got = chip_smoke._f32_distances(c, a)
+    assert got["param_change"] == pytest.approx(0.5)
+    assert got["grad_last"] == pytest.approx(1.0)
+    assert got["param_residual"] == 0.0 and got["grad"] == 0.0
+    c["residual"] = {k: 0.5 * v for k, v in a["change"].items()}
+    assert chip_smoke._f32_distances(c, a)["param_residual"] == (
         pytest.approx(0.5))
+
+
+def test_adam_replay_is_the_optimizer_s_update():
+    """``AdamReplay`` recomputes the capturable AdamW's updates from a
+    run's own clipped gradients: over three steps with changing learning
+    -rate scales its residuals are float32 round-off, and an update at
+    another scale (the planted ``lr_scale`` fault) leaves a residual of
+    the update's size."""
+    from egtr_tpu_torch.train.optim import make_optimizer
+
+    def residual_over_change(real_scales, told_scales):
+        torch.manual_seed(0)
+        model = torch.nn.Sequential(torch.nn.Linear(6, 5),
+                                    torch.nn.Linear(5, 3))
+        optimizer = make_optimizer(model, lr=1e-3, lr_backbone=1e-4)
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        adam = chip_smoke.AdamReplay(model, optimizer)
+        steps = []
+        for real, told in zip(real_scales, told_scales):
+            before = adam.flat()
+            optimizer.zero_grad()
+            model(torch.randn(4, 6)).square().sum().backward()
+            optimizer.step(real)
+            steps.append((before, adam.flat(grad=True), told))
+        moved = {n: float((p.detach() - start[n]).abs().max())
+                 for n, p in model.named_parameters()}
+        return max(float(r.abs().max()) / moved[n]
+                   for n, r in adam.residual(steps, adam.flat()).items())
+
+    scales = (1.0, 0.5, 0.25)
+    # round-off: a few float32 steps of parameters of about 0.4 (3e-8 each)
+    # over changes of about 2e-3
+    assert residual_over_change(scales, scales) < 1e-4
+    assert residual_over_change((1.0, 1.0, 1.0), scales) > 0.1
 
 
 def test_counts_on_the_card_come_from_the_measurement(monkeypatch):
