@@ -12,10 +12,10 @@ answers N requests (batch 1, 608x1008, after 3 warm-up requests, the first
 of which captures the request's CUDA graph) on the GPU and prints the
 per-request latency from CUDA events; ``--profile K`` adds a
 torch.profiler breakdown of K more requests (device time per request by
-kernel, and the device's busy share). Without flags it runs the exact path
-(``msda_window=0``); the second line is the JAX package's serving default
-(``serving_config``: banded window 16, one band per point, int8 stage 1). It
-defines no benchmark metric.
+kernel and by layer scope, and the device's busy share). Without flags it
+runs the exact path (``msda_window=0``); the second line is the JAX
+package's serving default (``serving_config``: banded window 16, one band
+per point, int8 stage 1). It defines no benchmark metric.
 
 Entry points run on the GPU: ``device=None`` means "cuda" and raises where
 CUDA is absent; pass ``device="cpu"`` to run on the CPU.
@@ -37,6 +37,7 @@ from .evaluation.postprocess import sgg_postprocess
 from .models.egtr import EgtrModel
 from .models.layers import init_params
 from .utils.aot import maybe_aot
+from .utils.profiling import scope, summarize_profile
 
 # the FPS-protocol bucket: 600x1000 padded to a multiple of 16
 BUCKET_HW = (608, 1008)
@@ -105,18 +106,20 @@ def infer(model: EgtrModel, pixel_values: torch.Tensor,
 
 def infer_eager(model: EgtrModel, pixel_values: torch.Tensor,
                 pixel_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """:func:`infer` op by op: the function its programs capture."""
+    """:func:`infer` op by op: the function its programs capture. The
+    postprocess runs under the layer scope ``postprocess``."""
     with torch.inference_mode():
         out = model(pixel_values, pixel_mask)
-        post = sgg_postprocess(
-            out["logits"], out["pred_boxes"], out["pred_rel"],
-            out["pred_connectivity"], num_labels=model.config.num_labels,
-            top_k=100)
-        parts = [post["mult_inds"], post["mult_trip_scores"],
-                 post["single_inds"], post["single_rel_vec"],
-                 post["obj_scores"], post["pred_classes"],
-                 post["pred_boxes"]]
-        return torch.cat([p.float().reshape(-1) for p in parts])
+        with scope("postprocess"):
+            post = sgg_postprocess(
+                out["logits"], out["pred_boxes"], out["pred_rel"],
+                out["pred_connectivity"], num_labels=model.config.num_labels,
+                top_k=100)
+            parts = [post["mult_inds"], post["mult_trip_scores"],
+                     post["single_inds"], post["single_rel_vec"],
+                     post["obj_scores"], post["pred_classes"],
+                     post["pred_boxes"]]
+            return torch.cat([p.float().reshape(-1) for p in parts])
 
 
 def time_requests(model: EgtrModel, x: torch.Tensor, iters: int,
@@ -166,10 +169,12 @@ def msda_rows(rows) -> dict:
 
 def profile_requests(model: EgtrModel, x: torch.Tensor, n: int, top: int = 25,
                      request=None):
-    """Device time per request by kernel over ``n`` requests, from
-    torch.profiler, the device's launches per request and the share of the
-    wall time the device was busy. ``request``: the function that answers
-    one (default :func:`infer`; :func:`infer_eager` op by op)."""
+    """Device time per request by kernel and by layer scope over ``n``
+    requests, from torch.profiler, the device's launches per request and
+    the share of the wall time the device was busy; the replays launched
+    and those read by their layer map (``utils/profiling.py``).
+    ``request``: the function that answers one (default :func:`infer`;
+    :func:`infer_eager` op by op)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -185,11 +190,14 @@ def profile_requests(model: EgtrModel, x: torch.Tensor, n: int, top: int = 25,
         end.synchronize()
     wall_ms = start.elapsed_time(end) / n
     rows, busy_ms = device_rows(prof, n)
+    summary = summarize_profile(prof, n)
     return {
         "requests": n, "wall_ms_per_request": wall_ms,
         "device_busy_ms_per_request": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_launches_per_request": sum(c for _, _, c in rows),
+        "layers_ms_per_request": summary["by_module"],
+        "replays": summary["replays"],
         "kernels": [{"name": k[:120], "ms_per_request": ms,
                      "calls_per_request": c, "share_of_busy": ms / busy_ms}
                     for k, ms, c in rows[:top]],

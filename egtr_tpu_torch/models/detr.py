@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from ..config import RESNET50_STAGE_CHANNELS, EgtrConfig
 from ..ops.boxes import inverse_sigmoid
 from ..ops.posenc import sine_position_embedding, sine_position_embedding_full
+from ..utils.profiling import scope
 from .backbone import ResNet50
 from .layers import (Conv, DecoderLayer, Dense, EncoderLayer, Initialized,
                      LayerNorm, MLPHead, constant_init, dropout, level_wh,
@@ -262,7 +263,9 @@ class DeformableDetrBase(Initialized):
                 ) -> Dict[str, torch.Tensor]:
         """pixel_values [B,H,W,3] (NHWC); pixel_mask [B,H,W] (True = valid)
         or None for an unpadded batch (the mask-free path); ``generator``
-        feeds the dropout masks in ``train()`` mode."""
+        feeds the dropout masks in ``train()`` mode. Its parts run under the
+        layer scopes ``backbone``, ``input_proj``, ``encoder`` and
+        ``decoder`` (``utils/profiling.py``)."""
         cfg = self.config
         E = cfg.d_model
         dtype = self.dtype
@@ -270,155 +273,171 @@ class DeformableDetrBase(Initialized):
         B, H_img, W_img, _ = pixel_values.shape
         dev = pixel_values.device
         no_mask = pixel_mask is None
-        if not no_mask:
-            pixel_mask = pixel_mask.bool()
+        with scope("backbone"):
+            if not no_mask:
+                pixel_mask = pixel_mask.bool()
+            feats = self.backbone(pixel_values)
 
-        feats = self.backbone(pixel_values)
-        shapes = level_shapes((H_img, W_img), Lv, cfg.dilation)
-        sources, masks, pos_embeds = [], [], []
-        for lvl in range(Lv):
-            if lvl < len(feats):
-                x = feats[lvl]
-            else:
-                x = feats[-1] if lvl == len(feats) else sources[-1]
-            src = getattr(self, f"input_proj_{lvl}_conv")(x)
-            src = getattr(self, f"input_proj_{lvl}_norm")(src).to(dtype)
-            if tuple(src.shape[2:]) != shapes[lvl]:
-                raise ValueError(f"level {lvl}: conv shape "
-                                 f"{tuple(src.shape[2:])} != {shapes[lvl]}")
-            hh, ww = shapes[lvl]
-            m = None if no_mask else _resize_mask(pixel_mask, shapes[lvl])
-            if cfg.position_embedding_type == "learned":
-                y_emb = self.row_embeddings[torch.arange(hh, device=dev).clamp(max=49)]
-                x_emb = self.column_embeddings[torch.arange(ww, device=dev).clamp(max=49)]
-                pe = torch.cat([x_emb[None, :, :].expand(hh, ww, E // 2),
-                                y_emb[:, None, :].expand(hh, ww, E // 2)],
-                               dim=-1)[None].expand(B, hh, ww, E)
-            elif no_mask:
-                pe = sine_position_embedding_full(
-                    shapes[lvl], E // 2, device=dev).expand(B, hh, ww, E)
-            else:
-                pe = sine_position_embedding(m, E // 2)
-            sources.append(src)
-            masks.append(m)
-            pos_embeds.append(pe)
-
-        # NCHW -> [B, h*w, E], raster order as the JAX package's NHWC reshape
-        source_flatten = torch.cat(
-            [s.flatten(2).transpose(1, 2) for s in sources], dim=1)
-        mask_flatten = None if no_mask else torch.cat(
-            [m.reshape(B, -1) for m in masks], dim=1)
-        pos_flatten = torch.cat(
-            [p.reshape(B, -1, E) + self.level_embed[l][None, None]
-             for l, p in enumerate(pos_embeds)], dim=1).to(dtype)
-
-        # valid ratios (deformable_detr.py:2065-2074)
-        if no_mask:
-            valid_ratios = torch.ones((B, Lv, 2), dtype=torch.float32,
-                                      device=dev)
-        else:
-            vr = []
-            for m in masks:
-                valid_h = m[:, :, 0].sum(1).float()
-                valid_w = m[:, 0, :].sum(1).float()
-                vr.append(torch.stack([valid_w / m.shape[2],
-                                       valid_h / m.shape[1]], dim=-1))
-            valid_ratios = torch.stack(vr, dim=1)             # [B,L,2]
-
-        # ---- encoder ----
-        enc_ref = encoder_reference_points(shapes, valid_ratios)
-        hidden = dropout(source_flatten, cfg.dropout, self.training, generator)
-        for i in range(cfg.encoder_layers):
-            hidden = getattr(self, f"encoder_layer_{i}")(
-                hidden, pos_flatten, enc_ref, shapes, mask_flatten, generator)
-        encoder_hidden = hidden
-
-        # ---- query init ----
-        extra = {}
-        if cfg.two_stage:
-            # proposals from the encoder memory (deformable_detr.py:
-            # 2098-2159, 2306-2337)
-            object_query, output_proposals = gen_encoder_output_proposals(
-                encoder_hidden.float(), mask_flatten, shapes)
-            object_query = self.enc_output_norm(self.enc_output(object_query))
-            cls_head, box_head = self._head(self.n_heads - 1)
-            enc_outputs_class = cls_head(object_query)
-            enc_outputs_coord_logits = box_head(object_query) + output_proposals
-            topk_idx = top_proposals(enc_outputs_class[..., 0],
-                                     cfg.two_stage_num_proposals)
-            topk_coords_logits = torch.gather(
-                enc_outputs_coord_logits, 1,
-                topk_idx[..., None].expand(-1, -1, 4)).detach()
-            reference_points = topk_coords_logits.sigmoid()      # [B,k,4]
-            pos_trans = self.pos_trans_norm(self.pos_trans(
-                proposal_pos_embed(topk_coords_logits, E // 2)))
-            query_pos, target = pos_trans.split(E, dim=2)
-            extra = {"enc_outputs_class": enc_outputs_class,
-                     "enc_outputs_coord_logits": enc_outputs_coord_logits,
-                     "proposal_indices": topk_idx}
-        else:
-            query_pos, target = self.query_position_embeddings.split(E, dim=1)
-            query_pos = query_pos[None].expand(B, cfg.num_queries, E)
-            target = target[None].expand(B, cfg.num_queries, E)
-            reference_points = self.reference_points(query_pos).sigmoid()
-        init_reference = reference_points
-        query_pos = query_pos.to(dtype)
-        target = target.to(dtype)
-
-        # ---- decoder (deformable_detr.py:1853-1939) ----
-        hidden = target
-        inter_hidden, inter_refs, attn_qs, attn_ks = [], [], [], []
-        for i in range(cfg.decoder_layers):
-            if reference_points.shape[-1] == 4:
-                ref_input = reference_points[:, :, None] * torch.cat(
-                    [valid_ratios, valid_ratios], -1)[:, None]
-            else:
-                ref_input = reference_points[:, :, None] * valid_ratios[:, None]
-            hidden, q, k = getattr(self, f"decoder_layer_{i}")(
-                hidden, query_pos, encoder_hidden, ref_input, shapes,
-                mask_flatten, generator)
-            if cfg.with_box_refine:
-                delta = self._head(i)[1](hidden)
-                if reference_points.shape[-1] == 2:
-                    # refs become 4-dim after the first refinement
-                    # (deformable_detr.py:1908-1917)
-                    new_ref = torch.cat(
-                        [delta[..., :2] + inverse_sigmoid(reference_points),
-                         delta[..., 2:]], dim=-1)
+        with scope("input_proj"):
+            shapes = level_shapes((H_img, W_img), Lv, cfg.dilation)
+            sources, masks, pos_embeds = [], [], []
+            for lvl in range(Lv):
+                if lvl < len(feats):
+                    x = feats[lvl]
                 else:
-                    new_ref = delta + inverse_sigmoid(reference_points)
-                reference_points = new_ref.sigmoid().detach()
-            inter_hidden.append(hidden)
-            inter_refs.append(reference_points)
-            attn_qs.append(q)
-            attn_ks.append(k)
+                    x = feats[-1] if lvl == len(feats) else sources[-1]
+                src = getattr(self, f"input_proj_{lvl}_conv")(x)
+                src = getattr(self, f"input_proj_{lvl}_norm")(src).to(dtype)
+                if tuple(src.shape[2:]) != shapes[lvl]:
+                    raise ValueError(
+                        f"level {lvl}: conv shape {tuple(src.shape[2:])} "
+                        f"!= {shapes[lvl]}")
+                hh, ww = shapes[lvl]
+                m = None if no_mask else _resize_mask(pixel_mask, shapes[lvl])
+                if cfg.position_embedding_type == "learned":
+                    y_emb = self.row_embeddings[torch.arange(hh, device=dev).clamp(max=49)]
+                    x_emb = self.column_embeddings[torch.arange(ww, device=dev).clamp(max=49)]
+                    pe = torch.cat([x_emb[None, :, :].expand(hh, ww, E // 2),
+                                    y_emb[:, None, :].expand(hh, ww, E // 2)],
+                                   dim=-1)[None].expand(B, hh, ww, E)
+                elif no_mask:
+                    pe = sine_position_embedding_full(
+                        shapes[lvl], E // 2, device=dev).expand(B, hh, ww, E)
+                else:
+                    pe = sine_position_embedding(m, E // 2)
+                sources.append(src)
+                masks.append(m)
+                pos_embeds.append(pe)
 
-        # ---- per-layer class/box outputs (egtr.py:286-314) ----
-        outputs_classes, outputs_coords = [], []
-        for lvl in range(cfg.decoder_layers):
-            ref = init_reference if lvl == 0 else inter_refs[lvl - 1]
-            ref = inverse_sigmoid(ref)
-            cls_head, box_head = self._head(lvl)
-            logits = cls_head(inter_hidden[lvl])
-            delta = box_head(inter_hidden[lvl])
-            if ref.shape[-1] == 4:
-                coord_logits = delta + ref
+            # NCHW -> [B, h*w, E], raster order as the JAX package's NHWC
+            # reshape
+            source_flatten = torch.cat(
+                [s.flatten(2).transpose(1, 2) for s in sources], dim=1)
+            mask_flatten = None if no_mask else torch.cat(
+                [m.reshape(B, -1) for m in masks], dim=1)
+            pos_flatten = torch.cat(
+                [p.reshape(B, -1, E) + self.level_embed[l][None, None]
+                 for l, p in enumerate(pos_embeds)], dim=1).to(dtype)
+
+            # valid ratios (deformable_detr.py:2065-2074)
+            if no_mask:
+                valid_ratios = torch.ones((B, Lv, 2), dtype=torch.float32,
+                                          device=dev)
             else:
-                coord_logits = torch.cat([delta[..., :2] + ref,
-                                          delta[..., 2:]], dim=-1)
-            outputs_classes.append(logits)
-            outputs_coords.append(coord_logits.sigmoid())
+                vr = []
+                for m in masks:
+                    valid_h = m[:, :, 0].sum(1).float()
+                    valid_w = m[:, 0, :].sum(1).float()
+                    vr.append(torch.stack([valid_w / m.shape[2],
+                                           valid_h / m.shape[1]], dim=-1))
+                valid_ratios = torch.stack(vr, dim=1)             # [B,L,2]
+            enc_ref = encoder_reference_points(shapes, valid_ratios)
 
-        return {
-            "last_hidden_state": inter_hidden[-1],
-            "logits": outputs_classes[-1],
-            "pred_boxes": outputs_coords[-1],
-            "all_logits": torch.stack(outputs_classes, dim=1),   # [B,Lyr,Q,C]
-            "all_pred_boxes": torch.stack(outputs_coords, dim=1),
-            "attention_queries": torch.stack(attn_qs, dim=1),    # [B,Lyr,H,Q,Dh]
-            "attention_keys": torch.stack(attn_ks, dim=1),
-            "init_reference_points": init_reference,
-            "intermediate_reference_points": torch.stack(inter_refs, dim=1),
-            "encoder_last_hidden_state": encoder_hidden,
-            **extra,
-        }
+        with scope("encoder"):
+            hidden = dropout(source_flatten, cfg.dropout, self.training,
+                             generator)
+            for i in range(cfg.encoder_layers):
+                hidden = getattr(self, f"encoder_layer_{i}")(
+                    hidden, pos_flatten, enc_ref, shapes, mask_flatten,
+                    generator)
+            encoder_hidden = hidden
+
+        with scope("decoder"):
+            # ---- query init ----
+            extra = {}
+            if cfg.two_stage:
+                # proposals from the encoder memory (deformable_detr.py:
+                # 2098-2159, 2306-2337)
+                object_query, output_proposals = (
+                    gen_encoder_output_proposals(encoder_hidden.float(),
+                                                 mask_flatten, shapes))
+                object_query = self.enc_output_norm(
+                    self.enc_output(object_query))
+                cls_head, box_head = self._head(self.n_heads - 1)
+                enc_outputs_class = cls_head(object_query)
+                enc_outputs_coord_logits = (box_head(object_query)
+                                            + output_proposals)
+                topk_idx = top_proposals(enc_outputs_class[..., 0],
+                                         cfg.two_stage_num_proposals)
+                topk_coords_logits = torch.gather(
+                    enc_outputs_coord_logits, 1,
+                    topk_idx[..., None].expand(-1, -1, 4)).detach()
+                reference_points = topk_coords_logits.sigmoid()      # [B,k,4]
+                pos_trans = self.pos_trans_norm(self.pos_trans(
+                    proposal_pos_embed(topk_coords_logits, E // 2)))
+                query_pos, target = pos_trans.split(E, dim=2)
+                extra = {"enc_outputs_class": enc_outputs_class,
+                         "enc_outputs_coord_logits": enc_outputs_coord_logits,
+                         "proposal_indices": topk_idx}
+            else:
+                query_pos, target = self.query_position_embeddings.split(
+                    E, dim=1)
+                query_pos = query_pos[None].expand(B, cfg.num_queries, E)
+                target = target[None].expand(B, cfg.num_queries, E)
+                reference_points = self.reference_points(query_pos).sigmoid()
+            init_reference = reference_points
+            query_pos = query_pos.to(dtype)
+            target = target.to(dtype)
+
+            # ---- decoder (deformable_detr.py:1853-1939) ----
+            hidden = target
+            inter_hidden, inter_refs, attn_qs, attn_ks = [], [], [], []
+            for i in range(cfg.decoder_layers):
+                if reference_points.shape[-1] == 4:
+                    ref_input = reference_points[:, :, None] * torch.cat(
+                        [valid_ratios, valid_ratios], -1)[:, None]
+                else:
+                    ref_input = (reference_points[:, :, None]
+                                 * valid_ratios[:, None])
+                hidden, q, k = getattr(self, f"decoder_layer_{i}")(
+                    hidden, query_pos, encoder_hidden, ref_input, shapes,
+                    mask_flatten, generator)
+                if cfg.with_box_refine:
+                    delta = self._head(i)[1](hidden)
+                    if reference_points.shape[-1] == 2:
+                        # refs become 4-dim after the first refinement
+                        # (deformable_detr.py:1908-1917)
+                        new_ref = torch.cat(
+                            [delta[..., :2]
+                             + inverse_sigmoid(reference_points),
+                             delta[..., 2:]], dim=-1)
+                    else:
+                        new_ref = delta + inverse_sigmoid(reference_points)
+                    reference_points = new_ref.sigmoid().detach()
+                inter_hidden.append(hidden)
+                inter_refs.append(reference_points)
+                attn_qs.append(q)
+                attn_ks.append(k)
+
+            # ---- per-layer class/box outputs (egtr.py:286-314) ----
+            outputs_classes, outputs_coords = [], []
+            for lvl in range(cfg.decoder_layers):
+                ref = init_reference if lvl == 0 else inter_refs[lvl - 1]
+                ref = inverse_sigmoid(ref)
+                cls_head, box_head = self._head(lvl)
+                logits = cls_head(inter_hidden[lvl])
+                delta = box_head(inter_hidden[lvl])
+                if ref.shape[-1] == 4:
+                    coord_logits = delta + ref
+                else:
+                    coord_logits = torch.cat([delta[..., :2] + ref,
+                                              delta[..., 2:]], dim=-1)
+                outputs_classes.append(logits)
+                outputs_coords.append(coord_logits.sigmoid())
+
+            return {
+                "last_hidden_state": inter_hidden[-1],
+                "logits": outputs_classes[-1],
+                "pred_boxes": outputs_coords[-1],
+                # [B,Lyr,Q,C]
+                "all_logits": torch.stack(outputs_classes, dim=1),
+                "all_pred_boxes": torch.stack(outputs_coords, dim=1),
+                # [B,Lyr,H,Q,Dh]
+                "attention_queries": torch.stack(attn_qs, dim=1),
+                "attention_keys": torch.stack(attn_ks, dim=1),
+                "init_reference_points": init_reference,
+                "intermediate_reference_points": torch.stack(inter_refs,
+                                                             dim=1),
+                "encoder_last_hidden_state": encoder_hidden,
+                **extra,
+            }

@@ -36,6 +36,7 @@ from ..config import EgtrConfig
 from ..parallel import dist
 from ..parallel.tensor_parallel import (RowSplit, copy_to_model_group,
                                         gather_rows)
+from ..utils.profiling import scope
 from .detr import DeformableDetrBase, torch_dtype
 from .layers import Dense, Initialized, _matmul_f32, normal_init, zeros
 
@@ -229,23 +230,27 @@ class EgtrModel(Initialized):
                 pixel_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
-        """``generator`` feeds the dropout masks in ``train()`` mode."""
+        """``generator`` feeds the dropout masks in ``train()`` mode. The
+        relation head runs under the layer scope ``relation_head``
+        (``utils/profiling.py``)."""
         cfg = self.config
         base_out = self.model(pixel_values, pixel_mask, generator)
-        head_out = self.relation_head(
-            base_out["attention_queries"], base_out["attention_keys"],
-            base_out["last_hidden_state"], base_out["logits"],
-            triplet_dist=self.triplet_dist if cfg.use_freq_bias else None)
-        pred_rel_logits = head_out["pred_rel_logits"]
-        if cfg.logit_adjustment:
-            # post-hoc logit adjustment (egtr.py:507-512)
-            pred_rel_logits = pred_rel_logits - cfg.logit_adj_tau * torch.log(
-                self.rel_dist)
-        return {
-            **base_out,
-            "pred_rel_logits": head_out["pred_rel_logits"],
-            "pred_connectivity_logits": head_out["pred_connectivity_logits"],
-            "pred_rel": pred_rel_logits.sigmoid(),
-            "pred_connectivity": head_out["pred_connectivity_logits"].sigmoid(),
-            "rel_gate_mean": head_out["rel_gate_mean"],
-        }
+        with scope("relation_head"):
+            head_out = self.relation_head(
+                base_out["attention_queries"], base_out["attention_keys"],
+                base_out["last_hidden_state"], base_out["logits"],
+                triplet_dist=self.triplet_dist if cfg.use_freq_bias else None)
+            pred_rel_logits = head_out["pred_rel_logits"]
+            connectivity = head_out["pred_connectivity_logits"]
+            if cfg.logit_adjustment:
+                # post-hoc logit adjustment (egtr.py:507-512)
+                pred_rel_logits = (pred_rel_logits - cfg.logit_adj_tau
+                                   * torch.log(self.rel_dist))
+            return {
+                **base_out,
+                "pred_rel_logits": head_out["pred_rel_logits"],
+                "pred_connectivity_logits": connectivity,
+                "pred_rel": pred_rel_logits.sigmoid(),
+                "pred_connectivity": connectivity.sigmoid(),
+                "rel_gate_mean": head_out["rel_gate_mean"],
+            }

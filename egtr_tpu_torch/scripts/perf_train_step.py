@@ -24,11 +24,12 @@ the JAX probe sets (``use_remat``, ``remat_policy``,
 
 It runs on the GPU unless ``--device cpu`` is given (and raises where CUDA
 is absent). ``--profile K`` adds a torch.profiler breakdown of K more steps:
-device time per step by kernel, the device's idle share, and the device
-time of the Hungarian matcher's kernel (``lsap``). On the card the step is
-the captured program(s) of ``train_step`` (``utils/aot.py``): the first step
-captures them. ``--tiny`` swaps in a 2+2-layer narrow
-model for a rehearsal on the CPU. It defines no benchmark metric.
+device time per step by kernel and by layer scope, the device's idle share,
+and the device time of the Hungarian matcher's kernel (``lsap``). On the
+card the step is the captured program(s) of ``train_step``
+(``utils/aot.py``): the first step captures them. ``--tiny`` swaps in a
+2+2-layer narrow model for a rehearsal on the CPU. It defines no benchmark
+metric.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from ..models.egtr import EgtrModel
 from ..models.layers import init_params
 from ..train.optim import Optimizer, make_optimizer
 from ..train.train_step import make_train_step
+from ..utils.profiling import summarize_profile
 
 # the recipe's bucket: 800/1333 padded to a multiple of 16
 BUCKET_HW = (800, 1344)
@@ -169,9 +171,10 @@ def kernel_kind(name: str) -> str:
 
 
 def profile_steps(step, batch, generator, n: int, top: int = 30) -> dict:
-    """Device time per step by kernel over ``n`` steps (torch.profiler), the
-    device's idle share, and the matcher kernel's device time and launches
-    per step."""
+    """Device time per step by kernel and by layer scope over ``n`` steps
+    (torch.profiler; the replays launched and those read by their layer
+    map), the device's idle share, and the matcher kernel's device time and
+    launches per step."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -183,6 +186,7 @@ def profile_steps(step, batch, generator, n: int, top: int = 30) -> dict:
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
     rows, busy_ms = device_rows(prof, n)
+    summary = summarize_profile(prof, n)
     lsap = [(ms, c) for name, ms, c in rows if "lsap_kernel" in name]
     by_kind: Dict[str, float] = {}
     for name, ms, _ in rows:
@@ -195,6 +199,8 @@ def profile_steps(step, batch, generator, n: int, top: int = 30) -> dict:
         "device_launches_per_step": sum(c for _, _, c in rows),
         "device_ms_by_kind": dict(sorted(by_kind.items(),
                                          key=lambda kv: -kv[1])),
+        "layers_ms_per_step": summary["by_module"],
+        "replays": summary["replays"],
         "matches_per_step": sum(c for _, c in lsap),
         "lsap_device_ms_per_step": sum(ms for ms, _ in lsap),
         "kernels": [{"name": k[:120], "ms_per_step": ms,

@@ -14,7 +14,9 @@ averaged over the microbatches. The eval step is one program. On the CPU
 the same functions run eagerly; in a process group a function that holds a
 collective is a program where the group's backend is NCCL, whose
 collectives the graph records, and runs eagerly under gloo
-(``aot.maybe_aot``'s rule).
+(``aot.maybe_aot``'s rule). The step's own parts run under the layer scopes
+``criterion``, ``backward`` and ``optimizer`` (``utils/profiling.py``), the
+model's under its own.
 
 The model and the optimizer carry the state (parameters, AdamW moments) and
 are updated in place; a step returns the metrics only. Randomness (dropout
@@ -72,6 +74,7 @@ from ..ops.criterion import detection_criterion, sgg_criterion
 from ..parallel import dist
 from ..parallel.mesh import Mesh, make_mesh
 from ..utils.aot import maybe_aot
+from ..utils.profiling import scope
 from .optim import Optimizer
 
 
@@ -185,52 +188,57 @@ def make_train_step(model, cfg: EgtrConfig, optimizer: Optimizer,
 
     def loss_fn(mb, generator):
         out = model(mb["pixel_values"], mb.get("pixel_mask"),
-                  generator=generator)
-        if task == "sgg":
-            total, losses = sgg_criterion(out, mb["labels"], cfg, train=True,
-                                          generator=generator,
-                                          valid=mb.get("valid"),
-                                          reduce=reduce)
-            # per-layer mean gate values logged as pseudo-losses
-            # (egtr.py:496-505)
-            for i in range(cfg.decoder_layers + 1):
-                losses[f"rel_gate_{i}"] = out["rel_gate_mean"][i]
-        else:
-            total, losses = detection_criterion(out, mb["labels"], cfg,
-                                                valid=mb.get("valid"),
-                                                reduce=reduce)
+                    generator=generator)
+        with scope("criterion"):
+            if task == "sgg":
+                total, losses = sgg_criterion(
+                    out, mb["labels"], cfg, train=True, generator=generator,
+                    valid=mb.get("valid"), reduce=reduce)
+                # per-layer mean gate values logged as pseudo-losses
+                # (egtr.py:496-505)
+                for i in range(cfg.decoder_layers + 1):
+                    losses[f"rel_gate_{i}"] = out["rel_gate_mean"][i]
+            else:
+                total, losses = detection_criterion(out, mb["labels"], cfg,
+                                                    valid=mb.get("valid"),
+                                                    reduce=reduce)
         return total, losses
 
     def grads_mb(mb, generator):
         """One microbatch's forward + backward, its gradients added into
         the buffers; its loss terms as float32 metrics."""
         total, losses = loss_fn(mb, generator)
-        # each data rank backpropagates dp times its share (module docstring)
-        (total * dp if distributed else total).backward()
-        losses["total_loss"] = total
-        return {k: x.detach().float() for k, x in losses.items()}
+        with scope("backward"):
+            # each data rank backpropagates dp times its share (module
+            # docstring)
+            (total * dp if distributed else total).backward()
+        with scope("criterion"):
+            losses["total_loss"] = total
+            return {k: x.detach().float() for k, x in losses.items()}
 
     def apply(metrics, lr_scale):
         """The gradients reduced over the ranks, the grid's scaled by mp,
         the accumulation's mean, the metrics of the global batch, the clip
         and the update."""
-        if reduction is not None:
-            reduction()
-        # the grid's gradients: each rank's rows, averaged over the world
-        grid_grads = [p.grad for p in grid if p.grad is not None]
-        if grid_grads:
-            torch._foreach_mul_(grid_grads, float(mp))
-        if accum_steps > 1:
-            inv = 1.0 / accum_steps
-            torch._foreach_mul_(optimizer.grads(), inv)
-            metrics = {k: x * inv for k, x in metrics.items()}
-        if reduce is not None:
-            metrics = _global_metrics(metrics, reduce, dp)
-        metrics["grad_norm"] = optimizer.step(lr_scale)
-        return metrics
+        with scope("optimizer"):
+            if reduction is not None:
+                reduction()
+            # the grid's gradients: each rank's rows, averaged over the world
+            grid_grads = [p.grad for p in grid if p.grad is not None]
+            if grid_grads:
+                torch._foreach_mul_(grid_grads, float(mp))
+            if accum_steps > 1:
+                inv = 1.0 / accum_steps
+                torch._foreach_mul_(optimizer.grads(), inv)
+                metrics = {k: x * inv for k, x in metrics.items()}
+            if reduce is not None:
+                metrics = _global_metrics(metrics, reduce, dp)
+            metrics["grad_norm"] = optimizer.step(lr_scale)
+            return metrics
 
     def whole_step(mb, generator, lr_scale):
-        optimizer.zero_grad()
+        with scope("optimizer"):
+            optimizer.zero_grad()
         return apply(grads_mb(mb, generator), lr_scale)
 
     # the reduction (and the global metrics) sit in the whole step and the
@@ -260,12 +268,15 @@ def make_train_step(model, cfg: EgtrConfig, optimizer: Optimizer,
                                   device=device)
         if accum_steps == 1:
             return whole_program(mbs[0], generator, lr_scale)
-        optimizer.zero_grad()
+        with scope("optimizer"):
+            optimizer.zero_grad()
         metrics: Dict[str, torch.Tensor] = {}
         for mb in mbs:
             m = grads_program(mb, generator)
-            metrics = m if not metrics else {k: metrics[k] + x
-                                             for k, x in m.items()}
+            if metrics:
+                with scope("criterion"):
+                    m = {k: metrics[k] + x for k, x in m.items()}
+            metrics = m
         return apply_program(metrics, lr_scale)
 
     # the programs, as the JAX step exposes its inner ones
@@ -301,14 +312,14 @@ def make_eval_step(model, cfg: EgtrConfig, task: str = "sgg",
         with torch.no_grad():
             out = model(batch["pixel_values"], batch.get("pixel_mask"))
             valid = batch.get("valid")
-            if task == "sgg":
-                total, losses = sgg_criterion(out, batch["labels"], cfg,
-                                              train=False, valid=valid,
-                                              reduce=reduce)
-            else:
-                total, losses = detection_criterion(out, batch["labels"], cfg,
-                                                    valid=valid,
-                                                    reduce=reduce)
+            with scope("criterion"):
+                if task == "sgg":
+                    total, losses = sgg_criterion(out, batch["labels"], cfg,
+                                                  train=False, valid=valid,
+                                                  reduce=reduce)
+                else:
+                    total, losses = detection_criterion(
+                        out, batch["labels"], cfg, valid=valid, reduce=reduce)
         losses["total_loss"] = total
         return out, losses
 

@@ -69,7 +69,12 @@ back to eager.
 A replay launches its kernels without their wrappers, so
 ``msda_cuda.launches`` counts the warm-ups' launches and not the replays'
 (the capture launches nothing); the card's own count of a replay's kernels
-is in a torch.profiler trace, which sees inside graphs.
+is in a torch.profiler trace, which sees inside graphs. Each program keeps
+its layer map (``utils/profiling.py``: its work nodes in order, each under
+the model's scope that made it), its set-up split into ``warmup_s`` and
+``capture_s``, and is listed by ``profiling.programs()`` while it lives;
+while a profiler runs its calls open the spans ``egtr.dispatch/<tag>``,
+``egtr.copy_in/<tag>``, ``egtr.launch/<tag>`` and ``egtr.copy_out/<tag>``.
 
 What the JAX module has and this one has not: an on-disk stage (a CUDA graph
 cannot be serialized; the port's persistent stage is the kernels' nvcc build
@@ -90,6 +95,7 @@ import torch
 
 from ..ops import msda
 from ..parallel import dist
+from . import profiling
 
 _TENSOR = "tensor"
 
@@ -225,9 +231,12 @@ class Program:
                       if isinstance(g, torch.Generator)
                       and g.device.type == "cuda"]
         stream = capture_stream(device)
+        self.spans = {part: f"{profiling.SPAN_PREFIX}{part}/{tag}" for part
+                      in ("dispatch", "copy_in", "launch", "copy_out")}
         t0 = time.perf_counter()
         release_cached(device)
         self.warmup_outputs = None
+        self.warmup_s = 0.0
         if warm_up:
             stream.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(stream):
@@ -239,6 +248,8 @@ class Program:
             # the warm-up's blocks back to the card: the pool grows into
             # them, and the static inputs take segments of their own
             release_cached(device)
+            self.warmup_s = time.perf_counter() - t0
+        t1 = t0 + self.warmup_s
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
             self.static_in = [t.detach().clone() for t in leaves]
@@ -248,21 +259,30 @@ class Program:
         with torch.cuda.graph(self.graph, pool=graph_pool(device),
                               stream=stream,
                               capture_error_mode="thread_local"):
-            self.static_out = fn(*unflatten(self.treedef, self.static_in))
+            with profiling.capture_layers() as layers:
+                self.static_out = fn(*unflatten(self.treedef,
+                                                self.static_in))
         torch.cuda.current_stream(device).wait_stream(stream)
-        self.capture_seconds = time.perf_counter() - t0
-        print(f"[aot] {tag}: captured in {self.capture_seconds:.1f} s",
+        self.capture_s = time.perf_counter() - t1
+        self.layer_map = layers["nodes"]
+        profiling.track(self)
+        print(f"[aot] {tag}: warm-up {self.warmup_s:.1f} s, captured in "
+              f"{self.capture_s:.1f} s, {len(self.layer_map)} work nodes",
               flush=True)
 
     def __call__(self, *args):
-        leaves, treedef = flatten(args)
-        if treedef != self.treedef:
-            raise ValueError(f"aot {self.tag}: the arguments' signature is "
-                             "not the program's")
-        for static, t in zip(self.static_in, leaves):
-            static.copy_(t)
-        self.graph.replay()
-        return _clone(self.static_out)
+        with profiling.span(self.spans["dispatch"]):
+            leaves, treedef = flatten(args)
+            if treedef != self.treedef:
+                raise ValueError(f"aot {self.tag}: the arguments' signature "
+                                 "is not the program's")
+        with profiling.span(self.spans["copy_in"]):
+            for static, t in zip(self.static_in, leaves):
+                static.copy_(t)
+        with profiling.span(self.spans["launch"]):
+            self.graph.replay()
+        with profiling.span(self.spans["copy_out"]):
+            return _clone(self.static_out)
 
 
 def _other_leaves(treedef):
@@ -300,13 +320,16 @@ def maybe_aot(fn: Callable, tag: str, device=None,
         return fn
     lockstep = collectives and dist.is_distributed()
     programs: Dict[Any, Program] = {}
+    dispatch = f"{profiling.SPAN_PREFIX}dispatch/{tag}"
 
     def call(*args):
-        leaves, _ = flatten(args)
-        if not any(t.device.type == "cuda" for t in leaves):
+        with profiling.span(dispatch):
+            leaves, _ = flatten(args)
+            on_card = any(t.device.type == "cuda" for t in leaves)
+            key = signature(args) if on_card else None
+            program = programs.get(key)
+        if not on_card:
             return fn(*args)
-        key = signature(args)
-        program = programs.get(key)
         if program is None:
             if lockstep:
                 dist.agree(portable_signature(args),

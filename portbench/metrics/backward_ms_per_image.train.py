@@ -1,0 +1,7 @@
+"""``backward_ms_per_image``: device ms a slice image of the replayed
+programs' work under the layer scope ``backward``
+(``program_trace.scope_ms_per_image``)."""
+
+from portbench.program_trace import layer_reader
+
+read = layer_reader("backward")

@@ -1,0 +1,7 @@
+"""``decoder_ms_per_image``: device ms a slice image of the replayed
+programs' work under the layer scope ``decoder``
+(``program_trace.scope_ms_per_image``)."""
+
+from portbench.program_trace import layer_reader
+
+read = layer_reader("decoder")

@@ -1,0 +1,7 @@
+"""``input_proj_ms_per_image``: device ms a slice image of the replayed
+programs' work under the layer scope ``input_proj``
+(``program_trace.scope_ms_per_image``)."""
+
+from portbench.program_trace import layer_reader
+
+read = layer_reader("input_proj")
