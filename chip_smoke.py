@@ -68,7 +68,9 @@ and no result line. In order it:
    int8 (K5 18, K1 12); then times the three in turns, side by side. Each
    request is the model's captured CUDA graph, one per input signature
    (``utils/aot.py``; the first request captures it), and every launch
-   count, measured on the card (``CardLaunches``), holds over replays;
+   count, measured on the card (``CardLaunches``), holds over replays; the
+   trunk's frozen-BN epilogue kernel (``frozen_bn``) launches once a site,
+   49 a ResNet-50 forward (``fbn_sites``), in this phase, (h), (k) and 18;
 (h) (after phase 16) the exact and the served request as a graph against
    the same request op by op (``infer.infer_eager``): outputs (largest
    delta, bit-equality), launches per forward both ways, ms per request in
@@ -77,6 +79,13 @@ and no result line. In order it:
    image, and the evaluation's forward + post-processing program
    (``runner.infer_program``) replayed on a batch it was not captured
    with, each against eager;
+(k) (after (h)) holds the trunk's frozen-BN epilogue kernel ``frozen_bn``
+   (the JAX package's frozen BN, ReLU and residual, which XLA fuses) against
+   ``backbone.frozen_bn_act_plain`` bit for bit at every site of the
+   608x1008 batch-1 and 800x1344 batch-8 trunks (into a map of its own and
+   in place), times it and the chain of PyTorch kernels it replaces in a
+   CUDA graph beside its bytes, and traces the offline request (batch 8 at
+   800x1344, ``infer.infer``): 49 ``frozen_bn`` a forward;
 8. runs the exact and the served model in float32 (TF32 off) through the
    kernels and through the plain versions and compares logits, boxes and
    relation scores, counting the band indices on which the two runs differ;
@@ -92,8 +101,9 @@ and no result line. In order it:
    (the accumulated one a microbatch program twice and an apply program).
    Checks that every metric is finite, the gradient norm positive, the
    trainable parameters moved, the frozen ones bit-identical, and that each
-   microbatch launched each of the three kernels 12 times and the matcher
-   kernel once per matching (6 with the auxiliary losses);
+   microbatch launched each of the three kernels 12 times, the matcher
+   kernel once per matching (6 with the auxiliary losses) and ``frozen_bn``
+   never (grad mode is on);
 (i) the training step as programs against eager: float32 (TF32 off,
    dropout 0) three steps, each on its own batch and learning-rate scale,
    the graph run's losses, gradient norms, last gradients and parameter
@@ -168,11 +178,12 @@ and no result line. In order it:
    with the flag off, on phase 17's artifact and test split (800/1333,
    bf16, batch 1): R@K and mR@K equal to phase 17's ``metrics_test.json``
    (its test evaluation ran K11's bf16 form, bit-equal to K1, on the model
-   the artifact reloads bit-equal), K1 12 per forward and nothing else; the
-   SGG evaluator's calls of that run replayed with the native matcher and
-   with the numpy loop, host ms of each and the same recalls; the same
-   split with ``--msda_window 16 --msda_band point --msda_int8 true`` (K6
-   18, K4 12, K1 0 per forward), its R@K beside the exact run's; and
+   the artifact reloads bit-equal), K1 12 and ``frozen_bn`` 49 per
+   forward and nothing else; the SGG evaluator's calls of that run
+   replayed with the native matcher and with the numpy loop, host ms of
+   each and the same recalls; the same split with ``--msda_window 16
+   --msda_band point --msda_int8 true`` (K6 18, K4 12, K1 0 per forward),
+   its R@K beside the exact run's; and
    ``--infer_only`` (K1 12 per forward: the warm-up, the timed loop and the
    three decomposition loops), whose fps, strict-sync fps, chained and
    device-busy ms per image and host round trip must be finite and
@@ -274,9 +285,9 @@ and no result line. In order it:
    memory beside (i)'s; the eval step and the runner's forward replayed,
    programs of their own;
 22. prints a ``kernels`` JSON line (with each kernel's launches per rank on
-   the data-parallel paths, the matcher kernel's entry last; the request
-   and train-step graphs beside it), then ``{"ok": true, "device": ...}``
-   last.
+   the data-parallel paths, the matcher kernel's entry and then the trunk's
+   epilogue kernel's last; the request and train-step graphs beside it),
+   then ``{"ok": true, "device": ...}`` last.
 
 The drivers of phases 17-20 run their steps, evaluation forwards and
 requests as captured programs too. A replay launches its kernels without
@@ -1242,7 +1253,8 @@ DEVICE_KERNELS = {
     "msda_bwd_win_rows_kernel": ("msda_bwd_win_rows",
                                  "msda_bwd_win_rows_pp"),
     "msda_bwd_win_value_kernel": ("msda_bwd_win_value",
-                                  "msda_bwd_win_value_pp")}
+                                  "msda_bwd_win_value_pp"),
+    "frozen_bn_kernel": "frozen_bn"}
 
 
 def kernel_of(key):
@@ -1276,7 +1288,8 @@ class CardLaunches:
 
     def __init__(self):
         self.counts = dict.fromkeys(
-            msda_cuda.KERNELS + msda_cuda.MATCHER_KERNELS, 0)
+            msda_cuda.KERNELS + msda_cuda.MATCHER_KERNELS
+            + msda_cuda.BACKBONE_KERNELS, 0)
         self.collectives = {}
         self._prof = None
 
@@ -1385,6 +1398,20 @@ def matcher_launches():
     return _counts()["lsap"]
 
 
+def backbone_launches():
+    """The trunk's frozen-BN epilogue kernel's launches since
+    ``reset_kernel_counts``, counted as ``kernel_counts`` counts."""
+    return _counts()["frozen_bn"]
+
+
+def fbn_sites(cfg):
+    """The frozen-BN epilogue sites of the trunk of a model of ``cfg``: its
+    ``frozen_bn`` launches an inference forward on the card."""
+    from egtr_tpu_torch.models import epilogue_sites
+
+    return epilogue_sites.sites_per_forward(cfg.backbone_blocks)
+
+
 def matches_per_pass(cfg):
     """Hungarian matches per criterion pass (a microbatch of a train step,
     or an evaluation batch's loss): the last layer's, one per earlier
@@ -1440,10 +1467,11 @@ def serve(cfg, label, n_requests):
     with torch.inference_mode():
         out = model(x)
     torch.cuda.synchronize()
-    counts = kernel_counts()
+    counts = {**kernel_counts(), "frozen_bn": backbone_launches()}
     forwards = n_requests + 2 + 1
-    per_forward = forward_counts(
-        cfg, level_shapes(infer.BUCKET_HW, cfg.num_feature_levels))
+    per_forward = {**forward_counts(
+        cfg, level_shapes(infer.BUCKET_HW, cfg.num_feature_levels)),
+        "frozen_bn": fbn_sites(cfg)}
     Q, C, R = cfg.num_queries, cfg.num_labels, cfg.num_rel_labels
     k = min(100, Q * Q)
     expect = {"logits": (1, Q, C), "pred_boxes": (1, Q, 4),
@@ -1821,6 +1849,7 @@ def train(cfg, label, hw, batch_size, steps, lrs=perf_train_step.LRS,
         microbatches += 2
     counts = kernel_counts()
     matched = matcher_launches()
+    trunk = backbone_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     per_microbatch = step_counts(cfg, level_shapes(hw, cfg.num_feature_levels))
     launched = {k: v for k, v in counts.items() if v}
@@ -1862,6 +1891,9 @@ def train(cfg, label, hw, batch_size, steps, lrs=perf_train_step.LRS,
         raise SystemExit(f"train {label}: the matcher kernel launched "
                          f"{matched} times, expected "
                          f"{matches_per_pass(cfg) * microbatches}")
+    if trunk:
+        raise SystemExit(f"train {label}: the frozen-BN kernel launched "
+                         f"{trunk} times under grad mode")
     moved = {group: [0, 0] for group in ("main", "backbone", "initialized")}
     for name, p in model.named_parameters():
         group = optimizer.labels[name]
@@ -1882,7 +1914,7 @@ def train(cfg, label, hw, batch_size, steps, lrs=perf_train_step.LRS,
             raise SystemExit(f"train {label}: only {n_moved} of {n_all} "
                              f"{group} parameters moved")
     return {"counts": counts, "per_microbatch": per_microbatch,
-            "lsap_launches": matched,
+            "lsap_launches": matched, "frozen_bn_launches": trunk,
             "ms_per_step": times, "accumulated_step_ms": accum_times,
             "max_memory_allocated_gb": peak_gb}
 
@@ -2394,6 +2426,7 @@ def drive_evaluate(workdir, driver):
     served_cfg = cfg.replace(msda_window=WINDOW, msda_band="point",
                              msda_int8=True)
     runs, bad, calls = {}, [], []
+    sites = fbn_sites(cfg)  # the artifact's trunk's (ResNet-50's 49)
     # forwards per run; run_fps: one warm-up, the timed loop's, and
     # decomposition loops of ten on the first batch (strict sync, chained,
     # and on the card chained under the profiler)
@@ -2411,9 +2444,10 @@ def drive_evaluate(workdir, driver):
             result = evaluate_egtr.main(argv + extra)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = kernel_counts()
+        counts = {**kernel_counts(), "frozen_bn": backbone_launches()}
         expect = {k: v * forwards
                   for k, v in forward_counts(run_cfg, shapes).items()}
+        expect["frozen_bn"] = sites * forwards
         if counts != expect:
             bad.append(f"{label}: launches {counts}, expected {expect}")
         runs[label] = {"seconds": seconds, "counts": counts,
@@ -4715,7 +4749,8 @@ def check_request_graphs(models, x):
     results = {}
     shapes = level_shapes(infer.BUCKET_HW, 4)
     for label, model in models.items():
-        per_forward = forward_counts(model.config, shapes)
+        per_forward = {**forward_counts(model.config, shapes),
+                       "frozen_bn": fbn_sites(model.config)}
         outs, counts, peaks = {}, {}, {}
         for way, request in (("graph", infer.infer),
                              ("eager", infer.infer_eager)):
@@ -4723,7 +4758,8 @@ def check_request_graphs(models, x):
             torch.cuda.reset_peak_memory_stats()
             reset_kernel_counts()
             outs[way] = request(model, x)
-            counts[way] = kernel_counts()
+            counts[way] = {**kernel_counts(),
+                           "frozen_bn": backbone_launches()}
             peaks[way] = _memory()
         delta = float((outs["graph"] - outs["eager"]).abs().max())
         equal = bool(torch.equal(outs["graph"], outs["eager"]))
@@ -4819,6 +4855,125 @@ def replayed_on_other_inputs(model, x):
             and moved and run_moved):
         raise SystemExit(f"(h) a replay on other inputs: {result}")
     return result
+
+
+# (k): the offline request's replays after the one that captures it
+FBN_OFFLINE_REPLAYS = 2
+L2_BYTES = 50 * 2 ** 20
+
+
+def frozen_bn_rows():
+    """The trunk's frozen-BN epilogue kernel (``frozen_bn``) through its
+    wrapper at every site (``epilogue_sites.trunk_sites``) of the serving
+    trunk (608x1008, batch 1) and the offline one (800x1344, batch 8) of a
+    bfloat16 ResNet-50, on seeded maps and norm statistics: into a map of
+    its own and into x itself against ``backbone.frozen_bn_act_plain``, bit
+    for bit; its device time in a CUDA graph beside that of the chain of
+    PyTorch kernels it replaces and beside its bytes (each map read or
+    written once, the norms' vectors once) at 3.35 TB/s, and whether those
+    fit the L2 (so that repeated calls find them warm). Returns (a row a
+    site, each trunk's sums by bucket)."""
+    from egtr_tpu_torch.models import backbone, epilogue_sites
+
+    bits = epilogue_sites.bits
+    rows, trunks = [], {}
+    for bucket, (hw, batch) in epilogue_sites.BUCKETS.items():
+        sites = epilogue_sites.trunk_sites(hw, batch)
+        total = {"graph_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                 "bytes": 0}
+        for site, (shape, dtype, form) in enumerate(sites):
+            x, residual, bn, residual_bn = epilogue_sites.site_inputs(
+                shape, dtype, form, site, DEVICE)
+            params = bn.vectors()
+            residual_params = (None if residual_bn is None
+                               else residual_bn.vectors())
+            out = torch.empty_like(x)
+
+            def kernel():
+                return msda_cuda.frozen_bn(x, params, residual,
+                                           residual_params, out=out)
+
+            def plain():
+                return backbone.frozen_bn_act_plain(x, bn, residual,
+                                                    residual_bn)
+
+            with torch.inference_mode():
+                want, got = plain(), kernel()
+                err = float((got.float() - want.float()).abs().max())
+                equal = bool(torch.equal(bits(got), bits(want)))
+                same = x.clone()
+                msda_cuda.frozen_bn(same, params, residual, residual_params,
+                                    out=same)
+                in_place = bool(torch.equal(bits(same), bits(want)))
+                ms, plain_ms = graph_ms(kernel), graph_ms(plain)
+            nbytes = ((2 if residual is None else 3) * x.numel()
+                      * x.element_size()
+                      + 4 * shape[1] * (4 if residual_bn is None else 8))
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            rows.append({"bucket": bucket, "site": site,
+                         "shape": list(shape), "dtype": str(dtype)[6:],
+                         "form": form, "graph_ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "times_bound": ms / bound_ms,
+                         "bytes": nbytes, "in_l2": nbytes <= L2_BYTES,
+                         "max_abs_err": err, "bit_equal": equal,
+                         "bit_equal_in_place": in_place})
+            for key in total:
+                total[key] += rows[-1][key]
+            del x, residual, out, want, got, same
+        trunks[bucket] = {"hw": list(hw), "batch": batch,
+                          "sites": len(sites), **total,
+                          "times_bound": total["graph_ms"]
+                          / total["bound_ms"]}
+        torch.cuda.empty_cache()
+    return rows, trunks
+
+
+def check_frozen_bn(cfg):
+    """(k) ``frozen_bn_rows``: every site of the serving and the offline
+    trunk bit-equal to the expression. Then the offline request,
+    ``infer.infer`` of a model of ``cfg`` at batch 8 at 800x1344, captured
+    and replayed: its launches on the card's trace, ``frozen_bn`` once a
+    site and the MSDA kernels' ``forward_counts``, a forward."""
+    from egtr_tpu_torch.models import epilogue_sites
+
+    rows, trunks = frozen_bn_rows()
+    bad = [r for r in rows if not (r["bit_equal"]
+                                   and r["bit_equal_in_place"])]
+    print("(k) frozen_bn at every site, device ms a trunk in a CUDA graph "
+          "(kernel | the chain it replaces | bytes at 3.35 TB/s): "
+          + "; ".join(f"{b} {t['hw'][0]}x{t['hw'][1]} b{t['batch']}, "
+                      f"{t['sites']} sites: {t['graph_ms']:.4f} | "
+                      f"{t['plain_ms']:.4f} | {t['bound_ms']:.4f} "
+                      f"({t['times_bound']:.2f}x)"
+                      for b, t in trunks.items())
+          + f"; bit-equal to the expression at every site: {not bad}",
+          flush=True)
+    if bad:
+        where = [(r["bucket"], r["site"], r["form"]) for r in bad]
+        raise SystemExit(f"(k) frozen_bn differs from the expression at "
+                         f"{where}")
+    hw, batch = epilogue_sites.BUCKETS["offline"]
+    model, x = infer.build(cfg, batch, *hw, seed=0)
+    forwards = 1 + FBN_OFFLINE_REPLAYS
+    reset_kernel_counts()
+    for _ in range(forwards):
+        packed = infer.infer(model, x)
+    torch.cuda.synchronize()
+    counts = {**kernel_counts(), "frozen_bn": backbone_launches()}
+    per_forward = {**forward_counts(cfg, level_shapes(
+        hw, cfg.num_feature_levels)), "frozen_bn": fbn_sites(cfg)}
+    expect = {k: v * forwards for k, v in per_forward.items()}
+    print(f"(k) offline request {hw[0]}x{hw[1]} b{batch} (infer.infer, "
+          f"{forwards} forwards): launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    if counts != expect or not torch.isfinite(packed).all():
+        raise SystemExit(f"(k) offline request: launches {counts}, "
+                         f"expected {expect}, or non-finite outputs")
+    del model, x, packed
+    torch.cuda.empty_cache()
+    return {"rows": rows, "trunks": trunks, "offline_launches": counts,
+            "offline_forwards": forwards,
+            "sites_per_forward": per_forward["frozen_bn"]}
 
 
 TRAIN_GRAPH_TURNS = 2
@@ -5323,6 +5478,7 @@ def main() -> int:
     request_graphs = check_request_graphs(
         {"exact": exact_model, "served": served_model}, x)
     del exact_model, served_model, tile_model
+    fbn = check_frozen_bn(cfg)
     model_errs = compare_f32(cfg, "exact", MODEL_ATOL, cpu=True)
     served_errs = compare_f32(served_cfg, "served", SERVED_MODEL_ATOL,
                               cpu=True)
@@ -5514,6 +5670,15 @@ def main() -> int:
     pretrained = pretrain["counts"]
     fwd_launches = (exact_counts["msda_fwd"] + tile_counts["msda_fwd"]
                     + counts["msda_fwd"])
+    # the trunk's epilogue kernel on the inference paths
+    fbn_launches = {
+        "serving": exact_counts["frozen_bn"],
+        "serving_served": served_counts["frozen_bn"],
+        "serving_tile": tile_counts["frozen_bn"],
+        "offline": fbn["offline_launches"]["frozen_bn"],
+        **{f"evaluate{'' if label == 'exact' else '_' + label}":
+           run["frozen_bn"] for label, run in evaluated.items()}}
+    fbn_main = fbn["trunks"]["offline"]
     kernels = {"kernels": [{
         "name": "msda_fwd",
         "route": "cuda",
@@ -5688,6 +5853,26 @@ def main() -> int:
          "optimal_vs_scipy": all(r["optimal_vs_scipy"]
                                  for r in lsap["rows"]),
          "calls": lsap["rows"]},
+        {"name": "frozen_bn", "route": "cuda",
+         "source": "egtr_tpu_torch/csrc/frozen_bn.cu",
+         "replaces": "egtr_tpu/models/backbone.py:71",
+         "replaces_note": "device code outside Pallas: XLA's fusion of "
+                          "FrozenBatchNorm, the ReLU and the residual add, "
+                          "one pass a site",
+         "launches": sum(fbn_launches.values()),
+         **{f"launches_{k}": v for k, v in fbn_launches.items()},
+         "launches_training": exact_train["frozen_bn_launches"],
+         "sites_per_forward": fbn["sites_per_forward"],
+         "max_abs_err": max(r["max_abs_err"] for r in fbn["rows"]),
+         "bit_equal_to_plain": all(r["bit_equal"] and r["bit_equal_in_place"]
+                                   for r in fbn["rows"]),
+         # a trunk's sites summed, at the offline bucket; the serving
+         # bucket's beside them
+         "ms": fbn_main["graph_ms"], "graph_ms": fbn_main["graph_ms"],
+         "plain_ms": fbn_main["plain_ms"], "bound_ms": fbn_main["bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "times_bound": fbn_main["times_bound"],
+         "trunks": fbn["trunks"], "calls": fbn["rows"]},
     ], "serve_ms_per_request": {"exact": exact_ms, "served": served_ms,
                                 "tile": tile_ms},
         "request_graphs": request_graphs,

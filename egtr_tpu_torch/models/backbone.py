@@ -14,16 +14,26 @@ and C3-C5 come out float32 at any compute dtype.
 The JAX stem computes the 7x7/s2 conv in a space-to-depth form for the TPU;
 that is a relayout of the same sum, so the port uses the plain conv on the
 same [7,7,3,64] weights.
+
+Each frozen BN with what follows it (the ReLU; in a bottleneck's last one
+the residual, through the downsample BN in a stage's first block) is one
+epilogue, :func:`frozen_bn_act`: 49 sites in ResNet-50. XLA fuses it for the
+JAX package; here an inference forward on the card (grad mode off) runs it
+as one ``frozen_bn`` kernel a site, and the autograd path and the CPU run
+PyTorch's expression (:func:`frozen_bn_act_plain`). Every activation is
+channels_last, since the NHWC pixels are permuted and the convolutions keep
+the format.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import msda_cuda
 from .layers import Conv, Initialized, ones, zeros
 
 
@@ -45,6 +55,46 @@ class FrozenBatchNorm(Initialized):
         shift = self.bias - self.running_mean * scale
         return (x * scale.to(x.dtype)[:, None, None]
                 + shift.to(x.dtype)[:, None, None])
+
+    def vectors(self) -> Tuple[torch.Tensor, ...]:
+        """The four parameter vectors, in the ``frozen_bn`` kernel's order."""
+        return self.weight, self.bias, self.running_mean, self.running_var
+
+
+def frozen_bn_act_plain(x: torch.Tensor, bn: FrozenBatchNorm,
+                        residual: Optional[torch.Tensor] = None,
+                        residual_bn: Optional[FrozenBatchNorm] = None
+                        ) -> torch.Tensor:
+    """relu(bn(x) [+ residual_bn(residual) | + residual]) as PyTorch's
+    kernels compute it: the autograd path, the CPU's, and what the kernel
+    is held to."""
+    out = bn(x)
+    if residual is not None:
+        out = out + (residual if residual_bn is None
+                     else residual_bn(residual))
+    return F.relu(out)
+
+
+def _takes_kernel(x: torch.Tensor) -> bool:
+    """Whether an inference map goes to the ``frozen_bn`` kernel: on a
+    card, always (the kernel refuses a map in another layout than
+    channels_last); on the CPU, never."""
+    return x.device.type == "cuda"
+
+
+def frozen_bn_act(x: torch.Tensor, bn: FrozenBatchNorm,
+                  residual: Optional[torch.Tensor] = None,
+                  residual_bn: Optional[FrozenBatchNorm] = None
+                  ) -> torch.Tensor:
+    """The epilogue of :func:`frozen_bn_act_plain`, bit for bit. With grad
+    mode off, on a card, one ``frozen_bn`` launch that writes the result
+    into x (a convolution's output, which nothing else reads); otherwise
+    PyTorch's expression."""
+    if not torch.is_grad_enabled() and _takes_kernel(x):
+        return msda_cuda.frozen_bn(
+            x, bn.vectors(), residual,
+            None if residual_bn is None else residual_bn.vectors(), out=x)
+    return frozen_bn_act_plain(x, bn, residual, residual_bn)
 
 
 class Bottleneck(nn.Module):
@@ -68,13 +118,13 @@ class Bottleneck(nn.Module):
             self.downsample_bn = FrozenBatchNorm(out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        identity = x
+        out = frozen_bn_act(self.conv1(x), self.bn1)
+        out = frozen_bn_act(self.conv2(out), self.bn2)
+        out = self.conv3(out)
         if self.has_downsample:
-            identity = self.downsample_bn(self.downsample_conv(x))
-        return F.relu(out + identity)
+            return frozen_bn_act(out, self.bn3, self.downsample_conv(x),
+                                 self.downsample_bn)
+        return frozen_bn_act(out, self.bn3, x)
 
 
 class ResNet50(nn.Module):
@@ -111,7 +161,7 @@ class ResNet50(nn.Module):
     def forward(self, pixel_values: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """pixel_values: [B, H, W, 3] (NHWC)."""
         x = pixel_values.to(self.dtype).permute(0, 3, 1, 2)
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = frozen_bn_act(self.conv1(x), self.bn1)
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         outs = []
         for stage, n_blocks in enumerate(self.blocks):

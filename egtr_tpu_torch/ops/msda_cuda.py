@@ -56,6 +56,13 @@ the Hungarian matcher's assignment, which replaces the JAX package's in-jit
 solver ``egtr_tpu/ops/matcher.py:_lsa_single`` (device code outside Pallas);
 ``matcher.hungarian_match`` launches it on CUDA tensors and runs its plain
 version ``matcher.lsap_plain`` on CPU tensors.
+
+And one more: ``frozen_bn`` (``frozen_bn.cu``), the ResNet trunk's frozen-BN
+epilogue (the norm's affine, the residual, itself through a norm or not,
+and the ReLU) in one pass over a channels_last map, which replaces the
+chain of PyTorch kernels that ``models/backbone.py``'s expression launches
+(XLA fuses it for the JAX package). ``backbone.frozen_bn_act`` launches it
+on a CUDA map with grad mode off and runs the expression otherwise.
 """
 
 from __future__ import annotations
@@ -85,6 +92,7 @@ SOURCE_WIN = _CSRC / "msda_fwd_win.cu"
 SOURCE_BWD_WIN = _CSRC / "msda_bwd_win.cu"
 SOURCE_BP = _CSRC / "msda_fwd_bp.cu"
 SOURCE_LSAP = _CSRC / "lsap.cu"
+SOURCE_FROZEN_BN = _CSRC / "frozen_bn.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -101,6 +109,9 @@ KERNELS = ("msda_fwd", "msda_bwd_rows", "msda_bwd_value", "msda_fwd_q",
 # The matcher's assignment kernel, counted beside the MSDA kernels.
 MATCHER_KERNELS = ("lsap",)
 
+# The trunk's frozen-BN epilogue, counted beside them.
+BACKBONE_KERNELS = ("frozen_bn",)
+
 # Kernel launches since the counts were last set to 0 (reset_launches), by
 # kernel; a wrapper raises its kernel's count by one per launch
 # (``_count``) and nowhere else. A call made while a CUDA graph is being
@@ -108,7 +119,8 @@ MATCHER_KERNELS = ("lsap",)
 # graph, whose replays launch it without the wrapper, so these counts are
 # the eager launches only; chip_smoke.py counts the replays' from a
 # torch.profiler trace of the card.
-launches: Dict[str, int] = dict.fromkeys(KERNELS + MATCHER_KERNELS, 0)
+launches: Dict[str, int] = dict.fromkeys(
+    KERNELS + MATCHER_KERNELS + BACKBONE_KERNELS, 0)
 
 
 def reset_launches() -> None:
@@ -132,7 +144,7 @@ def sources() -> Dict[str, Path]:
     return {"msda_fwd": SOURCE, "msda_bwd": SOURCE_BWD,
             "msda_fwd_q": SOURCE_Q, "msda_fwd_win": SOURCE_WIN,
             "msda_bwd_win": SOURCE_BWD_WIN, "msda_fwd_bp": SOURCE_BP,
-            "lsap": SOURCE_LSAP}
+            "lsap": SOURCE_LSAP, "frozen_bn": SOURCE_FROZEN_BN}
 
 
 def _nvcc() -> str:
@@ -600,6 +612,8 @@ _FUNCTIONS = {
     "msda_fwd_bp": ("msda_fwd_bp", [_VOID_P] * 4 + [ctypes.POINTER(_INT)]
                     + [_INT] * 8 + [_VOID_P]),
     "lsap": ("lsap", [_VOID_P] * 5 + [_INT] * 3 + _GEOM_ARG),
+    "frozen_bn": ("frozen_bn", [_VOID_P] * 11 + [ctypes.c_long] + [_INT] * 3
+                  + _GEOM_ARG),
 }
 
 
@@ -1548,3 +1562,131 @@ def lsap(cost: torch.Tensor, num_boxes: torch.Tensor
         raise RuntimeError(f"lsap kernel launch failed: CUDA error {rc}")
     _count("lsap")
     return query_index, matching_cost, gt_index
+
+
+# The trunk's frozen-BN epilogue (frozen_bn.cu): one pass over a
+# channels_last map in 16-byte vectors of one pixel's channels.
+FBN_THREADS = 256   # FBN_THREADS in frozen_bn.cu
+FBN_UNROLL = 4      # FBN_UNROLL: vectors a thread, all loaded before use
+FBN_VEC_BYTES = 16  # FBN_VEC_BYTES: a vector
+
+
+@dataclass(frozen=True)
+class FrozenBnGeometry:
+    """The launch of ``frozen_bn`` on a map; the fields go to the kernel as
+    an int array, in their order (``geometry_ok`` in frozen_bn.cu re-checks
+    them). Vector v holds elements [v * vec, v * vec + vec) of the map, the
+    channels from (v % (C / vec)) * vec, and falls to thread v % threads of
+    block v // (threads * unroll)."""
+
+    vec: int      # channels a vector
+    unroll: int   # vectors a thread
+    threads: int  # a block's
+    blocks: int
+
+    @cached_property
+    def c_array(self):
+        values = astuple(self)
+        return (ctypes.c_int * len(values))(*values)
+
+
+def frozen_bn_geometry(numel: int, C: int,
+                       element_size: int) -> FrozenBnGeometry:
+    """The launch of ``frozen_bn`` on a map of ``numel`` (> 0) elements and
+    ``C`` channels: 16-byte vectors, four float32 channels or eight
+    bfloat16, so C % 4 == 0 in float32 and C % 8 == 0 in bfloat16."""
+    vec = FBN_VEC_BYTES // element_size
+    if C % vec:
+        raise ValueError(f"frozen_bn takes C % {vec} == 0 at "
+                         f"{element_size}-byte elements, got C={C}")
+    per_block = FBN_THREADS * FBN_UNROLL
+    return FrozenBnGeometry(vec, FBN_UNROLL, FBN_THREADS,
+                            -(-(numel // vec) // per_block))
+
+
+def check_inputs_frozen_bn(x: torch.Tensor, params: Sequence[torch.Tensor],
+                           residual: Optional[torch.Tensor],
+                           residual_params: Optional[Sequence[torch.Tensor]],
+                           out: Optional[torch.Tensor]
+                           ) -> Optional[FrozenBnGeometry]:
+    """Raise on anything ``frozen_bn`` does not take (device aside);
+    returns its launch (None for an empty map)."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"x must be [N,C,H,W], got {tuple(x.shape)}")
+    if residual_params is not None and residual is None:
+        raise ValueError("residual_params without a residual")
+    maps = {"x": x, "residual": residual, "out": out}
+    for name, t in maps.items():
+        if t is None:
+            continue
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name} must have x's dtype {x.dtype}, got "
+                            f"{t.dtype}")
+        if t.shape != x.shape:
+            raise ValueError(f"{name} must be {tuple(x.shape)}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous(memory_format=torch.channels_last):
+            raise ValueError(f"{name} must be channels_last-contiguous")
+    C = x.shape[1]
+    for group in (params, residual_params):
+        if group is None:
+            continue
+        if len(group) != 4:
+            raise ValueError("a norm's parameters are (weight, bias, "
+                             "running_mean, running_var)")
+        for t in group:
+            if t.dtype != torch.float32:
+                raise TypeError(f"a norm's parameters must be float32, got "
+                                f"{t.dtype}")
+            if tuple(t.shape) != (C,) or not t.is_contiguous():
+                raise ValueError(f"a norm's parameters must be contiguous "
+                                 f"[{C}], got {tuple(t.shape)}")
+    if x.numel() >= 2 ** 31:
+        raise ValueError("tensors of 2**31 or more elements are not supported")
+    if residual is not None and out is not None and (
+            out.data_ptr() == residual.data_ptr()):
+        raise ValueError("out must not be the residual")
+    if x.numel() == 0:
+        return None
+    geom = frozen_bn_geometry(x.numel(), C, x.element_size())
+    vec_bytes = geom.vec * x.element_size()
+    for name, t in maps.items():
+        if t is not None and t.data_ptr() % vec_bytes:
+            raise ValueError(f"{name} must be {vec_bytes}-byte aligned")
+    return geom
+
+
+def frozen_bn(x: torch.Tensor, params: Sequence[torch.Tensor],
+              residual: Optional[torch.Tensor] = None,
+              residual_params: Optional[Sequence[torch.Tensor]] = None,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the frozen-BN epilogue: relu(bn(x) [+ bn_r(residual) |
+    + residual]) for a channels_last map x [N, C, H, W] of float32 (C % 4
+    == 0) or bfloat16 (C % 8 == 0), ``params`` (weight, bias, running_mean,
+    running_var) [C] float32 of x's norm and ``residual_params`` of the
+    residual's, bit for bit what ``backbone.frozen_bn_act_plain``
+    computes, into ``out`` (a new map if None; x itself may be given)."""
+    tensors = [t for t in (x, *params, residual, *(residual_params or ()),
+                           out) if t is not None]
+    _one_cuda_device("frozen_bn", tensors)
+    _refuse_grad("frozen_bn", tensors)
+    geom = check_inputs_frozen_bn(x, params, residual, residual_params, out)
+    if out is None:
+        out = torch.empty_like(x, memory_format=torch.channels_last)
+    if geom is None:
+        return out
+    mode = 0 if residual is None else 1 if residual_params is None else 2
+    pointers = [None if t is None else t.data_ptr()
+                for t in (x, *params, residual,
+                          *(residual_params or (None,) * 4))]
+    fn = _function("frozen_bn")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*pointers, out.data_ptr(), x.numel(), x.shape[1],
+                int(x.dtype == torch.bfloat16), mode, geom.c_array, stream)
+    if rc != 0:
+        raise RuntimeError(f"frozen_bn kernel launch failed: CUDA error {rc}")
+    _count("frozen_bn")
+    return out

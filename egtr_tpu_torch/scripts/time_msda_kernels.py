@@ -4,11 +4,12 @@ K5 (msda_fwd_win), K6 (msda_fwd_win_pp), K7 (msda_bwd_win_rows), K8
 (msda_bwd_win_rows_pp), K9 (msda_bwd_win_value) and K10
 (msda_bwd_win_value_pp), and the batched-P forward K11 (msda_fwd_bp), on
 the card, at the calls that chip_smoke.py holds them to their plain
-versions.
+versions; and the trunk's frozen-BN epilogue (FBN, ``frozen_bn``) at each
+of its sites.
 
     python egtr_tpu_torch/scripts/time_msda_kernels.py [--root DIR]
         [--label NAME] [--out FILE] [--ptxas] [--variant NAME]
-        [--kernels K1,K2,K3,K4,K5,K6,K7,K8,K9,K10,K11]
+        [--kernels K1,K2,K3,K4,K5,K6,K7,K8,K9,K10,K11,FBN]
 
 Calls: chip_smoke.py's ``exact_calls()`` (encoder and decoder calls,
 uniform and raster locations, the decoder call at batch 1 and 2, float32
@@ -83,6 +84,20 @@ Per call and kernel it prints one JSON line:
   2, 4 and 8 rows) and ``graph_ms_direct`` (the device time with each
   lane reading its sample's location and weight itself, no hand-out).
 
+FBN: chip_smoke.py's ``frozen_bn_rows``, at each of the 49 epilogue sites
+of a bfloat16 ResNet-50 forward (``models/epilogue_sites.py``: the
+bfloat16 stem, float32 blocks, channels_last) in the serving bucket
+(608x1008, batch 1) and the offline one (800x1344, batch 8), on seeded maps
+and norm statistics, one line a site: ``graph_ms`` (the kernel into a map
+of its own) and ``plain_ms`` (``backbone.frozen_bn_act_plain``, the chain
+of PyTorch kernels it replaces), both in a CUDA graph under
+``torch.inference_mode``; its bytes (each map read or written once, the
+norms' vectors once) and their time at 3.35 TB/s (``bound_ms``),
+``times_bound``, ``in_l2`` (the site's bytes fit the 50 MB L2, so that
+repeated calls find them warm), and ``bit_equal`` (the kernel's output
+against the chain's, bit for bit; ``bit_equal_in_place`` written into x);
+then one line a bucket (``site`` "trunk") with the sums.
+
 ``--root DIR`` imports ``egtr_tpu_torch`` from DIR instead of this
 checkout, so that another version of the kernels (a ``git archive`` of a
 parent commit, unpacked under the git-ignored ``build/``) is timed by the
@@ -122,7 +137,7 @@ REPO = Path(__file__).resolve().parents[2]
 ITERS = 100  # wrapper calls per CUDA-event timing, as chip_smoke.py's K1
 WALKS = (1, 2, 4, 8)
 KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10",
-           "K11")
+           "K11", "FBN")
 # --variant: edits of one source, (text, replacement) pairs that must each
 # match, by name: (source, edits). K4's no-gather variants replace each
 # corner load by an integer the compiler cannot fold away.
@@ -213,7 +228,8 @@ def _chip_smoke():
 
 def ptxas_report(root: Path, nvcc: str) -> None:
     for name in ("msda_fwd.cu", "msda_bwd.cu", "msda_fwd_q.cu",
-                 "msda_fwd_win.cu", "msda_bwd_win.cu", "msda_fwd_bp.cu"):
+                 "msda_fwd_win.cu", "msda_bwd_win.cu", "msda_fwd_bp.cu",
+                 "frozen_bn.cu"):
         src = root / "egtr_tpu_torch" / "csrc" / name
         if not src.exists():
             continue
@@ -675,6 +691,15 @@ def bp_rows(msda_cuda, smoke, torch) -> list:
     return out
 
 
+def frozen_bn_rows(msda_cuda, smoke, torch) -> list:
+    """FBN at every site of the serving and the offline trunk
+    (chip_smoke.py's ``frozen_bn_rows``), and each trunk's sums."""
+    rows, trunks = smoke.frozen_bn_rows()
+    return ([{"kernel": "frozen_bn", **row} for row in rows]
+            + [{"kernel": "frozen_bn", "bucket": bucket, "site": "trunk",
+                **trunk} for bucket, trunk in trunks.items()])
+
+
 def main(argv=None) -> int:
     args = _args(argv)
     root = Path(args.root).resolve()
@@ -763,7 +788,11 @@ def main(argv=None) -> int:
             ("K8", banded_rows),
             ("K9", lambda *a: banded_value_rows(*a, per_point=False)),
             ("K10", banded_value_rows),
-            ("K11", bp_rows)):
+            ("K11", bp_rows),
+            ("FBN", frozen_bn_rows)):
+        if name == "FBN" and not hasattr(msda_cuda, "frozen_bn"):
+            print(f"{args.label}: no frozen_bn kernel", flush=True)
+            continue
         if name in wanted:
             for row in table(msda_cuda, smoke, torch):
                 emit(row)

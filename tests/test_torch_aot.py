@@ -157,8 +157,10 @@ def test_a_launch_under_capture_is_not_counted(monkeypatch):
     assert {k: v for k, v in msda_cuda.launches.items() if v} == {
         "msda_fwd": 1, "lsap": 1}
     msda_cuda.reset_launches()
-    # the counters carry the matcher's kernel beside the MSDA kernels
-    assert set(msda_cuda.launches) == set(msda_cuda.KERNELS) | {"lsap"}
+    # the counters carry the matcher's and the trunk's kernels beside the
+    # MSDA kernels
+    assert set(msda_cuda.launches) == set(msda_cuda.KERNELS) | {
+        "lsap", "frozen_bn"}
 
 
 def _tree():

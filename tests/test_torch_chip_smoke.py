@@ -15,11 +15,13 @@ and the train step make, and it ends with the result line. The kernels' own
 checks run only on the card.
 """
 
+import functools
 import importlib
 import json
 import shutil
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -31,6 +33,7 @@ from egtr_tpu_torch.data import loader as loader_mod
 from egtr_tpu_torch.data import open_images as oi_mod
 from egtr_tpu_torch.data import transforms as transforms_mod
 from egtr_tpu_torch.data import visual_genome as vg_mod
+from egtr_tpu_torch.models import backbone, epilogue_sites
 from egtr_tpu_torch.ops import matcher, msda, msda_cuda
 from egtr_tpu_torch.parallel import dist, dryrun, launch
 from egtr_tpu_torch.scripts import exp_window_deltas, perf_train_step
@@ -199,6 +202,21 @@ def install_fake_card(set_attr, tmp_path):
             return out.add_(grads[0])
         return kernel
 
+    def frozen_bn(x, params, residual=None, residual_params=None, out=None):
+        msda_cuda.check_inputs_frozen_bn(x, params, residual,
+                                         residual_params, out)
+        msda_cuda.launches["frozen_bn"] += 1
+
+        def norm(vectors):
+            return None if vectors is None else functools.partial(
+                backbone.FrozenBatchNorm.forward, SimpleNamespace(**dict(zip(
+                    ("weight", "bias", "running_mean", "running_var"),
+                    vectors))))
+
+        want = backbone.frozen_bn_act_plain(x, norm(params), residual,
+                                            norm(residual_params))
+        return want if out is None else out.copy_(want)
+
     def lsap(cost, num_boxes):
         msda_cuda.check_inputs_lsap(cost, num_boxes)
         msda_cuda.lsap_geometry(*cost.shape)
@@ -248,12 +266,17 @@ def install_fake_card(set_attr, tmp_path):
         part = "value" if "value" in name else "rows"
         set_attr(msda_cuda, name, bwd_win(name, per_point, part))
     set_attr(msda_cuda, "lsap", lsap)
+    set_attr(msda_cuda, "frozen_bn", frozen_bn)
     set_attr(train_step_module, "maybe_aot", maybe_aot)
     # the dispatch takes the (faked) kernels for these CPU tensors, as it
     # does for CUDA tensors on the card
     set_attr(msda, "_takes_kernels",
              lambda impl, value: impl in ("auto", "pallas"))
     set_attr(matcher, "_takes_kernel", lambda cost: True)
+    set_attr(backbone, "_takes_kernel", lambda x: x.device.type == "cpu")
+    # phase (k)'s trunks and its offline request
+    set_attr(epilogue_sites, "BUCKETS", {"serving": ((64, 96), 1),
+                                         "offline": ((96, 144), 2)})
     set_attr(msda_cuda, "build", lambda: {
         name: tmp_path / f"lib{name}.so" for name in msda_cuda.sources()})
     set_attr(chip_smoke, "card_line", lambda: "Host, 0.00 W")
@@ -384,7 +407,7 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
         "msda_fwd", "msda_bwd_rows", "msda_bwd_value", "msda_fwd_q",
         "msda_fwd_win", "msda_fwd_win_pp", "msda_bwd_win_rows",
         "msda_bwd_win_rows_pp", "msda_bwd_win_value", "msda_bwd_win_value_pp",
-        "msda_fwd_bp", "lsap"]
+        "msda_fwd_bp", "lsap", "frozen_bn"]
     required = {"name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms"}
@@ -394,11 +417,12 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
         assert k["bound_by"] in ("bytes", "operations") and k["bound_ms"] > 0
         assert isinstance(k["max_abs_err"], float)
         path, line = k["replaces"].split(":")
-        assert path == ("egtr_tpu/ops/matcher.py" if k["name"] == "lsap"
-                        else "egtr_tpu/ops/msda_pallas.py") and int(line) > 0
+        assert path == {"lsap": "egtr_tpu/ops/matcher.py",
+                        "frozen_bn": "egtr_tpu/models/backbone.py"}.get(
+            k["name"], "egtr_tpu/ops/msda_pallas.py") and int(line) > 0
         assert (REPO / k["source"]).exists()
         assert k["launches"] > 0
-    fwd, rows, value, fwd_q, win, win_pp, *bwd_win, bp, lsap = kernels
+    fwd, rows, value, fwd_q, win, win_pp, *bwd_win, bp, lsap, fbn = kernels
     # the matcher kernel: bit-equal to its plain version, optimal; training
     # (auxiliary losses, 2 decoder layers: 2 matches a microbatch) 3 steps
     # + 2 microbatches of the accumulated one; the driver (no auxiliary
@@ -416,12 +440,27 @@ def test_chip_smoke_runs_its_phases(fake_card, capsys):
     assert lsap["route_main"] == "warp" and lsap["parent_graph_ms"] > 0
     assert lsap["launches_training"] == 5 * 2
     assert lsap["launches_driver"] == 3 * 2
+    # the trunk's epilogue kernel: every site of both trunks bit-equal, once
+    # a site of a forward with grad mode off (ResNet-50: 49), never in a
+    # train step; serving 7 forwards a configuration, the offline request
+    # 3, the evaluation driver's runs as K1's
+    assert fbn["bit_equal_to_plain"] and fbn["max_abs_err"] == 0.0
+    assert len(fbn["calls"]) == 2 * 49 and fbn["sites_per_forward"] == 49
+    assert {c["form"] for c in fbn["calls"]} == {"relu", "identity",
+                                                 "downsample"}
+    assert fbn["launches_serving"] == fbn["launches_serving_served"] == 7 * 49
+    assert fbn["launches_serving_tile"] == 5 * 49
+    assert fbn["launches_offline"] == 3 * 49
+    assert fbn["launches_evaluate"] == fbn["launches_evaluate_served"] == 49
+    assert fbn["launches_evaluate_infer_only"] == 22 * 49
+    assert fbn["launches_training"] == 0
+    assert set(fbn["trunks"]) == {"serving", "offline"}
     # the request and the train step as programs against eager (on the
     # faked card both run eagerly, so the outputs are equal)
     for label, r in result["request_graphs"].items():
         assert r["bit_equal"] and set(r["median_ms"]) == {"graph", "eager"}
         assert r["launches_per_forward"] == {
-            **dict.fromkeys(msda_cuda.KERNELS, 0),
+            **dict.fromkeys(msda_cuda.KERNELS, 0), "frozen_bn": 49,
             **({"msda_fwd": 4} if label == "exact" else
                {"msda_fwd_q": 4, "msda_fwd_win_pp": 2 * 2})}
     graphs = result["train_graphs"]
@@ -1039,13 +1078,15 @@ def test_kernel_of_names_each_kernel_from_its_trace_row():
             "msda_bwd_win_value_pp",
         "void msda_bwd_win_value_kernel<float, 4, false>(int const*":
             "msda_bwd_win_value",
+        "void (anonymous namespace)::frozen_bn_kernel<float, 4, 2>(float "
+        "const*, (anonymous namespace)::Params, float const*, ": "frozen_bn",
         "void at::native::vectorized_elementwise_kernel<4, float>(int)": None,
         "ampere_bf16_s16816gemm_bf16_128x64_ldg8_f2f_stages_64x4_tn": None,
     }
     for row, name in rows.items():
         assert chip_smoke.kernel_of(row) == name, row
     names = {n for n in rows.values() if n}
-    assert names == set(msda_cuda.KERNELS) | {"lsap"}
+    assert names == set(msda_cuda.KERNELS) | {"lsap", "frozen_bn"}
     with pytest.raises(ValueError, match="PER_POINT"):
         chip_smoke.kernel_of("msda_fwd_win_kernel(float const*)")
 

@@ -36,20 +36,29 @@ on them and adding into a slice of a wider gradient that holds values, and
 both refusing a geometry that misses work; and the matcher's assignment
 kernel (lsap) bit for bit against its plain version on both routes (one
 warp an image, a cluster of blocks an image), on random and tied costs and
-signed zeros, and its refusals. On a GPU
+signed zeros, and its refusals; and the trunk's frozen-BN epilogue
+(frozen_bn) bit for bit against PyTorch's expression at every site of the
+608x1008 batch-1 and 800x1344 batch-8 trunks in each form, over a sweep of
+variances, in place and in a CUDA graph, the whole trunk's C3-C5 with and
+without it (ResNet-50, ResNet-101, the dilated layer4), its launches a
+forward (none with grad on), and its refusals. On a GPU
 machine without JAX, run them without the suite's conftest (which imports
 JAX):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+from collections import Counter
 from dataclasses import replace
 
 import pytest
 import torch
 
 from egtr_tpu_torch.config import EgtrConfig
+from egtr_tpu_torch.models import backbone
 from egtr_tpu_torch.models.egtr import EgtrModel
+from egtr_tpu_torch.models.epilogue_sites import (bits, random_norm,
+                                                  site_inputs, trunk_sites)
 from egtr_tpu_torch.models.layers import init_params
 from egtr_tpu_torch.ops import msda, msda_cuda
 from egtr_tpu_torch.ops.msda_window import segment_bounds
@@ -1715,3 +1724,199 @@ def test_lsap_refusals(cuda):
 
     with pytest.raises(ValueError, match="CPU version"):
         matcher.lsap_plain(torch.zeros((1, 8, 4), device=cuda), nb)
+
+
+# --------------------------------------------------------------------------
+# the trunk's frozen-BN epilogue (frozen_bn.cu) against PyTorch's expression
+# --------------------------------------------------------------------------
+
+FBN_BUCKETS = {"608x1008_b1": ((608, 1008), 1),
+               "800x1344_b8": ((800, 1344), 8)}
+FBN_TRUNKS = {"resnet50": ((3, 4, 6, 3), False),
+              "resnet101": ((3, 4, 23, 3), False),
+              "resnet50_dilated": ((3, 4, 6, 3), True)}
+
+
+def _fbn(x, bn, residual=None, residual_bn=None, out=None):
+    return msda_cuda.frozen_bn(
+        x, bn.vectors(), residual,
+        None if residual_bn is None else residual_bn.vectors(), out)
+
+
+@pytest.mark.parametrize("bucket", sorted(FBN_BUCKETS))
+def test_frozen_bn_bit_equal_at_every_site(cuda, bucket):
+    """Each site of a bfloat16 ResNet-50 forward in the bucket, in its form
+    (the bfloat16 stem's BN + ReLU; BN + ReLU; BN + identity + ReLU; BN +
+    downsample BN + ReLU), on seeded maps and statistics: the kernel into a
+    new map and into x itself, bit for bit the expression."""
+    forms = Counter()
+    sites = trunk_sites(*FBN_BUCKETS[bucket])
+    with torch.inference_mode():
+        for site, (shape, dtype, form) in enumerate(sites):
+            x, residual, bn, residual_bn = site_inputs(shape, dtype, form,
+                                                       site, cuda)
+            want = backbone.frozen_bn_act_plain(x, bn, residual,
+                                                residual_bn)
+            got = _fbn(x, bn, residual, residual_bn)
+            assert got.is_contiguous(memory_format=torch.channels_last)
+            assert torch.equal(bits(got), bits(want)), (site, shape, form)
+            same = _fbn(x, bn, residual, residual_bn, out=x)
+            assert same.data_ptr() == x.data_ptr()
+            assert torch.equal(bits(x), bits(want)), (site, shape, form)
+            forms[form, dtype] += 1
+            del x, residual, got, want, same
+    assert forms == {("relu", torch.bfloat16): 1, ("relu", torch.float32): 32,
+                     ("identity", torch.float32): 12,
+                     ("downsample", torch.float32): 4}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("form", ["relu", "identity", "downsample"])
+def test_frozen_bn_over_a_sweep_of_variances(cuda, form, dtype):
+    """2**20 channels whose variances run from 1e-7 to 1e7 (the reciprocal
+    square root of 1e-5 to 1e7), six elements a channel (the ReLU leaves
+    about half of them), on maps that hold zeros of both signs: bit for bit
+    the expression."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    C = 2 ** 20
+    x, residual, bn, residual_bn = site_inputs((2, C, 1, 3), dtype, form, C,
+                                               cuda)
+    for norm in (bn, residual_bn):
+        if norm is not None:
+            with torch.no_grad():
+                norm.running_var.copy_(10 ** (torch.rand(
+                    (C,), generator=g, device=cuda) * 14 - 7))
+    x[:, ::5] = 0.0
+    x[:, 1::5] = -0.0
+    with torch.inference_mode():
+        want = backbone.frozen_bn_act_plain(x, bn, residual, residual_bn)
+        got = _fbn(x, bn, residual, residual_bn)
+    assert torch.equal(bits(got), bits(want))
+
+
+def _fbn_model(trunk, device, seed=0):
+    """A bfloat16 trunk with seeded weights and norm statistics."""
+    blocks, dilation = FBN_TRUNKS[trunk]
+    model = backbone.ResNet50(blocks, dtype=torch.bfloat16,
+                              dilation=dilation)
+    init_params(model, torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    for m in model.modules():
+        if isinstance(m, backbone.FrozenBatchNorm):
+            m.load_state_dict(random_norm(m.weight.shape[0], g,
+                                          "cpu").state_dict())
+    return model.to(device)
+
+
+@pytest.mark.parametrize("case", ["resnet50-608x1008_b1",
+                                  "resnet50-800x1344_b8",
+                                  "resnet101-608x1008_b1",
+                                  "resnet50_dilated-608x1008_b1"])
+def test_trunk_bit_equal_with_and_without_the_kernel(cuda, case,
+                                                     monkeypatch):
+    """C3-C5 of an inference forward: the kernel at every site against the
+    expression at every site (``frozen_bn_act`` replaced by
+    ``frozen_bn_act_plain``), bit for bit."""
+    trunk, bucket = case.split("-")
+    hw, batch = FBN_BUCKETS[bucket]
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    model = _fbn_model(trunk, cuda)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((batch, *hw, 3), generator=g, device=cuda)
+    with torch.inference_mode():
+        before = msda_cuda.launches["frozen_bn"]
+        got = model(x)
+        assert msda_cuda.launches["frozen_bn"] == before + 1 + 3 * sum(
+            FBN_TRUNKS[trunk][0])
+        monkeypatch.setattr(backbone, "frozen_bn_act",
+                            backbone.frozen_bn_act_plain)
+        want = model(x)
+        assert msda_cuda.launches["frozen_bn"] == before + 1 + 3 * sum(
+            FBN_TRUNKS[trunk][0])
+    assert [o.dtype for o in got] == [torch.float32] * 3
+    for a, b in zip(got, want):
+        assert torch.equal(bits(a), bits(b))
+
+
+@pytest.mark.parametrize("trunk", ["resnet50", "resnet101"])
+def test_frozen_bn_launches_a_forward(cuda, trunk, monkeypatch):
+    """49 launches an eager inference forward of ResNet-50 (100 of
+    ResNet-101), under no_grad and inference_mode alike; none with grad on,
+    whose expression gives the same bits."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    model = _fbn_model(trunk, cuda)
+    x = torch.randn((1, 320, 480, 3), device=cuda)
+    sites = 1 + 3 * sum(FBN_TRUNKS[trunk][0])
+    outs = {}
+    for mode in ("no_grad", "inference_mode", "enable_grad"):
+        before = msda_cuda.launches["frozen_bn"]
+        with getattr(torch, mode)():
+            outs[mode] = [o.detach() for o in model(x)]
+        torch.cuda.synchronize()
+        assert msda_cuda.launches["frozen_bn"] - before == (
+            0 if mode == "enable_grad" else sites), mode
+    for mode in ("inference_mode", "enable_grad"):
+        for a, b in zip(outs[mode], outs["no_grad"]):
+            assert torch.equal(bits(a), bits(b)), mode
+
+
+def test_frozen_bn_in_a_cuda_graph(cuda):
+    """Captured on the capturing stream: the replay gives the eager bits,
+    and the capture counts no launch."""
+    x, residual, bn, residual_bn = site_inputs(
+        (2, 256, 50, 84), torch.float32, "downsample", 3, cuda)
+    out = torch.empty_like(x)
+    with torch.inference_mode():
+        want = _fbn(x, bn, residual, residual_bn)
+        torch.cuda.synchronize()
+        before = msda_cuda.launches["frozen_bn"]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            _fbn(x, bn, residual, residual_bn, out=out)
+        assert msda_cuda.launches["frozen_bn"] == before
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(bits(out), bits(want))
+
+
+def test_frozen_bn_refusals(cuda, monkeypatch):
+    x, residual, bn, residual_bn = site_inputs(
+        (1, 8, 3, 5), torch.float32, "downsample", 0, cuda)
+    p = bn.vectors()
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="channels_last"):
+            msda_cuda.frozen_bn(x.contiguous(), p)
+        with pytest.raises(ValueError, match="C % 4"):
+            msda_cuda.frozen_bn(x[:, :6].contiguous(
+                memory_format=torch.channels_last), tuple(t[:6] for t in p))
+        with pytest.raises(ValueError, match="C % 8"):
+            msda_cuda.frozen_bn(x[:, :4].bfloat16().contiguous(
+                memory_format=torch.channels_last), tuple(t[:4] for t in p))
+        # the route reads the device alone: a card map in another layout
+        # is refused, not sent to the expression
+        with pytest.raises(ValueError, match="channels_last"):
+            backbone.frozen_bn_act(x.contiguous(), bn)
+        with pytest.raises(TypeError, match="dtype"):
+            msda_cuda.frozen_bn(x, p, residual.bfloat16())
+        with pytest.raises(TypeError, match="float32"):
+            msda_cuda.frozen_bn(x.bfloat16(), tuple(t.bfloat16() for t in p))
+        with pytest.raises(ValueError, match="one device"):
+            msda_cuda.frozen_bn(x, (p[0].cpu(), *p[1:]))
+        with pytest.raises(ValueError, match="aligned"):
+            off = torch.zeros(1 + x.numel(), device=cuda)[1:]
+            msda_cuda.frozen_bn(off.view(1, 3, 5, 8).permute(0, 3, 1, 2), p)
+        # the C side refuses a launch that misses work, or float32 vectors
+        # of 32 bytes
+        geometry = msda_cuda.frozen_bn_geometry
+        for bad in (lambda g: replace(g, blocks=0),
+                    lambda g: replace(g, vec=8)):
+            monkeypatch.setattr(msda_cuda, "frozen_bn_geometry",
+                                lambda *a, bad=bad: bad(geometry(*a)))
+            with pytest.raises(RuntimeError, match="launch failed"):
+                msda_cuda.frozen_bn(x, p, residual, residual_bn.vectors())
+        monkeypatch.setattr(msda_cuda, "frozen_bn_geometry", geometry)
+    # a bare forward: under grad mode its parameters' gradients would be
+    # lost
+    with pytest.raises(NotImplementedError, match="backward"):
+        msda_cuda.frozen_bn(x, p)

@@ -358,15 +358,16 @@ def test_bwd_wrappers_refuse_cpu_tensors_and_bad_grad():
 
 
 def test_every_source_has_a_library_and_a_counter():
-    """Seven sources, twelve kernels (the eleven MSDA kernels and the
-    matcher's): each builds for sm_90a into its own hash-keyed library, and
-    each kernel has its own launch count in one dict, which one function
-    sets to 0."""
-    assert sorted(msda_cuda.sources()) == ["lsap", "msda_bwd", "msda_bwd_win",
-                                           "msda_fwd", "msda_fwd_bp",
-                                           "msda_fwd_q", "msda_fwd_win"]
+    """Eight sources, thirteen kernels (the eleven MSDA kernels, the
+    matcher's and the trunk's frozen-BN epilogue): each builds for sm_90a
+    into its own hash-keyed library, and each kernel has its own launch
+    count in one dict, which one function sets to 0."""
+    assert sorted(msda_cuda.sources()) == ["frozen_bn", "lsap", "msda_bwd",
+                                           "msda_bwd_win", "msda_fwd",
+                                           "msda_fwd_bp", "msda_fwd_q",
+                                           "msda_fwd_win"]
     paths = {n: msda_cuda.library_path(n) for n in msda_cuda.sources()}
-    assert len(set(paths.values())) == 7
+    assert len(set(paths.values())) == 8
     for name, src in msda_cuda.sources().items():
         assert src.exists() and src.parent.name == "csrc"
         cmd = msda_cuda.build_command("nvcc", paths[name], name)
@@ -380,21 +381,26 @@ def test_every_source_has_a_library_and_a_counter():
         "msda_bwd_win_rows_pp": "msda_bwd_win",
         "msda_bwd_win_value": "msda_bwd_win",
         "msda_bwd_win_value_pp": "msda_bwd_win",
-        "msda_fwd_bp": "msda_fwd_bp", "lsap": "lsap"}
+        "msda_fwd_bp": "msda_fwd_bp", "lsap": "lsap",
+        "frozen_bn": "frozen_bn"}
     text = msda_cuda.SOURCE_BWD.read_text()
     for fn in ("msda_bwd_rows", "msda_bwd_value"):
         assert f'extern "C" int {fn}(' in text
     assert set(msda_cuda.launches) == set(msda_cuda.KERNELS
-                                          + msda_cuda.MATCHER_KERNELS)
+                                          + msda_cuda.MATCHER_KERNELS
+                                          + msda_cuda.BACKBONE_KERNELS)
     assert len(msda_cuda.KERNELS) == 11
     assert msda_cuda.MATCHER_KERNELS == ("lsap",)
+    assert msda_cuda.BACKBONE_KERNELS == ("frozen_bn",)
     saved = dict(msda_cuda.launches)
     try:
         msda_cuda.launches["msda_fwd_bp"] += 3
         msda_cuda.launches["lsap"] += 2
+        msda_cuda.launches["frozen_bn"] += 1
         msda_cuda.reset_launches()
         assert msda_cuda.launches == dict.fromkeys(
-            msda_cuda.KERNELS + msda_cuda.MATCHER_KERNELS, 0)
+            msda_cuda.KERNELS + msda_cuda.MATCHER_KERNELS
+            + msda_cuda.BACKBONE_KERNELS, 0)
     finally:
         msda_cuda.launches.update(saved)
 

@@ -630,12 +630,13 @@ def test_new_wrappers_refuse_cpu_tensors_and_bad_inputs():
 
 
 def test_new_sources_and_counters():
-    """Seven sources, twelve kernels (the eleven MSDA kernels and the
-    matcher's): each exported function belongs to one library and has a
-    launch count of its own."""
-    assert sorted(msda_cuda.sources()) == ["lsap", "msda_bwd", "msda_bwd_win",
-                                           "msda_fwd", "msda_fwd_bp",
-                                           "msda_fwd_q", "msda_fwd_win"]
+    """Eight sources, thirteen kernels (the eleven MSDA kernels, the
+    matcher's and the trunk's frozen-BN epilogue): each exported function
+    belongs to one library and has a launch count of its own."""
+    assert sorted(msda_cuda.sources()) == ["frozen_bn", "lsap", "msda_bwd",
+                                           "msda_bwd_win", "msda_fwd",
+                                           "msda_fwd_bp", "msda_fwd_q",
+                                           "msda_fwd_win"]
     owners = {fn: lib for fn, (lib, _) in msda_cuda._FUNCTIONS.items()}
     assert owners["msda_fwd_q"] == "msda_fwd_q"
     assert owners["msda_fwd_win"] == owners["msda_fwd_win_pp"] == "msda_fwd_win"
@@ -652,10 +653,11 @@ def test_new_sources_and_counters():
         decl = decl[:decl.index(")")]
         assert decl.count(",") + 1 == len(msda_cuda._FUNCTIONS[fn][1]), fn
     assert owners["lsap"] == "lsap"
+    assert owners["frozen_bn"] == "frozen_bn"
     for name in ("msda_fwd_q", "msda_fwd_win", "msda_fwd_win_pp",
                  "msda_bwd_win_rows", "msda_bwd_win_rows_pp",
                  "msda_bwd_win_value", "msda_bwd_win_value_pp",
-                 "msda_fwd_bp", "lsap"):
+                 "msda_fwd_bp", "lsap", "frozen_bn"):
         assert isinstance(msda_cuda.launches[name], int)
 
 
