@@ -264,8 +264,9 @@ class DeformableDetrBase(Initialized):
         """pixel_values [B,H,W,3] (NHWC); pixel_mask [B,H,W] (True = valid)
         or None for an unpadded batch (the mask-free path); ``generator``
         feeds the dropout masks in ``train()`` mode. Its parts run under the
-        layer scopes ``backbone``, ``input_proj``, ``encoder`` and
-        ``decoder`` (``utils/profiling.py``)."""
+        layer scopes ``backbone``, ``input_proj``, ``encoder``,
+        ``proposals`` (two stages only: the query init from the encoder's
+        tokens) and ``decoder`` (``utils/profiling.py``)."""
         cfg = self.config
         E = cfg.d_model
         dtype = self.dtype
@@ -342,12 +343,12 @@ class DeformableDetrBase(Initialized):
                     generator)
             encoder_hidden = hidden
 
-        with scope("decoder"):
-            # ---- query init ----
-            extra = {}
-            if cfg.two_stage:
-                # proposals from the encoder memory (deformable_detr.py:
-                # 2098-2159, 2306-2337)
+        # ---- query init ----
+        extra = {}
+        if cfg.two_stage:
+            # proposals from the encoder memory (deformable_detr.py:
+            # 2098-2159, 2306-2337), a top-level scope of their own
+            with scope("proposals"):
                 object_query, output_proposals = (
                     gen_encoder_output_proposals(encoder_hidden.float(),
                                                  mask_flatten, shapes))
@@ -369,7 +370,9 @@ class DeformableDetrBase(Initialized):
                 extra = {"enc_outputs_class": enc_outputs_class,
                          "enc_outputs_coord_logits": enc_outputs_coord_logits,
                          "proposal_indices": topk_idx}
-            else:
+
+        with scope("decoder"):
+            if not cfg.two_stage:
                 query_pos, target = self.query_position_embeddings.split(
                     E, dim=1)
                 query_pos = query_pos[None].expand(B, cfg.num_queries, E)
